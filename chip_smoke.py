@@ -1,0 +1,475 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (emox_torch) on one NVIDIA H100.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 chip_smoke.py [--out DIR]
+
+Each phase prints one JSON line; every phase always runs, and any failure
+raises and the script exits non-zero. Phases:
+
+  1. build: the card's name and power limit, then the CUDA kernels built
+     from emox_torch/csrc (one nvcc per source, in parallel) and timed.
+  2. kernels: every kernel held against its plain PyTorch version at the
+     serving shapes in bf16 (and once in float32), with max error against
+     the stated tolerance, kernel / plain / library times (CUDA events,
+     after warm-up), the bound (the least time the card could take) and,
+     for the feed-forward, its grid against the card's SMs.
+  3. step: one CFG-batched denoise step of the flagship model at 256^2,
+     2 frames, float32, on the card (kernels) against the same weights on
+     the CPU (plain versions), TF32 off for matmuls and convolutions.
+  4. serve: the flagship EMOPipeline in bf16 answers three requests (256^2
+     reference image, 16 frames of audio, 3-axis speeds, face mask, CFG
+     7.5, 10 DDIM steps, VAE decode); s/request, ms/step, peak memory and
+     the kernels' launch counts during the requests.
+  5. profile: one more request under torch.profiler, with the device time
+     per kernel group, the top kernels and the device's idle share.
+  6. the `kernels` line: every ported kernel with the TPU kernel it
+     replaces and its numbers.
+The line before the last repeats the card's name and power limit; the
+last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+BF16_EPS = 2.0 ** -8  # spacing of bf16 values in [1, 2)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---- phase 1 ------------------------------------------------------------------
+def phase_build(out_dir):
+    from emox_torch.ops import build
+
+    t0 = time.perf_counter()
+    info = build.build()
+    secs = time.perf_counter() - t0
+    regs = {}
+    for name, i in info.items():
+        regs[name] = [ln.split("ptxas info    : ")[-1] for ln in i["ptxas"].splitlines() if "Used" in ln]
+        if out_dir:
+            with open(os.path.join(out_dir, f"ptxas_{name}.txt"), "w") as f:
+                f.write(i["ptxas"])
+    emit({"phase": "build", "seconds": round(secs, 3),
+          "per_kernel_s": {n: round(i["seconds"], 3) for n, i in info.items()}, "ptxas": regs})
+
+
+# ---- phase 2 ------------------------------------------------------------------
+def _rand(gen, *shape, scale=1.0, dtype=None, shift=0.0):
+    import torch
+
+    t = torch.randn(shape, generator=gen, device="cuda") * scale + shift
+    return t if dtype is None else t.to(dtype)
+
+
+def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
+    import torch
+    import torch.nn.functional as F
+    from emox_torch.ops.attention import attention_nlc_plain, flash_attention_nlc
+
+    dtype = dtype or torch.bfloat16
+    d = c // heads
+    scale = d ** -0.5
+    q, k, v = (_rand(gen, n, l, c, dtype=dtype) for l in (lq, lk, lk))
+    out, lse = flash_attention_nlc(q, k, v, heads, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = attention_nlc_plain(q.float(), k.float(), v.float(), heads, scale)
+    err = (out.float() - ref).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if dtype == torch.bfloat16:
+        # P and the output are rounded to bf16: a few bf16 steps at the
+        # largest output value
+        tol = 4 * BF16_EPS * ref.abs().max().item()
+    else:
+        tol = 2e-4 * max(ref.abs().max().item(), 1.0)  # 3xTF32: float32-level sums
+    res = {"kernel": "flash_attn_nlc_fwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq,
+           "lk": lk, "c": c, "heads": heads, "max_abs_err": err, "tol": tol,
+           "lse_max_abs_err": lse_err, "lse_tol": 1e-3}
+    if not (err <= tol and lse_err <= 1e-3 and math.isfinite(err)):
+        emit(res)
+        raise AssertionError(f"flash_attn_nlc_fwd disagrees with its plain version: {res}")
+    if timing:
+        flops = 4.0 * n * heads * lq * lk * d
+        nbytes = q.element_size() * (2 * n * lq * c + 2 * n * lk * c) + 4 * n * lq * heads
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["ms"] = time_ms(lambda: flash_attention_nlc(q, k, v, heads), iters=20)
+        res["plain_ms"] = time_ms(lambda: attention_nlc_plain(q, k, v, heads, scale), iters=3, warmup=1)
+        split = lambda t: t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2)
+        qh, kh, vh = split(q), split(k), split(v)
+        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=20)
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    emit(res)
+    return res
+
+
+def check_ff(gen, m, c, dtype=None, timing=True):
+    import torch
+    from emox_torch.ops.ff import ff_plan, fused_ln_geglu_ff, ln_geglu_ff_plain
+
+    dtype = dtype or torch.bfloat16
+    f = 4 * c
+    args = (
+        _rand(gen, m, c, dtype=dtype),
+        _rand(gen, c, scale=0.1, shift=1.0, dtype=dtype), _rand(gen, c, scale=0.1, dtype=dtype),
+        _rand(gen, 2 * f, c, scale=c ** -0.5, dtype=dtype), _rand(gen, 2 * f, scale=0.1, dtype=dtype),
+        _rand(gen, c, f, scale=f ** -0.5, dtype=dtype), _rand(gen, c, scale=0.1, dtype=dtype),
+    )
+    out = fused_ln_geglu_ff(*args)
+    torch.cuda.synchronize()
+    ref = ln_geglu_ff_plain(*(a.float() for a in args))
+    err = (out.float() - ref).abs().max().item()
+    if dtype == torch.bfloat16:
+        tol = 4 * BF16_EPS * ref.abs().max().item()  # xn, h and y rounded to bf16
+    else:
+        tol = 2e-4 * max(ref.abs().max().item(), 1.0)  # 3xTF32: float32-level sums
+    res = {"kernel": "ln_geglu_ff", "dtype": str(dtype).split(".")[-1], "m": m, "c": c, "f": f,
+           "max_abs_err": err, "tol": tol}
+    if not (err <= tol and math.isfinite(err)):
+        emit(res)
+        raise AssertionError(f"ln_geglu_ff disagrees with its plain version: {res}")
+    if timing:
+        flops = 6.0 * m * c * f
+        nbytes = args[0].element_size() * (2 * m * c + 3 * c * f + 2 * f + 3 * c)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["ms"] = time_ms(lambda: fused_ln_geglu_ff(*args), iters=10)
+        res["plain_ms"] = time_ms(lambda: ln_geglu_ff_plain(*args), iters=3, warmup=1)
+        res["library_ms"] = None  # no single PyTorch call computes LN + GEGLU + residual
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        plan = ff_plan(c, dtype)
+        res.update(plan, grid_blocks=-(-m // plan["row_tile"]),
+                   sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    emit(res)
+    return res
+
+
+def phase_kernels():
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    results = {}
+    # K1: the reader's level-0 self-attention with the reference tokens
+    # appended (Lk = 2 * 1024), without and with CFG, plus a ragged Lk
+    results["flash_n16"] = check_flash(gen, 16, 1024, 2048)
+    results["flash_n32"] = check_flash(gen, 32, 1024, 2048)
+    check_flash(gen, 4, 1000, 2000, timing=False)
+    check_flash(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
+    # head dim 128, which the kernel also takes (ragged Lq and Lk)
+    check_flash(gen, 2, 1000, 2100, c=256, heads=2, timing=False)
+    check_flash(gen, 2, 1000, 2100, c=256, heads=2, dtype=torch.float32, timing=False)
+    # the FF sub-layers under CFG at 16 frames: levels 0, 1, 2 and mid
+    results["ff_l0"] = check_ff(gen, 32768, 320)
+    results["ff_l1"] = check_ff(gen, 8192, 640)
+    results["ff_l2"] = check_ff(gen, 2048, 1280)
+    results["ff_mid"] = check_ff(gen, 512, 1280)
+    check_ff(gen, 1000, 320, dtype=torch.float32, timing=False)
+    check_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
+    return results
+
+
+# ---- phase 3 ------------------------------------------------------------------
+def _fill_zero_init(model, seed: int) -> None:
+    """Small seeded values in the zero-initialised output projections, so
+    that every conditioning branch reaches the output."""
+    import torch
+
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    den = model.modules.denoiser
+    targets = [den.speed_embed.fc2, den.face_mask_encoder.zero_conv]
+    for name, mod in den.named_modules():
+        if name.endswith("_temporal"):
+            targets.append(mod.proj_out)
+        elif name.endswith("_audio"):
+            targets.append(mod.attn.to_out)
+    with torch.no_grad():
+        for mod in targets:
+            w = mod.weight
+            w.copy_(torch.randn(w.shape, generator=gen, device=w.device) * (0.5 / math.sqrt(mod.fan_in())))
+
+
+def _request_inputs(gen, device, size: int, frames: int, dtype):
+    import torch
+
+    img = (torch.rand((1, size, size, 3), generator=gen, device=device) * 2 - 1).to(dtype)
+    wav = (torch.randn((1, int(16000 * (frames + 4) / 25.0)), generator=gen, device=device) * 0.1).to(dtype)
+    speeds = (torch.rand((1, frames, 3), generator=gen, device=device) * 2 - 1).to(dtype)
+    yy, xx = torch.meshgrid(torch.arange(size, device=device), torch.arange(size, device=device), indexing="ij")
+    mask = (((yy - size / 2) ** 2 + (xx - size / 2) ** 2) < (size / 3) ** 2).to(dtype)[None, :, :, None]
+    return img, wav, speeds, mask
+
+
+def phase_step():
+    import torch
+    from emox_torch.core.presets import flagship_config
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    size, frames = 256, 2
+    cfg = flagship_config(image_size=size, num_frames=frames)
+    t0 = time.perf_counter()
+    cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
+    _fill_zero_init(cpu, seed=8)
+    gpu = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
+    gpu.modules.load_state_dict(cpu.modules.state_dict())
+    setup_s = time.perf_counter() - t0
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    img, wav, speeds, mask = _request_inputs(gen, "cpu", size, frames, torch.float32)
+    lat = size // cfg.vae.downscale
+    noisy = torch.randn((1, frames, lat, lat, 4), generator=gen)
+    t = torch.tensor([500])
+
+    def run(model, dev):
+        mv = lambda x: x.to(dev)
+        ref = model.encode_images(mv(img))
+        audio = model.encode_audio(mv(wav), frames)
+        face = model.encode_face_mask(mv(mask), lat)
+        cat = lambda x: torch.cat([x, x])
+        out = model.predict_noise(
+            cat(mv(noisy)), cat(mv(t)), cat(ref), audio_windows=torch.cat([torch.zeros_like(audio), audio]),
+            speeds=cat(mv(speeds)), face_feat=cat(face), ref_dropout=mv(torch.tensor([True, False])),
+        )
+        return {"ref_latent": ref, "audio": audio, "face_feat": face, "eps": out}
+
+    t0 = time.perf_counter()
+    on_cpu = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    on_gpu = run(gpu, "cuda")
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    counts = launch_counts()
+    tol = 3e-4  # float32 on both sides; sums in other orders, 3xTF32 in the kernels
+    rel = {}
+    for key, ref in on_cpu.items():
+        got = on_gpu[key].cpu().double()
+        rel[key] = (torch.linalg.vector_norm(got - ref.double()) /
+                    torch.linalg.vector_norm(ref.double()).clamp_min(1e-30)).item()
+    res = {"phase": "step", "config": "flagship 256^2, 2 frames, CFG-batched, float32",
+           "rel_l2": rel, "tol": tol, "launches": counts, "setup_s": setup_s, "cpu_s": cpu_s,
+           "gpu_s": gpu_s, "eps_abs_mean": on_cpu["eps"].abs().mean().item()}
+    emit(res)
+    if not all(math.isfinite(v) and v <= tol for v in rel.values()):
+        raise AssertionError(f"card and CPU disagree: {rel}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched by the float32 step: {counts}")
+    del cpu, gpu, on_cpu, on_gpu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    return res
+
+
+# ---- phase 4 ------------------------------------------------------------------
+def phase_serve(out_dir: str, requests: int = 3, steps: int = 10):
+    import torch
+    from emox_torch.core.presets import flagship_config
+    from emox_torch.infer.pipeline import EMOPipeline
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.empty_cache()
+    size, frames = 256, 16
+    cfg = flagship_config(image_size=size, num_frames=frames)
+    t0 = time.perf_counter()
+    model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    pipe = EMOPipeline(model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.modules.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    inputs = [_request_inputs(gen, "cuda", size, frames, torch.bfloat16) for _ in range(requests)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    per_request = []
+    for r, (img, wav, speeds, mask) in enumerate(inputs):
+        timings = {}
+        t0 = time.perf_counter()
+        video = pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
+                     speeds=speeds, face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(100 + r),
+                     timings=timings)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        finite = bool(torch.isfinite(video.float()).all().item())
+        shape = list(video.shape)
+        per_request.append({"s": secs, "ms_per_step": 1e3 * timings["denoise_s"] / steps,
+                            "phases_s": timings, "finite": finite, "shape": shape,
+                            "abs_mean": video.float().abs().mean().item()})
+        if not finite or shape != [1, frames, size, size, 3]:
+            emit({"phase": "serve", "request": r, **per_request[-1]})
+            raise AssertionError(f"request {r}: output finite={finite} shape={shape}")
+    counts = launch_counts()
+    steady = per_request[1:] or per_request
+    res = {"phase": "serve", "config": "flagship 256^2, 16 frames, CFG 7.5 batched, 10 DDIM steps, bf16",
+           "params": n_params, "setup_s": setup_s, "requests": per_request,
+           "s_per_request": sum(p["s"] for p in steady) / len(steady),
+           "ms_per_step": sum(p["ms_per_step"] for p in steady) / len(steady),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+    emit(res)
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the serving path was never launched: {counts}")
+    img, wav, speeds, mask = inputs[-1]
+    phase_profile(lambda: pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
+                               speeds=speeds, face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(99)),
+                  steps, out_dir)
+    return res
+
+
+# ---- phase 5: where the time of a request goes ---------------------------------------
+_GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("flash_attn_nlc_fwd", ("flash_attn_nlc_fwd",)),
+    ("ln_geglu_ff", ("ln_geglu_ff",)),
+    ("convolution", ("conv", "fprop", "dgrad", "implicit")),
+    ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "wgmma")),
+    ("softmax", ("softmax",)),
+    ("reduction", ("reduce", "norm")),
+    ("copy / cat / fill", ("copy", "cat", "fill", "memcpy", "memset", "index")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def phase_profile(request, steps: int, out_dir: str) -> dict:
+    """One more request under torch.profiler: device time per kernel group,
+    the device's busy share of the request's span, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        request()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        res = {"phase": "profile", "device_time": "not measured (the profiler recorded no device events)"}
+        emit(res)
+        return res
+    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    busy, last_end = 0.0, None
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start, end = e.time_range.start, e.time_range.end
+        if last_end is None or start >= last_end:
+            busy += end - start
+            last_end = end
+        elif end > last_end:
+            busy += end - last_end
+            last_end = end
+    groups, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        low = e.name.lower()
+        group = next((g for g, keys in _GROUPS if any(k in low for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + us
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    kernel_us = sum(groups.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    res = {"phase": "profile", "config": f"one serving request, {steps} DDIM steps, under torch.profiler",
+           "span_ms": span / 1e3, "kernel_ms": kernel_us / 1e3, "busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / span, "kernel_launches": len(kernels),
+           "groups_ms": {g: t / 1e3 for g, t in sorted(groups.items(), key=lambda kv: -kv[1])},
+           "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3} for n, (c, t) in top[:12]]}
+    emit(res)
+    if out_dir:
+        with open(os.path.join(out_dir, "profile_kernels.json"), "w") as f:
+            json.dump({n: {"count": c, "ms": t / 1e3} for n, (c, t) in top}, f, indent=1)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="", help="directory for long reports (ptxas output)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test runs on the card only", file=sys.stderr)
+        return 2
+    try:
+        import emox_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout of the repository ({e})", file=sys.stderr)
+        return 2
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    card = smi_line()
+    emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
+    t_start = time.perf_counter()
+    phase_build(args.out)
+    kern = phase_kernels()
+    phase_step()
+    launches = phase_serve(args.out)["launches"]
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape = lambda k: {x: k[x] for x in ("n", "lq", "lk", "c", "heads", "m", "f", "row_tile", "grid_blocks",
+                                         "smem_bytes", "blocks_per_sm", "sms") if x in k}
+
+    def entry(source, replaces, main, others):
+        """One row per CUDA kernel: its numbers at `main` (the shape of the
+        TPU kernel named first), and every timed shape in by_shape."""
+        return {"name": main["kernel"], "route": "cuda", "source": source, "replaces": replaces[0],
+                "also_replaces": replaces[1:], "launches": launches[main["kernel"]],
+                **{f: main[f] for f in fields}, "shape": shape(main),
+                "by_shape": [{**shape(k), **{f: k[f] for f in fields}} for k in (main, *others)]}
+
+    emit({"kernels": [
+        entry("emox_torch/csrc/flash_attn_nlc.cu", ["emox/ops/attention.py:409"],
+              kern["flash_n32"], [kern["flash_n16"]]),
+        # one kernel for both TPU kernels: level 0 is _ln_ff_kernel's shape,
+        # level 1 _ln_ff_wide_kernel's
+        entry("emox_torch/csrc/ln_geglu_ff.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120"],
+              kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"]]),
+    ]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    print(smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                  "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""EMOModel: the full composition (counterpart of emox/models/emo.py).
+
+VAE + ReferenceNet (writer) + denoising UNet (reader) + audio encoder, as
+nn.Modules held by one object. Where the reference's methods take a param
+tree, these take only inputs: the weights live in the modules (random from
+a seed, or carried over from a flax param tree with `load_flax`).
+
+The face locator, landmarker, ControlNet and CLIP encoders wait for later
+slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+
+from emox_torch.core.config import Config
+from emox_torch.core.device import resolve_device
+from emox_torch.models.audio import AudioEncoder, align_audio_to_frames, audio_feature_rate
+from emox_torch.models.unet import UNet, UNetOutputs, check_supported, reference_net_config
+from emox_torch.models.vae import AutoencoderKL
+from emox_torch.nn.layers import init_weights
+
+Banks = List[List[torch.Tensor]]
+
+
+def _check_config(config: Config) -> None:
+    check_supported(config.model)
+    if config.clip.text_enabled or config.clip.vision_enabled:
+        raise NotImplementedError("clip.*: the CLIP encoders wait for a later slice of the port (ROADMAP.md, Queue 1 item 7)")
+
+
+class EMOModules(nn.Module):
+    """The submodels, under the names of the reference's param tree."""
+
+    def __init__(self, config: Config):
+        super().__init__()
+        face_downs = max(0, config.vae.downscale.bit_length() - 1)
+        self.vae = AutoencoderKL(config.vae)
+        self.reference_net = UNet(reference_net_config(config.model), face_mask_downs=face_downs)
+        self.denoiser = UNet(config.model, face_mask_downs=face_downs)
+        self.audio_encoder = AudioEncoder(config.audio)
+
+
+class EMOModel:
+    def __init__(self, config: Config, dtype: torch.dtype = torch.float32,
+                 device: Optional[Union[str, torch.device]] = None, seed: int = 0):
+        """Builds the submodels on `device` (the CUDA card unless told
+        otherwise; raises when there is none) with random weights drawn from
+        `seed` (the port's own init), held in `dtype`."""
+        _check_config(config)
+        self.config = config
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        with torch.device(self.device):
+            self.modules = EMOModules(config)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        init_weights(self.modules, gen)
+        self.modules.to(dtype=dtype)
+        if self.device.type == "cuda":
+            self.modules.to(memory_format=torch.channels_last)  # conv kernels as cuDNN reads them
+        self.modules.eval().requires_grad_(False)
+
+    def load_flax(self, params: Dict[str, Any]) -> "EMOModel":
+        """Load a reference param tree (nested dicts of numpy arrays) into the
+        submodels; every leaf must map and every parameter must be set."""
+        from emox_torch.interop.from_flax import load_flax
+
+        load_flax(self.modules, params)
+        return self
+
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+
+    # ---- submodel applies --------------------------------------------------
+    @torch.inference_mode()
+    def encode_images(self, images: torch.Tensor) -> torch.Tensor:
+        """[..., H, W, 3] in [-1,1] -> scaled latents [..., h, w, 4] (posterior mode)."""
+        images = self._in(images)
+        shape = images.shape
+        z = self.modules.vae.encode(images.reshape(-1, *shape[-3:])).mode()
+        z = z * self.config.vae.scaling_factor
+        return z.reshape(*shape[:-3], *z.shape[-3:])
+
+    @torch.inference_mode()
+    def decode_latents(self, latents: torch.Tensor, chunk: int = 0) -> torch.Tensor:
+        """Latents -> images; chunk > 0 decodes that many frames at a time."""
+        latents = torch.as_tensor(latents).to(self.device)
+        shape = latents.shape
+        flat = latents.reshape(-1, *shape[-3:]) / self.config.vae.scaling_factor  # the VAE casts
+        n = flat.shape[0]
+        if chunk and n > chunk:
+            img = torch.cat([self.modules.vae.decode(z) for z in flat.split(chunk)])
+        else:
+            img = self.modules.vae.decode(flat)
+        return img.reshape(*shape[:-3], *img.shape[-3:])
+
+    @torch.inference_mode()
+    def reference_outputs(self, ref_latent: torch.Tensor, timesteps: torch.Tensor) -> UNetOutputs:
+        """Writer pass: UNetOutputs with ref_features (the K/V banks)."""
+        return self.modules.reference_net(self._in(ref_latent), timesteps.to(self.device), emit_ref=True)
+
+    @torch.inference_mode()
+    def reference_outputs_for_steps(self, ref_latent: torch.Tensor,
+                                    timesteps_vec: torch.Tensor) -> Tuple[Banks, None]:
+        """Writer banks for ALL S sampler timesteps in ONE batched [S*B] pass
+        (the writer depends only on (ref_latent, t)). Returns (ref_features,
+        None) with a leading S axis on every bank; the second item stands
+        for the reference's AdaIN banks, which wait for a later slice."""
+        ref_latent = self._in(ref_latent)
+        s = timesteps_vec.shape[0]
+        b = ref_latent.shape[0]
+        tiled = ref_latent[None].expand(s, *ref_latent.shape).reshape(s * b, *ref_latent.shape[1:])
+        out = self.reference_outputs(tiled, timesteps_vec.to(self.device).repeat_interleave(b))
+        feats = [[x.reshape(s, b, *x.shape[1:]) for x in site] for site in out.ref_features]
+        return feats, None
+
+    @torch.inference_mode()
+    def encode_audio(self, wav: torch.Tensor, num_frames: int) -> torch.Tensor:
+        cfg = self.config.audio
+        feats = self.modules.audio_encoder(self._in(wav))
+        return align_audio_to_frames(feats, num_frames, audio_feature_rate(cfg), cfg.video_fps, cfg.context_frames)
+
+    @torch.inference_mode()
+    def encode_face_mask(self, face_mask: torch.Tensor, latent_size: int) -> torch.Tensor:
+        """Pre-encode the face-region mask residual once per clip; pass the
+        result as predict_noise(face_feat=...)."""
+        face_mask = self._in(face_mask)
+        ds = face_mask.shape[1] // latent_size
+        enc = self.modules.denoiser.face_mask_encoder
+        if max(0, ds.bit_length() - 1) != enc.num_downs:
+            raise ValueError(f"face mask {face_mask.shape[1]}px does not match latent size {latent_size}")
+        return enc(face_mask)
+
+    # ---- the denoise step ----------------------------------------------------
+    @torch.inference_mode()
+    def predict_noise(
+        self,
+        noisy_latents: torch.Tensor,  # [B, T, h, w, 4]
+        timesteps: torch.Tensor,  # [B]
+        ref_latent: Optional[torch.Tensor],  # [B, h, w, 4]; None = no reference branch
+        audio_windows: Optional[torch.Tensor] = None,  # [B, T, A, D]
+        speeds: Optional[torch.Tensor] = None,  # [B, T] or [B, T, axes]
+        face_mask: Optional[torch.Tensor] = None,  # [B, H, W, 1]
+        ref_dropout: Optional[torch.Tensor] = None,  # [B] bool, True = sample sees no ref
+        ref_features: Optional[Banks] = None,  # precomputed writer banks
+        face_feat: Optional[torch.Tensor] = None,  # pre-encoded mask residual
+    ) -> torch.Tensor:
+        timesteps = timesteps.to(self.device)
+        ref_feats = ref_features
+        if ref_latent is not None and ref_feats is None:
+            ref_feats = self.reference_outputs(ref_latent, timesteps).ref_features
+        opt = lambda x: None if x is None else self._in(x)
+        out = self.modules.denoiser(
+            self._in(noisy_latents), timesteps,
+            ref_features=ref_feats,
+            audio=opt(audio_windows),
+            speeds=None if speeds is None else torch.as_tensor(speeds).to(self.device),
+            face_mask=opt(face_mask),
+            face_feat=opt(face_feat),
+            ref_dropout=None if ref_dropout is None else ref_dropout.to(self.device),
+        )
+        return out.sample

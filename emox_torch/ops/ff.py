@@ -1,0 +1,104 @@
+"""The transformer feed-forward for the port: fused LN + GEGLU + residual.
+
+Counterpart of emox/ops/ff.py. The TPU kernels `_ln_ff_kernel` and
+`_ln_ff_wide_kernel` become one CUDA kernel, `ln_geglu_ff`
+(emox_torch/csrc/ln_geglu_ff.cu), reached through `fused_ln_geglu_ff`:
+
+  * on a CUDA tensor the wrapper launches the kernel, or raises for an
+    input it does not take; there is no fallback;
+  * on a CPU tensor it runs `ln_geglu_ff_plain`, the same function with the
+    kernel's rounding points in plain PyTorch.
+
+Weights are in PyTorch's Linear layout: w1 [2F, C] (value rows, then gate
+rows), w2 [C, F]. The reference's erf approximation existed only because
+its kernel compiler had no erf; both versions here use the exact erf.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from emox_torch.ops import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def geglu_ff_xla(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                 b2: torch.Tensor) -> torch.Tensor:
+    """Plain GEGLU feed-forward (the reference's geglu_ff_xla): operands in
+    their given type, exact-erf gelu."""
+    a, g = F.linear(x, w1, b1).chunk(2, dim=-1)
+    return F.linear(a * F.gelu(g), w2, b2)
+
+
+def ln_geglu_ff_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """y = x + GEGLU_FF(LayerNorm(x)) in plain PyTorch, rounding where the
+    kernel rounds: LN statistics and both products accumulate in fp32; the
+    normalised x and the gated activation are rounded to x's type."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    xn = (xf - mu) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()
+    h = F.linear(xn.to(x.dtype).float(), w1.float(), b1.float())
+    a, g = h.chunk(2, dim=-1)
+    hg = (a * F.gelu(g)).to(x.dtype).float()
+    return (F.linear(hg, w2.float(), b2.float()) + xf).to(x.dtype)
+
+
+def _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    c = x.shape[-1]
+    two_f = w1.shape[0]
+    f = two_f // 2
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"ln_geglu_ff takes float32 or bfloat16, got {x.dtype}")
+    params = (ln_w, ln_b, w1, b1, w2, b2)
+    if any(p.dtype != x.dtype or p.device != x.device for p in params):
+        raise TypeError("ln_geglu_ff needs every weight on x's device and in x's type")
+    shapes = [tuple(p.shape) for p in params]
+    if shapes != [(c,), (c,), (two_f, c), (two_f,), (c, f), (c,)] or c % 16 or f % 64:
+        raise ValueError(f"ln_geglu_ff shapes: x [.., {c}], weights {shapes} (C % 16, F % 64)")
+    xm = x.reshape(-1, c).contiguous()
+    params = tuple(p.contiguous() for p in params)
+    if any(t.data_ptr() % 16 for t in (xm, *params)):
+        raise ValueError("ln_geglu_ff needs 16-byte aligned inputs")
+    y = torch.empty_like(xm)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = build.kernel("ln_geglu_ff")(
+            xm.data_ptr(), *(p.data_ptr() for p in params), y.data_ptr(),
+            xm.shape[0], c, f, float(eps), _DTYPES[x.dtype], stream,
+        )
+    build.check(err, "ln_geglu_ff")
+    fused_ln_geglu_ff.launches += 1
+    return y.reshape(x.shape)
+
+
+def fused_ln_geglu_ff(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """x + GEGLU_FF(LayerNorm(x)) on x [..., C]. Launches the CUDA kernel for
+    CUDA tensors and runs the plain version for CPU tensors."""
+    if x.is_cuda:
+        return _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    if x.device.type == "cpu":
+        return ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    raise ValueError(f"fused_ln_geglu_ff runs on CUDA or CPU tensors, got {x.device}")
+
+
+fused_ln_geglu_ff.launches = 0  # kernel launches since the last reset
+
+
+def ff_plan(c: int, dtype: torch.dtype, device="cuda") -> dict:
+    """How the kernel runs at width C on a CUDA device, for reports: the row
+    tile (the grid is ceil(M / row_tile) blocks), a block's dynamic shared
+    memory, and the blocks resident on one SM."""
+    plan = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        build.check(build.kernel("ln_geglu_ff", "emox_ln_geglu_ff_plan")(c, _DTYPES[dtype], plan),
+                    "ln_geglu_ff plan")
+    return {"row_tile": plan[0], "smem_bytes": plan[1], "blocks_per_sm": plan[2]}

@@ -1,0 +1,174 @@
+"""The port's ops against the reference's, on the CPU.
+
+The kernels' plain versions (what the wrappers run for CPU tensors) are
+held against the reference's Pallas kernels in interpret mode and against
+its XLA formulas. Tolerances: fp32 <= 1e-5 relative (L2); bf16 cases
+allow the rounding of the bf16 result (a few bf16 steps, 2^-8 relative).
+The CUDA kernels themselves are checked on the card by chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from emox.ops import attention as jattn
+from emox.ops import ff as jff
+from emox.ops import groupnorm as jgn
+from emox_torch import ops
+from emox_torch.ops.attention import attention_nlc_plain, attention_xla, dot_product_attention_nlc
+from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla, ln_geglu_ff_plain
+from emox_torch.ops.groupnorm import group_norm_xla
+from tests.test_torch_bridge import no_kernel_launches  # noqa: F401 (autouse fixture)
+
+FP32_TOL = 1e-5
+BF16_TOL = 2.0 ** -8 * 2  # two bf16 steps, relative
+
+
+def rel(got, want) -> float:
+    got = np.asarray(got.float().numpy() if isinstance(got, torch.Tensor) else got, np.float64)
+    want = np.asarray(jnp.asarray(want, jnp.float32), np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+def j(a, dtype=jnp.float32):
+    return jnp.asarray(np.asarray(a, np.float32), dtype)
+
+
+# ---- K1: packed flash attention -------------------------------------------------
+@pytest.mark.parametrize("lk", [100, 128], ids=["ragged_lk", "aligned_lk"])
+def test_flash_plain_matches_pallas_interpret(lk):
+    """lk=100 pads to 112 and runs the TPU kernel's masked path; lk=128 the
+    unmasked one."""
+    rng = np.random.default_rng(0)
+    n, lq, heads, d = 2, 64, 2, 64
+    q, k, v = (rng.standard_normal((n, l, heads * d)).astype(np.float32) for l in (lq, lk, lk))
+    scale = d ** -0.5
+    want, want_lse = jattn._flash_impl_nlc(j(q), j(k), j(v), heads, scale, interpret=True, return_lse=True)
+    got, got_lse = attention_nlc_plain(t(q), t(k), t(v), heads, scale)
+    assert rel(got, want) <= FP32_TOL
+    assert rel(got_lse, np.asarray(want_lse)[:, :lq]) <= FP32_TOL
+    # the public wrapper takes the plain version for CPU tensors
+    assert rel(ops.flash_attention_nlc(t(q), t(k), t(v), heads), want) <= FP32_TOL
+
+
+def test_flash_plain_matches_attention_xla():
+    rng = np.random.default_rng(1)
+    b, h, lq, lk, d = 2, 3, 16, 40, 64
+    q, k, v = (rng.standard_normal((b, h, l, d)).astype(np.float32) for l in (lq, lk, lk))
+    want = jattn.attention_xla(j(q), j(k), j(v))
+    got = attention_xla(t(q), t(k), t(v))
+    assert rel(got, want) <= FP32_TOL
+    packed = lambda a: t(a.transpose(0, 2, 1, 3).reshape(b, a.shape[2], h * d))
+    got_nlc, _ = attention_nlc_plain(packed(q), packed(k), packed(v), h, d ** -0.5)
+    assert rel(got_nlc, np.asarray(want).transpose(0, 2, 1, 3).reshape(b, lq, h * d)) <= FP32_TOL
+
+
+def test_flash_plain_bf16():
+    """bf16 inputs: fp32 inside, one rounding of the output."""
+    rng = np.random.default_rng(2)
+    n, lq, lk, heads, d = 2, 64, 96, 2, 64
+    q, k, v = (rng.standard_normal((n, l, heads * d)).astype(np.float32) for l in (lq, lk, lk))
+    want = jattn.flash_attention_nlc(j(q, jnp.bfloat16), j(k, jnp.bfloat16), j(v, jnp.bfloat16), heads,
+                                     interpret=True)
+    got = attention_nlc_plain(t(q, torch.bfloat16), t(k, torch.bfloat16), t(v, torch.bfloat16), heads, d ** -0.5)[0]
+    assert got.dtype == torch.bfloat16
+    assert rel(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("lk,d", [(2048, 64), (2048, 32), (64, 64)], ids=["kernel_site", "d32", "short_kv"])
+def test_dispatch_matches_reference_dispatch(lk, d):
+    """dot_product_attention_nlc takes the kernel path exactly where the
+    reference takes Pallas (Lk >= 2048, d % 64 == 0); every path computes
+    the same function."""
+    rng = np.random.default_rng(3)
+    n, lq, heads = 1, 8, 2
+    q, k, v = (rng.standard_normal((n, l, heads * d)).astype(np.float32) for l in (lq, lk, lk))
+    want = jattn.dot_product_attention_nlc(j(q), j(k), j(v), heads, impl="xla")
+    assert rel(dot_product_attention_nlc(t(q), t(k), t(v), heads), want) <= FP32_TOL
+    assert ops.KERNEL_MIN_KV == jattn._PALLAS_MIN_KV
+
+
+def test_flash_wrapper_rejects_other_devices():
+    q = torch.zeros(1, 4, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.flash_attention_nlc(q, q, q, 1)
+
+
+# ---- K2/K3: fused LN + GEGLU + residual -----------------------------------------
+def _ff_inputs(m, c, seed=0):
+    rng = np.random.default_rng(seed)
+    f = 4 * c
+    return dict(
+        x=rng.standard_normal((m, c)).astype(np.float32) * 2 + 0.5,
+        ln_s=(1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+        ln_b=(0.1 * rng.standard_normal(c)).astype(np.float32),
+        w1=(rng.standard_normal((c, 2 * f)) / np.sqrt(c)).astype(np.float32),  # flax [C, 2F]
+        b1=(0.1 * rng.standard_normal(2 * f)).astype(np.float32),
+        w2=(rng.standard_normal((f, c)) / np.sqrt(f)).astype(np.float32),  # flax [F, C]
+        b2=(0.1 * rng.standard_normal(c)).astype(np.float32),
+    )
+
+
+def _ff_port_args(p, dtype=torch.float32):
+    """Port layout: Linear weights [out, in]."""
+    return (t(p["x"], dtype), t(p["ln_s"], dtype), t(p["ln_b"], dtype), t(p["w1"].T.copy(), dtype),
+            t(p["b1"], dtype), t(p["w2"].T.copy(), dtype), t(p["b2"], dtype))
+
+
+def _ff_ref_args(p, dtype=jnp.float32):
+    return tuple(j(p[k], dtype) for k in ("x", "ln_s", "ln_b", "w1", "b1", "w2", "b2"))
+
+
+@pytest.mark.parametrize("block_f", [0, 128], ids=["narrow_K2", "wide_K3"])
+def test_ff_plain_matches_pallas_interpret(block_f):
+    p = _ff_inputs(m=200, c=64)
+    want = jff.fused_ln_geglu_ff(*_ff_ref_args(p), block_m=64, block_f=block_f, interpret=True)
+    assert rel(ln_geglu_ff_plain(*_ff_port_args(p)), want) <= FP32_TOL
+    assert rel(fused_ln_geglu_ff(*_ff_port_args(p)), want) <= FP32_TOL
+
+
+def test_ff_plain_matches_exact_erf_xla():
+    p = _ff_inputs(m=37, c=48, seed=1)
+    want = jff.ln_geglu_ff_xla(*_ff_ref_args(p))
+    assert rel(ln_geglu_ff_plain(*_ff_port_args(p)), want) <= FP32_TOL
+
+
+@pytest.mark.parametrize("block_f", [0, 128], ids=["narrow_K2", "wide_K3"])
+def test_ff_plain_bf16(block_f):
+    """bf16: both round xn and the gated activation to bf16 and accumulate
+    in fp32; the reference's in-kernel erf approximation can move a value
+    across a bf16 rounding boundary, so the bound is a few bf16 steps."""
+    p = _ff_inputs(m=128, c=64, seed=2)
+    want = jff.fused_ln_geglu_ff(*_ff_ref_args(p, jnp.bfloat16), block_m=64, block_f=block_f, interpret=True)
+    got = ln_geglu_ff_plain(*_ff_port_args(p, torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    assert rel(got, want) <= BF16_TOL
+
+
+def test_geglu_ff_xla_matches():
+    p = _ff_inputs(m=21, c=32, seed=3)
+    want = jff.geglu_ff_xla(j(p["x"]), j(p["w1"]), j(p["b1"]), j(p["w2"]), j(p["b2"]))
+    got = geglu_ff_xla(t(p["x"]), t(p["w1"].T.copy()), t(p["b1"]), t(p["w2"].T.copy()), t(p["b2"]))
+    assert rel(got, want) <= FP32_TOL
+
+
+# ---- GroupNorm (plain; the Pallas GN kernels wait for a later slice) ------------
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm_matches(silu, dtype):
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((3, 50, 32)) * 3 + 1).astype(np.float32)
+    g = (1 + 0.2 * rng.standard_normal(32)).astype(np.float32)
+    b = (0.2 * rng.standard_normal(32)).astype(np.float32)
+    jd, td = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    want = jgn.group_norm_xla(j(x, jd), j(g), j(b), groups=8, silu=silu)
+    got = group_norm_xla(t(x, td), t(g), t(b), groups=8, silu=silu)
+    assert got.dtype == td
+    assert rel(got, want) <= (FP32_TOL if dtype == "float32" else BF16_TOL)
