@@ -11,10 +11,10 @@ raises and the script exits non-zero. Phases:
   1. build: the card's name and power limit, then the CUDA kernels built
      from emox_torch/csrc (one nvcc per source, in parallel) and timed.
   2. kernels: every kernel held against its plain PyTorch version at the
-     serving shapes in bf16 (and once in float32), with max error against
-     the stated tolerance, kernel / plain / library times (CUDA events,
-     after warm-up), the bound (the least time the card could take) and,
-     for the feed-forward, its grid against the card's SMs.
+     serving and training shapes in bf16 (and once in float32), with max
+     error against the stated tolerance, kernel / plain / library times
+     (CUDA events, after warm-up), the bound (the least time the card could
+     take) and, for the feed-forward, its grid against the card's SMs.
   3. step: one CFG-batched denoise step of the flagship model at 256^2,
      2 frames, float32, on the card (kernels) against the same weights on
      the CPU (plain versions), TF32 off for matmuls and convolutions.
@@ -24,7 +24,16 @@ raises and the script exits non-zero. Phases:
      the kernels' launch counts during the requests.
   5. profile: one more request under torch.profiler, with the device time
      per kernel group, the top kernels and the device's idle share.
-  6. the `kernels` line: every ported kernel with the TPU kernel it
+  6. train_step: the loss and the trainable gradients of one float32
+     stage-2 step (flagship widths, batch 1, 2 frames) on the card against
+     the CPU, same weights and the same draws, TF32 off.
+  7. train: emox_torch.train.Trainer trains the flagship in bf16, stage 2
+     (batch 2, 8 frames: 2 warm-up and 5 timed steps) and then stage 1
+     (batch 4, 1 frame: 3 steps); ms/step, frames/s, peak memory, losses
+     finite, trainable leaves changed and frozen ones not, the kernels'
+     launches per step, and one more step under torch.profiler; then stage 3 (batch 2, 8 frames, 3-axis
+     speeds and a face mask: 3 steps) the same way.
+  8. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
@@ -38,11 +47,13 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 BF16_EPS = 2.0 ** -8  # spacing of bf16 values in [1, 2)
+FORWARD_KERNELS = ("flash_attn_nlc_fwd", "ln_geglu_ff")  # the kernels of the serving path
 
 
 def emit(obj) -> None:
@@ -142,6 +153,60 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
     return res
 
 
+def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
+    """K4: dq, dk, dv of the kernels against the plain version (fp32 math on
+    the same inputs), from the fp32 forward's lse and its output rounded to
+    the input type."""
+    import torch
+    import torch.nn.functional as F
+    from emox_torch.ops.attention import attention_nlc_bwd_plain, attention_nlc_plain, flash_attention_nlc_bwd
+
+    dtype = dtype or torch.bfloat16
+    d = c // heads
+    scale = d ** -0.5
+    q, k, v = (_rand(gen, n, l, c, dtype=dtype) for l in (lq, lk, lk))
+    dout = _rand(gen, n, lq, c, dtype=dtype)
+    o32, lse = attention_nlc_plain(q.float(), k.float(), v.float(), heads, scale)
+    o = o32.to(dtype)
+    del o32
+    got = flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale)
+    torch.cuda.synchronize()
+    want = attention_nlc_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse, dout.float(), heads, scale)
+    res = {"kernel": "flash_attn_nlc_bwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq, "lk": lk,
+           "c": c, "heads": heads}
+    ok = True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w).abs().max().item()
+        top = w.abs().max().item()
+        # bf16: P and dS are rounded to bf16 for the products and the output
+        # once: a few bf16 steps at the largest value; float32: 3xTF32 sums
+        tol = (4 * BF16_EPS if dtype == torch.bfloat16 else 2e-4) * top
+        res[f"{name}_max_abs_err"], res[f"{name}_tol"] = err, tol
+        ok = ok and math.isfinite(err) and err <= tol
+    res["max_abs_err"] = max(res[f"{x}_max_abs_err"] for x in ("dq", "dk", "dv"))
+    del got, want
+    if not ok:
+        emit(res)
+        raise AssertionError(f"flash_attn_nlc_bwd disagrees with its plain version: {res}")
+    if timing:
+        flops = 10.0 * n * heads * lq * lk * d
+        nbytes = q.element_size() * n * c * (4 * lq + 4 * lk) + 4 * n * lq * heads
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["ms"] = time_ms(lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale), iters=10)
+        res["plain_ms"] = time_ms(lambda: attention_nlc_bwd_plain(q, k, v, o, lse, dout, heads, scale),
+                                  iters=3, warmup=1)
+        split = lambda t: t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2)
+        qh, kh, vh = (split(t).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+        g = split(dout)
+        res["library_ms"] = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True),
+                                    iters=10)
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        del out
+    emit(res)
+    return res
+
+
 def check_ff(gen, m, c, dtype=None, timing=True):
     import torch
     from emox_torch.ops.ff import ff_plan, fused_ln_geglu_ff, ln_geglu_ff_plain
@@ -203,6 +268,13 @@ def phase_kernels():
     results["ff_mid"] = check_ff(gen, 512, 1280)
     check_ff(gen, 1000, 320, dtype=torch.float32, timing=False)
     check_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
+    # K4 at the level-0 reference-concat sites of training: stage 2 (batch 2
+    # x 8 frames) and stage 1 (batch 4); then float32, head dim 128, ragged
+    results["flash_bwd_n16"] = check_flash_bwd(gen, 16, 1024, 2048)
+    results["flash_bwd_n4"] = check_flash_bwd(gen, 4, 1024, 2048)
+    check_flash_bwd(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
+    check_flash_bwd(gen, 2, 1024, 2048, c=256, heads=2, timing=False)
+    check_flash_bwd(gen, 4, 1000, 2100, timing=False)
     return results
 
 
@@ -293,11 +365,175 @@ def phase_step():
     emit(res)
     if not all(math.isfinite(v) and v <= tol for v in rel.values()):
         raise AssertionError(f"card and CPU disagree: {rel}")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in FORWARD_KERNELS) <= 0:
         raise AssertionError(f"a kernel was not launched by the float32 step: {counts}")
     del cpu, gpu, on_cpu, on_gpu
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
+    return res
+
+
+# ---- phases 6 and 7: training -------------------------------------------------------
+_STAGE_LR = {1: 1e-4, 2: 1e-5, 3: 1e-5}  # the reference's stage presets (configs/training/stage{1,2,3}.yaml)
+
+
+def _train_config(stage: int, batch: int, frames: int, dtype: str, checkpoint_dir: str):
+    import dataclasses
+
+    from emox_torch.core.presets import flagship_config
+
+    cfg = flagship_config(image_size=256, num_frames=frames)
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, batch_size=batch, num_frames=frames),
+        train=dataclasses.replace(cfg.train, stage=stage, learning_rate=_STAGE_LR[stage], compute_dtype=dtype,
+                                  checkpoint_dir=checkpoint_dir, resume=False),
+    )
+
+
+def _train_batch(gen, stage: int, batch: int, frames: int, cfg, device):
+    """A synthetic batch shaped as the reference's train benchmark builds it
+    (bench.py), with random audio in place of silence."""
+    import torch
+
+    size = cfg.data.height
+    normal = lambda *shape: 0.1 * torch.randn(shape, generator=gen, device=device)
+    out = {"ref_image": normal(batch, size, size, 3)}
+    if stage == 1:
+        out["images"] = normal(batch, size, size, 3)
+    else:
+        out["frames"] = normal(batch, frames, size, size, 3)
+        out["wav"] = normal(batch, int(16000 * (frames + 2 * cfg.audio.context_frames) / 25.0))
+    if stage == 3:
+        out["speeds"] = torch.rand((batch, frames, cfg.model.speed_axes), generator=gen, device=device) * 2 - 1
+        yy, xx = torch.meshgrid(torch.arange(size, device=device), torch.arange(size, device=device), indexing="ij")
+        disc = (((yy - size / 2) ** 2 + (xx - size / 2) ** 2) < (size / 3) ** 2).float()
+        out["masks"] = disc[None, :, :, None].expand(batch, size, size, 1).contiguous()
+    return out
+
+
+def phase_train_step(tmp: str):
+    import torch
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+    from emox_torch.train import Trainer, sample_draws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _train_config(2, batch=1, frames=2, dtype="float32", checkpoint_dir=tmp)
+    t0 = time.perf_counter()
+    cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
+    _fill_zero_init(cpu, seed=8)
+    gpu = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
+    gpu.modules.load_state_dict(cpu.modules.state_dict())
+    tr_cpu, tr_gpu = Trainer(cfg, model=cpu), Trainer(cfg, model=gpu)
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    batch = _train_batch(gen, 2, 1, 2, cfg, "cpu")
+    draws = sample_draws(cfg, tr_cpu.sched, 2, batch, gen)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu, g_cpu = tr_cpu.loss_and_grads(batch, draws)
+    cpu_s = time.perf_counter() - t0
+    to_gpu = lambda d: {k: v.to("cuda") for k, v in d.items()}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    m_gpu, g_gpu = tr_gpu.loss_and_grads(to_gpu(batch), to_gpu(draws))
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    counts = launch_counts()
+    loss_cpu, loss_gpu = m_cpu["loss"].double().item(), m_gpu["loss"].double().item()
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    diff = sum(float(torch.linalg.vector_norm(a.cpu().double() - b.double()) ** 2) for a, b in zip(g_gpu, g_cpu))
+    norm = sum(float(torch.linalg.vector_norm(b.double()) ** 2) for b in g_cpu)
+    grads_rel = math.sqrt(diff / norm)
+    leaf_rel = max(float(torch.linalg.vector_norm(a.cpu().double() - b.double())
+                         / torch.linalg.vector_norm(b.double()).clamp_min(1e-30)) for a, b in zip(g_gpu, g_cpu))
+    # measured on an H100: loss 1.1e-6, grads 4.3e-5 relative; the limits keep
+    # a margin of about 10x and 5x
+    limits = {"loss_rel": 1e-5, "grads_rel_l2": 2e-4}
+    res = {"phase": "train_step", "config": "flagship 256^2 stage 2, batch 1, 2 frames, float32, remat, "
+           "full depth", "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel": loss_rel,
+           "grads_rel_l2": grads_rel, "worst_leaf_rel_l2": leaf_rel, "limits": limits,
+           "trainable_leaves": len(g_cpu), "trainable_params": sum(g.numel() for g in g_cpu),
+           "launches": counts, "setup_s": setup_s, "cpu_s": cpu_s, "gpu_s": gpu_s}
+    emit(res)
+    tr_cpu.close()
+    tr_gpu.close()
+    if not (loss_rel <= limits["loss_rel"] and grads_rel <= limits["grads_rel_l2"]):
+        raise AssertionError(f"card and CPU gradients disagree: loss {loss_rel}, grads {grads_rel}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched by the float32 train step: {counts}")
+    torch.backends.cudnn.allow_tf32 = True
+    return res
+
+
+def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, steps: int, out_dir: str = ""):
+    import torch
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+    from emox_torch.train import Trainer
+
+    torch.cuda.empty_cache()
+    cfg = _train_config(stage, batch=batch, frames=frames, dtype="bfloat16", checkpoint_dir=tmp)
+    t0 = time.perf_counter()
+    model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    _fill_zero_init(model, seed=3)  # every trainable leaf of stage 2 gets a gradient from step 1
+    tr = Trainer(cfg, model=model)
+    gen = torch.Generator(device="cuda").manual_seed(30 + stage)
+    data = _train_batch(gen, stage, batch, frames, cfg, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    names = tr.trainable_names()
+    snapshot = lambda t: t.detach().to("cpu", copy=True)
+    before_train = {n: snapshot(m) for n, m in tr.state.masters.items()}
+    before_frozen = {n: snapshot(p) for n, p in model.modules.named_parameters() if n not in tr.state.masters}
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    reset_launch_counts()
+    for _ in range(warmup):
+        losses.append(float(tr.train_step(data, gen)["loss"]))
+    warm_counts = launch_counts()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(float(tr.train_step(data, gen)["loss"]))  # loss.item() synchronises each step
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    phase_profile(lambda: tr.train_step(data, gen), f"one stage-{stage} train step", out_dir,
+                  f"profile_train_stage{stage}_kernels.json")
+    unchanged = [n for n in names if torch.equal(tr.state.masters[n].cpu(), before_train[n])]
+    # AdamW with decoupled decay leaves a leaf alone only when its gradient
+    # and its value are both zero (e.g. zero-init biases of ReferenceNet
+    # layers past its last bank in stage 1); any other unchanged leaf is a fault
+    stuck = [n for n in unchanged if bool(before_train[n].any())]
+    module_changed = sum(not torch.equal(p.detach().cpu(), before_train[n].to(p.dtype))
+                         for n, p in model.modules.named_parameters() if n in before_train)
+    frozen_changed = sum(not torch.equal(p.detach().cpu(), before_frozen[n])
+                         for n, p in model.modules.named_parameters() if n in before_frozen)
+    ms = 1e3 * secs / steps
+    res = {"phase": "train", "stage": stage,
+           "config": f"flagship 256^2 stage {stage}, batch {batch}, {frames} frame(s), bf16 compute, fp32 masters, "
+                     f"AdamW lr {_STAGE_LR[stage]}, remat; {warmup} warm-up + {steps} timed steps",
+           "params": sum(p.numel() for p in model.modules.parameters()),
+           "trainable_params": sum(m.numel() for m in tr.state.masters.values()),
+           "trainable_leaves": len(names), "frozen_leaves": len(before_frozen),
+           "setup_s": setup_s, "ms_per_step": ms, "frames_per_s": batch * frames * 1e3 / ms,
+           "peak_mem_gb": peak, "losses": losses, "all_finite": all(math.isfinite(x) for x in losses),
+           "trainable_masters_changed": len(names) - len(unchanged),
+           "trainable_unchanged_all_zero": len(unchanged) - len(stuck), "trainable_stuck": stuck[:8],
+           "trainable_module_leaves_changed": module_changed, "frozen_leaves_changed": frozen_changed,
+           "launches": counts, "launches_per_step": {k: v / steps for k, v in counts.items()},
+           "warmup_launches_per_step": {k: v / warmup for k, v in warm_counts.items()}}
+    emit(res)
+    tr.close()
+    if not res["all_finite"]:
+        raise AssertionError(f"stage {stage}: a loss is not finite: {losses}")
+    if stuck or frozen_changed:
+        raise AssertionError(f"stage {stage}: trainable leaves left unchanged {stuck[:8]}, "
+                             f"{frozen_changed} frozen leaves changed")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"stage {stage}: a kernel of the training path was never launched: {counts}")
+    del tr, model, data
     return res
 
 
@@ -348,18 +584,19 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10):
            "ms_per_step": sum(p["ms_per_step"] for p in steady) / len(steady),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
     emit(res)
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in FORWARD_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the serving path was never launched: {counts}")
     img, wav, speeds, mask = inputs[-1]
     phase_profile(lambda: pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
                                speeds=speeds, face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(99)),
-                  steps, out_dir)
+                  f"one serving request, {steps} DDIM steps", out_dir, "profile_kernels.json")
     return res
 
 
 # ---- phase 5: where the time of a request goes ---------------------------------------
 _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("flash_attn_nlc_fwd", ("flash_attn_nlc_fwd",)),
+    ("flash_attn_nlc_bwd", ("flash_bwd",)),
     ("ln_geglu_ff", ("ln_geglu_ff",)),
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "wgmma")),
@@ -370,19 +607,22 @@ _GROUPS = (  # (group, substrings of the kernel name), first match wins
 )
 
 
-def phase_profile(request, steps: int, out_dir: str) -> dict:
-    """One more request under torch.profiler: device time per kernel group,
-    the device's busy share of the request's span, and the top kernels."""
+def phase_profile(run, label: str, out_dir: str, filename: str) -> dict:
+    """One more run (a request, a train step) under torch.profiler: device
+    time per kernel group, the device's busy share of the run's span, and
+    the top kernels (all of them in out_dir/filename)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        request()
+        run()
         torch.cuda.synchronize()
     events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # device events, without the ranges that user annotations (such as the
+    # optimizer's step) open on the device timeline over real kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         res = {"phase": "profile", "device_time": "not measured (the profiler recorded no device events)"}
         emit(res)
@@ -407,14 +647,14 @@ def phase_profile(request, steps: int, out_dir: str) -> dict:
         by_name[e.name] = (n + 1, t + us)
     kernel_us = sum(groups.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    res = {"phase": "profile", "config": f"one serving request, {steps} DDIM steps, under torch.profiler",
+    res = {"phase": "profile", "config": f"{label}, under torch.profiler",
            "span_ms": span / 1e3, "kernel_ms": kernel_us / 1e3, "busy_ms": busy / 1e3,
            "idle_share": 1.0 - busy / span, "kernel_launches": len(kernels),
            "groups_ms": {g: t / 1e3 for g, t in sorted(groups.items(), key=lambda kv: -kv[1])},
            "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3} for n, (c, t) in top[:12]]}
     emit(res)
     if out_dir:
-        with open(os.path.join(out_dir, "profile_kernels.json"), "w") as f:
+        with open(os.path.join(out_dir, filename), "w") as f:
             json.dump({n: {"count": c, "ms": t / 1e3} for n, (c, t) in top}, f, indent=1)
     return res
 
@@ -444,6 +684,17 @@ def main(argv=None) -> int:
     kern = phase_kernels()
     phase_step()
     launches = phase_serve(args.out)["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_step(tmp)
+        train2 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out)
+        train1 = phase_train(tmp, stage=1, batch=4, frames=1, warmup=1, steps=2, out_dir=args.out)
+        train3 = phase_train(tmp, stage=3, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out)
+    by_path = {"serve": launches, "train_stage2_per_step": train2["launches_per_step"],
+               "train_stage1_per_step": train1["launches_per_step"],
+               "train_stage3_per_step": train3["launches_per_step"]}
+    # launches on each kernel's main path: serving for the forward kernels,
+    # the timed stage-2 training steps for the backward
+    launches = dict(launches, flash_attn_nlc_bwd=train2["launches"]["flash_attn_nlc_bwd"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape = lambda k: {x: k[x] for x in ("n", "lq", "lk", "c", "heads", "m", "f", "row_tile", "grid_blocks",
                                          "smem_bytes", "blocks_per_sm", "sms") if x in k}
@@ -451,8 +702,10 @@ def main(argv=None) -> int:
     def entry(source, replaces, main, others):
         """One row per CUDA kernel: its numbers at `main` (the shape of the
         TPU kernel named first), and every timed shape in by_shape."""
-        return {"name": main["kernel"], "route": "cuda", "source": source, "replaces": replaces[0],
-                "also_replaces": replaces[1:], "launches": launches[main["kernel"]],
+        name = main["kernel"]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces[0],
+                "also_replaces": replaces[1:], "launches": launches[name],
+                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                 **{f: main[f] for f in fields}, "shape": shape(main),
                 "by_shape": [{**shape(k), **{f: k[f] for f in fields}} for k in (main, *others)]}
 
@@ -463,6 +716,8 @@ def main(argv=None) -> int:
         # level 1 _ln_ff_wide_kernel's
         entry("emox_torch/csrc/ln_geglu_ff.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120"],
               kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"]]),
+        entry("emox_torch/csrc/flash_attn_nlc_bwd.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
+              kern["flash_bwd_n16"], [kern["flash_bwd_n4"]]),
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

@@ -4,8 +4,8 @@
 1000 training steps, scaled_linear betas 0.00085 -> 0.012 by default. The
 tables are built in float32, as the reference builds them (its float64
 request falls back to float32 without JAX's x64 mode) and as diffusers
-does. DDPM steps, min-SNR weighting and velocity targets (training) wait
-for a later slice.
+does. Training adds velocity targets and min-SNR weighting; DDPM steps
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -63,6 +63,28 @@ def _gather(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
 def add_noise(sched: Schedule, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     acp = _gather(sched.alphas_cumprod, t, x0.dim())
     return torch.sqrt(acp) * x0 + torch.sqrt(1.0 - acp) * noise
+
+
+def get_velocity(sched: Schedule, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The v-prediction target sqrt(acp) noise - sqrt(1 - acp) x0."""
+    acp = _gather(sched.alphas_cumprod, t, x0.dim())
+    return torch.sqrt(acp) * noise - torch.sqrt(1.0 - acp) * x0
+
+
+def snr(sched: Schedule, t: torch.Tensor) -> torch.Tensor:
+    acp = sched.alphas_cumprod[t.to(sched.alphas_cumprod.device)]
+    return acp / (1.0 - acp)
+
+
+def min_snr_loss_weight(sched: Schedule, t: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Min-SNR-gamma per-sample loss weights (arXiv:2303.09556); gamma <= 0
+    gives ones."""
+    if gamma <= 0:
+        return torch.ones(t.shape, dtype=torch.float32, device=t.device)
+    s = snr(sched, t)
+    if sched.prediction_type == "v_prediction":
+        return torch.clamp(s, max=gamma) / (s + 1.0)
+    return torch.clamp(s, max=gamma) / torch.clamp(s, min=1e-8)
 
 
 def pred_to_x0(sched: Schedule, model_out: torch.Tensor, sample: torch.Tensor,

@@ -5,6 +5,13 @@ nn.Modules held by one object. Where the reference's methods take a param
 tree, these take only inputs: the weights live in the modules (random from
 a seed, or carried over from a flax param tree with `load_flax`).
 
+Every parameter starts frozen. The methods a training loss calls
+(`encode_images`, `encode_audio`, `reference_outputs`, `predict_noise`)
+run with autograd as the caller has it, so they take a gradient once
+`set_trainable` has marked leaves; the serving calls (`EMOPipeline`, and
+here `decode_latents`, `reference_outputs_for_steps`, `encode_face_mask`)
+run under `torch.inference_mode`.
+
 The face locator, landmarker, ControlNet and CLIP encoders wait for later
 slices (ROADMAP.md).
 """
@@ -71,16 +78,33 @@ class EMOModel:
         load_flax(self.modules, params)
         return self
 
+    def set_trainable(self, mask: Dict[str, bool]) -> None:
+        """requires_grad on the parameters that `mask` (parameter name ->
+        bool, every parameter named) marks True; the others stay frozen."""
+        params = dict(self.modules.named_parameters())
+        if set(mask) != set(params):
+            raise ValueError(f"the mask names {len(mask)} parameters, the model has {len(params)}")
+        for name, p in params.items():
+            p.requires_grad_(bool(mask[name]))
+
+    def train(self, mode: bool = True) -> "EMOModel":
+        """Train (or eval) mode on every submodel."""
+        self.modules.train(mode)
+        return self
+
     def _in(self, x: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
 
     # ---- submodel applies --------------------------------------------------
-    @torch.inference_mode()
-    def encode_images(self, images: torch.Tensor) -> torch.Tensor:
-        """[..., H, W, 3] in [-1,1] -> scaled latents [..., h, w, 4] (posterior mode)."""
+    def encode_images(self, images: torch.Tensor, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[..., H, W, 3] in [-1,1] -> scaled latents [..., h, w, 4]: the
+        posterior mode, or with `eps` (N(0, 1) noise of the flattened
+        posterior's shape [prod(...), h, w, 4], drawn by the caller) the
+        posterior sample mean + std * eps."""
         images = self._in(images)
         shape = images.shape
-        z = self.modules.vae.encode(images.reshape(-1, *shape[-3:])).mode()
+        dist = self.modules.vae.encode(images.reshape(-1, *shape[-3:]))
+        z = dist.mode() if eps is None else dist.sample(eps)
         z = z * self.config.vae.scaling_factor
         return z.reshape(*shape[:-3], *z.shape[-3:])
 
@@ -97,7 +121,6 @@ class EMOModel:
             img = self.modules.vae.decode(flat)
         return img.reshape(*shape[:-3], *img.shape[-3:])
 
-    @torch.inference_mode()
     def reference_outputs(self, ref_latent: torch.Tensor, timesteps: torch.Tensor) -> UNetOutputs:
         """Writer pass: UNetOutputs with ref_features (the K/V banks)."""
         return self.modules.reference_net(self._in(ref_latent), timesteps.to(self.device), emit_ref=True)
@@ -117,7 +140,6 @@ class EMOModel:
         feats = [[x.reshape(s, b, *x.shape[1:]) for x in site] for site in out.ref_features]
         return feats, None
 
-    @torch.inference_mode()
     def encode_audio(self, wav: torch.Tensor, num_frames: int) -> torch.Tensor:
         cfg = self.config.audio
         feats = self.modules.audio_encoder(self._in(wav))
@@ -135,7 +157,6 @@ class EMOModel:
         return enc(face_mask)
 
     # ---- the denoise step ----------------------------------------------------
-    @torch.inference_mode()
     def predict_noise(
         self,
         noisy_latents: torch.Tensor,  # [B, T, h, w, 4]

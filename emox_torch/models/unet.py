@@ -11,9 +11,12 @@ transformer, speed buckets added to the per-frame time embedding, the
 pre-encoded face-mask residual added after conv_in, and temporal attention
 at every attention site and the mid block.
 
-NHWC, frames folded into the batch for all spatial ops. AdaIN statistic
-banks (use_gn_ref), ControlNet residuals and the identity embedding wait
-for later slices (ROADMAP.md).
+NHWC, frames folded into the batch for all spatial ops. With cfg.remat
+(the default) and grad enabled, every spatial, audio and temporal
+transformer runs under activation checkpointing, as the reference wraps
+them in nn.remat: their activations are recomputed in the backward pass
+instead of stored. AdaIN statistic banks (use_gn_ref), ControlNet
+residuals and the identity embedding wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from emox_torch.core.config import ModelConfig
 from emox_torch.nn.attention_blocks import AudioCrossAttention, SpatialTransformer, TemporalTransformer
@@ -164,6 +168,12 @@ class UNet(nn.Module):
         banks: List[List[torch.Tensor]] = []
         site = 0
         drop_frames = None if ref_dropout is None else ref_dropout.repeat_interleave(t, dim=0)
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(mod, *args, **kwargs):
+            if remat:
+                return checkpoint(mod, *args, use_reentrant=False, **kwargs)
+            return mod(*args, **kwargs)
 
         def attn_stack(h, name):
             """spatial (+ref) -> audio cross -> temporal, at one site."""
@@ -171,18 +181,18 @@ class UNet(nn.Module):
             rkv = None
             if ref_features is not None and not emit_ref:
                 rkv = list(ref_features[site])
-            h, bank = getattr(self, f"{name}_attn")(
-                h, context=context, ref_kv=rkv, ref_drop=None if rkv is None else drop_frames,
-                num_frames=1 if emit_ref else t,
+            h, bank = run(
+                getattr(self, f"{name}_attn"), h, context=context, ref_kv=rkv,
+                ref_drop=None if rkv is None else drop_frames, num_frames=1 if emit_ref else t,
             )
             if emit_ref:
                 banks.append(bank)
             site += 1
             hv = unfold_time(h, t)
             if cfg.use_audio and audio is not None:
-                hv = getattr(self, f"{name}_audio")(hv, audio)
+                hv = run(getattr(self, f"{name}_audio"), hv, audio)
             if cfg.use_temporal and t > 1:
-                hv = getattr(self, f"{name}_temporal")(hv)
+                hv = run(getattr(self, f"{name}_temporal"), hv)
             return fold_time(hv)[0]
 
         def resblock(name, h):

@@ -2,7 +2,7 @@
 
 Conv encoder with channel multipliers, single-head mid-block attention,
 diagonal-Gaussian latent, symmetric decoder. Serving uses the posterior
-mode; sampling and the KL term (training) wait for a later slice.
+mode; training draws a posterior sample from noise the caller supplies.
 """
 
 from __future__ import annotations
@@ -17,15 +17,25 @@ from emox_torch.nn.layers import Conv
 
 
 class DiagonalGaussian:
-    """Latent distribution: moments [..., 2*C] -> mean / mode."""
+    """Latent distribution: moments [..., 2*C] -> sample / mode / kl."""
 
     def __init__(self, moments: torch.Tensor):
         mean, logvar = moments.chunk(2, dim=-1)
         self.mean = mean
         self.logvar = logvar.clamp(-30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+
+    def sample(self, eps: torch.Tensor) -> torch.Tensor:
+        """mean + std * eps, with eps ~ N(0, 1) of the mean's shape drawn by
+        the caller (cast to the mean's type, as the reference draws it)."""
+        return self.mean + self.std * eps.reshape(self.mean.shape).to(device=self.mean.device,
+                                                                      dtype=self.mean.dtype)
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self) -> torch.Tensor:
+        return 0.5 * torch.sum(self.mean ** 2 + torch.exp(self.logvar) - 1.0 - self.logvar, dim=(-3, -2, -1))
 
 
 class MidAttention(nn.Module):

@@ -1,23 +1,30 @@
 """Ops: the hand-written CUDA kernels, their plain versions, and plain ops.
 
-Kernels of this slice (each wrapper counts its launches in `.launches`):
-  * flash_attention_nlc -> csrc/flash_attn_nlc.cu (TPU `_flash_nlc_kernel`)
-  * fused_ln_geglu_ff   -> csrc/ln_geglu_ff.cu (TPU `_ln_ff_kernel` and
-                           `_ln_ff_wide_kernel`)
+Kernels (each wrapper counts its launches in `.launches`):
+  * flash_attention_nlc     -> csrc/flash_attn_nlc.cu (TPU `_flash_nlc_kernel`)
+  * flash_attention_nlc_bwd -> csrc/flash_attn_nlc_bwd.cu (TPU
+                               `_flash_bwd_nlc_dq_kernel` and
+                               `_flash_bwd_nlc_dkv_kernel`); the backward of
+                               flash_attention_nlc
+  * fused_ln_geglu_ff       -> csrc/ln_geglu_ff.cu (TPU `_ln_ff_kernel` and
+                               `_ln_ff_wide_kernel`)
 """
 
 from emox_torch.ops.attention import (
     KERNEL_MIN_KV,
+    attention_nlc_bwd_plain,
     attention_nlc_plain,
     attention_xla,
     dot_product_attention_nlc,
     flash_attention_nlc,
+    flash_attention_nlc_bwd,
 )
-from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla, ln_geglu_ff_plain
+from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla, ln_geglu_ff_plain, ln_geglu_ff_xla
 from emox_torch.ops.groupnorm import group_norm_xla
 
 KERNEL_WRAPPERS = {
     "flash_attn_nlc_fwd": flash_attention_nlc,
+    "flash_attn_nlc_bwd": flash_attention_nlc_bwd,
     "ln_geglu_ff": fused_ln_geglu_ff,
 }
 
@@ -34,14 +41,17 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNEL_MIN_KV",
     "KERNEL_WRAPPERS",
+    "attention_nlc_bwd_plain",
     "attention_nlc_plain",
     "attention_xla",
     "dot_product_attention_nlc",
     "flash_attention_nlc",
+    "flash_attention_nlc_bwd",
     "fused_ln_geglu_ff",
     "geglu_ff_xla",
     "group_norm_xla",
     "launch_counts",
     "ln_geglu_ff_plain",
+    "ln_geglu_ff_xla",
     "reset_launch_counts",
 ]

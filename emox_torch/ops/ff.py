@@ -9,6 +9,11 @@ Counterpart of emox/ops/ff.py. The TPU kernels `_ln_ff_kernel` and
   * on a CPU tensor it runs `ln_geglu_ff_plain`, the same function with the
     kernel's rounding points in plain PyTorch.
 
+`fused_ln_geglu_ff` is an autograd function with the reference's custom
+VJP (`_ln_ff_bwd`): the backward recomputes through `ln_geglu_ff_xla`, the
+plain formula, and differentiates that. The reference has no FF backward
+kernel, so neither has the port.
+
 Weights are in PyTorch's Linear layout: w1 [2F, C] (value rows, then gate
 rows), w2 [C, F]. The reference's erf approximation existed only because
 its kernel compiler had no erf; both versions here use the exact erf.
@@ -32,6 +37,19 @@ def geglu_ff_xla(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.
     their given type, exact-erf gelu."""
     a, g = F.linear(x, w1, b1).chunk(2, dim=-1)
     return F.linear(a * F.gelu(g), w2, b2)
+
+
+def ln_geglu_ff_xla(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
+                    b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """y = x + GEGLU_FF(LayerNorm(x)) as the reference's ln_geglu_ff_xla: fp32
+    statistics, the normalised x cast to x's type, then geglu_ff_xla with
+    the operands in their own type. The recompute target of the backward."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    xn = (xf - mu) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()
+    return x + geglu_ff_xla(xn.to(x.dtype), w1, b1, w2, b2)
 
 
 def ln_geglu_ff_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
@@ -78,16 +96,40 @@ def _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
+class _LnGegluFF(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or its plain version (CPU). Backward:
+    recompute through ln_geglu_ff_xla and differentiate it, as the
+    reference's `_ln_ff_bwd` does."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps: float):
+        if x.is_cuda:
+            y = _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        else:
+            y = ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        needs = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+            y = ln_geglu_ff_xla(*inputs, eps=ctx.eps)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
+        return (*(next(grads) if need else None for need in needs), None)
+
+
 def fused_ln_geglu_ff(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
                       b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       eps: float = 1e-5) -> torch.Tensor:
-    """x + GEGLU_FF(LayerNorm(x)) on x [..., C]. Launches the CUDA kernel for
-    CUDA tensors and runs the plain version for CPU tensors."""
-    if x.is_cuda:
-        return _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-    if x.device.type == "cpu":
-        return ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-    raise ValueError(f"fused_ln_geglu_ff runs on CUDA or CPU tensors, got {x.device}")
+    """x + GEGLU_FF(LayerNorm(x)) on x [..., C], differentiable. Launches the
+    CUDA kernel for CUDA tensors and runs the plain version for CPU tensors."""
+    if not (x.is_cuda or x.device.type == "cpu"):
+        raise ValueError(f"fused_ln_geglu_ff runs on CUDA or CPU tensors, got {x.device}")
+    return _LnGegluFF.apply(x, ln_w, ln_b, w1, b1, w2, b2, float(eps))
 
 
 fused_ln_geglu_ff.launches = 0  # kernel launches since the last reset

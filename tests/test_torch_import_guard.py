@@ -4,7 +4,7 @@ emox_torch and chip_smoke.py run on machines that have no JAX (and no
 PyYAML), so every module of the port is imported in a fresh interpreter
 and the test asserts that none of jax, flax, emox or yaml came in; the
 sources are also scanned for such imports, including those inside
-functions. Entry points run on the CUDA card unless told otherwise, and
+functions; importing the trainer leaves optax and orbax out as well. Entry points run on the CUDA card unless told otherwise, and
 raise rather than fall back to the CPU when there is none.
 """
 
@@ -48,9 +48,21 @@ def test_importing_every_module_pulls_in_no_jax_and_no_emox():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"emox_torch.ops.attention", "emox_torch.ops.ff", "emox_torch.infer.pipeline",
-            "emox_torch.interop.from_flax"} <= set(res["modules"])
+            "emox_torch.interop.from_flax", "emox_torch.train.stages", "emox_torch.train.trainer",
+            "emox_torch.core.dtypes"} <= set(res["modules"])
     leaked = sorted(set(res["roots"]) & set(FORBIDDEN + ("yaml",)))
     assert not leaked, f"importing emox_torch pulled in {leaked}"
+
+
+def test_importing_train_pulls_in_no_jax_optax_orbax_or_yaml():
+    """The trainer runs on the card machine, which has none of these."""
+    probe = "import json, sys, emox_torch.train; print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))"
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    roots = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    leaked = sorted(roots & {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "emox"})
+    assert not leaked, f"importing emox_torch.train pulled in {leaked}"
 
 
 def _imports(path: Path):
@@ -116,13 +128,16 @@ def test_unsupported_options_raise_with_their_roadmap_item():
 def test_kernel_wrappers_never_fall_back_for_cuda_tensors():
     """The wrappers choose by the tensor's device alone: CPU tensors take the
     plain version, other devices raise (a CUDA tensor launches the kernel)."""
-    from emox_torch.ops import flash_attention_nlc, fused_ln_geglu_ff
+    from emox_torch.ops import flash_attention_nlc, flash_attention_nlc_bwd, fused_ln_geglu_ff
 
     meta = torch.zeros(4, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fused_ln_geglu_ff(meta, *(torch.zeros(1, device="meta"),) * 6)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_attention_nlc(meta[None], meta[None], meta[None], 1)
+    lse = torch.zeros(1, 4, 1, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_attention_nlc_bwd(*(meta[None],) * 4, lse, meta[None], 1)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script_alone"])

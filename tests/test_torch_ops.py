@@ -18,8 +18,14 @@ from emox.ops import attention as jattn
 from emox.ops import ff as jff
 from emox.ops import groupnorm as jgn
 from emox_torch import ops
-from emox_torch.ops.attention import attention_nlc_plain, attention_xla, dot_product_attention_nlc
-from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla, ln_geglu_ff_plain
+from emox_torch.ops.attention import (
+    attention_nlc_bwd_plain,
+    attention_nlc_plain,
+    attention_xla,
+    dot_product_attention_nlc,
+    flash_attention_nlc_bwd,
+)
+from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla, ln_geglu_ff_plain, ln_geglu_ff_xla
 from emox_torch.ops.groupnorm import group_norm_xla
 from tests.test_torch_bridge import no_kernel_launches  # noqa: F401 (autouse fixture)
 
@@ -34,7 +40,7 @@ def rel(got, want) -> float:
 
 
 def t(a, dtype=torch.float32):
-    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 
 
 def j(a, dtype=jnp.float32):
@@ -101,6 +107,59 @@ def test_flash_wrapper_rejects_other_devices():
         ops.flash_attention_nlc(q, q, q, 1)
 
 
+# ---- K4: packed flash attention backward ----------------------------------------
+@pytest.mark.parametrize("lq,lk,d", [(50, 200, 64), (64, 64, 64), (50, 200, 128)],
+                         ids=["ragged_lq_lk", "aligned", "d128_ragged"])
+def test_flash_bwd_plain_matches_pallas_interpret(lq, lk, d):
+    """The reference's backward kernels in interpret mode (ragged Lk pads and
+    takes the masked path) against the plain version, from the reference's
+    own forward output and lse."""
+    rng = np.random.default_rng(5)
+    n, heads = 1, 2
+    q, g = (rng.standard_normal((n, lq, heads * d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((n, lk, heads * d)).astype(np.float32) for _ in range(2))
+    scale = d ** -0.5
+    o, lse = jattn._flash_impl_nlc(j(q), j(k), j(v), heads, scale, interpret=True, return_lse=True)
+    want = jattn._flash_bwd_impl_nlc(j(q), j(k), j(v), o, lse, j(g), heads, scale, interpret=True)
+    lse_q = t(np.asarray(lse)[:, :lq])
+    got = attention_nlc_bwd_plain(t(q), t(k), t(v), t(o), lse_q, t(g), heads, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape
+        assert rel(a, b) <= FP32_TOL, name
+    # the public wrapper runs the plain version for CPU tensors and returns
+    # only the gradients asked for
+    dq, dk, dv = flash_attention_nlc_bwd(t(q), t(k), t(v), t(o), lse_q, t(g), heads, need_dkv=False)
+    assert dk is None and dv is None and rel(dq, want[0]) <= FP32_TOL
+
+
+def _loss_weights(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def test_flash_autograd_matches_jax_grad():
+    """Gradients through dot_product_attention_nlc at a kernel site (Lk >=
+    2048, d 64): the autograd function's backward on CPU tensors against
+    jax.grad of the reference's dispatcher."""
+    import jax
+
+    rng = np.random.default_rng(6)
+    n, lq, lk, heads, d = 1, 16, 2048, 2, 64
+    q = rng.standard_normal((n, lq, heads * d)).astype(np.float32)
+    k, v = (rng.standard_normal((n, lk, heads * d)).astype(np.float32) for _ in range(2))
+    w = _loss_weights((n, lq, heads * d), 7)
+    loss = lambda a, b, c: jnp.sum(jattn.dot_product_attention_nlc(a, b, c, heads, impl="xla") * w)
+    want = jax.grad(loss, argnums=(0, 1, 2))(j(q), j(k), j(v))
+    qt, kt, vt = (t(a).requires_grad_() for a in (q, k, v))
+    out = dot_product_attention_nlc(qt, kt, vt, heads)
+    assert type(out.grad_fn).__name__ == "_FlashNLCBackward"  # the kernel's autograd function
+    got = torch.autograd.grad((out * t(w)).sum(), (qt, kt, vt))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert rel(a, b) <= FP32_TOL, name
+    # only q needs a gradient: the backward asks for dq alone
+    (dq,) = torch.autograd.grad((dot_product_attention_nlc(qt, t(k), t(v), heads) * t(w)).sum(), (qt,))
+    assert rel(dq, want[0]) <= FP32_TOL
+
+
 # ---- K2/K3: fused LN + GEGLU + residual -----------------------------------------
 def _ff_inputs(m, c, seed=0):
     rng = np.random.default_rng(seed)
@@ -150,6 +209,29 @@ def test_ff_plain_bf16(block_f):
     got = ln_geglu_ff_plain(*_ff_port_args(p, torch.bfloat16))
     assert got.dtype == torch.bfloat16
     assert rel(got, want) <= BF16_TOL
+
+
+def test_ff_autograd_matches_jax_grad():
+    """The FF autograd function (plain forward on CPU tensors, backward by
+    recompute through ln_geglu_ff_xla) against jax.grad of the reference's
+    ln_geglu_ff_xla, for x and all six weights."""
+    import jax
+
+    p = _ff_inputs(m=40, c=32, seed=4)
+    w = _loss_weights((40, 32), 8)
+    names = ("x", "ln_s", "ln_b", "w1", "b1", "w2", "b2")
+    loss = lambda *a: jnp.sum(jff.ln_geglu_ff_xla(*a) * w)
+    want = jax.grad(loss, argnums=tuple(range(7)))(*_ff_ref_args(p))
+    args = [a.requires_grad_() for a in _ff_port_args(p)]
+    y = fused_ln_geglu_ff(*args)
+    assert type(y.grad_fn).__name__ == "_LnGegluFFBackward"
+    got = torch.autograd.grad((y * t(w)).sum(), args)
+    for name, a, b in zip(names, got, want):
+        b = np.asarray(b)
+        if name in ("w1", "w2"):
+            b = b.T  # flax [in, out] -> Linear [out, in]
+        assert rel(a, b) <= FP32_TOL, name
+    assert rel(ln_geglu_ff_xla(*_ff_port_args(p)), jff.ln_geglu_ff_xla(*_ff_ref_args(p))) <= FP32_TOL
 
 
 def test_geglu_ff_xla_matches():
