@@ -11,7 +11,8 @@ raises and the script exits non-zero. Phases:
   1. build: the card's name and power limit, then the CUDA kernels built
      from emox_torch/csrc (one nvcc per source, in parallel) and timed.
   2. kernels: every kernel held against its plain PyTorch version at the
-     serving and training shapes in bf16 (and once in float32), with max
+     serving and training shapes in bf16 (and in float32; the strided
+     kernels on head-split views of packed tokens), with max
      error against the stated tolerance, kernel / plain / library times
      (CUDA events, after warm-up), the bound (the least time the card could
      take) and, for the feed-forward, its grid against the card's SMs.
@@ -33,7 +34,12 @@ raises and the script exits non-zero. Phases:
      finite, trainable leaves changed and frozen ones not, the kernels'
      launches per step, and one more step under torch.profiler; then stage 3 (batch 2, 8 frames, 3-axis
      speeds and a face mask: 3 steps) the same way.
-  8. the `kernels` line: every ported kernel with the TPU kernel it
+  8. step_sd15, serve_sd15, train_sd15: phases 3, 4 + 5 and 7 (stage 2) on
+     "flagship-sd15", the flagship with the SD-1.5 head layout (8 heads,
+     ResNet time embedding added, text cross-attention fed by the CLIP-L
+     text encoder), every request and step with a text prompt; its level-0
+     sites take the strided kernels (K5) where the flagship takes K1/K4.
+  9. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
@@ -53,7 +59,42 @@ import time
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 BF16_EPS = 2.0 ** -8  # spacing of bf16 values in [1, 2)
-FORWARD_KERNELS = ("flash_attn_nlc_fwd", "ln_geglu_ff")  # the kernels of the serving path
+FORWARD_KERNELS = ("flash_attn_nlc_fwd", "flash_attn_fwd", "ln_geglu_ff")  # the kernels of the serving paths
+# The attention kernels (forward, backward) each configuration's path takes at
+# its level-0 reference-concat sites (Lk 2048): head dim 64 (the flagship) ->
+# the packed kernels K1/K4; head dim 40 (the SD-1.5 head layout) -> the
+# strided kernels K5. Neither path launches the other's.
+ATTN_KERNELS = {"flagship": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"),
+                "flagship-sd15": ("flash_attn_fwd", "flash_attn_bwd")}
+PROMPT = "a person talking to the camera, studio lighting, sharp focus"
+
+
+def model_config(name: str, image_size: int, num_frames: int):
+    """The flagship preset, or with name "flagship-sd15" the flagship with
+    the SD-1.5 head layout and nothing else changed: 8 heads (head dim 40,
+    80, 160), ResNet time embedding added, text cross-attention fed by the
+    CLIP-L text encoder."""
+    import dataclasses
+
+    from emox_torch.core.presets import flagship_config
+
+    cfg = flagship_config(image_size=image_size, num_frames=num_frames)
+    if name == "flagship":
+        return cfg
+    assert name == "flagship-sd15", name
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, attention_heads=8, resnet_temb_mode="add", use_cross_attention=True),
+        clip=dataclasses.replace(cfg.clip, text_enabled=True),
+    )
+
+
+def check_path_launches(name: str, counts: dict, train: bool, what: str) -> None:
+    """Every kernel of the configuration's path launched; the other
+    configuration's attention kernels never."""
+    other = [k for n, ks in ATTN_KERNELS.items() if n != name for k in ks]
+    need = tuple(k for k in FORWARD_KERNELS if k not in other) + ((ATTN_KERNELS[name][1],) if train else ())
+    if min(counts[k] for k in need) <= 0 or any(counts[k] for k in other):
+        raise AssertionError(f"{what}: kernels {need} must launch and {other} must not: {counts}")
 
 
 def emit(obj) -> None:
@@ -207,6 +248,98 @@ def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
     return res
 
 
+def _packed_heads(gen, n, l, heads, d, dtype):
+    """Packed tokens [n, l, heads*d] and their head-split view [n, heads, l, d]
+    (strided, no copy), as the nn modules hand them to the strided kernels."""
+    t = _rand(gen, n, l, heads * d, dtype=dtype)
+    return t.view(n, l, heads, d).transpose(1, 2)
+
+
+def check_flash_strided(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
+    """K5 forward on head-split views of packed tokens against its plain
+    version (fp32 math on the same inputs)."""
+    import torch
+    import torch.nn.functional as F
+    from emox_torch.ops.attention import attention_plain, flash_attention
+
+    dtype = dtype or torch.bfloat16
+    scale = d ** -0.5
+    q, k, v = (_packed_heads(gen, n, l, heads, d, dtype) for l in (lq, lk, lk))
+    assert not q.is_contiguous() and q.stride() == (lq * heads * d, d, heads * d, 1)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = attention_plain(q.float(), k.float(), v.float(), scale)
+    err = (out.float() - ref).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    # as K1: a few bf16 steps at the largest output value; 3xTF32 sums in float32
+    tol = (4 * BF16_EPS * ref.abs().max().item() if dtype == torch.bfloat16
+           else 2e-4 * max(ref.abs().max().item(), 1.0))
+    res = {"kernel": "flash_attn_fwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq, "lk": lk,
+           "c": heads * d, "heads": heads, "head_dim": d, "max_abs_err": err, "tol": tol,
+           "lse_max_abs_err": lse_err, "lse_tol": 1e-3, "out_strides_packed": out.stride() == q.stride()}
+    if not (err <= tol and lse_err <= 1e-3 and math.isfinite(err)):
+        emit(res)
+        raise AssertionError(f"flash_attn_fwd disagrees with its plain version: {res}")
+    if timing:
+        flops = 4.0 * n * heads * lq * lk * d
+        nbytes = q.element_size() * n * heads * d * (2 * lq + 2 * lk) + 4 * n * lq * heads
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["ms"] = time_ms(lambda: flash_attention(q, k, v), iters=20)
+        res["plain_ms"] = time_ms(lambda: attention_plain(q, k, v, scale), iters=3, warmup=1)
+        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=20)
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    emit(res)
+    return res
+
+
+def check_flash_strided_bwd(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
+    """K5 backward: dq, dk, dv of the kernels on head-split views against the
+    plain version (fp32 math on the same inputs), from the fp32 forward's lse
+    and its output rounded to the input type."""
+    import torch
+    import torch.nn.functional as F
+    from emox_torch.ops.attention import attention_bwd_plain, attention_plain, flash_attention_bwd
+
+    dtype = dtype or torch.bfloat16
+    scale = d ** -0.5
+    q, k, v = (_packed_heads(gen, n, l, heads, d, dtype) for l in (lq, lk, lk))
+    dout = _packed_heads(gen, n, lq, heads, d, dtype)
+    o32, lse = attention_plain(q.float(), k.float(), v.float(), scale)
+    o = o32.to(dtype)
+    del o32
+    got = flash_attention_bwd(q, k, v, o, lse, dout, scale)
+    torch.cuda.synchronize()
+    want = attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse, dout.float(), scale)
+    res = {"kernel": "flash_attn_bwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq, "lk": lk,
+           "c": heads * d, "heads": heads, "head_dim": d}
+    ok = True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w).abs().max().item()
+        top = w.abs().max().item()
+        tol = (4 * BF16_EPS if dtype == torch.bfloat16 else 2e-4) * top  # as K4
+        res[f"{name}_max_abs_err"], res[f"{name}_tol"] = err, tol
+        ok = ok and math.isfinite(err) and err <= tol
+    res["max_abs_err"] = max(res[f"{x}_max_abs_err"] for x in ("dq", "dk", "dv"))
+    del got, want
+    if not ok:
+        emit(res)
+        raise AssertionError(f"flash_attn_bwd disagrees with its plain version: {res}")
+    if timing:
+        flops = 10.0 * n * heads * lq * lk * d
+        nbytes = q.element_size() * n * heads * d * (4 * lq + 4 * lk) + 4 * n * lq * heads
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, scale), iters=10)
+        res["plain_ms"] = time_ms(lambda: attention_bwd_plain(q, k, v, o, lse, dout, scale), iters=3, warmup=1)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+        res["library_ms"] = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True),
+                                    iters=10)
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        del out
+    emit(res)
+    return res
+
+
 def check_ff(gen, m, c, dtype=None, timing=True):
     import torch
     from emox_torch.ops.ff import ff_plan, fused_ln_geglu_ff, ln_geglu_ff_plain
@@ -275,6 +408,21 @@ def phase_kernels():
     check_flash_bwd(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
     check_flash_bwd(gen, 2, 1024, 2048, c=256, heads=2, timing=False)
     check_flash_bwd(gen, 4, 1000, 2100, timing=False)
+    # K5 with the SD-1.5 head layout (8 heads), on head-split views of packed
+    # tokens: the reader's level-0 site at 256^2 (d 40) under CFG in serving
+    # and at batch 2 x 8 frames in training; d 80 (level 1 at 512^2), ragged
+    # Lq and Lk, and float32
+    results["flash_strided_n32"] = check_flash_strided(gen, 32, 1024, 2048)
+    results["flash_strided_n16"] = check_flash_strided(gen, 16, 1024, 2048)
+    check_flash_strided(gen, 4, 1024, 2048, d=80, timing=False)
+    check_flash_strided(gen, 4, 1000, 2100, timing=False)
+    check_flash_strided(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
+    check_flash_strided(gen, 2, 1000, 2100, d=80, dtype=torch.float32, timing=False)
+    results["flash_strided_bwd_n16"] = check_flash_strided_bwd(gen, 16, 1024, 2048)
+    check_flash_strided_bwd(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
+    check_flash_strided_bwd(gen, 2, 1024, 2048, d=80, timing=False)
+    check_flash_strided_bwd(gen, 4, 1000, 2100, timing=False)
+    check_flash_strided_bwd(gen, 2, 1000, 2100, d=80, dtype=torch.float32, timing=False)
     return results
 
 
@@ -309,16 +457,17 @@ def _request_inputs(gen, device, size: int, frames: int, dtype):
     return img, wav, speeds, mask
 
 
-def phase_step():
+def phase_step(name: str = "flagship"):
     import torch
-    from emox_torch.core.presets import flagship_config
+    from emox_torch.data.tokenizer import CLIPTokenizer
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, reset_launch_counts
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     size, frames = 256, 2
-    cfg = flagship_config(image_size=size, num_frames=frames)
+    cfg = model_config(name, size, frames)
+    prompted = cfg.clip.text_enabled
     t0 = time.perf_counter()
     cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
     _fill_zero_init(cpu, seed=8)
@@ -331,18 +480,26 @@ def phase_step():
     lat = size // cfg.vae.downscale
     noisy = torch.randn((1, frames, lat, lat, 4), generator=gen)
     t = torch.tensor([500])
+    if prompted:  # the prompt and, for the CFG uncond half, the empty prompt
+        ids = torch.from_numpy(CLIPTokenizer().encode([PROMPT, ""], max_length=cfg.clip.max_positions))
 
     def run(model, dev):
         mv = lambda x: x.to(dev)
         ref = model.encode_images(mv(img))
         audio = model.encode_audio(mv(wav), frames)
         face = model.encode_face_mask(mv(mask), lat)
+        out = {"ref_latent": ref, "audio": audio, "face_feat": face}
+        context = None
+        if prompted:
+            out["context"] = model.encode_text(mv(ids))
+            context = out["context"].flip(0)  # [uncond, cond]
         cat = lambda x: torch.cat([x, x])
-        out = model.predict_noise(
+        out["eps"] = model.predict_noise(
             cat(mv(noisy)), cat(mv(t)), cat(ref), audio_windows=torch.cat([torch.zeros_like(audio), audio]),
-            speeds=cat(mv(speeds)), face_feat=cat(face), ref_dropout=mv(torch.tensor([True, False])),
+            speeds=cat(mv(speeds)), face_feat=cat(face), context=context,
+            ref_dropout=mv(torch.tensor([True, False])),
         )
-        return {"ref_latent": ref, "audio": audio, "face_feat": face, "eps": out}
+        return out
 
     t0 = time.perf_counter()
     on_cpu = run(cpu, "cpu")
@@ -359,14 +516,14 @@ def phase_step():
         got = on_gpu[key].cpu().double()
         rel[key] = (torch.linalg.vector_norm(got - ref.double()) /
                     torch.linalg.vector_norm(ref.double()).clamp_min(1e-30)).item()
-    res = {"phase": "step", "config": "flagship 256^2, 2 frames, CFG-batched, float32",
+    res = {"phase": "step" if name == "flagship" else "step_sd15",
+           "config": f"{name} 256^2, 2 frames, CFG-batched{', prompt' if prompted else ''}, float32",
            "rel_l2": rel, "tol": tol, "launches": counts, "setup_s": setup_s, "cpu_s": cpu_s,
            "gpu_s": gpu_s, "eps_abs_mean": on_cpu["eps"].abs().mean().item()}
     emit(res)
     if not all(math.isfinite(v) and v <= tol for v in rel.values()):
         raise AssertionError(f"card and CPU disagree: {rel}")
-    if min(counts[k] for k in FORWARD_KERNELS) <= 0:
-        raise AssertionError(f"a kernel was not launched by the float32 step: {counts}")
+    check_path_launches(name, counts, train=False, what=f"the float32 {name} step")
     del cpu, gpu, on_cpu, on_gpu
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
@@ -377,12 +534,10 @@ def phase_step():
 _STAGE_LR = {1: 1e-4, 2: 1e-5, 3: 1e-5}  # the reference's stage presets (configs/training/stage{1,2,3}.yaml)
 
 
-def _train_config(stage: int, batch: int, frames: int, dtype: str, checkpoint_dir: str):
+def _train_config(stage: int, batch: int, frames: int, dtype: str, checkpoint_dir: str, name: str = "flagship"):
     import dataclasses
 
-    from emox_torch.core.presets import flagship_config
-
-    cfg = flagship_config(image_size=256, num_frames=frames)
+    cfg = model_config(name, 256, frames)
     return cfg.replace(
         data=dataclasses.replace(cfg.data, batch_size=batch, num_frames=frames),
         train=dataclasses.replace(cfg.train, stage=stage, learning_rate=_STAGE_LR[stage], compute_dtype=dtype,
@@ -460,20 +615,21 @@ def phase_train_step(tmp: str):
     tr_gpu.close()
     if not (loss_rel <= limits["loss_rel"] and grads_rel <= limits["grads_rel_l2"]):
         raise AssertionError(f"card and CPU gradients disagree: loss {loss_rel}, grads {grads_rel}")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched by the float32 train step: {counts}")
+    check_path_launches("flagship", counts, train=True, what="the float32 train step")
     torch.backends.cudnn.allow_tf32 = True
     return res
 
 
-def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, steps: int, out_dir: str = ""):
+def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, steps: int, out_dir: str = "",
+                name: str = "flagship"):
     import torch
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, reset_launch_counts
     from emox_torch.train import Trainer
 
     torch.cuda.empty_cache()
-    cfg = _train_config(stage, batch=batch, frames=frames, dtype="bfloat16", checkpoint_dir=tmp)
+    cfg = _train_config(stage, batch=batch, frames=frames, dtype="bfloat16", checkpoint_dir=tmp, name=name)
+    tag = "" if name == "flagship" else "_sd15"
     t0 = time.perf_counter()
     model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     _fill_zero_init(model, seed=3)  # every trainable leaf of stage 2 gets a gradient from step 1
@@ -499,8 +655,8 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     secs = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    phase_profile(lambda: tr.train_step(data, gen), f"one stage-{stage} train step", out_dir,
-                  f"profile_train_stage{stage}_kernels.json")
+    phase_profile(lambda: tr.train_step(data, gen), f"one {name} stage-{stage} train step", out_dir,
+                  f"profile_train{tag}_stage{stage}_kernels.json")
     unchanged = [n for n in names if torch.equal(tr.state.masters[n].cpu(), before_train[n])]
     # AdamW with decoupled decay leaves a leaf alone only when its gradient
     # and its value are both zero (e.g. zero-init biases of ReferenceNet
@@ -511,8 +667,8 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     frozen_changed = sum(not torch.equal(p.detach().cpu(), before_frozen[n])
                          for n, p in model.modules.named_parameters() if n in before_frozen)
     ms = 1e3 * secs / steps
-    res = {"phase": "train", "stage": stage,
-           "config": f"flagship 256^2 stage {stage}, batch {batch}, {frames} frame(s), bf16 compute, fp32 masters, "
+    res = {"phase": f"train{tag}", "stage": stage,
+           "config": f"{name} 256^2 stage {stage}, batch {batch}, {frames} frame(s), bf16 compute, fp32 masters, "
                      f"AdamW lr {_STAGE_LR[stage]}, remat; {warmup} warm-up + {steps} timed steps",
            "params": sum(p.numel() for p in model.modules.parameters()),
            "trainable_params": sum(m.numel() for m in tr.state.masters.values()),
@@ -531,23 +687,22 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     if stuck or frozen_changed:
         raise AssertionError(f"stage {stage}: trainable leaves left unchanged {stuck[:8]}, "
                              f"{frozen_changed} frozen leaves changed")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"stage {stage}: a kernel of the training path was never launched: {counts}")
+    check_path_launches(name, counts, train=True, what=f"{name} stage {stage} training")
     del tr, model, data
     return res
 
 
 # ---- phase 4 ------------------------------------------------------------------
-def phase_serve(out_dir: str, requests: int = 3, steps: int = 10):
+def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "flagship", prompt=None):
     import torch
-    from emox_torch.core.presets import flagship_config
     from emox_torch.infer.pipeline import EMOPipeline
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, reset_launch_counts
 
     torch.cuda.empty_cache()
     size, frames = 256, 16
-    cfg = flagship_config(image_size=size, num_frames=frames)
+    cfg = model_config(name, size, frames)
+    tag = "" if name == "flagship" else "_sd15"
     t0 = time.perf_counter()
     model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     pipe = EMOPipeline(model)
@@ -565,7 +720,7 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10):
         t0 = time.perf_counter()
         video = pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
                      speeds=speeds, face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(100 + r),
-                     timings=timings)
+                     prompt=prompt, timings=timings)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         finite = bool(torch.isfinite(video.float()).all().item())
@@ -574,29 +729,39 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10):
                             "phases_s": timings, "finite": finite, "shape": shape,
                             "abs_mean": video.float().abs().mean().item()})
         if not finite or shape != [1, frames, size, size, 3]:
-            emit({"phase": "serve", "request": r, **per_request[-1]})
+            emit({"phase": f"serve{tag}", "request": r, **per_request[-1]})
             raise AssertionError(f"request {r}: output finite={finite} shape={shape}")
     counts = launch_counts()
     steady = per_request[1:] or per_request
-    res = {"phase": "serve", "config": "flagship 256^2, 16 frames, CFG 7.5 batched, 10 DDIM steps, bf16",
+    res = {"phase": f"serve{tag}",
+           "config": f"{name} 256^2, 16 frames, CFG 7.5 batched, 10 DDIM steps, bf16"
+                     + (f", prompt {prompt!r}" if prompt is not None else ""),
            "params": n_params, "setup_s": setup_s, "requests": per_request,
            "s_per_request": sum(p["s"] for p in steady) / len(steady),
            "ms_per_step": sum(p["ms_per_step"] for p in steady) / len(steady),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+           "launches_per_request": {k: v / requests for k, v in counts.items()}}
     emit(res)
-    if min(counts[k] for k in FORWARD_KERNELS) <= 0:
-        raise AssertionError(f"a kernel of the serving path was never launched: {counts}")
+    check_path_launches(name, counts, train=False, what=f"{name} serving")
+    if name == "flagship-sd15" and counts["flash_attn_fwd"] != 5 * steps * requests:
+        # the reader's five level-0 sites (down_0_0, down_0_1, up_0_0..2) have Lk 2048 and head
+        # dim 40, once per CFG-batched step; every other site is below the cutoff
+        raise AssertionError(f"flash_attn_fwd launched {counts['flash_attn_fwd']} times, "
+                             f"expected {5 * steps} per request")
     img, wav, speeds, mask = inputs[-1]
     phase_profile(lambda: pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
-                               speeds=speeds, face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(99)),
-                  f"one serving request, {steps} DDIM steps", out_dir, "profile_kernels.json")
+                               speeds=speeds, face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(99),
+                               prompt=prompt),
+                  f"one {name} serving request, {steps} DDIM steps", out_dir, f"profile{tag}_kernels.json")
     return res
 
 
 # ---- phase 5: where the time of a request goes ---------------------------------------
 _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("flash_attn_nlc_fwd", ("flash_attn_nlc_fwd",)),
-    ("flash_attn_nlc_bwd", ("flash_bwd",)),
+    ("flash_attn_fwd", ("flash_fwd::",)),
+    ("flash_attn_bwd", ("flash_bwd_strided::",)),
+    ("flash_attn_nlc_bwd", ("flash_bwd::",)),
     ("ln_geglu_ff", ("ln_geglu_ff",)),
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "wgmma")),
@@ -689,14 +854,24 @@ def main(argv=None) -> int:
         train2 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out)
         train1 = phase_train(tmp, stage=1, batch=4, frames=1, warmup=1, steps=2, out_dir=args.out)
         train3 = phase_train(tmp, stage=3, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out)
+    # the SD-1.5 head layout: its level-0 sites run the strided kernels (K5)
+    phase_step("flagship-sd15")
+    serve_sd15 = phase_serve(args.out, name="flagship-sd15", prompt=PROMPT)["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        train_sd15 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out,
+                                 name="flagship-sd15")
     by_path = {"serve": launches, "train_stage2_per_step": train2["launches_per_step"],
                "train_stage1_per_step": train1["launches_per_step"],
-               "train_stage3_per_step": train3["launches_per_step"]}
+               "train_stage3_per_step": train3["launches_per_step"],
+               "serve_sd15": serve_sd15, "train_sd15_stage2_per_step": train_sd15["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels,
-    # the timed stage-2 training steps for the backward
-    launches = dict(launches, flash_attn_nlc_bwd=train2["launches"]["flash_attn_nlc_bwd"])
+    # the timed stage-2 training steps for the backward; the strided kernels'
+    # on the SD-1.5 head layout's paths
+    launches = dict(launches, flash_attn_nlc_bwd=train2["launches"]["flash_attn_nlc_bwd"],
+                    flash_attn_fwd=serve_sd15["flash_attn_fwd"],
+                    flash_attn_bwd=train_sd15["launches"]["flash_attn_bwd"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    shape = lambda k: {x: k[x] for x in ("n", "lq", "lk", "c", "heads", "m", "f", "row_tile", "grid_blocks",
+    shape = lambda k: {x: k[x] for x in ("n", "lq", "lk", "c", "heads", "head_dim", "m", "f", "row_tile", "grid_blocks",
                                          "smem_bytes", "blocks_per_sm", "sms") if x in k}
 
     def entry(source, replaces, main, others):
@@ -718,6 +893,10 @@ def main(argv=None) -> int:
               kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"]]),
         entry("emox_torch/csrc/flash_attn_nlc_bwd.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
               kern["flash_bwd_n16"], [kern["flash_bwd_n4"]]),
+        entry("emox_torch/csrc/flash_attn.cu", ["emox/ops/attention.py:69"],
+              kern["flash_strided_n32"], [kern["flash_strided_n16"]]),
+        entry("emox_torch/csrc/flash_attn_bwd.cu", ["emox/ops/attention.py:118", "emox/ops/attention.py:160"],
+              kern["flash_strided_bwd_n16"], []),
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

@@ -115,6 +115,35 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, size_t s
   }
 }
 
+// Element strides of one [B, H, L, D] operand whose last dimension is
+// contiguous: element (b, h, row, d) sits at b*b + h*h + row*r + d.
+struct Strides3 {
+  long long b, h, r;
+};
+
+// load_rows for a strided operand whose head dim `cols` is narrower than the
+// tile: columns [cols, cols_pad) of the tile are zero-filled, as are rows at
+// or past `nrows`. Zero columns leave q k^T, P v and every gradient product
+// unchanged, as the TPU kernels' zero pad of the head dim does. `cols`,
+// `cols_pad`, `ld`, `stride` and `src` must keep each 16-byte vector aligned
+// (the wrappers check the pointers and the strides).
+template <typename T>
+__device__ __forceinline__ void load_rows_padded(T* dst, int ld, const T* src, long long stride,
+                                                 int row0, int rows, int nrows, int cols,
+                                                 int cols_pad) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int vpr = cols_pad / VEC;
+  for (int i = threadIdx.x; i < rows * vpr; i += blockDim.x) {
+    const int r = i / vpr;
+    const int cc = (i - r * vpr) * VEC;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (cc < cols && row0 + r < nrows) {
+      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride + cc);
+    }
+    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + cc) = val;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

@@ -3,15 +3,17 @@
 
   * per-clip prep: VAE-encode the reference, encode the audio, pre-encode
     the face mask once;
+  * with a prompt (clip.text_enabled): the prompt and the negative prompt
+    encoded once by the CLIP text encoder (`encode_prompt`);
   * one batched ReferenceNet writer pass for all sampler steps;
   * a DDIM loop, each step one CFG-batched, fully conditioned predict_noise
-    (uncond = no reference + zeroed audio, in the same batch);
+    (uncond = no reference + zeroed audio + the negative prompt's context,
+    in the same batch);
   * VAE decode.
 
 Clips longer than one context window (the windowed sampler), long-video
-continuation, DDIM inversion, prompts, identity embeddings, latent
-interpolation and the two-call CFG program wait for later slices
-(ROADMAP.md).
+continuation, DDIM inversion, identity embeddings, latent interpolation
+and the two-call CFG program wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from emox_torch.core.config import Config
+from emox_torch.data.tokenizer import CLIPTokenizer
 from emox_torch.diffusion.sampler import cfg_combine
 from emox_torch.diffusion.schedule import ddim_step, inference_timesteps, make_schedule
 from emox_torch.models.emo import EMOModel
@@ -42,15 +45,39 @@ class EMOPipeline:
     def _prepare(self, ref_image: torch.Tensor, wav: torch.Tensor, num_frames: int):
         return self.model.encode_images(ref_image), self.model.encode_audio(wav, num_frames)
 
+    def encode_prompt(self, prompt: str, negative_prompt: str = "", tokenizer=None):
+        """Prompt strings -> (context, uncond_context) CLIP embeddings: the
+        prompt and the negative (by default empty) prompt for the CFG uncond
+        half. Requires clip.text_enabled."""
+        if tokenizer is None:
+            tokenizer = self._default_tokenizer = getattr(self, "_default_tokenizer", None) or CLIPTokenizer()
+        ml = min(self.config.clip.max_positions, 77)
+        ids = tokenizer.encode([prompt], max_length=ml)
+        uids = tokenizer.encode([negative_prompt], max_length=ml)
+        vs = self.config.clip.vocab_size
+        hi = int(max(ids.max(), uids.max()))
+        if hi >= vs:
+            raise ValueError(
+                f"tokenizer produced id {hi} but clip.vocab_size={vs}; the "
+                f"tokenizer vocabulary does not match this model's text encoder"
+            )
+        return self.model.encode_text(torch.from_numpy(ids)), self.model.encode_text(torch.from_numpy(uids))
+
     def _model_out(self, latents, t, ref_latent, audio, speeds, face_mask, guidance_scale,
-                   ref_features=None):
+                   context=None, uncond_context=None, ref_features=None):
         """CFG-combined noise prediction for the full latent clip. face_mask
         holds the PRE-ENCODED residual (EMOModel.encode_face_mask). With
         guidance, the uncond half runs in the same batch with no reference
-        (per-sample ref_dropout) and zeroed audio."""
+        (per-sample ref_dropout), zeroed audio and uncond_context in place
+        of context."""
         if guidance_scale == 1.0:
             return self.model.predict_noise(latents, t, ref_latent, audio_windows=audio, speeds=speeds,
-                                            face_feat=face_mask, ref_features=ref_features)
+                                            face_feat=face_mask, context=context, ref_features=ref_features)
+        if context is not None and uncond_context is None:
+            raise ValueError(
+                "prompt-conditioned CFG needs uncond_context (the empty-prompt embedding); "
+                "use EMOPipeline.encode_prompt"
+            )
         b = latents.shape[0]
         cat = lambda x, y: torch.cat([x, y], dim=0)
         drop = torch.cat([torch.ones(b, dtype=torch.bool), torch.zeros(b, dtype=torch.bool)]).to(self.device)
@@ -60,6 +87,7 @@ class EMOPipeline:
             audio_windows=None if audio is None else cat(torch.zeros_like(audio), audio),
             speeds=None if speeds is None else cat(speeds, speeds),
             face_feat=None if face_mask is None else cat(face_mask, face_mask),
+            context=None if context is None else cat(uncond_context, context),
             ref_dropout=drop, ref_features=rf2,
         )
         return cfg_combine(out[:b], out[b:], guidance_scale)
@@ -74,7 +102,8 @@ class EMOPipeline:
 
     # ---- sampler -----------------------------------------------------------
     def _sample_short(self, generator, ref_latent, audio, speeds, face_mask, num_frames, num_steps,
-                      guidance_scale, latents=None, timings: Optional[Dict[str, float]] = None):
+                      guidance_scale, latents=None, context=None, uncond_context=None,
+                      timings: Optional[Dict[str, float]] = None):
         """Single-window DDIM loop. The initial latents are drawn from
         `generator` (the counterpart of the reference's PRNG key) unless
         given."""
@@ -94,7 +123,7 @@ class EMOPipeline:
             tb = torch.full((b,), t, dtype=torch.int64, device=self.device)
             rf = None if feats_all is None else [[x[i] for x in site] for site in feats_all]
             out = self._model_out(latents, tb, ref_latent, audio, speeds, face_mask, guidance_scale,
-                                  ref_features=rf)
+                                  context=context, uncond_context=uncond_context, ref_features=rf)
             latents = ddim_step(self.sched, out, latents, tb,
                                 torch.full((b,), t_prev, dtype=torch.int64, device=self.device),
                                 eta=eta, generator=generator if eta > 0 else None)
@@ -109,6 +138,8 @@ class EMOPipeline:
                          face_mask: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
                          latents: Optional[torch.Tensor] = None,
+                         context: Optional[torch.Tensor] = None,  # [B, Lc, cross_dim] prompt embedding
+                         uncond_context: Optional[torch.Tensor] = None,  # negative-prompt embedding (CFG)
                          timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
         icfg = self.config.inference
         n_frames = video_length or icfg.video_length
@@ -130,23 +161,34 @@ class EMOPipeline:
             speeds = torch.as_tensor(speeds).to(self.device)
         mark("face_mask_s")
         return self._sample_short(generator, ref_latent, audio, speeds, face_mask, n_frames, steps, g,
-                                  latents=latents, timings=timings)
+                                  latents=latents, context=context, uncond_context=uncond_context,
+                                  timings=timings)
 
     @torch.inference_mode()
     def __call__(self, ref_image: torch.Tensor, wav: torch.Tensor, video_length: Optional[int] = None,
                  num_inference_steps: Optional[int] = None, guidance_scale: Optional[float] = None,
                  speeds: Optional[torch.Tensor] = None, face_mask: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None, latents: Optional[torch.Tensor] = None,
-                 interpolation_factor: Optional[int] = None,
+                 interpolation_factor: Optional[int] = None, prompt: Optional[str] = None,
+                 negative_prompt: str = "", tokenizer=None,
                  timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
-        """Returns video frames [B, T, H, W, 3] in [-1, 1]. `latents` injects
-        the initial noise; `timings`, when given, is filled with the seconds
-        of each phase (the device is synchronised at each phase boundary)."""
+        """Returns video frames [B, T, H, W, 3] in [-1, 1]. `prompt` is
+        tokenized and CLIP-encoded, and the denoiser's text cross-attention
+        reads it (the CFG uncond half reads `negative_prompt`; requires
+        clip.text_enabled). `latents` injects the initial noise; `timings`,
+        when given, is filled with the seconds of each phase (the device is
+        synchronised at each phase boundary)."""
         f = interpolation_factor or self.config.inference.interpolation_factor
         if f > 1:
             raise NotImplementedError("latent interpolation waits for a later slice of the port (ROADMAP.md)")
+        mark = _Marks(self.device, timings)
+        context = uncond_context = None
+        if prompt is not None:
+            context, uncond_context = self.encode_prompt(prompt, negative_prompt, tokenizer)
+            mark("prompt_s")
         lat = self.generate_latents(ref_image, wav, video_length, num_inference_steps, guidance_scale,
-                                    speeds, face_mask, generator, latents=latents, timings=timings)
+                                    speeds, face_mask, generator, latents=latents, context=context,
+                                    uncond_context=uncond_context, timings=timings)
         mark = _Marks(self.device, timings)
         video = self.model.decode_latents(lat, chunk=self.config.inference.decode_chunk)
         mark("decode_s")

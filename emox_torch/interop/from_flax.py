@@ -9,12 +9,15 @@ depends only on the leaf (the reverse of emox/interop/torch_import.py):
   Conv `kernel` HWIO                 Conv `weight`       -> OIHW
   1-D Conv `kernel` (k, I/g, O)      Conv `weight`       -> (O, I/g, k)
   norm `scale`                       norm `weight`       rename only
-  `bias`, `null_context`             same name           none
+  Embed `embedding` [num, features]  Embed `weight`      rename only
+  `bias`, `null_context`,            same name           none
+  `position_embedding`
 
-Submodels: vae, reference_net, denoiser, audio_encoder. face_locator and
-landmarker are skipped until their modules are ported. Any other
-top-level entry, any leaf that maps to no parameter, any shape mismatch,
-and any port parameter left unset raises.
+Submodels: vae, reference_net, denoiser, audio_encoder, and clip_text when
+the model has one (clip.text_enabled). face_locator and landmarker are
+skipped until their modules are ported. Any other top-level entry, any
+leaf that maps to no parameter, any shape mismatch, and any port parameter
+left unset raises.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-SUBMODELS = ("vae", "reference_net", "denoiser", "audio_encoder")
+SUBMODELS = ("vae", "reference_net", "denoiser", "audio_encoder")  # always present
+OPTIONAL_SUBMODELS = ("clip_text",)  # present when the config enables them
 SKIPPED = ("face_locator", "landmarker")
 
 
@@ -50,9 +54,9 @@ def _convert(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
         else:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {a.ndim} has no port mapping")
         leaf = "weight"
-    elif leaf == "scale":
+    elif leaf in ("scale", "embedding"):
         leaf = "weight"
-    elif leaf not in ("bias", "null_context"):
+    elif leaf not in ("bias", "null_context", "position_embedding"):
         raise ValueError(f"{'/'.join(path)}: leaf {leaf!r} has no port mapping")
     return ".".join([*mods, leaf]), np.array(a, copy=True, order="C")
 
@@ -60,10 +64,10 @@ def _convert(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
 def from_flax(params: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     """{submodel: flax param tree} -> {submodel: state dict} (float tensors
     in the leaves' own type, on the CPU)."""
-    extra = set(params) - set(SUBMODELS) - set(SKIPPED)
+    extra = set(params) - set(SUBMODELS) - set(OPTIONAL_SUBMODELS) - set(SKIPPED)
     if extra:
         raise ValueError(f"no port mapping for top-level params {sorted(extra)}")
-    return {name: state_dict_from_flax(params[name]) for name in SUBMODELS if name in params}
+    return {name: state_dict_from_flax(params[name]) for name in SUBMODELS + OPTIONAL_SUBMODELS if name in params}
 
 
 def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -98,11 +102,12 @@ def load_module(module: nn.Module, tree: Dict[str, Any], name: str = "module") -
 def load_flax(modules: nn.Module, params: Dict[str, Any]) -> None:
     """Copy a reference param tree into `modules` (an EMOModules), submodel
     by submodel (see load_module)."""
-    extra = set(params) - set(SUBMODELS) - set(SKIPPED)
+    present = SUBMODELS + tuple(n for n in OPTIONAL_SUBMODELS if getattr(modules, n, None) is not None)
+    extra = set(params) - set(present) - set(SKIPPED)
     if extra:
         raise ValueError(f"no port mapping for top-level params {sorted(extra)}")
-    missing = [n for n in SUBMODELS if n not in params]
+    missing = [n for n in present if n not in params]
     if missing:
         raise ValueError(f"param tree lacks submodels {missing}")
-    for name in SUBMODELS:
+    for name in present:
         load_module(getattr(modules, name), params[name], name)

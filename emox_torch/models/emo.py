@@ -12,8 +12,11 @@ run with autograd as the caller has it, so they take a gradient once
 here `decode_latents`, `reference_outputs_for_steps`, `encode_face_mask`)
 run under `torch.inference_mode`.
 
-The face locator, landmarker, ControlNet and CLIP encoders wait for later
-slices (ROADMAP.md).
+With clip.text_enabled the CLIP text encoder (`clip_text`) is built too:
+`encode_text` turns prompt ids into the context the denoiser's text
+cross-attention reads (`predict_noise(context=...)`). The face locator,
+landmarker, ControlNet and the CLIP vision encoder wait for later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch.nn as nn
 from emox_torch.core.config import Config
 from emox_torch.core.device import resolve_device
 from emox_torch.models.audio import AudioEncoder, align_audio_to_frames, audio_feature_rate
+from emox_torch.models.clip import CLIPTextEncoder
 from emox_torch.models.unet import UNet, UNetOutputs, check_supported, reference_net_config
 from emox_torch.models.vae import AutoencoderKL
 from emox_torch.nn.layers import init_weights
@@ -35,8 +39,11 @@ Banks = List[List[torch.Tensor]]
 
 def _check_config(config: Config) -> None:
     check_supported(config.model)
-    if config.clip.text_enabled or config.clip.vision_enabled:
-        raise NotImplementedError("clip.*: the CLIP encoders wait for a later slice of the port (ROADMAP.md, Queue 1 item 7)")
+    if config.clip.vision_enabled:
+        raise NotImplementedError(
+            "clip.vision_enabled: the CLIP vision encoder waits for a later slice of the port "
+            "(ROADMAP.md, Queue 1 item 7)"
+        )
 
 
 class EMOModules(nn.Module):
@@ -49,6 +56,7 @@ class EMOModules(nn.Module):
         self.reference_net = UNet(reference_net_config(config.model), face_mask_downs=face_downs)
         self.denoiser = UNet(config.model, face_mask_downs=face_downs)
         self.audio_encoder = AudioEncoder(config.audio)
+        self.clip_text = CLIPTextEncoder(config.clip) if config.clip.text_enabled else None
 
 
 class EMOModel:
@@ -146,6 +154,14 @@ class EMOModel:
         return align_audio_to_frames(feats, num_frames, audio_feature_rate(cfg), cfg.video_fps, cfg.context_frames)
 
     @torch.inference_mode()
+    def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """CLIP token ids [B, L] -> per-token embeddings [B, L, C], the
+        context of the denoiser's text cross-attention."""
+        if self.modules.clip_text is None:
+            raise ValueError("clip.text_enabled is False in this config")
+        return self.modules.clip_text(torch.as_tensor(input_ids).to(self.device).long())
+
+    @torch.inference_mode()
     def encode_face_mask(self, face_mask: torch.Tensor, latent_size: int) -> torch.Tensor:
         """Pre-encode the face-region mask residual once per clip; pass the
         result as predict_noise(face_feat=...)."""
@@ -165,6 +181,7 @@ class EMOModel:
         audio_windows: Optional[torch.Tensor] = None,  # [B, T, A, D]
         speeds: Optional[torch.Tensor] = None,  # [B, T] or [B, T, axes]
         face_mask: Optional[torch.Tensor] = None,  # [B, H, W, 1]
+        context: Optional[torch.Tensor] = None,  # [B, Lc, cross_dim] CLIP text tokens
         ref_dropout: Optional[torch.Tensor] = None,  # [B] bool, True = sample sees no ref
         ref_features: Optional[Banks] = None,  # precomputed writer banks
         face_feat: Optional[torch.Tensor] = None,  # pre-encoded mask residual
@@ -176,6 +193,7 @@ class EMOModel:
         opt = lambda x: None if x is None else self._in(x)
         out = self.modules.denoiser(
             self._in(noisy_latents), timesteps,
+            context=opt(context),
             ref_features=ref_feats,
             audio=opt(audio_windows),
             speeds=None if speeds is None else torch.as_tensor(speeds).to(self.device),

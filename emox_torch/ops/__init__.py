@@ -1,6 +1,12 @@
 """Ops: the hand-written CUDA kernels, their plain versions, and plain ops.
 
 Kernels (each wrapper counts its launches in `.launches`):
+  * flash_attention         -> csrc/flash_attn.cu (TPU `_flash_kernel`):
+                               [B, H, L, D] operands with strides
+  * flash_attention_bwd     -> csrc/flash_attn_bwd.cu (TPU
+                               `_flash_bwd_dq_kernel` and
+                               `_flash_bwd_dkv_kernel`); the backward of
+                               flash_attention
   * flash_attention_nlc     -> csrc/flash_attn_nlc.cu (TPU `_flash_nlc_kernel`)
   * flash_attention_nlc_bwd -> csrc/flash_attn_nlc_bwd.cu (TPU
                                `_flash_bwd_nlc_dq_kernel` and
@@ -12,10 +18,15 @@ Kernels (each wrapper counts its launches in `.launches`):
 
 from emox_torch.ops.attention import (
     KERNEL_MIN_KV,
+    attention_bwd_plain,
     attention_nlc_bwd_plain,
     attention_nlc_plain,
+    attention_plain,
     attention_xla,
+    dot_product_attention,
     dot_product_attention_nlc,
+    flash_attention,
+    flash_attention_bwd,
     flash_attention_nlc,
     flash_attention_nlc_bwd,
 )
@@ -23,6 +34,8 @@ from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla, ln_geglu_ff_plain
 from emox_torch.ops.groupnorm import group_norm_xla
 
 KERNEL_WRAPPERS = {
+    "flash_attn_fwd": flash_attention,
+    "flash_attn_bwd": flash_attention_bwd,
     "flash_attn_nlc_fwd": flash_attention_nlc,
     "flash_attn_nlc_bwd": flash_attention_nlc_bwd,
     "ln_geglu_ff": fused_ln_geglu_ff,
@@ -41,10 +54,15 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNEL_MIN_KV",
     "KERNEL_WRAPPERS",
+    "attention_bwd_plain",
     "attention_nlc_bwd_plain",
     "attention_nlc_plain",
+    "attention_plain",
     "attention_xla",
+    "dot_product_attention",
     "dot_product_attention_nlc",
+    "flash_attention",
+    "flash_attention_bwd",
     "flash_attention_nlc",
     "flash_attention_nlc_bwd",
     "fused_ln_geglu_ff",

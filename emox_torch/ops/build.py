@@ -29,8 +29,11 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)  # an array of element strides
 # library -> {C function: argtypes}; the first function launches the kernel
 KERNELS = {
+    "flash_attn": {"emox_flash_attn_fwd": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _I, _P]},
+    "flash_attn_bwd": {"emox_flash_attn_bwd": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _I, _P]},
     "flash_attn_nlc": {"emox_flash_attn_nlc_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P]},
     "flash_attn_nlc_bwd": {"emox_flash_attn_nlc_bwd": [_P] * 9 + [_I] * 5 + [_F, _I, _P]},
     "ln_geglu_ff": {"emox_ln_geglu_ff": [_P] * 8 + [_I] * 3 + [_F, _I, _P],

@@ -35,15 +35,30 @@ def no_kernel_launches():
     ops.reset_launch_counts()
     yield
     counts = ops.launch_counts()
-    assert set(counts) == {"flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "ln_geglu_ff"}
+    assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "ln_geglu_ff"}
     assert not any(counts.values()), counts
 
 
+# the SD-1.5 head layout's overrides (flagship-sd15: attention_heads=8,
+# resnet_temb_mode="add", use_cross_attention=True, clip.text_enabled=True)
+# at tiny widths: 2 heads of dim 8, a 2-layer CLIP text encoder as wide as
+# the cross-attention context, the real CLIP vocabulary size (the tokenizer's
+# ids go up to 49407)
+SD15_MODEL = dict(attention_heads=2, resnet_temb_mode="add", use_cross_attention=True, cross_attention_dim=16)
+SD15_CLIP = dict(text_enabled=True, vocab_size=49408, text_hidden_dim=16, text_layers=2, text_heads=2,
+                 max_positions=24)
+
+
 def configs(name: str):
-    """(reference Config, port Config) for 'tiny' or 'small_flag' (small with
-    the flagship's options: no text cross-attention, 3-axis speeds)."""
+    """(reference Config, port Config) for 'tiny', 'tiny_sd15' (tiny with
+    the SD-1.5 head layout and a CLIP text encoder) or 'small_flag' (small
+    with the flagship's options: no text cross-attention, 3-axis speeds)."""
     if name == "tiny":
         return jpresets.tiny_config(IMAGE, FRAMES), tpresets.tiny_config(IMAGE, FRAMES)
+    if name == "tiny_sd15":
+        return tuple(c.replace(model=dataclasses.replace(c.model, **SD15_MODEL),
+                               clip=dataclasses.replace(c.clip, **SD15_CLIP))
+                     for c in (jpresets.tiny_config(IMAGE, FRAMES), tpresets.tiny_config(IMAGE, FRAMES)))
     jc, tc = jpresets.small_config(IMAGE, FRAMES), tpresets.small_config(IMAGE, FRAMES)
     flags = dict(use_cross_attention=False, speed_axes=3)
     return (jc.replace(model=dataclasses.replace(jc.model, **flags)),
@@ -107,7 +122,7 @@ def _leaf_paths(tree, prefix=()):
             yield prefix + (k,)
 
 
-@pytest.fixture(scope="module", params=["tiny", "small_flag"])
+@pytest.fixture(scope="module", params=["tiny", "small_flag", "tiny_sd15"])
 def bundle(request):
     return (request.param, *model_params(request.param))
 
@@ -115,8 +130,9 @@ def bundle(request):
 def test_from_flax_maps_every_leaf(bundle):
     name, _, params, _ = bundle
     state = from_flax(params)
-    assert set(state) == set(SUBMODELS)
-    for sub in SUBMODELS:
+    subs = SUBMODELS + (("clip_text",) if name == "tiny_sd15" else ())
+    assert set(state) == set(subs)
+    for sub in subs:
         assert len(state[sub]) == len(list(_leaf_paths(params[sub]))), sub
 
 
@@ -125,9 +141,18 @@ def test_load_sets_every_port_parameter(bundle):
     unset; the values arrive transposed as the table in from_flax says."""
     name, _, params, tcfg = bundle
     model = EMOModel(tcfg, device="cpu", seed=123).load_flax(params)
-    for sub in SUBMODELS:
+    subs = SUBMODELS + (("clip_text",) if name == "tiny_sd15" else ())
+    for sub in subs:
         own = getattr(model.modules, sub).state_dict()
         assert len(own) == len(list(_leaf_paths(params[sub])))
+    if name == "tiny_sd15":  # nn.Embed's table and the position embedding arrive as they are
+        clip = params["clip_text"]
+        np.testing.assert_array_equal(model.modules.clip_text.token_embedding.weight.numpy(),
+                                      np.asarray(clip["token_embedding"]["embedding"]))
+        np.testing.assert_array_equal(model.modules.clip_text.position_embedding.detach().numpy(),
+                                      np.asarray(clip["position_embedding"]))
+        np.testing.assert_array_equal(model.modules.clip_text.layer_0.attn.to_q.weight.numpy(),
+                                      np.asarray(clip["layer_0"]["attn"]["to_q"]["kernel"]).T)
     den = params["denoiser"]
     np.testing.assert_array_equal(model.modules.denoiser.conv_in.weight.numpy(),
                                   np.asarray(den["conv_in"]["kernel"]).transpose(3, 2, 0, 1))

@@ -49,7 +49,7 @@ def test_importing_every_module_pulls_in_no_jax_and_no_emox():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"emox_torch.ops.attention", "emox_torch.ops.ff", "emox_torch.infer.pipeline",
             "emox_torch.interop.from_flax", "emox_torch.train.stages", "emox_torch.train.trainer",
-            "emox_torch.core.dtypes"} <= set(res["modules"])
+            "emox_torch.core.dtypes", "emox_torch.data.tokenizer", "emox_torch.models.clip"} <= set(res["modules"])
     leaked = sorted(set(res["roots"]) & set(FORBIDDEN + ("yaml",)))
     assert not leaked, f"importing emox_torch pulled in {leaked}"
 
@@ -63,6 +63,23 @@ def test_importing_train_pulls_in_no_jax_optax_orbax_or_yaml():
     roots = set(json.loads(out.stdout.strip().splitlines()[-1]))
     leaked = sorted(roots & {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "emox"})
     assert not leaked, f"importing emox_torch.train pulled in {leaked}"
+
+
+@pytest.mark.parametrize("module", ["emox_torch.data.tokenizer", "emox_torch.models.clip",
+                                    "emox_torch.infer.pipeline"])
+def test_prompt_path_pulls_in_no_regex(module):
+    """The card machine has no `regex` package (the reference tokenizer's
+    word splitter): the port's tokenizer, CLIP encoder and pipeline, and a
+    prompt tokenized through them, must not import it."""
+    probe = (f"import json, sys, {module}; from emox_torch.data.tokenizer import CLIPTokenizer; "
+             "CLIPTokenizer().encode(['x² ½ café 中文 it\\'s 42']); "
+             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    roots = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    leaked = sorted(roots & {"regex", "jax", "flax", "yaml", "emox"})
+    assert not leaked, f"importing {module} pulled in {leaked}"
 
 
 def _imports(path: Path):
@@ -120,16 +137,26 @@ def test_unsupported_options_raise_with_their_roadmap_item():
         bad = cfg.replace(model=dataclasses.replace(cfg.model, **{field: True}))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EMOModel(bad, device="cpu")
-    bad = cfg.replace(clip=dataclasses.replace(cfg.clip, text_enabled=True))
+    bad = cfg.replace(clip=dataclasses.replace(cfg.clip, vision_enabled=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EMOModel(bad, device="cpu")
+    # the CLIP text encoder is ported: text_enabled builds it
+    text = cfg.replace(clip=dataclasses.replace(cfg.clip, text_enabled=True, text_hidden_dim=8, text_layers=1,
+                                                text_heads=2, vocab_size=64, max_positions=8))
+    assert EMOModel(text, device="cpu").modules.clip_text is not None
 
 
 def test_kernel_wrappers_never_fall_back_for_cuda_tensors():
     """The wrappers choose by the tensor's device alone: CPU tensors take the
     plain version, other devices raise (a CUDA tensor launches the kernel)."""
-    from emox_torch.ops import flash_attention_nlc, flash_attention_nlc_bwd, fused_ln_geglu_ff
+    from emox_torch.ops import (flash_attention, flash_attention_bwd, flash_attention_nlc, flash_attention_nlc_bwd,
+                                fused_ln_geglu_ff)
 
+    strided = torch.zeros(1, 2, 4, 40, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_attention(strided, strided, strided)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_attention_bwd(*(strided,) * 4, torch.zeros(1, 2, 4, device="meta"), strided)
     meta = torch.zeros(4, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fused_ln_geglu_ff(meta, *(torch.zeros(1, device="meta"),) * 6)

@@ -19,10 +19,14 @@ from emox.ops import ff as jff
 from emox.ops import groupnorm as jgn
 from emox_torch import ops
 from emox_torch.ops.attention import (
+    attention_bwd_plain,
     attention_nlc_bwd_plain,
     attention_nlc_plain,
+    attention_plain,
     attention_xla,
     dot_product_attention_nlc,
+    flash_attention,
+    flash_attention_bwd,
     flash_attention_nlc_bwd,
 )
 from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla, ln_geglu_ff_plain, ln_geglu_ff_xla
@@ -158,6 +162,150 @@ def test_flash_autograd_matches_jax_grad():
     # only q needs a gradient: the backward asks for dq alone
     (dq,) = torch.autograd.grad((dot_product_attention_nlc(qt, t(k), t(v), heads) * t(w)).sum(), (qt,))
     assert rel(dq, want[0]) <= FP32_TOL
+
+
+# ---- K5: strided flash attention on [B, H, L, D] -------------------------------------
+K5_CASES = [(128, 256, 40), (128, 256, 80), (1000, 2100, 40)]
+K5_IDS = ["d40", "d80", "ragged_lq1000_lk2100"]
+
+
+def _k5_inputs(lq, lk, d, seed, b=1, h=2):
+    rng = np.random.default_rng(seed)
+    q, g = (rng.standard_normal((b, h, lq, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, h, lk, d)).astype(np.float32) for _ in range(2))
+    return q, k, v, g
+
+
+def _lse_bhl(lse, b, h, lq):
+    """The reference's lse (B*H, 1, Lq_pad) -> the port's [B, H, Lq]."""
+    return np.asarray(lse)[:, 0, :lq].reshape(b, h, lq)
+
+
+def _head_split_view(a):
+    """[B, H, L, D] numpy -> the same values as a strided head-split view of
+    packed [B, L, H*D] tokens, as the nn modules pass them."""
+    b, h, l, d = a.shape
+    packed = t(a.transpose(0, 2, 1, 3).reshape(b, l, h * d))
+    view = packed.view(b, l, h, d).transpose(1, 2)
+    assert not view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("lq,lk,d", K5_CASES, ids=K5_IDS)
+def test_flash_strided_plain_matches_pallas_interpret(lq, lk, d):
+    """The plain version of flash_attn_fwd against the reference's _flash_kernel
+    in interpret mode (head dim padded to 128 there, Lk padded and masked on
+    the ragged case): out and lse."""
+    q, k, v, _ = _k5_inputs(lq, lk, d, seed=11)
+    scale = d ** -0.5
+    want, want_lse = jattn._flash_impl(j(q), j(k), j(v), scale, interpret=True, return_lse=True)
+    got, got_lse = attention_plain(t(q), t(k), t(v), scale)
+    assert rel(got, want) <= FP32_TOL
+    assert got_lse.shape == (1, 2, lq)
+    assert rel(got_lse, _lse_bhl(want_lse, 1, 2, lq)) <= FP32_TOL
+    # the public wrapper on head-split views of packed tokens (CPU: the plain version)
+    out, lse = flash_attention(*(_head_split_view(a) for a in (q, k, v)), return_lse=True)
+    assert rel(out, want) <= FP32_TOL and rel(lse, _lse_bhl(want_lse, 1, 2, lq)) <= FP32_TOL
+
+
+@pytest.mark.parametrize("lq,lk,d", K5_CASES, ids=K5_IDS)
+def test_flash_strided_bwd_plain_matches_pallas_interpret(lq, lk, d):
+    """The plain version of flash_attn_bwd against the reference's dq and dk/dv
+    kernels in interpret mode, from the reference's own forward output and
+    lse; the wrapper returns only the gradients asked for."""
+    q, k, v, g = _k5_inputs(lq, lk, d, seed=12)
+    scale = d ** -0.5
+    o, lse = jattn._flash_impl(j(q), j(k), j(v), scale, interpret=True, return_lse=True)
+    want = jattn._flash_bwd_impl(j(q), j(k), j(v), o, lse, j(g), scale, interpret=True)
+    lse_t = t(_lse_bhl(lse, 1, 2, lq))
+    got = attention_bwd_plain(t(q), t(k), t(v), t(o), lse_t, t(g), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape
+        assert rel(a, b) <= FP32_TOL, name
+    dq, dk, dv = flash_attention_bwd(t(q), t(k), t(v), t(o), lse_t, t(g), need_dq=False)
+    assert dq is None and rel(dk, want[1]) <= FP32_TOL and rel(dv, want[2]) <= FP32_TOL
+
+
+def test_flash_strided_autograd_matches_jax_grad():
+    """The autograd function flash_attention (forward and backward plain on
+    CPU tensors) against jax.grad through the reference's flash_attention,
+    its Pallas kernels in interpret mode; inputs are head-split views."""
+    import jax
+
+    q, k, v, _ = _k5_inputs(96, 160, 40, seed=13, b=2)
+    w = _loss_weights(q.shape, 14)
+    loss = lambda a, b, c: jnp.sum(jattn.flash_attention(a, b, c, interpret=True) * w)
+    want = jax.grad(loss, argnums=(0, 1, 2))(j(q), j(k), j(v))
+    qt, kt, vt = (_head_split_view(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention(qt, kt, vt)
+    assert type(out.grad_fn).__name__ == "_FlashBackward"  # the kernels' autograd function
+    got = torch.autograd.grad((out * t(w)).sum(), (qt, kt, vt))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert rel(a, b) <= FP32_TOL, name
+    # only k and v need gradients: the backward asks for dk/dv alone
+    dk, dv = torch.autograd.grad((flash_attention(t(q), kt, vt) * t(w)).sum(), (kt, vt))
+    assert rel(dk, want[1]) <= FP32_TOL and rel(dv, want[2]) <= FP32_TOL
+
+
+# (Lk, head dim) -> the route the reference's impl="auto" dispatch takes with
+# the cutoff lowered to 64: the packed kernel (d % 64 == 0), the strided
+# kernel (other head dims), or plain XLA (Lk below the cutoff)
+ROUTE_CASES = [(64, 64, "packed"), (64, 40, "strided"), (96, 80, "strided"), (32, 40, "plain"), (32, 64, "plain")]
+
+
+@pytest.mark.parametrize("lk,d,route", ROUTE_CASES, ids=[f"lk{a}_d{b}_{c}" for a, b, c in ROUTE_CASES])
+def test_dispatch_routes_like_the_reference_auto_dispatch(monkeypatch, lk, d, route):
+    """With both cutoffs lowered, the port's dot_product_attention_nlc takes
+    the kernel the reference's dot_product_attention_nlc(impl="auto") takes
+    (spied on both sides), and both compute the same values."""
+    from emox_torch.ops import attention as tattn
+
+    taken = {"ref": [], "port": []}
+
+    def spy(side, label, fn):
+        def run(*a, **kw):
+            taken[side].append(label)
+            return fn(*a, **kw)
+        return run
+
+    ref_nlc, ref_flash = jattn.flash_attention_nlc, jattn.flash_attention  # run in interpret mode
+    monkeypatch.setattr(jattn, "_PALLAS_MIN_KV", 64)
+    monkeypatch.setattr(jattn, "flash_attention_nlc", spy(
+        "ref", "packed", lambda q, k, v, heads, scale=None, interpret=False: ref_nlc(q, k, v, heads, scale, True)))
+    monkeypatch.setattr(jattn, "flash_attention", spy(
+        "ref", "strided", lambda q, k, v, scale=None, interpret=False: ref_flash(q, k, v, scale, True)))
+    monkeypatch.setattr(jattn, "attention_xla", spy("ref", "plain", jattn.attention_xla))
+    monkeypatch.setattr(tattn, "KERNEL_MIN_KV", 64)
+    monkeypatch.setattr(tattn, "flash_attention_nlc", spy("port", "packed", tattn.flash_attention_nlc))
+    monkeypatch.setattr(tattn, "flash_attention", spy("port", "strided", tattn.flash_attention))
+    monkeypatch.setattr(tattn, "attention_xla", spy("port", "plain", tattn.attention_xla))
+    rng = np.random.default_rng(15)
+    n, lq, heads = 2, 24, 2
+    q, k, v = (rng.standard_normal((n, l, heads * d)).astype(np.float32) for l in (lq, lk, lk))
+    want = jattn.dot_product_attention_nlc(j(q), j(k), j(v), heads, impl="auto")
+    got = tattn.dot_product_attention_nlc(t(q), t(k), t(v), heads)
+    assert taken["ref"] == taken["port"] == [route]
+    assert rel(got, want) <= FP32_TOL
+
+
+def test_strided_wrapper_checks_head_dim_and_row_alignment():
+    """What the strided kernels refuse is refused before any launch: head
+    dims other than 40 and 80 (named), and rows that are not contiguous and
+    16-byte aligned."""
+    from emox_torch.ops.attention import _check_rows, _check_strided_inputs
+
+    x = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="head_dim 40 or 80, got 64"):
+        _check_strided_inputs("flash_attn_fwd", x, x, x)
+    y = torch.zeros(1, 2, 8, 40)
+    assert _check_strided_inputs("flash_attn_fwd", y, y, y) == (1, 2, 8, 8, 40)
+    _check_rows("flash_attn_fwd", q=torch.zeros(1, 8, 2 * 40).view(1, 8, 2, 40).transpose(1, 2))
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        _check_rows("flash_attn_fwd", q=torch.zeros(1, 2, 8, 41)[..., :40])  # row stride 41 floats
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        _check_rows("flash_attn_fwd", q=torch.zeros(1, 2, 40, 8).transpose(-1, -2))  # head dim not contiguous
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_attention(*(torch.zeros(1, 2, 8, 40, device="meta"),) * 3)
 
 
 # ---- K2/K3: fused LN + GEGLU + residual -----------------------------------------
