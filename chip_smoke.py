@@ -39,7 +39,21 @@ raises and the script exits non-zero. Phases:
      ResNet time embedding added, text cross-attention fed by the CLIP-L
      text encoder), every request and step with a text prompt; its level-0
      sites take the strided kernels (K5) where the flagship takes K1/K4.
-  9. the `kernels` line: every ported kernel with the TPU kernel it
+  9. step_norms, serve_norms, serve_norms_fast, train_step_norms,
+     train_norms: the flagship under the reference's fused-norm switches.
+     The float32 step, card against CPU, with EMOX_GROUPNORM_IMPL=pallas and
+     EMOX_LN_QKV=1, then with fast, EMOX_LN_QKV=1 and EMOX_FUSED_QKV=1;
+     three requests and a profiled one under pallas + EMOX_LN_QKV=1, with
+     the launches of GroupNorm (K8a) and LN + q/k/v (K7) asserted at the
+     counts the code gives (norm_launches_per_request); one request under
+     fast (K8b at its count, K8a at 0); the float32 stage-2 loss and
+     gradients, card against CPU, and stage 2 in bf16 (as phase 7) under
+     pallas + EMOX_LN_QKV=1. Each phase sets its switches and restores the
+     environment; every other phase runs with them unset and asserts 0
+     launches of K7, K8a and K8b. The kernels phase holds K8a, K8b and K7
+     against their plain versions too, and every profile reports the device
+     time of the GroupNorm and LayerNorm calls (norm_ranges_ms).
+ 10. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
@@ -48,6 +62,7 @@ last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -57,6 +72,7 @@ import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 BF16_EPS = 2.0 ** -8  # spacing of bf16 values in [1, 2)
 FORWARD_KERNELS = ("flash_attn_nlc_fwd", "flash_attn_fwd", "ln_geglu_ff")  # the kernels of the serving paths
@@ -67,6 +83,14 @@ FORWARD_KERNELS = ("flash_attn_nlc_fwd", "flash_attn_fwd", "ln_geglu_ff")  # the
 ATTN_KERNELS = {"flagship": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"),
                 "flagship-sd15": ("flash_attn_fwd", "flash_attn_bwd")}
 PROMPT = "a person talking to the camera, studio lighting, sharp focus"
+# The reference's fused-norm switches, off (unset) in every phase but the *_norms
+# ones, and the kernel each selects. NORMS is the configuration served and
+# trained under them; NORMS_FAST its GroupNorm alternative (K8b), with the
+# concatenated self-attention projection as well.
+SWITCH_VARS = ("EMOX_GROUPNORM_IMPL", "EMOX_LN_QKV", "EMOX_FUSED_QKV")
+SWITCH_KERNELS = ("group_norm", "group_norm_stats", "ln_qkv")
+NORMS = {"EMOX_GROUPNORM_IMPL": "pallas", "EMOX_LN_QKV": "1"}
+NORMS_FAST = {"EMOX_GROUPNORM_IMPL": "fast", "EMOX_LN_QKV": "1", "EMOX_FUSED_QKV": "1"}
 
 
 def model_config(name: str, image_size: int, num_frames: int):
@@ -88,13 +112,67 @@ def model_config(name: str, image_size: int, num_frames: int):
     )
 
 
-def check_path_launches(name: str, counts: dict, train: bool, what: str) -> None:
-    """Every kernel of the configuration's path launched; the other
-    configuration's attention kernels never."""
+@contextlib.contextmanager
+def switches(env=None):
+    """Run a phase with exactly the switches in `env` set (none by default)
+    and restore the environment afterwards, so no phase leaks a switch."""
+    saved = {k: os.environ.get(k) for k in SWITCH_VARS}
+    try:
+        for k in SWITCH_VARS:
+            os.environ.pop(k, None)
+        os.environ.update(env or {})
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def switch_kernels(env=None) -> tuple:
+    """The kernels that the switches in `env` select."""
+    env = env or {}
+    gn = {"pallas": "group_norm", "fast": "group_norm_stats"}.get(env.get("EMOX_GROUPNORM_IMPL", ""))
+    return tuple(k for k in (gn, "ln_qkv" if env.get("EMOX_LN_QKV", "0") != "0" else None) if k)
+
+
+def check_path_launches(name: str, counts: dict, train: bool, what: str, env=None) -> None:
+    """Every kernel of the configuration's path launched, with those the
+    switches select; the other configuration's attention kernels and the
+    kernels of switches left off never."""
+    on = switch_kernels(env)
     other = [k for n, ks in ATTN_KERNELS.items() if n != name for k in ks]
-    need = tuple(k for k in FORWARD_KERNELS if k not in other) + ((ATTN_KERNELS[name][1],) if train else ())
+    other += [k for k in SWITCH_KERNELS if k not in on]
+    need = tuple(k for k in FORWARD_KERNELS if k not in other) + ((ATTN_KERNELS[name][1],) if train else ()) + on
     if min(counts[k] for k in need) <= 0 or any(counts[k] for k in other):
         raise AssertionError(f"{what}: kernels {need} must launch and {other} must not: {counts}")
+
+
+def norm_launches_per_request(cfg, steps: int, env) -> dict:
+    """Exact launches of the switch kernels in one serving request, from the
+    code: every GroupNorm of the VAE encode (the reference image), the
+    writer (one batched pass for all steps), the reader (one CFG-batched
+    pass per step) and the VAE decode (one call, decode_chunk 0) goes
+    through FusedGroupNorm; every TransformerBlock self-attention (writer
+    and reader) and every temporal attention (reader) takes K7.
+      UNet: 2 per ResBlock (L*lpb down, 2 mid, L*(lpb+1) up), 1 per spatial
+            transformer site, 1 norm_out;
+      VAE:  2 per ResBlock (encoder L*nrb + 2, decoder 2 + L*(nrb+1)), 1 mid
+            attention, 1 norm_out, each."""
+    m, v = cfg.model, cfg.vae
+    levels, lpb = len(m.block_channels), m.layers_per_block
+    sites = len(m.attention_levels) * (2 * lpb + 1) + 1
+    unet_gn = 2 * (levels * lpb + 2 + levels * (lpb + 1)) + sites + 1
+    vlevels, nrb = len(v.channel_multipliers), v.num_res_blocks
+    enc_gn = 2 * (vlevels * nrb + 2) + 2
+    dec_gn = 2 * (2 + vlevels * (nrb + 1)) + 2
+    gn = enc_gn + unet_gn * (1 + steps) + dec_gn
+    qkv = sites * (1 + steps * (2 if m.use_temporal else 1))
+    want = dict.fromkeys(SWITCH_KERNELS, 0)
+    for k in switch_kernels(env):
+        want[k] = qkv if k == "ln_qkv" else gn
+    return want
 
 
 def emit(obj) -> None:
@@ -380,6 +458,121 @@ def check_ff(gen, m, c, dtype=None, timing=True):
     return res
 
 
+def _tol(ref, dtype):
+    """A few bf16 steps at the output's largest value (the output is rounded
+    to bf16 once); float32: float32-level sums (3xTF32 in the products)."""
+    import torch
+
+    top = ref.abs().max().item()
+    return 4 * BF16_EPS * top if dtype == torch.bfloat16 else 2e-4 * max(top, 1.0)
+
+
+def check_group_norm(gen, n, l, c, silu=True, dtype=None, timing=True, groups=32):
+    """K8a against group_norm_plain (the same rounding: fp32 statistics and
+    apply, one cast) on x [n, l, c]."""
+    import torch
+    import torch.nn.functional as F
+    from emox_torch.ops.groupnorm import fused_group_norm, group_norm_plain
+
+    dtype = dtype or torch.bfloat16
+    x = _rand(gen, n, l, c, scale=3.0, shift=1.0, dtype=dtype)
+    gamma, beta = _rand(gen, c, scale=0.1, shift=1.0, dtype=dtype), _rand(gen, c, scale=0.1, dtype=dtype)
+    out = fused_group_norm(x, gamma, beta, groups, silu=silu)
+    torch.cuda.synchronize()
+    ref = group_norm_plain(x, gamma, beta, groups, silu=silu)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = _tol(ref.float(), dtype)
+    res = {"kernel": "group_norm", "dtype": str(dtype).split(".")[-1], "n": n, "l": l, "c": c, "groups": groups,
+           "silu": silu, "max_abs_err": err, "tol": tol}
+    if not (err <= tol and math.isfinite(err)):
+        emit(res)
+        raise AssertionError(f"group_norm disagrees with its plain version: {res}")
+    if timing:
+        # per element: 3 operations for the statistics, 4 for the apply, 4 for SiLU, fp32 on the CUDA cores
+        flops = n * l * c * (7 + (4 if silu else 0))
+        nbytes = x.element_size() * (2 * n * l * c + 2 * c)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        res["ms"] = time_ms(lambda: fused_group_norm(x, gamma, beta, groups, silu=silu), iters=20)
+        res["plain_ms"] = time_ms(lambda: group_norm_plain(x, gamma, beta, groups, silu=silu), iters=3, warmup=1)
+        xt = x.transpose(1, 2)  # [n, c, l]: the layout F.group_norm normalises
+        lib = (lambda: F.silu(F.group_norm(xt, groups, gamma, beta))) if silu else (
+            lambda: F.group_norm(xt, groups, gamma, beta))
+        res["library_ms"] = time_ms(lib, iters=20)
+        res["gb_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+    emit(res)
+    return res
+
+
+def check_group_norm_stats(gen, n, l, c, dtype=None, timing=True):
+    """K8b against group_norm_stats_plain: per-channel fp32 sum and sum of
+    squares over l."""
+    import torch
+    from emox_torch.ops.groupnorm import group_norm_stats, group_norm_stats_plain
+
+    dtype = dtype or torch.bfloat16
+    x = _rand(gen, n, l, c, scale=3.0, shift=1.0, dtype=dtype)
+    got = group_norm_stats(x)
+    torch.cuda.synchronize()
+    want = group_norm_stats_plain(x)
+    res = {"kernel": "group_norm_stats", "dtype": str(dtype).split(".")[-1], "n": n, "l": l, "c": c}
+    ok = True
+    for name, g, w in zip(("sum", "sumsq"), got, want):
+        err = (g - w).abs().max().item()
+        tol = 2e-5 * w.abs().max().item()  # fp32 sums of the same values in another order
+        res[f"{name}_max_abs_err"], res[f"{name}_tol"] = err, tol
+        ok = ok and math.isfinite(err) and err <= tol
+    res["max_abs_err"] = max(res["sum_max_abs_err"], res["sumsq_max_abs_err"])
+    if not ok:
+        emit(res)
+        raise AssertionError(f"group_norm_stats disagrees with its plain version: {res}")
+    if timing:
+        flops = 3 * n * l * c
+        nbytes = x.element_size() * n * l * c + 2 * 4 * n * c
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        res["ms"] = time_ms(lambda: group_norm_stats(x), iters=20)
+        res["plain_ms"] = time_ms(lambda: group_norm_stats_plain(x), iters=3, warmup=1)
+        # the same statistics (per-channel mean and variance over l) in one call
+        res["library_ms"] = time_ms(lambda: torch.var_mean(x, dim=1), iters=20)
+        res["gb_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+    emit(res)
+    return res
+
+
+def check_ln_qkv(gen, m, c, dtype=None, timing=True):
+    """K7 against ln_qkv_plain (xn rounded to x's type, fp32 products, each
+    output rounded once) on x [m, c] with three [c, c] projections."""
+    import torch
+    import torch.nn.functional as F
+    from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_plain
+
+    dtype = dtype or torch.bfloat16
+    args = (_rand(gen, m, c, dtype=dtype), _rand(gen, c, scale=0.1, shift=1.0, dtype=dtype),
+            _rand(gen, c, scale=0.1, dtype=dtype), *(_rand(gen, c, c, scale=c ** -0.5, dtype=dtype) for _ in range(3)))
+    got = fused_ln_qkv(*args)
+    torch.cuda.synchronize()
+    want = ln_qkv_plain(*args)
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    tol = max(_tol(w.float(), dtype) for w in want)
+    res = {"kernel": "ln_qkv", "dtype": str(dtype).split(".")[-1], "m": m, "c": c, "inner": c,
+           "max_abs_err": err, "tol": tol}
+    if not (err <= tol and math.isfinite(err)):
+        emit(res)
+        raise AssertionError(f"ln_qkv disagrees with its plain version: {res}")
+    if timing:
+        flops = 6.0 * m * c * c
+        nbytes = args[0].element_size() * (m * c + 3 * m * c + 3 * c * c + 2 * c)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["ms"] = time_ms(lambda: fused_ln_qkv(*args), iters=20)
+        res["plain_ms"] = time_ms(lambda: ln_qkv_plain(*args), iters=3, warmup=1)
+        w_cat = torch.cat(args[3:])
+        res["library_ms"] = time_ms(lambda: torch.matmul(F.layer_norm(args[0], (c,), args[1], args[2]), w_cat.t()),
+                                    iters=20)
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        res["grid_blocks"] = -(-c // 64) * -(-m // 64)
+    emit(res)
+    return res
+
+
 def phase_kernels():
     import torch
 
@@ -423,6 +616,30 @@ def phase_kernels():
     check_flash_strided_bwd(gen, 2, 1024, 2048, d=80, timing=False)
     check_flash_strided_bwd(gen, 4, 1000, 2100, timing=False)
     check_flash_strided_bwd(gen, 2, 1000, 2100, d=80, dtype=torch.float32, timing=False)
+    # K8a (with and without SiLU) and K8b under CFG at 16 frames: the UNet's
+    # level 0 and level 2, and the VAE's full-resolution decode of the 16
+    # frames (decode_chunk 0); then C 2560 (the up path's concatenated input
+    # at level 3, wider than a block's threads) and a ragged small slab
+    for key, (n, l, c) in (("gn_l0", (32, 1024, 320)), ("gn_l2", (32, 64, 1280)), ("gn_vae", (16, 65536, 128))):
+        results[key] = check_group_norm(gen, n, l, c)
+        check_group_norm(gen, n, l, c, silu=False, timing=False)
+        results[f"{key}_stats"] = check_group_norm_stats(gen, n, l, c)
+        for silu in (True, False):
+            check_group_norm(gen, n, l, c, silu=silu, dtype=torch.float32, timing=False)
+        check_group_norm_stats(gen, n, l, c, dtype=torch.float32, timing=False)
+    check_group_norm(gen, 32, 64, 2560, timing=False)
+    check_group_norm(gen, 32, 64, 2560, dtype=torch.float32, timing=False)
+    check_group_norm_stats(gen, 32, 64, 2560, timing=False)
+    check_group_norm(gen, 2, 100, 64, timing=False)
+    # K7 at the self-attention sites under CFG at 16 frames: level 0 and level 2
+    # (M 32768 x C 320 and M 2048 x C 1280), then level 1, mid, ragged M, float32
+    results["ln_qkv_l0"] = check_ln_qkv(gen, 32768, 320)
+    results["ln_qkv_l2"] = check_ln_qkv(gen, 2048, 1280)
+    check_ln_qkv(gen, 8192, 640, timing=False)
+    check_ln_qkv(gen, 512, 1280, timing=False)
+    check_ln_qkv(gen, 1000, 320, timing=False)
+    check_ln_qkv(gen, 32768, 320, dtype=torch.float32, timing=False)
+    check_ln_qkv(gen, 2048, 1280, dtype=torch.float32, timing=False)
     return results
 
 
@@ -457,7 +674,9 @@ def _request_inputs(gen, device, size: int, frames: int, dtype):
     return img, wav, speeds, mask
 
 
-def phase_step(name: str = "flagship"):
+def phase_step(name: str = "flagship", runs=(("", None),)):
+    """runs: (phase suffix, switches) pairs, each one step on the card and on
+    the CPU with the same weights and inputs under those switches."""
     import torch
     from emox_torch.data.tokenizer import CLIPTokenizer
     from emox_torch.models.emo import EMOModel
@@ -501,33 +720,38 @@ def phase_step(name: str = "flagship"):
         )
         return out
 
-    t0 = time.perf_counter()
-    on_cpu = run(cpu, "cpu")
-    cpu_s = time.perf_counter() - t0
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    on_gpu = run(gpu, "cuda")
-    torch.cuda.synchronize()
-    gpu_s = time.perf_counter() - t0
-    counts = launch_counts()
-    tol = 3e-4  # float32 on both sides; sums in other orders, 3xTF32 in the kernels
-    rel = {}
-    for key, ref in on_cpu.items():
-        got = on_gpu[key].cpu().double()
-        rel[key] = (torch.linalg.vector_norm(got - ref.double()) /
-                    torch.linalg.vector_norm(ref.double()).clamp_min(1e-30)).item()
-    res = {"phase": "step" if name == "flagship" else "step_sd15",
-           "config": f"{name} 256^2, 2 frames, CFG-batched{', prompt' if prompted else ''}, float32",
-           "rel_l2": rel, "tol": tol, "launches": counts, "setup_s": setup_s, "cpu_s": cpu_s,
-           "gpu_s": gpu_s, "eps_abs_mean": on_cpu["eps"].abs().mean().item()}
-    emit(res)
-    if not all(math.isfinite(v) and v <= tol for v in rel.values()):
-        raise AssertionError(f"card and CPU disagree: {rel}")
-    check_path_launches(name, counts, train=False, what=f"the float32 {name} step")
-    del cpu, gpu, on_cpu, on_gpu
+    results = []
+    for suffix, env in runs:
+        with switches(env):
+            t0 = time.perf_counter()
+            on_cpu = run(cpu, "cpu")
+            cpu_s = time.perf_counter() - t0
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            on_gpu = run(gpu, "cuda")
+            torch.cuda.synchronize()
+            gpu_s = time.perf_counter() - t0
+            counts = launch_counts()
+        tol = 3e-4  # float32 on both sides; sums in other orders, 3xTF32 in the kernels
+        rel = {}
+        for key, ref in on_cpu.items():
+            got = on_gpu[key].cpu().double()
+            rel[key] = (torch.linalg.vector_norm(got - ref.double()) /
+                        torch.linalg.vector_norm(ref.double()).clamp_min(1e-30)).item()
+        res = {"phase": ("step" if name == "flagship" else "step_sd15") + suffix,
+               "config": f"{name} 256^2, 2 frames, CFG-batched{', prompt' if prompted else ''}, float32",
+               "switches": env or {}, "rel_l2": rel, "tol": tol, "launches": counts, "setup_s": setup_s,
+               "cpu_s": cpu_s, "gpu_s": gpu_s, "eps_abs_mean": on_cpu["eps"].abs().mean().item()}
+        emit(res)
+        if not all(math.isfinite(v) and v <= tol for v in rel.values()):
+            raise AssertionError(f"card and CPU disagree: {rel}")
+        check_path_launches(name, counts, train=False, what=f"the float32 {name} step{suffix}", env=env)
+        results.append(res)
+        del on_cpu, on_gpu
+    del cpu, gpu
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    return res
+    return results
 
 
 # ---- phases 6 and 7: training -------------------------------------------------------
@@ -566,7 +790,9 @@ def _train_batch(gen, stage: int, batch: int, frames: int, cfg, device):
     return out
 
 
-def phase_train_step(tmp: str):
+def phase_train_step(tmp: str, env=None):
+    """env: the switches of the step (none: phase train_step; with some:
+    train_step_norms)."""
     import torch
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, reset_launch_counts
@@ -585,16 +811,17 @@ def phase_train_step(tmp: str):
     batch = _train_batch(gen, 2, 1, 2, cfg, "cpu")
     draws = sample_draws(cfg, tr_cpu.sched, 2, batch, gen)
     setup_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    m_cpu, g_cpu = tr_cpu.loss_and_grads(batch, draws)
-    cpu_s = time.perf_counter() - t0
     to_gpu = lambda d: {k: v.to("cuda") for k, v in d.items()}
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    m_gpu, g_gpu = tr_gpu.loss_and_grads(to_gpu(batch), to_gpu(draws))
-    torch.cuda.synchronize()
-    gpu_s = time.perf_counter() - t0
-    counts = launch_counts()
+    with switches(env):
+        t0 = time.perf_counter()
+        m_cpu, g_cpu = tr_cpu.loss_and_grads(batch, draws)
+        cpu_s = time.perf_counter() - t0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m_gpu, g_gpu = tr_gpu.loss_and_grads(to_gpu(batch), to_gpu(draws))
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        counts = launch_counts()
     loss_cpu, loss_gpu = m_cpu["loss"].double().item(), m_gpu["loss"].double().item()
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     diff = sum(float(torch.linalg.vector_norm(a.cpu().double() - b.double()) ** 2) for a, b in zip(g_gpu, g_cpu))
@@ -605,8 +832,8 @@ def phase_train_step(tmp: str):
     # measured on an H100: loss 1.1e-6, grads 4.3e-5 relative; the limits keep
     # a margin of about 10x and 5x
     limits = {"loss_rel": 1e-5, "grads_rel_l2": 2e-4}
-    res = {"phase": "train_step", "config": "flagship 256^2 stage 2, batch 1, 2 frames, float32, remat, "
-           "full depth", "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel": loss_rel,
+    res = {"phase": "train_step_norms" if env else "train_step", "config": "flagship 256^2 stage 2, batch 1, "
+           "2 frames, float32, remat, full depth", "switches": env or {}, "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel": loss_rel,
            "grads_rel_l2": grads_rel, "worst_leaf_rel_l2": leaf_rel, "limits": limits,
            "trainable_leaves": len(g_cpu), "trainable_params": sum(g.numel() for g in g_cpu),
            "launches": counts, "setup_s": setup_s, "cpu_s": cpu_s, "gpu_s": gpu_s}
@@ -615,13 +842,15 @@ def phase_train_step(tmp: str):
     tr_gpu.close()
     if not (loss_rel <= limits["loss_rel"] and grads_rel <= limits["grads_rel_l2"]):
         raise AssertionError(f"card and CPU gradients disagree: loss {loss_rel}, grads {grads_rel}")
-    check_path_launches("flagship", counts, train=True, what="the float32 train step")
+    check_path_launches("flagship", counts, train=True, what=f"the float32 train step {env or ''}", env=env)
     torch.backends.cudnn.allow_tf32 = True
     return res
 
 
 def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, steps: int, out_dir: str = "",
-                name: str = "flagship"):
+                name: str = "flagship", env=None):
+    """env: the switches of the run (none: phase train / train_sd15; with
+    some: train_norms)."""
     import torch
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, reset_launch_counts
@@ -629,7 +858,7 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
 
     torch.cuda.empty_cache()
     cfg = _train_config(stage, batch=batch, frames=frames, dtype="bfloat16", checkpoint_dir=tmp, name=name)
-    tag = "" if name == "flagship" else "_sd15"
+    tag = ("" if name == "flagship" else "_sd15") + ("_norms" if env else "")
     t0 = time.perf_counter()
     model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     _fill_zero_init(model, seed=3)  # every trainable leaf of stage 2 gets a gradient from step 1
@@ -644,19 +873,20 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     before_frozen = {n: snapshot(p) for n, p in model.modules.named_parameters() if n not in tr.state.masters}
     torch.cuda.reset_peak_memory_stats()
     losses = []
-    reset_launch_counts()
-    for _ in range(warmup):
-        losses.append(float(tr.train_step(data, gen)["loss"]))
-    warm_counts = launch_counts()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(float(tr.train_step(data, gen)["loss"]))  # loss.item() synchronises each step
-    secs = time.perf_counter() - t0
-    counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    phase_profile(lambda: tr.train_step(data, gen), f"one {name} stage-{stage} train step", out_dir,
-                  f"profile_train{tag}_stage{stage}_kernels.json")
+    with switches(env):
+        reset_launch_counts()
+        for _ in range(warmup):
+            losses.append(float(tr.train_step(data, gen)["loss"]))
+        warm_counts = launch_counts()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(float(tr.train_step(data, gen)["loss"]))  # loss.item() synchronises each step
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        phase_profile(lambda: tr.train_step(data, gen), f"one {name} stage-{stage} train step"
+                      + (f" under {env}" if env else ""), out_dir, f"profile_train{tag}_stage{stage}_kernels.json")
     unchanged = [n for n in names if torch.equal(tr.state.masters[n].cpu(), before_train[n])]
     # AdamW with decoupled decay leaves a leaf alone only when its gradient
     # and its value are both zero (e.g. zero-init biases of ReferenceNet
@@ -670,6 +900,7 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     res = {"phase": f"train{tag}", "stage": stage,
            "config": f"{name} 256^2 stage {stage}, batch {batch}, {frames} frame(s), bf16 compute, fp32 masters, "
                      f"AdamW lr {_STAGE_LR[stage]}, remat; {warmup} warm-up + {steps} timed steps",
+           "switches": env or {},
            "params": sum(p.numel() for p in model.modules.parameters()),
            "trainable_params": sum(m.numel() for m in tr.state.masters.values()),
            "trainable_leaves": len(names), "frozen_leaves": len(before_frozen),
@@ -687,13 +918,17 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     if stuck or frozen_changed:
         raise AssertionError(f"stage {stage}: trainable leaves left unchanged {stuck[:8]}, "
                              f"{frozen_changed} frozen leaves changed")
-    check_path_launches(name, counts, train=True, what=f"{name} stage {stage} training")
+    check_path_launches(name, counts, train=True, what=f"{name} stage {stage} training {env or ''}", env=env)
     del tr, model, data
     return res
 
 
 # ---- phase 4 ------------------------------------------------------------------
-def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "flagship", prompt=None):
+def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "flagship", prompt=None, env=None,
+                profile: bool = True):
+    """env: the switches of the run (none: phase serve / serve_sd15; with
+    some: serve_norms, whose launches of the switch kernels are asserted at
+    the count norm_launches_per_request derives)."""
     import torch
     from emox_torch.infer.pipeline import EMOPipeline
     from emox_torch.models.emo import EMOModel
@@ -702,7 +937,9 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
     torch.cuda.empty_cache()
     size, frames = 256, 16
     cfg = model_config(name, size, frames)
-    tag = "" if name == "flagship" else "_sd15"
+    tag = ("" if name == "flagship" else "_sd15") + ("_norms" if env else "")
+    if env and env.get("EMOX_GROUPNORM_IMPL") == "fast":
+        tag += "_fast"
     t0 = time.perf_counter()
     model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     pipe = EMOPipeline(model)
@@ -713,51 +950,60 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
     inputs = [_request_inputs(gen, "cuda", size, frames, torch.bfloat16) for _ in range(requests)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
     per_request = []
-    for r, (img, wav, speeds, mask) in enumerate(inputs):
-        timings = {}
-        t0 = time.perf_counter()
-        video = pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
-                     speeds=speeds, face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(100 + r),
-                     prompt=prompt, timings=timings)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        finite = bool(torch.isfinite(video.float()).all().item())
-        shape = list(video.shape)
-        per_request.append({"s": secs, "ms_per_step": 1e3 * timings["denoise_s"] / steps,
-                            "phases_s": timings, "finite": finite, "shape": shape,
-                            "abs_mean": video.float().abs().mean().item()})
-        if not finite or shape != [1, frames, size, size, 3]:
-            emit({"phase": f"serve{tag}", "request": r, **per_request[-1]})
-            raise AssertionError(f"request {r}: output finite={finite} shape={shape}")
-    counts = launch_counts()
-    steady = per_request[1:] or per_request
-    res = {"phase": f"serve{tag}",
-           "config": f"{name} 256^2, 16 frames, CFG 7.5 batched, 10 DDIM steps, bf16"
-                     + (f", prompt {prompt!r}" if prompt is not None else ""),
-           "params": n_params, "setup_s": setup_s, "requests": per_request,
-           "s_per_request": sum(p["s"] for p in steady) / len(steady),
-           "ms_per_step": sum(p["ms_per_step"] for p in steady) / len(steady),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
-           "launches_per_request": {k: v / requests for k, v in counts.items()}}
-    emit(res)
-    check_path_launches(name, counts, train=False, what=f"{name} serving")
-    if name == "flagship-sd15" and counts["flash_attn_fwd"] != 5 * steps * requests:
-        # the reader's five level-0 sites (down_0_0, down_0_1, up_0_0..2) have Lk 2048 and head
-        # dim 40, once per CFG-batched step; every other site is below the cutoff
-        raise AssertionError(f"flash_attn_fwd launched {counts['flash_attn_fwd']} times, "
-                             f"expected {5 * steps} per request")
-    img, wav, speeds, mask = inputs[-1]
-    phase_profile(lambda: pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
-                               speeds=speeds, face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(99),
-                               prompt=prompt),
-                  f"one {name} serving request, {steps} DDIM steps", out_dir, f"profile{tag}_kernels.json")
+    with switches(env):
+        reset_launch_counts()
+        for r, (img, wav, speeds, mask) in enumerate(inputs):
+            timings = {}
+            t0 = time.perf_counter()
+            video = pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
+                         speeds=speeds, face_mask=mask,
+                         generator=torch.Generator(device="cuda").manual_seed(100 + r), prompt=prompt,
+                         timings=timings)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            finite = bool(torch.isfinite(video.float()).all().item())
+            shape = list(video.shape)
+            per_request.append({"s": secs, "ms_per_step": 1e3 * timings["denoise_s"] / steps,
+                                "phases_s": timings, "finite": finite, "shape": shape,
+                                "abs_mean": video.float().abs().mean().item()})
+            if not finite or shape != [1, frames, size, size, 3]:
+                emit({"phase": f"serve{tag}", "request": r, **per_request[-1]})
+                raise AssertionError(f"request {r}: output finite={finite} shape={shape}")
+        counts = launch_counts()
+        steady = per_request[1:] or per_request
+        res = {"phase": f"serve{tag}",
+               "config": f"{name} 256^2, 16 frames, CFG 7.5 batched, 10 DDIM steps, bf16"
+                         + (f", prompt {prompt!r}" if prompt is not None else ""),
+               "switches": env or {}, "params": n_params, "setup_s": setup_s, "requests": per_request,
+               "s_per_request": sum(p["s"] for p in steady) / len(steady),
+               "ms_per_step": sum(p["ms_per_step"] for p in steady) / len(steady),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+               "launches_per_request": {k: v / requests for k, v in counts.items()}}
+        emit(res)
+        check_path_launches(name, counts, train=False, what=f"{name} serving {env or ''}", env=env)
+        if name == "flagship-sd15" and counts["flash_attn_fwd"] != 5 * steps * requests:
+            # the reader's five level-0 sites (down_0_0, down_0_1, up_0_0..2) have Lk 2048 and head
+            # dim 40, once per CFG-batched step; every other site is below the cutoff
+            raise AssertionError(f"flash_attn_fwd launched {counts['flash_attn_fwd']} times, "
+                                 f"expected {5 * steps} per request")
+        want = {k: requests * v for k, v in norm_launches_per_request(cfg, steps, env).items()}
+        if {k: counts[k] for k in SWITCH_KERNELS} != want:
+            raise AssertionError(f"{name} serving {env}: switch kernels launched {counts}, expected {want}")
+        if profile:
+            img, wav, speeds, mask = inputs[-1]
+            phase_profile(lambda: pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
+                                       speeds=speeds, face_mask=mask,
+                                       generator=torch.Generator(device="cuda").manual_seed(99), prompt=prompt),
+                          f"one {name} serving request, {steps} DDIM steps" + (f", under {env}" if env else ""),
+                          out_dir, f"profile{tag}_kernels.json")
     return res
 
 
 # ---- phase 5: where the time of a request goes ---------------------------------------
 _GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("ln_qkv", ("ln_qkv_kernel",)),
     ("flash_attn_nlc_fwd", ("flash_attn_nlc_fwd",)),
     ("flash_attn_fwd", ("flash_fwd::",)),
     ("flash_attn_bwd", ("flash_bwd_strided::",)),
@@ -772,19 +1018,60 @@ _GROUPS = (  # (group, substrings of the kernel name), first match wins
 )
 
 
+# module function -> the range it is recorded under while profiling: the
+# device time of every GroupNorm and LayerNorm, whichever path runs it, and of
+# the self-attention sites' fused LN + q/k/v (0 with the switch off)
+_NORM_RANGES = (("emox_torch.nn.blocks", "FusedGroupNorm", "forward", "emox.group_norm"),
+                ("emox_torch.nn.layers", "LayerNorm", "forward", "emox.layer_norm"),
+                ("emox_torch.nn.attention_blocks", None, "_maybe_ln_qkv", "emox.ln_qkv_sites"))
+
+
+@contextlib.contextmanager
+def _norm_ranges():
+    """Record each norm call under a torch.profiler range, for the profiled
+    run only."""
+    import importlib
+
+    import torch
+
+    def ranged(fn, label):
+        def run(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    saved = []
+    for mod_name, cls, attr, label in _NORM_RANGES:
+        owner = importlib.import_module(mod_name)
+        owner = getattr(owner, cls) if cls else owner
+        saved.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, ranged(getattr(owner, attr), label))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
 def phase_profile(run, label: str, out_dir: str, filename: str) -> dict:
     """One more run (a request, a train step) under torch.profiler: device
-    time per kernel group, the device's busy share of the run's span, and
-    the top kernels (all of them in out_dir/filename)."""
+    time per kernel group, the device's busy share of the run's span, the
+    device time of the norm calls (the ranges of _NORM_RANGES), and the top
+    kernels (all of them in out_dir/filename)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _norm_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     events = prof.events()
+    labels = [r[-1] for r in _NORM_RANGES]
+    ranges_us = dict.fromkeys(labels, 0.0)
+    for e in events:
+        if e.name in ranges_us and e.device_type == DeviceType.CPU:
+            ranges_us[e.name] += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
     # device events, without the ranges that user annotations (such as the
     # optimizer's step) open on the device timeline over real kernels
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
@@ -816,6 +1103,7 @@ def phase_profile(run, label: str, out_dir: str, filename: str) -> dict:
            "span_ms": span / 1e3, "kernel_ms": kernel_us / 1e3, "busy_ms": busy / 1e3,
            "idle_share": 1.0 - busy / span, "kernel_launches": len(kernels),
            "groups_ms": {g: t / 1e3 for g, t in sorted(groups.items(), key=lambda kv: -kv[1])},
+           "norm_ranges_ms": {k.split(".")[-1]: v / 1e3 for k, v in ranges_us.items()},
            "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3} for n, (c, t) in top[:12]]}
     emit(res)
     if out_dir:
@@ -846,33 +1134,47 @@ def main(argv=None) -> int:
           "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
     t_start = time.perf_counter()
     phase_build(args.out)
-    kern = phase_kernels()
-    phase_step()
-    launches = phase_serve(args.out)["launches"]
+    with switches():  # the default paths: every switch unset
+        kern = phase_kernels()
+        phase_step()
+        launches = phase_serve(args.out)["launches"]
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_train_step(tmp)
+            train2 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out)
+            train1 = phase_train(tmp, stage=1, batch=4, frames=1, warmup=1, steps=2, out_dir=args.out)
+            train3 = phase_train(tmp, stage=3, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out)
+        # the SD-1.5 head layout: its level-0 sites run the strided kernels (K5)
+        phase_step("flagship-sd15")
+        serve_sd15 = phase_serve(args.out, name="flagship-sd15", prompt=PROMPT)["launches"]
+        with tempfile.TemporaryDirectory() as tmp:
+            train_sd15 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out,
+                                     name="flagship-sd15")
+    # the flagship under the reference's fused-norm switches: GroupNorm K8a (or
+    # K8b) and the fused LN + q/k/v (K7); each phase sets its switches itself
+    phase_step(runs=(("_norms", NORMS), ("_norms", NORMS_FAST)))
+    serve_norms = phase_serve(args.out, env=NORMS)["launches"]
+    serve_fast = phase_serve(args.out, requests=1, env=NORMS_FAST, profile=False)["launches"]
     with tempfile.TemporaryDirectory() as tmp:
-        phase_train_step(tmp)
-        train2 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out)
-        train1 = phase_train(tmp, stage=1, batch=4, frames=1, warmup=1, steps=2, out_dir=args.out)
-        train3 = phase_train(tmp, stage=3, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out)
-    # the SD-1.5 head layout: its level-0 sites run the strided kernels (K5)
-    phase_step("flagship-sd15")
-    serve_sd15 = phase_serve(args.out, name="flagship-sd15", prompt=PROMPT)["launches"]
-    with tempfile.TemporaryDirectory() as tmp:
-        train_sd15 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out,
-                                 name="flagship-sd15")
+        phase_train_step(tmp, env=NORMS)
+        train_norms = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out, env=NORMS)
     by_path = {"serve": launches, "train_stage2_per_step": train2["launches_per_step"],
                "train_stage1_per_step": train1["launches_per_step"],
                "train_stage3_per_step": train3["launches_per_step"],
-               "serve_sd15": serve_sd15, "train_sd15_stage2_per_step": train_sd15["launches_per_step"]}
+               "serve_sd15": serve_sd15, "train_sd15_stage2_per_step": train_sd15["launches_per_step"],
+               "serve_norms": serve_norms, "serve_norms_fast": serve_fast,
+               "train_norms_stage2_per_step": train_norms["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels,
     # the timed stage-2 training steps for the backward; the strided kernels'
-    # on the SD-1.5 head layout's paths
+    # on the SD-1.5 head layout's paths; the switch kernels' on the serving
+    # path under their switches
     launches = dict(launches, flash_attn_nlc_bwd=train2["launches"]["flash_attn_nlc_bwd"],
                     flash_attn_fwd=serve_sd15["flash_attn_fwd"],
-                    flash_attn_bwd=train_sd15["launches"]["flash_attn_bwd"])
+                    flash_attn_bwd=train_sd15["launches"]["flash_attn_bwd"],
+                    group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
+                    group_norm_stats=serve_fast["group_norm_stats"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    shape = lambda k: {x: k[x] for x in ("n", "lq", "lk", "c", "heads", "head_dim", "m", "f", "row_tile", "grid_blocks",
-                                         "smem_bytes", "blocks_per_sm", "sms") if x in k}
+    shape = lambda k: {x: k[x] for x in ("n", "lq", "lk", "l", "c", "heads", "head_dim", "m", "f", "row_tile",
+                                         "grid_blocks", "smem_bytes", "blocks_per_sm", "sms") if x in k}
 
     def entry(source, replaces, main, others):
         """One row per CUDA kernel: its numbers at `main` (the shape of the
@@ -897,6 +1199,11 @@ def main(argv=None) -> int:
               kern["flash_strided_n32"], [kern["flash_strided_n16"]]),
         entry("emox_torch/csrc/flash_attn_bwd.cu", ["emox/ops/attention.py:118", "emox/ops/attention.py:160"],
               kern["flash_strided_bwd_n16"], []),
+        entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:184"],
+              kern["gn_l0"], [kern["gn_l2"], kern["gn_vae"]]),
+        entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:74"],
+              kern["gn_l0_stats"], [kern["gn_l2_stats"], kern["gn_vae_stats"]]),
+        entry("emox_torch/csrc/ln_qkv.cu", ["emox/ops/ff.py:353"], kern["ln_qkv_l0"], [kern["ln_qkv_l2"]]),
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

@@ -181,9 +181,12 @@ class UNet(nn.Module):
             rkv = None
             if ref_features is not None and not emit_ref:
                 rkv = list(ref_features[site])
+            # emit_bank: the writer's banks; the reader then skips a LayerNorm
+            # that the fused LN + q/k/v kernel (EMOX_LN_QKV) made unnecessary
             h, bank = run(
                 getattr(self, f"{name}_attn"), h, context=context, ref_kv=rkv,
                 ref_drop=None if rkv is None else drop_frames, num_frames=1 if emit_ref else t,
+                emit_bank=emit_ref,
             )
             if emit_ref:
                 banks.append(bank)

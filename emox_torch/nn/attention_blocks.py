@@ -6,22 +6,51 @@ packed [N, L, H*D] token layout (the flash kernel where the reference takes
 its Pallas kernel), and every transformer feed-forward sub-layer through
 emox_torch.ops.fused_ln_geglu_ff (the fused LN + GEGLU + residual kernel).
 
-Sparse-causal attention, ring attention and the opt-in fused projections
-(EMOX_LN_QKV, EMOX_FUSED_QKV) wait for later slices (ROADMAP.md).
+The reference's two opt-in fused projections keep their switches, off
+by default as there:
+
+  * EMOX_LN_QKV: every bias-free self-attention (`attn1` of each
+    TransformerBlock without sparse-causal K/V, and each temporal
+    attention) takes q, k and v from emox_torch.ops.fused_ln_qkv, the fused
+    LayerNorm + projection kernel, on the raw tokens;
+  * EMOX_FUSED_QKV: every other self-attention projects q, k and v with one
+    matmul over the concatenated weights (plain PyTorch).
+
+Sparse-causal attention and ring attention wait for later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import os
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from emox_torch.nn.blocks import FusedGroupNorm
 from emox_torch.nn.embeddings import sinusoidal_positions
 from emox_torch.nn.layers import Dense, LayerNorm
 from emox_torch.ops.attention import dot_product_attention_nlc
 from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla
+from emox_torch.ops.ln_qkv import _ln_qkv_enabled, fused_ln_qkv
+
+QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _fused_qkv_enabled() -> bool:
+    """EMOX_FUSED_QKV: opt-in, off unless set to something other than "" or "0"."""
+    return os.environ.get("EMOX_FUSED_QKV", "") not in ("", "0")
+
+
+def _fused_qkv_apply(denses, x: torch.Tensor) -> QKV:
+    """q, k, v from one matmul over the row-concatenated [Wq; Wk; Wv] (and
+    biases): each output column is the same contraction as in the separate
+    projections."""
+    w = torch.cat([d.weight for d in denses])
+    bias = None if denses[0].bias is None else torch.cat([d.bias for d in denses])
+    return F.linear(x.to(w.dtype), w, bias).chunk(3, dim=-1)
 
 
 class Attention(nn.Module):
@@ -42,18 +71,28 @@ class Attention(nn.Module):
         self.to_v = Dense(context_dim, inner, bias=qkv_bias)
         self.to_out = Dense(inner, out_dim or query_dim, zero_init=zero_init_out)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+    def forward(self, x: Optional[torch.Tensor], context: Optional[torch.Tensor] = None,
                 extra_kv: Optional[torch.Tensor] = None, extra_tile: int = 1,
-                extra_drop: Optional[torch.Tensor] = None, context_tile: int = 1) -> torch.Tensor:
+                extra_drop: Optional[torch.Tensor] = None, context_tile: int = 1,
+                qkv: Optional[QKV] = None) -> torch.Tensor:
         """extra_kv tokens are projected once and then repeated extra_tile x
         along the batch axis (identical for every frame of a clip).
         extra_drop rows put the row's own projected tokens in place of the
         extra ones: softmax over duplicated tokens equals plain
-        self-attention, so one program serves the CFG uncond half."""
-        ctx = x if context is None else context
-        q = self.to_q(x)
-        k = self.to_k(ctx)
-        v = self.to_v(ctx)
+        self-attention, so one program serves the CFG uncond half.
+        qkv: self-attention projections computed upstream (the fused LN +
+        q/k/v kernel); x is then not read and may be None."""
+        if qkv is not None:
+            if context is not None:  # not assert: must survive python -O
+                raise ValueError("qkv bypass is a self-attention path (context must be None)")
+            q, k, v = qkv
+        elif context is None and _fused_qkv_enabled():
+            q, k, v = _fused_qkv_apply((self.to_q, self.to_k, self.to_v), x)
+        else:
+            ctx = x if context is None else context
+            q = self.to_q(x)
+            k = self.to_k(ctx)
+            v = self.to_v(ctx)
         if context is not None and context_tile > 1:
             k = k.repeat_interleave(context_tile, dim=0)
             v = v.repeat_interleave(context_tile, dim=0)
@@ -90,6 +129,19 @@ class GEGLUFeedForward(nn.Module):
                             self.proj_out.weight, self.proj_out.bias)
 
 
+def _maybe_ln_qkv(ln_mod: LayerNorm, attn_mod: nn.Module, x: torch.Tensor) -> Optional[QKV]:
+    """(q, k, v) of attn_mod's self-attention on LN(x), from the fused LN +
+    q/k/v kernel on the raw tokens x, when EMOX_LN_QKV is on and the
+    projections have no bias; else None (the caller normalises and
+    projects). Every such site takes the kernel: the reference's TPU
+    VMEM plan does not carry over."""
+    if not _ln_qkv_enabled() or attn_mod.to_q.bias is not None:
+        return None
+    w = attn_mod.to_q.weight
+    return fused_ln_qkv(x.to(w.dtype), ln_mod.weight, ln_mod.bias, w, attn_mod.to_k.weight,
+                        attn_mod.to_v.weight, eps=ln_mod.eps)
+
+
 def _ff_sublayer(ln_mod: LayerNorm, ff_mod: GEGLUFeedForward, x: torch.Tensor) -> torch.Tensor:
     """x + FF(LN(x)) through the fused LN + GEGLU + residual op: the kernel
     on CUDA tensors at every site, its plain version on CPU tensors."""
@@ -118,13 +170,17 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 ref_kv: Optional[torch.Tensor] = None, ref_drop: Optional[torch.Tensor] = None,
-                ref_tile: int = 1, ctx_tile: int = 1):
+                ref_tile: int = 1, ctx_tile: int = 1, emit_bank: bool = True):
         """ref_kv [B, Lr, C] UNREPEATED writer tokens; ref_drop [N] bool
         (True = this row sees no reference). Returns (x, normed1): normed1 is
-        what a ReferenceNet writer banks for the reader."""
-        normed1 = self.norm1(x)
+        what a ReferenceNet writer banks for the reader. Under EMOX_LN_QKV
+        the self-attention reads the fused LN + q/k/v kernel, and normed1 is
+        computed only with emit_bank (None otherwise): the reference leaves
+        an unused bank to dead-code elimination."""
+        qkv1 = _maybe_ln_qkv(self.norm1, self.attn1, x)
+        normed1 = self.norm1(x) if qkv1 is None or emit_bank else None
         x = x + self.attn1(normed1, extra_kv=ref_kv, extra_tile=ref_tile,
-                           extra_drop=ref_drop if ref_kv is not None else None)
+                           extra_drop=ref_drop if ref_kv is not None else None, qkv=qkv1)
         if self.use_cross and context is not None:
             x = x + self.attn2(self.norm2(x), context=context, context_tile=ctx_tile)
         return _ff_sublayer(self.norm3, self.ff, x), normed1
@@ -150,10 +206,11 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 ref_kv: Optional[List[torch.Tensor]] = None, ref_drop: Optional[torch.Tensor] = None,
-                num_frames: int = 1):
+                num_frames: int = 1, emit_bank: bool = True):
         """x [(B T), H, W, C]; context [B, Lc, Cc] and ref_kv (per depth block
         [B, Lr, C]) UNREPEATED per clip, repeated num_frames x inside;
-        ref_drop [(B T)] bool."""
+        ref_drop [(B T)] bool. emit_bank=False: the caller reads no bank
+        (see TransformerBlock)."""
         n, h, w, c = x.shape
         t = num_frames
         hdn = self.proj_in(self.norm(x).reshape(n, h * w, c))
@@ -161,7 +218,7 @@ class SpatialTransformer(nn.Module):
         for i in range(self.depth):
             hdn, normed1 = getattr(self, f"block_{i}")(
                 hdn, context=context, ref_kv=None if ref_kv is None else ref_kv[i],
-                ref_drop=ref_drop, ref_tile=t, ctx_tile=t,
+                ref_drop=ref_drop, ref_tile=t, ctx_tile=t, emit_bank=emit_bank,
             )
             banks.append(normed1)
         return x + self.proj_out(hdn).reshape(n, h, w, c), banks
@@ -182,10 +239,15 @@ class FrameAxisAttention(nn.Module):
         self.to_v = Dense(dim, inner, bias=False)
         self.to_out = Dense(inner, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, l, c = x.shape
+    def forward(self, x: Optional[torch.Tensor], qkv: Optional[QKV] = None) -> torch.Tensor:
+        """qkv: projections from the fused LN + q/k/v kernel; x is then not
+        read and may be None."""
+        if qkv is None:
+            qkv = (_fused_qkv_apply((self.to_q, self.to_k, self.to_v), x) if _fused_qkv_enabled()
+                   else (self.to_q(x), self.to_k(x), self.to_v(x)))
+        b, t, l, _ = qkv[0].shape
         split = lambda y: y.reshape(b, t, l, self.heads, self.head_dim)
-        q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
+        q, k, v = (split(y) for y in qkv)
         s = torch.einsum("bqlhd,bklhd->blhqk", q.float(), k.float()) * (self.head_dim ** -0.5)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("blhqk,bklhd->bqlhd", p.to(v.dtype), v)
@@ -213,7 +275,9 @@ class TemporalTransformer(nn.Module):
         pe = sinusoidal_positions(self.max_len, c, device=x.device)[:t].to(x.dtype)
         tokens = self.norm_in(x.reshape(b, t, h * w, c)) + pe[None, :, None, :]
         for i in range(self.depth):
-            tokens = tokens + getattr(self, f"attn_{i}")(getattr(self, f"norm_{i}")(tokens))
+            norm, attn = getattr(self, f"norm_{i}"), getattr(self, f"attn_{i}")
+            qkv = _maybe_ln_qkv(norm, attn, tokens)
+            tokens = tokens + attn(None if qkv is not None else norm(tokens), qkv=qkv)
             tokens = _ff_sublayer(getattr(self, f"norm_ff_{i}"), getattr(self, f"ff_{i}"), tokens)
         return x + self.proj_out(tokens).reshape(b, t, h, w, c)
 

@@ -13,7 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from emox_torch.nn.layers import AffineNorm, Conv, Dense
-from emox_torch.ops.groupnorm import group_norm_xla
+from emox_torch.ops.groupnorm import group_norm
 
 
 def fold_time(x: torch.Tensor):
@@ -31,7 +31,8 @@ def unfold_time(x: torch.Tensor, t: int) -> torch.Tensor:
 
 
 class FusedGroupNorm(AffineNorm):
-    """GroupNorm(+SiLU) over NHWC feature maps (emox_torch.ops.group_norm_xla)."""
+    """GroupNorm(+SiLU) over NHWC feature maps through emox_torch.ops.group_norm
+    (plain by default; EMOX_GROUPNORM_IMPL=pallas|fast takes the kernels)."""
 
     def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5, silu: bool = False):
         super().__init__(channels, eps)
@@ -43,7 +44,7 @@ class FusedGroupNorm(AffineNorm):
         shape = x.shape
         xl = x.reshape(-1, shape[-3] * shape[-2], c) if x.dim() >= 3 else x
         silu = self.silu if silu is None else silu
-        return group_norm_xla(xl, self.weight, self.bias, self.groups, self.eps, silu=silu).reshape(shape)
+        return group_norm(xl, self.weight, self.bias, self.groups, self.eps, silu=silu).reshape(shape)
 
 
 class ResBlock(nn.Module):

@@ -14,6 +14,12 @@ Kernels (each wrapper counts its launches in `.launches`):
                                flash_attention_nlc
   * fused_ln_geglu_ff       -> csrc/ln_geglu_ff.cu (TPU `_ln_ff_kernel` and
                                `_ln_ff_wide_kernel`)
+  * fused_group_norm        -> csrc/group_norm.cu (TPU `_gn_kernel`), under
+                               EMOX_GROUPNORM_IMPL=pallas
+  * group_norm_stats        -> csrc/group_norm.cu (TPU `_gn_stats_kernel`),
+                               under EMOX_GROUPNORM_IMPL=fast
+  * fused_ln_qkv            -> csrc/ln_qkv.cu (TPU `_ln_qkv_kernel`), under
+                               EMOX_LN_QKV=1
 """
 
 from emox_torch.ops.attention import (
@@ -31,7 +37,17 @@ from emox_torch.ops.attention import (
     flash_attention_nlc_bwd,
 )
 from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla, ln_geglu_ff_plain, ln_geglu_ff_xla
-from emox_torch.ops.groupnorm import group_norm_xla
+from emox_torch.ops.groupnorm import (
+    fused_group_norm,
+    group_norm,
+    group_norm_fast,
+    group_norm_plain,
+    group_norm_silu,
+    group_norm_stats,
+    group_norm_stats_plain,
+    group_norm_xla,
+)
+from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_plain, ln_qkv_xla
 
 KERNEL_WRAPPERS = {
     "flash_attn_fwd": flash_attention,
@@ -39,6 +55,9 @@ KERNEL_WRAPPERS = {
     "flash_attn_nlc_fwd": flash_attention_nlc,
     "flash_attn_nlc_bwd": flash_attention_nlc_bwd,
     "ln_geglu_ff": fused_ln_geglu_ff,
+    "group_norm": fused_group_norm,
+    "group_norm_stats": group_norm_stats,
+    "ln_qkv": fused_ln_qkv,
 }
 
 
@@ -65,11 +84,21 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_nlc",
     "flash_attention_nlc_bwd",
+    "fused_group_norm",
     "fused_ln_geglu_ff",
+    "fused_ln_qkv",
     "geglu_ff_xla",
+    "group_norm",
+    "group_norm_fast",
+    "group_norm_plain",
+    "group_norm_silu",
+    "group_norm_stats",
+    "group_norm_stats_plain",
     "group_norm_xla",
     "launch_counts",
     "ln_geglu_ff_plain",
     "ln_geglu_ff_xla",
+    "ln_qkv_plain",
+    "ln_qkv_xla",
     "reset_launch_counts",
 ]

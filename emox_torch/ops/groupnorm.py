@@ -1,18 +1,55 @@
-"""GroupNorm(+SiLU) for the port, as plain PyTorch.
+"""GroupNorm(+SiLU) for the port: the dispatcher, its two kernels and the
+plain paths.
 
-Counterpart of emox/ops/groupnorm.py's default path, `group_norm_xla`.
-The reference's two Pallas GroupNorm kernels (`_gn_kernel`,
-`_gn_stats_kernel`) are off by default there and wait for a later slice
-of the port (ROADMAP.md, Queue 2, K8).
+Counterpart of emox/ops/groupnorm.py. `group_norm` chooses the path as the
+reference's does, from `impl` or else EMOX_GROUPNORM_IMPL, read at call time
+(the reference reads it when it traces):
 
-Rounding follows the reference, not torch's F.group_norm: statistics
-accumulate in fp32, the map is applied as one `x * a + b` in x's own type
-with per-channel coefficients folded in fp32.
+  * "xla" (the default, and an unset or empty variable): `group_norm_xla`,
+    plain PyTorch;
+  * "pallas": the TPU kernel `_gn_kernel` (K8a) becomes the CUDA kernel
+    `group_norm` (emox_torch/csrc/group_norm.cu), behind the autograd
+    function `fused_group_norm`;
+  * "fast": the TPU kernel `_gn_stats_kernel` (K8b) becomes the CUDA kernel
+    `group_norm_stats` (the same source), and `group_norm_fast` folds its
+    per-channel sums into `x * a + b` applied in plain PyTorch, as the
+    reference applies it in XLA;
+  * any other value raises ValueError.
+
+Each kernel wrapper launches its kernel on a CUDA tensor, or raises for an
+input it does not take; there is no fallback. On a CPU tensor it runs the
+kernel's plain version (`group_norm_plain`, `group_norm_stats_plain`), which
+the CPU tests hold against the reference's kernels in interpret mode. Both
+kernels' gradients recompute through `group_norm_xla`, as the reference's
+`_gn_fused_bwd` and `_gn_fast_bwd` do: neither has a backward kernel.
+
+The reference sends a sample's slab to XLA instead of `_gn_kernel` when
+L * C * 4 bytes exceed 8 MB, its TPU's VMEM budget (the VAE's wide sites).
+The CUDA kernel splits each sample's rows across blocks and takes every
+site, so under "pallas" those sites round as `_gn_kernel` rounds (fp32
+apply, one cast) where the reference rounds as `group_norm_xla` does: in
+bfloat16 the two differ by a bf16 step here and there, in float32 not at
+all beyond summation order.
+
+Rounding of `group_norm_xla` follows the reference, not torch's
+F.group_norm: statistics accumulate in fp32, the map is applied as one
+`x * a + b` in x's own type with per-channel coefficients folded in fp32.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Optional, Tuple
+
 import torch
+
+from emox_torch.ops import build
+from emox_torch.ops.attention import _on_card_or_cpu
+
+IMPLS = ("xla", "pallas", "fast")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_THREADS = 256  # kGNThreads in csrc/group_norm.cu
+_TARGET_BLOCKS = 4 * 132  # a few blocks per SM of the H100
 
 
 def group_norm_xla(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
@@ -35,3 +72,204 @@ def group_norm_xla(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, gro
     if silu:
         xn = xn * torch.sigmoid(xn)
     return xn
+
+
+def group_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
+                     eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
+    """K8a's function in plain PyTorch, with `_gn_kernel`'s rounding: fp32
+    statistics, y = (x - mean) * inv * gamma + beta in fp32, SiLU, then one
+    cast to x's type. x [..., L, C]."""
+    *lead, l, c = x.shape
+    cg = c // groups
+    xg = x.reshape(*lead, l, groups, cg).float()
+    mean = xg.mean(dim=(-3, -1), keepdim=True)
+    var = xg.square().mean(dim=(-3, -1), keepdim=True) - mean.square()
+    inv = torch.rsqrt(var + eps)
+    y = (xg - mean) * inv * gamma.float().reshape(groups, cg) + beta.float().reshape(groups, cg)
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def group_norm_stats_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8b's function in plain PyTorch: x [N, L, C] -> per-channel fp32 sum
+    and sum of squares over L, [N, C] each."""
+    xf = x.float()
+    return xf.sum(dim=1), xf.square().sum(dim=1)
+
+
+def stats_chunks(n: int, l: int, c: int, itemsize: int) -> int:
+    """Row chunks per sample of the kernels' grid (chunks x N blocks): enough
+    blocks to keep every SM busy, and no chunk shorter than one pass of a
+    block's threads over the rows."""
+    vpr = c * itemsize // 16  # 16-byte vectors per row
+    rows_per_pass = max(1, _THREADS // vpr)
+    return max(1, min(-(-l // rows_per_pass), -(-_TARGET_BLOCKS // n)))
+
+
+def _check_x(name: str, x: torch.Tensor) -> Tuple[int, int, int]:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"{name} takes x [N, L, C], got {tuple(x.shape)}")
+    n, l, c = x.shape
+    vec = 16 // x.element_size()
+    if c % vec or n > 65535:
+        raise ValueError(f"{name}: C must be a multiple of {vec} for {x.dtype} and N at most 65535, "
+                         f"got {tuple(x.shape)}")
+    return n, l, c
+
+
+def _gn_kernel(x, gamma, beta, groups: int, eps: float, silu: bool) -> torch.Tensor:
+    n, l, c = _check_x("group_norm", x)
+    if c % groups:
+        raise ValueError(f"group_norm: channels {c} not divisible by groups {groups}")
+    if any(p.dtype != x.dtype or p.device != x.device or tuple(p.shape) != (c,) for p in (gamma, beta)):
+        raise TypeError(f"group_norm needs gamma and beta [{c}] on x's device and in x's type")
+    xc = x.contiguous()
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    if xc.data_ptr() % 16:
+        raise ValueError("group_norm needs a 16-byte aligned x")
+    chunks = stats_chunks(n, l, c, x.element_size())
+    y = torch.empty_like(xc)
+    part = torch.empty((2, n, chunks, c), device=x.device, dtype=torch.float32)
+    mean_inv = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = build.kernel("group_norm", "emox_group_norm")(
+            xc.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), part.data_ptr(),
+            mean_inv.data_ptr(), n, l, c, groups, chunks, float(eps), int(silu), _DTYPES[x.dtype], stream,
+        )
+    build.check(err, "group_norm")
+    fused_group_norm.launches += 1
+    return y
+
+
+def group_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel fp32 sum and sum of squares of x [N, L, C] over L, [N, C]
+    each. Launches the CUDA kernel for CUDA tensors and runs the plain
+    version for CPU tensors."""
+    if not _on_card_or_cpu("group_norm_stats", x):
+        return group_norm_stats_plain(x)
+    n, l, c = _check_x("group_norm_stats", x)
+    xc = x.contiguous()
+    if xc.data_ptr() % 16:
+        raise ValueError("group_norm_stats needs a 16-byte aligned x")
+    chunks = stats_chunks(n, l, c, x.element_size())
+    part = torch.empty((2, n, chunks, c), device=x.device, dtype=torch.float32)
+    sums = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = build.kernel("group_norm", "emox_group_norm_stats")(
+            xc.data_ptr(), part.data_ptr(), sums.data_ptr(), n, l, c, chunks, _DTYPES[x.dtype], stream,
+        )
+    build.check(err, "group_norm_stats")
+    group_norm_stats.launches += 1
+    return sums[0], sums[1]
+
+
+group_norm_stats.launches = 0  # kernel launches since the last reset
+
+
+def group_norm_fast(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
+                    eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
+    """The reference's group_norm_fast on x [N, L, C]: per-channel sums from
+    `group_norm_stats`, folded in fp32 to per-channel a, b, then
+    y = x * a + b in x's own type (plain PyTorch), SiLU."""
+    n, l, c = x.shape
+    cg = c // groups
+    s, ss = group_norm_stats(x)
+    sg = s.reshape(n, groups, cg).sum(dim=-1)
+    ssg = ss.reshape(n, groups, cg).sum(dim=-1)
+    cnt = l * cg
+    mean_g = sg / cnt
+    var_g = ssg / cnt - mean_g * mean_g
+    inv_g = torch.rsqrt(var_g + eps)
+    gamma_g = gamma.float().reshape(1, groups, cg)
+    beta_g = beta.float().reshape(1, groups, cg)
+    a = (gamma_g * inv_g[..., None]).reshape(n, 1, c)
+    b = (beta_g - (mean_g * inv_g)[..., None] * gamma_g).reshape(n, 1, c)
+    y = x * a.to(x.dtype) + b.to(x.dtype)
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y
+
+
+class _GroupNormRecompute(torch.autograd.Function):
+    """Backward shared by the two kernel paths: recompute through
+    group_norm_xla and differentiate it (the reference's _gn_fused_bwd and
+    _gn_fast_bwd)."""
+
+    @staticmethod
+    def _save(ctx, x, gamma, beta, groups, eps, silu):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.groups, ctx.eps, ctx.silu = groups, eps, silu
+
+    @staticmethod
+    def backward(ctx, dy):
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+            y = group_norm_xla(*inputs, ctx.groups, ctx.eps, ctx.silu)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
+        return (*(next(grads) if need else None for need in needs), None, None, None)
+
+
+class _GroupNormFused(_GroupNormRecompute):
+    """Forward: the K8a kernel (CUDA) or group_norm_plain (CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups: int, eps: float, silu: bool):
+        if _on_card_or_cpu("group_norm", x):
+            y = _gn_kernel(x, gamma, beta, groups, eps, silu)
+        else:
+            y = group_norm_plain(x, gamma, beta, groups, eps, silu)
+        _GroupNormRecompute._save(ctx, x, gamma, beta, groups, eps, silu)
+        return y
+
+
+class _GroupNormFast(_GroupNormRecompute):
+    """Forward: group_norm_fast (the K8b kernel's sums on CUDA)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups: int, eps: float, silu: bool):
+        y = group_norm_fast(x, gamma, beta, groups, eps, silu)
+        _GroupNormRecompute._save(ctx, x, gamma, beta, groups, eps, silu)
+        return y
+
+
+def fused_group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
+                     eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
+    """GroupNorm(+SiLU) of x [N, L, C] through K8a, differentiable. Launches
+    the CUDA kernel for CUDA tensors and runs group_norm_plain for CPU
+    tensors."""
+    return _GroupNormFused.apply(x, gamma, beta, groups, float(eps), bool(silu))
+
+
+fused_group_norm.launches = 0  # kernel launches since the last reset
+
+
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int = 32,
+               eps: float = 1e-5, silu: bool = False, impl: Optional[str] = None) -> torch.Tensor:
+    """GroupNorm(+SiLU) on x [..., L, C]; gamma, beta [C]. impl: "xla",
+    "pallas" or "fast" (see the module docstring); None reads
+    EMOX_GROUPNORM_IMPL, unset meaning "xla"."""
+    c = x.shape[-1]
+    if c % groups:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    impl = impl or os.environ.get("EMOX_GROUPNORM_IMPL") or "xla"
+    if impl not in IMPLS:
+        raise ValueError(f"GroupNorm impl (EMOX_GROUPNORM_IMPL) must be 'xla', 'pallas' or 'fast', got {impl!r}")
+    if impl == "xla":
+        return group_norm_xla(x, gamma, beta, groups, eps, silu)
+    fn = _GroupNormFused if impl == "pallas" else _GroupNormFast
+    if x.dim() == 3:
+        return fn.apply(x, gamma, beta, groups, float(eps), bool(silu))
+    shape = x.shape
+    return fn.apply(x.reshape(-1, shape[-2], c), gamma, beta, groups, float(eps), bool(silu)).reshape(shape)
+
+
+def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int = 32,
+                    eps: float = 1e-5, impl: Optional[str] = None) -> torch.Tensor:
+    return group_norm(x, gamma, beta, groups, eps, silu=True, impl=impl)

@@ -35,7 +35,8 @@ def no_kernel_launches():
     ops.reset_launch_counts()
     yield
     counts = ops.launch_counts()
-    assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "ln_geglu_ff"}
+    assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "ln_geglu_ff",
+                           "group_norm", "group_norm_stats", "ln_qkv"}
     assert not any(counts.values()), counts
 
 

@@ -389,7 +389,7 @@ def test_geglu_ff_xla_matches():
     assert rel(got, want) <= FP32_TOL
 
 
-# ---- GroupNorm (plain; the Pallas GN kernels wait for a later slice) ------------
+# ---- GroupNorm's plain path (its kernels: tests/test_torch_groupnorm.py) ---------
 @pytest.mark.parametrize("silu", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_group_norm_matches(silu, dtype):
