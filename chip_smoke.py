@@ -12,7 +12,8 @@ raises and the script exits non-zero. Phases:
      from emox_torch/csrc (one nvcc per source, in parallel) and timed.
   2. kernels: every kernel held against its plain PyTorch version at the
      serving and training shapes in bf16 (and in float32; the strided
-     kernels on head-split views of packed tokens), with max
+     kernels on head-split views of packed tokens; K1 and K4 at the 512^2
+     shapes too, K1 at head dim 512), with max
      error against the stated tolerance, kernel / plain / library times
      (CUDA events, after warm-up), the bound (the least time the card could
      take) and, for the feed-forward, its grid against the card's SMs.
@@ -53,7 +54,21 @@ raises and the script exits non-zero. Phases:
      launches of K7, K8a and K8b. The kernels phase holds K8a, K8b and K7
      against their plain versions too, and every profile reports the device
      time of the GroupNorm and LayerNorm calls (norm_ranges_ms).
- 10. the `kernels` line: every ported kernel with the TPU kernel it
+ 10. geglu_ff, serve_ff_xla: the reference's FF switch. K6 behind
+     GEGLUFeedForward with impl "fused", with EMOX_FF_IMPL unset and =fused
+     (launches, output against impl "xla"), not under =xla, and its
+     backward against geglu_ff_xla's autograd; two 256^2 requests and a
+     profiled one under EMOX_FF_IMPL=xla, the plain FF at every sub-layer
+     (0 launches of ln_geglu_ff and K6).
+ 11. vae512, serve_512, train_512: the flagship at 512^2, the reference's
+     train resolution. The VAE encodes and decodes one 512^2 image in
+     float32, card (K1 at head dim 512 in both mid-attentions) against CPU;
+     three requests and a profiled one as phase 4 at 512^2; Trainer stage 2
+     at 512^2, batch 2 x 8 frames (1 warm-up, 2 timed steps, one profiled)
+     as phase 7. Every serve phase asserts the attention kernels' launches
+     at the counts the code gives (attn_launches_per_request: 107 K1 per
+     512^2 request, d 512 included).
+ 12. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
@@ -86,11 +101,14 @@ PROMPT = "a person talking to the camera, studio lighting, sharp focus"
 # The reference's fused-norm switches, off (unset) in every phase but the *_norms
 # ones, and the kernel each selects. NORMS is the configuration served and
 # trained under them; NORMS_FAST its GroupNorm alternative (K8b), with the
-# concatenated self-attention projection as well.
-SWITCH_VARS = ("EMOX_GROUPNORM_IMPL", "EMOX_LN_QKV", "EMOX_FUSED_QKV")
+# concatenated self-attention projection as well. EMOX_FF_IMPL, the FF impl
+# switch, is unset too but in the phases that set it (geglu_ff, serve_ff_xla):
+# K6 (geglu_ff) runs on no model path, and under "xla" neither does ln_geglu_ff.
+SWITCH_VARS = ("EMOX_GROUPNORM_IMPL", "EMOX_LN_QKV", "EMOX_FUSED_QKV", "EMOX_FF_IMPL")
 SWITCH_KERNELS = ("group_norm", "group_norm_stats", "ln_qkv")
 NORMS = {"EMOX_GROUPNORM_IMPL": "pallas", "EMOX_LN_QKV": "1"}
 NORMS_FAST = {"EMOX_GROUPNORM_IMPL": "fast", "EMOX_LN_QKV": "1", "EMOX_FUSED_QKV": "1"}
+FF_XLA = {"EMOX_FF_IMPL": "xla"}
 
 
 def model_config(name: str, image_size: int, num_frames: int):
@@ -139,11 +157,14 @@ def switch_kernels(env=None) -> tuple:
 
 def check_path_launches(name: str, counts: dict, train: bool, what: str, env=None) -> None:
     """Every kernel of the configuration's path launched, with those the
-    switches select; the other configuration's attention kernels and the
-    kernels of switches left off never."""
+    switches select; the other configuration's attention kernels, the
+    kernels of switches left off and K6 (on no model path) never; under
+    EMOX_FF_IMPL=xla not the fused FF either."""
     on = switch_kernels(env)
     other = [k for n, ks in ATTN_KERNELS.items() if n != name for k in ks]
-    other += [k for k in SWITCH_KERNELS if k not in on]
+    other += [k for k in SWITCH_KERNELS if k not in on] + ["geglu_ff"]
+    if (env or {}).get("EMOX_FF_IMPL") == "xla":
+        other.append("ln_geglu_ff")
     need = tuple(k for k in FORWARD_KERNELS if k not in other) + ((ATTN_KERNELS[name][1],) if train else ()) + on
     if min(counts[k] for k in need) <= 0 or any(counts[k] for k in other):
         raise AssertionError(f"{what}: kernels {need} must launch and {other} must not: {counts}")
@@ -172,6 +193,37 @@ def norm_launches_per_request(cfg, steps: int, env) -> dict:
     want = dict.fromkeys(SWITCH_KERNELS, 0)
     for k in switch_kernels(env):
         want[k] = qkv if k == "ln_qkv" else gn
+    return want
+
+
+def attn_launches_per_request(cfg, steps: int) -> dict:
+    """Exact launches of the attention forward kernels in one serving
+    request, from the code. A site takes a kernel where its K/V length
+    reaches KERNEL_MIN_KV: the packed one (K1) for a head dim % 64 == 0, the
+    strided one (K5) otherwise. The sites: every spatial transformer (2 *
+    lpb + 1 per attention level, and the mid block at the deepest level) in
+    the writer (one batched pass for all steps, Lk = the level's tokens) and
+    in the reader (one CFG-batched pass per step, the reference tokens
+    appended: Lk = 2 x tokens); the VAE's single-head mid-attention, head
+    dim its last width, at the encode of the reference image and at the
+    decode (decode_chunk 0), Lk = the latent's tokens. Text, audio and
+    temporal attention stay far below the cutoff."""
+    from emox_torch.ops.attention import KERNEL_MIN_KV
+
+    m, v = cfg.model, cfg.vae
+    lat = cfg.data.height // v.downscale
+    kernel = lambda d: "flash_attn_nlc_fwd" if d % 64 == 0 else "flash_attn_fwd"
+    head_dim = lambda ch: ch // m.attention_heads if m.attention_heads > 0 else m.attention_head_dim
+    sites = [(level, 2 * m.layers_per_block + 1) for level in m.attention_levels]
+    sites.append((len(m.block_channels) - 1, 1))
+    want = {"flash_attn_nlc_fwd": 0, "flash_attn_fwd": 0}
+    for level, count in sites:
+        tokens = (lat >> level) ** 2
+        for lk, passes in ((2 * tokens, steps), (tokens, 1)):  # reader, writer
+            if lk >= KERNEL_MIN_KV:
+                want[kernel(head_dim(m.block_channels[level]))] += count * passes
+    if lat * lat >= KERNEL_MIN_KV:
+        want[kernel(v.base_channels * v.channel_multipliers[-1])] += 2
     return want
 
 
@@ -232,7 +284,30 @@ def _rand(gen, *shape, scale=1.0, dtype=None, shift=0.0):
     return t if dtype is None else t.to(dtype)
 
 
-def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
+def _by_rows(fn, chunk, *tensors):
+    """fn (a plain version, per sample along dim 0) over row chunks of the
+    batch, its outputs concatenated: the same function in pieces, so that
+    its fp32 [Lq, Lk] maps fit the card at the 512^2 shapes."""
+    import torch
+
+    n = tensors[0].shape[0]
+    chunk = chunk or n
+    parts = [fn(*(t[i:i + chunk] for t in tensors)) for i in range(0, n, chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _sdpa_backend(q, k, v) -> str:
+    """The backend F.scaled_dot_product_attention picks for these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    names = {int(val): name for name, val in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v)), "unknown")
+
+
+def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0):
+    """K1 against attention_nlc_plain (fp32 math on the same inputs, over
+    batch chunks of `chunk` rows where the full batch's maps would not fit)."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_nlc_plain, flash_attention_nlc
@@ -243,7 +318,8 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
     q, k, v = (_rand(gen, n, l, c, dtype=dtype) for l in (lq, lk, lk))
     out, lse = flash_attention_nlc(q, k, v, heads, return_lse=True)
     torch.cuda.synchronize()
-    ref, ref_lse = attention_nlc_plain(q.float(), k.float(), v.float(), heads, scale)
+    plain = lambda *a: attention_nlc_plain(*a, heads, scale)
+    ref, ref_lse = _by_rows(plain, chunk, q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     if dtype == torch.bfloat16:
@@ -253,8 +329,9 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
     else:
         tol = 2e-4 * max(ref.abs().max().item(), 1.0)  # 3xTF32: float32-level sums
     res = {"kernel": "flash_attn_nlc_fwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq,
-           "lk": lk, "c": c, "heads": heads, "max_abs_err": err, "tol": tol,
+           "lk": lk, "c": c, "heads": heads, "head_dim": d, "max_abs_err": err, "tol": tol,
            "lse_max_abs_err": lse_err, "lse_tol": 1e-3}
+    del ref, ref_lse
     if not (err <= tol and lse_err <= 1e-3 and math.isfinite(err)):
         emit(res)
         raise AssertionError(f"flash_attn_nlc_fwd disagrees with its plain version: {res}")
@@ -262,20 +339,23 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
         flops = 4.0 * n * heads * lq * lk * d
         nbytes = q.element_size() * (2 * n * lq * c + 2 * n * lk * c) + 4 * n * lq * heads
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
-        res["ms"] = time_ms(lambda: flash_attention_nlc(q, k, v, heads), iters=20)
-        res["plain_ms"] = time_ms(lambda: attention_nlc_plain(q, k, v, heads, scale), iters=3, warmup=1)
+        res["ms"] = time_ms(lambda: flash_attention_nlc(q, k, v, heads), iters=20 if flops < 1e12 else 5)
+        res["plain_ms"] = time_ms(lambda: _by_rows(plain, chunk, q, k, v), iters=3, warmup=1)
+        if chunk:
+            res["plain_rows_per_call"] = chunk
         split = lambda t: t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2)
         qh, kh, vh = split(q), split(k), split(v)
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=20)
+        res["library_backend"] = _sdpa_backend(qh, kh, vh)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
     emit(res)
     return res
 
 
-def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
+def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0):
     """K4: dq, dk, dv of the kernels against the plain version (fp32 math on
-    the same inputs), from the fp32 forward's lse and its output rounded to
-    the input type."""
+    the same inputs, over batch chunks of `chunk` rows where needed), from
+    the fp32 forward's lse and its output rounded to the input type."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_nlc_bwd_plain, attention_nlc_plain, flash_attention_nlc_bwd
@@ -285,14 +365,15 @@ def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
     scale = d ** -0.5
     q, k, v = (_rand(gen, n, l, c, dtype=dtype) for l in (lq, lk, lk))
     dout = _rand(gen, n, lq, c, dtype=dtype)
-    o32, lse = attention_nlc_plain(q.float(), k.float(), v.float(), heads, scale)
+    o32, lse = _by_rows(lambda *a: attention_nlc_plain(*a, heads, scale), chunk, q.float(), k.float(), v.float())
     o = o32.to(dtype)
     del o32
     got = flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale)
     torch.cuda.synchronize()
-    want = attention_nlc_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse, dout.float(), heads, scale)
+    plain = lambda *a: attention_nlc_bwd_plain(*a, heads, scale)
+    want = _by_rows(plain, chunk, q.float(), k.float(), v.float(), o.float(), lse, dout.float())
     res = {"kernel": "flash_attn_nlc_bwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq, "lk": lk,
-           "c": c, "heads": heads}
+           "c": c, "heads": heads, "head_dim": d}
     ok = True
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         err = (g.float() - w).abs().max().item()
@@ -311,9 +392,11 @@ def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True):
         flops = 10.0 * n * heads * lq * lk * d
         nbytes = q.element_size() * n * c * (4 * lq + 4 * lk) + 4 * n * lq * heads
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
-        res["ms"] = time_ms(lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale), iters=10)
-        res["plain_ms"] = time_ms(lambda: attention_nlc_bwd_plain(q, k, v, o, lse, dout, heads, scale),
-                                  iters=3, warmup=1)
+        res["ms"] = time_ms(lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale),
+                            iters=10 if flops < 2e12 else 3)
+        res["plain_ms"] = time_ms(lambda: _by_rows(plain, chunk, q, k, v, o, lse, dout), iters=3, warmup=1)
+        if chunk:
+            res["plain_rows_per_call"] = chunk
         split = lambda t: t.view(t.shape[0], t.shape[1], heads, d).transpose(1, 2)
         qh, kh, vh = (split(t).detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qh, kh, vh)
@@ -454,6 +537,39 @@ def check_ff(gen, m, c, dtype=None, timing=True):
         plan = ff_plan(c, dtype)
         res.update(plan, grid_blocks=-(-m // plan["row_tile"]),
                    sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    emit(res)
+    return res
+
+
+def check_geglu_ff(gen, m, c, dtype=None, timing=True):
+    """K6 against geglu_ff_plain (h rounded to x's type, fp32 products, the
+    output rounded once) on x [m, c] with F = 4C."""
+    import torch
+    from emox_torch.ops.ff import fused_geglu_ff, geglu_ff_plain
+
+    dtype = dtype or torch.bfloat16
+    f = 4 * c
+    args = (_rand(gen, m, c, dtype=dtype),
+            _rand(gen, 2 * f, c, scale=c ** -0.5, dtype=dtype), _rand(gen, 2 * f, scale=0.1, dtype=dtype),
+            _rand(gen, c, f, scale=f ** -0.5, dtype=dtype), _rand(gen, c, scale=0.1, dtype=dtype))
+    out = fused_geglu_ff(*args)
+    torch.cuda.synchronize()
+    ref = geglu_ff_plain(*(a.float() for a in args))
+    err = (out.float() - ref).abs().max().item()
+    tol = _tol(ref, dtype)  # h and y rounded to bf16
+    res = {"kernel": "geglu_ff", "dtype": str(dtype).split(".")[-1], "m": m, "c": c, "f": f,
+           "max_abs_err": err, "tol": tol}
+    if not (err <= tol and math.isfinite(err)):
+        emit(res)
+        raise AssertionError(f"geglu_ff disagrees with its plain version: {res}")
+    if timing:
+        flops = 6.0 * m * c * f
+        nbytes = args[0].element_size() * (2 * m * c + 3 * c * f + 2 * f + c)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["ms"] = time_ms(lambda: fused_geglu_ff(*args), iters=10)
+        res["plain_ms"] = time_ms(lambda: geglu_ff_plain(*args), iters=3, warmup=1)
+        res["library_ms"] = None  # no single PyTorch call computes the gated FF
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
     emit(res)
     return res
 
@@ -640,6 +756,28 @@ def phase_kernels():
     check_ln_qkv(gen, 1000, 320, timing=False)
     check_ln_qkv(gen, 32768, 320, dtype=torch.float32, timing=False)
     check_ln_qkv(gen, 2048, 1280, dtype=torch.float32, timing=False)
+    # K6 at level 0 under CFG at 256^2 (M 32768 x C 320, the only width the TPU
+    # kernel takes), then C 640 and 1280 (which the port takes and the
+    # reference leaves to XLA), a ragged M and float32
+    results["geglu_ff_l0"] = check_geglu_ff(gen, 32768, 320)
+    results["geglu_ff_l1"] = check_geglu_ff(gen, 8192, 640)
+    results["geglu_ff_l2"] = check_geglu_ff(gen, 2048, 1280)
+    check_geglu_ff(gen, 1000, 320, timing=False)
+    check_geglu_ff(gen, 1000, 320, dtype=torch.float32, timing=False)
+    check_geglu_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
+    # K1 at head dim 512, the VAE's mid-attention at 512^2: the 16-frame decode
+    # (N 16, L 4096), the reference image's encode with a ragged L, float32
+    results["flash_d512"] = check_flash(gen, 16, 4096, 4096, c=512, heads=1)
+    check_flash(gen, 1, 4000, 4000, c=512, heads=1, timing=False)
+    check_flash(gen, 1, 4096, 4096, c=512, heads=1, dtype=torch.float32, timing=False)
+    check_flash(gen, 2, 1000, 2100, c=512, heads=1, dtype=torch.float32, timing=False)
+    # K1 and K4 at the 512^2 level-0 sites (Lq 4096, Lk 8192: reference tokens
+    # appended) and level-1 sites (C 640, 10 heads, Lk 2048): serving under
+    # CFG (N 32) and stage-2 training (N 16)
+    results["flash_512_l0"] = check_flash(gen, 32, 4096, 8192, chunk=4)
+    results["flash_512_l1"] = check_flash(gen, 32, 1024, 2048, c=640, heads=10, chunk=8)
+    results["flash_bwd_512_l0"] = check_flash_bwd(gen, 16, 4096, 8192, chunk=2)
+    results["flash_bwd_512_l1"] = check_flash_bwd(gen, 16, 1024, 2048, c=640, heads=10, chunk=4)
     return results
 
 
@@ -758,10 +896,11 @@ def phase_step(name: str = "flagship", runs=(("", None),)):
 _STAGE_LR = {1: 1e-4, 2: 1e-5, 3: 1e-5}  # the reference's stage presets (configs/training/stage{1,2,3}.yaml)
 
 
-def _train_config(stage: int, batch: int, frames: int, dtype: str, checkpoint_dir: str, name: str = "flagship"):
+def _train_config(stage: int, batch: int, frames: int, dtype: str, checkpoint_dir: str, name: str = "flagship",
+                  size: int = 256):
     import dataclasses
 
-    cfg = model_config(name, 256, frames)
+    cfg = model_config(name, size, frames)
     return cfg.replace(
         data=dataclasses.replace(cfg.data, batch_size=batch, num_frames=frames),
         train=dataclasses.replace(cfg.train, stage=stage, learning_rate=_STAGE_LR[stage], compute_dtype=dtype,
@@ -848,17 +987,17 @@ def phase_train_step(tmp: str, env=None):
 
 
 def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, steps: int, out_dir: str = "",
-                name: str = "flagship", env=None):
-    """env: the switches of the run (none: phase train / train_sd15; with
-    some: train_norms)."""
+                name: str = "flagship", env=None, size: int = 256):
+    """env: the switches of the run (none: phase train / train_sd15 /
+    train_512; with some: train_norms)."""
     import torch
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, reset_launch_counts
     from emox_torch.train import Trainer
 
     torch.cuda.empty_cache()
-    cfg = _train_config(stage, batch=batch, frames=frames, dtype="bfloat16", checkpoint_dir=tmp, name=name)
-    tag = ("" if name == "flagship" else "_sd15") + ("_norms" if env else "")
+    cfg = _train_config(stage, batch=batch, frames=frames, dtype="bfloat16", checkpoint_dir=tmp, name=name, size=size)
+    tag = ("" if name == "flagship" else "_sd15") + ("" if size == 256 else f"_{size}") + ("_norms" if env else "")
     t0 = time.perf_counter()
     model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     _fill_zero_init(model, seed=3)  # every trainable leaf of stage 2 gets a gradient from step 1
@@ -885,7 +1024,7 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
         secs = time.perf_counter() - t0
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        phase_profile(lambda: tr.train_step(data, gen), f"one {name} stage-{stage} train step"
+        phase_profile(lambda: tr.train_step(data, gen), f"one {name} {size}^2 stage-{stage} train step"
                       + (f" under {env}" if env else ""), out_dir, f"profile_train{tag}_stage{stage}_kernels.json")
     unchanged = [n for n in names if torch.equal(tr.state.masters[n].cpu(), before_train[n])]
     # AdamW with decoupled decay leaves a leaf alone only when its gradient
@@ -898,7 +1037,7 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
                          for n, p in model.modules.named_parameters() if n in before_frozen)
     ms = 1e3 * secs / steps
     res = {"phase": f"train{tag}", "stage": stage,
-           "config": f"{name} 256^2 stage {stage}, batch {batch}, {frames} frame(s), bf16 compute, fp32 masters, "
+           "config": f"{name} {size}^2 stage {stage}, batch {batch}, {frames} frame(s), bf16 compute, fp32 masters, "
                      f"AdamW lr {_STAGE_LR[stage]}, remat; {warmup} warm-up + {steps} timed steps",
            "switches": env or {},
            "params": sum(p.numel() for p in model.modules.parameters()),
@@ -925,21 +1064,25 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
 
 # ---- phase 4 ------------------------------------------------------------------
 def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "flagship", prompt=None, env=None,
-                profile: bool = True):
-    """env: the switches of the run (none: phase serve / serve_sd15; with
-    some: serve_norms, whose launches of the switch kernels are asserted at
-    the count norm_launches_per_request derives)."""
+                profile: bool = True, size: int = 256):
+    """env: the switches of the run (none: phase serve / serve_sd15 /
+    serve_512; with norm switches: serve_norms, whose launches of the switch
+    kernels are asserted at the count norm_launches_per_request derives;
+    EMOX_FF_IMPL=xla: serve_ff_xla). The attention kernels' launches are
+    asserted at the count attn_launches_per_request derives."""
     import torch
     from emox_torch.infer.pipeline import EMOPipeline
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, reset_launch_counts
 
     torch.cuda.empty_cache()
-    size, frames = 256, 16
+    frames = 16
     cfg = model_config(name, size, frames)
-    tag = ("" if name == "flagship" else "_sd15") + ("_norms" if env else "")
-    if env and env.get("EMOX_GROUPNORM_IMPL") == "fast":
-        tag += "_fast"
+    tag = ("" if name == "flagship" else "_sd15") + ("" if size == 256 else f"_{size}")
+    if env and "EMOX_FF_IMPL" in env:
+        tag += "_ff_" + env["EMOX_FF_IMPL"]
+    elif env:
+        tag += "_norms" + ("_fast" if env.get("EMOX_GROUPNORM_IMPL") == "fast" else "")
     t0 = time.perf_counter()
     model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     pipe = EMOPipeline(model)
@@ -973,20 +1116,19 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
         counts = launch_counts()
         steady = per_request[1:] or per_request
         res = {"phase": f"serve{tag}",
-               "config": f"{name} 256^2, 16 frames, CFG 7.5 batched, 10 DDIM steps, bf16"
+               "config": f"{name} {size}^2, 16 frames, CFG 7.5 batched, {steps} DDIM steps, bf16"
                          + (f", prompt {prompt!r}" if prompt is not None else ""),
                "switches": env or {}, "params": n_params, "setup_s": setup_s, "requests": per_request,
                "s_per_request": sum(p["s"] for p in steady) / len(steady),
                "ms_per_step": sum(p["ms_per_step"] for p in steady) / len(steady),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
-               "launches_per_request": {k: v / requests for k, v in counts.items()}}
+               "launches_per_request": {k: v / requests for k, v in counts.items()},
+               "attn_launches_per_request_expected": attn_launches_per_request(cfg, steps)}
         emit(res)
         check_path_launches(name, counts, train=False, what=f"{name} serving {env or ''}", env=env)
-        if name == "flagship-sd15" and counts["flash_attn_fwd"] != 5 * steps * requests:
-            # the reader's five level-0 sites (down_0_0, down_0_1, up_0_0..2) have Lk 2048 and head
-            # dim 40, once per CFG-batched step; every other site is below the cutoff
-            raise AssertionError(f"flash_attn_fwd launched {counts['flash_attn_fwd']} times, "
-                                 f"expected {5 * steps} per request")
+        attn = {k: requests * v for k, v in res["attn_launches_per_request_expected"].items()}
+        if {k: counts[k] for k in attn} != attn:
+            raise AssertionError(f"{name} {size}^2 serving: attention kernels launched {counts}, expected {attn}")
         want = {k: requests * v for k, v in norm_launches_per_request(cfg, steps, env).items()}
         if {k: counts[k] for k in SWITCH_KERNELS} != want:
             raise AssertionError(f"{name} serving {env}: switch kernels launched {counts}, expected {want}")
@@ -995,7 +1137,7 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
             phase_profile(lambda: pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
                                        speeds=speeds, face_mask=mask,
                                        generator=torch.Generator(device="cuda").manual_seed(99), prompt=prompt),
-                          f"one {name} serving request, {steps} DDIM steps" + (f", under {env}" if env else ""),
+                          f"one {name} {size}^2 serving request, {steps} DDIM steps" + (f", under {env}" if env else ""),
                           out_dir, f"profile{tag}_kernels.json")
     return res
 
@@ -1112,6 +1254,123 @@ def phase_profile(run, label: str, out_dir: str, filename: str) -> dict:
     return res
 
 
+# ---- the 512^2 VAE and K6's entry points -----------------------------------------
+def phase_vae512(size: int = 512):
+    """The flagship VAE (random weights from a seed) encodes one size^2
+    image (posterior mean) and decodes it, float32, on the card (K1 at head
+    dim 512 in both mid-attentions: (size/8)^2 tokens) against the same
+    weights on the CPU (plain versions), TF32 off for matmuls and
+    convolutions."""
+    import copy
+
+    import torch
+    from emox_torch.models.vae import AutoencoderKL
+    from emox_torch.nn.layers import init_weights
+    from emox_torch.ops import launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = model_config("flagship", size, 1).vae
+    t0 = time.perf_counter()
+    cpu = AutoencoderKL(cfg)
+    init_weights(cpu, torch.Generator().manual_seed(5))
+    cpu.eval().requires_grad_(False)
+    gpu = copy.deepcopy(cpu).to("cuda", memory_format=torch.channels_last)
+    img = torch.rand((1, size, size, 3), generator=torch.Generator().manual_seed(6)) * 2 - 1
+    setup_s = time.perf_counter() - t0
+
+    def run(vae, x):
+        with torch.inference_mode():
+            mean = vae.encode(x).mode()
+            return {"latent_mean": mean, "image": vae.decode(mean)}
+
+    t0 = time.perf_counter()
+    on_cpu = run(cpu, img)
+    cpu_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    on_gpu = run(gpu, img.to("cuda"))
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    counts = launch_counts()
+    tol = 3e-4  # as the step phases: float32 both sides, sums in other orders, 3xTF32 in the kernels
+    rel = {k: (torch.linalg.vector_norm(on_gpu[k].cpu().double() - v.double())
+               / torch.linalg.vector_norm(v.double()).clamp_min(1e-30)).item() for k, v in on_cpu.items()}
+    res = {"phase": "vae512", "config": f"flagship VAE, one {size}^2 image, encode (posterior mean) + decode, "
+           f"float32, mid-attention {(size // 8) ** 2} tokens at head dim {cfg.base_channels * cfg.channel_multipliers[-1]}",
+           "rel_l2": rel, "tol": tol, "launches": counts, "setup_s": setup_s, "cpu_s": cpu_s, "gpu_s": gpu_s,
+           "shapes": {k: list(v.shape) for k, v in on_gpu.items()}}
+    emit(res)
+    if not all(math.isfinite(v) and v <= tol for v in rel.values()):
+        raise AssertionError(f"vae512: card and CPU disagree: {rel}")
+    if counts["flash_attn_nlc_fwd"] != 2 or any(n for k, n in counts.items() if k != "flash_attn_nlc_fwd"):
+        raise AssertionError(f"vae512: K1 must launch at both mid-attentions and nothing else: {counts}")
+    del cpu, gpu, on_cpu, on_gpu
+    torch.backends.cudnn.allow_tf32 = True
+    return res
+
+
+def phase_geglu_ff():
+    """K6's entry points: the flagship's level-0 GEGLUFeedForward(320) on
+    [32, 1024, 320] bf16 tokens with impl "fused", with EMOX_FF_IMPL unset
+    and with EMOX_FF_IMPL=fused (K6 launches, output within 4 bf16 steps of
+    impl "xla"), under EMOX_FF_IMPL=xla (no launch); then one backward
+    through the autograd function, dx and the weight gradients against
+    geglu_ff_xla's autograd."""
+    import torch
+    from emox_torch.nn.attention_blocks import GEGLUFeedForward
+    from emox_torch.ops import launch_counts, reset_launch_counts
+    from emox_torch.ops.ff import fused_geglu_ff, geglu_ff_xla
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    c = 320
+    ff = GEGLUFeedForward(c).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        for lin in (ff.proj_in, ff.proj_out):
+            lin.weight.copy_(_rand(gen, *lin.weight.shape, scale=lin.fan_in() ** -0.5))
+            lin.bias.copy_(_rand(gen, *lin.bias.shape, scale=0.1))
+    x = _rand(gen, 32, 1024, c, dtype=torch.bfloat16)
+    with switches():
+        ff.impl = "xla"
+        with torch.no_grad():
+            want = ff(x)
+    tol = _tol(want.float(), torch.bfloat16)
+    runs = {}
+    reset_launch_counts()
+    for label, impl, env in (("impl_fused", "fused", None), ("env_unset", None, None),
+                             ("env_fused", None, {"EMOX_FF_IMPL": "fused"}), ("env_xla", None, FF_XLA)):
+        ff.impl = impl
+        before = launch_counts()["geglu_ff"]
+        with switches(env), torch.no_grad():
+            got = ff(x)
+        torch.cuda.synchronize()
+        runs[label] = {"launches": launch_counts()["geglu_ff"] - before,
+                       "max_abs_err": (got.float() - want.float()).abs().max().item()}
+    # backward: the autograd function's recompute against geglu_ff_xla's autograd
+    w = (ff.proj_in.weight, ff.proj_in.bias, ff.proj_out.weight, ff.proj_out.bias)
+    dy = _rand(gen, *x.shape, dtype=torch.bfloat16)
+    grads = {}
+    for label, fn in (("fused", fused_geglu_ff), ("xla", geglu_ff_xla)):
+        inputs = [t.detach().requires_grad_() for t in (x, *w)]
+        grads[label] = torch.autograd.grad(fn(*inputs), inputs, dy)
+    counts = launch_counts()
+    bwd = {}
+    for name, g, r in zip(("dx", "dw1", "db1", "dw2", "db2"), grads["fused"], grads["xla"]):
+        bwd[name] = {"max_abs_err": (g.float() - r.float()).abs().max().item(), "tol": _tol(r.float(), torch.bfloat16)}
+    res = {"phase": "geglu_ff", "config": "GEGLUFeedForward(320) on [32, 1024, 320] bf16 (flagship level 0 under CFG)",
+           "tol": tol, "runs": runs, "backward": bwd, "launches": counts}
+    emit(res)
+    on = ("impl_fused", "env_unset", "env_fused")
+    if any(runs[k]["launches"] != 1 or not runs[k]["max_abs_err"] <= tol for k in on) or runs["env_xla"]["launches"]:
+        raise AssertionError(f"geglu_ff: K6 must launch under impl fused, EMOX_FF_IMPL unset and =fused "
+                             f"(within {tol} of xla) and not under xla: {runs}")
+    if not all(v["max_abs_err"] <= v["tol"] for v in bwd.values()):
+        raise AssertionError(f"geglu_ff: gradients disagree with geglu_ff_xla's: {bwd}")
+    if any(n for k, n in counts.items() if k != "geglu_ff"):
+        raise AssertionError(f"geglu_ff: other kernels launched: {counts}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for long reports (ptxas output)")
@@ -1157,24 +1416,38 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_step(tmp, env=NORMS)
         train_norms = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out, env=NORMS)
+    # the reference's FF switch: K6's entry points, and the serving request with
+    # the plain FF (the end-to-end A/B of K2/K3)
+    geglu = phase_geglu_ff()["launches"]
+    serve_ff_xla = phase_serve(args.out, requests=2, env=FF_XLA)["launches"]
+    # 512^2, the reference's train resolution: K1 at head dim 512 in the VAE's
+    # mid-attention, then serving and stage-2 training at full width and depth
+    with switches():
+        phase_vae512()
+        serve_512 = phase_serve(args.out, size=512)["launches"]
+        with tempfile.TemporaryDirectory() as tmp:
+            train_512 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out, size=512)
     by_path = {"serve": launches, "train_stage2_per_step": train2["launches_per_step"],
                "train_stage1_per_step": train1["launches_per_step"],
                "train_stage3_per_step": train3["launches_per_step"],
                "serve_sd15": serve_sd15, "train_sd15_stage2_per_step": train_sd15["launches_per_step"],
                "serve_norms": serve_norms, "serve_norms_fast": serve_fast,
-               "train_norms_stage2_per_step": train_norms["launches_per_step"]}
+               "train_norms_stage2_per_step": train_norms["launches_per_step"],
+               "geglu_ff": geglu, "serve_ff_xla": serve_ff_xla,
+               "serve_512": serve_512, "train_512_stage2_per_step": train_512["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels,
     # the timed stage-2 training steps for the backward; the strided kernels'
     # on the SD-1.5 head layout's paths; the switch kernels' on the serving
-    # path under their switches
+    # path under their switches; K6's through its entry points (geglu_ff)
     launches = dict(launches, flash_attn_nlc_bwd=train2["launches"]["flash_attn_nlc_bwd"],
                     flash_attn_fwd=serve_sd15["flash_attn_fwd"],
                     flash_attn_bwd=train_sd15["launches"]["flash_attn_bwd"],
                     group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
-                    group_norm_stats=serve_fast["group_norm_stats"])
+                    group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape = lambda k: {x: k[x] for x in ("n", "lq", "lk", "l", "c", "heads", "head_dim", "m", "f", "row_tile",
-                                         "grid_blocks", "smem_bytes", "blocks_per_sm", "sms") if x in k}
+                                         "grid_blocks", "smem_bytes", "blocks_per_sm", "sms", "library_backend",
+                                         "plain_rows_per_call") if x in k}
 
     def entry(source, replaces, main, others):
         """One row per CUDA kernel: its numbers at `main` (the shape of the
@@ -1188,13 +1461,13 @@ def main(argv=None) -> int:
 
     emit({"kernels": [
         entry("emox_torch/csrc/flash_attn_nlc.cu", ["emox/ops/attention.py:409"],
-              kern["flash_n32"], [kern["flash_n16"]]),
+              kern["flash_n32"], [kern["flash_n16"], kern["flash_d512"], kern["flash_512_l0"], kern["flash_512_l1"]]),
         # one kernel for both TPU kernels: level 0 is _ln_ff_kernel's shape,
         # level 1 _ln_ff_wide_kernel's
         entry("emox_torch/csrc/ln_geglu_ff.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120"],
               kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"]]),
         entry("emox_torch/csrc/flash_attn_nlc_bwd.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
-              kern["flash_bwd_n16"], [kern["flash_bwd_n4"]]),
+              kern["flash_bwd_n16"], [kern["flash_bwd_n4"], kern["flash_bwd_512_l0"], kern["flash_bwd_512_l1"]]),
         entry("emox_torch/csrc/flash_attn.cu", ["emox/ops/attention.py:69"],
               kern["flash_strided_n32"], [kern["flash_strided_n16"]]),
         entry("emox_torch/csrc/flash_attn_bwd.cu", ["emox/ops/attention.py:118", "emox/ops/attention.py:160"],
@@ -1204,6 +1477,8 @@ def main(argv=None) -> int:
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:74"],
               kern["gn_l0_stats"], [kern["gn_l2_stats"], kern["gn_vae_stats"]]),
         entry("emox_torch/csrc/ln_qkv.cu", ["emox/ops/ff.py:353"], kern["ln_qkv_l0"], [kern["ln_qkv_l2"]]),
+        entry("emox_torch/csrc/geglu_ff.cu", ["emox/ops/ff.py:455"], kern["geglu_ff_l0"],
+              [kern["geglu_ff_l1"], kern["geglu_ff_l2"]]),
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

@@ -5,6 +5,10 @@ Attention runs through emox_torch.ops.dot_product_attention_nlc on the
 packed [N, L, H*D] token layout (the flash kernel where the reference takes
 its Pallas kernel), and every transformer feed-forward sub-layer through
 emox_torch.ops.fused_ln_geglu_ff (the fused LN + GEGLU + residual kernel).
+The FF impl is the reference's: GEGLUFeedForward(impl=...) or EMOX_FF_IMPL
+("auto" / "fused": the kernels; "xla": the plain formulas; "fused_interpret":
+the kernels' plain versions). GEGLUFeedForward called on its own goes
+through emox_torch.ops.geglu_ff (K6 where the impl is not "xla").
 
 The reference's two opt-in fused projections keep their switches, off
 by default as there:
@@ -33,7 +37,7 @@ from emox_torch.nn.blocks import FusedGroupNorm
 from emox_torch.nn.embeddings import sinusoidal_positions
 from emox_torch.nn.layers import Dense, LayerNorm
 from emox_torch.ops.attention import dot_product_attention_nlc
-from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla
+from emox_torch.ops.ff import ff_default_impl, fused_ln_geglu_ff, geglu_ff, ln_geglu_ff_plain
 from emox_torch.ops.ln_qkv import _ln_qkv_enabled, fused_ln_qkv
 
 QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -117,16 +121,22 @@ class Attention(nn.Module):
 
 
 class GEGLUFeedForward(nn.Module):
-    """GEGLU MLP: proj_in to 2*mult*dim, value * gelu(gate), proj_out."""
+    """GEGLU MLP: proj_in to 2*mult*dim, value * gelu(gate), proj_out.
 
-    def __init__(self, dim: int, mult: int = 4):
+    impl: the reference's FF impl names, None = ff_default_impl()
+    (EMOX_FF_IMPL, else "auto" with a CUDA card and "xla" without). Anything
+    but "xla" goes through emox_torch.ops.geglu_ff (K6 on CUDA tensors); the
+    parameters are the same on every path."""
+
+    def __init__(self, dim: int, mult: int = 4, impl: Optional[str] = None):
         super().__init__()
+        self.impl = impl
         self.proj_in = Dense(dim, dim * mult * 2)
         self.proj_out = Dense(dim * mult, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return geglu_ff_xla(x.to(self.proj_in.weight.dtype), self.proj_in.weight, self.proj_in.bias,
-                            self.proj_out.weight, self.proj_out.bias)
+        return geglu_ff(x.to(self.proj_in.weight.dtype), self.proj_in.weight, self.proj_in.bias,
+                        self.proj_out.weight, self.proj_out.bias, impl=self.impl or ff_default_impl())
 
 
 def _maybe_ln_qkv(ln_mod: LayerNorm, attn_mod: nn.Module, x: torch.Tensor) -> Optional[QKV]:
@@ -143,9 +153,20 @@ def _maybe_ln_qkv(ln_mod: LayerNorm, attn_mod: nn.Module, x: torch.Tensor) -> Op
 
 
 def _ff_sublayer(ln_mod: LayerNorm, ff_mod: GEGLUFeedForward, x: torch.Tensor) -> torch.Tensor:
-    """x + FF(LN(x)) through the fused LN + GEGLU + residual op: the kernel
-    on CUDA tensors at every site, its plain version on CPU tensors."""
-    return fused_ln_geglu_ff(
+    """x + FF(LN(x)) by the FF module's impl, else EMOX_FF_IMPL, as the
+    reference's sub-layer: "xla" is the plain LayerNorm and GEGLU; "auto" and
+    "fused" the fused LN + GEGLU + residual op (the kernel on CUDA tensors at
+    every site, its plain version on CPU tensors); "fused_interpret" that
+    plain version on any device. With neither set the sub-layer takes the
+    fused op on every device, as it always has: the reference's CPU default
+    ("xla") exists there because its kernels only interpret off the TPU."""
+    impl = ff_mod.impl or os.environ.get("EMOX_FF_IMPL") or "auto"
+    if impl == "xla":
+        return x + ff_mod(ln_mod(x))
+    fused = {"auto": fused_ln_geglu_ff, "fused": fused_ln_geglu_ff, "fused_interpret": ln_geglu_ff_plain}.get(impl)
+    if fused is None:
+        raise ValueError(f"unknown ff impl {impl!r}")
+    return fused(
         x.to(ff_mod.proj_in.weight.dtype), ln_mod.weight, ln_mod.bias,
         ff_mod.proj_in.weight, ff_mod.proj_in.bias, ff_mod.proj_out.weight, ff_mod.proj_out.bias,
         eps=ln_mod.eps,

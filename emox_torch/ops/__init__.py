@@ -14,6 +14,8 @@ Kernels (each wrapper counts its launches in `.launches`):
                                flash_attention_nlc
   * fused_ln_geglu_ff       -> csrc/ln_geglu_ff.cu (TPU `_ln_ff_kernel` and
                                `_ln_ff_wide_kernel`)
+  * fused_geglu_ff          -> csrc/geglu_ff.cu (TPU `_ff_kernel`), behind
+                               the dispatcher geglu_ff (EMOX_FF_IMPL)
   * fused_group_norm        -> csrc/group_norm.cu (TPU `_gn_kernel`), under
                                EMOX_GROUPNORM_IMPL=pallas
   * group_norm_stats        -> csrc/group_norm.cu (TPU `_gn_stats_kernel`),
@@ -36,7 +38,16 @@ from emox_torch.ops.attention import (
     flash_attention_nlc,
     flash_attention_nlc_bwd,
 )
-from emox_torch.ops.ff import fused_ln_geglu_ff, geglu_ff_xla, ln_geglu_ff_plain, ln_geglu_ff_xla
+from emox_torch.ops.ff import (
+    ff_default_impl,
+    fused_geglu_ff,
+    fused_ln_geglu_ff,
+    geglu_ff,
+    geglu_ff_plain,
+    geglu_ff_xla,
+    ln_geglu_ff_plain,
+    ln_geglu_ff_xla,
+)
 from emox_torch.ops.groupnorm import (
     fused_group_norm,
     group_norm,
@@ -55,6 +66,7 @@ KERNEL_WRAPPERS = {
     "flash_attn_nlc_fwd": flash_attention_nlc,
     "flash_attn_nlc_bwd": flash_attention_nlc_bwd,
     "ln_geglu_ff": fused_ln_geglu_ff,
+    "geglu_ff": fused_geglu_ff,
     "group_norm": fused_group_norm,
     "group_norm_stats": group_norm_stats,
     "ln_qkv": fused_ln_qkv,
@@ -80,13 +92,17 @@ __all__ = [
     "attention_xla",
     "dot_product_attention",
     "dot_product_attention_nlc",
+    "ff_default_impl",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_nlc",
     "flash_attention_nlc_bwd",
+    "fused_geglu_ff",
     "fused_group_norm",
     "fused_ln_geglu_ff",
     "fused_ln_qkv",
+    "geglu_ff",
+    "geglu_ff_plain",
     "geglu_ff_xla",
     "group_norm",
     "group_norm_fast",

@@ -9,8 +9,10 @@ autograd function: its forward saves (q, k, v, out, lse) and its backward
 is `flash_attention_nlc_bwd`. Each wrapper chooses by the tensor's device:
 
   * on a CUDA tensor it launches the kernel, or raises for an input it does
-    not take (head dims other than 64 and 128, types other than float32 and
-    bfloat16); there is no fallback;
+    not take (types other than float32 and bfloat16; head dims other than
+    64, 128 and 512 forward, 64 and 128 backward: d 512 is the VAE's
+    single-head mid-attention, whose backward only VAE pretraining, stage 5,
+    would need); there is no fallback;
   * on a CPU tensor it runs the plain version (`attention_nlc_plain`,
     `attention_nlc_bwd_plain`), the same function in plain PyTorch with
     fp32 math, which the CPU tests hold against the reference.
@@ -47,7 +49,8 @@ from emox_torch.ops import build
 # kernel at the same sites, and to be measured again on the H100
 # (ROADMAP.md, Queue 2).
 KERNEL_MIN_KV = 2048
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 512)  # flash_attn_nlc.cu
+_BWD_HEAD_DIMS = (64, 128)  # flash_attn_nlc_bwd.cu
 _STRIDED_HEAD_DIMS = (40, 80)  # flash_attn.cu / flash_attn_bwd.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -105,12 +108,14 @@ def attention_nlc_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
     return _merge_heads(dq, q), _merge_heads(dk, k), _merge_heads(dv, v)
 
 
-def _check_kernel_inputs(name: str, q, k, v, heads: int):
+def _check_kernel_inputs(name: str, q, k, v, heads: int, head_dims=_HEAD_DIMS):
     n, lq, c = q.shape
     lk = k.shape[1]
     d = c // heads
-    if d not in _HEAD_DIMS or c != heads * d:
-        raise ValueError(f"{name} takes head_dim 64 or 128, got {c}/{heads}")
+    if d not in head_dims or c != heads * d:
+        raise ValueError(f"{name} takes head_dim {' or '.join(map(str, head_dims))}, got {c}/{heads}"
+                         + (" (the VAE's d 512 mid-attention trains only in stage 5, VAE pretraining, "
+                            "which the port does not run yet)" if d == 512 else ""))
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (n, lk, c) or v.shape != k.shape:
@@ -143,7 +148,7 @@ def _flash_kernel(q, k, v, heads: int, scale: float):
 
 
 def _flash_bwd_kernel(q, k, v, o, lse, dout, heads: int, scale: float, need_dq: bool, need_dkv: bool):
-    n, lq, lk, d = _check_kernel_inputs("flash_attn_nlc_bwd", q, k, v, heads)
+    n, lq, lk, d = _check_kernel_inputs("flash_attn_nlc_bwd", q, k, v, heads, _BWD_HEAD_DIMS)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"flash_attn_nlc_bwd: o {tuple(o.shape)} {o.dtype} and dout {tuple(dout.shape)} "
                          f"{dout.dtype} must be like q {tuple(q.shape)} {q.dtype}")

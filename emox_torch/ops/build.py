@@ -38,6 +38,7 @@ KERNELS = {
     "flash_attn_nlc_bwd": {"emox_flash_attn_nlc_bwd": [_P] * 9 + [_I] * 5 + [_F, _I, _P]},
     "ln_geglu_ff": {"emox_ln_geglu_ff": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
                     "emox_ln_geglu_ff_plan": [_I, _I, _P]},
+    "geglu_ff": {"emox_geglu_ff": [_P] * 6 + [_I] * 4 + [_P]},
     "group_norm": {"emox_group_norm": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
                    "emox_group_norm_stats": [_P] * 3 + [_I] * 5 + [_P]},
     "ln_qkv": {"emox_ln_qkv": [_P] * 9 + [_I] * 3 + [_F, _I, _P]},

@@ -36,7 +36,7 @@ def no_kernel_launches():
     yield
     counts = ops.launch_counts()
     assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "ln_geglu_ff",
-                           "group_norm", "group_norm_stats", "ln_qkv"}
+                           "geglu_ff", "group_norm", "group_norm_stats", "ln_qkv"}
     assert not any(counts.values()), counts
 
 
