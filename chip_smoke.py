@@ -12,18 +12,27 @@ raises and the script exits non-zero. Phases:
      from emox_torch/csrc (one nvcc per source, in parallel) and timed.
   2. kernels: every kernel held against its plain PyTorch version at the
      serving and training shapes in bf16 (and in float32; the strided
-     kernels on head-split views of packed tokens; K1 and K4 at the 512^2
-     shapes too, K1 at head dim 512), with max
-     error against the stated tolerance, kernel / plain / library times
-     (CUDA events, after warm-up), the bound (the least time the card could
-     take) and, for the feed-forward, its grid against the card's SMs.
+     layout on head-split views of packed tokens; the 512^2 shapes too),
+     with max error against the stated tolerance, kernel / plain / library
+     times (CUDA events, after warm-up), the bound (the least time the card
+     could take) and, for the feed-forward, its grid against the card's SMs.
+     The attention forward runs on one kernel per type for both layouts:
+     flash_fwd_sm90 (bf16, wgmma + TMA) at the serving shapes of both, at
+     Lk 5 and 16, at head dims 4, 40, 80, 128, 160 and 256 and ragged;
+     flash_fwd_wmma (float32) at the same head dims, timed at K5's shape;
+     flash_fwd_wide at head dim 512; the backward kernels at the widened
+     head dims (d 160 in both types, 256, 4, packed 192).
   3. step: one CFG-batched denoise step of the flagship model at 256^2,
      2 frames, float32, on the card (kernels) against the same weights on
      the CPU (plain versions), TF32 off for matmuls and convolutions.
   4. serve: the flagship EMOPipeline in bf16 answers three requests (256^2
      reference image, 16 frames of audio, 3-axis speeds, face mask, CFG
      7.5, 10 DDIM steps, VAE decode); s/request, ms/step, peak memory and
-     the kernels' launch counts during the requests.
+     the kernels' launch counts during the requests. Then the attention
+     switch: step_attn_pallas (one bf16 step under EMOX_ATTENTION_IMPL=pallas,
+     a kernel launch at every dispatcher call, eps against the =xla step and
+     a float32 one) and serve_attn_xla (two requests and a profiled one with
+     plain attention at every site: 0 launches of the attention kernels).
   5. profile: one more request under torch.profiler, with the device time
      per kernel group, the top kernels and the device's idle share.
   6. train_step: the loss and the trainable gradients of one float32
@@ -62,12 +71,14 @@ raises and the script exits non-zero. Phases:
      (0 launches of ln_geglu_ff and K6).
  11. vae512, serve_512, train_512: the flagship at 512^2, the reference's
      train resolution. The VAE encodes and decodes one 512^2 image in
-     float32, card (K1 at head dim 512 in both mid-attentions) against CPU;
+     float32, card (flash_fwd_wide, head dim 512, in both mid-attentions)
+     against CPU;
      three requests and a profiled one as phase 4 at 512^2; Trainer stage 2
      at 512^2, batch 2 x 8 frames (1 warm-up, 2 timed steps, one profiled)
      as phase 7. Every serve phase asserts the attention kernels' launches
-     at the counts the code gives (attn_launches_per_request: 107 K1 per
-     512^2 request, d 512 included).
+     at the counts the code gives (attn_launches_per_request: 107 packed
+     forwards per 512^2 request, 105 on flash_fwd_sm90 and 2 at d 512 on
+     flash_fwd_wide).
  12. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
@@ -91,10 +102,12 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 BF16_EPS = 2.0 ** -8  # spacing of bf16 values in [1, 2)
 FORWARD_KERNELS = ("flash_attn_nlc_fwd", "flash_attn_fwd", "ln_geglu_ff")  # the kernels of the serving paths
-# The attention kernels (forward, backward) each configuration's path takes at
+# The attention routes (forward, backward) each configuration's path takes at
 # its level-0 reference-concat sites (Lk 2048): head dim 64 (the flagship) ->
-# the packed kernels K1/K4; head dim 40 (the SD-1.5 head layout) -> the
-# strided kernels K5. Neither path launches the other's.
+# the packed layout (flash_attn_nlc_fwd counts its forward launches, K4 its
+# backward); head dim 40 (the SD-1.5 head layout) -> the strided layout
+# (flash_attn_fwd, K5's backward). Neither path launches the other's. Both
+# layouts' forward runs on one kernel per type: FWD_SOURCES.
 ATTN_KERNELS = {"flagship": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"),
                 "flagship-sd15": ("flash_attn_fwd", "flash_attn_bwd")}
 PROMPT = "a person talking to the camera, studio lighting, sharp focus"
@@ -106,6 +119,14 @@ PROMPT = "a person talking to the camera, studio lighting, sharp focus"
 # K6 (geglu_ff) runs on no model path, and under "xla" neither does ln_geglu_ff.
 SWITCH_VARS = ("EMOX_GROUPNORM_IMPL", "EMOX_LN_QKV", "EMOX_FUSED_QKV", "EMOX_FF_IMPL")
 SWITCH_KERNELS = ("group_norm", "group_norm_stats", "ln_qkv")
+# The attention switch, EMOX_ATTENTION_IMPL, is unset too but in the phases that
+# set it (serve_attn_xla, step_attn_pallas).
+SWITCH_VARS += ("EMOX_ATTENTION_IMPL",)
+# the forward kernels behind the two layouts: bf16 (head dim <= 256), float32
+# (<= 256), head dim 512 (the VAE's mid-attention, packed)
+FWD_SOURCES = ("flash_fwd_sm90", "flash_fwd_wmma", "flash_fwd_wide")
+ATTN_XLA = {"EMOX_ATTENTION_IMPL": "xla"}
+ATTN_PALLAS = {"EMOX_ATTENTION_IMPL": "pallas"}
 NORMS = {"EMOX_GROUPNORM_IMPL": "pallas", "EMOX_LN_QKV": "1"}
 NORMS_FAST = {"EMOX_GROUPNORM_IMPL": "fast", "EMOX_LN_QKV": "1", "EMOX_FUSED_QKV": "1"}
 FF_XLA = {"EMOX_FF_IMPL": "xla"}
@@ -155,19 +176,30 @@ def switch_kernels(env=None) -> tuple:
     return tuple(k for k in (gn, "ln_qkv" if env.get("EMOX_LN_QKV", "0") != "0" else None) if k)
 
 
-def check_path_launches(name: str, counts: dict, train: bool, what: str, env=None) -> None:
+def check_path_launches(name: str, counts: dict, train: bool, what: str, env=None, dtype: str = "bfloat16") -> None:
     """Every kernel of the configuration's path launched, with those the
     switches select; the other configuration's attention kernels, the
     kernels of switches left off and K6 (on no model path) never; under
-    EMOX_FF_IMPL=xla not the fused FF either."""
+    EMOX_FF_IMPL=xla not the fused FF either, under EMOX_ATTENTION_IMPL=xla
+    no attention kernel. Every forward launch of either layout went through
+    exactly one kernel, the one for the type (dtype): FWD_SOURCES."""
+    env = env or {}
     on = switch_kernels(env)
     other = [k for n, ks in ATTN_KERNELS.items() if n != name for k in ks]
     other += [k for k in SWITCH_KERNELS if k not in on] + ["geglu_ff"]
-    if (env or {}).get("EMOX_FF_IMPL") == "xla":
+    if env.get("EMOX_FF_IMPL") == "xla":
         other.append("ln_geglu_ff")
-    need = tuple(k for k in FORWARD_KERNELS if k not in other) + ((ATTN_KERNELS[name][1],) if train else ()) + on
+    fwd = {"bfloat16": "flash_fwd_sm90", "float32": "flash_fwd_wmma"}[dtype]
+    other += [k for k in ("flash_fwd_sm90", "flash_fwd_wmma") if k != fwd]
+    if env.get("EMOX_ATTENTION_IMPL") == "xla":
+        other += [*ATTN_KERNELS[name], *FWD_SOURCES]
+    need = tuple(k for k in (*FORWARD_KERNELS, fwd) if k not in other)
+    need += ((ATTN_KERNELS[name][1],) if train and ATTN_KERNELS[name][1] not in other else ()) + on
     if min(counts[k] for k in need) <= 0 or any(counts[k] for k in other):
         raise AssertionError(f"{what}: kernels {need} must launch and {other} must not: {counts}")
+    layouts, sources = counts["flash_attn_nlc_fwd"] + counts["flash_attn_fwd"], sum(counts[k] for k in FWD_SOURCES)
+    if layouts != sources:
+        raise AssertionError(f"{what}: {layouts} attention forwards but {sources} kernel launches: {counts}")
 
 
 def norm_launches_per_request(cfg, steps: int, env) -> dict:
@@ -225,6 +257,18 @@ def attn_launches_per_request(cfg, steps: int) -> dict:
     if lat * lat >= KERNEL_MIN_KV:
         want[kernel(v.base_channels * v.channel_multipliers[-1])] += 2
     return want
+
+
+def fwd_sources_per_request(cfg, steps: int) -> dict:
+    """The same launches by kernel in a bf16 request: the VAE's head-dim-512
+    mid-attention on flash_fwd_wide, every other site on flash_fwd_sm90."""
+    from emox_torch.ops.attention import KERNEL_MIN_KV
+
+    v = cfg.vae
+    lat = cfg.data.height // v.downscale
+    wide = 2 if lat * lat >= KERNEL_MIN_KV and v.base_channels * v.channel_multipliers[-1] == 512 else 0
+    return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, steps).values()) - wide, "flash_fwd_wmma": 0,
+            "flash_fwd_wide": wide}
 
 
 def emit(obj) -> None:
@@ -305,9 +349,25 @@ def _sdpa_backend(q, k, v) -> str:
     return names.get(int(torch._fused_sdp_choice(q, k, v)), "unknown")
 
 
+def _fwd_kernel(dtype, d: int) -> str:
+    """The kernel that takes an attention forward of this type and head dim
+    (either layout): emox_torch.ops.attention's routing."""
+    import torch
+
+    return "flash_fwd_wide" if d == 512 else "flash_fwd_sm90" if dtype == torch.bfloat16 else "flash_fwd_wmma"
+
+
+def _peak(dtype) -> float:
+    import torch
+
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+
+
 def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0):
-    """K1 against attention_nlc_plain (fp32 math on the same inputs, over
-    batch chunks of `chunk` rows where the full batch's maps would not fit)."""
+    """The packed layout's forward (flash_attention_nlc: flash_fwd_sm90 in
+    bf16, flash_fwd_wmma in float32, flash_fwd_wide at head dim 512) against
+    attention_nlc_plain (fp32 math on the same inputs, over batch chunks of
+    `chunk` rows where the full batch's maps would not fit)."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_nlc_plain, flash_attention_nlc
@@ -328,17 +388,17 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0
         tol = 4 * BF16_EPS * ref.abs().max().item()
     else:
         tol = 2e-4 * max(ref.abs().max().item(), 1.0)  # 3xTF32: float32-level sums
-    res = {"kernel": "flash_attn_nlc_fwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq,
-           "lk": lk, "c": c, "heads": heads, "head_dim": d, "max_abs_err": err, "tol": tol,
+    res = {"kernel": _fwd_kernel(dtype, d), "layout": "packed", "dtype": str(dtype).split(".")[-1], "n": n,
+           "lq": lq, "lk": lk, "c": c, "heads": heads, "head_dim": d, "max_abs_err": err, "tol": tol,
            "lse_max_abs_err": lse_err, "lse_tol": 1e-3}
     del ref, ref_lse
     if not (err <= tol and lse_err <= 1e-3 and math.isfinite(err)):
         emit(res)
-        raise AssertionError(f"flash_attn_nlc_fwd disagrees with its plain version: {res}")
+        raise AssertionError(f"{res['kernel']} (packed) disagrees with its plain version: {res}")
     if timing:
         flops = 4.0 * n * heads * lq * lk * d
         nbytes = q.element_size() * (2 * n * lq * c + 2 * n * lk * c) + 4 * n * lq * heads
-        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
         res["ms"] = time_ms(lambda: flash_attention_nlc(q, k, v, heads), iters=20 if flops < 1e12 else 5)
         res["plain_ms"] = time_ms(lambda: _by_rows(plain, chunk, q, k, v), iters=3, warmup=1)
         if chunk:
@@ -417,8 +477,9 @@ def _packed_heads(gen, n, l, heads, d, dtype):
 
 
 def check_flash_strided(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
-    """K5 forward on head-split views of packed tokens against its plain
-    version (fp32 math on the same inputs)."""
+    """The strided layout's forward (flash_attention: flash_fwd_sm90 in bf16,
+    flash_fwd_wmma in float32) on head-split views of packed tokens against
+    its plain version (fp32 math on the same inputs)."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_plain, flash_attention
@@ -435,16 +496,16 @@ def check_flash_strided(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
     # as K1: a few bf16 steps at the largest output value; 3xTF32 sums in float32
     tol = (4 * BF16_EPS * ref.abs().max().item() if dtype == torch.bfloat16
            else 2e-4 * max(ref.abs().max().item(), 1.0))
-    res = {"kernel": "flash_attn_fwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq, "lk": lk,
-           "c": heads * d, "heads": heads, "head_dim": d, "max_abs_err": err, "tol": tol,
+    res = {"kernel": _fwd_kernel(dtype, d), "layout": "strided", "dtype": str(dtype).split(".")[-1], "n": n,
+           "lq": lq, "lk": lk, "c": heads * d, "heads": heads, "head_dim": d, "max_abs_err": err, "tol": tol,
            "lse_max_abs_err": lse_err, "lse_tol": 1e-3, "out_strides_packed": out.stride() == q.stride()}
     if not (err <= tol and lse_err <= 1e-3 and math.isfinite(err)):
         emit(res)
-        raise AssertionError(f"flash_attn_fwd disagrees with its plain version: {res}")
+        raise AssertionError(f"{res['kernel']} (strided) disagrees with its plain version: {res}")
     if timing:
         flops = 4.0 * n * heads * lq * lk * d
         nbytes = q.element_size() * n * heads * d * (2 * lq + 2 * lk) + 4 * n * lq * heads
-        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
         res["ms"] = time_ms(lambda: flash_attention(q, k, v), iters=20)
         res["plain_ms"] = time_ms(lambda: attention_plain(q, k, v, scale), iters=3, warmup=1)
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=20)
@@ -694,15 +755,30 @@ def phase_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
-    # K1: the reader's level-0 self-attention with the reference tokens
-    # appended (Lk = 2 * 1024), without and with CFG, plus a ragged Lk
+    # flash_fwd_sm90 on the packed layout (K1's sites): the reader's level-0
+    # self-attention with the reference tokens appended (Lk = 2 * 1024),
+    # without and with CFG, plus a ragged Lk; float32 takes flash_fwd_wmma
     results["flash_n16"] = check_flash(gen, 16, 1024, 2048)
     results["flash_n32"] = check_flash(gen, 32, 1024, 2048)
     check_flash(gen, 4, 1000, 2000, timing=False)
     check_flash(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
-    # head dim 128, which the kernel also takes (ragged Lq and Lk)
-    check_flash(gen, 2, 1000, 2100, c=256, heads=2, timing=False)
+    # the audio and temporal lengths (Lk 5 and 16), which the kernels take
+    # under EMOX_ATTENTION_IMPL=pallas, on both layouts
+    for lk in (5, 16):
+        check_flash(gen, 32, 1024, lk, timing=False)
+        check_flash_strided(gen, 32, 1024, lk, timing=False)
+    # every class of head dim on both layouts, ragged Lq and Lk: 40, 80 and
+    # 160 pad in shared memory to 64, 128 and 192 columns; 4 pads its rows
+    # (16-byte alignment) in the wrapper first; float32 on flash_fwd_wmma
+    for d in (40, 80, 128, 160, 256):
+        check_flash(gen, 2, 1000, 2100, c=2 * d, heads=2, timing=False)
+        check_flash_strided(gen, 2, 1000, 2100, heads=3, d=d, timing=False)
+    check_flash_strided(gen, 2, 300, 333, heads=3, d=4, timing=False)
+    for d in (4, 128, 160, 256):
+        check_flash_strided(gen, 2, 1000, 2100, heads=2, d=d, dtype=torch.float32, timing=False)
     check_flash(gen, 2, 1000, 2100, c=256, heads=2, dtype=torch.float32, timing=False)
+    # flash_fwd_wmma timed at K5's serving shape (the float32 step's route)
+    results["flash_wmma_n32"] = check_flash_strided(gen, 32, 1024, 2048, dtype=torch.float32)
     # the FF sub-layers under CFG at 16 frames: levels 0, 1, 2 and mid
     results["ff_l0"] = check_ff(gen, 32768, 320)
     results["ff_l1"] = check_ff(gen, 8192, 640)
@@ -717,7 +793,8 @@ def phase_kernels():
     check_flash_bwd(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
     check_flash_bwd(gen, 2, 1024, 2048, c=256, heads=2, timing=False)
     check_flash_bwd(gen, 4, 1000, 2100, timing=False)
-    # K5 with the SD-1.5 head layout (8 heads), on head-split views of packed
+    # the strided layout (K5's sites, flash_fwd_sm90 in bf16) with the SD-1.5
+    # head layout (8 heads), on head-split views of packed
     # tokens: the reader's level-0 site at 256^2 (d 40) under CFG in serving
     # and at batch 2 x 8 frames in training; d 80 (level 1 at 512^2), ragged
     # Lq and Lk, and float32
@@ -729,6 +806,13 @@ def phase_kernels():
     check_flash_strided(gen, 2, 1000, 2100, d=80, dtype=torch.float32, timing=False)
     results["flash_strided_bwd_n16"] = check_flash_strided_bwd(gen, 16, 1024, 2048)
     check_flash_strided_bwd(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
+    # the widened backward: d 160 (SD-1.5's level 2) in both types, d 256 and
+    # d 4 (padded rows), and the packed layout at d 192 (head-split views)
+    check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, timing=False)
+    check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, dtype=torch.float32, timing=False)
+    check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=256, timing=False)
+    check_flash_strided_bwd(gen, 2, 300, 333, heads=2, d=4, timing=False)
+    check_flash_bwd(gen, 2, 1000, 2100, c=384, heads=2, timing=False)
     check_flash_strided_bwd(gen, 2, 1024, 2048, d=80, timing=False)
     check_flash_strided_bwd(gen, 4, 1000, 2100, timing=False)
     check_flash_strided_bwd(gen, 2, 1000, 2100, d=80, dtype=torch.float32, timing=False)
@@ -765,13 +849,13 @@ def phase_kernels():
     check_geglu_ff(gen, 1000, 320, timing=False)
     check_geglu_ff(gen, 1000, 320, dtype=torch.float32, timing=False)
     check_geglu_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
-    # K1 at head dim 512, the VAE's mid-attention at 512^2: the 16-frame decode
+    # flash_fwd_wide (head dim 512), the VAE's mid-attention at 512^2: the 16-frame decode
     # (N 16, L 4096), the reference image's encode with a ragged L, float32
     results["flash_d512"] = check_flash(gen, 16, 4096, 4096, c=512, heads=1)
     check_flash(gen, 1, 4000, 4000, c=512, heads=1, timing=False)
     check_flash(gen, 1, 4096, 4096, c=512, heads=1, dtype=torch.float32, timing=False)
     check_flash(gen, 2, 1000, 2100, c=512, heads=1, dtype=torch.float32, timing=False)
-    # K1 and K4 at the 512^2 level-0 sites (Lq 4096, Lk 8192: reference tokens
+    # flash_fwd_sm90 and K4 at the 512^2 level-0 sites (Lq 4096, Lk 8192: reference tokens
     # appended) and level-1 sites (C 640, 10 heads, Lk 2048): serving under
     # CFG (N 32) and stage-2 training (N 16)
     results["flash_512_l0"] = check_flash(gen, 32, 4096, 8192, chunk=4)
@@ -883,13 +967,106 @@ def phase_step(name: str = "flagship", runs=(("", None),)):
         emit(res)
         if not all(math.isfinite(v) and v <= tol for v in rel.values()):
             raise AssertionError(f"card and CPU disagree: {rel}")
-        check_path_launches(name, counts, train=False, what=f"the float32 {name} step{suffix}", env=env)
+        check_path_launches(name, counts, train=False, what=f"the float32 {name} step{suffix}", env=env,
+                            dtype="float32")
         results.append(res)
         del on_cpu, on_gpu
     del cpu, gpu
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     return results
+
+
+def phase_step_attn_pallas():
+    """One bf16 CFG-batched denoise step of the flagship at 256^2, 2 frames
+    (the reference image's encode, the audio encoder, the face mask and
+    predict_noise), on the card under EMOX_ATTENTION_IMPL=pallas (a kernel
+    at every call of the attention dispatcher, whatever its K/V length: the
+    audio cross-attention at Lk 5, the audio encoder, the VAE) and under
+    =xla (plain PyTorch at every call), from the same weights and inputs,
+    and the same step in float32 under xla as the reference. Asserts a kernel
+    launch at every dispatcher call under pallas and none under xla, and that
+    the pallas step's eps lies no farther from the float32 eps than twice the
+    xla step's: both are bf16 (each rounds P to bf16 for P v, the kernel in
+    registers, the plain path in memory), so neither is exact."""
+    import torch
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.nn import attention_blocks
+    from emox_torch.ops import launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    size, frames = 256, 2
+    cfg = model_config("flagship", size, frames)
+    t0 = time.perf_counter()
+    bf = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    _fill_zero_init(bf, seed=8)
+    f32 = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
+    f32.modules.load_state_dict(bf.modules.state_dict())  # the bf16 weights, exactly, in float32
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    img, wav, speeds, mask = _request_inputs(gen, "cpu", size, frames, torch.float32)
+    lat = size // cfg.vae.downscale
+    noisy = torch.randn((1, frames, lat, lat, 4), generator=gen)
+    calls = [0]
+    dispatch = attention_blocks.dot_product_attention_nlc
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return dispatch(*a, **kw)
+
+    def run(model, dtype):
+        mv = lambda x: x.to("cuda", dtype)
+        cat = lambda x: torch.cat([x, x])
+        with torch.inference_mode():
+            ref = model.encode_images(mv(img))
+            audio = model.encode_audio(mv(wav), frames)
+            face = model.encode_face_mask(mv(mask), lat)
+            eps = model.predict_noise(
+                cat(mv(noisy)), torch.tensor([500, 500], device="cuda"), cat(ref),
+                audio_windows=torch.cat([torch.zeros_like(audio), audio]), speeds=cat(mv(speeds)),
+                face_feat=cat(face), ref_dropout=torch.tensor([True, False], device="cuda"))
+        torch.cuda.synchronize()
+        return eps.double()
+
+    runs = {}
+    attention_blocks.dot_product_attention_nlc = counted
+    try:
+        for label, model, dtype, env in (("pallas", bf, torch.bfloat16, ATTN_PALLAS),
+                                         ("xla", bf, torch.bfloat16, ATTN_XLA),
+                                         ("float32_xla", f32, torch.float32, ATTN_XLA)):
+            with switches(env):
+                calls[0] = 0
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                eps = run(model, dtype)
+                runs[label] = {"eps": eps, "s": time.perf_counter() - t0, "dispatcher_calls": calls[0],
+                               "launches": launch_counts()}
+    finally:
+        attention_blocks.dot_product_attention_nlc = dispatch
+    rel = lambda a, b: (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+    ref = runs["float32_xla"]["eps"]
+    err = {k: rel(runs[k]["eps"], ref) for k in ("pallas", "xla")}
+    on = runs["pallas"]["launches"]
+    layouts = on["flash_attn_nlc_fwd"] + on["flash_attn_fwd"]
+    res = {"phase": "step_attn_pallas", "config": "flagship 256^2, 2 frames, CFG-batched, bf16, "
+           "EMOX_ATTENTION_IMPL=pallas against =xla, float32 xla as the reference",
+           "dispatcher_calls": runs["pallas"]["dispatcher_calls"], "launches": on,
+           "xla_launches": runs["xla"]["launches"], "rel_l2_to_float32": err,
+           "rel_l2_pallas_to_xla": rel(runs["pallas"]["eps"], runs["xla"]["eps"]),
+           "tol": "pallas no farther than 2x xla", "seconds": {k: v["s"] for k, v in runs.items()},
+           "setup_s": setup_s}
+    emit(res)
+    if not (layouts == runs["pallas"]["dispatcher_calls"] == on["flash_fwd_sm90"] + on["flash_fwd_wide"] > 0):
+        raise AssertionError(f"step_attn_pallas: a kernel must launch at each of the "
+                             f"{runs['pallas']['dispatcher_calls']} attention calls: {on}")
+    if any(v for k, v in runs["xla"]["launches"].items() if k in ("flash_attn_nlc_fwd", "flash_attn_fwd", *FWD_SOURCES)):
+        raise AssertionError(f"step_attn_pallas: attention kernels launched under xla: {runs['xla']['launches']}")
+    if not (math.isfinite(err["pallas"]) and err["pallas"] <= 2 * err["xla"]):
+        raise AssertionError(f"step_attn_pallas: eps {err} (relative L2 to the float32 step)")
+    del bf, f32
+    torch.backends.cudnn.allow_tf32 = True
+    return res
 
 
 # ---- phases 6 and 7: training -------------------------------------------------------
@@ -981,7 +1158,8 @@ def phase_train_step(tmp: str, env=None):
     tr_gpu.close()
     if not (loss_rel <= limits["loss_rel"] and grads_rel <= limits["grads_rel_l2"]):
         raise AssertionError(f"card and CPU gradients disagree: loss {loss_rel}, grads {grads_rel}")
-    check_path_launches("flagship", counts, train=True, what=f"the float32 train step {env or ''}", env=env)
+    check_path_launches("flagship", counts, train=True, what=f"the float32 train step {env or ''}", env=env,
+                        dtype="float32")
     torch.backends.cudnn.allow_tf32 = True
     return res
 
@@ -1081,6 +1259,8 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
     tag = ("" if name == "flagship" else "_sd15") + ("" if size == 256 else f"_{size}")
     if env and "EMOX_FF_IMPL" in env:
         tag += "_ff_" + env["EMOX_FF_IMPL"]
+    elif env and "EMOX_ATTENTION_IMPL" in env:
+        tag += "_attn_" + env["EMOX_ATTENTION_IMPL"]
     elif env:
         tag += "_norms" + ("_fast" if env.get("EMOX_GROUPNORM_IMPL") == "fast" else "")
     t0 = time.perf_counter()
@@ -1122,8 +1302,12 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
                "s_per_request": sum(p["s"] for p in steady) / len(steady),
                "ms_per_step": sum(p["ms_per_step"] for p in steady) / len(steady),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
-               "launches_per_request": {k: v / requests for k, v in counts.items()},
-               "attn_launches_per_request_expected": attn_launches_per_request(cfg, steps)}
+               "launches_per_request": {k: v / requests for k, v in counts.items()}}
+        # under EMOX_ATTENTION_IMPL=xla no site takes a kernel
+        attn_on = (env or {}).get("EMOX_ATTENTION_IMPL") != "xla"
+        res["attn_launches_per_request_expected"] = {
+            k: v * attn_on for k, v in {**attn_launches_per_request(cfg, steps),
+                                        **fwd_sources_per_request(cfg, steps)}.items()}
         emit(res)
         check_path_launches(name, counts, train=False, what=f"{name} serving {env or ''}", env=env)
         attn = {k: requests * v for k, v in res["attn_launches_per_request_expected"].items()}
@@ -1146,8 +1330,9 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
 _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("ln_qkv", ("ln_qkv_kernel",)),
-    ("flash_attn_nlc_fwd", ("flash_attn_nlc_fwd",)),
-    ("flash_attn_fwd", ("flash_fwd::",)),
+    ("flash_fwd_sm90", ("sm90::",)),
+    ("flash_fwd_wide", ("flash_attn_nlc_fwd",)),
+    ("flash_fwd_wmma", ("flash_fwd::",)),
     ("flash_attn_bwd", ("flash_bwd_strided::",)),
     ("flash_attn_nlc_bwd", ("flash_bwd::",)),
     ("ln_geglu_ff", ("ln_geglu_ff",)),
@@ -1257,8 +1442,8 @@ def phase_profile(run, label: str, out_dir: str, filename: str) -> dict:
 # ---- the 512^2 VAE and K6's entry points -----------------------------------------
 def phase_vae512(size: int = 512):
     """The flagship VAE (random weights from a seed) encodes one size^2
-    image (posterior mean) and decodes it, float32, on the card (K1 at head
-    dim 512 in both mid-attentions: (size/8)^2 tokens) against the same
+    image (posterior mean) and decodes it, float32, on the card
+    (flash_fwd_wide, head dim 512, in both mid-attentions: (size/8)^2 tokens) against the same
     weights on the CPU (plain versions), TF32 off for matmuls and
     convolutions."""
     import copy
@@ -1303,8 +1488,9 @@ def phase_vae512(size: int = 512):
     emit(res)
     if not all(math.isfinite(v) and v <= tol for v in rel.values()):
         raise AssertionError(f"vae512: card and CPU disagree: {rel}")
-    if counts["flash_attn_nlc_fwd"] != 2 or any(n for k, n in counts.items() if k != "flash_attn_nlc_fwd"):
-        raise AssertionError(f"vae512: K1 must launch at both mid-attentions and nothing else: {counts}")
+    want = {"flash_attn_nlc_fwd": 2, "flash_fwd_wide": 2}  # the packed layout's head-dim-512 kernel
+    if any(n != want.get(k, 0) for k, n in counts.items()):
+        raise AssertionError(f"vae512: flash_fwd_wide must launch at both mid-attentions and nothing else: {counts}")
     del cpu, gpu, on_cpu, on_gpu
     torch.backends.cudnn.allow_tf32 = True
     return res
@@ -1395,8 +1581,12 @@ def main(argv=None) -> int:
     phase_build(args.out)
     with switches():  # the default paths: every switch unset
         kern = phase_kernels()
-        phase_step()
+        step = phase_step()[0]["launches"]
         launches = phase_serve(args.out)["launches"]
+        # the attention switch: a kernel at every site (and against the plain
+        # step), then the serving request with plain attention at every site
+        step_pallas = phase_step_attn_pallas()["launches"]
+        serve_attn_xla = phase_serve(args.out, requests=2, env=ATTN_XLA)["launches"]
         with tempfile.TemporaryDirectory() as tmp:
             phase_train_step(tmp)
             train2 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out)
@@ -1420,14 +1610,15 @@ def main(argv=None) -> int:
     # the plain FF (the end-to-end A/B of K2/K3)
     geglu = phase_geglu_ff()["launches"]
     serve_ff_xla = phase_serve(args.out, requests=2, env=FF_XLA)["launches"]
-    # 512^2, the reference's train resolution: K1 at head dim 512 in the VAE's
+    # 512^2, the reference's train resolution: flash_fwd_wide (head dim 512) in the VAE's
     # mid-attention, then serving and stage-2 training at full width and depth
     with switches():
         phase_vae512()
         serve_512 = phase_serve(args.out, size=512)["launches"]
         with tempfile.TemporaryDirectory() as tmp:
             train_512 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out, size=512)
-    by_path = {"serve": launches, "train_stage2_per_step": train2["launches_per_step"],
+    by_path = {"step": step, "serve": launches, "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
+               "train_stage2_per_step": train2["launches_per_step"],
                "train_stage1_per_step": train1["launches_per_step"],
                "train_stage3_per_step": train3["launches_per_step"],
                "serve_sd15": serve_sd15, "train_sd15_stage2_per_step": train_sd15["launches_per_step"],
@@ -1435,17 +1626,20 @@ def main(argv=None) -> int:
                "train_norms_stage2_per_step": train_norms["launches_per_step"],
                "geglu_ff": geglu, "serve_ff_xla": serve_ff_xla,
                "serve_512": serve_512, "train_512_stage2_per_step": train_512["launches_per_step"]}
-    # launches on each kernel's main path: serving for the forward kernels,
-    # the timed stage-2 training steps for the backward; the strided kernels'
-    # on the SD-1.5 head layout's paths; the switch kernels' on the serving
-    # path under their switches; K6's through its entry points (geglu_ff)
+    # launches on each kernel's main path: serving for the forward kernels
+    # (flash_fwd_sm90 on the flagship's 256^2 request, flash_fwd_wide on the
+    # 512^2 one, flash_fwd_wmma on the float32 step), the timed stage-2
+    # training steps for the backward; the strided backward's on the SD-1.5
+    # head layout's path; the switch kernels' on the serving path under their
+    # switches; K6's through its entry points (geglu_ff)
     launches = dict(launches, flash_attn_nlc_bwd=train2["launches"]["flash_attn_nlc_bwd"],
-                    flash_attn_fwd=serve_sd15["flash_attn_fwd"],
+                    flash_fwd_wide=serve_512["flash_fwd_wide"], flash_fwd_wmma=step["flash_fwd_wmma"],
                     flash_attn_bwd=train_sd15["launches"]["flash_attn_bwd"],
                     group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
                     group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    shape = lambda k: {x: k[x] for x in ("n", "lq", "lk", "l", "c", "heads", "head_dim", "m", "f", "row_tile",
+    shape = lambda k: {x: k[x] for x in ("layout", "dtype", "n", "lq", "lk", "l", "c", "heads", "head_dim", "m", "f",
+                                         "row_tile",
                                          "grid_blocks", "smem_bytes", "blocks_per_sm", "sms", "library_backend",
                                          "plain_rows_per_call") if x in k}
 
@@ -1460,16 +1654,20 @@ def main(argv=None) -> int:
                 "by_shape": [{**shape(k), **{f: k[f] for f in fields}} for k in (main, *others)]}
 
     emit({"kernels": [
-        entry("emox_torch/csrc/flash_attn_nlc.cu", ["emox/ops/attention.py:409"],
-              kern["flash_n32"], [kern["flash_n16"], kern["flash_d512"], kern["flash_512_l0"], kern["flash_512_l1"]]),
+        # one kernel for both layouts' bf16 forward: the packed sites are
+        # _flash_nlc_kernel's, the strided (head-split) ones _flash_kernel's
+        entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
+              kern["flash_n32"], [kern["flash_n16"], kern["flash_512_l0"], kern["flash_512_l1"],
+                                  kern["flash_strided_n32"], kern["flash_strided_n16"]]),
+        entry("emox_torch/csrc/flash_attn_nlc.cu", ["emox/ops/attention.py:409"], kern["flash_d512"], []),
+        entry("emox_torch/csrc/flash_attn.cu", ["emox/ops/attention.py:69", "emox/ops/attention.py:409"],
+              kern["flash_wmma_n32"], []),
         # one kernel for both TPU kernels: level 0 is _ln_ff_kernel's shape,
         # level 1 _ln_ff_wide_kernel's
         entry("emox_torch/csrc/ln_geglu_ff.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120"],
               kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"]]),
         entry("emox_torch/csrc/flash_attn_nlc_bwd.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
               kern["flash_bwd_n16"], [kern["flash_bwd_n4"], kern["flash_bwd_512_l0"], kern["flash_bwd_512_l1"]]),
-        entry("emox_torch/csrc/flash_attn.cu", ["emox/ops/attention.py:69"],
-              kern["flash_strided_n32"], [kern["flash_strided_n16"]]),
         entry("emox_torch/csrc/flash_attn_bwd.cu", ["emox/ops/attention.py:118", "emox/ops/attention.py:160"],
               kern["flash_strided_bwd_n16"], []),
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:184"],

@@ -164,9 +164,8 @@ class ModelConfig:
     # depthwise-separable 3x3 convs in ResBlocks (working version of the
     # reference's abandoned depthwise experiment, reference depthwise.py)
     separable_convs: bool = False
-    # Read by the reference only (its Pallas/XLA switch). The port's
-    # dispatch depends on the tensor's device alone: a CUDA tensor takes
-    # the kernel at the sites emox_torch.ops.attention names.
+    # False pins every attention of the UNet to the plain path (impl "xla");
+    # EMOX_ATTENTION_IMPL, where set, beats it (emox_torch/models/unet.py).
     flash_attention: bool = True
     remat: bool = True
     # AdaIN-style GroupNorm statistic transfer: the writer (ReferenceNet)

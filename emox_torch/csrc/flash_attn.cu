@@ -1,38 +1,39 @@
-// Strided flash-attention forward for Hopper (sm_90a).
+// Float32 flash-attention forward for Hopper (sm_90a), both layouts.
 //
-// Replaces the TPU kernel `_flash_kernel` (emox/ops/attention.py, called by
-// `_flash_impl`): softmax(q k^T * scale) v on [B, H, L, D] operands, with the
-// per-row log-sum-exp written as lse [B, H, Lq] fp32 for the backward pass.
-// The model path reaches it where the head dim is not a multiple of 64 and
-// Lk >= 2048: with the SD-1.5 head layout (8 heads) that is the reader's
-// level-0 self-attention with the reference tokens appended, head dim 40.
+// Replaces, in float32, the TPU kernels `_flash_kernel` (emox/ops/
+// attention.py:69, [B, H, L, D] operands) and `_flash_nlc_kernel` (:409, the
+// packed [N, L, H*D] layout, which reaches this kernel as head-split views):
+// softmax(q k^T * scale) v, with the per-row log-sum-exp written as lse
+// [B, H, Lq] fp32 for the backward pass. bfloat16 runs on the wgmma + TMA
+// kernel in flash_fwd_sm90.cu; this one exists so that a float32 model on the
+// card can be held against the same model on the CPU at float32 tolerance
+// (its products are 3xTF32 WMMA, common.cuh), and its speed is not a goal.
 //
-// What bounds it on the H100: at the serving shape (N 32, H 8, Lq 1024,
-// Lk 2048, d 40) it does 4*N*H*Lq*Lk*d = 86 GFLOP against 127 MB of input
-// and output, about 680 FLOP per byte: the tensor cores bound it, not the
-// memory. The [Lq, Lk] score matrix would be 2.1 GB in fp32 per launch; the
-// design keeps it out of device memory, as K1 (flash_attn_nlc.cu) does:
+// What bounds it on the H100: at the float32 serving shape of the flagship
+// (N 32, H 5, Lq 1024, Lk 2048, d 64) it does 4*N*H*Lq*Lk*d = 86 GFLOP,
+// 1.28 ms at the card's float32 rate (67 TFLOP/s), far above the memory's
+// time; its three TF32 products per product run on the tensor cores (495
+// TFLOP/s in TF32). The design keeps the [Lq, Lk] scores out of device
+// memory:
 //   * q, k, v and out come with element strides for batch, head and row (the
-//     head dim contiguous), so the packed [N, L, H*D] tokens of the nn
-//     modules arrive as a head-split view with no transpose or copy; the TPU
-//     path pays a transpose and a pad to 128 lanes there;
-//   * the head dim is zero-padded in shared memory to a multiple of 16 (the
-//     WMMA depth): 40 -> 48, 80 stays; zero columns change no product;
-//   * one block per (64-row query tile, head, batch) loops over 64-row K/V
-//     tiles; S = q k^T on the tensor cores (WMMA, fp32 accumulation), an fp32
-//     online softmax with the running max and sum per row, P rounded to v's
-//     type for P v, the output divided by the sum at the end;
-//   * the ragged last K/V tile is zero-filled and its scores masked.
+//     head dim contiguous), so head-split views of packed tokens need no
+//     transpose or copy;
+//   * the head dim is zero-padded in shared memory to 64, 128, 192 or 256;
+//     zero columns change no product, and only the D real columns are
+//     written. Above 128 the K/V tiles are 32 rows, to fit shared memory;
+//   * one block per (64-row query tile, head, batch) loops over the K/V
+//     tiles; S = q k^T on the tensor cores, an fp32 online softmax with the
+//     running max and sum per row, P v, the output divided by the sum at the
+//     end; the ragged last K/V tile is zero-filled and its scores masked.
 // Four warps each own 16 query rows, so the softmax of a tile needs no
-// block-wide barrier. This is the simple, right version: no TMA, no wgmma,
-// no pipelining of the K/V loads; those belong to the PR that makes it fast.
+// block-wide barrier.
 #include "common.cuh"
 
 namespace emox {
 namespace flash_fwd {
 
+using T = float;
 constexpr int kBQ = 64;   // query rows per block
-constexpr int kBK = 64;   // keys per K/V tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's _NEG_INF
 
@@ -40,8 +41,9 @@ struct Args {
   Strides3 q, k, v, o;
 };
 
-template <typename T, int DP>
+template <int DP>
 struct Layout {
+  static constexpr int kBK = DP > 128 ? 32 : 64;   // keys per K/V tile
   static constexpr int LDT = DP + Pad<T>::value;   // Q, K, V tiles (T)
   static constexpr int LDS = kBK + 4;              // scores (fp32)
   static constexpr int LDP = kBK + Pad<T>::value;  // probabilities (T)
@@ -56,15 +58,17 @@ struct Layout {
   static constexpr size_t l_off = m_off + sizeof(float) * kBQ;
   static constexpr size_t a_off = l_off + sizeof(float) * kBQ;
   static constexpr size_t bytes = align128(a_off + sizeof(float) * kBQ);
+  static_assert(bytes <= 232448, "shared memory of a block");
 };
 
-// D: the head dim; DP: D padded to a multiple of 16
-template <typename T, int D, int DP>
+// D: the head dim; DP: D padded to a multiple of 64
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                T* __restrict__ o, float* __restrict__ lse, Args st, int heads, int lq, int lk,
-               float scale) {
-  using Lay = Layout<T, DP>;
+               int D, float scale) {
+  using Lay = Layout<DP>;
+  constexpr int kBK = Lay::kBK;
   using M = Mma<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + Lay::q_off);
@@ -122,21 +126,28 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncwarp();
 
-    // online softmax, one row at a time across the warp (two columns a lane)
+    // online softmax, one row at a time across the warp (kBK / 32 columns a lane)
     for (int r = 0; r < 16; ++r) {
       const int row = r0 + r;
-      float s0 = Ss[row * Lay::LDS + lane] * scale;
-      float s1 = Ss[row * Lay::LDS + lane + 32] * scale;
-      if (j0 + lane >= lk) s0 = kNegInf;
-      if (j0 + lane + 32 >= lk) s1 = kNegInf;
+      float sv[kBK / 32];
+      float mx = kNegInf;
+#pragma unroll
+      for (int e = 0; e < kBK / 32; ++e) {
+        const int col = lane + 32 * e;
+        sv[e] = j0 + col < lk ? Ss[row * Lay::LDS + col] * scale : kNegInf;
+        mx = fmaxf(mx, sv[e]);
+      }
       const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      const float sum = warp_sum(p0 + p1);
+      const float m_new = fmaxf(m_old, warp_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < kBK / 32; ++e) {
+        const float p = expf(sv[e] - m_new);
+        Ps[row * Lay::LDP + lane + 32 * e] = from_float<T>(p);
+        sum += p;
+      }
+      sum = warp_sum(sum);
       const float alpha = expf(m_old - m_new);
-      Ps[row * Lay::LDP + lane] = from_float<T>(p0);
-      Ps[row * Lay::LDP + lane + 32] = from_float<T>(p1);
       __syncwarp();  // every lane has read m_s[row]
       if (lane == 0) {
         m_s[row] = m_new;
@@ -187,27 +198,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <int DP>
 static cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                          const Args& st, int batch, int heads, int lq, int lk, float scale,
+                          const Args& st, int batch, int heads, int lq, int lk, int D, float scale,
                           cudaStream_t stream) {
-  constexpr int DP = (D + 15) / 16 * 16;
-  using Lay = Layout<T, DP>;
-  auto kernel = fwd_kernel<T, D, DP>;
+  using Lay = Layout<DP>;
+  auto kernel = fwd_kernel<DP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Lay::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((lq + kBQ - 1) / kBQ, heads, batch);
   kernel<<<grid, kThreads, Lay::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), st, heads, lq, lk, scale);
+      static_cast<T*>(o), static_cast<float*>(lse), st, heads, lq, lk, D, scale);
   return cudaGetLastError();
 }
 
 }  // namespace flash_fwd
 }  // namespace emox
 
-// dtype: 0 = float32, 1 = bfloat16. q [batch, heads, lq, head_dim], k and v
+// dtype: 0 = float32 (the only type taken). q [batch, heads, lq, head_dim <= 256], k and v
 // [batch, heads, lk, head_dim], o like q, each with its head dim contiguous
 // and the element strides (batch, head, row) given in `strides` in the order
 // q, k, v, o (12 values); lse [batch, heads, lq] float32, contiguous. Every
@@ -225,13 +235,9 @@ extern "C" int emox_flash_attn_fwd(const void* q, const void* k, const void* v, 
   Args st;
   Strides3* all[4] = {&st.q, &st.k, &st.v, &st.o};
   for (int i = 0; i < 4; ++i) *all[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  if (dtype == 1 && head_dim == 40)
-    return (int)launch<__nv_bfloat16, 40>(q, k, v, o, lse, st, batch, heads, lq, lk, scale, s);
-  if (dtype == 1 && head_dim == 80)
-    return (int)launch<__nv_bfloat16, 80>(q, k, v, o, lse, st, batch, heads, lq, lk, scale, s);
-  if (dtype == 0 && head_dim == 40)
-    return (int)launch<float, 40>(q, k, v, o, lse, st, batch, heads, lq, lk, scale, s);
-  if (dtype == 0 && head_dim == 80)
-    return (int)launch<float, 80>(q, k, v, o, lse, st, batch, heads, lq, lk, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || head_dim <= 0 || head_dim > 256) return (int)cudaErrorInvalidValue;
+  if (head_dim <= 64) return (int)launch<64>(q, k, v, o, lse, st, batch, heads, lq, lk, head_dim, scale, s);
+  if (head_dim <= 128) return (int)launch<128>(q, k, v, o, lse, st, batch, heads, lq, lk, head_dim, scale, s);
+  if (head_dim <= 192) return (int)launch<192>(q, k, v, o, lse, st, batch, heads, lq, lk, head_dim, scale, s);
+  return (int)launch<256>(q, k, v, o, lse, st, batch, heads, lq, lk, head_dim, scale, s);
 }

@@ -29,22 +29,24 @@
 //     q, which is the same product);
 //   * every operand comes with element strides for batch, head and row, so
 //     head-split views of packed tokens need no copy; the head dim is
-//     zero-padded in shared memory to a multiple of 16 (40 -> 48), which
-//     changes no product, and only the D real columns are written;
+//     zero-padded in shared memory to the next of 48, 64, 80, 128, 192 and
+//     256 (40 -> 48, 160 -> 192), which changes no product, and only the D
+//     real columns are written. Every head dim up to 256 runs; float32 above
+//     128 takes 32-row tiles (two warps) to fit shared memory, and at the
+//     widest head dims the dk/dv accumulators spill to local memory: right,
+//     not fast (the packed layout's head dims other than 64 and 128 come here
+//     as head-split views);
 //   * ragged edges: keys at or past Lk get P = 0, as the TPU kernel's
 //     `masked` path; query rows at or past Lq are zero-filled and get P = 0
 //     through lse = +inf, so they add nothing;
-//   * four warps each own 16 rows of the block's tile, so the elementwise
-//     step between the products needs no block barrier.
+//   * each warp owns 16 rows of the block's tile, so the elementwise step
+//     between the products needs no block barrier.
 // This is the simple, right version: no TMA, no wgmma, no pipelining of the
 // tile loads; those belong to the PR that makes it fast.
 #include "common.cuh"
 
 namespace emox {
 namespace flash_bwd_strided {
-
-constexpr int kB = 64;  // rows of a q tile and of a K/V tile
-constexpr int kThreads = 128;
 
 struct Args {
   Strides3 q, k, v, g, dq, dk, dv;  // g: the output gradient dO
@@ -55,6 +57,8 @@ __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); 
 
 template <typename T, int DP>
 struct Layout {
+  static constexpr int kB = (sizeof(T) == 4 && DP > 128) ? 32 : 64;  // rows of a q and of a K/V tile
+  static constexpr int kThreads = 2 * kB;                             // a warp per 16 rows
   static constexpr int LDT = DP + Pad<T>::value;   // q, dO, k, v tiles (T)
   static constexpr int LDS = kB + 4;               // S and dP (fp32)
   static constexpr int LDP = kB + Pad<T>::value;   // P and dS (T)
@@ -71,8 +75,10 @@ struct Layout {
   static constexpr size_t lse_off = align128(ds_off + sizeof(T) * kB * LDP);
   static constexpr size_t delta_off = lse_off + sizeof(float) * kB;
   static constexpr size_t bytes = align128(delta_off + sizeof(float) * kB);
-  // the epilogue stages fp32 output rows over the S and dP regions
-  static_assert(sizeof(float) * kB * LDO <= p_off - s_off, "epilogue staging does not fit");
+  // the epilogue stages fp32 output rows over the third and fourth tiles
+  // (K/V in the dq kernel, q/dO in the dkv kernel), free once the loop ends
+  static_assert(sizeof(float) * kB * LDO <= s_off - t2_off, "epilogue staging does not fit");
+  static_assert(bytes <= 232448, "shared memory of a block");
 };
 
 // out (one warp: 16 rows x 64 columns, fp32, ld LDS) = A (16 x DP, row-major)
@@ -81,6 +87,7 @@ template <typename T, int DP>
 __device__ __forceinline__ void product_abt(float* out, const T* a, const T* b) {
   using Lay = Layout<T, DP>;
   using M = Mma<T>;
+  constexpr int kB = Lay::kB;
   typename M::Acc acc[kB / 16];
 #pragma unroll
   for (int j = 0; j < kB / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
@@ -104,6 +111,7 @@ template <typename T, int DP>
 __device__ __forceinline__ void accumulate_ab(typename Mma<T>::Acc* acc, const T* a, const T* b) {
   using Lay = Layout<T, DP>;
   using M = Mma<T>;
+  constexpr int kB = Lay::kB;
 #pragma unroll
   for (int j = 0; j < DP / 16; ++j) {
 #pragma unroll
@@ -117,10 +125,10 @@ __device__ __forceinline__ void accumulate_ab(typename Mma<T>::Acc* acc, const T
 // Write one warp's 16 x D accumulator rows (of DP), times `mul`, to a
 // strided output (rows at or past `nrows` are dropped), staged through fp32
 // shared memory at `stage` (the warp's own rows).
-template <typename T, int D, int DP>
+template <typename T, int DP>
 __device__ __forceinline__ void store_rows(T* out, long long stride,
                                            const typename Mma<T>::Acc* acc, float* stage,
-                                           int row0, int nrows, float mul) {
+                                           int row0, int nrows, int D, float mul) {
   using Lay = Layout<T, DP>;
   const int lane = threadIdx.x % 32;
 #pragma unroll
@@ -136,14 +144,16 @@ __device__ __forceinline__ void store_rows(T* out, long long stride,
   __syncwarp();
 }
 
-template <typename T, int D, int DP>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP>
+__global__ void __launch_bounds__(Layout<T, DP>::kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dq, Args st, int heads, int lq,
-              int lk, float scale) {
+              int lk, int D, float scale) {
   using Lay = Layout<T, DP>;
   using M = Mma<T>;
+  constexpr int kB = Lay::kB;
+  constexpr int kThreads = Lay::kThreads;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + Lay::t0_off);
   T* dOs = reinterpret_cast<T*>(smem + Lay::t1_off);
@@ -187,13 +197,13 @@ __global__ void __launch_bounds__(kThreads)
     product_abt<T, DP>(DPs + r0 * Lay::LDS, dOs + r0 * Lay::LDT, Vs);  // dP = dO v^T
     __syncwarp();
 
-    // dS = P (dP - delta), one row at a time across the warp (two columns a lane)
+    // dS = P (dP - delta), one row at a time across the warp (kB / 32 columns a lane)
     for (int r = 0; r < 16; ++r) {
       const int row = r0 + r;
       const float l = lse_s[row];
       const float dl = delta_s[row];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < kB / 32; ++half) {
         const int col = lane + 32 * half;
         float p = expf(Ss[row * Lay::LDS + col] * scale - l);
         if (j0 + col >= lk) p = 0.f;
@@ -205,19 +215,21 @@ __global__ void __launch_bounds__(kThreads)
     accumulate_ab<T, DP>(acc, dSs + r0 * Lay::LDP, Ks);  // dq += dS k
   }
 
-  __syncthreads();  // every warp is done with S and dP before the staging reuses them
-  store_rows<T, D, DP>(dq + b * st.dq.b + h * st.dq.h, st.dq.r, acc, Ss + r0 * Lay::LDO, q0 + r0,
-                       lq, scale);
+  __syncthreads();  // every warp is done with K and V before the staging reuses them
+  float* stage = reinterpret_cast<float*>(smem + Lay::t2_off) + r0 * Lay::LDO;
+  store_rows<T, DP>(dq + b * st.dq.b + h * st.dq.h, st.dq.r, acc, stage, q0 + r0, lq, D, scale);
 }
 
-template <typename T, int D, int DP>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP>
+__global__ void __launch_bounds__(Layout<T, DP>::kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, Args st,
-               int heads, int lq, int lk, float scale) {
+               int heads, int lq, int lk, int D, float scale) {
   using Lay = Layout<T, DP>;
   using M = Mma<T>;
+  constexpr int kB = Lay::kB;
+  constexpr int kThreads = Lay::kThreads;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem + Lay::t0_off);
   T* Vs = reinterpret_cast<T*>(smem + Lay::t1_off);
@@ -270,7 +282,7 @@ __global__ void __launch_bounds__(kThreads)
       const int row = r0 + r;
       const bool key_in = kv0 + row < lk;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < kB / 32; ++half) {
         const int col = lane + 32 * half;
         const float p = key_in ? expf(Ss[row * Lay::LDS + col] * scale - lse_s[col]) : 0.f;
         Ps[row * Lay::LDP + col] = from_float<T>(p);
@@ -283,19 +295,20 @@ __global__ void __launch_bounds__(kThreads)
     accumulate_ab<T, DP>(acc_dk, dSs + r0 * Lay::LDP, Qs);  // dk += dS^T q
   }
 
-  __syncthreads();  // every warp is done with S and dP before the staging reuses them
-  float* stage = Ss + r0 * Lay::LDO;
-  store_rows<T, D, DP>(dk + b * st.dk.b + h * st.dk.h, st.dk.r, acc_dk, stage, kv0 + r0, lk, scale);
-  store_rows<T, D, DP>(dv + b * st.dv.b + h * st.dv.h, st.dv.r, acc_dv, stage, kv0 + r0, lk, 1.f);
+  __syncthreads();  // every warp is done with q and dO before the staging reuses them
+  float* stage = reinterpret_cast<float*>(smem + Lay::t2_off) + r0 * Lay::LDO;
+  store_rows<T, DP>(dk + b * st.dk.b + h * st.dk.h, st.dk.r, acc_dk, stage, kv0 + r0, lk, D, scale);
+  store_rows<T, DP>(dv + b * st.dv.b + h * st.dv.h, st.dv.r, acc_dv, stage, kv0 + r0, lk, D, 1.f);
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 static cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                          const Args& st, int batch, int heads, int lq, int lk, float scale,
+                          const Args& st, int batch, int heads, int lq, int lk, int D, float scale,
                           cudaStream_t stream) {
-  constexpr int DP = (D + 15) / 16 * 16;
   using Lay = Layout<T, DP>;
+  constexpr int kB = Lay::kB;
+  constexpr int kThreads = Lay::kThreads;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -304,20 +317,20 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const voi
   const float* dt = static_cast<const float*>(delta);
   cudaError_t err;
   if (dq != nullptr) {
-    auto kernel = dq_kernel<T, D, DP>;
+    auto kernel = dq_kernel<T, DP>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lay::bytes);
     if (err != cudaSuccess) return err;
     kernel<<<dim3((lq + kB - 1) / kB, heads, batch), kThreads, Lay::bytes, stream>>>(
-        qt, kt, vt, gt, lt, dt, static_cast<T*>(dq), st, heads, lq, lk, scale);
+        qt, kt, vt, gt, lt, dt, static_cast<T*>(dq), st, heads, lq, lk, D, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (dk != nullptr) {
-    auto kernel = dkv_kernel<T, D, DP>;
+    auto kernel = dkv_kernel<T, DP>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lay::bytes);
     if (err != cudaSuccess) return err;
     kernel<<<dim3((lk + kB - 1) / kB, heads, batch), kThreads, Lay::bytes, stream>>>(
-        qt, kt, vt, gt, lt, dt, static_cast<T*>(dk), static_cast<T*>(dv), st, heads, lq, lk, scale);
+        qt, kt, vt, gt, lt, dt, static_cast<T*>(dk), static_cast<T*>(dv), st, heads, lq, lk, D, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -332,7 +345,8 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const voi
 // head dim contiguous and the element strides (batch, head, row) given in
 // `strides` in the order q, k, v, dout, dq, dk, dv (21 values; those of an
 // output not asked for are ignored). lse and delta [batch, heads, lq]
-// float32, contiguous. Every row must start 16-byte aligned. dq == NULL
+// float32, contiguous. head_dim <= 256; every row must start 16-byte
+// aligned. dq == NULL
 // skips the dq kernel; dk and dv are both given (the dkv kernel runs) or both
 // NULL. Returns a cudaError_t (0 = launched).
 extern "C" int emox_flash_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
@@ -350,12 +364,18 @@ extern "C" int emox_flash_attn_bwd(const void* q, const void* k, const void* v, 
   Args st;
   Strides3* all[7] = {&st.q, &st.k, &st.v, &st.g, &st.dq, &st.dk, &st.dv};
   for (int i = 0; i < 7; ++i) *all[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-#define EMOX_LAUNCH(T, D) \
-  launch<T, D>(q, k, v, dout, lse, delta, dq, dk, dv, st, batch, heads, lq, lk, scale, s)
-  if (dtype == 1 && head_dim == 40) return (int)EMOX_LAUNCH(__nv_bfloat16, 40);
-  if (dtype == 1 && head_dim == 80) return (int)EMOX_LAUNCH(__nv_bfloat16, 80);
-  if (dtype == 0 && head_dim == 40) return (int)EMOX_LAUNCH(float, 40);
-  if (dtype == 0 && head_dim == 80) return (int)EMOX_LAUNCH(float, 80);
+  if (head_dim <= 0 || head_dim > 256 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+#define EMOX_LAUNCH(DP)                                                                                   \
+  (dtype == 1 ? launch<__nv_bfloat16, DP>(q, k, v, dout, lse, delta, dq, dk, dv, st, batch, heads, lq, lk, \
+                                          head_dim, scale, s)                                            \
+              : launch<float, DP>(q, k, v, dout, lse, delta, dq, dk, dv, st, batch, heads, lq, lk, head_dim, \
+                                  scale, s))
+  // the padded head dim: the smallest of these that holds head_dim
+  if (head_dim <= 48) return (int)EMOX_LAUNCH(48);
+  if (head_dim <= 64) return (int)EMOX_LAUNCH(64);
+  if (head_dim <= 80) return (int)EMOX_LAUNCH(80);
+  if (head_dim <= 128) return (int)EMOX_LAUNCH(128);
+  if (head_dim <= 192) return (int)EMOX_LAUNCH(192);
+  return (int)EMOX_LAUNCH(256);
 #undef EMOX_LAUNCH
-  return (int)cudaErrorInvalidValue;
 }

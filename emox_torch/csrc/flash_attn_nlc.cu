@@ -1,206 +1,14 @@
-// Packed-layout flash-attention forward for Hopper (sm_90a).
+// Packed-layout flash-attention forward at head dim 512 for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_flash_nlc_kernel` (emox/ops/attention.py, called
-// by `_flash_impl_nlc`): softmax(q k^T * scale) v on tokens laid out
-// [N, L, H*D], with the per-head log-sum-exp written as lse [N, Lq, H] fp32
-// for the backward pass.
+// Replaces the TPU kernel `_flash_nlc_kernel` (emox/ops/attention.py:409,
+// called by `_flash_impl_nlc`) where the head dim is 512: softmax(q k^T *
+// scale) v on tokens laid out [N, L, H*D], with the per-head log-sum-exp
+// written as lse [N, Lq, H] fp32. The model reaches it at the VAE's
+// single-head mid-attention (4096 tokens at 512^2). Every head dim up to 256
+// runs on flash_fwd_sm90.cu (bfloat16) or flash_attn.cu (float32); at 512
+// their layouts would not fit a block's 227 KB of shared memory.
 //
-// What bounds it on the H100: at the serving shapes (reader level-0
-// self-attention with the reference tokens appended: N 32, Lq 1024,
-// Lk 2048, H 5, d 64) it does 4*N*H*Lq*Lk*d = 86 GFLOP against 126 MB of
-// input and output, about 680 FLOP per byte: the tensor cores bound it,
-// not the memory. The [Lq, Lk] score matrix would be 1.3 GB in fp32 per
-// launch; the design keeps it out of device memory:
-//   * one block per (64-row query tile, head, n); the block indexes the
-//     packed [N, L, H*D] layout with strides, so no head transpose is made;
-//   * it loops over 64-row K/V tiles staged in shared memory; S = q k^T
-//     runs on the tensor cores (WMMA, fp32 accumulation), the online
-//     softmax keeps the running max and sum per row in fp32, P is rounded
-//     to the input type for P v, and the output is divided by the sum at
-//     the end;
-//   * the ragged last K/V tile is zero-filled and its scores masked.
-// Four warps each own 16 query rows, so the softmax of a tile needs no
-// block-wide barrier. This is the simple, right version: no TMA, no wgmma,
-// no pipelining of the K/V loads; those belong to the PR that makes it fast.
-//
-// Head dim 512 (the VAE's single-head mid-attention, 4096 tokens at 512^2)
-// takes a second kernel, flash_attn_nlc_fwd_d512_kernel, below: at that
-// width the layout above would need 358 KB of shared memory in bf16 against
-// the 227 KB a block may have.
-#include "common.cuh"
-
-namespace emox {
-
-constexpr int kBQ = 64;   // query rows per block
-constexpr int kBK = 64;   // keys per K/V tile
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;  // the TPU kernel's _NEG_INF
-
-template <typename T, int D>
-struct FlashLayout {
-  static constexpr int LDT = D + Pad<T>::value;    // Q, K, V tiles (T)
-  static constexpr int LDS = kBK + 4;              // scores (fp32)
-  static constexpr int LDP = kBK + Pad<T>::value;  // probabilities (T)
-  static constexpr int LDO = D + 4;                // output accumulator (fp32)
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = align128(q_off + sizeof(T) * kBQ * LDT);
-  static constexpr size_t v_off = align128(k_off + sizeof(T) * kBK * LDT);
-  static constexpr size_t s_off = align128(v_off + sizeof(T) * kBK * LDT);
-  static constexpr size_t p_off = align128(s_off + sizeof(float) * kBQ * LDS);
-  static constexpr size_t o_off = align128(p_off + sizeof(T) * kBQ * LDP);
-  static constexpr size_t m_off = align128(o_off + sizeof(float) * kBQ * LDO);
-  static constexpr size_t l_off = m_off + sizeof(float) * kBQ;
-  static constexpr size_t a_off = l_off + sizeof(float) * kBQ;
-  static constexpr size_t bytes = align128(a_off + sizeof(float) * kBQ);
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attn_nlc_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, T* __restrict__ o,
-                              float* __restrict__ lse, int lq, int lk, int heads, float scale) {
-  using Lay = FlashLayout<T, D>;
-  using M = Mma<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + Lay::q_off);
-  T* Ks = reinterpret_cast<T*>(smem + Lay::k_off);
-  T* Vs = reinterpret_cast<T*>(smem + Lay::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + Lay::s_off);
-  T* Ps = reinterpret_cast<T*>(smem + Lay::p_off);
-  float* Os = reinterpret_cast<float*>(smem + Lay::o_off);
-  float* m_s = reinterpret_cast<float*>(smem + Lay::m_off);
-  float* l_s = reinterpret_cast<float*>(smem + Lay::l_off);
-  float* a_s = reinterpret_cast<float*>(smem + Lay::a_off);
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int n = blockIdx.z;
-  const size_t c = (size_t)heads * D;  // row stride of the packed layout
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;  // this warp's query rows within the tile
-
-  const T* qn = q + (size_t)n * lq * c + (size_t)h * D;
-  const T* kn = k + (size_t)n * lk * c + (size_t)h * D;
-  const T* vn = v + (size_t)n * lk * c + (size_t)h * D;
-
-  load_rows<T>(Qs, Lay::LDT, qn, c, q0, kBQ, lq, D);
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) Os[(i / D) * Lay::LDO + i % D] = 0.f;
-  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < lk; j0 += kBK) {
-    __syncthreads();  // the previous tile's K/V are no longer read
-    load_rows<T>(Ks, Lay::LDT, kn, c, j0, kBK, lk, D);
-    load_rows<T>(Vs, Lay::LDT, vn, c, j0, kBK, lk, D);
-    __syncthreads();
-
-    // S = q k^T for this warp's 16 rows
-    {
-      typename M::Acc acc[kBK / 16];
-#pragma unroll
-      for (int j = 0; j < kBK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += M::K) {
-#pragma unroll
-        for (int j = 0; j < kBK / 16; ++j) {
-          M::template step<wmma::col_major>(acc[j], Qs + r0 * Lay::LDT + kk, Lay::LDT,
-                                            Ks + (j * 16) * Lay::LDT + kk, Lay::LDT);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kBK / 16; ++j) {
-        wmma::store_matrix_sync(Ss + r0 * Lay::LDS + j * 16, acc[j], Lay::LDS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time across the warp (two columns a lane)
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r;
-      float s0 = Ss[row * Lay::LDS + lane] * scale;
-      float s1 = Ss[row * Lay::LDS + lane + 32] * scale;
-      if (j0 + lane >= lk) s0 = kNegInf;
-      if (j0 + lane + 32 >= lk) s1 = kNegInf;
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      const float alpha = expf(m_old - m_new);
-      Ps[row * Lay::LDP + lane] = from_float<T>(p0);
-      Ps[row * Lay::LDP + lane + 32] = from_float<T>(p1);
-      __syncwarp();  // every lane has read m_s[row]
-      if (lane == 0) {
-        m_s[row] = m_new;
-        l_s[row] = alpha * l_s[row] + sum;
-        a_s[row] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // O = alpha * O + P v
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int row = r0 + i / D;
-      Os[row * Lay::LDO + i % D] *= a_s[row];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      typename M::Acc acc;
-      wmma::load_matrix_sync(acc, Os + r0 * Lay::LDO + j * 16, Lay::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += M::K) {
-        M::template step<wmma::row_major>(acc, Ps + r0 * Lay::LDP + kk, Lay::LDP,
-                                          Vs + kk * Lay::LDT + j * 16, Lay::LDT);
-      }
-      wmma::store_matrix_sync(Os + r0 * Lay::LDO + j * 16, acc, Lay::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  // epilogue: each warp writes its own rows (l clamped as the TPU kernel's l_safe)
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int row = r0 + i / D;
-    const int col = i % D;
-    const int qi = q0 + row;
-    if (qi < lq) {
-      const float l = fmaxf(l_s[row], 1e-20f);
-      o[(size_t)n * lq * c + (size_t)qi * c + (size_t)h * D + col] =
-          from_float<T>(Os[row * Lay::LDO + col] / l);
-    }
-  }
-  if (lane < 16) {
-    const int row = r0 + lane;
-    const int qi = q0 + row;
-    if (qi < lq) {
-      lse[((size_t)n * lq + qi) * heads + h] = m_s[row] + logf(fmaxf(l_s[row], 1e-20f));
-    }
-  }
-}
-
-template <typename T, int D>
-static cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, void* lse,
-                                int n, int lq, int lk, int heads, float scale,
-                                cudaStream_t stream) {
-  using Lay = FlashLayout<T, D>;
-  auto kernel = flash_attn_nlc_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Lay::bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((lq + kBQ - 1) / kBQ, heads, n);
-  kernel<<<grid, kThreads, Lay::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), lq, lk, heads, scale);
-  return cudaGetLastError();
-}
-
-// ---- head dim 512 -----------------------------------------------------------
-// At 512^2 the VAE's mid-attention (one head, d 512) sees 4096 tokens: the
-// decode of 16 frames does 4*N*L*L*d = 550 GFLOP against 403 MB of q, k, v
+// What bounds it on the H100: the 16-frame decode at 512^2 does 4*N*L*L*d = 550 GFLOP against 403 MB of q, k, v
 // and o, so the tensor cores bound it as at d 64. What changes is the room:
 // a 32-row query tile [32, 512] and the fp32 output accumulator [32, 512]
 // already take 99 KB in bf16 (132 KB in float32), so
@@ -213,8 +21,18 @@ static cudaError_t launch_flash(const void* q, const void* k, const void* v, voi
 //     then V for P v), with 64 keys a tile in bf16 (176 KB in all) and 32 in
 //     float32 (203 KB);
 //   * one block per (32-row query tile, head, n): 128 blocks at the
-//     reference image's encode (N 1), 2048 at the 16-frame decode.
-// The same online softmax and rounding points as the kernel above.
+//     reference image's encode (N 1), 2048 at the 16-frame decode;
+//   * S = q k^T and P v on the tensor cores (WMMA, fp32 accumulation; 3xTF32
+//     in float32), an fp32 online softmax with the running max and sum per
+//     row, P rounded to the input type, the output divided by the sum at the
+//     end; the ragged last K/V tile is zero-filled and its scores masked.
+// This is the simple, right version: no TMA, no wgmma, no pipelining of the
+// K/V loads (ROADMAP.md, Queue 2).
+#include "common.cuh"
+
+namespace emox {
+
+constexpr float kNegInf = -1e30f;  // the TPU kernel's _NEG_INF
 constexpr int kWideD = 512;
 constexpr int kWideBQ = 32;
 constexpr int kWideThreads = 256;  // 8 warps
@@ -384,28 +202,18 @@ static cudaError_t launch_flash_d512(const void* q, const void* k, const void* v
 
 }  // namespace emox
 
-// dtype: 0 = float32, 1 = bfloat16. q [n, lq, heads*head_dim], k and v
-// [n, lk, heads*head_dim], o like q, lse [n, lq, heads] float32; all
-// contiguous, 16-byte aligned. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. q [n, lq, heads*512], k and v
+// [n, lk, heads*512], o like q, lse [n, lq, heads] float32; all contiguous,
+// 16-byte aligned. Returns a cudaError_t (0 = launched).
 extern "C" int emox_flash_attn_nlc_fwd(const void* q, const void* k, const void* v, void* o,
                                        void* lse, int n, int lq, int lk, int heads, int head_dim,
                                        float scale, int dtype, void* stream) {
   using namespace emox;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || n > 65535 || heads > 65535) {
+  if (n <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || n > 65535 || heads > 65535 || head_dim != kWideD) {
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_flash<__nv_bfloat16, 64>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch_flash<__nv_bfloat16, 128>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
-  if (dtype == 0 && head_dim == 64)
-    return (int)launch_flash<float, 64>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch_flash<float, 128>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
-  if (dtype == 1 && head_dim == kWideD)
-    return (int)launch_flash_d512<__nv_bfloat16>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
-  if (dtype == 0 && head_dim == kWideD)
-    return (int)launch_flash_d512<float>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
+  if (dtype == 1) return (int)launch_flash_d512<__nv_bfloat16>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
+  if (dtype == 0) return (int)launch_flash_d512<float>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
   return (int)cudaErrorInvalidValue;
 }

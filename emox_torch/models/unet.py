@@ -22,6 +22,7 @@ residuals and the identity embedding wait for later slices (ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, NamedTuple, Optional
 
 import torch
@@ -169,6 +170,10 @@ class UNet(nn.Module):
         site = 0
         drop_frames = None if ref_dropout is None else ref_dropout.repeat_interleave(t, dim=0)
         remat = cfg.remat and torch.is_grad_enabled()
+        # cfg.flash_attention=False pins every attention of this UNet to the
+        # plain path ("xla"); True keeps the dispatcher's default. The
+        # process-wide EMOX_ATTENTION_IMPL beats both, as in the reference.
+        impl = None if (cfg.flash_attention or os.environ.get("EMOX_ATTENTION_IMPL")) else "xla"
 
         def run(mod, *args, **kwargs):
             if remat:
@@ -186,14 +191,14 @@ class UNet(nn.Module):
             h, bank = run(
                 getattr(self, f"{name}_attn"), h, context=context, ref_kv=rkv,
                 ref_drop=None if rkv is None else drop_frames, num_frames=1 if emit_ref else t,
-                emit_bank=emit_ref,
+                emit_bank=emit_ref, impl=impl,
             )
             if emit_ref:
                 banks.append(bank)
             site += 1
             hv = unfold_time(h, t)
             if cfg.use_audio and audio is not None:
-                hv = run(getattr(self, f"{name}_audio"), hv, audio)
+                hv = run(getattr(self, f"{name}_audio"), hv, audio, impl=impl)
             if cfg.use_temporal and t > 1:
                 hv = run(getattr(self, f"{name}_temporal"), hv)
             return fold_time(hv)[0]

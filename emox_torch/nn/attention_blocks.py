@@ -3,8 +3,12 @@
 
 Attention runs through emox_torch.ops.dot_product_attention_nlc on the
 packed [N, L, H*D] token layout (the flash kernel where the reference takes
-its Pallas kernel), and every transformer feed-forward sub-layer through
-emox_torch.ops.fused_ln_geglu_ff (the fused LN + GEGLU + residual kernel).
+its Pallas kernel), with the reference's attention impl: the `impl` a caller
+passes to forward (the UNet passes "xla" for a config with
+flash_attention=False), else Attention(impl=...), else EMOX_ATTENTION_IMPL
+or attention_default_impl(). Every transformer feed-forward sub-layer runs
+through emox_torch.ops.fused_ln_geglu_ff (the fused LN + GEGLU + residual
+kernel).
 The FF impl is the reference's: GEGLUFeedForward(impl=...) or EMOX_FF_IMPL
 ("auto" / "fused": the kernels; "xla": the plain formulas; "fused_interpret":
 the kernels' plain versions). GEGLUFeedForward called on its own goes
@@ -61,13 +65,15 @@ class Attention(nn.Module):
     """Multi-head attention over token sequences [N, L, C].
 
     context=None -> self-attention. `extra_kv` tokens (reference-image
-    features) are appended to K/V only."""
+    features) are appended to K/V only. impl: the reference's attention impl
+    names, None = the dispatcher's default."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int, out_dim: Optional[int] = None,
                  context_dim: Optional[int] = None, zero_init_out: bool = False,
-                 qkv_bias: bool = False):
+                 qkv_bias: bool = False, impl: Optional[str] = None):
         super().__init__()
         self.heads = heads
+        self.impl = impl
         inner = heads * head_dim
         context_dim = context_dim or query_dim
         self.to_q = Dense(query_dim, inner, bias=qkv_bias)
@@ -78,14 +84,15 @@ class Attention(nn.Module):
     def forward(self, x: Optional[torch.Tensor], context: Optional[torch.Tensor] = None,
                 extra_kv: Optional[torch.Tensor] = None, extra_tile: int = 1,
                 extra_drop: Optional[torch.Tensor] = None, context_tile: int = 1,
-                qkv: Optional[QKV] = None) -> torch.Tensor:
+                qkv: Optional[QKV] = None, impl: Optional[str] = None) -> torch.Tensor:
         """extra_kv tokens are projected once and then repeated extra_tile x
         along the batch axis (identical for every frame of a clip).
         extra_drop rows put the row's own projected tokens in place of the
         extra ones: softmax over duplicated tokens equals plain
         self-attention, so one program serves the CFG uncond half.
         qkv: self-attention projections computed upstream (the fused LN +
-        q/k/v kernel); x is then not read and may be None."""
+        q/k/v kernel); x is then not read and may be None. impl, where given,
+        takes the place of the module's."""
         if qkv is not None:
             if context is not None:  # not assert: must survive python -O
                 raise ValueError("qkv bypass is a self-attention path (context must be None)")
@@ -117,7 +124,7 @@ class Attention(nn.Module):
                 ve = torch.where(drop, v, ve)
             k = torch.cat([k, ke], dim=1)
             v = torch.cat([v, ve], dim=1)
-        return self.to_out(dot_product_attention_nlc(q, k, v, self.heads))
+        return self.to_out(dot_product_attention_nlc(q, k, v, self.heads, impl=impl or self.impl))
 
 
 class GEGLUFeedForward(nn.Module):
@@ -191,9 +198,11 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 ref_kv: Optional[torch.Tensor] = None, ref_drop: Optional[torch.Tensor] = None,
-                ref_tile: int = 1, ctx_tile: int = 1, emit_bank: bool = True):
+                ref_tile: int = 1, ctx_tile: int = 1, emit_bank: bool = True,
+                impl: Optional[str] = None):
         """ref_kv [B, Lr, C] UNREPEATED writer tokens; ref_drop [N] bool
-        (True = this row sees no reference). Returns (x, normed1): normed1 is
+        (True = this row sees no reference); impl: both attentions' impl.
+        Returns (x, normed1): normed1 is
         what a ReferenceNet writer banks for the reader. Under EMOX_LN_QKV
         the self-attention reads the fused LN + q/k/v kernel, and normed1 is
         computed only with emit_bank (None otherwise): the reference leaves
@@ -201,9 +210,9 @@ class TransformerBlock(nn.Module):
         qkv1 = _maybe_ln_qkv(self.norm1, self.attn1, x)
         normed1 = self.norm1(x) if qkv1 is None or emit_bank else None
         x = x + self.attn1(normed1, extra_kv=ref_kv, extra_tile=ref_tile,
-                           extra_drop=ref_drop if ref_kv is not None else None, qkv=qkv1)
+                           extra_drop=ref_drop if ref_kv is not None else None, qkv=qkv1, impl=impl)
         if self.use_cross and context is not None:
-            x = x + self.attn2(self.norm2(x), context=context, context_tile=ctx_tile)
+            x = x + self.attn2(self.norm2(x), context=context, context_tile=ctx_tile, impl=impl)
         return _ff_sublayer(self.norm3, self.ff, x), normed1
 
 
@@ -227,11 +236,11 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 ref_kv: Optional[List[torch.Tensor]] = None, ref_drop: Optional[torch.Tensor] = None,
-                num_frames: int = 1, emit_bank: bool = True):
+                num_frames: int = 1, emit_bank: bool = True, impl: Optional[str] = None):
         """x [(B T), H, W, C]; context [B, Lc, Cc] and ref_kv (per depth block
         [B, Lr, C]) UNREPEATED per clip, repeated num_frames x inside;
         ref_drop [(B T)] bool. emit_bank=False: the caller reads no bank
-        (see TransformerBlock)."""
+        (see TransformerBlock). impl: every attention's impl."""
         n, h, w, c = x.shape
         t = num_frames
         hdn = self.proj_in(self.norm(x).reshape(n, h * w, c))
@@ -239,7 +248,7 @@ class SpatialTransformer(nn.Module):
         for i in range(self.depth):
             hdn, normed1 = getattr(self, f"block_{i}")(
                 hdn, context=context, ref_kv=None if ref_kv is None else ref_kv[i],
-                ref_drop=ref_drop, ref_tile=t, ctx_tile=t, emit_bank=emit_bank,
+                ref_drop=ref_drop, ref_tile=t, ctx_tile=t, emit_bank=emit_bank, impl=impl,
             )
             banks.append(normed1)
         return x + self.proj_out(hdn).reshape(n, h, w, c), banks
@@ -312,9 +321,9 @@ class AudioCrossAttention(nn.Module):
         self.norm = LayerNorm(channels)
         self.attn = Attention(channels, heads, head_dim, context_dim=audio_dim, zero_init_out=True)
 
-    def forward(self, x: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, audio: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
         b, t, h, w, c = x.shape
         _, _, a, ca = audio.shape
         tokens = self.norm(x.reshape(b * t, h * w, c))
-        out = self.attn(tokens, context=audio.reshape(b * t, a, ca).to(tokens.dtype))
+        out = self.attn(tokens, context=audio.reshape(b * t, a, ca).to(tokens.dtype), impl=impl)
         return x + out.reshape(b, t, h, w, c)

@@ -1,16 +1,26 @@
 """Ops: the hand-written CUDA kernels, their plain versions, and plain ops.
 
 Kernels (each wrapper counts its launches in `.launches`):
-  * flash_attention         -> csrc/flash_attn.cu (TPU `_flash_kernel`):
-                               [B, H, L, D] operands with strides
+  * flash_attention         -> the attention forward on [B, H, L, D]
+                               operands with strides (TPU `_flash_kernel`),
+                               counted per call, by one of the kernels below
+  * flash_attention_nlc     -> the attention forward on packed tokens (TPU
+                               `_flash_nlc_kernel`), counted per call
+  * flash_fwd_sm90          -> csrc/flash_fwd_sm90.cu: both layouts' forward,
+                               bfloat16, head dim <= 256
+  * flash_fwd_wmma          -> csrc/flash_attn.cu: both layouts' forward,
+                               float32, head dim <= 256
+  * flash_fwd_wide          -> csrc/flash_attn_nlc.cu: the packed forward at
+                               head dim 512
   * flash_attention_bwd     -> csrc/flash_attn_bwd.cu (TPU
                                `_flash_bwd_dq_kernel` and
                                `_flash_bwd_dkv_kernel`); the backward of
                                flash_attention
-  * flash_attention_nlc     -> csrc/flash_attn_nlc.cu (TPU `_flash_nlc_kernel`)
   * flash_attention_nlc_bwd -> csrc/flash_attn_nlc_bwd.cu (TPU
                                `_flash_bwd_nlc_dq_kernel` and
-                               `_flash_bwd_nlc_dkv_kernel`); the backward of
+                               `_flash_bwd_nlc_dkv_kernel`) at head dims 64
+                               and 128, csrc/flash_attn_bwd.cu on head-split
+                               views at the others; the backward of
                                flash_attention_nlc
   * fused_ln_geglu_ff       -> csrc/ln_geglu_ff.cu (TPU `_ln_ff_kernel` and
                                `_ln_ff_wide_kernel`)
@@ -25,7 +35,9 @@ Kernels (each wrapper counts its launches in `.launches`):
 """
 
 from emox_torch.ops.attention import (
+    ATTENTION_IMPLS,
     KERNEL_MIN_KV,
+    attention_default_impl,
     attention_bwd_plain,
     attention_nlc_bwd_plain,
     attention_nlc_plain,
@@ -37,6 +49,11 @@ from emox_torch.ops.attention import (
     flash_attention_bwd,
     flash_attention_nlc,
     flash_attention_nlc_bwd,
+    flash_fwd_sm90,
+    flash_fwd_wide,
+    flash_fwd_wmma,
+    pad_head_dim,
+    padded_attention,
 )
 from emox_torch.ops.ff import (
     ff_default_impl,
@@ -65,6 +82,9 @@ KERNEL_WRAPPERS = {
     "flash_attn_bwd": flash_attention_bwd,
     "flash_attn_nlc_fwd": flash_attention_nlc,
     "flash_attn_nlc_bwd": flash_attention_nlc_bwd,
+    "flash_fwd_sm90": flash_fwd_sm90,
+    "flash_fwd_wmma": flash_fwd_wmma,
+    "flash_fwd_wide": flash_fwd_wide,
     "ln_geglu_ff": fused_ln_geglu_ff,
     "geglu_ff": fused_geglu_ff,
     "group_norm": fused_group_norm,
@@ -83,9 +103,11 @@ def launch_counts() -> dict:
 
 
 __all__ = [
+    "ATTENTION_IMPLS",
     "KERNEL_MIN_KV",
     "KERNEL_WRAPPERS",
     "attention_bwd_plain",
+    "attention_default_impl",
     "attention_nlc_bwd_plain",
     "attention_nlc_plain",
     "attention_plain",
@@ -97,6 +119,9 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_nlc",
     "flash_attention_nlc_bwd",
+    "flash_fwd_sm90",
+    "flash_fwd_wide",
+    "flash_fwd_wmma",
     "fused_geglu_ff",
     "fused_group_norm",
     "fused_ln_geglu_ff",
@@ -116,5 +141,7 @@ __all__ = [
     "ln_geglu_ff_xla",
     "ln_qkv_plain",
     "ln_qkv_xla",
+    "pad_head_dim",
+    "padded_attention",
     "reset_launch_counts",
 ]

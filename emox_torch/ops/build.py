@@ -35,6 +35,7 @@ KERNELS = {
     "flash_attn": {"emox_flash_attn_fwd": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _I, _P]},
     "flash_attn_bwd": {"emox_flash_attn_bwd": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _I, _P]},
     "flash_attn_nlc": {"emox_flash_attn_nlc_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P]},
+    "flash_fwd_sm90": {"emox_flash_fwd_sm90": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _P]},
     "flash_attn_nlc_bwd": {"emox_flash_attn_nlc_bwd": [_P] * 9 + [_I] * 5 + [_F, _I, _P]},
     "ln_geglu_ff": {"emox_ln_geglu_ff": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
                     "emox_ln_geglu_ff_plan": [_I, _I, _P]},

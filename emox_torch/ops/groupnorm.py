@@ -14,6 +14,10 @@ reference's does, from `impl` or else EMOX_GROUPNORM_IMPL, read at call time
     `group_norm_stats` (the same source), and `group_norm_fast` folds its
     per-channel sums into `x * a + b` applied in plain PyTorch, as the
     reference applies it in XLA;
+  * "pallas_interpret" and "fast_interpret", the reference's debug routes:
+    the kernels' plain versions on any device, `group_norm_plain` and
+    `group_norm_fast` on the plain statistics (`group_norm_stats_plain`),
+    as `fused_interpret` in emox_torch/ops/ff.py;
   * any other value raises ValueError.
 
 Each kernel wrapper launches its kernel on a CUDA tensor, or raises for an
@@ -46,7 +50,7 @@ import torch
 from emox_torch.ops import build
 from emox_torch.ops.attention import _on_card_or_cpu
 
-IMPLS = ("xla", "pallas", "fast")
+IMPLS = ("xla", "pallas", "fast", "pallas_interpret", "fast_interpret")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # kGNThreads in csrc/group_norm.cu
 _TARGET_BLOCKS = 4 * 132  # a few blocks per SM of the H100
@@ -172,13 +176,13 @@ group_norm_stats.launches = 0  # kernel launches since the last reset
 
 
 def group_norm_fast(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
-                    eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
+                    eps: float = 1e-5, silu: bool = False, stats=None) -> torch.Tensor:
     """The reference's group_norm_fast on x [N, L, C]: per-channel sums from
-    `group_norm_stats`, folded in fp32 to per-channel a, b, then
-    y = x * a + b in x's own type (plain PyTorch), SiLU."""
+    `stats` (default `group_norm_stats`), folded in fp32 to per-channel a, b,
+    then y = x * a + b in x's own type (plain PyTorch), SiLU."""
     n, l, c = x.shape
     cg = c // groups
-    s, ss = group_norm_stats(x)
+    s, ss = (stats or group_norm_stats)(x)
     sg = s.reshape(n, groups, cg).sum(dim=-1)
     ssg = ss.reshape(n, groups, cg).sum(dim=-1)
     cnt = l * cg
@@ -252,22 +256,29 @@ fused_group_norm.launches = 0  # kernel launches since the last reset
 
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int = 32,
                eps: float = 1e-5, silu: bool = False, impl: Optional[str] = None) -> torch.Tensor:
-    """GroupNorm(+SiLU) on x [..., L, C]; gamma, beta [C]. impl: "xla",
-    "pallas" or "fast" (see the module docstring); None reads
-    EMOX_GROUPNORM_IMPL, unset meaning "xla"."""
+    """GroupNorm(+SiLU) on x [..., L, C]; gamma, beta [C]. impl: one of
+    IMPLS (see the module docstring); None reads EMOX_GROUPNORM_IMPL, unset
+    meaning "xla"."""
     c = x.shape[-1]
     if c % groups:
         raise ValueError(f"channels {c} not divisible by groups {groups}")
     impl = impl or os.environ.get("EMOX_GROUPNORM_IMPL") or "xla"
     if impl not in IMPLS:
-        raise ValueError(f"GroupNorm impl (EMOX_GROUPNORM_IMPL) must be 'xla', 'pallas' or 'fast', got {impl!r}")
+        raise ValueError("GroupNorm impl (EMOX_GROUPNORM_IMPL) must be 'xla', 'pallas', 'fast', 'pallas_interpret' "
+                         f"or 'fast_interpret', got {impl!r}")
     if impl == "xla":
         return group_norm_xla(x, gamma, beta, groups, eps, silu)
-    fn = _GroupNormFused if impl == "pallas" else _GroupNormFast
+    if impl == "pallas_interpret":
+        return group_norm_plain(x, gamma, beta, groups, eps, silu)
+    if impl == "fast_interpret":
+        run = lambda x3: group_norm_fast(x3, gamma, beta, groups, eps, silu, stats=group_norm_stats_plain)
+    else:
+        fn = _GroupNormFused if impl == "pallas" else _GroupNormFast
+        run = lambda x3: fn.apply(x3, gamma, beta, groups, float(eps), bool(silu))
     if x.dim() == 3:
-        return fn.apply(x, gamma, beta, groups, float(eps), bool(silu))
+        return run(x)
     shape = x.shape
-    return fn.apply(x.reshape(-1, shape[-2], c), gamma, beta, groups, float(eps), bool(silu)).reshape(shape)
+    return run(x.reshape(-1, shape[-2], c)).reshape(shape)
 
 
 def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int = 32,

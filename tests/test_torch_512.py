@@ -40,7 +40,8 @@ VAE_IMAGE = 16
 
 def _count_routes(monkeypatch, cutoff: int) -> dict:
     """Lower the K/V cutoff and count the calls that take each attention
-    kernel's route (the packed K1, the strided K5)."""
+    kernel's route (the packed K1, the strided K5), under the impl the card
+    defaults to ("auto"; tests/conftest.py pins xla)."""
     calls = {"flash_attn_nlc_fwd": 0, "flash_attn_fwd": 0}
 
     def count(key, fn):
@@ -49,6 +50,7 @@ def _count_routes(monkeypatch, cutoff: int) -> dict:
             return fn(*a, **kw)
         return run
 
+    monkeypatch.setenv("EMOX_ATTENTION_IMPL", "auto")
     monkeypatch.setattr(tattn, "KERNEL_MIN_KV", cutoff)
     monkeypatch.setattr(tattn, "flash_attention_nlc", count("flash_attn_nlc_fwd", tattn.flash_attention_nlc))
     monkeypatch.setattr(tattn, "flash_attention", count("flash_attn_fwd", tattn.flash_attention))
@@ -98,6 +100,7 @@ def test_vae_with_width_512_matches_the_reference(monkeypatch):
     params = flax_module_params(jmod, jnp.asarray(x))
     want_img, want_dist = jmod.apply({"params": params}, jnp.asarray(x))
     tmod = torch_module(AutoencoderKL(VAEConfig(**VAE_512)), params)
+    monkeypatch.setenv("EMOX_ATTENTION_IMPL", "auto")  # the port as on the card
     with torch.no_grad():
         got_img, got_dist = tmod(t(x))
     assert tmod.encoder.mid_attn.attn.heads == 1 and tmod.encoder.mid_attn.attn.to_q.weight.shape == (512, 512)

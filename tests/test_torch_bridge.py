@@ -35,8 +35,9 @@ def no_kernel_launches():
     ops.reset_launch_counts()
     yield
     counts = ops.launch_counts()
-    assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "ln_geglu_ff",
-                           "geglu_ff", "group_norm", "group_norm_stats", "ln_qkv"}
+    assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "flash_fwd_sm90",
+                           "flash_fwd_wmma", "flash_fwd_wide", "ln_geglu_ff", "geglu_ff", "group_norm",
+                           "group_norm_stats", "ln_qkv"}
     assert not any(counts.values()), counts
 
 

@@ -145,10 +145,10 @@ def test_switch_routes_like_the_reference(monkeypatch, env, ref_env, route):
 def test_unknown_impl_raises(monkeypatch):
     x, gamma, beta = (t(a) for a in _inputs(1, 16, 64))
     monkeypatch.setenv("EMOX_GROUPNORM_IMPL", "triton")
-    with pytest.raises(ValueError, match="'xla', 'pallas' or 'fast'"):
+    with pytest.raises(ValueError, match="'xla', 'pallas', 'fast', 'pallas_interpret' or 'fast_interpret'"):
         ops.group_norm(x, gamma, beta, 32)
-    with pytest.raises(ValueError, match="'xla', 'pallas' or 'fast', got 'pallas_interpret'"):
-        ops.group_norm(x, gamma, beta, 32, impl="pallas_interpret")
+    with pytest.raises(ValueError, match="'fast_interpret', got 'pallas_tpu'"):
+        ops.group_norm(x, gamma, beta, 32, impl="pallas_tpu")
     with pytest.raises(ValueError, match="not divisible"):
         ops.group_norm(x, gamma, beta, 12, impl="pallas")
 

@@ -101,7 +101,7 @@ def test_dispatch_matches_reference_dispatch(lk, d):
     n, lq, heads = 1, 8, 2
     q, k, v = (rng.standard_normal((n, l, heads * d)).astype(np.float32) for l in (lq, lk, lk))
     want = jattn.dot_product_attention_nlc(j(q), j(k), j(v), heads, impl="xla")
-    assert rel(dot_product_attention_nlc(t(q), t(k), t(v), heads), want) <= FP32_TOL
+    assert rel(dot_product_attention_nlc(t(q), t(k), t(v), heads, impl="auto"), want) <= FP32_TOL
     assert ops.KERNEL_MIN_KV == jattn._PALLAS_MIN_KV
 
 
@@ -154,13 +154,13 @@ def test_flash_autograd_matches_jax_grad():
     loss = lambda a, b, c: jnp.sum(jattn.dot_product_attention_nlc(a, b, c, heads, impl="xla") * w)
     want = jax.grad(loss, argnums=(0, 1, 2))(j(q), j(k), j(v))
     qt, kt, vt = (t(a).requires_grad_() for a in (q, k, v))
-    out = dot_product_attention_nlc(qt, kt, vt, heads)
+    out = dot_product_attention_nlc(qt, kt, vt, heads, impl="auto")
     assert type(out.grad_fn).__name__ == "_FlashNLCBackward"  # the kernel's autograd function
     got = torch.autograd.grad((out * t(w)).sum(), (qt, kt, vt))
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert rel(a, b) <= FP32_TOL, name
     # only q needs a gradient: the backward asks for dq alone
-    (dq,) = torch.autograd.grad((dot_product_attention_nlc(qt, t(k), t(v), heads) * t(w)).sum(), (qt,))
+    (dq,) = torch.autograd.grad((dot_product_attention_nlc(qt, t(k), t(v), heads, impl="auto") * t(w)).sum(), (qt,))
     assert rel(dq, want[0]) <= FP32_TOL
 
 
@@ -283,22 +283,32 @@ def test_dispatch_routes_like_the_reference_auto_dispatch(monkeypatch, lk, d, ro
     n, lq, heads = 2, 24, 2
     q, k, v = (rng.standard_normal((n, l, heads * d)).astype(np.float32) for l in (lq, lk, lk))
     want = jattn.dot_product_attention_nlc(j(q), j(k), j(v), heads, impl="auto")
-    got = tattn.dot_product_attention_nlc(t(q), t(k), t(v), heads)
+    got = tattn.dot_product_attention_nlc(t(q), t(k), t(v), heads, impl="auto")
     assert taken["ref"] == taken["port"] == [route]
     assert rel(got, want) <= FP32_TOL
 
 
 def test_strided_wrapper_checks_head_dim_and_row_alignment():
-    """What the strided kernels refuse is refused before any launch: head
-    dims other than 40 and 80 (named), and rows that are not contiguous and
-    16-byte aligned."""
-    from emox_torch.ops.attention import _check_rows, _check_strided_inputs
+    """What the kernels still refuse is refused before any launch: head dims
+    above 256 on [B, H, L, D] operands and above 512 on packed tokens, the
+    backward at head dim 512 (named: VAE pretraining, stage 5), and rows that
+    are not contiguous and 16-byte aligned where the head dim itself would
+    keep them aligned (a head dim that would not is zero-padded instead)."""
+    from emox_torch.ops.attention import _check_kernel_inputs, _check_rows, _check_strided_inputs
 
-    x = torch.zeros(1, 2, 8, 64)
-    with pytest.raises(ValueError, match="head_dim 40 or 80, got 64"):
+    for d in (4, 40, 64, 160, 256):
+        y = torch.zeros(1, 2, 8, d)
+        assert _check_strided_inputs("flash_attn_fwd", y, y, y) == (1, 2, 8, 8, d)
+    x = torch.zeros(1, 2, 8, 320)
+    with pytest.raises(ValueError, match="head_dim <= 256, got 320"):
         _check_strided_inputs("flash_attn_fwd", x, x, x)
-    y = torch.zeros(1, 2, 8, 40)
-    assert _check_strided_inputs("flash_attn_fwd", y, y, y) == (1, 2, 8, 8, 40)
+    p = torch.zeros(1, 8, 2 * 512)
+    assert _check_kernel_inputs("flash_attn_nlc_fwd", p, p, p, 2) == (1, 8, 8, 512)
+    with pytest.raises(ValueError, match="stage 5"):
+        _check_kernel_inputs("flash_attn_nlc_bwd", p, p, p, 2, bwd=True)
+    w = torch.zeros(1, 8, 1024)
+    with pytest.raises(ValueError, match="head_dim <= 256 or 512, got 1024/1"):
+        _check_kernel_inputs("flash_attn_nlc_fwd", w, w, w, 1)
     _check_rows("flash_attn_fwd", q=torch.zeros(1, 8, 2 * 40).view(1, 8, 2, 40).transpose(1, 2))
     with pytest.raises(ValueError, match="16-byte aligned rows"):
         _check_rows("flash_attn_fwd", q=torch.zeros(1, 2, 8, 41)[..., :40])  # row stride 41 floats

@@ -66,6 +66,7 @@ def strided_route(monkeypatch):
             return fn(*a, **kw)
         return run
 
+    monkeypatch.setenv("EMOX_ATTENTION_IMPL", "auto")  # the card's default (tests/conftest.py pins xla)
     monkeypatch.setattr(tattn, "KERNEL_MIN_KV", CUTOFF)
     monkeypatch.setattr(tattn, "flash_attention", count("fwd", tattn.flash_attention))
     monkeypatch.setattr(tattn, "flash_attention_bwd", count("bwd", tattn.flash_attention_bwd))
