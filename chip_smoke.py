@@ -20,8 +20,14 @@ raises and the script exits non-zero. Phases:
      flash_fwd_sm90 (bf16, wgmma + TMA) at the serving shapes of both, at
      Lk 5 and 16, at head dims 4, 40, 80, 128, 160 and 256 and ragged;
      flash_fwd_wmma (float32) at the same head dims, timed at K5's shape;
-     flash_fwd_wide at head dim 512; the backward kernels at the widened
-     head dims (d 160 in both types, 256, 4, packed 192).
+     flash_fwd_wide at head dim 512. The backward runs on one kernel per
+     type for both layouts too: flash_bwd_sm90 (bf16, head dim <= 128,
+     wgmma + TMA) at the training shapes of both (timed), at head dims 4,
+     40, 64, 80 and 128 on both layouts with ragged Lq/Lk, with dq only and
+     with dk/dv only, and twice on the same inputs (the same bits);
+     flash_bwd_wmma (flash_attn_bwd.cu: float32, and bf16 at head dims
+     129-256) at d 160 in both types, 256, packed 192, and in float32 at
+     the float32 train step's shape (timed).
   3. step: one CFG-batched denoise step of the flagship model at 256^2,
      2 frames, float32, on the card (kernels) against the same weights on
      the CPU (plain versions), TF32 off for matmuls and convolutions.
@@ -43,7 +49,10 @@ raises and the script exits non-zero. Phases:
      (batch 4, 1 frame: 3 steps); ms/step, frames/s, peak memory, losses
      finite, trainable leaves changed and frozen ones not, the kernels'
      launches per step, and one more step under torch.profiler; then stage 3 (batch 2, 8 frames, 3-axis
-     speeds and a face mask: 3 steps) the same way.
+     speeds and a face mask: 3 steps) the same way. Every train phase
+     asserts that each attention backward landed on exactly one kernel of
+     its type (bf16: flash_bwd_sm90; float32: flash_bwd_wmma), at the
+     stage-2 counts per step of BWD_PER_STEP.
   8. step_sd15, serve_sd15, train_sd15: phases 3, 4 + 5 and 7 (stage 2) on
      "flagship-sd15", the flagship with the SD-1.5 head layout (8 heads,
      ResNet time embedding added, text cross-attention fed by the CLIP-L
@@ -125,6 +134,12 @@ SWITCH_VARS += ("EMOX_ATTENTION_IMPL",)
 # the forward kernels behind the two layouts: bf16 (head dim <= 256), float32
 # (<= 256), head dim 512 (the VAE's mid-attention, packed)
 FWD_SOURCES = ("flash_fwd_sm90", "flash_fwd_wmma", "flash_fwd_wide")
+# the backward kernels behind the two layouts: bf16 at head dim <= 128, and
+# float32 (bf16 at 129-256); and the backward launches per stage-2 step of
+# each train path (name, image size): its kernel sites (Lk >= KERNEL_MIN_KV)
+# that the loss differentiates
+BWD_SOURCES = ("flash_bwd_sm90", "flash_bwd_wmma")
+BWD_PER_STEP = {("flagship", 256): 4, ("flagship", 512): 9, ("flagship-sd15", 256): 4}
 ATTN_XLA = {"EMOX_ATTENTION_IMPL": "xla"}
 ATTN_PALLAS = {"EMOX_ATTENTION_IMPL": "pallas"}
 NORMS = {"EMOX_GROUPNORM_IMPL": "pallas", "EMOX_LN_QKV": "1"}
@@ -182,7 +197,8 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     kernels of switches left off and K6 (on no model path) never; under
     EMOX_FF_IMPL=xla not the fused FF either, under EMOX_ATTENTION_IMPL=xla
     no attention kernel. Every forward launch of either layout went through
-    exactly one kernel, the one for the type (dtype): FWD_SOURCES."""
+    exactly one kernel, the one for the type (dtype): FWD_SOURCES; every
+    backward launch (train) too: BWD_SOURCES, none without training."""
     env = env or {}
     on = switch_kernels(env)
     other = [k for n, ks in ATTN_KERNELS.items() if n != name for k in ks]
@@ -191,15 +207,20 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
         other.append("ln_geglu_ff")
     fwd = {"bfloat16": "flash_fwd_sm90", "float32": "flash_fwd_wmma"}[dtype]
     other += [k for k in ("flash_fwd_sm90", "flash_fwd_wmma") if k != fwd]
+    bwd = {"bfloat16": "flash_bwd_sm90", "float32": "flash_bwd_wmma"}[dtype]
+    other += [k for k in BWD_SOURCES if k != bwd or not train]
     if env.get("EMOX_ATTENTION_IMPL") == "xla":
-        other += [*ATTN_KERNELS[name], *FWD_SOURCES]
+        other += [*ATTN_KERNELS[name], *FWD_SOURCES, *BWD_SOURCES]
     need = tuple(k for k in (*FORWARD_KERNELS, fwd) if k not in other)
-    need += ((ATTN_KERNELS[name][1],) if train and ATTN_KERNELS[name][1] not in other else ()) + on
+    need += tuple(k for k in (ATTN_KERNELS[name][1], bwd) if train and k not in other) + on
     if min(counts[k] for k in need) <= 0 or any(counts[k] for k in other):
         raise AssertionError(f"{what}: kernels {need} must launch and {other} must not: {counts}")
     layouts, sources = counts["flash_attn_nlc_fwd"] + counts["flash_attn_fwd"], sum(counts[k] for k in FWD_SOURCES)
     if layouts != sources:
         raise AssertionError(f"{what}: {layouts} attention forwards but {sources} kernel launches: {counts}")
+    layouts, sources = counts["flash_attn_nlc_bwd"] + counts["flash_attn_bwd"], sum(counts[k] for k in BWD_SOURCES)
+    if layouts != sources:
+        raise AssertionError(f"{what}: {layouts} attention backwards but {sources} kernel launches: {counts}")
 
 
 def norm_launches_per_request(cfg, steps: int, env) -> dict:
@@ -412,10 +433,55 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0
     return res
 
 
-def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0):
-    """K4: dq, dk, dv of the kernels against the plain version (fp32 math on
-    the same inputs, over batch chunks of `chunk` rows where needed), from
-    the fp32 forward's lse and its output rounded to the input type."""
+def _bwd_kernel(dtype, d: int) -> str:
+    """The kernel that takes an attention backward of this type and head dim
+    (either layout): emox_torch.ops.attention's routing."""
+    import torch
+
+    return "flash_bwd_sm90" if dtype == torch.bfloat16 and d <= 128 else "flash_bwd_wmma"
+
+
+def _check_grads(res, run, want, dtype, need_dq: bool, need_dkv: bool, repeat: bool) -> bool:
+    """The backward checks both layouts share: one call of run() (the
+    wrapper) launches the kernel of res["kernel"] once and the other
+    backward kernel never, returns exactly the gradients asked for, and each
+    is within the tolerance of want's (the plain version's); with repeat, a
+    second call on the same inputs gives the same bits. Fills res."""
+    import torch
+    from emox_torch.ops import launch_counts
+
+    before = launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    res["launched"] = {k: after[k] - before[k] for k in BWD_SOURCES}
+    ok = res["launched"] == {k: int(k == res["kernel"]) for k in BWD_SOURCES}
+    asked = dict(zip(("dq", "dk", "dv"), (need_dq, need_dkv, need_dkv)))
+    for (name, on), g, w in zip(asked.items(), got, want):
+        ok = ok and (g is not None) == on
+        if g is None:
+            continue
+        err = (g.float() - w).abs().max().item()
+        # bf16: P and dS are rounded to bf16 for the products and the output
+        # once: a few bf16 steps at the largest value; float32: 3xTF32 sums
+        tol = (4 * BF16_EPS if dtype == torch.bfloat16 else 2e-4) * w.abs().max().item()
+        res[f"{name}_max_abs_err"], res[f"{name}_tol"] = err, tol
+        ok = ok and math.isfinite(err) and err <= tol
+    res["max_abs_err"] = max(res[f"{x}_max_abs_err"] for x, on in asked.items() if on)
+    if repeat:
+        again = run()
+        res["bit_identical"] = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+        ok = ok and res["bit_identical"]
+    return ok
+
+
+def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0, need_dq=True,
+                    need_dkv=True, repeat=False):
+    """K4: dq, dk, dv of flash_attention_nlc_bwd (flash_bwd_sm90 in bf16 at
+    head dim <= 128, flash_bwd_wmma otherwise) against the plain version
+    (fp32 math on the same inputs, over batch chunks of `chunk` rows where
+    needed), from the fp32 forward's lse and its output rounded to the input
+    type; only the gradients asked for (need_dq, need_dkv)."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_nlc_bwd_plain, attention_nlc_plain, flash_attention_nlc_bwd
@@ -428,30 +494,20 @@ def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chu
     o32, lse = _by_rows(lambda *a: attention_nlc_plain(*a, heads, scale), chunk, q.float(), k.float(), v.float())
     o = o32.to(dtype)
     del o32
-    got = flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale)
-    torch.cuda.synchronize()
     plain = lambda *a: attention_nlc_bwd_plain(*a, heads, scale)
     want = _by_rows(plain, chunk, q.float(), k.float(), v.float(), o.float(), lse, dout.float())
-    res = {"kernel": "flash_attn_nlc_bwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq, "lk": lk,
-           "c": c, "heads": heads, "head_dim": d}
-    ok = True
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err = (g.float() - w).abs().max().item()
-        top = w.abs().max().item()
-        # bf16: P and dS are rounded to bf16 for the products and the output
-        # once: a few bf16 steps at the largest value; float32: 3xTF32 sums
-        tol = (4 * BF16_EPS if dtype == torch.bfloat16 else 2e-4) * top
-        res[f"{name}_max_abs_err"], res[f"{name}_tol"] = err, tol
-        ok = ok and math.isfinite(err) and err <= tol
-    res["max_abs_err"] = max(res[f"{x}_max_abs_err"] for x in ("dq", "dk", "dv"))
-    del got, want
+    res = {"kernel": _bwd_kernel(dtype, d), "layout": "packed", "dtype": str(dtype).split(".")[-1], "n": n,
+           "lq": lq, "lk": lk, "c": c, "heads": heads, "head_dim": d, "need_dq": need_dq, "need_dkv": need_dkv}
+    run = lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale, need_dq=need_dq, need_dkv=need_dkv)
+    ok = _check_grads(res, run, want, dtype, need_dq, need_dkv, repeat)
+    del want
     if not ok:
         emit(res)
-        raise AssertionError(f"flash_attn_nlc_bwd disagrees with its plain version: {res}")
+        raise AssertionError(f"{res['kernel']} (packed) disagrees with its plain version: {res}")
     if timing:
         flops = 10.0 * n * heads * lq * lk * d
         nbytes = q.element_size() * n * c * (4 * lq + 4 * lk) + 4 * n * lq * heads
-        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
         res["ms"] = time_ms(lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale),
                             iters=10 if flops < 2e12 else 3)
         res["plain_ms"] = time_ms(lambda: _by_rows(plain, chunk, q, k, v, o, lse, dout), iters=3, warmup=1)
@@ -514,10 +570,13 @@ def check_flash_strided(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
     return res
 
 
-def check_flash_strided_bwd(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
-    """K5 backward: dq, dk, dv of the kernels on head-split views against the
-    plain version (fp32 math on the same inputs), from the fp32 forward's lse
-    and its output rounded to the input type."""
+def check_flash_strided_bwd(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True, need_dq=True,
+                            need_dkv=True, repeat=False):
+    """K5 backward: dq, dk, dv of flash_attention_bwd (flash_bwd_sm90 in
+    bf16 at head dim <= 128, flash_bwd_wmma otherwise) on head-split views
+    against the plain version (fp32 math on the same inputs), from the fp32
+    forward's lse and its output rounded to the input type; only the
+    gradients asked for."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_bwd_plain, attention_plain, flash_attention_bwd
@@ -529,27 +588,20 @@ def check_flash_strided_bwd(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=Tr
     o32, lse = attention_plain(q.float(), k.float(), v.float(), scale)
     o = o32.to(dtype)
     del o32
-    got = flash_attention_bwd(q, k, v, o, lse, dout, scale)
-    torch.cuda.synchronize()
     want = attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse, dout.float(), scale)
-    res = {"kernel": "flash_attn_bwd", "dtype": str(dtype).split(".")[-1], "n": n, "lq": lq, "lk": lk,
-           "c": heads * d, "heads": heads, "head_dim": d}
-    ok = True
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err = (g.float() - w).abs().max().item()
-        top = w.abs().max().item()
-        tol = (4 * BF16_EPS if dtype == torch.bfloat16 else 2e-4) * top  # as K4
-        res[f"{name}_max_abs_err"], res[f"{name}_tol"] = err, tol
-        ok = ok and math.isfinite(err) and err <= tol
-    res["max_abs_err"] = max(res[f"{x}_max_abs_err"] for x in ("dq", "dk", "dv"))
-    del got, want
+    res = {"kernel": _bwd_kernel(dtype, d), "layout": "strided", "dtype": str(dtype).split(".")[-1], "n": n,
+           "lq": lq, "lk": lk, "c": heads * d, "heads": heads, "head_dim": d, "need_dq": need_dq,
+           "need_dkv": need_dkv}
+    run = lambda: flash_attention_bwd(q, k, v, o, lse, dout, scale, need_dq=need_dq, need_dkv=need_dkv)
+    ok = _check_grads(res, run, want, dtype, need_dq, need_dkv, repeat)
+    del want
     if not ok:
         emit(res)
-        raise AssertionError(f"flash_attn_bwd disagrees with its plain version: {res}")
+        raise AssertionError(f"{res['kernel']} (strided) disagrees with its plain version: {res}")
     if timing:
         flops = 10.0 * n * heads * lq * lk * d
         nbytes = q.element_size() * n * heads * d * (4 * lq + 4 * lk) + 4 * n * lq * heads
-        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
         res["ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, scale), iters=10)
         res["plain_ms"] = time_ms(lambda: attention_bwd_plain(q, k, v, o, lse, dout, scale), iters=3, warmup=1)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -786,13 +838,25 @@ def phase_kernels():
     results["ff_mid"] = check_ff(gen, 512, 1280)
     check_ff(gen, 1000, 320, dtype=torch.float32, timing=False)
     check_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
-    # K4 at the level-0 reference-concat sites of training: stage 2 (batch 2
-    # x 8 frames) and stage 1 (batch 4); then float32, head dim 128, ragged
-    results["flash_bwd_n16"] = check_flash_bwd(gen, 16, 1024, 2048)
+    # flash_bwd_sm90 at K4's level-0 reference-concat sites of training:
+    # stage 2 (batch 2 x 8 frames; twice, the same bits) and stage 1 (batch 4)
+    results["flash_bwd_n16"] = check_flash_bwd(gen, 16, 1024, 2048, repeat=True)
     results["flash_bwd_n4"] = check_flash_bwd(gen, 4, 1024, 2048)
-    check_flash_bwd(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
-    check_flash_bwd(gen, 2, 1024, 2048, c=256, heads=2, timing=False)
     check_flash_bwd(gen, 4, 1000, 2100, timing=False)
+    # every head-dim class it takes on both layouts (4 pads its rows in the
+    # wrapper; 40 and 80 pad in shared memory to 64 and 128), ragged Lq and
+    # Lk, with dq only and with dk/dv only
+    for d in (4, 40, 64, 80, 128):
+        for lq, lk in ((1000, 2100), (300, 333)):
+            check_flash_bwd(gen, 2, lq, lk, c=2 * d, heads=2, timing=False)
+            check_flash_strided_bwd(gen, 2, lq, lk, heads=3, d=d, timing=False)
+        check_flash_bwd(gen, 2, 1000, 2100, c=2 * d, heads=2, timing=False, need_dkv=False)
+        check_flash_strided_bwd(gen, 2, 1000, 2100, heads=3, d=d, timing=False, need_dq=False)
+    # flash_bwd_wmma timed at the float32 train step's site (batch 1 x 2
+    # frames), then float32 packed head dim 128 (dq only, dk/dv only)
+    results["flash_bwd_wmma_f32"] = check_flash_bwd(gen, 2, 1024, 2048, dtype=torch.float32)
+    check_flash_bwd(gen, 2, 1000, 2100, c=256, heads=2, dtype=torch.float32, timing=False, need_dkv=False)
+    check_flash_bwd(gen, 2, 1000, 2100, c=256, heads=2, dtype=torch.float32, timing=False, need_dq=False)
     # the strided layout (K5's sites, flash_fwd_sm90 in bf16) with the SD-1.5
     # head layout (8 heads), on head-split views of packed
     # tokens: the reader's level-0 site at 256^2 (d 40) under CFG in serving
@@ -804,18 +868,19 @@ def phase_kernels():
     check_flash_strided(gen, 4, 1000, 2100, timing=False)
     check_flash_strided(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
     check_flash_strided(gen, 2, 1000, 2100, d=80, dtype=torch.float32, timing=False)
+    # flash_bwd_sm90 at K5's site: the SD-1.5 head layout's level 0 (d 40) at
+    # batch 2 x 8 frames, and d 80 (level 1 at 512^2)
     results["flash_strided_bwd_n16"] = check_flash_strided_bwd(gen, 16, 1024, 2048)
-    check_flash_strided_bwd(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
-    # the widened backward: d 160 (SD-1.5's level 2) in both types, d 256 and
-    # d 4 (padded rows), and the packed layout at d 192 (head-split views)
-    check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, timing=False)
-    check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, dtype=torch.float32, timing=False)
-    check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=256, timing=False)
-    check_flash_strided_bwd(gen, 2, 300, 333, heads=2, d=4, timing=False)
-    check_flash_bwd(gen, 2, 1000, 2100, c=384, heads=2, timing=False)
     check_flash_strided_bwd(gen, 2, 1024, 2048, d=80, timing=False)
     check_flash_strided_bwd(gen, 4, 1000, 2100, timing=False)
+    # flash_bwd_wmma: float32 (d 40, 80, 160), bf16 at d 160 (SD-1.5's level
+    # 2) and 256, and the packed layout at d 192 (head-split views)
+    check_flash_strided_bwd(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
     check_flash_strided_bwd(gen, 2, 1000, 2100, d=80, dtype=torch.float32, timing=False)
+    check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, dtype=torch.float32, timing=False)
+    check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, timing=False)
+    check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=256, timing=False)
+    check_flash_bwd(gen, 2, 1000, 2100, c=384, heads=2, timing=False)
     # K8a (with and without SiLU) and K8b under CFG at 16 frames: the UNet's
     # level 0 and level 2, and the VAE's full-resolution decode of the 16
     # frames (decode_chunk 0); then C 2560 (the up path's concatenated input
@@ -855,7 +920,7 @@ def phase_kernels():
     check_flash(gen, 1, 4000, 4000, c=512, heads=1, timing=False)
     check_flash(gen, 1, 4096, 4096, c=512, heads=1, dtype=torch.float32, timing=False)
     check_flash(gen, 2, 1000, 2100, c=512, heads=1, dtype=torch.float32, timing=False)
-    # flash_fwd_sm90 and K4 at the 512^2 level-0 sites (Lq 4096, Lk 8192: reference tokens
+    # flash_fwd_sm90 and flash_bwd_sm90 at the 512^2 level-0 sites (Lq 4096, Lk 8192: reference tokens
     # appended) and level-1 sites (C 640, 10 heads, Lk 2048): serving under
     # CFG (N 32) and stage-2 training (N 16)
     results["flash_512_l0"] = check_flash(gen, 32, 4096, 8192, chunk=4)
@@ -1227,7 +1292,9 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
            "trainable_unchanged_all_zero": len(unchanged) - len(stuck), "trainable_stuck": stuck[:8],
            "trainable_module_leaves_changed": module_changed, "frozen_leaves_changed": frozen_changed,
            "launches": counts, "launches_per_step": {k: v / steps for k, v in counts.items()},
-           "warmup_launches_per_step": {k: v / warmup for k, v in warm_counts.items()}}
+           "warmup_launches_per_step": {k: v / warmup for k, v in warm_counts.items()},
+           "bwd_sources_per_step": {k: counts[k] / steps for k in BWD_SOURCES},
+           "bwd_sm90_per_step_expected": BWD_PER_STEP.get((name, size)) if stage == 2 else None}
     emit(res)
     tr.close()
     if not res["all_finite"]:
@@ -1236,6 +1303,10 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
         raise AssertionError(f"stage {stage}: trainable leaves left unchanged {stuck[:8]}, "
                              f"{frozen_changed} frozen leaves changed")
     check_path_launches(name, counts, train=True, what=f"{name} stage {stage} training {env or ''}", env=env)
+    want = res["bwd_sm90_per_step_expected"]
+    if want is not None and res["bwd_sources_per_step"] != {"flash_bwd_sm90": want, "flash_bwd_wmma": 0}:
+        raise AssertionError(f"{name} {size}^2 stage 2: backward kernels per step {res['bwd_sources_per_step']}, "
+                             f"expected {want} on flash_bwd_sm90")
     del tr, model, data
     return res
 
@@ -1330,11 +1401,11 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
 _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("ln_qkv", ("ln_qkv_kernel",)),
+    ("flash_bwd_sm90", ("bwd_sm90::",)),  # ahead of the forward's "sm90::"
     ("flash_fwd_sm90", ("sm90::",)),
     ("flash_fwd_wide", ("flash_attn_nlc_fwd",)),
     ("flash_fwd_wmma", ("flash_fwd::",)),
-    ("flash_attn_bwd", ("flash_bwd_strided::",)),
-    ("flash_attn_nlc_bwd", ("flash_bwd::",)),
+    ("flash_bwd_wmma", ("flash_bwd_strided::",)),
     ("ln_geglu_ff", ("ln_geglu_ff",)),
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "wgmma")),
@@ -1588,7 +1659,7 @@ def main(argv=None) -> int:
         step_pallas = phase_step_attn_pallas()["launches"]
         serve_attn_xla = phase_serve(args.out, requests=2, env=ATTN_XLA)["launches"]
         with tempfile.TemporaryDirectory() as tmp:
-            phase_train_step(tmp)
+            train_step = phase_train_step(tmp)["launches"]
             train2 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out)
             train1 = phase_train(tmp, stage=1, batch=4, frames=1, warmup=1, steps=2, out_dir=args.out)
             train3 = phase_train(tmp, stage=3, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out)
@@ -1618,6 +1689,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             train_512 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out, size=512)
     by_path = {"step": step, "serve": launches, "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
+               "train_step": train_step,
                "train_stage2_per_step": train2["launches_per_step"],
                "train_stage1_per_step": train1["launches_per_step"],
                "train_stage3_per_step": train3["launches_per_step"],
@@ -1629,12 +1701,12 @@ def main(argv=None) -> int:
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 on the flagship's 256^2 request, flash_fwd_wide on the
     # 512^2 one, flash_fwd_wmma on the float32 step), the timed stage-2
-    # training steps for the backward; the strided backward's on the SD-1.5
-    # head layout's path; the switch kernels' on the serving path under their
-    # switches; K6's through its entry points (geglu_ff)
-    launches = dict(launches, flash_attn_nlc_bwd=train2["launches"]["flash_attn_nlc_bwd"],
+    # training steps for the backward (flash_bwd_sm90; flash_bwd_wmma on the
+    # float32 train step); the switch kernels' on the serving path under
+    # their switches; K6's through its entry points (geglu_ff)
+    launches = dict(launches, flash_bwd_sm90=train2["launches"]["flash_bwd_sm90"],
                     flash_fwd_wide=serve_512["flash_fwd_wide"], flash_fwd_wmma=step["flash_fwd_wmma"],
-                    flash_attn_bwd=train_sd15["launches"]["flash_attn_bwd"],
+                    flash_bwd_wmma=train_step["flash_bwd_wmma"],
                     group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
                     group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1666,10 +1738,15 @@ def main(argv=None) -> int:
         # level 1 _ln_ff_wide_kernel's
         entry("emox_torch/csrc/ln_geglu_ff.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120"],
               kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"]]),
-        entry("emox_torch/csrc/flash_attn_nlc_bwd.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
-              kern["flash_bwd_n16"], [kern["flash_bwd_n4"], kern["flash_bwd_512_l0"], kern["flash_bwd_512_l1"]]),
-        entry("emox_torch/csrc/flash_attn_bwd.cu", ["emox/ops/attention.py:118", "emox/ops/attention.py:160"],
-              kern["flash_strided_bwd_n16"], []),
+        # one kernel pair for both layouts' bf16 backward (head dim <= 128):
+        # the packed sites are K4's, the strided (head-split) one K5's
+        entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
+                                                    "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
+              kern["flash_bwd_n16"], [kern["flash_bwd_n4"], kern["flash_bwd_512_l0"], kern["flash_bwd_512_l1"],
+                                      kern["flash_strided_bwd_n16"]]),
+        entry("emox_torch/csrc/flash_attn_bwd.cu", ["emox/ops/attention.py:118", "emox/ops/attention.py:160",
+                                                   "emox/ops/attention.py:465", "emox/ops/attention.py:508"],
+              kern["flash_bwd_wmma_f32"], []),
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:184"],
               kern["gn_l0"], [kern["gn_l2"], kern["gn_vae"]]),
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:74"],

@@ -1,18 +1,19 @@
-// Strided flash-attention backward for Hopper (sm_90a).
+// Flash-attention backward on WMMA (sm_90a), float32 (3xTF32) and bf16.
 //
 // Replaces the TPU kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`
-// (emox/ops/attention.py, called by `_flash_bwd_impl`): from q, k, v on
-// [B, H, L, D] operands, the forward's log-sum-exp lse [B, H, Lq] and the
-// output gradient dO, it recomputes the probabilities tile by tile and
-// returns dq, dk and dv. delta = sum_d dO*O per row, [B, H, Lq] fp32, is
-// computed by the wrapper before the launch, as the TPU path computes it
-// outside its kernels.
+// (emox/ops/attention.py, called by `_flash_bwd_impl`) and, on head-split
+// views, the packed layout's `_flash_bwd_nlc_dq_kernel` and
+// `_flash_bwd_nlc_dkv_kernel`, where flash_bwd_sm90.cu does not: float32 at
+// every head dim up to 256 (the float32 model held against the CPU) and
+// bf16 at head dims 129-256. From q, k, v on [B, H, L, D] operands, the
+// forward's log-sum-exp lse [B, H, Lq] and the output gradient dO, it
+// recomputes the probabilities tile by tile and returns dq, dk and dv.
+// delta = sum_d dO*O per row, [B, H, Lq] fp32, is computed by the wrapper
+// before the launch, as the TPU path computes it outside its kernels.
 //
-// What bounds it on the H100: at the stage-2 training shape of the SD-1.5
-// head layout (N 16, H 8, Lq 1024, Lk 2048, d 40) the function needs
-// 10*N*H*Lq*Lk*d = 107 GFLOP (q k^T, dO v^T, P^T dO, dS k, dS^T q) against
-// about 85 MB of inputs and outputs: the tensor cores bound it, not the
-// memory. The design is K4's (flash_attn_nlc_bwd.cu) on strided operands:
+// What bounds it on the H100: in float32 the products run as 3xTF32 on the
+// tensor cores (three TF32 products each) against 67 TFLOP/s of float32
+// arithmetic for the elementwise steps; in bf16 the tensor cores. The design:
 //   * two kernels, and each block owns the output rows it writes, so nothing
 //     is reduced across blocks: no atomics, and the result does not depend on
 //     the order in which blocks run. The price is that both kernels recompute
@@ -30,19 +31,17 @@
 //   * every operand comes with element strides for batch, head and row, so
 //     head-split views of packed tokens need no copy; the head dim is
 //     zero-padded in shared memory to the next of 48, 64, 80, 128, 192 and
-//     256 (40 -> 48, 160 -> 192), which changes no product, and only the D
-//     real columns are written. Every head dim up to 256 runs; float32 above
-//     128 takes 32-row tiles (two warps) to fit shared memory, and at the
-//     widest head dims the dk/dv accumulators spill to local memory: right,
-//     not fast (the packed layout's head dims other than 64 and 128 come here
-//     as head-split views);
+//     256 (40 -> 48, 160 -> 192; bf16 only to 192 and 256), which changes no
+//     product, and only the D real columns are written. float32 above 128 takes 32-row tiles (two
+//     warps) to fit shared memory, and at the widest head dims the dk/dv
+//     accumulators spill to local memory: right, not fast;
 //   * ragged edges: keys at or past Lk get P = 0, as the TPU kernel's
 //     `masked` path; query rows at or past Lq are zero-filled and get P = 0
 //     through lse = +inf, so they add nothing;
 //   * each warp owns 16 rows of the block's tile, so the elementwise step
 //     between the products needs no block barrier.
-// This is the simple, right version: no TMA, no wgmma, no pipelining of the
-// tile loads; those belong to the PR that makes it fast.
+// No TMA, no wgmma, no pipelining of the tile loads: flash_bwd_sm90.cu has
+// them for bf16 up to head dim 128.
 #include "common.cuh"
 
 namespace emox {
@@ -345,10 +344,10 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const voi
 // head dim contiguous and the element strides (batch, head, row) given in
 // `strides` in the order q, k, v, dout, dq, dk, dv (21 values; those of an
 // output not asked for are ignored). lse and delta [batch, heads, lq]
-// float32, contiguous. head_dim <= 256; every row must start 16-byte
-// aligned. dq == NULL
-// skips the dq kernel; dk and dv are both given (the dkv kernel runs) or both
-// NULL. Returns a cudaError_t (0 = launched).
+// float32, contiguous. head_dim <= 256, and above 128 in bfloat16 (bf16 up
+// to 128 runs on flash_bwd_sm90.cu); every row must start 16-byte aligned.
+// dq == NULL skips the dq kernel; dk and dv are both given (the dkv kernel
+// runs) or both NULL. Returns a cudaError_t (0 = launched).
 extern "C" int emox_flash_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
                                    const void* lse, const void* delta, void* dq, void* dk,
                                    void* dv, const long long* strides, int batch, int heads,
@@ -364,18 +363,18 @@ extern "C" int emox_flash_attn_bwd(const void* q, const void* k, const void* v, 
   Args st;
   Strides3* all[7] = {&st.q, &st.k, &st.v, &st.g, &st.dq, &st.dk, &st.dv};
   for (int i = 0; i < 7; ++i) *all[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  if (head_dim <= 0 || head_dim > 256 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-#define EMOX_LAUNCH(DP)                                                                                   \
-  (dtype == 1 ? launch<__nv_bfloat16, DP>(q, k, v, dout, lse, delta, dq, dk, dv, st, batch, heads, lq, lk, \
-                                          head_dim, scale, s)                                            \
-              : launch<float, DP>(q, k, v, dout, lse, delta, dq, dk, dv, st, batch, heads, lq, lk, head_dim, \
-                                  scale, s))
+  if (head_dim <= 0 || head_dim > 256 || (dtype != 0 && dtype != 1) || (dtype == 1 && head_dim <= 128)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define EMOX_LAUNCH(T, DP) \
+  launch<T, DP>(q, k, v, dout, lse, delta, dq, dk, dv, st, batch, heads, lq, lk, head_dim, scale, s)
   // the padded head dim: the smallest of these that holds head_dim
-  if (head_dim <= 48) return (int)EMOX_LAUNCH(48);
-  if (head_dim <= 64) return (int)EMOX_LAUNCH(64);
-  if (head_dim <= 80) return (int)EMOX_LAUNCH(80);
-  if (head_dim <= 128) return (int)EMOX_LAUNCH(128);
-  if (head_dim <= 192) return (int)EMOX_LAUNCH(192);
-  return (int)EMOX_LAUNCH(256);
+  if (dtype == 1) return (int)(head_dim <= 192 ? EMOX_LAUNCH(__nv_bfloat16, 192) : EMOX_LAUNCH(__nv_bfloat16, 256));
+  if (head_dim <= 48) return (int)EMOX_LAUNCH(float, 48);
+  if (head_dim <= 64) return (int)EMOX_LAUNCH(float, 64);
+  if (head_dim <= 80) return (int)EMOX_LAUNCH(float, 80);
+  if (head_dim <= 128) return (int)EMOX_LAUNCH(float, 128);
+  if (head_dim <= 192) return (int)EMOX_LAUNCH(float, 192);
+  return (int)EMOX_LAUNCH(float, 256);
 #undef EMOX_LAUNCH
 }

@@ -12,16 +12,19 @@ Kernels (each wrapper counts its launches in `.launches`):
                                float32, head dim <= 256
   * flash_fwd_wide          -> csrc/flash_attn_nlc.cu: the packed forward at
                                head dim 512
-  * flash_attention_bwd     -> csrc/flash_attn_bwd.cu (TPU
+  * flash_attention_bwd     -> the backward of flash_attention (TPU
                                `_flash_bwd_dq_kernel` and
-                               `_flash_bwd_dkv_kernel`); the backward of
-                               flash_attention
-  * flash_attention_nlc_bwd -> csrc/flash_attn_nlc_bwd.cu (TPU
+                               `_flash_bwd_dkv_kernel`), counted per call, by
+                               one of the kernels below
+  * flash_attention_nlc_bwd -> the backward of flash_attention_nlc (TPU
                                `_flash_bwd_nlc_dq_kernel` and
-                               `_flash_bwd_nlc_dkv_kernel`) at head dims 64
-                               and 128, csrc/flash_attn_bwd.cu on head-split
-                               views at the others; the backward of
-                               flash_attention_nlc
+                               `_flash_bwd_nlc_dkv_kernel`), on head-split
+                               views, counted per call
+  * flash_bwd_sm90          -> csrc/flash_bwd_sm90.cu: both layouts'
+                               backward, bfloat16, head dim <= 128
+  * flash_bwd_wmma          -> csrc/flash_attn_bwd.cu: both layouts'
+                               backward, float32 (head dim <= 256) and
+                               bfloat16 at head dims 129-256
   * fused_ln_geglu_ff       -> csrc/ln_geglu_ff.cu (TPU `_ln_ff_kernel` and
                                `_ln_ff_wide_kernel`)
   * fused_geglu_ff          -> csrc/geglu_ff.cu (TPU `_ff_kernel`), behind
@@ -49,6 +52,8 @@ from emox_torch.ops.attention import (
     flash_attention_bwd,
     flash_attention_nlc,
     flash_attention_nlc_bwd,
+    flash_bwd_sm90,
+    flash_bwd_wmma,
     flash_fwd_sm90,
     flash_fwd_wide,
     flash_fwd_wmma,
@@ -85,6 +90,8 @@ KERNEL_WRAPPERS = {
     "flash_fwd_sm90": flash_fwd_sm90,
     "flash_fwd_wmma": flash_fwd_wmma,
     "flash_fwd_wide": flash_fwd_wide,
+    "flash_bwd_sm90": flash_bwd_sm90,
+    "flash_bwd_wmma": flash_bwd_wmma,
     "ln_geglu_ff": fused_ln_geglu_ff,
     "geglu_ff": fused_geglu_ff,
     "group_norm": fused_group_norm,
@@ -119,6 +126,8 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_nlc",
     "flash_attention_nlc_bwd",
+    "flash_bwd_sm90",
+    "flash_bwd_wmma",
     "flash_fwd_sm90",
     "flash_fwd_wide",
     "flash_fwd_wmma",

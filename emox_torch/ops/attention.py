@@ -21,11 +21,13 @@ kernel, or raises for an input no kernel takes; there is no fallback:
     (emox_torch/csrc/flash_attn.cu, 3xTF32 WMMA), both layouts;
   * forward, head dim 512 (the VAE's single-head mid-attention), packed:
     `flash_fwd_wide` (emox_torch/csrc/flash_attn_nlc.cu);
-  * backward, head dim <= 256: emox_torch/csrc/flash_attn_nlc_bwd.cu for
-    packed d 64 and 128, emox_torch/csrc/flash_attn_bwd.cu for every other
-    head dim of either layout (packed tokens as head-split views). Head dim
-    512 has no backward kernel: only VAE pretraining (stage 5), which the port
-    does not run yet, would need one.
+  * backward, bfloat16, head dim <= 128: `flash_bwd_sm90`
+    (emox_torch/csrc/flash_bwd_sm90.cu, wgmma + TMA), both layouts (packed
+    tokens as head-split views);
+  * backward, float32 at head dim <= 256 and bfloat16 at 129-256:
+    `flash_bwd_wmma` (emox_torch/csrc/flash_attn_bwd.cu), both layouts.
+    Head dim 512 has no backward kernel: only VAE pretraining (stage 5),
+    which the port does not run yet, would need one.
 
 Rows that are not 16-byte aligned (a head dim that is not a multiple of 8 in
 bfloat16, of 4 in float32) are zero-padded in the head dim before the launch
@@ -70,7 +72,8 @@ KERNEL_MIN_KV = 2048
 ATTENTION_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
 _MAX_HEAD_DIM = 256  # every route but the wide forward
 _WIDE_HEAD_DIM = 512  # flash_attn_nlc.cu, forward only
-_PACKED_BWD_HEAD_DIMS = (64, 128)  # flash_attn_nlc_bwd.cu
+_SM90_BWD_HEAD_DIM = 128  # flash_bwd_sm90.cu: bf16 backward up to this head dim
+_SM90_BWD_ROWS = 128  # flash_bwd_sm90 takes lse and delta padded to a multiple of these rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -294,42 +297,82 @@ def _fwd_views(q, k, v, scale: float, packed_lse: bool):
     return out, (lse.transpose(1, 2) if packed_lse else lse)
 
 
-def _bwd_views(q, k, v, dout, lse, delta, scale: float, need_dq: bool, need_dkv: bool):
-    """flash_attn_bwd.cu on [B, H, L, D] operands with D <= 256 (lse and
-    delta [B, H, Lq] fp32 contiguous), after zero-padding the head dim where
-    rows are not 16-byte aligned: padded columns of q, k, v and dO add nothing
-    to any product, and those of the gradients are cut off."""
+def _bwd_views(q, k, v, o, dout, lse, scale: float, need_dq: bool, need_dkv: bool):
+    """The backward kernel for [B, H, L, D] operands with D <= 256 (lse
+    [B, H, Lq] fp32, any strides): bf16 with D <= 128 -> flash_bwd_sm90,
+    otherwise flash_bwd_wmma, after zero-padding the head dim where rows are
+    not 16-byte aligned: padded columns of q, k, v and dO add nothing to any
+    product, and those of the gradients are cut off."""
+    # per-row delta = sum_d dO * O, [B, H, Lq] fp32: outside the kernels, as
+    # the reference computes it outside its Pallas kernels
+    delta = (dout.float() * o.float()).sum(dim=-1)
     d = q.shape[-1]
     mult = _row_multiple(q)
     if d % mult:
-        grads = _bwd_views(*(pad_head_dim(t, mult) for t in (q, k, v, dout)), lse, delta, scale,
-                           need_dq, need_dkv)
-        return tuple(None if g is None else g[..., :d] for g in grads)
+        q, k, v, dout = (pad_head_dim(t, mult) for t in (q, k, v, dout))
     dq = torch.empty_like(q) if need_dq else None
     dk, dv = (torch.empty_like(k), torch.empty_like(v)) if need_dkv else (None, None)
     outs = dict(dq=dq, dk=dk, dv=dv)
-    _check_rows("flash_attn_bwd", q=q, k=k, v=v, dout=dout, **{n: t for n, t in outs.items() if t is not None})
-    flash_bwd_strided(q, k, v, dout, lse, delta, dq, dk, dv, scale)
-    return dq, dk, dv
+    _check_rows("flash attention backward", q=q, k=k, v=v, dout=dout,
+                **{n: t for n, t in outs.items() if t is not None})
+    if q.dtype == torch.bfloat16 and q.shape[-1] <= _SM90_BWD_HEAD_DIM:
+        # [B, H, Lq_pad] contiguous: rows past Lq get lse = +inf (P = 0) and delta = 0
+        pad = -q.shape[2] % _SM90_BWD_ROWS
+        flash_bwd_sm90(q, k, v, dout, F.pad(lse, (0, pad), value=float("inf")).contiguous(),
+                       F.pad(delta, (0, pad)).contiguous(), dq, dk, dv, scale)
+    else:
+        flash_bwd_wmma(q, k, v, dout, lse.contiguous(), delta.contiguous(), dq, dk, dv, scale)
+    return tuple(None if g is None else g[..., :d] for g in (dq, dk, dv))
 
 
-def flash_bwd_strided(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
-    """Launch flash_attn_bwd.cu: q, k, v, dout [B, H, L, D] with 16-byte
-    aligned rows and D <= 256, lse and delta [B, H, Lq] fp32 contiguous, into
-    dq (None: not computed) and dk, dv (both None: not computed), each with
-    any strides."""
-    # an output not asked for takes its input's strides (the kernel ignores them)
-    strides = _stride_array((q, k, v, dout, q if dq is None else dq, k if dk is None else dk,
-                             v if dv is None else dv))
-    ptr = lambda t: None if t is None else t.data_ptr()
+def _bwd_strides(q, k, v, dout, dq, dk, dv):
+    """The element strides of the backward's operands and outputs; an output
+    not asked for takes its input's strides (the kernels ignore them)."""
+    return _stride_array((q, k, v, dout, q if dq is None else dq, k if dk is None else dk,
+                          v if dv is None else dv))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+    """Launch flash_bwd_sm90.cu: bf16 q, k, v, dout [B, H, L, D] with 16-byte
+    aligned rows and D <= 128, D % 8 == 0; lse and delta [B, H, Lq_pad] fp32
+    contiguous, Lq_pad a multiple of 128, padded with +inf and 0; into dq
+    (None: not computed) and dk, dv (both None: not computed), each with any
+    strides."""
+    b, h, lq, d = q.shape
+    with torch.cuda.device(q.device):
+        err = build.kernel("flash_bwd_sm90")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _ptr(dq), _ptr(dk), _ptr(dv), _bwd_strides(q, k, v, dout, dq, dk, dv), b, h, lq, k.shape[2],
+            lse.shape[-1], d, float(scale), _stream(q),
+        )
+    build.check(err, "flash_bwd_sm90")
+    flash_bwd_sm90.launches += 1
+
+
+flash_bwd_sm90.launches = 0  # kernel launches since the last reset
+
+
+def flash_bwd_wmma(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+    """Launch flash_attn_bwd.cu (WMMA; 3xTF32 in float32): q, k, v, dout
+    [B, H, L, D] with 16-byte aligned rows and D <= 256, lse and delta
+    [B, H, Lq] fp32 contiguous, into dq (None: not computed) and dk, dv
+    (both None: not computed), each with any strides."""
     b, h, lq, d = q.shape
     with torch.cuda.device(q.device):
         err = build.kernel("flash_attn_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            ptr(dq), ptr(dk), ptr(dv), strides, b, h, lq, k.shape[2], d, float(scale), _DTYPES[q.dtype],
-            _stream(q),
+            _ptr(dq), _ptr(dk), _ptr(dv), _bwd_strides(q, k, v, dout, dq, dk, dv), b, h, lq, k.shape[2], d,
+            float(scale), _DTYPES[q.dtype], _stream(q),
         )
-    build.check(err, "flash_attn_bwd")
+    build.check(err, "flash_bwd_wmma")
+    flash_bwd_wmma.launches += 1
+
+
+flash_bwd_wmma.launches = 0  # kernel launches since the last reset
 
 
 # ---- the packed layout [N, L, H*D] ---------------------------------------------------
@@ -370,7 +413,7 @@ def _flash_kernel(q, k, v, heads: int, scale: float):
 
 
 def _flash_bwd_kernel(q, k, v, o, lse, dout, heads: int, scale: float, need_dq: bool, need_dkv: bool):
-    n, lq, lk, d = _check_kernel_inputs("flash_attn_nlc_bwd", q, k, v, heads, bwd=True)
+    n, lq, _, _ = _check_kernel_inputs("flash_attn_nlc_bwd", q, k, v, heads, bwd=True)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"flash_attn_nlc_bwd: o {tuple(o.shape)} {o.dtype} and dout {tuple(dout.shape)} "
                          f"{dout.dtype} must be like q {tuple(q.shape)} {q.dtype}")
@@ -378,29 +421,11 @@ def _flash_bwd_kernel(q, k, v, o, lse, dout, heads: int, scale: float, need_dq: 
         raise ValueError(f"flash_attn_nlc_bwd: lse must be [N, Lq, H] float32, got {tuple(lse.shape)} {lse.dtype}")
     if any(t.device != q.device for t in (o, lse, dout)):
         raise ValueError("flash_attn_nlc_bwd: every input must lie on q's device")
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
-    # per-head delta = sum_d dO * O, [N, Lq, H] fp32: outside the kernels, as
-    # the reference computes it outside its Pallas kernels
-    delta = (dout.float() * o.float()).reshape(n, lq, heads, d).sum(dim=-1)
-    if d not in _PACKED_BWD_HEAD_DIMS:  # the strided kernels, on head-split views
-        split = lambda t: _split_heads(t, heads)
-        grads = _bwd_views(split(q), split(k), split(v), split(dout), lse.transpose(1, 2).contiguous(),
-                           delta.transpose(1, 2).contiguous(), scale, need_dq, need_dkv)
-        flash_attention_nlc_bwd.launches += 1
-        return tuple(None if g is None else g.transpose(1, 2).reshape(t.shape) for g, t in zip(grads, (q, k, v)))
-    lse = lse.contiguous()
-    dq = torch.empty_like(q) if need_dq else None
-    dk, dv = (torch.empty_like(k), torch.empty_like(v)) if need_dkv else (None, None)
-    _aligned("flash_attn_nlc_bwd", q, k, v, dout, *(t for t in (dq, dk, dv) if t is not None))
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(q.device):
-        err = build.kernel("flash_attn_nlc_bwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            ptr(dq), ptr(dk), ptr(dv), n, lq, lk, heads, d, float(scale), _DTYPES[q.dtype], _stream(q),
-        )
-    build.check(err, "flash_attn_nlc_bwd")
+    split = lambda t: _split_heads(t.contiguous(), heads)  # head-split views: no copy
+    grads = _bwd_views(split(q), split(k), split(v), split(o), split(dout), lse.transpose(1, 2), scale,
+                       need_dq, need_dkv)
     flash_attention_nlc_bwd.launches += 1
-    return dq, dk, dv
+    return tuple(None if g is None else g.transpose(1, 2).reshape(t.shape) for g, t in zip(grads, (q, k, v)))
 
 
 def flash_attention_nlc_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -498,10 +523,7 @@ def _flash_strided_bwd_kernel(q, k, v, o, lse, dout, scale: float, need_dq: bool
         raise ValueError(f"flash_attn_bwd: lse must be [B, H, Lq] float32, got {tuple(lse.shape)} {lse.dtype}")
     if any(t.device != q.device for t in (o, lse, dout)):
         raise ValueError("flash_attn_bwd: every input must lie on q's device")
-    # per-row delta = sum_d dO * O, [B, H, Lq] fp32: outside the kernels, as
-    # the reference computes it outside its Pallas kernels
-    delta = (dout.float() * o.float()).sum(dim=-1).contiguous()
-    grads = _bwd_views(q, k, v, dout, lse.contiguous(), delta, scale, need_dq, need_dkv)
+    grads = _bwd_views(q, k, v, o, dout, lse, scale, need_dq, need_dkv)
     flash_attention_bwd.launches += 1
     return grads
 

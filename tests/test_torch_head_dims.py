@@ -1,8 +1,8 @@
 """Every head dim up to 256 on the port's attention routes, on the CPU.
 
-The kernels zero-pad the head dim: in shared memory (flash_fwd_sm90.cu pads to
-a multiple of 64 columns, the backward and float32 kernels to a multiple of
-16) and, where a row is not 16-byte aligned, in the wrapper
+The kernels zero-pad the head dim: in shared memory (flash_fwd_sm90.cu and
+flash_bwd_sm90.cu pad to a multiple of 64 columns, the WMMA kernels to a
+multiple of 16) and, where a row is not 16-byte aligned, in the wrapper
 (`padded_attention`, the reference's `_pad_dim`). Zero columns change no
 product and the scale comes from the true head dim, so padding is exact: the
 padded plain versions are held against the reference's Pallas kernels in
@@ -13,7 +13,9 @@ The wrappers' own work around the kernels (head-split views of packed
 tokens, the padding, the lse layouts, the gradients cut back to the true
 head dim) runs here as it runs on the card, with each CUDA launcher replaced
 by a stand-in that checks what the kernel requires (16-byte aligned rows, a
-head dim it takes, the lse layout) and computes with the plain formulas.
+head dim it takes, the lse and delta layouts) and computes with the plain
+formulas; each test also asserts which kernel its (layout, dtype, head dim)
+reaches.
 """
 
 from __future__ import annotations
@@ -118,24 +120,51 @@ def card(monkeypatch):
         lse.copy_(l)
         seen.append("wmma")
 
-    def bwd(q, k, v, dout, lse, delta, dq, dk, dv, scale):
-        aligned(q, k, v, dout)
-        assert lse.is_contiguous() and delta.is_contiguous() and lse.shape == delta.shape == q.shape[:3]
+    def grads(q, k, v, dout, lse, delta, dq, dk, dv, scale):
+        assert (dk is None) == (dv is None) and (dq is not None or dk is not None)
         for got, want in zip((dq, dk, dv), _bwd_formulas(q, k, v, dout, lse, delta, scale)):
             if got is not None:
+                assert got.shape == want.shape
                 got.copy_(want)
-        seen.append("bwd")
+
+    def bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, scale):
+        assert q.dtype == torch.bfloat16 and q.shape[-1] <= 128 and q.shape[-1] % 8 == 0
+        aligned(q, k, v, dout, *(t for t in (dq, dk, dv) if t is not None))
+        b, h, lq, _ = q.shape
+        # [B, H, Lq_pad] fp32 contiguous, padded to a multiple of 128 rows
+        # with lse = +inf and delta = 0
+        for t in (lse, delta):
+            assert t.dtype == torch.float32 and t.is_contiguous() and t.data_ptr() % 16 == 0
+            assert t.shape[:2] == (b, h) and t.shape[2] % 128 == 0 and lq <= t.shape[2] < lq + 128
+        assert torch.isposinf(lse[..., lq:]).all() and not delta[..., lq:].any()
+        grads(q, k, v, dout, lse[..., :lq], delta[..., :lq], dq, dk, dv, scale)
+        seen.append("bwd_sm90")
+
+    def bwd_wmma(q, k, v, dout, lse, delta, dq, dk, dv, scale):
+        assert q.dtype == torch.float32 or q.shape[-1] > 128
+        aligned(q, k, v, dout, *(t for t in (dq, dk, dv) if t is not None))
+        assert lse.is_contiguous() and delta.is_contiguous() and lse.shape == delta.shape == q.shape[:3]
+        grads(q, k, v, dout, lse, delta, dq, dk, dv, scale)
+        seen.append("bwd_wmma")
 
     monkeypatch.setattr(tattn, "_on_card_or_cpu", lambda name, t: True)
     monkeypatch.setattr(tattn, "flash_fwd_sm90", sm90)
     monkeypatch.setattr(tattn, "flash_fwd_wmma", wmma)
-    monkeypatch.setattr(tattn, "flash_bwd_strided", bwd)
+    monkeypatch.setattr(tattn, "flash_bwd_sm90", bwd_sm90)
+    monkeypatch.setattr(tattn, "flash_bwd_wmma", bwd_wmma)
     yield seen
     ops.reset_launch_counts()
 
 
 GLUE = [(layout, dtype, d) for layout in ("packed", "strided") for dtype in ("bfloat16", "float32")
-        for d in (4, 6, 16, 40, 160, 256)]
+        for d in (4, 6, 16, 40, 64, 80, 128, 160, 256)]
+
+
+def _bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The backward kernel a (dtype, head dim) reaches on either layout: the
+    Hopper pair for bf16 up to head dim 128 (after row padding), WMMA
+    otherwise."""
+    return "bwd_sm90" if dtype == torch.bfloat16 and d <= 128 else "bwd_wmma"
 
 
 @pytest.mark.parametrize("layout,dtype,d", GLUE, ids=[f"{a}-{b}-d{c}" for a, b, c in GLUE])
@@ -171,6 +200,43 @@ def test_card_path_wrappers(card, layout, dtype, d):
     assert out.dtype == dt and rel_err(out.float(), want.float().numpy()) <= tol
     assert rel_err(lse, want_lse.numpy()) <= TOL
     got = torch.autograd.grad((out.float() * w.float()).sum(), args)
-    assert card[-1] == "bwd"
+    assert card[-1] == _bwd_route(dt, d) and len(card) == 2
     for name, a, b in zip(("dq", "dk", "dv"), got, grads_want):
         assert a.shape == b.shape and rel_err(a.float(), b.float().numpy()) <= tol, name
+
+
+SUBSETS = [(layout, dtype, d, need) for layout in ("packed", "strided") for dtype in ("bfloat16", "float32")
+           for d in (40, 128, 160) for need in ("dq", "dkv")]
+
+
+@pytest.mark.parametrize("layout,dtype,d,need", SUBSETS, ids=[f"{a}-{b}-d{c}-{e}" for a, b, c, e in SUBSETS])
+def test_card_path_bwd_subsets(card, layout, dtype, d, need):
+    """flash_attention_nlc_bwd and flash_attention_bwd on their card path with
+    only dq asked for, or only dk and dv, at a ragged Lq (130: one row past a
+    128-row tile of the lse padding): the gradients not asked for are None,
+    the others match the plain version, and one launch reaches the kernel of
+    the (dtype, head dim)."""
+    dt = getattr(torch, dtype)
+    tol = BF16_TOL if dt == torch.bfloat16 else TOL
+    n, lq, lk, heads = 2, 130, 40, 2
+    rng = np.random.default_rng(d + 7)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((n, l, heads * d)).astype(np.float32)).to(dt)
+                  for l in (lq, lk, lk, lq))
+    scale = d ** -0.5
+    need_dq = need == "dq"
+    if layout == "packed":
+        o, lse = tattn.attention_nlc_plain(q, k, v, heads, scale)
+        got = ops.flash_attention_nlc_bwd(q, k, v, o, lse, g, heads, need_dq=need_dq, need_dkv=not need_dq)
+        want = tattn.attention_nlc_bwd_plain(q, k, v, o, lse, g, heads, scale)
+    else:
+        split = lambda t: t.view(n, t.shape[1], heads, d).transpose(1, 2)
+        q, k, v, g = (split(t) for t in (q, k, v, g))
+        o, lse = tattn.attention_plain(q, k, v, scale)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, g, need_dq=need_dq, need_dkv=not need_dq)
+        want = tattn.attention_bwd_plain(q, k, v, o, lse, g, scale)
+    assert card == [_bwd_route(dt, d)]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if (name == "dq") != need_dq:
+            assert a is None, name
+        else:
+            assert a.shape == b.shape and a.dtype == dt and rel_err(a.float(), b.float().numpy()) <= tol, name
