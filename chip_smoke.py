@@ -15,12 +15,18 @@ raises and the script exits non-zero. Phases:
      layout on head-split views of packed tokens; the 512^2 shapes too),
      with max error against the stated tolerance, kernel / plain / library
      times (CUDA events, after warm-up), the bound (the least time the card
-     could take) and, for the feed-forward, its grid against the card's SMs.
-     The attention forward runs on one kernel per type for both layouts:
-     flash_fwd_sm90 (bf16, wgmma + TMA) at the serving shapes of both, at
-     Lk 5 and 16, at head dims 4, 40, 80, 128, 160 and 256 and ragged;
-     flash_fwd_wmma (float32) at the same head dims, timed at K5's shape;
-     flash_fwd_wide at head dim 512. The backward runs on one kernel per
+     could take) and, for the feed-forward, its grid against the card's SMs
+     and the time of the unfused bf16 route (ln_geglu_ff_xla, what
+     EMOX_FF_IMPL=xla runs). The FF runs on one kernel per type for both its
+     functions (LN + FF + residual, and K6's FF alone): ff_sm90 (bf16, wgmma
+     + TMA) at the four 256^2 and the four 512^2 sub-layer shapes, ragged M,
+     M below one tile, twice on the same inputs (the same bits); ff_wmma
+     (float32) at C 320 and 1280. The attention forward runs on one kernel
+     per type for both layouts: flash_fwd_sm90 (bf16, wgmma + TMA) at the
+     serving shapes of both, at Lk 5 and 16, at head dims 4, 40, 80, 128,
+     160, 256 and 512 (the VAE's mid-attention) and ragged; flash_fwd_wmma
+     (float32) at the same head dims up to 256, timed at K5's shape;
+     flash_fwd_wide at head dim 512 in float32. The backward runs on one kernel per
      type for both layouts too: flash_bwd_sm90 (bf16, head dim <= 128,
      wgmma + TMA) at the training shapes of both (timed), at head dims 4,
      40, 64, 80 and 128 on both layouts with ragged Lq/Lk, with dq only and
@@ -77,7 +83,9 @@ raises and the script exits non-zero. Phases:
      (launches, output against impl "xla"), not under =xla, and its
      backward against geglu_ff_xla's autograd; two 256^2 requests and a
      profiled one under EMOX_FF_IMPL=xla, the plain FF at every sub-layer
-     (0 launches of ln_geglu_ff and K6).
+     (0 launches of ln_geglu_ff, K6 and both FF kernels). Every serve phase
+     asserts the FF launches at the count the code gives
+     (ff_launches_per_request: 336 per request, each on ff_sm90).
  11. vae512, serve_512, train_512: the flagship at 512^2, the reference's
      train resolution. The VAE encodes and decodes one 512^2 image in
      float32, card (flash_fwd_wide, head dim 512, in both mid-attentions)
@@ -86,8 +94,8 @@ raises and the script exits non-zero. Phases:
      at 512^2, batch 2 x 8 frames (1 warm-up, 2 timed steps, one profiled)
      as phase 7. Every serve phase asserts the attention kernels' launches
      at the counts the code gives (attn_launches_per_request: 107 packed
-     forwards per 512^2 request, 105 on flash_fwd_sm90 and 2 at d 512 on
-     flash_fwd_wide).
+     forwards per 512^2 request, all on flash_fwd_sm90, the VAE's 2 at d 512
+     included).
  12. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
@@ -111,6 +119,9 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 BF16_EPS = 2.0 ** -8  # spacing of bf16 values in [1, 2)
 FORWARD_KERNELS = ("flash_attn_nlc_fwd", "flash_attn_fwd", "ln_geglu_ff")  # the kernels of the serving paths
+# the FF kernels behind both FF functions (ln_geglu_ff: K2/K3, geglu_ff: K6):
+# bf16 -> ff_sm90 (wgmma + TMA), float32 -> ff_wmma
+FF_SOURCES = {"bfloat16": "ff_sm90", "float32": "ff_wmma"}
 # The attention routes (forward, backward) each configuration's path takes at
 # its level-0 reference-concat sites (Lk 2048): head dim 64 (the flagship) ->
 # the packed layout (flash_attn_nlc_fwd counts its forward launches, K4 its
@@ -125,14 +136,15 @@ PROMPT = "a person talking to the camera, studio lighting, sharp focus"
 # trained under them; NORMS_FAST its GroupNorm alternative (K8b), with the
 # concatenated self-attention projection as well. EMOX_FF_IMPL, the FF impl
 # switch, is unset too but in the phases that set it (geglu_ff, serve_ff_xla):
-# K6 (geglu_ff) runs on no model path, and under "xla" neither does ln_geglu_ff.
+# K6 (geglu_ff) runs on no model path, and under "xla" neither does ln_geglu_ff
+# nor any FF kernel.
 SWITCH_VARS = ("EMOX_GROUPNORM_IMPL", "EMOX_LN_QKV", "EMOX_FUSED_QKV", "EMOX_FF_IMPL")
 SWITCH_KERNELS = ("group_norm", "group_norm_stats", "ln_qkv")
 # The attention switch, EMOX_ATTENTION_IMPL, is unset too but in the phases that
 # set it (serve_attn_xla, step_attn_pallas).
 SWITCH_VARS += ("EMOX_ATTENTION_IMPL",)
-# the forward kernels behind the two layouts: bf16 (head dim <= 256), float32
-# (<= 256), head dim 512 (the VAE's mid-attention, packed)
+# the forward kernels behind the two layouts: bf16 (head dim <= 256, and 512:
+# the VAE's mid-attention, packed), float32 (<= 256), float32 at head dim 512
 FWD_SOURCES = ("flash_fwd_sm90", "flash_fwd_wmma", "flash_fwd_wide")
 # the backward kernels behind the two layouts: bf16 at head dim <= 128, and
 # float32 (bf16 at 129-256); and the backward launches per stage-2 step of
@@ -197,21 +209,27 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     kernels of switches left off and K6 (on no model path) never; under
     EMOX_FF_IMPL=xla not the fused FF either, under EMOX_ATTENTION_IMPL=xla
     no attention kernel. Every forward launch of either layout went through
-    exactly one kernel, the one for the type (dtype): FWD_SOURCES; every
-    backward launch (train) too: BWD_SOURCES, none without training."""
+    exactly one kernel, the one for the type (dtype): FWD_SOURCES, bf16 never
+    on flash_fwd_wide; every backward launch (train) too: BWD_SOURCES, none
+    without training; every FF call on the FF kernel of the type:
+    FF_SOURCES."""
     env = env or {}
     on = switch_kernels(env)
     other = [k for n, ks in ATTN_KERNELS.items() if n != name for k in ks]
     other += [k for k in SWITCH_KERNELS if k not in on] + ["geglu_ff"]
+    ff = FF_SOURCES[dtype]
+    other += [k for k in FF_SOURCES.values() if k != ff]
     if env.get("EMOX_FF_IMPL") == "xla":
-        other.append("ln_geglu_ff")
+        other += ["ln_geglu_ff", ff]
     fwd = {"bfloat16": "flash_fwd_sm90", "float32": "flash_fwd_wmma"}[dtype]
     other += [k for k in ("flash_fwd_sm90", "flash_fwd_wmma") if k != fwd]
+    if dtype == "bfloat16":
+        other.append("flash_fwd_wide")
     bwd = {"bfloat16": "flash_bwd_sm90", "float32": "flash_bwd_wmma"}[dtype]
     other += [k for k in BWD_SOURCES if k != bwd or not train]
     if env.get("EMOX_ATTENTION_IMPL") == "xla":
         other += [*ATTN_KERNELS[name], *FWD_SOURCES, *BWD_SOURCES]
-    need = tuple(k for k in (*FORWARD_KERNELS, fwd) if k not in other)
+    need = tuple(k for k in (*FORWARD_KERNELS, fwd, ff) if k not in other)
     need += tuple(k for k in (ATTN_KERNELS[name][1], bwd) if train and k not in other) + on
     if min(counts[k] for k in need) <= 0 or any(counts[k] for k in other):
         raise AssertionError(f"{what}: kernels {need} must launch and {other} must not: {counts}")
@@ -221,6 +239,9 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     layouts, sources = counts["flash_attn_nlc_bwd"] + counts["flash_attn_bwd"], sum(counts[k] for k in BWD_SOURCES)
     if layouts != sources:
         raise AssertionError(f"{what}: {layouts} attention backwards but {sources} kernel launches: {counts}")
+    calls, sources = counts["ln_geglu_ff"] + counts["geglu_ff"], sum(counts[k] for k in FF_SOURCES.values())
+    if calls != sources:
+        raise AssertionError(f"{what}: {calls} FF calls but {sources} FF kernel launches: {counts}")
 
 
 def norm_launches_per_request(cfg, steps: int, env) -> dict:
@@ -281,15 +302,20 @@ def attn_launches_per_request(cfg, steps: int) -> dict:
 
 
 def fwd_sources_per_request(cfg, steps: int) -> dict:
-    """The same launches by kernel in a bf16 request: the VAE's head-dim-512
-    mid-attention on flash_fwd_wide, every other site on flash_fwd_sm90."""
-    from emox_torch.ops.attention import KERNEL_MIN_KV
+    """The same launches by kernel in a bf16 request: every site, the VAE's
+    head-dim-512 mid-attention included, on flash_fwd_sm90."""
+    return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, steps).values()), "flash_fwd_wmma": 0,
+            "flash_fwd_wide": 0}
 
-    v = cfg.vae
-    lat = cfg.data.height // v.downscale
-    wide = 2 if lat * lat >= KERNEL_MIN_KV and v.base_channels * v.channel_multipliers[-1] == 512 else 0
-    return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, steps).values()) - wide, "flash_fwd_wmma": 0,
-            "flash_fwd_wide": wide}
+
+def ff_launches_per_request(cfg, steps: int) -> int:
+    """Exact FF sub-layers (fused_ln_geglu_ff calls) in one serving request,
+    from the code: one per TransformerBlock, so as many as K7's sites
+    (norm_launches_per_request): every spatial transformer of the writer
+    (one batched pass) and, per step, of the reader and its temporal ones."""
+    m = cfg.model
+    sites = len(m.attention_levels) * (2 * m.layers_per_block + 1) + 1
+    return sites * (1 + steps * (2 if m.use_temporal else 1))
 
 
 def emit(obj) -> None:
@@ -375,7 +401,9 @@ def _fwd_kernel(dtype, d: int) -> str:
     (either layout): emox_torch.ops.attention's routing."""
     import torch
 
-    return "flash_fwd_wide" if d == 512 else "flash_fwd_sm90" if dtype == torch.bfloat16 else "flash_fwd_wmma"
+    if dtype == torch.bfloat16:
+        return "flash_fwd_sm90"
+    return "flash_fwd_wide" if d == 512 else "flash_fwd_wmma"
 
 
 def _peak(dtype) -> float:
@@ -614,9 +642,47 @@ def check_flash_strided_bwd(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=Tr
     return res
 
 
-def check_ff(gen, m, c, dtype=None, timing=True):
+def _ff_kernel(dtype) -> str:
+    """The kernel that takes either FF function in this type:
+    emox_torch.ops.ff's routing."""
     import torch
-    from emox_torch.ops.ff import ff_plan, fused_ln_geglu_ff, ln_geglu_ff_plain
+
+    return "ff_sm90" if dtype == torch.bfloat16 else "ff_wmma"
+
+
+def _ff_plan(m, c, f, dtype) -> dict:
+    """The launch geometry of the FF kernel of this type, against the card's SMs."""
+    import torch
+    from emox_torch.ops.ff import ff_plan, ff_sm90_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if dtype == torch.bfloat16:
+        return dict(ff_sm90_plan(m, c, f, sms), sms=sms)
+    plan = ff_plan(c, dtype)
+    return dict(plan, grid_blocks=-(-m // plan["row_tile"]), sms=sms)
+
+
+def _check_ff_out(res, out, again, ref, dtype, what):
+    """Within a few bf16 steps (float32: 2e-4) of the plain version's largest
+    value, and with `again` (the same call repeated) the same bits."""
+    import torch
+
+    res["max_abs_err"] = err = (out.float() - ref).abs().max().item()
+    res["tol"] = tol = _tol(ref, dtype)  # xn, h and y rounded to bf16; float32: 3xTF32 sums
+    if again is not None:
+        res["same_bits"] = bool(torch.equal(out, again))
+    if not (err <= tol and math.isfinite(err)) or res.get("same_bits") is False:
+        emit(res)
+        raise AssertionError(f"{what} disagrees with its plain version or with itself: {res}")
+
+
+def check_ff(gen, m, c, dtype=None, timing=True, repeat=False):
+    """fused_ln_geglu_ff (ff_sm90 in bf16, the WMMA kernel in float32) against
+    ln_geglu_ff_plain on x [m, c] with F = 4C; with repeat, twice on the
+    same inputs for the same bits. Timed: the kernel, the plain version and
+    the unfused bf16 route EMOX_FF_IMPL=xla takes (ln_geglu_ff_xla)."""
+    import torch
+    from emox_torch.ops.ff import fused_ln_geglu_ff, ln_geglu_ff_plain, ln_geglu_ff_xla
 
     dtype = dtype or torch.bfloat16
     f = 4 * c
@@ -627,38 +693,33 @@ def check_ff(gen, m, c, dtype=None, timing=True):
         _rand(gen, c, f, scale=f ** -0.5, dtype=dtype), _rand(gen, c, scale=0.1, dtype=dtype),
     )
     out = fused_ln_geglu_ff(*args)
+    again = fused_ln_geglu_ff(*args) if repeat else None
     torch.cuda.synchronize()
     ref = ln_geglu_ff_plain(*(a.float() for a in args))
-    err = (out.float() - ref).abs().max().item()
-    if dtype == torch.bfloat16:
-        tol = 4 * BF16_EPS * ref.abs().max().item()  # xn, h and y rounded to bf16
-    else:
-        tol = 2e-4 * max(ref.abs().max().item(), 1.0)  # 3xTF32: float32-level sums
-    res = {"kernel": "ln_geglu_ff", "dtype": str(dtype).split(".")[-1], "m": m, "c": c, "f": f,
-           "max_abs_err": err, "tol": tol}
-    if not (err <= tol and math.isfinite(err)):
-        emit(res)
-        raise AssertionError(f"ln_geglu_ff disagrees with its plain version: {res}")
+    res = {"kernel": _ff_kernel(dtype), "function": "ln_geglu_ff", "dtype": str(dtype).split(".")[-1], "m": m,
+           "c": c, "f": f}
+    _check_ff_out(res, out, again, ref, dtype, "fused_ln_geglu_ff")
+    del ref, again
     if timing:
         flops = 6.0 * m * c * f
         nbytes = args[0].element_size() * (2 * m * c + 3 * c * f + 2 * f + 3 * c)
-        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
         res["ms"] = time_ms(lambda: fused_ln_geglu_ff(*args), iters=10)
         res["plain_ms"] = time_ms(lambda: ln_geglu_ff_plain(*args), iters=3, warmup=1)
         res["library_ms"] = None  # no single PyTorch call computes LN + GEGLU + residual
+        res["unfused_ms"] = time_ms(lambda: ln_geglu_ff_xla(*args), iters=10)  # EMOX_FF_IMPL=xla's route
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
-        plan = ff_plan(c, dtype)
-        res.update(plan, grid_blocks=-(-m // plan["row_tile"]),
-                   sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        res.update(_ff_plan(m, c, f, dtype))
     emit(res)
     return res
 
 
-def check_geglu_ff(gen, m, c, dtype=None, timing=True):
-    """K6 against geglu_ff_plain (h rounded to x's type, fp32 products, the
-    output rounded once) on x [m, c] with F = 4C."""
+def check_geglu_ff(gen, m, c, dtype=None, timing=True, repeat=False):
+    """fused_geglu_ff (K6: ff_sm90 in bf16, the WMMA kernel in float32)
+    against geglu_ff_plain (h rounded to x's type, fp32 products, the output
+    rounded once) on x [m, c] with F = 4C; repeat as check_ff."""
     import torch
-    from emox_torch.ops.ff import fused_geglu_ff, geglu_ff_plain
+    from emox_torch.ops.ff import fused_geglu_ff, geglu_ff_plain, geglu_ff_xla
 
     dtype = dtype or torch.bfloat16
     f = 4 * c
@@ -666,23 +727,23 @@ def check_geglu_ff(gen, m, c, dtype=None, timing=True):
             _rand(gen, 2 * f, c, scale=c ** -0.5, dtype=dtype), _rand(gen, 2 * f, scale=0.1, dtype=dtype),
             _rand(gen, c, f, scale=f ** -0.5, dtype=dtype), _rand(gen, c, scale=0.1, dtype=dtype))
     out = fused_geglu_ff(*args)
+    again = fused_geglu_ff(*args) if repeat else None
     torch.cuda.synchronize()
     ref = geglu_ff_plain(*(a.float() for a in args))
-    err = (out.float() - ref).abs().max().item()
-    tol = _tol(ref, dtype)  # h and y rounded to bf16
-    res = {"kernel": "geglu_ff", "dtype": str(dtype).split(".")[-1], "m": m, "c": c, "f": f,
-           "max_abs_err": err, "tol": tol}
-    if not (err <= tol and math.isfinite(err)):
-        emit(res)
-        raise AssertionError(f"geglu_ff disagrees with its plain version: {res}")
+    res = {"kernel": _ff_kernel(dtype), "function": "geglu_ff", "dtype": str(dtype).split(".")[-1], "m": m,
+           "c": c, "f": f}
+    _check_ff_out(res, out, again, ref, dtype, "fused_geglu_ff")
+    del ref, again
     if timing:
         flops = 6.0 * m * c * f
         nbytes = args[0].element_size() * (2 * m * c + 3 * c * f + 2 * f + c)
-        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
         res["ms"] = time_ms(lambda: fused_geglu_ff(*args), iters=10)
         res["plain_ms"] = time_ms(lambda: geglu_ff_plain(*args), iters=3, warmup=1)
         res["library_ms"] = None  # no single PyTorch call computes the gated FF
+        res["unfused_ms"] = time_ms(lambda: geglu_ff_xla(*args), iters=10)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        res.update(_ff_plan(m, c, f, dtype))
     emit(res)
     return res
 
@@ -831,11 +892,22 @@ def phase_kernels():
     check_flash(gen, 2, 1000, 2100, c=256, heads=2, dtype=torch.float32, timing=False)
     # flash_fwd_wmma timed at K5's serving shape (the float32 step's route)
     results["flash_wmma_n32"] = check_flash_strided(gen, 32, 1024, 2048, dtype=torch.float32)
-    # the FF sub-layers under CFG at 16 frames: levels 0, 1, 2 and mid
-    results["ff_l0"] = check_ff(gen, 32768, 320)
+    # ff_sm90 at the FF sub-layers under CFG at 16 frames: levels 0, 1, 2 and
+    # mid at 256^2 (the mid block splits F in GEMM 2), then at 512^2; levels 0
+    # and mid twice on the same inputs (the same bits); ragged M and M below
+    # one 128-row tile; float32 on the WMMA kernel at C 320 and 1280, timed at
+    # the float32 step's level 0 (batch 1 x 2 frames under CFG)
+    results["ff_l0"] = check_ff(gen, 32768, 320, repeat=True)
     results["ff_l1"] = check_ff(gen, 8192, 640)
     results["ff_l2"] = check_ff(gen, 2048, 1280)
-    results["ff_mid"] = check_ff(gen, 512, 1280)
+    results["ff_mid"] = check_ff(gen, 512, 1280, repeat=True)
+    for key, (m, c) in (("ff_512_l0", (131072, 320)), ("ff_512_l1", (32768, 640)), ("ff_512_l2", (8192, 1280)),
+                        ("ff_512_mid", (2048, 1280))):
+        results[key] = check_ff(gen, m, c)
+    check_ff(gen, 1000, 320, timing=False, repeat=True)
+    check_ff(gen, 500, 1280, timing=False, repeat=True)
+    check_ff(gen, 37, 640, timing=False)
+    results["ff_f32"] = check_ff(gen, 4096, 320, dtype=torch.float32)
     check_ff(gen, 1000, 320, dtype=torch.float32, timing=False)
     check_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
     # flash_bwd_sm90 at K4's level-0 reference-concat sites of training:
@@ -905,20 +977,24 @@ def phase_kernels():
     check_ln_qkv(gen, 1000, 320, timing=False)
     check_ln_qkv(gen, 32768, 320, dtype=torch.float32, timing=False)
     check_ln_qkv(gen, 2048, 1280, dtype=torch.float32, timing=False)
-    # K6 at level 0 under CFG at 256^2 (M 32768 x C 320, the only width the TPU
-    # kernel takes), then C 640 and 1280 (which the port takes and the
-    # reference leaves to XLA), a ragged M and float32
+    # K6 (ff_sm90 without LN) at level 0 under CFG at 256^2 (M 32768 x C 320,
+    # the only width the TPU kernel takes), then C 640 and 1280 (which the
+    # port takes and the reference leaves to XLA), a ragged M twice (the same
+    # bits), and float32 on the WMMA kernel (timed at M 4096)
     results["geglu_ff_l0"] = check_geglu_ff(gen, 32768, 320)
     results["geglu_ff_l1"] = check_geglu_ff(gen, 8192, 640)
     results["geglu_ff_l2"] = check_geglu_ff(gen, 2048, 1280)
-    check_geglu_ff(gen, 1000, 320, timing=False)
-    check_geglu_ff(gen, 1000, 320, dtype=torch.float32, timing=False)
+    check_geglu_ff(gen, 1000, 320, timing=False, repeat=True)
+    results["geglu_ff_f32"] = check_geglu_ff(gen, 4096, 320, dtype=torch.float32)
     check_geglu_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
-    # flash_fwd_wide (head dim 512), the VAE's mid-attention at 512^2: the 16-frame decode
-    # (N 16, L 4096), the reference image's encode with a ragged L, float32
+    # head dim 512, the VAE's mid-attention at 512^2: bf16 on flash_fwd_sm90 at
+    # the 16-frame decode (N 16, L 4096), the reference image's encode with a
+    # ragged L, and a ragged Lq != Lk; float32 on flash_fwd_wide, timed at one
+    # image (the float32 vae512 phase)
     results["flash_d512"] = check_flash(gen, 16, 4096, 4096, c=512, heads=1)
     check_flash(gen, 1, 4000, 4000, c=512, heads=1, timing=False)
-    check_flash(gen, 1, 4096, 4096, c=512, heads=1, dtype=torch.float32, timing=False)
+    check_flash(gen, 2, 1000, 2100, c=512, heads=1, timing=False)
+    results["flash_d512_f32"] = check_flash(gen, 1, 4096, 4096, c=512, heads=1, dtype=torch.float32)
     check_flash(gen, 2, 1000, 2100, c=512, heads=1, dtype=torch.float32, timing=False)
     # flash_fwd_sm90 and flash_bwd_sm90 at the 512^2 level-0 sites (Lq 4096, Lk 8192: reference tokens
     # appended) and level-1 sites (C 640, 10 heads, Lk 2048): serving under
@@ -1379,11 +1455,18 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
         res["attn_launches_per_request_expected"] = {
             k: v * attn_on for k, v in {**attn_launches_per_request(cfg, steps),
                                         **fwd_sources_per_request(cfg, steps)}.items()}
+        # every FF sub-layer on ff_sm90, none under EMOX_FF_IMPL=xla
+        ff_on = (env or {}).get("EMOX_FF_IMPL") != "xla"
+        res["ff_launches_per_request_expected"] = {k: ff_launches_per_request(cfg, steps) * ff_on
+                                                   for k in ("ln_geglu_ff", FF_SOURCES["bfloat16"])}
         emit(res)
         check_path_launches(name, counts, train=False, what=f"{name} serving {env or ''}", env=env)
         attn = {k: requests * v for k, v in res["attn_launches_per_request_expected"].items()}
         if {k: counts[k] for k in attn} != attn:
             raise AssertionError(f"{name} {size}^2 serving: attention kernels launched {counts}, expected {attn}")
+        ff = {k: requests * v for k, v in res["ff_launches_per_request_expected"].items()}
+        if {k: counts[k] for k in ff} != ff:
+            raise AssertionError(f"{name} {size}^2 serving: FF launched {counts}, expected {ff}")
         want = {k: requests * v for k, v in norm_launches_per_request(cfg, steps, env).items()}
         if {k: counts[k] for k in SWITCH_KERNELS} != want:
             raise AssertionError(f"{name} serving {env}: switch kernels launched {counts}, expected {want}")
@@ -1402,11 +1485,12 @@ _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("ln_qkv", ("ln_qkv_kernel",)),
     ("flash_bwd_sm90", ("bwd_sm90::",)),  # ahead of the forward's "sm90::"
+    ("ff_sm90", ("ff_sm90::",)),  # the FF's LN pass and GEMMs, ahead of "sm90::"
     ("flash_fwd_sm90", ("sm90::",)),
     ("flash_fwd_wide", ("flash_attn_nlc_fwd",)),
     ("flash_fwd_wmma", ("flash_fwd::",)),
     ("flash_bwd_wmma", ("flash_bwd_strided::",)),
-    ("ln_geglu_ff", ("ln_geglu_ff",)),
+    ("ff_wmma", ("ln_geglu_ff", "geglu_ff_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "wgmma")),
     ("softmax", ("softmax",)),
@@ -1570,10 +1654,12 @@ def phase_vae512(size: int = 512):
 def phase_geglu_ff():
     """K6's entry points: the flagship's level-0 GEGLUFeedForward(320) on
     [32, 1024, 320] bf16 tokens with impl "fused", with EMOX_FF_IMPL unset
-    and with EMOX_FF_IMPL=fused (K6 launches, output within 4 bf16 steps of
-    impl "xla"), under EMOX_FF_IMPL=xla (no launch); then one backward
-    through the autograd function, dx and the weight gradients against
-    geglu_ff_xla's autograd."""
+    and with EMOX_FF_IMPL=fused (K6 launches, each on ff_sm90, output within
+    4 bf16 steps of impl "xla"), under EMOX_FF_IMPL=xla (no launch); then
+    one backward through the autograd function, dx and the weight gradients
+    against geglu_ff_xla's autograd; then the module in float32 with impl
+    "fused" (one launch of the WMMA kernel, geglu_ff.cu), within 2e-4 of
+    "xla" in float32."""
     import torch
     from emox_torch.nn.attention_blocks import GEGLUFeedForward
     from emox_torch.ops import launch_counts, reset_launch_counts
@@ -1597,11 +1683,12 @@ def phase_geglu_ff():
     for label, impl, env in (("impl_fused", "fused", None), ("env_unset", None, None),
                              ("env_fused", None, {"EMOX_FF_IMPL": "fused"}), ("env_xla", None, FF_XLA)):
         ff.impl = impl
-        before = launch_counts()["geglu_ff"]
+        before = launch_counts()
         with switches(env), torch.no_grad():
             got = ff(x)
         torch.cuda.synchronize()
-        runs[label] = {"launches": launch_counts()["geglu_ff"] - before,
+        runs[label] = {"launches": launch_counts()["geglu_ff"] - before["geglu_ff"],
+                       "ff_sm90": launch_counts()["ff_sm90"] - before["ff_sm90"],
                        "max_abs_err": (got.float() - want.float()).abs().max().item()}
     # backward: the autograd function's recompute against geglu_ff_xla's autograd
     w = (ff.proj_in.weight, ff.proj_in.bias, ff.proj_out.weight, ff.proj_out.bias)
@@ -1610,21 +1697,33 @@ def phase_geglu_ff():
     for label, fn in (("fused", fused_geglu_ff), ("xla", geglu_ff_xla)):
         inputs = [t.detach().requires_grad_() for t in (x, *w)]
         grads[label] = torch.autograd.grad(fn(*inputs), inputs, dy)
-    counts = launch_counts()
     bwd = {}
     for name, g, r in zip(("dx", "dw1", "db1", "dw2", "db2"), grads["fused"], grads["xla"]):
         bwd[name] = {"max_abs_err": (g.float() - r.float()).abs().max().item(), "tol": _tol(r.float(), torch.bfloat16)}
-    res = {"phase": "geglu_ff", "config": "GEGLUFeedForward(320) on [32, 1024, 320] bf16 (flagship level 0 under CFG)",
-           "tol": tol, "runs": runs, "backward": bwd, "launches": counts}
+    # float32: the WMMA kernel (geglu_ff.cu)
+    ff32, x32 = ff.float(), x.float()
+    with switches(), torch.no_grad():
+        ff32.impl = "xla"
+        want32 = ff32(x32)
+        ff32.impl = "fused"
+        got32 = ff32(x32)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    f32 = {"max_abs_err": (got32 - want32).abs().max().item(), "tol": _tol(want32, torch.float32)}
+    res = {"phase": "geglu_ff", "config": "GEGLUFeedForward(320) on [32, 1024, 320] bf16 (flagship level 0 under CFG),"
+           " then in float32", "tol": tol, "runs": runs, "backward": bwd, "float32": f32, "launches": counts}
     emit(res)
     on = ("impl_fused", "env_unset", "env_fused")
-    if any(runs[k]["launches"] != 1 or not runs[k]["max_abs_err"] <= tol for k in on) or runs["env_xla"]["launches"]:
-        raise AssertionError(f"geglu_ff: K6 must launch under impl fused, EMOX_FF_IMPL unset and =fused "
-                             f"(within {tol} of xla) and not under xla: {runs}")
+    if (any(runs[k]["launches"] != 1 or runs[k]["ff_sm90"] != 1 or not runs[k]["max_abs_err"] <= tol for k in on)
+            or runs["env_xla"]["launches"] or runs["env_xla"]["ff_sm90"]):
+        raise AssertionError(f"geglu_ff: K6 must launch (on ff_sm90) under impl fused, EMOX_FF_IMPL unset and "
+                             f"=fused (within {tol} of xla) and not under xla: {runs}")
     if not all(v["max_abs_err"] <= v["tol"] for v in bwd.values()):
         raise AssertionError(f"geglu_ff: gradients disagree with geglu_ff_xla's: {bwd}")
-    if any(n for k, n in counts.items() if k != "geglu_ff"):
-        raise AssertionError(f"geglu_ff: other kernels launched: {counts}")
+    if not f32["max_abs_err"] <= f32["tol"]:
+        raise AssertionError(f"geglu_ff: float32 disagrees with xla: {f32}")
+    if counts["ff_wmma"] != 1 or any(n for k, n in counts.items() if k not in ("geglu_ff", "ff_sm90", "ff_wmma")):
+        raise AssertionError(f"geglu_ff: one float32 launch on ff_wmma and no other kernel expected: {counts}")
     return res
 
 
@@ -1681,10 +1780,11 @@ def main(argv=None) -> int:
     # the plain FF (the end-to-end A/B of K2/K3)
     geglu = phase_geglu_ff()["launches"]
     serve_ff_xla = phase_serve(args.out, requests=2, env=FF_XLA)["launches"]
-    # 512^2, the reference's train resolution: flash_fwd_wide (head dim 512) in the VAE's
-    # mid-attention, then serving and stage-2 training at full width and depth
+    # 512^2, the reference's train resolution: the float32 VAE (flash_fwd_wide,
+    # head dim 512, in its mid-attention), then serving (the bf16 VAE's d 512 on
+    # flash_fwd_sm90) and stage-2 training at full width and depth
     with switches():
-        phase_vae512()
+        vae512 = phase_vae512()["launches"]
         serve_512 = phase_serve(args.out, size=512)["launches"]
         with tempfile.TemporaryDirectory() as tmp:
             train_512 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out, size=512)
@@ -1697,31 +1797,36 @@ def main(argv=None) -> int:
                "serve_norms": serve_norms, "serve_norms_fast": serve_fast,
                "train_norms_stage2_per_step": train_norms["launches_per_step"],
                "geglu_ff": geglu, "serve_ff_xla": serve_ff_xla,
-               "serve_512": serve_512, "train_512_stage2_per_step": train_512["launches_per_step"]}
+               "vae512": vae512, "serve_512": serve_512,
+               "train_512_stage2_per_step": train_512["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels
-    # (flash_fwd_sm90 on the flagship's 256^2 request, flash_fwd_wide on the
-    # 512^2 one, flash_fwd_wmma on the float32 step), the timed stage-2
-    # training steps for the backward (flash_bwd_sm90; flash_bwd_wmma on the
-    # float32 train step); the switch kernels' on the serving path under
-    # their switches; K6's through its entry points (geglu_ff)
+    # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
+    # flash_fwd_wide in the float32 512^2 VAE, flash_fwd_wmma and ff_wmma on
+    # the float32 step), the timed stage-2 training steps for the backward
+    # (flash_bwd_sm90; flash_bwd_wmma on the float32 train step); the switch
+    # kernels' on the serving path under their switches; K6's WMMA kernel
+    # through its entry points (geglu_ff, float32)
     launches = dict(launches, flash_bwd_sm90=train2["launches"]["flash_bwd_sm90"],
-                    flash_fwd_wide=serve_512["flash_fwd_wide"], flash_fwd_wmma=step["flash_fwd_wmma"],
-                    flash_bwd_wmma=train_step["flash_bwd_wmma"],
+                    flash_fwd_wide=vae512["flash_fwd_wide"], flash_fwd_wmma=step["flash_fwd_wmma"],
+                    flash_bwd_wmma=train_step["flash_bwd_wmma"], ff_wmma=step["ff_wmma"],
                     group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
                     group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    shape = lambda k: {x: k[x] for x in ("layout", "dtype", "n", "lq", "lk", "l", "c", "heads", "head_dim", "m", "f",
-                                         "row_tile",
-                                         "grid_blocks", "smem_bytes", "blocks_per_sm", "sms", "library_backend",
-                                         "plain_rows_per_call") if x in k}
+    shape = lambda k: {x: k[x] for x in ("function", "layout", "dtype", "n", "lq", "lk", "l", "c", "heads", "head_dim",
+                                         "m", "f", "row_tile", "grid_blocks", "smem_bytes", "blocks_per_sm",
+                                         "gemm1_blocks", "gemm2_blocks", "splits", "sms", "library_backend",
+                                         "plain_rows_per_call", "unfused_ms", "tflops") if x in k}
 
-    def entry(source, replaces, main, others):
+    def entry(source, replaces, main, others, main_launches=None):
         """One row per CUDA kernel: its numbers at `main` (the shape of the
-        TPU kernel named first), and every timed shape in by_shape."""
-        name = main["kernel"]
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces[0],
-                "also_replaces": replaces[1:], "launches": launches[name],
-                "launches_by_path": {p: c[name] for p, c in by_path.items()},
+        TPU kernel named first), and every timed shape in by_shape; its
+        launches from its launcher's counter on the kernel's main path (or
+        main_launches) and on every path."""
+        counter = main["kernel"]
+        return {"name": counter, "route": "cuda", "source": source, "replaces": replaces[0],
+                "also_replaces": replaces[1:],
+                "launches": launches[counter] if main_launches is None else main_launches,
+                "launches_by_path": {p: c[counter] for p, c in by_path.items()},
                 **{f: main[f] for f in fields}, "shape": shape(main),
                 "by_shape": [{**shape(k), **{f: k[f] for f in fields}} for k in (main, *others)]}
 
@@ -1730,14 +1835,19 @@ def main(argv=None) -> int:
         # _flash_nlc_kernel's, the strided (head-split) ones _flash_kernel's
         entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
               kern["flash_n32"], [kern["flash_n16"], kern["flash_512_l0"], kern["flash_512_l1"],
-                                  kern["flash_strided_n32"], kern["flash_strided_n16"]]),
-        entry("emox_torch/csrc/flash_attn_nlc.cu", ["emox/ops/attention.py:409"], kern["flash_d512"], []),
+                                  kern["flash_strided_n32"], kern["flash_strided_n16"], kern["flash_d512"]]),
+        entry("emox_torch/csrc/flash_attn_nlc.cu", ["emox/ops/attention.py:409"], kern["flash_d512_f32"], []),
         entry("emox_torch/csrc/flash_attn.cu", ["emox/ops/attention.py:69", "emox/ops/attention.py:409"],
               kern["flash_wmma_n32"], []),
-        # one kernel for both TPU kernels: level 0 is _ln_ff_kernel's shape,
-        # level 1 _ln_ff_wide_kernel's
-        entry("emox_torch/csrc/ln_geglu_ff.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120"],
-              kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"]]),
+        # one launch entry for the three TPU FF kernels in bf16: level 0 is
+        # _ln_ff_kernel's shape, level 1 _ln_ff_wide_kernel's, geglu_ff the
+        # FF alone (_ff_kernel's)
+        entry("emox_torch/csrc/ff_sm90.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120", "emox/ops/ff.py:455"],
+              kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"], kern["ff_512_l0"], kern["ff_512_l1"],
+                              kern["ff_512_l2"], kern["ff_512_mid"], kern["geglu_ff_l0"], kern["geglu_ff_l1"],
+                              kern["geglu_ff_l2"]]),
+        # float32: the WMMA body of geglu_ff.cuh, with LN (K2/K3) and without (K6)
+        entry("emox_torch/csrc/ln_geglu_ff.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120"], kern["ff_f32"], []),
         # one kernel pair for both layouts' bf16 backward (head dim <= 128):
         # the packed sites are K4's, the strided (head-split) one K5's
         entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
@@ -1752,8 +1862,10 @@ def main(argv=None) -> int:
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:74"],
               kern["gn_l0_stats"], [kern["gn_l2_stats"], kern["gn_vae_stats"]]),
         entry("emox_torch/csrc/ln_qkv.cu", ["emox/ops/ff.py:353"], kern["ln_qkv_l0"], [kern["ln_qkv_l2"]]),
-        entry("emox_torch/csrc/geglu_ff.cu", ["emox/ops/ff.py:455"], kern["geglu_ff_l0"],
-              [kern["geglu_ff_l1"], kern["geglu_ff_l2"]]),
+        # its float32 launch in the geglu_ff phase (the other ff_wmma launches
+        # are ln_geglu_ff.cu's)
+        entry("emox_torch/csrc/geglu_ff.cu", ["emox/ops/ff.py:455"], kern["geglu_ff_f32"], [],
+              main_launches=geglu["ff_wmma"]),
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

@@ -1,12 +1,15 @@
-// Packed-layout flash-attention forward at head dim 512 for Hopper (sm_90a).
+// Packed-layout flash-attention forward at head dim 512 for Hopper (sm_90a),
+// float32. bf16 at head dim 512 runs on flash_fwd_sm90.cu
+// (wgmma + TMA, O split across its two consumer warpgroups); this kernel
+// serves the float32 VAE (the vae512 phase).
 //
 // Replaces the TPU kernel `_flash_nlc_kernel` (emox/ops/attention.py:409,
 // called by `_flash_impl_nlc`) where the head dim is 512: softmax(q k^T *
 // scale) v on tokens laid out [N, L, H*D], with the per-head log-sum-exp
 // written as lse [N, Lq, H] fp32. The model reaches it at the VAE's
-// single-head mid-attention (4096 tokens at 512^2). Every head dim up to 256
-// runs on flash_fwd_sm90.cu (bfloat16) or flash_attn.cu (float32); at 512
-// their layouts would not fit a block's 227 KB of shared memory.
+// single-head mid-attention (4096 tokens at 512^2). float32 head dims up to
+// 256 run on flash_attn.cu, whose layout would not fit a block's 227 KB of
+// shared memory at 512.
 //
 // What bounds it on the H100: the 16-frame decode at 512^2 does 4*N*L*L*d = 550 GFLOP against 403 MB of q, k, v
 // and o, so the tensor cores bound it as at d 64. What changes is the room:
@@ -202,7 +205,8 @@ static cudaError_t launch_flash_d512(const void* q, const void* k, const void* v
 
 }  // namespace emox
 
-// dtype: 0 = float32, 1 = bfloat16. q [n, lq, heads*512], k and v
+// dtype: 0 = float32 (bfloat16 runs on flash_fwd_sm90.cu and is refused
+// here). q [n, lq, heads*512], k and v
 // [n, lk, heads*512], o like q, lse [n, lq, heads] float32; all contiguous,
 // 16-byte aligned. Returns a cudaError_t (0 = launched).
 extern "C" int emox_flash_attn_nlc_fwd(const void* q, const void* k, const void* v, void* o,
@@ -213,7 +217,6 @@ extern "C" int emox_flash_attn_nlc_fwd(const void* q, const void* k, const void*
   if (n <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || n > 65535 || heads > 65535 || head_dim != kWideD) {
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) return (int)launch_flash_d512<__nv_bfloat16>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
   if (dtype == 0) return (int)launch_flash_d512<float>(q, k, v, o, lse, n, lq, lk, heads, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -46,6 +46,9 @@
 // padding costs 1.6x the arithmetic at d 40, accepted here (ROADMAP.md).
 // Rows whose bytes are not 16-byte aligned (d % 8 != 0) are padded by the
 // wrapper before the launch (TMA needs 16-byte global strides).
+// Head dim 512 (the VAE's single-head mid-attention) has its own
+// kernel below, fwd_wide_kernel: O is split across the two consumer
+// warpgroups, which share one 64-row query tile.
 // Not yet done (later PRs): overlap of one warpgroup's softmax with the
 // other's products (ping-pong), intra-warpgroup pipelining of S and P v,
 // a persistent grid, a TMA store of O.
@@ -258,6 +261,187 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- head dim 512: the VAE's single-head mid-attention ----------------------------
+// One warpgroup cannot hold O [64, 512] (256 fp32 registers a thread), so a
+// block takes one 64-row query tile and both consumer warpgroups share it:
+// each computes the same S = q k^T over 64 keys and the same online softmax
+// (1.5x the function's arithmetic, traded for no exchange through shared
+// memory), and owns one 256-column half of O (128 registers). Q (64 KB), one
+// K tile and one V tile (64 KB each) fill 192 KB; the producer refills K as
+// soon as both S products of a tile are done and V as soon as both P v are,
+// so each load overlaps the other product.
+struct WideSmem {
+  static constexpr int CHUNKS = 8;                   // 64-column boxes per row
+  static constexpr uint32_t chunk = 64 * 128;        // one 64-row box
+  static constexpr uint32_t q_off = 0;
+  static constexpr uint32_t k_off = CHUNKS * chunk;
+  static constexpr uint32_t v_off = 2 * CHUNKS * chunk;
+  static constexpr uint32_t bar_off = 3 * CHUNKS * chunk;
+  static constexpr uint32_t bytes = bar_off + 8 * 5 + 1024;  // + alignment slack
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_wide_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Out args) {
+  using S = WideSmem;
+  constexpr int BN = 64;  // keys per tile
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + S::bar_off;
+  const uint32_t k_full = q_full + 8, k_empty = q_full + 16;  // K arrived / both S products done
+  const uint32_t v_full = q_full + 24, v_empty = q_full + 32;  // V arrived / both P v done
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * 64;
+  const int tiles = (args.lk + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(k_empty, 2 * 128);
+    mbar_init(v_empty, 2 * 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, S::CHUNKS * S::chunk);
+      for (int c = 0; c < S::CHUNKS; ++c) tma_load_4d(base + S::q_off + c * S::chunk, &tq, q_full, c * 64, q0, h, b);
+      for (int j = 0; j < tiles; ++j) {
+        if (j > 0) mbar_wait(k_empty, (j - 1) & 1);
+        mbar_expect_tx(k_full, S::CHUNKS * S::chunk);
+        for (int c = 0; c < S::CHUNKS; ++c) {
+          tma_load_4d(base + S::k_off + c * S::chunk, &tk, k_full, c * 64, j * BN, h, b);
+        }
+        if (j > 0) mbar_wait(v_empty, (j - 1) & 1);
+        mbar_expect_tx(v_full, S::CHUNKS * S::chunk);
+        for (int c = 0; c < S::CHUNKS; ++c) {
+          tma_load_4d(base + S::v_off + c * S::chunk, &tv, v_full, c * 64, j * BN, h, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int row_lo = warp * 16 + lane / 4;  // this thread's rows: row_lo and row_lo + 8
+    const int col0 = 2 * (lane % 4);          // and columns col0, col0 + 1 of every 8
+    float o[128];                             // columns [256 wg, 256 wg + 256) of O
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+    float m_lo = kNegInf, m_hi = kNegInf;
+    float l_lo = 0.f, l_hi = 0.f;
+    const uint32_t q_tile = base + S::q_off, k_tile = base + S::k_off;
+    const uint32_t v_half = base + S::v_off + wg * 4 * S::chunk;  // this warpgroup's 4 boxes of V
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < tiles; ++j) {
+      mbar_wait(k_full, j & 1);
+      float sc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+      fence_regs<BN / 2>(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < S::CHUNKS; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          Wgmma<BN>::ss(sc, smem_desc(q_tile + c * S::chunk + kk * 32, 16, 1024),
+                        smem_desc(k_tile + c * S::chunk + kk * 32, 16, 1024), c + kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<BN / 2>(sc);
+      mbar_arrive(k_empty);
+
+      // the online softmax of fwd_kernel, on the 64 keys of this tile
+      const bool ragged = (j + 1) * BN > args.lk;
+      float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const float v = (ragged && j * BN + 8 * (i / 4) + col0 + (i % 2) >= args.lk) ? kNegInf
+                                                                                     : sc[i] * args.scale_log2;
+        sc[i] = v;
+        if ((i % 4) < 2) mx_lo = fmaxf(mx_lo, v);
+        else mx_hi = fmaxf(mx_hi, v);
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float a_lo = exp2f(m_lo - mn_lo), a_hi = exp2f(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const bool lo = (i % 4) < 2;
+        const float p = exp2f(sc[i] - (lo ? mn_lo : mn_hi));
+        sc[i] = p;
+        if (lo) sum_lo += p;
+        else sum_hi += p;
+      }
+      l_lo = l_lo * a_lo + sum_lo;
+      l_hi = l_hi * a_hi + sum_hi;
+#pragma unroll
+      for (int i = 0; i < 128; ++i) o[i] *= ((i % 4) < 2) ? a_lo : a_hi;
+
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int k = 0; k < BN / 16; ++k) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[k][r] = pack_bf16(sc[8 * k + 2 * r], sc[8 * k + 2 * r + 1]);
+      }
+      mbar_wait(v_full, j & 1);
+      fence_regs<128>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BN / 16; ++k) {
+        // V's half as in fwd_kernel: MN-major, 64-column boxes S::chunk apart
+        WgmmaRS<256>::rs(o, pa[k], smem_desc(v_half + k * 16 * 128, S::chunk, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<128>(o);
+      mbar_arrive(v_empty);
+    }
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    l_lo = fmaxf(l_lo, 1e-20f);
+    l_hi = fmaxf(l_hi, 1e-20f);
+    const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+    const int r_lo = q0 + row_lo, r_hi = r_lo + 8;
+    __nv_bfloat16* ob = args.o + b * args.o_b + h * args.o_h + wg * 256;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * i + col0;
+      if (r_lo < args.lq) {
+        *reinterpret_cast<uint32_t*>(ob + r_lo * args.o_r + col) = pack_bf16(o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo);
+      }
+      if (r_hi < args.lq) {
+        *reinterpret_cast<uint32_t*>(ob + r_hi * args.o_r + col) =
+            pack_bf16(o[4 * i + 2] * inv_hi, o[4 * i + 3] * inv_hi);
+      }
+    }
+    if (wg == 0 && lane % 4 == 0) {  // both warpgroups hold the same statistics
+      float* lb = args.lse + b * args.l_b + h * args.l_h;
+      constexpr float kLn2 = 0.6931471805599453f;
+      if (r_lo < args.lq) lb[r_lo * args.l_r] = (m_lo + log2f(l_lo)) * kLn2;
+      if (r_hi < args.lq) lb[r_hi * args.l_r] = (m_hi + log2f(l_hi)) * kLn2;
+    }
+  }
+}
+
 // ---- host side ------------------------------------------------------------------
 template <int DP, int BN, int STAGES>
 static cudaError_t launch(const void* q, const void* k, const void* v, const long long* st, const Out& out,
@@ -277,6 +461,22 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const lon
   return cudaGetLastError();
 }
 
+static cudaError_t launch_wide(const void* q, const void* k, const void* v, const long long* st, const Out& out,
+                               int batch, int heads, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, batch, heads, out.lq, out.d, st, 64) ||
+      !make_map(&tk, k, batch, heads, out.lk, out.d, st + 3, 64) ||
+      !make_map(&tv, v, batch, heads, out.lk, out.d, st + 6, 64)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WideSmem::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((out.lq + 63) / 64, heads, batch);
+  fwd_wide_kernel<<<grid, kThreads, WideSmem::bytes, stream>>>(tq, tk, tv, out);
+  return cudaGetLastError();
+}
+
 }  // namespace sm90
 }  // namespace emox
 
@@ -284,14 +484,14 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const lon
 // strides: `strides` holds (batch, head, row) for q, k, v, o and lse in that
 // order (15 values), the head dim contiguous. q, k, v: 16-byte aligned base
 // pointers and 16-byte multiples for every stride in bytes; head_dim <= 256
-// and even. lse float32. Returns a cudaError_t (0 = launched).
+// and even, or 512. lse float32. Returns a cudaError_t (0 = launched).
 extern "C" int emox_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
                                    const long long* strides, int batch, int heads, int lq, int lk,
                                    int head_dim, float scale, void* stream) {
   using namespace emox::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
-      head_dim <= 0 || head_dim > 256 || head_dim % 2) {
+      head_dim <= 0 || (head_dim > 256 && head_dim != 512) || head_dim % 2) {
     return (int)cudaErrorInvalidValue;
   }
   const long long* so = strides + 9;
@@ -301,5 +501,6 @@ extern "C" int emox_flash_fwd_sm90(const void* q, const void* k, const void* v, 
   if (head_dim <= 64) return (int)launch<64, 128, 3>(q, k, v, strides, out, batch, heads, s);
   if (head_dim <= 128) return (int)launch<128, 128, 2>(q, k, v, strides, out, batch, heads, s);
   if (head_dim <= 192) return (int)launch<192, 64, 2>(q, k, v, strides, out, batch, heads, s);
-  return (int)launch<256, 64, 2>(q, k, v, strides, out, batch, heads, s);
+  if (head_dim <= 256) return (int)launch<256, 64, 2>(q, k, v, strides, out, batch, heads, s);
+  return (int)launch_wide(q, k, v, strides, out, batch, heads, s);
 }

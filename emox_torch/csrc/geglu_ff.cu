@@ -1,4 +1,5 @@
-// GEGLU feed-forward for Hopper (sm_90a), without LayerNorm or residual.
+// GEGLU feed-forward for Hopper (sm_90a), without LayerNorm or residual,
+// float32. bf16 runs on ff_sm90.cu (wgmma + TMA).
 //
 //   y = W2 (a * gelu(g)) + b2,   [a | g] = x W1 + b1
 //
@@ -53,7 +54,8 @@ static cudaError_t launch_geglu_ff(const void* x, const void* w1, const void* b1
 
 }  // namespace emox
 
-// dtype: 0 = float32, 1 = bfloat16; every tensor has that type. x and y
+// dtype: 0 = float32 (bfloat16 runs on ff_sm90.cu and is refused here);
+// every tensor has that type. x and y
 // [m, c]; b2 [c]; w1 [2f, c] and b1 [2f] (PyTorch Linear layout, value rows
 // first, then gate rows); w2 [c, f]. Contiguous, 16-byte aligned,
 // c % 16 == 0, f % 64 == 0. Returns a cudaError_t (0 = launched).
@@ -65,7 +67,6 @@ extern "C" int emox_geglu_ff(const void* x, const void* w1, const void* b1, cons
   if (m <= 0 || c <= 0 || c % 16 != 0 || f <= 0 || f % kBF != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) return (int)launch_geglu_ff<__nv_bfloat16>(x, w1, b1, w2, b2, y, m, c, f, s);
   if (dtype == 0) return (int)launch_geglu_ff<float>(x, w1, b1, w2, b2, y, m, c, f, s);
   return (int)cudaErrorInvalidValue;
 }

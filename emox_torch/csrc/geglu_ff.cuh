@@ -1,6 +1,8 @@
-// The GEGLU feed-forward's block body for Hopper (sm_90a), shared by two
-// kernels: ln_geglu_ff.cu (LayerNorm prologue and residual epilogue) and
-// geglu_ff.cu (neither).
+// The GEGLU feed-forward's float32 block body for Hopper (sm_90a), shared by
+// two kernels: ln_geglu_ff.cu (LayerNorm prologue and residual epilogue) and
+// geglu_ff.cu (neither). It serves float32 only (3xTF32 WMMA):
+// bf16 runs on ff_sm90.cu (wgmma + TMA GEMMs), as bf16 attention left the
+// WMMA kernels for flash_fwd_sm90.cu. The body stays a template on the type.
 //
 //   y = [x +] W2 (a * gelu(g)) + b2,   [a | g] = [LN](x) W1 + b1
 //

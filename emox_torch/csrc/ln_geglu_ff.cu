@@ -1,4 +1,6 @@
-// Fused LayerNorm + GEGLU feed-forward + residual for Hopper (sm_90a).
+// Fused LayerNorm + GEGLU feed-forward + residual for Hopper (sm_90a), float32.
+// bf16 runs on ff_sm90.cu (wgmma + TMA); this kernel serves the float32
+// step and train phases.
 //
 //   y = x + W2 (a * gelu(g)) + b2,   [a | g] = LN(x) W1 + b1
 //
@@ -17,11 +19,11 @@
 // (per-row fp32 statistics, two-pass variance, the normalised tile rounded
 // to x's type) and the residual epilogue (x read again in fp32), shared with
 // K6 (geglu_ff.cu). The weights are re-read from L2 by every row
-// tile; no TMA, no wgmma, no pipelining: those belong to the PR that makes
-// it fast. The working set leaves room for one block (8 warps) per SM at
-// every width, and each block walks all of F alone, so a grid of fewer
-// blocks than SMs (C 1280 at a few thousand rows or less) leaves SMs idle:
-// splitting F across blocks is the first thing that PR has to do.
+// tile; no TMA, no wgmma, no pipelining. The working set leaves room for
+// one block (8 warps) per SM at every width, and each block walks all of F
+// alone, so a grid of fewer blocks than SMs (C 1280 at a few thousand rows
+// or less) leaves SMs idle: ff_sm90.cu, the bf16 path, splits F across
+// blocks.
 #include "geglu_ff.cuh"
 
 namespace emox {
@@ -77,7 +79,8 @@ static cudaError_t plan_ff(int c, int* plan) {
 
 }  // namespace emox
 
-// dtype: 0 = float32, 1 = bfloat16; every tensor has that type. x and y
+// dtype: 0 = float32 (bfloat16 runs on ff_sm90.cu and is refused here);
+// every tensor has that type. x and y
 // [m, c]; ln_w, ln_b, b2 [c]; w1 [2f, c] and b1 [2f] (PyTorch Linear layout,
 // value rows first, then gate rows); w2 [c, f]. Contiguous, 16-byte
 // aligned, c % 16 == 0, f % 64 == 0. Returns a cudaError_t (0 = launched).
@@ -89,8 +92,6 @@ extern "C" int emox_ln_geglu_ff(const void* x, const void* ln_w, const void* ln_
   if (m <= 0 || c <= 0 || c % 16 != 0 || f <= 0 || f % kBF != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1)
-    return (int)dispatch_ff<__nv_bfloat16>(x, ln_w, ln_b, w1, b1, w2, b2, y, m, c, f, eps, s);
   if (dtype == 0) return (int)dispatch_ff<float>(x, ln_w, ln_b, w1, b1, w2, b2, y, m, c, f, eps, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -101,7 +102,6 @@ extern "C" int emox_ln_geglu_ff(const void* x, const void* ln_w, const void* ln_
 // resident on one SM. Returns a cudaError_t.
 extern "C" int emox_ln_geglu_ff_plan(int c, int dtype, int* plan) {
   using namespace emox;
-  if (dtype == 1) return (int)plan_ff<__nv_bfloat16>(c, plan);
   if (dtype == 0) return (int)plan_ff<float>(c, plan);
   return (int)cudaErrorInvalidValue;
 }

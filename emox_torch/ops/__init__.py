@@ -7,11 +7,12 @@ Kernels (each wrapper counts its launches in `.launches`):
   * flash_attention_nlc     -> the attention forward on packed tokens (TPU
                                `_flash_nlc_kernel`), counted per call
   * flash_fwd_sm90          -> csrc/flash_fwd_sm90.cu: both layouts' forward,
-                               bfloat16, head dim <= 256
+                               bfloat16, head dim <= 256, and the packed
+                               forward at head dim 512
   * flash_fwd_wmma          -> csrc/flash_attn.cu: both layouts' forward,
                                float32, head dim <= 256
   * flash_fwd_wide          -> csrc/flash_attn_nlc.cu: the packed forward at
-                               head dim 512
+                               head dim 512, float32
   * flash_attention_bwd     -> the backward of flash_attention (TPU
                                `_flash_bwd_dq_kernel` and
                                `_flash_bwd_dkv_kernel`), counted per call, by
@@ -25,10 +26,15 @@ Kernels (each wrapper counts its launches in `.launches`):
   * flash_bwd_wmma          -> csrc/flash_attn_bwd.cu: both layouts'
                                backward, float32 (head dim <= 256) and
                                bfloat16 at head dims 129-256
-  * fused_ln_geglu_ff       -> csrc/ln_geglu_ff.cu (TPU `_ln_ff_kernel` and
-                               `_ln_ff_wide_kernel`)
-  * fused_geglu_ff          -> csrc/geglu_ff.cu (TPU `_ff_kernel`), behind
-                               the dispatcher geglu_ff (EMOX_FF_IMPL)
+  * fused_ln_geglu_ff       -> LN + GEGLU FF + residual (TPU `_ln_ff_kernel`
+                               and `_ln_ff_wide_kernel`), counted per call,
+                               by one of the kernels below
+  * fused_geglu_ff          -> GEGLU FF alone (TPU `_ff_kernel`), behind the
+                               dispatcher geglu_ff (EMOX_FF_IMPL), counted
+                               per call, by one of the kernels below
+  * ff_sm90                 -> csrc/ff_sm90.cu: both FF functions, bfloat16
+  * ff_wmma                 -> csrc/ln_geglu_ff.cu and csrc/geglu_ff.cu: both
+                               FF functions, float32
   * fused_group_norm        -> csrc/group_norm.cu (TPU `_gn_kernel`), under
                                EMOX_GROUPNORM_IMPL=pallas
   * group_norm_stats        -> csrc/group_norm.cu (TPU `_gn_stats_kernel`),
@@ -62,6 +68,8 @@ from emox_torch.ops.attention import (
 )
 from emox_torch.ops.ff import (
     ff_default_impl,
+    ff_sm90,
+    ff_wmma,
     fused_geglu_ff,
     fused_ln_geglu_ff,
     geglu_ff,
@@ -94,6 +102,8 @@ KERNEL_WRAPPERS = {
     "flash_bwd_wmma": flash_bwd_wmma,
     "ln_geglu_ff": fused_ln_geglu_ff,
     "geglu_ff": fused_geglu_ff,
+    "ff_sm90": ff_sm90,
+    "ff_wmma": ff_wmma,
     "group_norm": fused_group_norm,
     "group_norm_stats": group_norm_stats,
     "ln_qkv": fused_ln_qkv,
@@ -122,6 +132,8 @@ __all__ = [
     "dot_product_attention",
     "dot_product_attention_nlc",
     "ff_default_impl",
+    "ff_sm90",
+    "ff_wmma",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_nlc",

@@ -14,13 +14,14 @@ Both are autograd functions whose forward saves (q, k, v, out, lse) and whose
 backward recomputes from them. On a CUDA tensor each wrapper launches a
 kernel, or raises for an input no kernel takes; there is no fallback:
 
-  * forward, bfloat16, head dim <= 256: `flash_fwd_sm90`
+  * forward, bfloat16, head dim <= 256 and, packed, 512 (the VAE's
+    single-head mid-attention): `flash_fwd_sm90`
     (emox_torch/csrc/flash_fwd_sm90.cu, wgmma + TMA), one kernel for both
     layouts;
   * forward, float32, head dim <= 256: `flash_fwd_wmma`
     (emox_torch/csrc/flash_attn.cu, 3xTF32 WMMA), both layouts;
-  * forward, head dim 512 (the VAE's single-head mid-attention), packed:
-    `flash_fwd_wide` (emox_torch/csrc/flash_attn_nlc.cu);
+  * forward, float32, head dim 512, packed: `flash_fwd_wide`
+    (emox_torch/csrc/flash_attn_nlc.cu);
   * backward, bfloat16, head dim <= 128: `flash_bwd_sm90`
     (emox_torch/csrc/flash_bwd_sm90.cu, wgmma + TMA), both layouts (packed
     tokens as head-split views);
@@ -71,7 +72,7 @@ from emox_torch.ops import build
 KERNEL_MIN_KV = 2048
 ATTENTION_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
 _MAX_HEAD_DIM = 256  # every route but the wide forward
-_WIDE_HEAD_DIM = 512  # flash_attn_nlc.cu, forward only
+_WIDE_HEAD_DIM = 512  # packed forward only: flash_fwd_sm90.cu (bf16), flash_attn_nlc.cu (float32)
 _SM90_BWD_HEAD_DIM = 128  # flash_bwd_sm90.cu: bf16 backward up to this head dim
 _SM90_BWD_ROWS = 128  # flash_bwd_sm90 takes lse and delta padded to a multiple of these rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -224,7 +225,7 @@ def _stream(t: torch.Tensor) -> int:
 # ---- the kernel launchers: [B, H, L, D] operands, checked by their callers ---------------
 def flash_fwd_sm90(q, k, v, out, lse, scale: float) -> None:
     """Launch flash_fwd_sm90.cu: bf16 q, k, v [B, H, L, D] with 16-byte aligned
-    rows and D <= 256, D % 8 == 0, into out (like q) and lse [B, H, Lq] fp32,
+    rows and D <= 256, D % 8 == 0, or D 512, into out (like q) and lse [B, H, Lq] fp32,
     each with any strides (the packed layout's lse is the transpose of a
     [B, Lq, H] tensor)."""
     b, h, lq, d = q.shape
@@ -258,9 +259,9 @@ flash_fwd_wmma.launches = 0  # kernel launches since the last reset
 
 
 def flash_fwd_wide(q, k, v, heads: int, scale: float):
-    """Launch flash_attn_nlc.cu's head-dim-512 forward on contiguous, 16-byte
-    aligned packed q [N, Lq, H*512], k/v [N, Lk, H*512] -> (out like q,
-    lse [N, Lq, H] fp32)."""
+    """Launch flash_attn_nlc.cu's head-dim-512 forward (the float32 route)
+    on contiguous, 16-byte aligned packed q [N, Lq, H*512], k/v
+    [N, Lk, H*512] -> (out like q, lse [N, Lq, H] fp32)."""
     n, lq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((n, lq, heads), dtype=torch.float32, device=q.device)
@@ -278,8 +279,8 @@ flash_fwd_wide.launches = 0  # kernel launches since the last reset
 
 
 def _fwd_views(q, k, v, scale: float, packed_lse: bool):
-    """The forward kernel for [B, H, L, D] operands with D <= 256: bf16 ->
-    flash_fwd_sm90, float32 -> flash_fwd_wmma, after zero-padding the head
+    """The forward kernel for [B, H, L, D] operands with D <= 256 (or bf16 D
+    512): bf16 -> flash_fwd_sm90, float32 -> flash_fwd_wmma, after zero-padding the head
     dim where rows are not 16-byte aligned. Returns out (q's strides where q
     is dense) and lse [B, H, Lq], or with packed_lse a [B, Lq, H] tensor."""
     mult = _row_multiple(q)
@@ -402,7 +403,7 @@ def _aligned(name: str, *tensors) -> None:
 def _flash_kernel(q, k, v, heads: int, scale: float):
     n, lq, lk, d = _check_kernel_inputs("flash_attn_nlc_fwd", q, k, v, heads)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if d == _WIDE_HEAD_DIM:
+    if d == _WIDE_HEAD_DIM and q.dtype == torch.float32:
         _aligned("flash_attn_nlc_fwd", q, k, v)
         out, lse = flash_fwd_wide(q, k, v, heads, scale)
     else:  # head-split views of the packed tokens: no copy

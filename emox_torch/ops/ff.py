@@ -1,24 +1,28 @@
 """The transformer feed-forward for the port: GEGLU, fused with LN + residual or alone.
 
-Counterpart of emox/ops/ff.py. Its TPU kernels become two CUDA kernels:
+Counterpart of emox/ops/ff.py. Two functions, each behind an autograd
+function whose wrapper counts its calls on the card:
 
-  * `_ln_ff_kernel` and `_ln_ff_wide_kernel` -> `ln_geglu_ff`
-    (emox_torch/csrc/ln_geglu_ff.cu), x + GEGLU_FF(LN(x)), reached through
-    `fused_ln_geglu_ff`: every FF sub-layer of the model;
-  * `_ff_kernel` -> `geglu_ff` (emox_torch/csrc/geglu_ff.cu), GEGLU_FF(x)
-    without LN or residual, reached through `fused_geglu_ff` and the
-    dispatcher `geglu_ff` (impl / EMOX_FF_IMPL, as the reference's), which
-    GEGLUFeedForward calls.
+  * `fused_ln_geglu_ff`: x + GEGLU_FF(LN(x)), the TPU kernels `_ln_ff_kernel`
+    and `_ln_ff_wide_kernel`; every FF sub-layer of the model;
+  * `fused_geglu_ff`: GEGLU_FF(x) without LN or residual, the TPU kernel
+    `_ff_kernel`, reached through the dispatcher `geglu_ff` (impl /
+    EMOX_FF_IMPL, as the reference's), which GEGLUFeedForward calls.
 
-Each wrapper chooses by the tensor's device:
+On a CUDA tensor each launches a kernel, chosen by type, or raises for an
+input the kernel does not take; there is no fallback:
 
-  * on a CUDA tensor it launches its kernel, or raises for an input it does
-    not take; there is no fallback;
-  * on a CPU tensor it runs its plain version (`ln_geglu_ff_plain`,
-    `geglu_ff_plain`), the same function with the kernel's rounding points
-    in plain PyTorch.
+  * bfloat16 -> `ff_sm90` (emox_torch/csrc/ff_sm90.cu): LN pass, then two
+    wgmma + TMA GEMMs with the GEGLU and the bias + residual epilogues,
+    one C entry for both functions (C % 8, F % 8);
+  * float32 -> `ff_wmma`: the WMMA body of emox_torch/csrc/geglu_ff.cuh,
+    ln_geglu_ff.cu with LN and geglu_ff.cu without (C % 16, F % 64).
 
-Both are autograd functions with the reference's custom VJPs (`_ln_ff_bwd`,
+On a CPU tensor each runs its plain version (`ln_geglu_ff_plain`,
+`geglu_ff_plain`), the same function with the kernels' rounding points in
+plain PyTorch.
+
+Both autograd functions have the reference's custom VJPs (`_ln_ff_bwd`,
 `_ff_bwd`): the backward recomputes through the plain formula
 (`ln_geglu_ff_xla`, `geglu_ff_xla`) and differentiates that. The reference
 has no FF backward kernel, so neither has the port.
@@ -31,6 +35,7 @@ its kernel compiler had no erf; both versions here use the exact erf.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Optional
 
@@ -38,8 +43,11 @@ import torch
 import torch.nn.functional as F
 
 from emox_torch.ops import build
+from emox_torch.ops.attention import _on_card_or_cpu, _stream
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SM90_ROWS, _SM90_FEATURES, _SM90_COLS = 128, 128, 160  # ff_sm90.cu's tiles: kBM, kBF, kBC
+_SM90_DEPTH = 64  # ff_sm90.cu's contraction depth per stage (kBK)
 
 
 def geglu_ff_xla(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -79,32 +87,108 @@ def ln_geglu_ff_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w
     return (F.linear(hg, w2.float(), b2.float()) + xf).to(x.dtype)
 
 
-def _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ff_sm90_plan(m: int, c: int, f: int, sms: int) -> dict:
+    """How ff_sm90.cu runs on M rows at widths C, F: GEMM 1's grid (128-row x
+    128-feature tiles), GEMM 2's (128-row x 160-column tiles), and GEMM 2's
+    split of F: 1 where its grid has at least half as many blocks as the
+    card has SMs (`sms`), else as many splits as fill the card, each at
+    least 4 stages of 64 deep."""
+    rows = -(-m // _SM90_ROWS)
+    gemm2 = rows * -(-c // _SM90_COLS)
+    splits = 1 if 2 * gemm2 >= sms else max(1, min(sms // gemm2, -(-f // _SM90_DEPTH) // 4))
+    return {"gemm1_blocks": rows * -(-f // _SM90_FEATURES), "gemm2_blocks": gemm2 * splits, "splits": splits}
+
+
+def ff_sm90(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    """Launch ff_sm90.cu on bf16 x [M, C] and weights, contiguous and 16-byte
+    aligned; ln_w and ln_b None: no LN and no residual (K6). Allocates the
+    scratch it hands the kernel: xn [M, C] (with LN), h [M, F] and, where
+    GEMM 2 splits F, the fp32 partials [splits, M, C]."""
+    m, c = x.shape
+    f = w1.shape[0] // 2
+    xn = torch.empty_like(x) if ln_w is not None else None
+    h = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    splits = ff_sm90_plan(m, c, f, _sm_count(x.device.index or 0))["splits"]
+    ws = torch.empty((splits, m, c), dtype=torch.float32, device=x.device) if splits > 1 else None
+    y = torch.empty_like(x)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = build.kernel("ff_sm90")(
+            x.data_ptr(), ptr(ln_w), ptr(ln_b), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            ptr(xn), h.data_ptr(), ptr(ws), y.data_ptr(), m, c, f, splits, float(eps), _stream(x),
+        )
+    build.check(err, "ff_sm90")
+    ff_sm90.launches += 1
+    return y
+
+
+ff_sm90.launches = 0  # kernel launches since the last reset
+
+
+def ff_wmma(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    """Launch the float32 WMMA kernel on x [M, C] and weights, contiguous and
+    16-byte aligned: ln_geglu_ff.cu with LN, geglu_ff.cu without (ln_w and
+    ln_b None)."""
+    m, c = x.shape
+    f = w1.shape[0] // 2
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        if ln_w is not None:
+            err = build.kernel("ln_geglu_ff")(
+                x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), y.data_ptr(), m, c, f, float(eps), _DTYPES[x.dtype], _stream(x),
+            )
+        else:
+            err = build.kernel("geglu_ff")(
+                x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(), m, c, f,
+                _DTYPES[x.dtype], _stream(x),
+            )
+    build.check(err, "ff_wmma")
+    ff_wmma.launches += 1
+    return y
+
+
+ff_wmma.launches = 0  # kernel launches since the last reset
+
+
+def _launch_ff(name: str, x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    """Check the inputs, then launch the kernel of x's type: bf16 ->
+    ff_sm90, float32 -> ff_wmma. ln_w, ln_b None: the function without LN
+    and residual."""
     c = x.shape[-1]
     two_f = w1.shape[0]
     f = two_f // 2
     if x.dtype not in _DTYPES:
-        raise TypeError(f"ln_geglu_ff takes float32 or bfloat16, got {x.dtype}")
-    params = (ln_w, ln_b, w1, b1, w2, b2)
+        raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
+    ln = () if ln_w is None else (ln_w, ln_b)
+    params = (*ln, w1, b1, w2, b2)
     if any(p.dtype != x.dtype or p.device != x.device for p in params):
-        raise TypeError("ln_geglu_ff needs every weight on x's device and in x's type")
+        raise TypeError(f"{name} needs every weight on x's device and in x's type")
     shapes = [tuple(p.shape) for p in params]
-    if shapes != [(c,), (c,), (two_f, c), (two_f,), (c, f), (c,)] or c % 16 or f % 64:
-        raise ValueError(f"ln_geglu_ff shapes: x [.., {c}], weights {shapes} (C % 16, F % 64)")
+    want = [(c,)] * len(ln) + [(two_f, c), (two_f,), (c, f), (c,)]
+    c_mult, f_mult = (8, 8) if x.dtype == torch.bfloat16 else (16, 64)
+    if shapes != want or c % c_mult or f % f_mult or two_f != 2 * f:
+        raise ValueError(f"{name} shapes: x [.., {c}], weights {shapes} (bfloat16: C % 8, F % 8 on ff_sm90; "
+                         f"float32: C % 16, F % 64 on the WMMA kernel)")
     xm = x.reshape(-1, c).contiguous()
     params = tuple(p.contiguous() for p in params)
     if any(t.data_ptr() % 16 for t in (xm, *params)):
-        raise ValueError("ln_geglu_ff needs 16-byte aligned inputs")
-    y = torch.empty_like(xm)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = build.kernel("ln_geglu_ff")(
-            xm.data_ptr(), *(p.data_ptr() for p in params), y.data_ptr(),
-            xm.shape[0], c, f, float(eps), _DTYPES[x.dtype], stream,
-        )
-    build.check(err, "ln_geglu_ff")
+        raise ValueError(f"{name} needs 16-byte aligned inputs")
+    if ln:
+        ln_w, ln_b, *params = params
+    launch = ff_sm90 if x.dtype == torch.bfloat16 else ff_wmma
+    return launch(xm, ln_w, ln_b, *params, eps).reshape(x.shape)
+
+
+def _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    y = _launch_ff("ln_geglu_ff", x, ln_w, ln_b, w1, b1, w2, b2, eps)
     fused_ln_geglu_ff.launches += 1
-    return y.reshape(x.shape)
+    return y
 
 
 class _LnGegluFF(torch.autograd.Function):
@@ -114,7 +198,7 @@ class _LnGegluFF(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps: float):
-        if x.is_cuda:
+        if _on_card_or_cpu("fused_ln_geglu_ff", x):
             y = _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
         else:
             y = ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
@@ -136,20 +220,20 @@ class _LnGegluFF(torch.autograd.Function):
 def fused_ln_geglu_ff(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
                       b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       eps: float = 1e-5) -> torch.Tensor:
-    """x + GEGLU_FF(LayerNorm(x)) on x [..., C], differentiable. Launches the
-    CUDA kernel for CUDA tensors and runs the plain version for CPU tensors."""
-    if not (x.is_cuda or x.device.type == "cpu"):
-        raise ValueError(f"fused_ln_geglu_ff runs on CUDA or CPU tensors, got {x.device}")
+    """x + GEGLU_FF(LayerNorm(x)) on x [..., C], differentiable. Launches a
+    kernel for CUDA tensors (ff_sm90 in bf16, the WMMA kernel in float32) and
+    runs the plain version for CPU tensors."""
+    _on_card_or_cpu("fused_ln_geglu_ff", x)
     return _LnGegluFF.apply(x, ln_w, ln_b, w1, b1, w2, b2, float(eps))
 
 
-fused_ln_geglu_ff.launches = 0  # kernel launches since the last reset
+fused_ln_geglu_ff.launches = 0  # calls on the card (either kernel) since the last reset
 
 
 def ff_plan(c: int, dtype: torch.dtype, device="cuda") -> dict:
-    """How the kernel runs at width C on a CUDA device, for reports: the row
-    tile (the grid is ceil(M / row_tile) blocks), a block's dynamic shared
-    memory, and the blocks resident on one SM."""
+    """How the float32 WMMA kernel runs at width C on a CUDA device, for
+    reports: the row tile (the grid is ceil(M / row_tile) blocks), a
+    block's dynamic shared memory, and the blocks resident on one SM."""
     plan = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         build.check(build.kernel("ln_geglu_ff", "emox_ln_geglu_ff_plan")(c, _DTYPES[dtype], plan),
@@ -170,31 +254,9 @@ def geglu_ff_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torc
 
 
 def _geglu_kernel(x, w1, b1, w2, b2) -> torch.Tensor:
-    c = x.shape[-1]
-    two_f = w1.shape[0]
-    f = two_f // 2
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"geglu_ff takes float32 or bfloat16, got {x.dtype}")
-    params = (w1, b1, w2, b2)
-    if any(p.dtype != x.dtype or p.device != x.device for p in params):
-        raise TypeError("geglu_ff needs every weight on x's device and in x's type")
-    shapes = [tuple(p.shape) for p in params]
-    if shapes != [(two_f, c), (two_f,), (c, f), (c,)] or c % 16 or f % 64:
-        raise ValueError(f"geglu_ff shapes: x [.., {c}], weights {shapes} (C % 16, F % 64)")
-    xm = x.reshape(-1, c).contiguous()
-    params = tuple(p.contiguous() for p in params)
-    if any(t.data_ptr() % 16 for t in (xm, *params)):
-        raise ValueError("geglu_ff needs 16-byte aligned inputs")
-    y = torch.empty_like(xm)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = build.kernel("geglu_ff")(
-            xm.data_ptr(), *(p.data_ptr() for p in params), y.data_ptr(),
-            xm.shape[0], c, f, _DTYPES[x.dtype], stream,
-        )
-    build.check(err, "geglu_ff")
+    y = _launch_ff("geglu_ff", x, None, None, w1, b1, w2, b2, 0.0)
     fused_geglu_ff.launches += 1
-    return y.reshape(x.shape)
+    return y
 
 
 class _GegluFF(torch.autograd.Function):
@@ -204,7 +266,10 @@ class _GegluFF(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
-        y = _geglu_kernel(x, w1, b1, w2, b2) if x.is_cuda else geglu_ff_plain(x, w1, b1, w2, b2)
+        if _on_card_or_cpu("fused_geglu_ff", x):
+            y = _geglu_kernel(x, w1, b1, w2, b2)
+        else:
+            y = geglu_ff_plain(x, w1, b1, w2, b2)
         ctx.save_for_backward(x, w1, b1, w2, b2)
         return y
 
@@ -221,14 +286,14 @@ class _GegluFF(torch.autograd.Function):
 
 def fused_geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                    b2: torch.Tensor) -> torch.Tensor:
-    """GEGLU_FF(x) on x [..., C], differentiable. Launches K6 for CUDA
-    tensors and runs geglu_ff_plain for CPU tensors."""
-    if not (x.is_cuda or x.device.type == "cpu"):
-        raise ValueError(f"fused_geglu_ff runs on CUDA or CPU tensors, got {x.device}")
+    """GEGLU_FF(x) on x [..., C], differentiable. Launches a kernel for CUDA
+    tensors (ff_sm90 in bf16, the WMMA kernel in float32) and runs
+    geglu_ff_plain for CPU tensors."""
+    _on_card_or_cpu("fused_geglu_ff", x)
     return _GegluFF.apply(x, w1, b1, w2, b2)
 
 
-fused_geglu_ff.launches = 0  # kernel launches since the last reset
+fused_geglu_ff.launches = 0  # calls on the card (either kernel) since the last reset
 
 
 def ff_default_impl() -> str:
@@ -251,8 +316,9 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
 
     The reference sends "auto" and even "fused" to XLA where its
     weights-resident kernel would not fit VMEM (C > 448); that budget does
-    not carry over, and on the card K6 takes every width it takes (C % 16,
-    F % 64). Any other impl raises ValueError."""
+    not carry over, and on the card K6 takes every width its kernels take
+    (bfloat16 C % 8, F % 8; float32 C % 16, F % 64). Any other impl raises
+    ValueError."""
     impl = impl or ff_default_impl()
     if impl in ("auto", "fused"):
         return fused_geglu_ff(x, w1, b1, w2, b2)

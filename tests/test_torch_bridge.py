@@ -37,7 +37,7 @@ def no_kernel_launches():
     counts = ops.launch_counts()
     assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "flash_fwd_sm90",
                            "flash_fwd_wmma", "flash_fwd_wide", "flash_bwd_sm90", "flash_bwd_wmma", "ln_geglu_ff",
-                           "geglu_ff", "group_norm", "group_norm_stats", "ln_qkv"}
+                           "geglu_ff", "ff_sm90", "ff_wmma", "group_norm", "group_norm_stats", "ln_qkv"}
     assert not any(counts.values()), counts
 
 
