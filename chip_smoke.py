@@ -45,6 +45,18 @@ raises and the script exits non-zero. Phases:
      a kernel launch at every dispatcher call, eps against the =xla step and
      a float32 one) and serve_attn_xla (two requests and a profiled one with
      plain attention at every site: 0 launches of the attention kernels).
+     Then the rest of the sampling API, each path's launches counted from 0:
+     step_long (one float32 windowed CFG step, T 6 at context 4, overlap 1:
+     2 windows folded into one call, card against CPU), serve_long (two
+     48-frame requests through the windowed sampler, 4 windows a step in one
+     call, and a profiled one: s/request, s per second of video, ms/step,
+     peak memory, the launches asserted at the count that the window plan
+     and WINDOWS_PER_CALL give, reader_calls), serve_long_125 (one 5 s
+     request: 11 windows a step in calls of 4, 4 and 3), serve_autoregressive
+     (generate_long, 48 frames in segments of 16 with 2 motion frames),
+     invert (a served clip's first 16 frames inverted, then sampled back),
+     and one 16-frame request each with interpolation_factor=2, the two-call
+     CFG program and model.use_gn_ref=True.
   5. profile: one more request under torch.profiler, with the device time
      per kernel group, the top kernels and the device's idle share.
   6. train_step: the loss and the trainable gradients of one float32
@@ -270,18 +282,35 @@ def norm_launches_per_request(cfg, steps: int, env) -> dict:
     return want
 
 
-def attn_launches_per_request(cfg, steps: int) -> dict:
+def reader_calls(cfg, steps: int, frames: int) -> int:
+    """The reader's CFG-batched predict_noise calls in one request of
+    `frames` frames: one per DDIM step for a clip of one context window;
+    for a longer clip, per step one per group of WINDOWS_PER_CALL real
+    windows of the step's window plan."""
+    from emox_torch.diffusion.context import window_plan
+    from emox_torch.infer.pipeline import WINDOWS_PER_CALL
+
+    icfg = cfg.inference
+    if frames <= icfg.context_frames:
+        return steps
+    plan = window_plan(steps, frames, icfg.context_frames, icfg.context_stride, icfg.context_overlap)
+    return sum(-(-int((w > 0).sum()) // WINDOWS_PER_CALL) for w in plan.weights)
+
+
+def attn_launches_per_request(cfg, calls: int) -> dict:
     """Exact launches of the attention forward kernels in one serving
-    request, from the code. A site takes a kernel where its K/V length
-    reaches KERNEL_MIN_KV: the packed one (K1) for a head dim % 64 == 0, the
-    strided one (K5) otherwise. The sites: every spatial transformer (2 *
-    lpb + 1 per attention level, and the mid block at the deepest level) in
-    the writer (one batched pass for all steps, Lk = the level's tokens) and
-    in the reader (one CFG-batched pass per step, the reference tokens
-    appended: Lk = 2 x tokens); the VAE's single-head mid-attention, head
-    dim its last width, at the encode of the reference image and at the
-    decode (decode_chunk 0), Lk = the latent's tokens. Text, audio and
-    temporal attention stay far below the cutoff."""
+    request whose reader makes `calls` predict_noise calls (the steps for a
+    clip of one window, reader_calls for a longer one), from the code. A
+    site takes a kernel where its K/V length reaches KERNEL_MIN_KV: the
+    packed one (K1) for a head dim % 64 == 0, the strided one (K5)
+    otherwise. The sites: every spatial transformer (2 * lpb + 1 per
+    attention level, and the mid block at the deepest level) in the writer
+    (one batched pass for all steps, Lk = the level's tokens) and in each
+    reader call (CFG-batched, the reference tokens appended: Lk = 2 x
+    tokens); the VAE's single-head mid-attention, head dim its last width,
+    at the encode of the reference image and at the decode (decode_chunk
+    0), Lk = the latent's tokens. Text, audio and temporal attention stay
+    far below the cutoff."""
     from emox_torch.ops.attention import KERNEL_MIN_KV
 
     m, v = cfg.model, cfg.vae
@@ -293,7 +322,7 @@ def attn_launches_per_request(cfg, steps: int) -> dict:
     want = {"flash_attn_nlc_fwd": 0, "flash_attn_fwd": 0}
     for level, count in sites:
         tokens = (lat >> level) ** 2
-        for lk, passes in ((2 * tokens, steps), (tokens, 1)):  # reader, writer
+        for lk, passes in ((2 * tokens, calls), (tokens, 1)):  # reader, writer
             if lk >= KERNEL_MIN_KV:
                 want[kernel(head_dim(m.block_channels[level]))] += count * passes
     if lat * lat >= KERNEL_MIN_KV:
@@ -301,21 +330,22 @@ def attn_launches_per_request(cfg, steps: int) -> dict:
     return want
 
 
-def fwd_sources_per_request(cfg, steps: int) -> dict:
+def fwd_sources_per_request(cfg, calls: int) -> dict:
     """The same launches by kernel in a bf16 request: every site, the VAE's
     head-dim-512 mid-attention included, on flash_fwd_sm90."""
-    return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, steps).values()), "flash_fwd_wmma": 0,
+    return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, calls).values()), "flash_fwd_wmma": 0,
             "flash_fwd_wide": 0}
 
 
-def ff_launches_per_request(cfg, steps: int) -> int:
-    """Exact FF sub-layers (fused_ln_geglu_ff calls) in one serving request,
-    from the code: one per TransformerBlock, so as many as K7's sites
-    (norm_launches_per_request): every spatial transformer of the writer
-    (one batched pass) and, per step, of the reader and its temporal ones."""
+def ff_launches_per_request(cfg, calls: int) -> int:
+    """Exact FF sub-layers (fused_ln_geglu_ff calls) in one serving request
+    whose reader makes `calls` predict_noise calls, from the code: one per
+    TransformerBlock, so as many as K7's sites (norm_launches_per_request):
+    every spatial transformer of the writer (one batched pass) and, per
+    reader call, of the reader and its temporal ones."""
     m = cfg.model
     sites = len(m.attention_levels) * (2 * m.layers_per_block + 1) + 1
-    return sites * (1 + steps * (2 if m.use_temporal else 1))
+    return sites * (1 + calls * (2 if m.use_temporal else 1))
 
 
 def emit(obj) -> None:
@@ -873,6 +903,8 @@ def phase_kernels():
     # without and with CFG, plus a ragged Lk; float32 takes flash_fwd_wmma
     results["flash_n16"] = check_flash(gen, 16, 1024, 2048)
     results["flash_n32"] = check_flash(gen, 32, 1024, 2048)
+    # the windowed sampler's calls: 4 windows x 16 frames under CFG (N 128)
+    results["flash_n128"] = check_flash(gen, 128, 1024, 2048, chunk=32)
     check_flash(gen, 4, 1000, 2000, timing=False)
     check_flash(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
     # the audio and temporal lengths (Lk 5 and 16), which the kernels take
@@ -1480,6 +1512,312 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
     return res
 
 
+# ---- long clips and the rest of the sampling API -----------------------------------------
+def long_segments(total: int, segment: int, motion: int) -> list:
+    """Frames of each segment of EMOPipeline.generate_long (the first has no
+    motion frames, each later one `motion` locked frames and up to
+    segment - motion new ones)."""
+    frames, produced = [], 0
+    while produced < total:
+        lead = motion if frames else 0
+        new = min(segment - lead, total - produced)
+        frames.append(new + lead)
+        produced += new
+    return frames
+
+
+def bf16_launches_per_request(cfg, calls: int) -> dict:
+    """The exact attention and FF launches of one bf16 request whose reader
+    makes `calls` predict_noise calls."""
+    ff = ff_launches_per_request(cfg, calls)
+    return {**attn_launches_per_request(cfg, calls), **fwd_sources_per_request(cfg, calls),
+            "ln_geglu_ff": ff, FF_SOURCES["bfloat16"]: ff}
+
+
+def phase_step_long():
+    """One windowed CFG-batched denoise step of the flagship at 256^2 (T 6,
+    context 4, overlap 1: 2 windows, wrapping around the clip, folded into
+    one call), float32, on the card (kernels) against the same weights on
+    the CPU (plain versions), TF32 off: the per-frame average of the
+    windows' eps at t 500."""
+    import dataclasses
+
+    import torch
+    from emox_torch.diffusion.context import window_plan
+    from emox_torch.diffusion.sampler import windowed_model_out
+    from emox_torch.infer.pipeline import EMOPipeline
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    size, frames, t = 256, 6, 500
+    cfg = model_config("flagship", size, frames)
+    cfg = cfg.replace(inference=dataclasses.replace(cfg.inference, context_frames=4, context_overlap=1))
+    icfg = cfg.inference
+    plan = window_plan(1, frames, icfg.context_frames, icfg.context_stride, icfg.context_overlap)
+    t0 = time.perf_counter()
+    cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
+    _fill_zero_init(cpu, seed=8)
+    gpu = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
+    gpu.modules.load_state_dict(cpu.modules.state_dict())
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    img, wav, speeds, mask = _request_inputs(gen, "cpu", size, frames, torch.float32)
+    lat = size // cfg.vae.downscale
+    noisy = torch.randn((1, frames, lat, lat, 4), generator=gen)
+
+    @torch.inference_mode()
+    def run(model, dev):
+        pipe = EMOPipeline(model)
+        ref, audio = pipe._prepare(img.to(dev), wav.to(dev), frames)
+        face = model.encode_face_mask(mask.to(dev), lat)
+        feats, _ = pipe._precompute_banks(ref, torch.tensor([t]))
+        rf = [[x[0] for x in site] for site in feats]
+        eps = windowed_model_out(
+            lambda wl, tw, wi: pipe._denoise_windows(wl, tw, wi, ref, audio, speeds.to(dev), face, 7.5, None, None,
+                                                     rf, None),
+            noisy.to(dev), torch.full((1,), t, device=dev), plan.indices[0], plan.weights[0])
+        return {"ref_latent": ref, "audio": audio, "face_feat": face, "eps": eps}
+
+    with switches():
+        t0 = time.perf_counter()
+        on_cpu = run(cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        on_gpu = run(gpu, "cuda")
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        counts = launch_counts()
+    tol = 3e-4  # float32 on both sides, as phase_step
+    rel = {k: (torch.linalg.vector_norm(on_gpu[k].cpu().double() - v.double()) /
+               torch.linalg.vector_norm(v.double()).clamp_min(1e-30)).item() for k, v in on_cpu.items()}
+    calls = reader_calls(cfg, 1, frames)
+    want = {"flash_attn_nlc_fwd": attn_launches_per_request(cfg, calls)["flash_attn_nlc_fwd"],
+            "flash_fwd_wmma": sum(attn_launches_per_request(cfg, calls).values()),
+            "ln_geglu_ff": ff_launches_per_request(cfg, calls), "ff_wmma": ff_launches_per_request(cfg, calls)}
+    res = {"phase": "step_long",
+           "config": f"flagship {size}^2, {frames} frames, context {icfg.context_frames}, overlap "
+                     f"{icfg.context_overlap}: windows {plan.indices[0].tolist()} in {calls} call, CFG-batched, "
+                     "float32",
+           "rel_l2": rel, "tol": tol, "launches": counts, "launches_expected": want, "setup_s": setup_s,
+           "cpu_s": cpu_s, "gpu_s": gpu_s, "eps_abs_mean": on_cpu["eps"].abs().mean().item()}
+    emit(res)
+    if not all(math.isfinite(v) and v <= tol for v in rel.values()):
+        raise AssertionError(f"step_long: card and CPU disagree: {rel}")
+    check_path_launches("flagship", counts, train=False, what="the float32 windowed step", dtype="float32")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"step_long: launched {counts}, expected {want}")
+    del on_cpu, on_gpu, cpu, gpu
+    torch.backends.cudnn.allow_tf32 = True
+    return res
+
+
+def phase_long(out_dir: str, requests: int = 2, steps: int = 10, frames: int = 48, long_frames: int = 125):
+    """The rest of the sampling API on the flagship in bf16 at 256^2, CFG 7.5,
+    10 DDIM steps, 3-axis speeds and a face mask. Each path's kernel launches
+    are counted from 0 and read just after it; each output is finite and of
+    its shape.
+      serve_long: `requests` requests of `frames` frames (1.92 s at 25 fps;
+        the windowed sampler, 4 windows a step folded into one call at
+        WINDOWS_PER_CALL 4) and a profiled one; the launches asserted at the
+        count derived from the window plan (reader_calls);
+      serve_long_125: one request of long_frames frames (5 s, 11 windows a
+        step: calls of 4, 4 and 3 windows), its launches and peak memory;
+      serve_autoregressive: generate_long, `frames` frames in segments of 16
+        with 2 motion frames (16, 16, 16 and 6 frames);
+      invert: the first 16 frames of a served clip inverted in 10 steps, then
+        sampled back from the inverted latents (no CFG, as the inversion),
+        with the round trip's rel L2 on the latents;
+      serve_interp, serve_two_call_cfg, serve_gn_ref: one 16-frame request
+        each with interpolation_factor=2 (31 frames decoded), with
+        inference.cfg_batching=False and with model.use_gn_ref=True."""
+    import dataclasses
+
+    import torch
+    from emox_torch.diffusion.context import window_plan
+    from emox_torch.infer.pipeline import WINDOWS_PER_CALL, EMOPipeline
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.empty_cache()
+    size = 256
+    cfg = model_config("flagship", size, frames)
+    icfg = cfg.inference
+    fps = icfg.fps
+    t0 = time.perf_counter()
+    model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    pipe = EMOPipeline(model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    inputs = [_request_inputs(gen, "cuda", size, frames, torch.bfloat16) for _ in range(requests)]
+    long_inputs = _request_inputs(gen, "cuda", size, long_frames, torch.bfloat16)
+    short_inputs = _request_inputs(gen, "cuda", size, 16, torch.bfloat16)
+    by_path = {}
+
+    def checked(video, shape, what):
+        finite = bool(torch.isfinite(video.float()).all().item())
+        if not finite or list(video.shape) != shape:
+            raise AssertionError(f"{what}: output finite={finite} shape={list(video.shape)}, expected {shape}")
+        return {"finite": finite, "shape": shape, "abs_mean": video.float().abs().mean().item()}
+
+    def request(p, inp, n, seed, **kw):
+        """One timed request through p: its record and its video."""
+        img, wav, speeds, mask = inp
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = p(img, wav, video_length=n, num_inference_steps=steps, guidance_scale=7.5, speeds=speeds,
+                  face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(seed), timings=timings, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out = (n - 1) * kw.get("interpolation_factor", 1) + 1
+        rec = {"s": secs, "s_per_video_s": secs / (n / fps), "ms_per_step": 1e3 * timings["denoise_s"] / steps,
+               "phases_s": timings, **checked(video, [1, out, size, size, 3], f"{n}-frame request")}
+        return rec, video
+
+    def windows(n):
+        plan = window_plan(steps, n, icfg.context_frames, icfg.context_stride, icfg.context_overlap)
+        return [int((w > 0).sum()) for w in plan.weights]
+
+    def launches_match(name, counts, want):
+        check_path_launches("flagship", counts, train=False, what=name)
+        if want is not None and {k: counts[k] for k in want} != want:
+            raise AssertionError(f"{name}: launched {counts}, expected {want}")
+
+    with switches():
+        # serve_long: the windowed sampler
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        per_request, videos = [], []
+        for r, inp in enumerate(inputs):
+            rec, video = request(pipe, inp, frames, 200 + r)
+            per_request.append(rec)
+            videos.append(video)
+        counts = launch_counts()
+        calls = reader_calls(cfg, steps, frames)
+        want = {k: requests * v for k, v in bf16_launches_per_request(cfg, calls).items()}
+        steady = per_request[1:] or per_request
+        res = {"phase": "serve_long",
+               "config": f"flagship {size}^2, {frames} frames ({frames / fps:.2f} s), context {icfg.context_frames}, "
+                         f"overlap {icfg.context_overlap}, CFG 7.5 batched, {steps} DDIM steps, bf16",
+               "windows_per_call": WINDOWS_PER_CALL, "windows_per_step": windows(frames),
+               "reader_calls_per_request": calls, "setup_s": setup_s, "requests": per_request,
+               "s_per_request": sum(p["s"] for p in steady) / len(steady),
+               "s_per_video_s": sum(p["s_per_video_s"] for p in steady) / len(steady),
+               "ms_per_step": sum(p["ms_per_step"] for p in steady) / len(steady),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+               "launches_expected": want}
+        emit(res)
+        launches_match("serve_long", counts, want)
+        by_path["serve_long"] = counts
+        img, wav, speeds, mask = inputs[-1]
+        res["profile"] = phase_profile(
+            lambda: pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5,
+                         speeds=speeds, face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(99)),
+            f"one flagship {size}^2 {frames}-frame request (windowed), {steps} DDIM steps", out_dir,
+            "profile_long_kernels.json")
+
+        # one 5 s request: 11 windows a step in calls of up to WINDOWS_PER_CALL
+        del videos[1:]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        rec, _ = request(pipe, long_inputs, long_frames, 300)
+        counts = launch_counts()
+        calls = reader_calls(cfg, steps, long_frames)
+        want = bf16_launches_per_request(cfg, calls)
+        res_long = {"phase": "serve_long_125",
+                    "config": f"flagship {size}^2, {long_frames} frames ({long_frames / fps:.2f} s), CFG 7.5 batched, "
+                              f"{steps} DDIM steps, bf16", "windows_per_call": WINDOWS_PER_CALL,
+                    "windows_per_step": windows(long_frames), "reader_calls_per_request": calls, **rec,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+                    "launches_expected": want}
+        emit(res_long)
+        launches_match("serve_long_125", counts, want)
+        by_path["serve_long_125"] = counts
+
+        # generate_long: segments of 16 frames, 2 motion frames
+        segs = long_segments(frames, 16, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        video = pipe.generate_long(img, wav, frames, segment_length=16, num_motion_frames=2, num_inference_steps=steps,
+                                   guidance_scale=7.5, speeds=speeds, face_mask=mask,
+                                   generator=torch.Generator(device="cuda").manual_seed(400))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        # each segment is one request of at most one window (at 256^2 the VAE's
+        # attention stays below the cutoff, so its encode per segment and one
+        # decode launch nothing)
+        want = {k: len(segs) * v for k, v in bf16_launches_per_request(cfg, steps).items()}
+        res_ar = {"phase": "serve_autoregressive",
+                  "config": f"generate_long, flagship {size}^2, {frames} frames in segments of 16 with 2 motion "
+                            f"frames, CFG 7.5 batched, {steps} DDIM steps, bf16", "segments": segs, "s": secs,
+                  "s_per_video_s": secs / (frames / fps), **checked(video, [1, frames, size, size, 3], "generate_long"),
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+                  "launches_expected": want}
+        emit(res_ar)
+        launches_match("serve_autoregressive", counts, want)
+        by_path["serve_autoregressive"] = counts
+        del video
+
+        # DDIM inversion of a served clip's first 16 frames, then sampling back
+        clip = videos[0][:, :16]
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inv = pipe.invert(clip, img, wav, num_inference_steps=steps)
+        torch.cuda.synchronize()
+        invert_s = time.perf_counter() - t0
+        counts = launch_counts()
+        back = pipe.generate_latents(img, wav, video_length=16, num_inference_steps=steps, guidance_scale=1.0,
+                                     latents=inv)
+        start = model.encode_images(clip).float()
+        lat = size // cfg.vae.downscale
+        res_inv = {"phase": "invert",
+                   "config": f"DDIM inversion of a served 16-frame {size}^2 clip, {steps} steps (no CFG), then "
+                             "sampled back from the inverted latents, bf16", "invert_s": invert_s,
+                   "inverted": checked(inv, [1, 16, lat, lat, 4], "invert"),
+                   "sampled_back": checked(back, [1, 16, lat, lat, 4], "sampling back"),
+                   "round_trip_rel_l2": (torch.linalg.vector_norm(back - start) /
+                                         torch.linalg.vector_norm(start)).item(),
+                   "launches": counts}
+        emit(res_inv)
+        if not math.isfinite(res_inv["round_trip_rel_l2"]):
+            raise AssertionError(f"invert: round trip {res_inv['round_trip_rel_l2']}")
+        launches_match("invert", counts, None)
+        by_path["invert"] = counts
+        del videos, clip, inv, back, start
+
+        # one 16-frame request each: slerp interpolation, two-call CFG, AdaIN
+        two_call = cfg.replace(inference=dataclasses.replace(icfg, cfg_batching=False))
+        gn_cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_gn_ref=True))
+        runs = [("serve_interp", "interpolation_factor=2", lambda: pipe, dict(interpolation_factor=2)),
+                ("serve_two_call_cfg", "inference.cfg_batching=False", lambda: EMOPipeline(model, two_call), {}),
+                ("serve_gn_ref", "model.use_gn_ref=True",
+                 lambda: EMOPipeline(EMOModel(gn_cfg, dtype=torch.bfloat16, device="cuda", seed=0)), {})]
+        extras = []
+        for name, label, make, kw in runs:
+            p = make()
+            reset_launch_counts()
+            rec, _ = request(p, short_inputs, 16, 500, **kw)
+            counts = launch_counts()
+            extras.append({"phase": name, "config": f"flagship {size}^2, 16 frames, {steps} DDIM steps, CFG 7.5, "
+                                                    f"bf16, {label}", **rec, "launches": counts})
+            emit(extras[-1])
+            launches_match(name, counts, None)
+            by_path[name] = counts
+    return {"serve_long": res, "serve_long_125": res_long, "serve_autoregressive": res_ar, "invert": res_inv,
+            "extras": extras, "launches_by_path": by_path}
+
+
 # ---- phase 5: where the time of a request goes ---------------------------------------
 _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
@@ -1757,6 +2095,10 @@ def main(argv=None) -> int:
         # step), then the serving request with plain attention at every site
         step_pallas = phase_step_attn_pallas()["launches"]
         serve_attn_xla = phase_serve(args.out, requests=2, env=ATTN_XLA)["launches"]
+        # clips longer than one context window, generate_long, invert, and the
+        # two-call CFG program, interpolation and AdaIN
+        step_long = phase_step_long()["launches"]
+        long = phase_long(args.out)
         with tempfile.TemporaryDirectory() as tmp:
             train_step = phase_train_step(tmp)["launches"]
             train2 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out)
@@ -1788,7 +2130,7 @@ def main(argv=None) -> int:
         serve_512 = phase_serve(args.out, size=512)["launches"]
         with tempfile.TemporaryDirectory() as tmp:
             train_512 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out, size=512)
-    by_path = {"step": step, "serve": launches, "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
+    by_path = {"step": step, "serve": launches, "step_long": step_long, **long["launches_by_path"], "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
                "train_step": train_step,
                "train_stage2_per_step": train2["launches_per_step"],
                "train_stage1_per_step": train1["launches_per_step"],
@@ -1834,7 +2176,7 @@ def main(argv=None) -> int:
         # one kernel for both layouts' bf16 forward: the packed sites are
         # _flash_nlc_kernel's, the strided (head-split) ones _flash_kernel's
         entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
-              kern["flash_n32"], [kern["flash_n16"], kern["flash_512_l0"], kern["flash_512_l1"],
+              kern["flash_n32"], [kern["flash_n16"], kern["flash_n128"], kern["flash_512_l0"], kern["flash_512_l1"],
                                   kern["flash_strided_n32"], kern["flash_strided_n16"], kern["flash_d512"]]),
         entry("emox_torch/csrc/flash_attn_nlc.cu", ["emox/ops/attention.py:409"], kern["flash_d512_f32"], []),
         entry("emox_torch/csrc/flash_attn.cu", ["emox/ops/attention.py:69", "emox/ops/attention.py:409"],

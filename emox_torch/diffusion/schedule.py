@@ -4,8 +4,8 @@
 1000 training steps, scaled_linear betas 0.00085 -> 0.012 by default. The
 tables are built in float32, as the reference builds them (its float64
 request falls back to float32 without JAX's x64 mode) and as diffusers
-does. Training adds velocity targets and min-SNR weighting; DDPM steps
-wait for a later slice.
+does. Training adds velocity targets and min-SNR weighting; `ddpm_step`
+is the ancestral update.
 """
 
 from __future__ import annotations
@@ -136,3 +136,31 @@ def ddim_step(sched: Schedule, model_out: torch.Tensor, sample: torch.Tensor, t:
         noise = torch.randn(sample.shape, generator=generator, device=sample.device, dtype=torch.float32)
         prev = prev + sigma * noise.to(sample.dtype)
     return prev
+
+
+def ddpm_step(sched: Schedule, model_out: torch.Tensor, sample: torch.Tensor, t: torch.Tensor,
+              generator: Optional[torch.Generator] = None, clip_x0: bool = True,
+              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One ancestral DDPM update from t to t-1 (Ho et al. 2020, eq. 7). The
+    noise is `noise` when given, else drawn from `generator`; rows at t = 0
+    add none."""
+    x0, _ = pred_to_x0(sched, model_out, sample, t)
+    if clip_x0:
+        x0 = x0.clamp(-1.0, 1.0)
+    acp = sched.alphas_cumprod
+    t = t.to(acp.device)
+    acp_t = _gather(acp, t, sample.dim())
+    acp_prev = torch.where(t > 0, acp[(t - 1).clamp_min(0)], torch.ones((), device=acp.device))
+    acp_prev = acp_prev.reshape(acp_prev.shape + (1,) * (sample.dim() - acp_prev.dim()))
+    beta_t = _gather(sched.betas, t, sample.dim())
+    alpha_t = 1.0 - beta_t
+    coef_x0 = torch.sqrt(acp_prev) * beta_t / (1.0 - acp_t)
+    coef_xt = torch.sqrt(alpha_t) * (1.0 - acp_prev) / (1.0 - acp_t)
+    mean = coef_x0 * x0 + coef_xt * sample
+    var = ((1.0 - acp_prev) / (1.0 - acp_t) * beta_t).clamp_min(1e-20)
+    if noise is None:
+        if generator is None:
+            raise ValueError("ddpm_step needs a torch.Generator or noise=")
+        noise = torch.randn(sample.shape, generator=generator, device=sample.device, dtype=torch.float32)
+    t_b = t.reshape(t.shape + (1,) * (sample.dim() - t.dim()))
+    return mean + torch.where(t_b > 0, torch.sqrt(var) * noise.to(sample.dtype), torch.zeros((), device=acp.device))

@@ -1,4 +1,4 @@
-"""Inference: the serving pipeline."""
+"""Inference: the serving pipeline and video IO."""
 
 from emox_torch.infer.pipeline import EMOPipeline
 

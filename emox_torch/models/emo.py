@@ -130,23 +130,25 @@ class EMOModel:
         return img.reshape(*shape[:-3], *img.shape[-3:])
 
     def reference_outputs(self, ref_latent: torch.Tensor, timesteps: torch.Tensor) -> UNetOutputs:
-        """Writer pass: UNetOutputs with ref_features (the K/V banks)."""
+        """Writer pass: UNetOutputs with ref_features (the K/V banks) and,
+        with model.use_gn_ref, ref_gn (the AdaIN statistic banks)."""
         return self.modules.reference_net(self._in(ref_latent), timesteps.to(self.device), emit_ref=True)
 
     @torch.inference_mode()
     def reference_outputs_for_steps(self, ref_latent: torch.Tensor,
-                                    timesteps_vec: torch.Tensor) -> Tuple[Banks, None]:
+                                    timesteps_vec: torch.Tensor) -> Tuple[Banks, Optional[List[torch.Tensor]]]:
         """Writer banks for ALL S sampler timesteps in ONE batched [S*B] pass
         (the writer depends only on (ref_latent, t)). Returns (ref_features,
-        None) with a leading S axis on every bank; the second item stands
-        for the reference's AdaIN banks, which wait for a later slice."""
+        ref_gn) with a leading S axis on every bank; ref_gn (the AdaIN
+        statistics) is None unless model.use_gn_ref."""
         ref_latent = self._in(ref_latent)
         s = timesteps_vec.shape[0]
         b = ref_latent.shape[0]
         tiled = ref_latent[None].expand(s, *ref_latent.shape).reshape(s * b, *ref_latent.shape[1:])
         out = self.reference_outputs(tiled, timesteps_vec.to(self.device).repeat_interleave(b))
         feats = [[x.reshape(s, b, *x.shape[1:]) for x in site] for site in out.ref_features]
-        return feats, None
+        gn = None if out.ref_gn is None else [x.reshape(s, b, *x.shape[1:]) for x in out.ref_gn]
+        return feats, gn
 
     def encode_audio(self, wav: torch.Tensor, num_frames: int) -> torch.Tensor:
         cfg = self.config.audio
@@ -184,17 +186,24 @@ class EMOModel:
         context: Optional[torch.Tensor] = None,  # [B, Lc, cross_dim] CLIP text tokens
         ref_dropout: Optional[torch.Tensor] = None,  # [B] bool, True = sample sees no ref
         ref_features: Optional[Banks] = None,  # precomputed writer banks
+        ref_gn: Optional[List[torch.Tensor]] = None,  # precomputed AdaIN banks (model.use_gn_ref)
         face_feat: Optional[torch.Tensor] = None,  # pre-encoded mask residual
     ) -> torch.Tensor:
+        """ref_latent=None runs no reference branch at all (the two-call CFG's
+        uncond program); ref_dropout drops the reference per sample inside
+        one batch. Without ref_features the writer runs here, and its banks
+        (and AdaIN statistics) replace ref_gn."""
         timesteps = timesteps.to(self.device)
         ref_feats = ref_features
         if ref_latent is not None and ref_feats is None:
-            ref_feats = self.reference_outputs(ref_latent, timesteps).ref_features
+            rout = self.reference_outputs(ref_latent, timesteps)
+            ref_feats, ref_gn = rout.ref_features, rout.ref_gn
         opt = lambda x: None if x is None else self._in(x)
         out = self.modules.denoiser(
             self._in(noisy_latents), timesteps,
             context=opt(context),
             ref_features=ref_feats,
+            ref_gn=ref_gn,
             audio=opt(audio_windows),
             speeds=None if speeds is None else torch.as_tensor(speeds).to(self.device),
             face_mask=opt(face_mask),

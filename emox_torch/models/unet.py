@@ -15,8 +15,11 @@ NHWC, frames folded into the batch for all spatial ops. With cfg.remat
 (the default) and grad enabled, every spatial, audio and temporal
 transformer runs under activation checkpointing, as the reference wraps
 them in nn.remat: their activations are recomputed in the backward pass
-instead of stored. AdaIN statistic banks (use_gn_ref), ControlNet
-residuals and the identity embedding wait for later slices (ROADMAP.md).
+instead of stored. With cfg.use_gn_ref the writer also emits each site's
+fp32 spatial (mean, var) of its activations (`ref_gn`), and the reader
+renormalises its own activations to them after each spatial transformer
+(AdaIN). ControlNet residuals and the identity embedding wait for later
+slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ from emox_torch.nn.embeddings import TimestepEmbedder
 from emox_torch.nn.layers import Conv
 
 _DEFERRED = {
-    "use_gn_ref": "AdaIN reference statistics (ROADMAP.md, Queue 1 item 4)",
     "use_controlnet": "ControlNet (ROADMAP.md, Queue 1 item 7)",
     "use_identity_embed": "the CLIP identity embedding (ROADMAP.md, Queue 1 item 7)",
     "use_sparse_causal": "sparse-causal attention (ROADMAP.md, Queue 1 item 3)",
@@ -55,6 +57,35 @@ def check_supported(cfg: ModelConfig) -> None:
 class UNetOutputs(NamedTuple):
     sample: torch.Tensor
     ref_features: Optional[List[List[torch.Tensor]]]  # per attention site, per depth block
+    # per attention site [B, 1, 1, C, 2] fp32 (spatial mean, var) of the
+    # writer's activations: the AdaIN statistic banks (cfg.use_gn_ref)
+    ref_gn: Optional[List[torch.Tensor]] = None
+
+
+def _spatial_stats(h: torch.Tensor):
+    """h [N, H, W, C] in fp32, and its mean and var over H and W, each [N, 1, 1, C]."""
+    x = h.float()
+    m = x.mean(dim=(1, 2), keepdim=True)
+    return x, m, x.square().mean(dim=(1, 2), keepdim=True) - m.square()
+
+
+def _adain(h: torch.Tensor, stats: torch.Tensor, t: int, style_fidelity: float,
+           drop: Optional[torch.Tensor]) -> torch.Tensor:
+    """Renormalise h [(B T), H, W, C] to the writer's spatial statistics
+    stats [B, 1, 1, C, 2]. drop: [(B T)] bool, True = an uncond/no-reference
+    sample, which keeps style_fidelity of its own statistics."""
+    x, m, v = _spatial_stats(h)
+    std = torch.sqrt(v.clamp_min(1e-6))
+    mr = stats[..., 0].repeat_interleave(t, dim=0)
+    sr = torch.sqrt(stats[..., 1].repeat_interleave(t, dim=0).clamp_min(1e-6))
+    x_uc = (x - m) / std * sr + mr
+    if drop is None:
+        out = x_uc  # every sample conditioned: sf*x_uc + (1-sf)*x_uc = x_uc
+    else:
+        d = drop.reshape(-1, 1, 1, 1).float()
+        x_c = x * d + x_uc * (1.0 - d)  # uncond keeps its own stats in the x_c term
+        out = style_fidelity * x_c + (1.0 - style_fidelity) * x_uc
+    return out.to(h.dtype)
 
 
 class UNet(nn.Module):
@@ -132,6 +163,7 @@ class UNet(nn.Module):
         timesteps: torch.Tensor,  # [B]
         context: Optional[torch.Tensor] = None,  # [B, Lc, cross_dim]
         ref_features: Optional[List[List[torch.Tensor]]] = None,
+        ref_gn: Optional[List[torch.Tensor]] = None,  # per site [B, 1, 1, C, 2] writer stats
         audio: Optional[torch.Tensor] = None,  # [B, T, A, audio_dim]
         speeds: Optional[torch.Tensor] = None,  # [B], [B, T] or [B, T, axes]
         face_mask: Optional[torch.Tensor] = None,  # [B, H, W, 1] pixel space
@@ -143,6 +175,7 @@ class UNet(nn.Module):
         dtype = self.conv_in.weight.dtype
         if not cfg.use_reference:
             ref_features = None
+            ref_gn = None
         squeeze = x.dim() == 4
         if squeeze:
             x = x[:, None]
@@ -167,6 +200,7 @@ class UNet(nn.Module):
             h = h + mf.to(dtype).repeat_interleave(t, dim=0)
 
         banks: List[List[torch.Tensor]] = []
+        gn_banks: List[torch.Tensor] = []
         site = 0
         drop_frames = None if ref_dropout is None else ref_dropout.repeat_interleave(t, dim=0)
         remat = cfg.remat and torch.is_grad_enabled()
@@ -195,6 +229,11 @@ class UNet(nn.Module):
             )
             if emit_ref:
                 banks.append(bank)
+                if cfg.use_gn_ref:
+                    _, m, v = _spatial_stats(h)
+                    gn_banks.append(torch.stack([m, v], dim=-1))
+            elif cfg.use_gn_ref and ref_gn is not None:
+                h = _adain(h, ref_gn[site], t, cfg.style_fidelity, drop_frames)
             site += 1
             hv = unfold_time(h, t)
             if cfg.use_audio and audio is not None:
@@ -239,7 +278,8 @@ class UNet(nn.Module):
         out = unfold_time(h, t)
         if squeeze:
             out = out[:, 0]
-        return UNetOutputs(sample=out, ref_features=banks if emit_ref else None)
+        return UNetOutputs(sample=out, ref_features=banks if emit_ref else None,
+                           ref_gn=gn_banks if (emit_ref and cfg.use_gn_ref) else None)
 
 
 def reference_net_config(cfg: ModelConfig) -> ModelConfig:

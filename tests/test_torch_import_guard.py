@@ -133,7 +133,7 @@ def test_unsupported_options_raise_with_their_roadmap_item():
     from emox_torch.models.emo import EMOModel
 
     cfg = tiny_config()
-    for field in ("use_gn_ref", "use_sparse_causal", "use_controlnet", "use_identity_embed"):
+    for field in ("use_sparse_causal", "use_controlnet", "use_identity_embed"):
         bad = cfg.replace(model=dataclasses.replace(cfg.model, **{field: True}))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EMOModel(bad, device="cpu")

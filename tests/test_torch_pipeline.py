@@ -193,7 +193,7 @@ def test_cfg_trajectory_and_decode_match_reference():
 
 
 def test_initial_latents_come_from_the_generator():
-    """Without latents=, _sample_short draws them from the caller's
+    """Without latents=, the sampler draws them from the caller's
     generator: the same seed gives the same video, and the draw equals
     torch.randn of the latent shape."""
     jm, params, tcfg = model_params("tiny")
@@ -208,14 +208,16 @@ def test_initial_latents_come_from_the_generator():
 
 
 def test_out_of_slice_options_raise():
-    jm, params, tcfg = model_params("tiny")
-    model = EMOModel(tcfg, device="cpu")
-    cfg_two_call = tcfg.replace(inference=dataclasses.replace(tcfg.inference, cfg_batching=False))
-    with pytest.raises(NotImplementedError, match="cfg_batching"):
-        EMOPipeline(model, cfg_two_call)
-    pipe = EMOPipeline(model)
-    req = _request(jm.config)
-    with pytest.raises(NotImplementedError, match="windowed"):
-        pipe.generate_latents(_t(req["image"]), _t(req["wav"]), video_length=tcfg.inference.context_frames + 1)
-    with pytest.raises(NotImplementedError, match="interpolation"):
-        pipe(_t(req["image"]), _t(req["wav"]), interpolation_factor=2)
+    """The options the port still leaves out raise NotImplementedError and
+    name their ROADMAP item: the CLIP vision encoder and the model options
+    of later slices. (The windowed sampler, the two-call CFG program, latent
+    interpolation and use_gn_ref run: tests/test_torch_windowed.py,
+    test_torch_cfg_programs.py, test_torch_adain.py.)"""
+    _, _, tcfg = model_params("tiny")
+    vision = tcfg.replace(clip=dataclasses.replace(tcfg.clip, vision_enabled=True))
+    with pytest.raises(NotImplementedError, match="vision.*ROADMAP"):
+        EMOModel(vision, device="cpu")
+    for field in ("use_controlnet", "use_identity_embed", "use_sparse_causal", "separable_convs"):
+        bad = tcfg.replace(model=dataclasses.replace(tcfg.model, **{field: True}))
+        with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
+            EMOModel(bad, device="cpu")
