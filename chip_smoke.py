@@ -33,7 +33,11 @@ raises and the script exits non-zero. Phases:
      with dk/dv only, and twice on the same inputs (the same bits);
      flash_bwd_wmma (flash_attn_bwd.cu: float32, and bf16 at head dims
      129-256) at d 160 in both types, 256, packed 192, and in float32 at
-     the float32 train step's shape (timed).
+     the float32 train step's shape (timed). Head dim 512 (the VAE's
+     mid-attention, which stage 5 trains): flash_bwd_d512 (bf16) at stage
+     5's shape (N 4, L 4096) and a ragged L 2304, flash_bwd_d512_f32 at N 1,
+     L 1024, each timed and twice for the same bits, with dq only, dk/dv
+     only and Lq != Lk in both types.
   3. step: one CFG-batched denoise step of the flagship model at 256^2,
      2 frames, float32, on the card (kernels) against the same weights on
      the CPU (plain versions), TF32 off for matmuls and convolutions.
@@ -108,7 +112,22 @@ raises and the script exits non-zero. Phases:
      at the counts the code gives (attn_launches_per_request: 107 packed
      forwards per 512^2 request, all on flash_fwd_sm90, the VAE's 2 at d 512
      included).
- 12. the `kernels` line: every ported kernel with the TPU kernel it
+ 12. train_step_vae, train_vae512, face_nets, train_stage0: the two
+     training stages that need neither the dataset nor ControlNet. Stage 5
+     (VAE pretraining): one float32 step of the flagship VAE at 256^2,
+     batch 1, card against CPU (loss and gradients, the same weights and
+     posterior noise) under EMOX_ATTENTION_IMPL=pallas, so that both
+     1024-token mid-attentions take flash_fwd_wide and the float32 d-512
+     backward; then Trainer stage 5 at 512^2 in bf16, batch 4 (1 warm-up, 3
+     timed steps, one profiled), 2 launches per step of flash_fwd_sm90 and
+     of flash_bwd_d512 (the encoder's and the decoder's mid-attention).
+     Stage 0: the face nets with the trained weights the repository ships
+     (emox/assets/face_nets.npz, read through the port), float32 at batch
+     8, 256^2, card against CPU; then Trainer stage 0 from those weights in
+     float32, batch 8 at 256^2 (1 warm-up, 5 timed steps), which launches
+     no kernel of the port. Each checks that only the stage's submodels
+     changed.
+ 13. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
@@ -159,10 +178,11 @@ SWITCH_VARS += ("EMOX_ATTENTION_IMPL",)
 # the VAE's mid-attention, packed), float32 (<= 256), float32 at head dim 512
 FWD_SOURCES = ("flash_fwd_sm90", "flash_fwd_wmma", "flash_fwd_wide")
 # the backward kernels behind the two layouts: bf16 at head dim <= 128, and
-# float32 (bf16 at 129-256); and the backward launches per stage-2 step of
+# float32 (bf16 at 129-256), and head dim 512 in bf16 and in float32 (the
+# VAE's mid-attention, stage 5 only); and the backward launches per stage-2 step of
 # each train path (name, image size): its kernel sites (Lk >= KERNEL_MIN_KV)
 # that the loss differentiates
-BWD_SOURCES = ("flash_bwd_sm90", "flash_bwd_wmma")
+BWD_SOURCES = ("flash_bwd_sm90", "flash_bwd_wmma", "flash_bwd_d512", "flash_bwd_d512_f32")
 BWD_PER_STEP = {("flagship", 256): 4, ("flagship", 512): 9, ("flagship-sd15", 256): 4}
 ATTN_XLA = {"EMOX_ATTENTION_IMPL": "xla"}
 ATTN_PALLAS = {"EMOX_ATTENTION_IMPL": "pallas"}
@@ -496,6 +516,8 @@ def _bwd_kernel(dtype, d: int) -> str:
     (either layout): emox_torch.ops.attention's routing."""
     import torch
 
+    if d == 512:
+        return "flash_bwd_d512" if dtype == torch.bfloat16 else "flash_bwd_d512_f32"
     return "flash_bwd_sm90" if dtype == torch.bfloat16 and d <= 128 else "flash_bwd_wmma"
 
 
@@ -536,7 +558,8 @@ def _check_grads(res, run, want, dtype, need_dq: bool, need_dkv: bool, repeat: b
 def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0, need_dq=True,
                     need_dkv=True, repeat=False):
     """K4: dq, dk, dv of flash_attention_nlc_bwd (flash_bwd_sm90 in bf16 at
-    head dim <= 128, flash_bwd_wmma otherwise) against the plain version
+    head dim <= 128, flash_bwd_d512 / flash_bwd_d512_f32 at head dim 512,
+    flash_bwd_wmma otherwise) against the plain version
     (fp32 math on the same inputs, over batch chunks of `chunk` rows where
     needed), from the fp32 forward's lse and its output rounded to the input
     type; only the gradients asked for (need_dq, need_dkv)."""
@@ -577,6 +600,7 @@ def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chu
         g = split(dout)
         res["library_ms"] = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True),
                                     iters=10)
+        res["library_backend"] = _sdpa_backend(qh, kh, vh)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
         del out
     emit(res)
@@ -1035,6 +1059,19 @@ def phase_kernels():
     results["flash_512_l1"] = check_flash(gen, 32, 1024, 2048, c=640, heads=10, chunk=8)
     results["flash_bwd_512_l0"] = check_flash_bwd(gen, 16, 4096, 8192, chunk=2)
     results["flash_bwd_512_l1"] = check_flash_bwd(gen, 16, 1024, 2048, c=640, heads=10, chunk=4)
+    # K4 at head dim 512, the VAE's mid-attention that stage 5 trains: bf16 on
+    # flash_bwd_d512 at stage 5's 512^2 shape (batch 4, 4096 tokens) and at
+    # 384^2 (2304 tokens, ragged against the 64-row tiles), each twice for the
+    # same bits; float32 on flash_bwd_d512_f32 at one 256^2 image (the float32
+    # step); dq only, dk/dv only and Lq != Lk in both types
+    results["flash_bwd_d512"] = check_flash_bwd(gen, 4, 4096, 4096, c=512, heads=1, chunk=1, repeat=True)
+    results["flash_bwd_d512_2304"] = check_flash_bwd(gen, 2, 2304, 2304, c=512, heads=1, chunk=1, repeat=True)
+    results["flash_bwd_d512_f32"] = check_flash_bwd(gen, 1, 1024, 1024, c=512, heads=1, dtype=torch.float32,
+                                                    repeat=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_flash_bwd(gen, 2, 1000, 2100, c=1024, heads=2, dtype=dtype, timing=False)
+        check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dkv=False)
+        check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dq=False)
     return results
 
 
@@ -1243,7 +1280,8 @@ def phase_step_attn_pallas():
 
 
 # ---- phases 6 and 7: training -------------------------------------------------------
-_STAGE_LR = {1: 1e-4, 2: 1e-5, 3: 1e-5}  # the reference's stage presets (configs/training/stage{1,2,3}.yaml)
+# the reference's learning rates: configs/training/stage{0,1,2,3}.yaml and its stage-5 preset
+_STAGE_LR = {0: 1e-4, 1: 1e-4, 2: 1e-5, 3: 1e-5, 5: 1e-4}
 
 
 def _train_config(stage: int, batch: int, frames: int, dtype: str, checkpoint_dir: str, name: str = "flagship",
@@ -1265,6 +1303,16 @@ def _train_batch(gen, stage: int, batch: int, frames: int, cfg, device):
 
     size = cfg.data.height
     normal = lambda *shape: 0.1 * torch.randn(shape, generator=gen, device=device)
+    if stage in (0, 5):  # single images; stage 0 with a face-region mask and 6 landmarks
+        out = {"images": normal(batch, size, size, 3)}
+        if stage == 0:
+            yy, xx = torch.meshgrid(torch.arange(size, device=device), torch.arange(size, device=device),
+                                    indexing="ij")
+            disc = (((yy - size / 2) ** 2 + (xx - size / 2) ** 2) < (size / 3) ** 2).float()
+            out["images"] += 0.5 * disc[None, :, :, None]
+            out["masks"] = disc[None, :, :, None].expand(batch, size, size, 1).contiguous()
+            out["landmarks"] = torch.rand((batch, 6, 2), generator=gen, device=device) * 0.6 + 0.2
+        return out
     out = {"ref_image": normal(batch, size, size, 3)}
     if stage == 1:
         out["images"] = normal(batch, size, size, 3)
@@ -1338,20 +1386,27 @@ def phase_train_step(tmp: str, env=None):
 
 
 def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, steps: int, out_dir: str = "",
-                name: str = "flagship", env=None, size: int = 256):
+                name: str = "flagship", env=None, size: int = 256, dtype: str = "bfloat16", phase: str = "",
+                prepare=None):
     """env: the switches of the run (none: phase train / train_sd15 /
-    train_512; with some: train_norms)."""
+    train_512; with some: train_norms). Stages 0 and 5 (phase names
+    train_stage0, train_vae512) train the face nets and the VAE: their
+    launches are asserted by check_stage05_launches. prepare(model), if
+    given, runs before the trainer is built (stage 0 loads the shipped face
+    nets)."""
     import torch
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, reset_launch_counts
     from emox_torch.train import Trainer
 
     torch.cuda.empty_cache()
-    cfg = _train_config(stage, batch=batch, frames=frames, dtype="bfloat16", checkpoint_dir=tmp, name=name, size=size)
+    cfg = _train_config(stage, batch=batch, frames=frames, dtype=dtype, checkpoint_dir=tmp, name=name, size=size)
     tag = ("" if name == "flagship" else "_sd15") + ("" if size == 256 else f"_{size}") + ("_norms" if env else "")
     t0 = time.perf_counter()
-    model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    model = EMOModel(cfg, dtype=getattr(torch, dtype), device="cuda", seed=0)
     _fill_zero_init(model, seed=3)  # every trainable leaf of stage 2 gets a gradient from step 1
+    if prepare is not None:
+        prepare(model)
     tr = Trainer(cfg, model=model)
     gen = torch.Generator(device="cuda").manual_seed(30 + stage)
     data = _train_batch(gen, stage, batch, frames, cfg, "cuda")
@@ -1387,9 +1442,11 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     frozen_changed = sum(not torch.equal(p.detach().cpu(), before_frozen[n])
                          for n, p in model.modules.named_parameters() if n in before_frozen)
     ms = 1e3 * secs / steps
-    res = {"phase": f"train{tag}", "stage": stage,
-           "config": f"{name} {size}^2 stage {stage}, batch {batch}, {frames} frame(s), bf16 compute, fp32 masters, "
-                     f"AdamW lr {_STAGE_LR[stage]}, remat; {warmup} warm-up + {steps} timed steps",
+    compute = "bf16 compute, fp32 masters" if dtype == "bfloat16" else "float32"
+    remat = ", remat" if stage in (1, 2, 3) else ""  # of the UNets' attention stacks, which stages 0 and 5 leave out
+    res = {"phase": phase or f"train{tag}", "stage": stage,
+           "config": f"{name} {size}^2 stage {stage}, batch {batch}, {frames} frame(s), {compute}, "
+                     f"AdamW lr {_STAGE_LR[stage]}{remat}; {warmup} warm-up + {steps} timed steps",
            "switches": env or {},
            "params": sum(p.numel() for p in model.modules.parameters()),
            "trainable_params": sum(m.numel() for m in tr.state.masters.values()),
@@ -1410,13 +1467,162 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     if stuck or frozen_changed:
         raise AssertionError(f"stage {stage}: trainable leaves left unchanged {stuck[:8]}, "
                              f"{frozen_changed} frozen leaves changed")
-    check_path_launches(name, counts, train=True, what=f"{name} stage {stage} training {env or ''}", env=env)
+    if stage in (0, 5):
+        check_stage05_launches(stage, counts, steps, res["phase"])
+    else:
+        check_path_launches(name, counts, train=True, what=f"{name} stage {stage} training {env or ''}", env=env)
     want = res["bwd_sm90_per_step_expected"]
-    if want is not None and res["bwd_sources_per_step"] != {"flash_bwd_sm90": want, "flash_bwd_wmma": 0}:
+    if want is not None and res["bwd_sources_per_step"] != {**dict.fromkeys(BWD_SOURCES, 0), "flash_bwd_sm90": want}:
         raise AssertionError(f"{name} {size}^2 stage 2: backward kernels per step {res['bwd_sources_per_step']}, "
                              f"expected {want} on flash_bwd_sm90")
     del tr, model, data
     return res
+
+
+def stage05_launches(stage: int, dtype: str = "bfloat16", calls: int = 1) -> dict:
+    """The kernel launches of `calls` loss-and-gradient passes of stage 0 or
+    5, by counter: stage 0's face nets are convolutions and launch none;
+    stage 5 differentiates the VAE, whose two mid-attentions (one head of
+    dim 512; at 512^2 their 4096 tokens reach KERNEL_MIN_KV) each take one
+    packed forward (flash_fwd_sm90 in bf16, flash_fwd_wide in float32) and
+    one backward (flash_bwd_d512, flash_bwd_d512_f32)."""
+    from emox_torch.ops import KERNEL_WRAPPERS
+
+    want = dict.fromkeys(KERNEL_WRAPPERS, 0)
+    if stage == 5:
+        fwd, bwd = (("flash_fwd_sm90", "flash_bwd_d512") if dtype == "bfloat16"
+                    else ("flash_fwd_wide", "flash_bwd_d512_f32"))
+        for k in ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd", fwd, bwd):
+            want[k] = 2 * calls
+    return want
+
+
+def check_stage05_launches(stage: int, counts: dict, steps: int, what: str, dtype: str = "bfloat16") -> None:
+    want = stage05_launches(stage, dtype, steps)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def phase_train_step_vae(tmp: str, size: int = 256):
+    """One float32 stage-5 step (VAE pretraining) of the flagship VAE at
+    size^2, batch 1: the loss and the VAE's gradients on the card against the same
+    weights, images and posterior noise on the CPU, TF32 off, under
+    EMOX_ATTENTION_IMPL=pallas, so that both (size/8)^2-token mid-attentions
+    take the float32 head-dim-512 kernels (flash_fwd_wide,
+    flash_bwd_d512_f32) and nothing else launches."""
+    import torch
+    from emox_torch.core.presets import tiny_config
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+    from emox_torch.train import Trainer, sample_draws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _train_config(5, batch=1, frames=1, dtype="float32", checkpoint_dir=tmp, size=size)
+    # the loss reads the VAE alone: the UNets and the audio encoder, which it
+    # never runs, are cut to the tiny preset's widths so that the float32 CPU
+    # model builds in seconds
+    tiny = tiny_config(size, 1)
+    cfg = cfg.replace(model=tiny.model, audio=tiny.audio)
+    t0 = time.perf_counter()
+    cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
+    gpu = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
+    gpu.modules.vae.load_state_dict(cpu.modules.vae.state_dict())  # the stage differentiates the VAE alone
+    tr_cpu, tr_gpu = Trainer(cfg, model=cpu), Trainer(cfg, model=gpu)
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    batch = _train_batch(gen, 5, 1, 1, cfg, "cpu")
+    draws = sample_draws(cfg, tr_cpu.sched, 5, batch, gen)
+    setup_s = time.perf_counter() - t0
+    to_gpu = lambda d: {k: v.to("cuda") for k, v in d.items()}
+    with switches(ATTN_PALLAS):
+        t0 = time.perf_counter()
+        m_cpu, g_cpu = tr_cpu.loss_and_grads(batch, draws)
+        cpu_s = time.perf_counter() - t0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m_gpu, g_gpu = tr_gpu.loss_and_grads(to_gpu(batch), to_gpu(draws))
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        counts = launch_counts()
+    loss_cpu, loss_gpu = m_cpu["loss"].double().item(), m_gpu["loss"].double().item()
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    diff = sum(float(torch.linalg.vector_norm(a.cpu().double() - b.double()) ** 2) for a, b in zip(g_gpu, g_cpu))
+    norm = sum(float(torch.linalg.vector_norm(b.double()) ** 2) for b in g_cpu)
+    grads_rel = math.sqrt(diff / norm)
+    limits = {"loss_rel": 1e-5, "grads_rel_l2": 2e-4}  # as train_step
+    metrics = {k: v.item() for k, v in m_gpu.items()}
+    res = {"phase": "train_step_vae", "config": f"flagship VAE {size}^2 stage 5, batch 1, float32, "
+           f"EMOX_ATTENTION_IMPL=pallas (the UNets and audio encoder, which stage 5 never runs, at tiny widths)", "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel": loss_rel,
+           "grads_rel_l2": grads_rel, "limits": limits, "metrics_gpu": metrics, "trainable_leaves": len(g_cpu),
+           "trainable_params": sum(g.numel() for g in g_cpu), "launches": counts, "setup_s": setup_s,
+           "cpu_s": cpu_s, "gpu_s": gpu_s}
+    emit(res)
+    tr_cpu.close()
+    tr_gpu.close()
+    if not (loss_rel <= limits["loss_rel"] and grads_rel <= limits["grads_rel_l2"]):
+        raise AssertionError(f"train_step_vae: card and CPU disagree: loss {loss_rel}, grads {grads_rel}")
+    check_stage05_launches(5, counts, 1, "train_step_vae", dtype="float32")
+    del cpu, gpu, tr_cpu, tr_gpu
+    torch.backends.cudnn.allow_tf32 = True
+    return res
+
+
+def face_nets_path() -> str:
+    """The trained face nets the repository ships, beside this script."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "emox", "assets", "face_nets.npz")
+
+
+def phase_face_nets(batch: int = 8, size: int = 256):
+    """The shipped face nets, read through the port (load_face_nets), run
+    by EMOModel.locate_face and locate_landmarks on `batch` size^2 images in
+    float32 on the card against the CPU, TF32 off. Both sides build the
+    tiny preset's EMOModel: the face nets' widths do not depend on the
+    preset."""
+    import torch
+    from emox_torch.core.presets import tiny_config
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+    from emox_torch.train.face_nets import load_face_nets, load_face_nets_into
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tree = load_face_nets(face_nets_path())
+    if tree is None:
+        raise FileNotFoundError(f"face_nets: no weights at {face_nets_path()}")
+    cfg = tiny_config(size, 1)
+    models = {dev: EMOModel(cfg, device=dev, seed=0) for dev in ("cpu", "cuda")}
+    for m in models.values():
+        load_face_nets_into(m.modules, tree)
+    gen = torch.Generator(device="cpu").manual_seed(24)
+    data = _train_batch(gen, 0, batch, 1, cfg, "cpu")
+    out = {}
+    reset_launch_counts()
+    for dev, m in models.items():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x = data["images"].to(dev)
+            out[dev] = {"logits": m.locate_face(x), "landmarks": m.locate_landmarks(x)}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev]["s"] = time.perf_counter() - t0
+    counts = launch_counts()
+    rel = {k: (torch.linalg.vector_norm(out["cuda"][k].cpu().double() - v.double())
+               / torch.linalg.vector_norm(v.double()).clamp_min(1e-30)).item()
+           for k, v in out["cpu"].items() if k != "s"}
+    mask = data["masks"] > 0.5
+    pred = out["cuda"]["logits"].cpu() > 0
+    tol = 3e-4  # as the step phases: float32 both sides, convolutions summed in other orders
+    res = {"phase": "face_nets", "config": f"FaceLocator + FaceLandmarkNet, shipped weights, {batch} x {size}^2, "
+           "float32", "rel_l2": rel, "tol": tol, "iou_vs_disc": ((pred & mask).sum() / (pred | mask).sum()).item(),
+           "cpu_s": out["cpu"]["s"], "gpu_s": out["cuda"]["s"], "launches": counts,
+           "shapes": {k: list(v.shape) for k, v in out["cuda"].items() if k != "s"}}
+    emit(res)
+    if not all(math.isfinite(v) and v <= tol for v in rel.values()):
+        raise AssertionError(f"face_nets: card and CPU disagree: {rel}")
+    if any(counts.values()):
+        raise AssertionError(f"face_nets: the face nets launch no kernel of the port: {counts}")
+    torch.backends.cudnn.allow_tf32 = True
+    return res, tree
 
 
 # ---- phase 4 ------------------------------------------------------------------
@@ -1823,6 +2029,7 @@ _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("ln_qkv", ("ln_qkv_kernel",)),
     ("flash_bwd_sm90", ("bwd_sm90::",)),  # ahead of the forward's "sm90::"
+    ("flash_bwd_d512", ("bwd_d512::",)),
     ("ff_sm90", ("ff_sm90::",)),  # the FF's LN pass and GEMMs, ahead of "sm90::"
     ("flash_fwd_sm90", ("sm90::",)),
     ("flash_fwd_wide", ("flash_attn_nlc_fwd",)),
@@ -2130,6 +2337,18 @@ def main(argv=None) -> int:
         serve_512 = phase_serve(args.out, size=512)["launches"]
         with tempfile.TemporaryDirectory() as tmp:
             train_512 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out, size=512)
+        # training stages 5 (the VAE, through K4's head-dim-512 backward) and 0
+        # (the face nets, from the shipped weights)
+        with tempfile.TemporaryDirectory() as tmp:
+            train_step_vae = phase_train_step_vae(tmp)["launches"]
+            train_vae512 = phase_train(tmp, stage=5, batch=4, frames=1, warmup=1, steps=3, out_dir=args.out,
+                                       size=512, phase="train_vae512")
+            face, face_tree = phase_face_nets()
+            from emox_torch.train.face_nets import load_face_nets_into
+
+            train0 = phase_train(tmp, stage=0, batch=8, frames=1, warmup=1, steps=5, out_dir=args.out,
+                                 dtype="float32", phase="train_stage0",
+                                 prepare=lambda m: load_face_nets_into(m.modules, face_tree))
     by_path = {"step": step, "serve": launches, "step_long": step_long, **long["launches_by_path"], "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
                "train_step": train_step,
                "train_stage2_per_step": train2["launches_per_step"],
@@ -2140,19 +2359,24 @@ def main(argv=None) -> int:
                "train_norms_stage2_per_step": train_norms["launches_per_step"],
                "geglu_ff": geglu, "serve_ff_xla": serve_ff_xla,
                "vae512": vae512, "serve_512": serve_512,
-               "train_512_stage2_per_step": train_512["launches_per_step"]}
+               "train_512_stage2_per_step": train_512["launches_per_step"],
+               "train_step_vae": train_step_vae, "train_vae512_per_step": train_vae512["launches_per_step"],
+               "face_nets": face["launches"], "train_stage0_per_step": train0["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
     # flash_fwd_wide in the float32 512^2 VAE, flash_fwd_wmma and ff_wmma on
     # the float32 step), the timed stage-2 training steps for the backward
-    # (flash_bwd_sm90; flash_bwd_wmma on the float32 train step); the switch
+    # (flash_bwd_sm90; flash_bwd_wmma on the float32 train step; at head dim
+    # 512 the stage-5 steps); the switch
     # kernels' on the serving path under their switches; K6's WMMA kernel
     # through its entry points (geglu_ff, float32)
     launches = dict(launches, flash_bwd_sm90=train2["launches"]["flash_bwd_sm90"],
                     flash_fwd_wide=vae512["flash_fwd_wide"], flash_fwd_wmma=step["flash_fwd_wmma"],
                     flash_bwd_wmma=train_step["flash_bwd_wmma"], ff_wmma=step["ff_wmma"],
                     group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
-                    group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"])
+                    group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"],
+                    flash_bwd_d512=train_vae512["launches"]["flash_bwd_d512"],
+                    flash_bwd_d512_f32=train_step_vae["flash_bwd_d512_f32"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape = lambda k: {x: k[x] for x in ("function", "layout", "dtype", "n", "lq", "lk", "l", "c", "heads", "head_dim",
                                          "m", "f", "row_tile", "grid_blocks", "smem_bytes", "blocks_per_sm",
@@ -2199,6 +2423,12 @@ def main(argv=None) -> int:
         entry("emox_torch/csrc/flash_attn_bwd.cu", ["emox/ops/attention.py:118", "emox/ops/attention.py:160",
                                                    "emox/ops/attention.py:465", "emox/ops/attention.py:508"],
               kern["flash_bwd_wmma_f32"], []),
+        # K4's pair at head dim 512 (the VAE's mid-attention, stage 5): bf16 on
+        # the timed stage-5 steps at 512^2, float32 in train_step_vae
+        entry("emox_torch/csrc/flash_bwd_d512.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
+              kern["flash_bwd_d512"], [kern["flash_bwd_d512_2304"]]),
+        entry("emox_torch/csrc/flash_bwd_d512.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
+              kern["flash_bwd_d512_f32"], []),
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:184"],
               kern["gn_l0"], [kern["gn_l2"], kern["gn_vae"]]),
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:74"],

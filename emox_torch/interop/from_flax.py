@@ -13,11 +13,10 @@ depends only on the leaf (the reverse of emox/interop/torch_import.py):
   `bias`, `null_context`,            same name           none
   `position_embedding`
 
-Submodels: vae, reference_net, denoiser, audio_encoder, and clip_text when
-the model has one (clip.text_enabled). face_locator and landmarker are
-skipped until their modules are ported. Any other top-level entry, any
-leaf that maps to no parameter, any shape mismatch, and any port parameter
-left unset raises.
+Submodels: vae, reference_net, denoiser, audio_encoder, face_locator,
+landmarker, and clip_text when the model has one (clip.text_enabled). Any
+other top-level entry, any leaf that maps to no parameter, any shape
+mismatch, and any port parameter left unset raises.
 """
 
 from __future__ import annotations
@@ -28,9 +27,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-SUBMODELS = ("vae", "reference_net", "denoiser", "audio_encoder")  # always present
+SUBMODELS = ("vae", "reference_net", "denoiser", "audio_encoder", "face_locator", "landmarker")  # always present
 OPTIONAL_SUBMODELS = ("clip_text",)  # present when the config enables them
-SKIPPED = ("face_locator", "landmarker")
 
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -64,7 +62,7 @@ def _convert(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
 def from_flax(params: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     """{submodel: flax param tree} -> {submodel: state dict} (float tensors
     in the leaves' own type, on the CPU)."""
-    extra = set(params) - set(SUBMODELS) - set(OPTIONAL_SUBMODELS) - set(SKIPPED)
+    extra = set(params) - set(SUBMODELS) - set(OPTIONAL_SUBMODELS)
     if extra:
         raise ValueError(f"no port mapping for top-level params {sorted(extra)}")
     return {name: state_dict_from_flax(params[name]) for name in SUBMODELS + OPTIONAL_SUBMODELS if name in params}
@@ -103,7 +101,7 @@ def load_flax(modules: nn.Module, params: Dict[str, Any]) -> None:
     """Copy a reference param tree into `modules` (an EMOModules), submodel
     by submodel (see load_module)."""
     present = SUBMODELS + tuple(n for n in OPTIONAL_SUBMODELS if getattr(modules, n, None) is not None)
-    extra = set(params) - set(present) - set(SKIPPED)
+    extra = set(params) - set(present)
     if extra:
         raise ValueError(f"no port mapping for top-level params {sorted(extra)}")
     missing = [n for n in present if n not in params]

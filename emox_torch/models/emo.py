@@ -1,22 +1,23 @@
 """EMOModel: the full composition (counterpart of emox/models/emo.py).
 
-VAE + ReferenceNet (writer) + denoising UNet (reader) + audio encoder, as
-nn.Modules held by one object. Where the reference's methods take a param
-tree, these take only inputs: the weights live in the modules (random from
-a seed, or carried over from a flax param tree with `load_flax`).
+VAE + ReferenceNet (writer) + denoising UNet (reader) + audio encoder +
+face locator and landmarker, as nn.Modules held by one object. Where the
+reference's methods take a param tree, these take only inputs: the weights
+live in the modules (random from a seed, or carried over from a flax param
+tree with `load_flax`).
 
 Every parameter starts frozen. The methods a training loss calls
-(`encode_images`, `encode_audio`, `reference_outputs`, `predict_noise`)
-run with autograd as the caller has it, so they take a gradient once
-`set_trainable` has marked leaves; the serving calls (`EMOPipeline`, and
-here `decode_latents`, `reference_outputs_for_steps`, `encode_face_mask`)
-run under `torch.inference_mode`.
+(`encode_images`, `encode_audio`, `reference_outputs`, `predict_noise`,
+`locate_face`, `locate_landmarks`) run with autograd as the caller has it,
+so they take a gradient once `set_trainable` has marked leaves; the serving
+calls (`EMOPipeline`, and here `decode_latents`,
+`reference_outputs_for_steps`, `encode_face_mask`) run under
+`torch.inference_mode`.
 
 With clip.text_enabled the CLIP text encoder (`clip_text`) is built too:
 `encode_text` turns prompt ids into the context the denoiser's text
-cross-attention reads (`predict_noise(context=...)`). The face locator,
-landmarker, ControlNet and the CLIP vision encoder wait for later slices
-(ROADMAP.md).
+cross-attention reads (`predict_noise(context=...)`). ControlNet and the
+CLIP vision encoder wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from emox_torch.models.audio import AudioEncoder, align_audio_to_frames, audio_f
 from emox_torch.models.clip import CLIPTextEncoder
 from emox_torch.models.unet import UNet, UNetOutputs, check_supported, reference_net_config
 from emox_torch.models.vae import AutoencoderKL
+from emox_torch.nn.conditioners import FaceLandmarkNet, FaceLocator
 from emox_torch.nn.layers import init_weights
 
 Banks = List[List[torch.Tensor]]
@@ -57,6 +59,8 @@ class EMOModules(nn.Module):
         self.denoiser = UNet(config.model, face_mask_downs=face_downs)
         self.audio_encoder = AudioEncoder(config.audio)
         self.clip_text = CLIPTextEncoder(config.clip) if config.clip.text_enabled else None
+        self.face_locator = FaceLocator()
+        self.landmarker = FaceLandmarkNet()
 
 
 class EMOModel:
@@ -154,6 +158,14 @@ class EMOModel:
         cfg = self.config.audio
         feats = self.modules.audio_encoder(self._in(wav))
         return align_audio_to_frames(feats, num_frames, audio_feature_rate(cfg), cfg.video_fps, cfg.context_frames)
+
+    def locate_face(self, images: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] in [-1, 1] -> face-region logits [B, H, W, 1]."""
+        return self.modules.face_locator(self._in(images))
+
+    def locate_landmarks(self, images: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] in [-1, 1] -> [B, 6, 2] normalised (y, x) landmarks."""
+        return self.modules.landmarker(self._in(images))
 
     @torch.inference_mode()
     def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:

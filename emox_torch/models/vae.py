@@ -7,6 +7,8 @@ mode; training draws a posterior sample from noise the caller supplies.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
@@ -135,6 +137,9 @@ class AutoencoderKL(nn.Module):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None):
+        """(reconstruction, posterior): decodes the posterior sample
+        mean + std * eps when `eps` (N(0, 1) of the mean's shape, drawn by
+        the caller) is given, else its mode (the reference's `key`)."""
         dist = self.encode(x)
-        return self.decode(dist.mode()), dist
+        return self.decode(dist.mode() if eps is None else dist.sample(eps)), dist

@@ -10,7 +10,7 @@ from emox_torch.nn.attention_blocks import (
     TransformerBlock,
 )
 from emox_torch.nn.blocks import Downsample, FusedGroupNorm, ResBlock, Upsample, fold_time, unfold_time
-from emox_torch.nn.conditioners import FaceMaskEncoder, SpeedEncoder
+from emox_torch.nn.conditioners import FaceLandmarkNet, FaceLocator, FaceMaskEncoder, SpeedEncoder
 from emox_torch.nn.embeddings import TimestepEmbedder, sinusoidal_positions, timestep_embedding
 from emox_torch.nn.layers import Conv, Dense, LayerNorm, init_weights
 
@@ -20,6 +20,8 @@ __all__ = [
     "Conv",
     "Dense",
     "Downsample",
+    "FaceLandmarkNet",
+    "FaceLocator",
     "FaceMaskEncoder",
     "FrameAxisAttention",
     "FusedGroupNorm",

@@ -93,6 +93,31 @@ class Conv(nn.Module):
         return y.permute(*perm_out)
 
 
+def resize_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """[n_in, n_out] fp32 weights of jax.image.resize's "bilinear" method
+    along one axis: a triangle kernel widened by the downscale factor
+    (antialiasing), normalised per output sample."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs() / kernel_scale
+    w = (1.0 - x).clamp_min(0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Channels-last [B, H, W, C] -> [B, h, w, C], as jax.image.resize(...,
+    "bilinear") resizes (antialiased when shrinking), in fp32, rounded to
+    x's type."""
+    wy = resize_weights(x.shape[1], h, x.device)
+    wx = resize_weights(x.shape[2], w, x.device)
+    return torch.einsum("bijc,ih,jw->bhwc", x.float(), wy, wx).to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """flax LayerNorm over the last axis (see the module docstring)."""
     xf = x.float()

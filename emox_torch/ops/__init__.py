@@ -26,6 +26,9 @@ Kernels (each wrapper counts its launches in `.launches`):
   * flash_bwd_wmma          -> csrc/flash_attn_bwd.cu: both layouts'
                                backward, float32 (head dim <= 256) and
                                bfloat16 at head dims 129-256
+  * flash_bwd_d512          -> csrc/flash_bwd_d512.cu: the packed
+                               backward at head dim 512, bfloat16
+  * flash_bwd_d512_f32      -> the same kernels in float32
   * fused_ln_geglu_ff       -> LN + GEGLU FF + residual (TPU `_ln_ff_kernel`
                                and `_ln_ff_wide_kernel`), counted per call,
                                by one of the kernels below
@@ -58,6 +61,8 @@ from emox_torch.ops.attention import (
     flash_attention_bwd,
     flash_attention_nlc,
     flash_attention_nlc_bwd,
+    flash_bwd_d512,
+    flash_bwd_d512_f32,
     flash_bwd_sm90,
     flash_bwd_wmma,
     flash_fwd_sm90,
@@ -100,6 +105,8 @@ KERNEL_WRAPPERS = {
     "flash_fwd_wide": flash_fwd_wide,
     "flash_bwd_sm90": flash_bwd_sm90,
     "flash_bwd_wmma": flash_bwd_wmma,
+    "flash_bwd_d512": flash_bwd_d512,
+    "flash_bwd_d512_f32": flash_bwd_d512_f32,
     "ln_geglu_ff": fused_ln_geglu_ff,
     "geglu_ff": fused_geglu_ff,
     "ff_sm90": ff_sm90,
@@ -138,6 +145,8 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_nlc",
     "flash_attention_nlc_bwd",
+    "flash_bwd_d512",
+    "flash_bwd_d512_f32",
     "flash_bwd_sm90",
     "flash_bwd_wmma",
     "flash_fwd_sm90",

@@ -26,9 +26,11 @@ kernel, or raises for an input no kernel takes; there is no fallback:
     (emox_torch/csrc/flash_bwd_sm90.cu, wgmma + TMA), both layouts (packed
     tokens as head-split views);
   * backward, float32 at head dim <= 256 and bfloat16 at 129-256:
-    `flash_bwd_wmma` (emox_torch/csrc/flash_attn_bwd.cu), both layouts.
-    Head dim 512 has no backward kernel: only VAE pretraining (stage 5),
-    which the port does not run yet, would need one.
+    `flash_bwd_wmma` (emox_torch/csrc/flash_attn_bwd.cu), both layouts;
+  * backward, head dim 512, packed (the VAE's mid-attention, which VAE
+    pretraining, stage 5, differentiates): `flash_bwd_d512` (bfloat16) and
+    `flash_bwd_d512_f32` (float32), two instantiations of
+    emox_torch/csrc/flash_bwd_d512.cu (WMMA; 3xTF32 in float32).
 
 Rows that are not 16-byte aligned (a head dim that is not a multiple of 8 in
 bfloat16, of 4 in float32) are zero-padded in the head dim before the launch
@@ -71,10 +73,12 @@ from emox_torch.ops import build
 # (ROADMAP.md, Queue 2).
 KERNEL_MIN_KV = 2048
 ATTENTION_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
-_MAX_HEAD_DIM = 256  # every route but the wide forward
-_WIDE_HEAD_DIM = 512  # packed forward only: flash_fwd_sm90.cu (bf16), flash_attn_nlc.cu (float32)
+_MAX_HEAD_DIM = 256  # every route but head dim 512
+_WIDE_HEAD_DIM = 512  # packed layout only: forward flash_fwd_sm90.cu (bf16), flash_attn_nlc.cu (float32);
+# backward flash_bwd_d512.cu
 _SM90_BWD_HEAD_DIM = 128  # flash_bwd_sm90.cu: bf16 backward up to this head dim
 _SM90_BWD_ROWS = 128  # flash_bwd_sm90 takes lse and delta padded to a multiple of these rows
+_D512_BWD_ROWS = 64  # flash_bwd_d512 takes lse and delta padded to a multiple of these rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -298,9 +302,17 @@ def _fwd_views(q, k, v, scale: float, packed_lse: bool):
     return out, (lse.transpose(1, 2) if packed_lse else lse)
 
 
+def _padded_rows(lse, delta, rows: int):
+    """lse and delta [B, H, Lq] as [B, H, Lq_pad] fp32 contiguous, Lq_pad the
+    next multiple of `rows`: rows past Lq get lse = +inf (P = 0) and delta = 0."""
+    pad = -lse.shape[-1] % rows
+    return F.pad(lse, (0, pad), value=float("inf")).contiguous(), F.pad(delta, (0, pad)).contiguous()
+
+
 def _bwd_views(q, k, v, o, dout, lse, scale: float, need_dq: bool, need_dkv: bool):
-    """The backward kernel for [B, H, L, D] operands with D <= 256 (lse
-    [B, H, Lq] fp32, any strides): bf16 with D <= 128 -> flash_bwd_sm90,
+    """The backward kernel for [B, H, L, D] operands with D <= 256 or D 512
+    (lse [B, H, Lq] fp32, any strides): bf16 with D <= 128 ->
+    flash_bwd_sm90, D 512 -> flash_bwd_d512 (bf16) or flash_bwd_d512_f32,
     otherwise flash_bwd_wmma, after zero-padding the head dim where rows are
     not 16-byte aligned: padded columns of q, k, v and dO add nothing to any
     product, and those of the gradients are cut off."""
@@ -317,10 +329,10 @@ def _bwd_views(q, k, v, o, dout, lse, scale: float, need_dq: bool, need_dkv: boo
     _check_rows("flash attention backward", q=q, k=k, v=v, dout=dout,
                 **{n: t for n, t in outs.items() if t is not None})
     if q.dtype == torch.bfloat16 and q.shape[-1] <= _SM90_BWD_HEAD_DIM:
-        # [B, H, Lq_pad] contiguous: rows past Lq get lse = +inf (P = 0) and delta = 0
-        pad = -q.shape[2] % _SM90_BWD_ROWS
-        flash_bwd_sm90(q, k, v, dout, F.pad(lse, (0, pad), value=float("inf")).contiguous(),
-                       F.pad(delta, (0, pad)).contiguous(), dq, dk, dv, scale)
+        flash_bwd_sm90(q, k, v, dout, *_padded_rows(lse, delta, _SM90_BWD_ROWS), dq, dk, dv, scale)
+    elif d == _WIDE_HEAD_DIM:
+        launch = flash_bwd_d512 if q.dtype == torch.bfloat16 else flash_bwd_d512_f32
+        launch(q, k, v, dout, *_padded_rows(lse, delta, _D512_BWD_ROWS), dq, dk, dv, scale)
     else:
         flash_bwd_wmma(q, k, v, dout, lse.contiguous(), delta.contiguous(), dq, dk, dv, scale)
     return tuple(None if g is None else g[..., :d] for g in (dq, dk, dv))
@@ -376,16 +388,53 @@ def flash_bwd_wmma(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
 flash_bwd_wmma.launches = 0  # kernel launches since the last reset
 
 
+def _launch_bwd_d512(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+    b, h, lq, d = q.shape
+    if d != _WIDE_HEAD_DIM or lse.shape[-1] % _D512_BWD_ROWS or not lq <= lse.shape[-1] < lq + _D512_BWD_ROWS:
+        raise ValueError(f"flash_bwd_d512 takes head dim 512 and lse [B, H, Lq_pad], Lq_pad the next multiple "
+                         f"of {_D512_BWD_ROWS} rows: got q {tuple(q.shape)}, lse {tuple(lse.shape)}")
+    with torch.cuda.device(q.device):
+        err = build.kernel("flash_bwd_d512")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _ptr(dq), _ptr(dk), _ptr(dv), _bwd_strides(q, k, v, dout, dq, dk, dv), b, h, lq, k.shape[2],
+            lse.shape[-1], float(scale), _DTYPES[q.dtype], _stream(q),
+        )
+    build.check(err, "flash_bwd_d512")
+
+
+def flash_bwd_d512(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+    """Launch flash_bwd_d512.cu in bf16: q, k, v, dout [B, H, L, 512] with
+    16-byte aligned rows; lse and delta [B, H, Lq_pad] fp32 contiguous,
+    Lq_pad the next multiple of 64, padded with +inf and 0; into dq (None:
+    not computed) and dk, dv (both None: not computed), each with any
+    strides."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_bwd_d512 takes bfloat16, got {q.dtype}")
+    _launch_bwd_d512(q, k, v, dout, lse, delta, dq, dk, dv, scale)
+    flash_bwd_d512.launches += 1
+
+
+flash_bwd_d512.launches = 0  # kernel launches since the last reset
+
+
+def flash_bwd_d512_f32(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+    """flash_bwd_d512 in float32 (3xTF32 WMMA), the same layouts."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_bwd_d512_f32 takes float32, got {q.dtype}")
+    _launch_bwd_d512(q, k, v, dout, lse, delta, dq, dk, dv, scale)
+    flash_bwd_d512_f32.launches += 1
+
+
+flash_bwd_d512_f32.launches = 0  # kernel launches since the last reset
+
+
 # ---- the packed layout [N, L, H*D] ---------------------------------------------------
-def _check_kernel_inputs(name: str, q, k, v, heads: int, bwd: bool = False):
+def _check_kernel_inputs(name: str, q, k, v, heads: int):
     n, lq, c = q.shape
     lk = k.shape[1]
     d = c // heads
-    if c != heads * d or not (d <= _MAX_HEAD_DIM or (d == _WIDE_HEAD_DIM and not bwd)):
-        raise ValueError(f"{name} takes head_dim <= {_MAX_HEAD_DIM}" + ("" if bwd else f" or {_WIDE_HEAD_DIM}")
-                         + f", got {c}/{heads}"
-                         + (" (the VAE's d 512 mid-attention trains only in stage 5, VAE pretraining, "
-                            "which the port does not run yet)" if d == _WIDE_HEAD_DIM else ""))
+    if c != heads * d or not (d <= _MAX_HEAD_DIM or d == _WIDE_HEAD_DIM):
+        raise ValueError(f"{name} takes head_dim <= {_MAX_HEAD_DIM} or {_WIDE_HEAD_DIM}, got {c}/{heads}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (n, lk, c) or v.shape != k.shape:
@@ -414,7 +463,7 @@ def _flash_kernel(q, k, v, heads: int, scale: float):
 
 
 def _flash_bwd_kernel(q, k, v, o, lse, dout, heads: int, scale: float, need_dq: bool, need_dkv: bool):
-    n, lq, _, _ = _check_kernel_inputs("flash_attn_nlc_bwd", q, k, v, heads, bwd=True)
+    n, lq, _, _ = _check_kernel_inputs("flash_attn_nlc_bwd", q, k, v, heads)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"flash_attn_nlc_bwd: o {tuple(o.shape)} {o.dtype} and dout {tuple(dout.shape)} "
                          f"{dout.dtype} must be like q {tuple(q.shape)} {q.dtype}")

@@ -1,5 +1,7 @@
-"""Training: per-stage losses and masks, the optimizer, the trainer."""
+"""Training: per-stage losses and masks, the optimizer, the trainer, and the
+face nets' weight files."""
 
+from emox_torch.train.face_nets import load_face_nets, load_face_nets_into, save_face_nets
 from emox_torch.train.stages import (
     STAGE_DESCRIPTIONS,
     downsample_mask,
@@ -24,8 +26,11 @@ __all__ = [
     "TrainState",
     "Trainer",
     "downsample_mask",
+    "load_face_nets",
+    "load_face_nets_into",
     "make_optimizer",
     "sample_draws",
+    "save_face_nets",
     "stage_loss_fn",
     "trainable_mask",
 ]

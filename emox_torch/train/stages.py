@@ -1,24 +1,28 @@
 """Per-stage losses and trainable-parameter masks (counterpart of
-emox/train/stages.py), for the denoising stages 1-3:
+emox/train/stages.py):
 
+  stage0  FaceLocator mask prediction (BCE with logits) and, where the batch
+          has landmarks, FaceLandmarkNet's 6-point regression; trains the
+          two face nets only.
   stage1  single-frame denoising with reference conditioning; trains the
           denoiser's spatial stack and the ReferenceNet.
   stage2  video clips: trains only the temporal and audio cross-attention
           layers (zero-init, so training starts from stage-1 behaviour).
   stage3  trains only the speed embedding and the face-mask encoder, with
           the face-region weighted loss.
+  stage5  VAE pretraining: L2 + L1 reconstruction of a posterior sample plus
+          a small KL term; trains the VAE only.
 
-Losses use min-SNR-gamma weighting, the noise offset, and CFG dropout of
-the reference and of the audio, as the reference configures them. Stage 2
-and 3 clips may carry motion frames, which join the clip for temporal
-attention but are left out of the loss.
+The denoise losses use min-SNR-gamma weighting, the noise offset, and CFG
+dropout of the reference and of the audio, as the reference configures
+them. Stage 2 and 3 clips may carry motion frames, which join the clip for
+temporal attention but are left out of the loss.
 
 The reference's loss draws its random numbers inside, from a JAX key. Here
 they are drawn apart, by `sample_draws` from a torch.Generator, and the
 loss is a deterministic function of the batch and those draws: a test can
-feed it the reference's own draws. Stages 0 (face locator), 4 (ControlNet)
-and 5 (VAE pretraining) and the identity embedding wait for a later slice
-(ROADMAP.md, Queue 1 item 8).
+feed it the reference's own draws. Stage 4 (ControlNet) and the identity
+embedding wait for a later slice (ROADMAP.md, Queue 1 items 7 and 8).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from emox_torch.core.config import Config
 from emox_torch.diffusion.schedule import Schedule, add_noise, get_velocity, min_snr_loss_weight
 from emox_torch.models.audio import align_audio_to_frames, audio_feature_rate
 from emox_torch.models.emo import EMOModel
+from emox_torch.nn.layers import resize_bilinear
 
 STAGE_DESCRIPTIONS = {
     0: "FaceLocator mask prediction",
@@ -42,7 +47,7 @@ STAGE_DESCRIPTIONS = {
     5: "VAE pretraining (recon + KL; the reference loads SD's pretrained "
        "VAE instead — this stage bootstraps one where no weights exist)",
 }
-PORTED_STAGES = (1, 2, 3)
+PORTED_STAGES = (0, 1, 2, 3, 5)
 
 # parameter-name substrings per conditioning family (denoiser collection)
 _TEMPORAL_KEYS = ("_temporal",)
@@ -69,7 +74,12 @@ def is_trainable(name: str, stage: int) -> bool:
     """The reference's predicate on one parameter name (dotted here,
     '/'-joined there; the tests hold the two partitions equal)."""
     check_stage(stage)
-    if name.split(".")[0] in _FROZEN_SUBMODELS:
+    top = name.split(".")[0]
+    if stage == 0:
+        return top in ("face_locator", "landmarker")  # the two face nets train together
+    if stage == 5:
+        return top == "vae"  # VAE pretraining: the autoencoder alone
+    if top in _FROZEN_SUBMODELS:
         return False  # frozen in stages 1-3
     is_temporal = any(k in name for k in _TEMPORAL_KEYS)
     is_audio = any(k in name for k in _AUDIO_KEYS)
@@ -85,7 +95,8 @@ def is_trainable(name: str, stage: int) -> bool:
 
 def trainable_mask(modules: nn.Module, stage: int) -> Dict[str, bool]:
     """{parameter name: True when the optimizer updates it} over `modules`
-    (an EMOModules: vae, reference_net, denoiser, audio_encoder)."""
+    (an EMOModules: vae, reference_net, denoiser, audio_encoder,
+    face_locator, landmarker)."""
     return {name: is_trainable(name, stage) for name, _ in modules.named_parameters()}
 
 
@@ -99,24 +110,40 @@ def _clip_frames(batch: Batch, stage: int) -> Tuple[torch.Tensor, int]:
     return frames, 0
 
 
+def _vae_images(batch: Batch) -> torch.Tensor:
+    """Stage 5's images [N, H, W, 3]: `images`, or every frame of `frames`."""
+    if "images" in batch:
+        return batch["images"]
+    f = batch["frames"]
+    return f.reshape(-1, *f.shape[-3:])
+
+
 def sample_draws(config: Config, sched: Schedule, stage: int, batch: Batch,
                  generator: torch.Generator) -> Draws:
-    """Every random number of one denoise loss, drawn from `generator` on its
-    device: the posterior noise `posterior_eps` [B*T, h, w, C] (with
-    train.vae_encode "sample"), `noise` [B, T, h, w, C], `noise_offset`
-    [B, 1, 1, 1, 1] (with diffusion.noise_offset > 0), `timesteps` [B], and
-    with train.uncond_ratio > 0 the reference-drop mask `ref_drop` [B] bool
-    and, when the batch has audio, the audio-keep mask `audio_keep`
-    [B, 1, 1, 1] (1 keeps the sample's audio)."""
+    """Every random number of one loss, drawn from `generator` on its device.
+    Stage 0 draws none. Stage 5 draws the posterior noise `posterior_eps`
+    [N, h, w, C] of its images. A denoise stage draws the posterior noise
+    `posterior_eps` [B*T, h, w, C] (with train.vae_encode "sample"), `noise`
+    [B, T, h, w, C], `noise_offset` [B, 1, 1, 1, 1] (with
+    diffusion.noise_offset > 0), `timesteps` [B], and with
+    train.uncond_ratio > 0 the reference-drop mask `ref_drop` [B] bool and,
+    when the batch has audio, the audio-keep mask `audio_keep` [B, 1, 1, 1]
+    (1 keeps the sample's audio)."""
     check_stage(stage)
-    frames, _ = _clip_frames(batch, stage)
-    b, t, height, width = frames.shape[:4]
     ds = config.vae.downscale
-    lat = (height // ds, width // ds, config.vae.latent_channels)
     dev = generator.device
     normal = lambda *shape: torch.randn(shape, generator=generator, device=dev)
     uniform = lambda *shape: torch.rand(shape, generator=generator, device=dev)
     draws: Draws = {}
+    if stage == 0:
+        return draws
+    if stage == 5:
+        n, height, width = _vae_images(batch).shape[:3]
+        draws["posterior_eps"] = normal(n, height // ds, width // ds, config.vae.latent_channels)
+        return draws
+    frames, _ = _clip_frames(batch, stage)
+    b, t, height, width = frames.shape[:4]
+    lat = (height // ds, width // ds, config.vae.latent_channels)
     if config.train.vae_encode == "sample":
         draws["posterior_eps"] = normal(b * t, *lat)
     draws["noise"] = normal(b, t, *lat)
@@ -131,30 +158,10 @@ def sample_draws(config: Config, sched: Schedule, stage: int, batch: Batch,
     return draws
 
 
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """[n_in, n_out] weights of jax.image.resize's "bilinear" method along
-    one axis: a triangle kernel widened by the downscale factor
-    (antialiasing), normalised per output sample."""
-    inv_scale = n_in / n_out
-    kernel_scale = max(inv_scale, 1.0)
-    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
-    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs() / kernel_scale
-    w = (1.0 - x).clamp_min(0.0)
-    total = w.sum(dim=0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
-                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w))
-
-
 def downsample_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Pixel-space face mask [B, H, W, 1] -> latent resolution [B, 1, h, w, 1]
     (jax.image.resize, bilinear with antialiasing, as the reference)."""
-    m = mask.float()
-    wy = _resize_weights(m.shape[1], h, m.device)
-    wx = _resize_weights(m.shape[2], w, m.device)
-    out = torch.einsum("bijc,ih,jw->bhwc", m, wy, wx)
-    return out[:, None]
+    return resize_bilinear(mask.float(), h, w)[:, None]
 
 
 def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule,
@@ -168,6 +175,44 @@ def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule,
             "(ROADMAP.md, Queue 1 item 7)"
         )
     dcfg, acfg, tcfg = config.diffusion, config.audio, config.train
+
+    def facelocator_loss(batch: Batch, draws: Draws):
+        logits = model.locate_face(batch["images"])
+        labels = batch["masks"].to(logits.device)
+        bce = (logits.clamp_min(0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))).mean()
+        iou_pred = (torch.sigmoid(logits) > 0.5).float()
+        inter = (iou_pred * labels).sum()
+        union = torch.maximum(iou_pred, labels).sum()
+        loss = bce
+        metrics = {"loss": loss, "iou": inter / union.clamp_min(1.0)}
+        if "landmarks" in batch:
+            # joint 6-point landmark regression; items without landmarks
+            # weigh 0 (landmarks_valid)
+            lm_pred = model.locate_landmarks(batch["images"])
+            per = ((lm_pred.float() - batch["landmarks"].to(lm_pred.device)) ** 2).mean(dim=(1, 2))  # [B]
+            valid = batch.get("landmarks_valid")
+            valid = torch.ones_like(per) if valid is None else valid.to(per.device).float()
+            lm_err = (per * valid).sum() / valid.sum().clamp_min(1.0)
+            loss = loss + 10.0 * lm_err
+            metrics = dict(metrics, loss=loss, landmark_mse=lm_err, landmark_frac=valid.mean())
+        return loss, metrics
+
+    def vae_loss(batch: Batch, draws: Draws):
+        """L2 + L1 reconstruction of the posterior sample plus
+        train.vae_kl_weight times the mean KL (summed over latent dims);
+        latent_std, the population std of the posterior means, is reported
+        to calibrate vae.scaling_factor."""
+        imgs = _vae_images(batch)
+        recon, dist = model.modules.vae(model._in(imgs), eps=draws["posterior_eps"])
+        x = imgs.to(recon.device).float()
+        recon = recon.float()
+        rec_mse = ((recon - x) ** 2).mean()
+        rec_l1 = (recon - x).abs().mean()
+        kl = dist.kl().float().mean()
+        loss = rec_mse + rec_l1 + tcfg.vae_kl_weight * kl
+        metrics = {"loss": loss, "recon_mse": rec_mse, "recon_l1": rec_l1, "kl": kl,
+                   "latent_std": dist.mean.float().std(correction=0)}
+        return loss, metrics
 
     def denoise_loss(batch: Batch, draws: Draws):
         frames, num_motion = _clip_frames(batch, stage)
@@ -216,5 +261,9 @@ def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule,
             metrics = {"loss": loss, "mse": metrics["mse"], "face_mse": face_err}
         return loss, metrics
 
+    if stage == 0:
+        return facelocator_loss
+    if stage == 5:
+        return vae_loss
     return denoise_loss
 

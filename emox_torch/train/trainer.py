@@ -1,6 +1,10 @@
 """Unified trainer for the port (counterpart of emox/train/trainer.py):
 per-stage parameter freezing, the reference's optimizer chain, checkpoints
-with torch.save, jsonl metrics.
+with torch.save, jsonl metrics. Stages 0 (the face nets), 1-3 (denoising)
+and 5 (the VAE) run through one loop; the stage's loss and draws come from
+emox_torch.train.stages, its checkpoints go to `stage<N>/` under
+train.checkpoint_dir, and a later stage starts from an earlier one's
+(`load_params_from_stage`: stage 1 from the stage-5 VAE, for one).
 
   * structural freezing: the modules hold every leaf in the compute dtype;
     only the trainable leaves take a gradient (requires_grad), and each has

@@ -36,7 +36,8 @@ def no_kernel_launches():
     yield
     counts = ops.launch_counts()
     assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "flash_fwd_sm90",
-                           "flash_fwd_wmma", "flash_fwd_wide", "flash_bwd_sm90", "flash_bwd_wmma", "ln_geglu_ff",
+                           "flash_fwd_wmma", "flash_fwd_wide", "flash_bwd_sm90", "flash_bwd_wmma", "flash_bwd_d512",
+                           "flash_bwd_d512_f32", "ln_geglu_ff",
                            "geglu_ff", "ff_sm90", "ff_wmma", "group_norm", "group_norm_stats", "ln_qkv"}
     assert not any(counts.values()), counts
 
@@ -201,6 +202,12 @@ def test_unset_parameter_raises():
 
 
 def test_skipped_submodels_are_named():
+    """No submodel of the reference's tree is skipped any more: the face
+    nets map like the rest (3x3 and 1x1 conv kernels HWIO -> OIHW)."""
     _, params, _ = model_params("tiny")
-    assert {"face_locator", "landmarker"} <= set(params)
-    assert set(from_flax(params)) == set(SUBMODELS)
+    assert {"face_locator", "landmarker"} <= set(SUBMODELS)
+    assert set(from_flax(params)) == set(SUBMODELS) == set(params)
+    state = from_flax(params)
+    np.testing.assert_array_equal(state["face_locator"]["conv0.weight"].numpy(),
+                                  np.asarray(params["face_locator"]["conv0"]["kernel"]).transpose(3, 2, 0, 1))
+    assert state["landmarker"]["heat.weight"].shape == (6, 128, 1, 1)

@@ -49,6 +49,7 @@ def test_importing_every_module_pulls_in_no_jax_and_no_emox():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"emox_torch.ops.attention", "emox_torch.ops.ff", "emox_torch.infer.pipeline",
             "emox_torch.interop.from_flax", "emox_torch.train.stages", "emox_torch.train.trainer",
+            "emox_torch.train.face_nets",
             "emox_torch.core.dtypes", "emox_torch.data.tokenizer", "emox_torch.models.clip"} <= set(res["modules"])
     leaked = sorted(set(res["roots"]) & set(FORBIDDEN + ("yaml",)))
     assert not leaked, f"importing emox_torch pulled in {leaked}"

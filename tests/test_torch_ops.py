@@ -304,11 +304,14 @@ def test_strided_wrapper_checks_head_dim_and_row_alignment():
         _check_strided_inputs("flash_attn_fwd", x, x, x)
     p = torch.zeros(1, 8, 2 * 512)
     assert _check_kernel_inputs("flash_attn_nlc_fwd", p, p, p, 2) == (1, 8, 8, 512)
-    with pytest.raises(ValueError, match="stage 5"):
-        _check_kernel_inputs("flash_attn_nlc_bwd", p, p, p, 2, bwd=True)
+    # the backward takes head dim 512 too (flash_bwd_d512, VAE pretraining)
+    assert _check_kernel_inputs("flash_attn_nlc_bwd", p, p, p, 2) == (1, 8, 8, 512)
     w = torch.zeros(1, 8, 1024)
-    with pytest.raises(ValueError, match="head_dim <= 256 or 512, got 1024/1"):
-        _check_kernel_inputs("flash_attn_nlc_fwd", w, w, w, 1)
+    for name in ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"):
+        with pytest.raises(ValueError, match="head_dim <= 256 or 512, got 1024/1"):
+            _check_kernel_inputs(name, w, w, w, 1)
+        with pytest.raises(ValueError, match="head_dim <= 256 or 512, got 768/2"):
+            _check_kernel_inputs(name, w[..., :768], w[..., :768], w[..., :768], 2)
     _check_rows("flash_attn_fwd", q=torch.zeros(1, 8, 2 * 40).view(1, 8, 2, 40).transpose(1, 2))
     with pytest.raises(ValueError, match="16-byte aligned rows"):
         _check_rows("flash_attn_fwd", q=torch.zeros(1, 2, 8, 41)[..., :40])  # row stride 41 floats

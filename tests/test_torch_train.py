@@ -57,7 +57,7 @@ def _port_leaves(tree):
     return out
 
 
-@pytest.mark.parametrize("stage", [1, 2, 3])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3, 5])
 def test_trainable_mask_partitions_like_the_reference(stage):
     _, params, tcfg = model_params("tiny")
     names = list(_port_leaves(params))
@@ -68,9 +68,12 @@ def test_trainable_mask_partitions_like_the_reference(stage):
 
 
 def test_stages_outside_the_slice_raise():
-    for stage in (0, 4, 5):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            is_trainable("denoiser.conv_in.weight", stage)
+    """Stage 4 (ControlNet) waits for a later slice; stages 0 and 5 are
+    ported (test_torch_stage0.py, test_torch_stage5.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        is_trainable("denoiser.conv_in.weight", 4)
+    assert is_trainable("face_locator.conv0.weight", 0) and not is_trainable("vae.encoder.conv_in.weight", 0)
+    assert is_trainable("vae.encoder.conv_in.weight", 5) and not is_trainable("denoiser.conv_in.weight", 5)
     with pytest.raises(ValueError, match="bad stage"):
         is_trainable("denoiser.conv_in.weight", 6)
 
