@@ -7,12 +7,17 @@ Runs the same checks of chip_smoke.py (its `check_*` functions: the kernel
 against its plain version, then CUDA-event times) from OTHER_CHECKOUT and
 from this one, in turns (other, this, this, other), each turn a fresh
 process that builds its own checkout's kernels from its sources, so both
-are timed on the same card in one run. The checks: the transformer FF
-sub-layer (fused_ln_geglu_ff, bf16) at the flagship's 256^2 and 512^2
-shapes and the attention forward at head dim 512 (the VAE's mid-attention,
-bf16). Prints one JSON line per check and turn, then one summary line per
-check: each checkout's faster turn and their ratio. Exits non-zero where a
-check fails in either checkout or where there is no card.
+are timed on the same card in one run. The checks: the fused LN + q/k/v
+(fused_ln_qkv, K7, bf16) at the self-attention sites of the flagship's
+256^2 and 512^2 requests, and GroupNorm + SiLU (fused_group_norm, K8a) and
+its statistics (group_norm_stats, K8b) at the UNet's and the VAE's slabs,
+bf16. Each check's `ms` is its chip_smoke.py time (CUDA events around 20
+calls); `device_ms` is the same call's device time without the host's
+cost of issuing it (20 calls captured in one CUDA graph, timed by this
+checkout's code for both trees). Prints one JSON line per check and turn,
+then one summary line per check: each checkout's faster turn and their
+ratio. Exits non-zero where a check fails in either checkout or where
+there is no card.
 """
 
 from __future__ import annotations
@@ -25,21 +30,66 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # (label, chip_smoke function, positional arguments after the generator, keyword arguments)
+GN_SLABS = ((32, 1024, 320), (32, 256, 640), (32, 64, 1280), (16, 65536, 128),  # 256^2: levels 0-2, VAE decode
+            (32, 4096, 320), (32, 1024, 640), (32, 256, 1280), (4, 262144, 128))  # 512^2 levels 0-2; stage 5
 CHECKS = [
-    *((f"ff_{m}x{c}", "check_ff", (m, c), {}) for m, c in (
+    *((f"ln_qkv_{m}x{c}", "check_ln_qkv", (m, c), {}) for m, c in (
         (32768, 320), (8192, 640), (2048, 1280), (512, 1280),  # 256^2 under CFG: levels 0, 1, 2, mid
         (131072, 320), (32768, 640), (8192, 1280), (2048, 1280))),  # 512^2: levels 0, 1, 2, mid
-    ("flash_d512", "check_flash", (16, 4096, 4096), {"c": 512, "heads": 1}),
+    *((f"gn_{n}x{l}x{c}", "check_group_norm", (n, l, c), {}) for n, l, c in GN_SLABS),
+    *((f"gn_stats_{n}x{l}x{c}", "check_group_norm_stats", (n, l, c), {}) for n, l, c in GN_SLABS),
 ]
 
 _TURN = """
 import json, sys, torch
 import chip_smoke as cs
+from emox_torch.ops import fused_group_norm, fused_ln_qkv, group_norm_stats
+
+def device_ms(fn, iters=20):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+def call(fn, args, gen):
+    bf = torch.bfloat16
+    rand = lambda *shape, scale=1.0, shift=0.0: (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(bf)
+    if fn == "check_ln_qkv":
+        m, c = args
+        xs = (rand(m, c), rand(c, scale=0.1, shift=1.0), rand(c, scale=0.1),
+              *(rand(c, c, scale=c ** -0.5) for _ in range(3)))
+        return lambda: fused_ln_qkv(*xs)
+    n, l, c = args
+    x = rand(n, l, c, scale=3.0, shift=1.0)
+    if fn == "check_group_norm_stats":
+        return lambda: group_norm_stats(x)
+    gamma, beta = rand(c, scale=0.1, shift=1.0), rand(c, scale=0.1)
+    return lambda: fused_group_norm(x, gamma, beta, 32, silu=True)
+
 checks = json.loads(sys.argv[1])
 gen = torch.Generator(device="cuda").manual_seed(1234)
 for label, fn, args, kw in checks:
     res = getattr(cs, fn)(gen, *args, **kw)
     print("AB " + json.dumps({"label": label, "kernel": res["kernel"], "ms": res["ms"],
+                              "device_ms": device_ms(call(fn, args, gen)),
                               "bound_ms": res["bound_ms"], "max_abs_err": res["max_abs_err"]}), flush=True)
 """
 
@@ -78,10 +128,14 @@ def main(argv=None) -> int:
     turns = [turn(other, "other"), turn(ROOT, "this"), turn(ROOT, "this"), turn(other, "other")]
     summary = []
     for label, *_ in CHECKS:
-        best = {name: min(t[label]["ms"] for t in turns if t[label]["tree"] == name) for name in ("other", "this")}
-        summary.append({"label": label, "other_ms": best["other"], "this_ms": best["this"],
+        best = {(name, key): min(t[label][key] for t in turns if t[label]["tree"] == name)
+                for name in ("other", "this") for key in ("ms", "device_ms")}
+        summary.append({"label": label, "other_ms": best["other", "ms"], "this_ms": best["this", "ms"],
+                        "other_device_ms": best["other", "device_ms"], "this_device_ms": best["this", "device_ms"],
                         "other_kernel": turns[0][label]["kernel"], "this_kernel": turns[1][label]["kernel"],
-                        "speedup": best["other"] / best["this"], "bound_ms": turns[1][label]["bound_ms"]})
+                        "speedup": best["other", "ms"] / best["this", "ms"],
+                        "device_speedup": best["other", "device_ms"] / best["this", "device_ms"],
+                        "bound_ms": turns[1][label]["bound_ms"]})
         print(json.dumps({"summary": summary[-1]}), flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -37,7 +37,16 @@ raises and the script exits non-zero. Phases:
      mid-attention, which stage 5 trains): flash_bwd_d512 (bf16) at stage
      5's shape (N 4, L 4096) and a ragged L 2304, flash_bwd_d512_f32 at N 1,
      L 1024, each timed and twice for the same bits, with dq only, dk/dv
-     only and Lq != Lk in both types.
+     only and Lq != Lk in both types. The fused-norm kernels: K7 on
+     ln_qkv_sm90 (bf16, LN in the prologue of a wgmma + TMA GEMM) at the
+     four 256^2 and four 512^2 self-attention shapes, ragged M and C, twice
+     for the same bits, ln_qkv_wmma (float32); K8a and K8b (group_norm.cu:
+     one cluster launch per call where the slab fits, else two) at the
+     UNet's levels 0-2 at 256^2 and 512^2, the VAE's decode and stage 5's
+     [4, 262144, 128], ragged L, both types, twice for the same bits. K7's
+     and K8's rows carry device_ms beside ms: the device time of 20 calls
+     captured in one CUDA graph (device_ms), without the host's cost of
+     issuing them, for the kernel and for its library call.
   3. step: one CFG-batched denoise step of the flagship model at 256^2,
      2 frames, float32, on the card (kernels) against the same weights on
      the CPU (plain versions), TF32 off for matmuls and convolutions.
@@ -120,7 +129,10 @@ raises and the script exits non-zero. Phases:
      1024-token mid-attentions take flash_fwd_wide and the float32 d-512
      backward; then Trainer stage 5 at 512^2 in bf16, batch 4 (1 warm-up, 3
      timed steps, one profiled), 2 launches per step of flash_fwd_sm90 and
-     of flash_bwd_d512 (the encoder's and the decoder's mid-attention).
+     of flash_bwd_d512 (the encoder's and the decoder's mid-attention);
+     then the same steps under EMOX_GROUPNORM_IMPL=pallas
+     (train_vae512_norms: every GroupNorm of the VAE on K8a, 52 launches a
+     step), with the GroupNorm calls' device time in its profile.
      Stage 0: the face nets with the trained weights the repository ships
      (emox/assets/face_nets.npz, read through the port), float32 at batch
      8, 256^2, card against CPU; then Trainer stage 0 from those weights in
@@ -171,6 +183,9 @@ PROMPT = "a person talking to the camera, studio lighting, sharp focus"
 # nor any FF kernel.
 SWITCH_VARS = ("EMOX_GROUPNORM_IMPL", "EMOX_LN_QKV", "EMOX_FUSED_QKV", "EMOX_FF_IMPL")
 SWITCH_KERNELS = ("group_norm", "group_norm_stats", "ln_qkv")
+# the kernels behind K7's calls (ln_qkv): bf16 -> ln_qkv_sm90 (wgmma + TMA),
+# float32 -> ln_qkv_wmma
+QKV_SOURCES = {"bfloat16": "ln_qkv_sm90", "float32": "ln_qkv_wmma"}
 # The attention switch, EMOX_ATTENTION_IMPL, is unset too but in the phases that
 # set it (serve_attn_xla, step_attn_pallas).
 SWITCH_VARS += ("EMOX_ATTENTION_IMPL",)
@@ -188,6 +203,7 @@ ATTN_XLA = {"EMOX_ATTENTION_IMPL": "xla"}
 ATTN_PALLAS = {"EMOX_ATTENTION_IMPL": "pallas"}
 NORMS = {"EMOX_GROUPNORM_IMPL": "pallas", "EMOX_LN_QKV": "1"}
 NORMS_FAST = {"EMOX_GROUPNORM_IMPL": "fast", "EMOX_LN_QKV": "1", "EMOX_FUSED_QKV": "1"}
+GN_PALLAS = {"EMOX_GROUPNORM_IMPL": "pallas"}
 FF_XLA = {"EMOX_FF_IMPL": "xla"}
 
 
@@ -244,11 +260,15 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     exactly one kernel, the one for the type (dtype): FWD_SOURCES, bf16 never
     on flash_fwd_wide; every backward launch (train) too: BWD_SOURCES, none
     without training; every FF call on the FF kernel of the type:
-    FF_SOURCES."""
+    FF_SOURCES; every K7 call on the K7 kernel of the type: QKV_SOURCES."""
     env = env or {}
     on = switch_kernels(env)
     other = [k for n, ks in ATTN_KERNELS.items() if n != name for k in ks]
     other += [k for k in SWITCH_KERNELS if k not in on] + ["geglu_ff"]
+    qkv = QKV_SOURCES[dtype]
+    other += [k for k in QKV_SOURCES.values() if k != qkv or "ln_qkv" not in on]
+    if "ln_qkv" in on:
+        on += (qkv,)
     ff = FF_SOURCES[dtype]
     other += [k for k in FF_SOURCES.values() if k != ff]
     if env.get("EMOX_FF_IMPL") == "xla":
@@ -274,6 +294,9 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     calls, sources = counts["ln_geglu_ff"] + counts["geglu_ff"], sum(counts[k] for k in FF_SOURCES.values())
     if calls != sources:
         raise AssertionError(f"{what}: {calls} FF calls but {sources} FF kernel launches: {counts}")
+    calls, sources = counts["ln_qkv"], sum(counts[k] for k in QKV_SOURCES.values())
+    if calls != sources:
+        raise AssertionError(f"{what}: {calls} K7 calls but {sources} K7 kernel launches: {counts}")
 
 
 def norm_launches_per_request(cfg, steps: int, env) -> dict:
@@ -287,19 +310,26 @@ def norm_launches_per_request(cfg, steps: int, env) -> dict:
             transformer site, 1 norm_out;
       VAE:  2 per ResBlock (encoder L*nrb + 2, decoder 2 + L*(nrb+1)), 1 mid
             attention, 1 norm_out, each."""
-    m, v = cfg.model, cfg.vae
+    m = cfg.model
     levels, lpb = len(m.block_channels), m.layers_per_block
     sites = len(m.attention_levels) * (2 * lpb + 1) + 1
     unet_gn = 2 * (levels * lpb + 2 + levels * (lpb + 1)) + sites + 1
-    vlevels, nrb = len(v.channel_multipliers), v.num_res_blocks
-    enc_gn = 2 * (vlevels * nrb + 2) + 2
-    dec_gn = 2 * (2 + vlevels * (nrb + 1)) + 2
+    enc_gn, dec_gn = vae_group_norms(cfg)
     gn = enc_gn + unet_gn * (1 + steps) + dec_gn
     qkv = sites * (1 + steps * (2 if m.use_temporal else 1))
     want = dict.fromkeys(SWITCH_KERNELS, 0)
     for k in switch_kernels(env):
         want[k] = qkv if k == "ln_qkv" else gn
     return want
+
+
+def vae_group_norms(cfg) -> tuple:
+    """The GroupNorm calls of one VAE encode and of one decode: 2 per
+    ResBlock (encoder L*nrb + 2, decoder 2 + L*(nrb+1)), 1 mid attention,
+    1 norm_out, each."""
+    v = cfg.vae
+    vlevels, nrb = len(v.channel_multipliers), v.num_res_blocks
+    return 2 * (vlevels * nrb + 2) + 2, 2 * (2 + vlevels * (nrb + 1)) + 2
 
 
 def reader_calls(cfg, steps: int, frames: int) -> int:
@@ -398,6 +428,44 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of fn, without the host's cost of issuing it:
+    `iters` calls captured in one CUDA graph (the kernels' ctypes launches
+    go onto the capturing stream that their wrappers pass them), the graph
+    replayed once to warm up, then once between two CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _same_bits(a, b) -> bool:
+    """Two tuples of tensors hold the same bits."""
+    import torch
+
+    return all(torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8)) for x, y in zip(a, b))
 
 
 # ---- phase 1 ------------------------------------------------------------------
@@ -811,55 +879,66 @@ def _tol(ref, dtype):
     return 4 * BF16_EPS * top if dtype == torch.bfloat16 else 2e-4 * max(top, 1.0)
 
 
-def check_group_norm(gen, n, l, c, silu=True, dtype=None, timing=True, groups=32):
+def check_group_norm(gen, n, l, c, silu=True, dtype=None, timing=True, groups=32, repeat=False):
     """K8a against group_norm_plain (the same rounding: fp32 statistics and
-    apply, one cast) on x [n, l, c]."""
+    apply, one cast) on x [n, l, c]; its launch regime from gn_plan (one
+    cluster launch, or two launches); with repeat, twice on the same inputs
+    (the same bits)."""
     import torch
     import torch.nn.functional as F
-    from emox_torch.ops.groupnorm import fused_group_norm, group_norm_plain
+    from emox_torch.ops.groupnorm import fused_group_norm, gn_plan_for, group_norm_plain
 
     dtype = dtype or torch.bfloat16
     x = _rand(gen, n, l, c, scale=3.0, shift=1.0, dtype=dtype)
     gamma, beta = _rand(gen, c, scale=0.1, shift=1.0, dtype=dtype), _rand(gen, c, scale=0.1, dtype=dtype)
     out = fused_group_norm(x, gamma, beta, groups, silu=silu)
+    again = fused_group_norm(x, gamma, beta, groups, silu=silu) if repeat else out
     torch.cuda.synchronize()
     ref = group_norm_plain(x, gamma, beta, groups, silu=silu)
     err = (out.float() - ref.float()).abs().max().item()
     tol = _tol(ref.float(), dtype)
+    regime, cluster, chunks = gn_plan_for(x, groups)
     res = {"kernel": "group_norm", "dtype": str(dtype).split(".")[-1], "n": n, "l": l, "c": c, "groups": groups,
-           "silu": silu, "max_abs_err": err, "tol": tol}
-    if not (err <= tol and math.isfinite(err)):
+           "silu": silu, "regime": regime, "cluster": cluster, "chunks": chunks,
+           "max_abs_err": err, "tol": tol, "same_bits_twice": _same_bits((out,), (again,))}
+    if not (err <= tol and math.isfinite(err) and res["same_bits_twice"]):
         emit(res)
-        raise AssertionError(f"group_norm disagrees with its plain version: {res}")
+        raise AssertionError(f"group_norm disagrees with its plain version or with itself: {res}")
     if timing:
         # per element: 3 operations for the statistics, 4 for the apply, 4 for SiLU, fp32 on the CUDA cores
         flops = n * l * c * (7 + (4 if silu else 0))
         nbytes = x.element_size() * (2 * n * l * c + 2 * c)
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_FP32_FLOPS)
-        res["ms"] = time_ms(lambda: fused_group_norm(x, gamma, beta, groups, silu=silu), iters=20)
+        run = lambda: fused_group_norm(x, gamma, beta, groups, silu=silu)
+        res["ms"] = time_ms(run, iters=20)
+        res["device_ms"] = device_ms(run)
         res["plain_ms"] = time_ms(lambda: group_norm_plain(x, gamma, beta, groups, silu=silu), iters=3, warmup=1)
         xt = x.transpose(1, 2)  # [n, c, l]: the layout F.group_norm normalises
         lib = (lambda: F.silu(F.group_norm(xt, groups, gamma, beta))) if silu else (
             lambda: F.group_norm(xt, groups, gamma, beta))
         res["library_ms"] = time_ms(lib, iters=20)
-        res["gb_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+        res["library_device_ms"] = device_ms(lib)
+        res["gb_per_s"] = nbytes / (res["device_ms"] * 1e-3) / 1e9
     emit(res)
     return res
 
 
-def check_group_norm_stats(gen, n, l, c, dtype=None, timing=True):
+def check_group_norm_stats(gen, n, l, c, dtype=None, timing=True, repeat=False):
     """K8b against group_norm_stats_plain: per-channel fp32 sum and sum of
-    squares over l."""
+    squares over l; with repeat, twice on the same inputs (the same bits)."""
     import torch
-    from emox_torch.ops.groupnorm import group_norm_stats, group_norm_stats_plain
+    from emox_torch.ops.groupnorm import gn_plan_for, group_norm_stats, group_norm_stats_plain
 
     dtype = dtype or torch.bfloat16
     x = _rand(gen, n, l, c, scale=3.0, shift=1.0, dtype=dtype)
     got = group_norm_stats(x)
+    again = group_norm_stats(x) if repeat else got
     torch.cuda.synchronize()
     want = group_norm_stats_plain(x)
-    res = {"kernel": "group_norm_stats", "dtype": str(dtype).split(".")[-1], "n": n, "l": l, "c": c}
-    ok = True
+    regime, cluster, chunks = gn_plan_for(x, apply=False)
+    res = {"kernel": "group_norm_stats", "dtype": str(dtype).split(".")[-1], "n": n, "l": l, "c": c,
+           "regime": regime, "cluster": cluster, "chunks": chunks, "same_bits_twice": _same_bits(got, again)}
+    ok = res["same_bits_twice"]
     for name, g, w in zip(("sum", "sumsq"), got, want):
         err = (g - w).abs().max().item()
         tol = 2e-5 * w.abs().max().item()  # fp32 sums of the same values in another order
@@ -868,51 +947,63 @@ def check_group_norm_stats(gen, n, l, c, dtype=None, timing=True):
     res["max_abs_err"] = max(res["sum_max_abs_err"], res["sumsq_max_abs_err"])
     if not ok:
         emit(res)
-        raise AssertionError(f"group_norm_stats disagrees with its plain version: {res}")
+        raise AssertionError(f"group_norm_stats disagrees with its plain version or with itself: {res}")
     if timing:
         flops = 3 * n * l * c
         nbytes = x.element_size() * n * l * c + 2 * 4 * n * c
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_FP32_FLOPS)
         res["ms"] = time_ms(lambda: group_norm_stats(x), iters=20)
+        res["device_ms"] = device_ms(lambda: group_norm_stats(x))
         res["plain_ms"] = time_ms(lambda: group_norm_stats_plain(x), iters=3, warmup=1)
         # the same statistics (per-channel mean and variance over l) in one call
         res["library_ms"] = time_ms(lambda: torch.var_mean(x, dim=1), iters=20)
-        res["gb_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+        res["library_device_ms"] = device_ms(lambda: torch.var_mean(x, dim=1))
+        res["gb_per_s"] = nbytes / (res["device_ms"] * 1e-3) / 1e9
     emit(res)
     return res
 
 
-def check_ln_qkv(gen, m, c, dtype=None, timing=True):
+def check_ln_qkv(gen, m, c, dtype=None, timing=True, repeat=False):
     """K7 against ln_qkv_plain (xn rounded to x's type, fp32 products, each
-    output rounded once) on x [m, c] with three [c, c] projections."""
+    output rounded once) on x [m, c] with three [c, c] projections: bf16 on
+    ln_qkv_sm90 (its plan: tiles, column tiles per block, blocks), float32
+    on ln_qkv_wmma; with repeat, twice on the same inputs (the same bits)."""
     import torch
     import torch.nn.functional as F
-    from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_plain
+    from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_plain, ln_qkv_sm90_plan
 
     dtype = dtype or torch.bfloat16
     args = (_rand(gen, m, c, dtype=dtype), _rand(gen, c, scale=0.1, shift=1.0, dtype=dtype),
             _rand(gen, c, scale=0.1, dtype=dtype), *(_rand(gen, c, c, scale=c ** -0.5, dtype=dtype) for _ in range(3)))
     got = fused_ln_qkv(*args)
+    again = fused_ln_qkv(*args) if repeat else got
     torch.cuda.synchronize()
     want = ln_qkv_plain(*args)
     err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
     tol = max(_tol(w.float(), dtype) for w in want)
-    res = {"kernel": "ln_qkv", "dtype": str(dtype).split(".")[-1], "m": m, "c": c, "inner": c,
-           "max_abs_err": err, "tol": tol}
-    if not (err <= tol and math.isfinite(err)):
+    bf16 = dtype == torch.bfloat16
+    res = {"kernel": QKV_SOURCES["bfloat16" if bf16 else "float32"], "function": "ln_qkv",
+           "dtype": str(dtype).split(".")[-1], "m": m, "c": c, "inner": c,
+           "max_abs_err": err, "tol": tol, "same_bits_twice": _same_bits(got, again)}
+    if bf16:
+        plan = ln_qkv_sm90_plan(m, c, c, torch.cuda.get_device_properties(0).multi_processor_count)
+        res.update(row_tile=plan["bm"], col_tile=plan["bn"], col_tiles_per_block=plan["per"],
+                   grid_blocks=plan["blocks"])
+    if not (err <= tol and math.isfinite(err) and res["same_bits_twice"]):
         emit(res)
-        raise AssertionError(f"ln_qkv disagrees with its plain version: {res}")
+        raise AssertionError(f"ln_qkv disagrees with its plain version or with itself: {res}")
     if timing:
         flops = 6.0 * m * c * c
         nbytes = args[0].element_size() * (m * c + 3 * m * c + 3 * c * c + 2 * c)
-        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
         res["ms"] = time_ms(lambda: fused_ln_qkv(*args), iters=20)
+        res["device_ms"] = device_ms(lambda: fused_ln_qkv(*args))
         res["plain_ms"] = time_ms(lambda: ln_qkv_plain(*args), iters=3, warmup=1)
         w_cat = torch.cat(args[3:])
-        res["library_ms"] = time_ms(lambda: torch.matmul(F.layer_norm(args[0], (c,), args[1], args[2]), w_cat.t()),
-                                    iters=20)
-        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
-        res["grid_blocks"] = -(-c // 64) * -(-m // 64)
+        lib = lambda: torch.matmul(F.layer_norm(args[0], (c,), args[1], args[2]), w_cat.t())
+        res["library_ms"] = time_ms(lib, iters=20)
+        res["library_device_ms"] = device_ms(lib)
+        res["tflops"] = flops / (res["device_ms"] * 1e-3) / 1e12
     emit(res)
     return res
 
@@ -1009,30 +1100,47 @@ def phase_kernels():
     check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, timing=False)
     check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=256, timing=False)
     check_flash_bwd(gen, 2, 1000, 2100, c=384, heads=2, timing=False)
-    # K8a (with and without SiLU) and K8b under CFG at 16 frames: the UNet's
-    # level 0 and level 2, and the VAE's full-resolution decode of the 16
-    # frames (decode_chunk 0); then C 2560 (the up path's concatenated input
-    # at level 3, wider than a block's threads) and a ragged small slab
-    for key, (n, l, c) in (("gn_l0", (32, 1024, 320)), ("gn_l2", (32, 64, 1280)), ("gn_vae", (16, 65536, 128))):
-        results[key] = check_group_norm(gen, n, l, c)
+    # K8a (with and without SiLU) and K8b at the GroupNorm slabs of a request
+    # under CFG at 16 frames: the UNet's levels 0, 1 and 2 at 256^2 and at
+    # 512^2 (each sample's slab in one cluster launch in bf16), the VAE's
+    # full-resolution decode of the 16 frames at 256^2 and stage 5's batch of
+    # 4 at 512^2 (two launches); each bf16 kernel twice on the same inputs
+    # (the same bits); float32 too. Then C 2560 (the up path's concatenated
+    # input at level 3, wider than a block's threads), ragged L in both
+    # regimes and a small slab.
+    for key, (n, l, c) in (("gn_l0", (32, 1024, 320)), ("gn_l1", (32, 256, 640)), ("gn_l2", (32, 64, 1280)),
+                           ("gn_vae", (16, 65536, 128)), ("gn_512_l0", (32, 4096, 320)),
+                           ("gn_512_l1", (32, 1024, 640)), ("gn_512_l2", (32, 256, 1280)),
+                           ("gn_vae512", (4, 262144, 128))):
+        results[key] = check_group_norm(gen, n, l, c, repeat=True)
         check_group_norm(gen, n, l, c, silu=False, timing=False)
-        results[f"{key}_stats"] = check_group_norm_stats(gen, n, l, c)
+        results[f"{key}_stats"] = check_group_norm_stats(gen, n, l, c, repeat=True)
         for silu in (True, False):
-            check_group_norm(gen, n, l, c, silu=silu, dtype=torch.float32, timing=False)
-        check_group_norm_stats(gen, n, l, c, dtype=torch.float32, timing=False)
-    check_group_norm(gen, 32, 64, 2560, timing=False)
+            check_group_norm(gen, n, l, c, silu=silu, dtype=torch.float32, timing=False, repeat=silu)
+        check_group_norm_stats(gen, n, l, c, dtype=torch.float32, timing=False, repeat=True)
+    check_group_norm(gen, 32, 64, 2560, timing=False, repeat=True)
     check_group_norm(gen, 32, 64, 2560, dtype=torch.float32, timing=False)
     check_group_norm_stats(gen, 32, 64, 2560, timing=False)
+    for n, l, c in ((32, 1000, 320), (2, 66000, 128)):
+        check_group_norm(gen, n, l, c, timing=False, repeat=True)
+        check_group_norm(gen, n, l, c, dtype=torch.float32, timing=False)
+        check_group_norm_stats(gen, n, l, c, timing=False, repeat=True)
     check_group_norm(gen, 2, 100, 64, timing=False)
-    # K7 at the self-attention sites under CFG at 16 frames: level 0 and level 2
-    # (M 32768 x C 320 and M 2048 x C 1280), then level 1, mid, ragged M, float32
-    results["ln_qkv_l0"] = check_ln_qkv(gen, 32768, 320)
-    results["ln_qkv_l2"] = check_ln_qkv(gen, 2048, 1280)
-    check_ln_qkv(gen, 8192, 640, timing=False)
-    check_ln_qkv(gen, 512, 1280, timing=False)
-    check_ln_qkv(gen, 1000, 320, timing=False)
-    check_ln_qkv(gen, 32768, 320, dtype=torch.float32, timing=False)
+    # K7 at the self-attention sites under CFG at 16 frames: levels 0, 1, 2 and
+    # mid at 256^2 (M 32768 / 8192 / 2048 / 512, C 320 / 640 / 1280 / 1280) and at
+    # 512^2 (M x 4), bf16 on ln_qkv_sm90, each twice (the same bits); ragged M,
+    # M below one row tile and C past a 64-column chunk (200); float32 on
+    # ln_qkv_wmma, timed at the float32 step's level 0 (batch 1 x 2 frames under CFG)
+    for key, (m, c) in (("ln_qkv_l0", (32768, 320)), ("ln_qkv_l1", (8192, 640)), ("ln_qkv_l2", (2048, 1280)),
+                        ("ln_qkv_mid", (512, 1280)), ("ln_qkv_512_l0", (131072, 320)),
+                        ("ln_qkv_512_l1", (32768, 640)), ("ln_qkv_512_l2", (8192, 1280)),
+                        ("ln_qkv_512_mid", (2048, 1280))):
+        results[key] = check_ln_qkv(gen, m, c, repeat=True)
+    for m, c in ((1000, 320), (1000, 640), (1000, 1280), (37, 640), (500, 200)):
+        check_ln_qkv(gen, m, c, timing=False, repeat=True)
+    results["ln_qkv_f32"] = check_ln_qkv(gen, 4096, 320, dtype=torch.float32)
     check_ln_qkv(gen, 2048, 1280, dtype=torch.float32, timing=False)
+    check_ln_qkv(gen, 1000, 320, dtype=torch.float32, timing=False)
     # K6 (ff_sm90 without LN) at level 0 under CFG at 256^2 (M 32768 x C 320,
     # the only width the TPU kernel takes), then C 640 and 1280 (which the
     # port takes and the reference leaves to XLA), a ragged M twice (the same
@@ -1468,7 +1576,7 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
         raise AssertionError(f"stage {stage}: trainable leaves left unchanged {stuck[:8]}, "
                              f"{frozen_changed} frozen leaves changed")
     if stage in (0, 5):
-        check_stage05_launches(stage, counts, steps, res["phase"])
+        check_stage05_launches(stage, counts, steps, res["phase"], env=env)
     else:
         check_path_launches(name, counts, train=True, what=f"{name} stage {stage} training {env or ''}", env=env)
     want = res["bwd_sm90_per_step_expected"]
@@ -1479,13 +1587,16 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     return res
 
 
-def stage05_launches(stage: int, dtype: str = "bfloat16", calls: int = 1) -> dict:
+def stage05_launches(stage: int, dtype: str = "bfloat16", calls: int = 1, env=None, cfg=None) -> dict:
     """The kernel launches of `calls` loss-and-gradient passes of stage 0 or
     5, by counter: stage 0's face nets are convolutions and launch none;
     stage 5 differentiates the VAE, whose two mid-attentions (one head of
     dim 512; at 512^2 their 4096 tokens reach KERNEL_MIN_KV) each take one
     packed forward (flash_fwd_sm90 in bf16, flash_fwd_wide in float32) and
-    one backward (flash_bwd_d512, flash_bwd_d512_f32)."""
+    one backward (flash_bwd_d512, flash_bwd_d512_f32). Under
+    EMOX_GROUPNORM_IMPL=pallas (env) every GroupNorm of the VAE's encode and
+    decode (vae_group_norms of cfg, the flagship's by default) takes K8a
+    once; its backward recomputes through the plain formula."""
     from emox_torch.ops import KERNEL_WRAPPERS
 
     want = dict.fromkeys(KERNEL_WRAPPERS, 0)
@@ -1494,11 +1605,14 @@ def stage05_launches(stage: int, dtype: str = "bfloat16", calls: int = 1) -> dic
                     else ("flash_fwd_wide", "flash_bwd_d512_f32"))
         for k in ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd", fwd, bwd):
             want[k] = 2 * calls
+        if "group_norm" in switch_kernels(env):
+            want["group_norm"] = sum(vae_group_norms(cfg or model_config("flagship", 512, 1))) * calls
     return want
 
 
-def check_stage05_launches(stage: int, counts: dict, steps: int, what: str, dtype: str = "bfloat16") -> None:
-    want = stage05_launches(stage, dtype, steps)
+def check_stage05_launches(stage: int, counts: dict, steps: int, what: str, dtype: str = "bfloat16",
+                           env=None) -> None:
+    want = stage05_launches(stage, dtype, steps, env)
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
@@ -2026,7 +2140,7 @@ def phase_long(out_dir: str, requests: int = 2, steps: int = 10, frames: int = 4
 
 # ---- phase 5: where the time of a request goes ---------------------------------------
 _GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("group_norm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("group_norm", ("gn_cluster_kernel", "gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("ln_qkv", ("ln_qkv_kernel",)),
     ("flash_bwd_sm90", ("bwd_sm90::",)),  # ahead of the forward's "sm90::"
     ("flash_bwd_d512", ("bwd_d512::",)),
@@ -2319,7 +2433,7 @@ def main(argv=None) -> int:
                                      name="flagship-sd15")
     # the flagship under the reference's fused-norm switches: GroupNorm K8a (or
     # K8b) and the fused LN + q/k/v (K7); each phase sets its switches itself
-    phase_step(runs=(("_norms", NORMS), ("_norms", NORMS_FAST)))
+    step_norms = phase_step(runs=(("_norms", NORMS), ("_norms", NORMS_FAST)))[0]["launches"]
     serve_norms = phase_serve(args.out, env=NORMS)["launches"]
     serve_fast = phase_serve(args.out, requests=1, env=NORMS_FAST, profile=False)["launches"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2343,6 +2457,9 @@ def main(argv=None) -> int:
             train_step_vae = phase_train_step_vae(tmp)["launches"]
             train_vae512 = phase_train(tmp, stage=5, batch=4, frames=1, warmup=1, steps=3, out_dir=args.out,
                                        size=512, phase="train_vae512")
+            # the same steps with every GroupNorm of the VAE on K8a
+            train_vae512_norms = phase_train(tmp, stage=5, batch=4, frames=1, warmup=1, steps=3, out_dir=args.out,
+                                             size=512, phase="train_vae512_norms", env=GN_PALLAS)
             face, face_tree = phase_face_nets()
             from emox_torch.train.face_nets import load_face_nets_into
 
@@ -2360,7 +2477,9 @@ def main(argv=None) -> int:
                "geglu_ff": geglu, "serve_ff_xla": serve_ff_xla,
                "vae512": vae512, "serve_512": serve_512,
                "train_512_stage2_per_step": train_512["launches_per_step"],
+               "step_norms": step_norms,
                "train_step_vae": train_step_vae, "train_vae512_per_step": train_vae512["launches_per_step"],
+               "train_vae512_norms_per_step": train_vae512_norms["launches_per_step"],
                "face_nets": face["launches"], "train_stage0_per_step": train0["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
@@ -2374,14 +2493,18 @@ def main(argv=None) -> int:
                     flash_fwd_wide=vae512["flash_fwd_wide"], flash_fwd_wmma=step["flash_fwd_wmma"],
                     flash_bwd_wmma=train_step["flash_bwd_wmma"], ff_wmma=step["ff_wmma"],
                     group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
+                    ln_qkv_sm90=serve_norms["ln_qkv_sm90"], ln_qkv_wmma=step_norms["ln_qkv_wmma"],
                     group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"],
                     flash_bwd_d512=train_vae512["launches"]["flash_bwd_d512"],
                     flash_bwd_d512_f32=train_step_vae["flash_bwd_d512_f32"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K7's and K8's times without the host's cost of issuing the calls (device_ms)
+    device_fields = ("device_ms", "library_device_ms")
     shape = lambda k: {x: k[x] for x in ("function", "layout", "dtype", "n", "lq", "lk", "l", "c", "heads", "head_dim",
-                                         "m", "f", "row_tile", "grid_blocks", "smem_bytes", "blocks_per_sm",
-                                         "gemm1_blocks", "gemm2_blocks", "splits", "sms", "library_backend",
-                                         "plain_rows_per_call", "unfused_ms", "tflops") if x in k}
+                                         "m", "f", "row_tile", "col_tile", "col_tiles_per_block", "grid_blocks",
+                                         "smem_bytes", "blocks_per_sm", "gemm1_blocks", "gemm2_blocks", "splits",
+                                         "sms", "regime", "cluster", "chunks", "library_backend",
+                                         "plain_rows_per_call", "unfused_ms", "tflops", "gb_per_s") if x in k}
 
     def entry(source, replaces, main, others, main_launches=None):
         """One row per CUDA kernel: its numbers at `main` (the shape of the
@@ -2393,8 +2516,9 @@ def main(argv=None) -> int:
                 "also_replaces": replaces[1:],
                 "launches": launches[counter] if main_launches is None else main_launches,
                 "launches_by_path": {p: c[counter] for p, c in by_path.items()},
-                **{f: main[f] for f in fields}, "shape": shape(main),
-                "by_shape": [{**shape(k), **{f: k[f] for f in fields}} for k in (main, *others)]}
+                **{f: main[f] for f in (*fields, *device_fields) if f in main}, "shape": shape(main),
+                "by_shape": [{**shape(k), **{f: k[f] for f in (*fields, *device_fields) if f in k}}
+                             for k in (main, *others)]}
 
     emit({"kernels": [
         # one kernel for both layouts' bf16 forward: the packed sites are
@@ -2429,11 +2553,18 @@ def main(argv=None) -> int:
               kern["flash_bwd_d512"], [kern["flash_bwd_d512_2304"]]),
         entry("emox_torch/csrc/flash_bwd_d512.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
               kern["flash_bwd_d512_f32"], []),
+        # K8a and K8b: one cluster launch per call at the UNet's slabs, two at the VAE's
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:184"],
-              kern["gn_l0"], [kern["gn_l2"], kern["gn_vae"]]),
+              kern["gn_l0"], [kern[k] for k in ("gn_l1", "gn_l2", "gn_vae", "gn_512_l0", "gn_512_l1", "gn_512_l2",
+                                                "gn_vae512")]),
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:74"],
-              kern["gn_l0_stats"], [kern["gn_l2_stats"], kern["gn_vae_stats"]]),
-        entry("emox_torch/csrc/ln_qkv.cu", ["emox/ops/ff.py:353"], kern["ln_qkv_l0"], [kern["ln_qkv_l2"]]),
+              kern["gn_l0_stats"], [kern[f"{k}_stats"] for k in ("gn_l1", "gn_l2", "gn_vae", "gn_512_l0", "gn_512_l1",
+                                                                 "gn_512_l2", "gn_vae512")]),
+        # K7: bf16 on the wgmma + TMA kernel (serve_norms), float32 on the WMMA one (step_norms)
+        entry("emox_torch/csrc/ln_qkv_sm90.cu", ["emox/ops/ff.py:353"], kern["ln_qkv_l0"],
+              [kern[k] for k in ("ln_qkv_l1", "ln_qkv_l2", "ln_qkv_mid", "ln_qkv_512_l0", "ln_qkv_512_l1",
+                                 "ln_qkv_512_l2", "ln_qkv_512_mid")]),
+        entry("emox_torch/csrc/ln_qkv.cu", ["emox/ops/ff.py:353"], kern["ln_qkv_f32"], []),
         # its float32 launch in the geglu_ff phase (the other ff_wmma launches
         # are ln_geglu_ff.cu's)
         entry("emox_torch/csrc/geglu_ff.cu", ["emox/ops/ff.py:455"], kern["geglu_ff_f32"], [],

@@ -42,8 +42,11 @@ Kernels (each wrapper counts its launches in `.launches`):
                                EMOX_GROUPNORM_IMPL=pallas
   * group_norm_stats        -> csrc/group_norm.cu (TPU `_gn_stats_kernel`),
                                under EMOX_GROUPNORM_IMPL=fast
-  * fused_ln_qkv            -> csrc/ln_qkv.cu (TPU `_ln_qkv_kernel`), under
-                               EMOX_LN_QKV=1
+  * fused_ln_qkv            -> LN + q/k/v (TPU `_ln_qkv_kernel`), under
+                               EMOX_LN_QKV=1, counted per call, by one of
+                               the kernels below
+  * ln_qkv_sm90             -> csrc/ln_qkv_sm90.cu: bfloat16
+  * ln_qkv_wmma             -> csrc/ln_qkv.cu: float32
 """
 
 from emox_torch.ops.attention import (
@@ -93,7 +96,7 @@ from emox_torch.ops.groupnorm import (
     group_norm_stats_plain,
     group_norm_xla,
 )
-from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_plain, ln_qkv_xla
+from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_plain, ln_qkv_sm90, ln_qkv_wmma, ln_qkv_xla
 
 KERNEL_WRAPPERS = {
     "flash_attn_fwd": flash_attention,
@@ -114,6 +117,8 @@ KERNEL_WRAPPERS = {
     "group_norm": fused_group_norm,
     "group_norm_stats": group_norm_stats,
     "ln_qkv": fused_ln_qkv,
+    "ln_qkv_sm90": ln_qkv_sm90,
+    "ln_qkv_wmma": ln_qkv_wmma,
 }
 
 
@@ -170,6 +175,8 @@ __all__ = [
     "ln_geglu_ff_plain",
     "ln_geglu_ff_xla",
     "ln_qkv_plain",
+    "ln_qkv_sm90",
+    "ln_qkv_wmma",
     "ln_qkv_xla",
     "pad_head_dim",
     "padded_attention",

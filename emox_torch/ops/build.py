@@ -42,9 +42,11 @@ KERNELS = {
     "ln_geglu_ff": {"emox_ln_geglu_ff": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
                     "emox_ln_geglu_ff_plan": [_I, _I, _P]},
     "geglu_ff": {"emox_geglu_ff": [_P] * 6 + [_I] * 4 + [_P]},
-    "group_norm": {"emox_group_norm": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
-                   "emox_group_norm_stats": [_P] * 3 + [_I] * 5 + [_P]},
+    "group_norm": {"emox_group_norm": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+                   "emox_group_norm_stats": [_P] * 3 + [_I] * 6 + [_P],
+                   "emox_group_norm_clusters": [_I] * 5},
     "ln_qkv": {"emox_ln_qkv": [_P] * 9 + [_I] * 3 + [_F, _I, _P]},
+    "ln_qkv_sm90": {"emox_ln_qkv_sm90": [_P] * 9 + [_I] * 4 + [_F, _P]},
 }
 
 _loaded: Dict[str, Dict[str, ctypes._CFuncPtr]] = {}

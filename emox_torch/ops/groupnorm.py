@@ -27,13 +27,18 @@ the CPU tests hold against the reference's kernels in interpret mode. Both
 kernels' gradients recompute through `group_norm_xla`, as the reference's
 `_gn_fused_bwd` and `_gn_fast_bwd` do: neither has a backward kernel.
 
+Both kernels launch by `gn_plan`: where a sample's slab fits the shared
+memory of a thread-block cluster (up to 16 blocks) and, for K8a, the card
+holds every sample's cluster at once (most of the UNet's GroupNorms in
+bfloat16), one launch with a cluster per sample; else two, the statistics
+over row chunks and then the apply (K8a) or the sums' finalize (K8b).
+
 The reference sends a sample's slab to XLA instead of `_gn_kernel` when
 L * C * 4 bytes exceed 8 MB, its TPU's VMEM budget (the VAE's wide sites).
-The CUDA kernel splits each sample's rows across blocks and takes every
-site, so under "pallas" those sites round as `_gn_kernel` rounds (fp32
-apply, one cast) where the reference rounds as `group_norm_xla` does: in
-bfloat16 the two differ by a bf16 step here and there, in float32 not at
-all beyond summation order.
+The CUDA kernels take every site, so under "pallas" those sites round as
+`_gn_kernel` rounds (fp32 apply, one cast) where the reference rounds as
+`group_norm_xla` does: in bfloat16 the two differ by a bf16 step here and
+there, in float32 not at all beyond summation order.
 
 Rounding of `group_norm_xla` follows the reference, not torch's
 F.group_norm: statistics accumulate in fp32, the map is applied as one
@@ -42,18 +47,23 @@ F.group_norm: statistics accumulate in fp32, the map is applied as one
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from emox_torch.ops import build
 from emox_torch.ops.attention import _on_card_or_cpu
+from emox_torch.ops.ff import _sm_count
 
 IMPLS = ("xla", "pallas", "fast", "pallas_interpret", "fast_interpret")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # kGNThreads in csrc/group_norm.cu
-_TARGET_BLOCKS = 4 * 132  # a few blocks per SM of the H100
+_SMS = 132  # the H100's SMs
+_TARGET_BLOCKS = 4 * _SMS  # a few blocks per SM
+SMEM_MAX = 232448  # the 227 KB of shared memory a block may use (kSmemMax)
+MAX_CLUSTER = 16  # blocks per sample in the one-launch regime (the non-portable cluster size)
 
 
 def group_norm_xla(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
@@ -111,6 +121,77 @@ def stats_chunks(n: int, l: int, c: int, itemsize: int) -> int:
     return max(1, min(-(-l // rows_per_pass), -(-_TARGET_BLOCKS // n)))
 
 
+def gn_smem(rows: int, c: int, itemsize: int, groups: int = 32, apply: bool = True) -> int:
+    """Shared memory of one block of the one-launch regime (cluster_smem in
+    csrc/group_norm.cu): its rows of x (K8a only), then in fp32 the tree of
+    per-thread partials [2, rows per pass, C], the totals [2, C] and the
+    group statistics [2, groups], then the mbarriers of its 16 bulk copies
+    at most."""
+    align16 = lambda b: -(-b // 16) * 16
+    vpr = c * itemsize // 16
+    rpp = _THREADS // vpr if vpr <= _THREADS else 1
+    slab = align16(rows * c * itemsize) if apply else 0
+    return slab + align16(4 * (2 * rpp * c + 2 * c + 2 * groups)) + 8 * 16
+
+
+def gn_plan(n: int, l: int, c: int, itemsize: int, groups: int = 32, sms: int = _SMS, apply: bool = True,
+            active: Optional[Callable[[int, int], int]] = None) -> Tuple[str, int, int]:
+    """How the GroupNorm kernels run on x [n, l, c]: (regime, cluster, chunks).
+    The rules follow the regimes' device times on the H100
+    (chip_probe_norms.py).
+
+    "cluster": one launch, a cluster of `cluster` blocks (1-16) per sample
+    (chunks == cluster). K8a (apply): each block holds ceil(l / cluster)
+    rows in shared memory. The candidates are the sizes whose rows fit a
+    block and leave no block empty, with at least 1.5 blocks an SM where
+    the slab allows; the plan takes the smallest that puts all n clusters
+    on the card at once, as `active(k, rows)` counts them (the card's
+    cudaOccupancyMaxActiveClusters; None: unbounded). K8b (apply False)
+    streams its rows: 8 blocks a sample, 16 where a block's rows would pass
+    64 KB.
+    "two_launch": cluster 0, and `chunks` row chunks per sample
+    (stats_chunks) for the statistics and then the apply (K8a) or the
+    finalize (K8b). K8a where no candidate holds all samples at once (in a
+    second wave a sample waits for a whole earlier one): 512^2's level-0
+    slabs, the VAE's wide maps; K8b where the slab does not fit 16 blocks'
+    shared memory (the VAE's full-resolution maps)."""
+    rows = lambda k: -(-l // k)
+    fits = [k for k in range(1, MAX_CLUSTER + 1)
+            if gn_smem(rows(k), c, itemsize, groups) <= SMEM_MAX and (k == 1 or rows(k) * (k - 1) < l)]
+    if not fits:
+        return "two_launch", 0, stats_chunks(n, l, c, itemsize)
+    if not apply:
+        k = 8 if rows(8) * c * itemsize <= 65536 else 16
+        while k > 1 and rows(k) * (k - 1) >= l:
+            k -= 1
+        return "cluster", k, k
+    full = [k for k in fits if 2 * n * k >= 3 * sms] or fits[-1:]
+    pick = next((k for k in full if active is None or active(k, rows(k)) >= n), None)
+    if pick is None:
+        return "two_launch", 0, stats_chunks(n, l, c, itemsize)
+    return "cluster", pick, pick
+
+
+def gn_plan_for(x: torch.Tensor, groups: int = 32, apply: bool = True) -> Tuple[str, int, int]:
+    """gn_plan for x [N, L, C] on its card, with its SMs and the clusters it
+    holds at once: the plan the kernel wrappers launch by."""
+    n, l, c = x.shape
+    index, dtype = x.device.index or 0, _DTYPES[x.dtype]
+    return gn_plan(n, l, c, x.element_size(), groups, _sm_count(index), apply,
+                   active=lambda k, rows: _clusters_held(index, k, rows, c, groups, dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_held(index: int, k: int, rows: int, c: int, groups: int, dtype: int) -> int:
+    """How many clusters of k K8a blocks of `rows` rows the card holds at
+    once (emox_group_norm_clusters)."""
+    with torch.cuda.device(index):
+        got = build.kernel("group_norm", "emox_group_norm_clusters")(k, rows, c, groups, dtype)
+    if got < 0:
+        build.check(-got, "group_norm_clusters")
+    return got
+
+
 def _check_x(name: str, x: torch.Tensor) -> Tuple[int, int, int]:
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
@@ -134,15 +215,14 @@ def _gn_kernel(x, gamma, beta, groups: int, eps: float, silu: bool) -> torch.Ten
     gamma, beta = gamma.contiguous(), beta.contiguous()
     if xc.data_ptr() % 16:
         raise ValueError("group_norm needs a 16-byte aligned x")
-    chunks = stats_chunks(n, l, c, x.element_size())
+    _, cluster, chunks = gn_plan_for(xc, groups)
     y = torch.empty_like(xc)
-    part = torch.empty((2, n, chunks, c), device=x.device, dtype=torch.float32)
-    mean_inv = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
+    part = None if cluster else torch.empty((2, n, chunks, c), device=x.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = build.kernel("group_norm", "emox_group_norm")(
-            xc.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), part.data_ptr(),
-            mean_inv.data_ptr(), n, l, c, groups, chunks, float(eps), int(silu), _DTYPES[x.dtype], stream,
+            xc.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), None if part is None else part.data_ptr(),
+            n, l, c, groups, cluster, chunks, float(eps), int(silu), _DTYPES[x.dtype], stream,
         )
     build.check(err, "group_norm")
     fused_group_norm.launches += 1
@@ -159,13 +239,14 @@ def group_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     xc = x.contiguous()
     if xc.data_ptr() % 16:
         raise ValueError("group_norm_stats needs a 16-byte aligned x")
-    chunks = stats_chunks(n, l, c, x.element_size())
-    part = torch.empty((2, n, chunks, c), device=x.device, dtype=torch.float32)
+    _, cluster, chunks = gn_plan_for(xc, apply=False)
+    part = None if cluster else torch.empty((2, n, chunks, c), device=x.device, dtype=torch.float32)
     sums = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = build.kernel("group_norm", "emox_group_norm_stats")(
-            xc.data_ptr(), part.data_ptr(), sums.data_ptr(), n, l, c, chunks, _DTYPES[x.dtype], stream,
+            xc.data_ptr(), None if part is None else part.data_ptr(), sums.data_ptr(), n, l, c, cluster, chunks,
+            _DTYPES[x.dtype], stream,
         )
     build.check(err, "group_norm_stats")
     group_norm_stats.launches += 1

@@ -2,14 +2,19 @@
 
 Counterpart of the reference's `fused_ln_qkv` (emox/ops/ff.py), which the
 self-attention and temporal-attention sites take under EMOX_LN_QKV (any
-value but unset, empty or "0"). The TPU kernel `_ln_qkv_kernel` (K7)
-becomes the CUDA kernel `ln_qkv` (emox_torch/csrc/ln_qkv.cu), reached
-through the autograd function `fused_ln_qkv`:
+value but unset, empty or "0"). The TPU kernel `_ln_qkv_kernel` (K7) is
+reached through the autograd function `fused_ln_qkv`, whose wrapper counts
+its calls on the card:
 
-  * on a CUDA tensor the wrapper launches the kernel, or raises for an
-    input it does not take; there is no fallback;
+  * on a CUDA tensor it launches the kernel of x's type, or raises for an
+    input neither takes; there is no fallback:
+      - bfloat16 -> `ln_qkv_sm90` (emox_torch/csrc/ln_qkv_sm90.cu): LN in
+        the prologue of one wgmma + TMA GEMM over the three projections'
+        column tiles (C % 8, C <= 1280, inner % 8);
+      - float32 -> `ln_qkv_wmma` (emox_torch/csrc/ln_qkv.cu, WMMA with
+        3xTF32 products; C % 16, inner % 16);
   * on a CPU tensor it runs `ln_qkv_plain`, the same function with the
-    kernel's rounding points in plain PyTorch.
+    kernels' rounding points in plain PyTorch.
 
 The backward recomputes through `ln_qkv_xla` and differentiates it, as the
 reference's `_ln_qkv_bwd` does; there is no backward kernel.
@@ -29,10 +34,40 @@ import torch
 import torch.nn.functional as F
 
 from emox_torch.ops import build
-from emox_torch.ops.attention import _on_card_or_cpu
+from emox_torch.ops.attention import _on_card_or_cpu, _stream
+from emox_torch.ops.ff import _sm_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+SM90_MAX_C = 1280  # the x tile [rows, C] of ln_qkv_sm90.cu stays in shared memory
+# ln_qkv_sm90.cu's tiles by the 64-column chunks of C: (most chunks, BM rows, BN columns, ring stages)
+_SM90_TILES = ((5, 256, 160, 3), (10, 128, 128, 4), (20, 64, 128, 4))
+
+
+def sw128_channel(chunk: int, row: int, unit: int) -> int:
+    """The first channel of the 16-byte unit at physical position `unit`
+    (0-7) of `row` in the 64-column `chunk` of ln_qkv_sm90.cu's x tile,
+    which TMA writes with the 128-byte swizzle (`unit_channel` there): the
+    unit holds the row's logical unit unit ^ (row % 8)."""
+    return 64 * chunk + 8 * (unit ^ (row & 7))
+
+
+def ln_qkv_sm90_plan(m: int, c: int, inner: int, sms: int) -> dict:
+    """How ln_qkv_sm90.cu runs on x [m, c] with three [inner, c] weights:
+    the tile (BM rows, BN columns) and ring for C, its shared memory (the
+    x tile, the ring, mbarriers, alignment slack), the column tiles (each
+    inside one of q, k, v: ceil(inner / BN) per output), and `per`, the
+    column tiles a block takes: the most that divide them evenly and still
+    leave a block for 7 in 8 of the SMs (each block normalises its rows
+    once), else 1."""
+    chunks = -(-c // 64)
+    bm, bn, stages = next((bm, bn, st) for most, bm, bn, st in _SM90_TILES if chunks <= most)
+    rows, col_tiles = -(-m // bm), 3 * -(-inner // bn)
+    per = max((p for p in range(1, col_tiles + 1) if col_tiles % p == 0 and 8 * rows * (col_tiles // p) >= 7 * sms),
+              default=1)
+    smem = chunks * bm * 128 + stages * bn * 128 + 8 * (2 * stages + 4) + 1024
+    return {"bm": bm, "bn": bn, "stages": stages, "smem_bytes": smem, "col_tiles": col_tiles, "per": per,
+            "blocks": rows * (col_tiles // per)}
 
 
 def _ln_qkv_enabled() -> bool:
@@ -65,7 +100,48 @@ def ln_qkv_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, wq: to
     return tuple(F.linear(xn, w.float()).to(x.dtype) for w in (wq, wk, wv))
 
 
+def ln_qkv_sm90(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
+    """Launch ln_qkv_sm90.cu on bf16 x [M, C] and its weights, contiguous and
+    16-byte aligned."""
+    m, c = x.shape
+    inner = wq.shape[0]
+    outs = [torch.empty((m, inner), device=x.device, dtype=x.dtype) for _ in range(3)]
+    per = ln_qkv_sm90_plan(m, c, inner, _sm_count(x.device.index or 0))["per"]
+    with torch.cuda.device(x.device):
+        err = build.kernel("ln_qkv_sm90")(
+            x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+            *(o.data_ptr() for o in outs), m, c, inner, per, float(eps), _stream(x),
+        )
+    build.check(err, "ln_qkv_sm90")
+    ln_qkv_sm90.launches += 1
+    return tuple(outs)
+
+
+ln_qkv_sm90.launches = 0  # kernel launches since the last reset
+
+
+def ln_qkv_wmma(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
+    """Launch the float32 WMMA kernel (ln_qkv.cu) on x [M, C] and its
+    weights, contiguous and 16-byte aligned."""
+    m, c = x.shape
+    inner = wq.shape[0]
+    outs = [torch.empty((m, inner), device=x.device, dtype=x.dtype) for _ in range(3)]
+    with torch.cuda.device(x.device):
+        err = build.kernel("ln_qkv")(
+            x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+            *(o.data_ptr() for o in outs), m, c, inner, float(eps), _DTYPES[x.dtype], _stream(x),
+        )
+    build.check(err, "ln_qkv_wmma")
+    ln_qkv_wmma.launches += 1
+    return tuple(outs)
+
+
+ln_qkv_wmma.launches = 0  # kernel launches since the last reset
+
+
 def _qkv_kernel(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
+    """Check the inputs, then launch the kernel of x's type: bf16 ->
+    ln_qkv_sm90, float32 -> ln_qkv_wmma."""
     c = x.shape[-1]
     inner = wq.shape[0]
     if x.dtype not in _DTYPES:
@@ -74,21 +150,16 @@ def _qkv_kernel(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
     if any(p.dtype != x.dtype or p.device != x.device for p in params):
         raise TypeError("ln_qkv needs every weight on x's device and in x's type")
     shapes = [tuple(p.shape) for p in params]
-    if shapes != [(c,), (c,)] + [(inner, c)] * 3 or c % 16 or inner % 16:
-        raise ValueError(f"ln_qkv shapes: x [.., {c}], weights {shapes} (C % 16, inner % 16)")
+    bf16 = x.dtype == torch.bfloat16
+    mult = 8 if bf16 else 16
+    if shapes != [(c,), (c,)] + [(inner, c)] * 3 or c % mult or inner % mult or (bf16 and c > SM90_MAX_C):
+        raise ValueError(f"ln_qkv shapes: x [.., {c}], weights {shapes} (bfloat16: C % 8, C <= {SM90_MAX_C}, "
+                         "inner % 8 on ln_qkv_sm90; float32: C % 16, inner % 16 on the WMMA kernel)")
     xm = x.reshape(-1, c).contiguous()
     params = tuple(p.contiguous() for p in params)
     if any(t.data_ptr() % 16 for t in (xm, *params)):
         raise ValueError("ln_qkv needs 16-byte aligned inputs")
-    m = xm.shape[0]
-    outs = [torch.empty((m, inner), device=x.device, dtype=x.dtype) for _ in range(3)]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = build.kernel("ln_qkv")(
-            xm.data_ptr(), *(p.data_ptr() for p in params), *(o.data_ptr() for o in outs),
-            m, c, inner, float(eps), _DTYPES[x.dtype], stream,
-        )
-    build.check(err, "ln_qkv")
+    outs = (ln_qkv_sm90 if bf16 else ln_qkv_wmma)(xm, *params, eps)
     fused_ln_qkv.launches += 1
     shape = x.shape[:-1] + (inner,)
     return tuple(o.reshape(shape) for o in outs)
@@ -127,4 +198,4 @@ def fused_ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, wq: to
     return _LnQKV.apply(x, ln_w, ln_b, wq, wk, wv, float(eps))
 
 
-fused_ln_qkv.launches = 0  # kernel launches since the last reset
+fused_ln_qkv.launches = 0  # calls on the card (either kernel) since the last reset

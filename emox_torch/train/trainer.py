@@ -66,7 +66,7 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 class Optimizer:
     """The reference's optimizer over a list of fp32 master tensors, built
     by `make_optimizer`. `step(grads)` takes one micro-step's gradients and
-    returns True when it changed the masters."""
+    returns True when it applied an update (AdamW stepped)."""
 
     def __init__(self, params: List[torch.Tensor], tc: TrainConfig):
         if tc.optimizer == "adafactor":
@@ -94,13 +94,22 @@ class Optimizer:
                 a.add_(g.sub(a), alpha=1.0 / (self.mini_step + 1))
             self.mini_step += 1
             if self.mini_step < self.every:
+                # MultiSteps runs the inner chain on every micro-step and
+                # keeps 0 * its update. Once apply_if_finite gives up on a
+                # non-finite mean, that update is non-finite where the
+                # clipped mean is, and 0 * it puts NaN into the masters there.
+                if self.notfinite_count >= _MAX_CONSECUTIVE_NONFINITE:
+                    norm = global_norm(self.acc)
+                    if not bool(torch.isfinite(norm)):
+                        for p, a in zip(self.params, self.acc):
+                            p.add_(a.div(norm).mul(self.tc.grad_clip_norm).mul(0.0))
                 return False
             self.mini_step = 0
             applied = self._update(self.acc)
-            # optax resets the window as 0 * acc, which keeps a NaN of this
-            # window in the next; the port starts the next window from zero
+            # optax.MultiSteps resets the window as (1 - emit) * acc, so a
+            # NaN or inf of this window stays, as NaN, in every later one
             for a in self.acc:
-                a.zero_()
+                a.mul_(0.0)
             return applied
         return self._update(grads)
 

@@ -38,7 +38,8 @@ def no_kernel_launches():
     assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "flash_fwd_sm90",
                            "flash_fwd_wmma", "flash_fwd_wide", "flash_bwd_sm90", "flash_bwd_wmma", "flash_bwd_d512",
                            "flash_bwd_d512_f32", "ln_geglu_ff",
-                           "geglu_ff", "ff_sm90", "ff_wmma", "group_norm", "group_norm_stats", "ln_qkv"}
+                           "geglu_ff", "ff_sm90", "ff_wmma", "group_norm", "group_norm_stats", "ln_qkv",
+                           "ln_qkv_sm90", "ln_qkv_wmma"}
     assert not any(counts.values()), counts
 
 
