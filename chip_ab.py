@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the port's kernels between two checkouts, on one NVIDIA H100.
 
-    python3 chip_ab.py OTHER_CHECKOUT [--out DIR]
+    python3 chip_ab.py OTHER_CHECKOUT [--out DIR] [--only PREFIX[,PREFIX...]]
 
 Runs the same checks of chip_smoke.py (its `check_*` functions: the kernel
 against its plain version, then CUDA-event times) from OTHER_CHECKOUT and
@@ -9,15 +9,18 @@ from this one, in turns (other, this, this, other), each turn a fresh
 process that builds its own checkout's kernels from its sources, so both
 are timed on the same card in one run. The checks: the fused LN + q/k/v
 (fused_ln_qkv, K7, bf16) at the self-attention sites of the flagship's
-256^2 and 512^2 requests, and GroupNorm + SiLU (fused_group_norm, K8a) and
+256^2 and 512^2 requests; GroupNorm + SiLU (fused_group_norm, K8a) and
 its statistics (group_norm_stats, K8b) at the UNet's and the VAE's slabs,
-bf16. Each check's `ms` is its chip_smoke.py time (CUDA events around 20
-calls); `device_ms` is the same call's device time without the host's
-cost of issuing it (20 calls captured in one CUDA graph, timed by this
-checkout's code for both trees). Prints one JSON line per check and turn,
-then one summary line per check: each checkout's faster turn and their
-ratio. Exits non-zero where a check fails in either checkout or where
-there is no card.
+bf16; the head-dim-512 attention (the VAE's mid-attention): the bf16
+backward at stage 5's 512^2 shape and at 384^2, and the float32 forward at
+one and at 16 512^2 images. `--only` keeps the checks whose labels start
+with one of the prefixes. Each check's `ms` is its chip_smoke.py time
+(CUDA events around the calls); `device_ms` is the same call's device time
+without the host's cost of issuing it (calls captured in one CUDA graph,
+timed by this checkout's code for both trees). Prints one JSON line per
+check and turn, then one summary line per check: each checkout's faster
+turn and their ratio. Exits non-zero where a check fails in either checkout
+or where there is no card.
 """
 
 from __future__ import annotations
@@ -38,12 +41,18 @@ CHECKS = [
         (131072, 320), (32768, 640), (8192, 1280), (2048, 1280))),  # 512^2: levels 0, 1, 2, mid
     *((f"gn_{n}x{l}x{c}", "check_group_norm", (n, l, c), {}) for n, l, c in GN_SLABS),
     *((f"gn_stats_{n}x{l}x{c}", "check_group_norm_stats", (n, l, c), {}) for n, l, c in GN_SLABS),
+    # head dim 512: the bf16 backward (stage 5 at 512^2, and 384^2) and the float32 forward (one image, 16)
+    ("d512_bwd_4x4096", "check_flash_bwd", (4, 4096, 4096), {"c": 512, "heads": 1, "chunk": 1}),
+    ("d512_bwd_2x2304", "check_flash_bwd", (2, 2304, 2304), {"c": 512, "heads": 1, "chunk": 1}),
+    ("d512_fwd_f32_1x4096", "check_flash", (1, 4096, 4096), {"c": 512, "heads": 1, "dtype": "float32"}),
+    ("d512_fwd_f32_16x4096", "check_flash", (16, 4096, 4096), {"c": 512, "heads": 1, "dtype": "float32", "chunk": 4}),
 ]
 
 _TURN = """
 import json, sys, torch
 import chip_smoke as cs
-from emox_torch.ops import fused_group_norm, fused_ln_qkv, group_norm_stats
+from emox_torch.ops import (flash_attention_nlc, flash_attention_nlc_bwd, fused_group_norm, fused_ln_qkv,
+                             group_norm_stats)
 
 def device_ms(fn, iters=20):
     side = torch.cuda.Stream()
@@ -69,9 +78,18 @@ def device_ms(fn, iters=20):
     torch.cuda.empty_cache()
     return ms
 
-def call(fn, args, gen):
+def call(fn, args, gen, kw):
     bf = torch.bfloat16
     rand = lambda *shape, scale=1.0, shift=0.0: (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(bf)
+    if fn in ("check_flash", "check_flash_bwd"):
+        n, lq, lk = args
+        c, heads, dt = kw["c"], kw["heads"], kw.get("dtype", torch.bfloat16)
+        q, k, v = (torch.randn((n, l, c), generator=gen, device="cuda").to(dt) for l in (lq, lk, lk))
+        if fn == "check_flash":
+            return lambda: flash_attention_nlc(q, k, v, heads)
+        o, lse = flash_attention_nlc(q, k, v, heads, return_lse=True)
+        dout = torch.randn((n, lq, c), generator=gen, device="cuda").to(dt)
+        return lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads)
     if fn == "check_ln_qkv":
         m, c = args
         xs = (rand(m, c), rand(c, scale=0.1, shift=1.0), rand(c, scale=0.1),
@@ -87,16 +105,18 @@ def call(fn, args, gen):
 checks = json.loads(sys.argv[1])
 gen = torch.Generator(device="cuda").manual_seed(1234)
 for label, fn, args, kw in checks:
+    if "dtype" in kw:
+        kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
     res = getattr(cs, fn)(gen, *args, **kw)
     print("AB " + json.dumps({"label": label, "kernel": res["kernel"], "ms": res["ms"],
-                              "device_ms": device_ms(call(fn, args, gen)),
+                              "device_ms": device_ms(call(fn, args, gen, kw), iters=10 if "flash" in fn else 20),
                               "bound_ms": res["bound_ms"], "max_abs_err": res["max_abs_err"]}), flush=True)
 """
 
 
-def turn(tree: str, name: str) -> dict:
+def turn(tree: str, name: str, checks: list) -> dict:
     """One turn: every check in a fresh process run from `tree`."""
-    proc = subprocess.run([sys.executable, "-c", _TURN, json.dumps(CHECKS)], cwd=tree, capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", _TURN, json.dumps(checks)], cwd=tree, capture_output=True,
                           text=True)
     results = {}
     for line in proc.stdout.splitlines():
@@ -114,6 +134,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="the other checkout (its root, holding its chip_smoke.py)")
     ap.add_argument("--out", default="", help="directory for the summary (ab.json)")
+    ap.add_argument("--only", default="", help="comma-separated label prefixes of the checks to run (default: all)")
     args = ap.parse_args(argv)
 
     import torch
@@ -125,9 +146,12 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"phase": "device", "nvidia_smi": card, "other": other, "this": ROOT}), flush=True)
-    turns = [turn(other, "other"), turn(ROOT, "this"), turn(ROOT, "this"), turn(other, "other")]
+    prefixes = tuple(p for p in args.only.split(",") if p)
+    checks = [c for c in CHECKS if not prefixes or c[0].startswith(prefixes)]
+    turns = [turn(other, "other", checks), turn(ROOT, "this", checks), turn(ROOT, "this", checks),
+             turn(other, "other", checks)]
     summary = []
-    for label, *_ in CHECKS:
+    for label, *_ in checks:
         best = {(name, key): min(t[label][key] for t in turns if t[label]["tree"] == name)
                 for name in ("other", "this") for key in ("ms", "device_ms")}
         summary.append({"label": label, "other_ms": best["other", "ms"], "this_ms": best["this", "ms"],

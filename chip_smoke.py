@@ -26,7 +26,11 @@ raises and the script exits non-zero. Phases:
      serving shapes of both, at Lk 5 and 16, at head dims 4, 40, 80, 128,
      160, 256 and 512 (the VAE's mid-attention) and ragged; flash_fwd_wmma
      (float32) at the same head dims up to 256, timed at K5's shape;
-     flash_fwd_wide at head dim 512 in float32. The backward runs on one kernel per
+     flash_fwd_d512_f32 (bf16 wgmma on a two-part split, a cluster of two
+     blocks a tile) at head dim 512 in float32, timed at N 1 and 16 x 4096
+     tokens with device_ms; head dims 257-511 are padded to 512 (d 384 at
+     L 4096 and d 300 strided, both types, forward and backward). The
+     backward runs on one kernel per
      type for both layouts too: flash_bwd_sm90 (bf16, head dim <= 128,
      wgmma + TMA) at the training shapes of both (timed), at head dims 4,
      40, 64, 80 and 128 on both layouts with ragged Lq/Lk, with dq only and
@@ -34,8 +38,9 @@ raises and the script exits non-zero. Phases:
      flash_bwd_wmma (flash_attn_bwd.cu: float32, and bf16 at head dims
      129-256) at d 160 in both types, 256, packed 192, and in float32 at
      the float32 train step's shape (timed). Head dim 512 (the VAE's
-     mid-attention, which stage 5 trains): flash_bwd_d512 (bf16) at stage
-     5's shape (N 4, L 4096) and a ragged L 2304, flash_bwd_d512_f32 at N 1,
+     mid-attention, which stage 5 trains): flash_bwd_d512_sm90 (bf16,
+     wgmma + TMA, a cluster of two blocks a tile) at stage 5's shape (N 4,
+     L 4096) and a ragged L 2304 with device_ms, flash_bwd_d512_f32 at N 1,
      L 1024, each timed and twice for the same bits, with dq only, dk/dv
      only and Lq != Lk in both types. The fused-norm kernels: K7 on
      ln_qkv_sm90 (bf16, LN in the prologue of a wgmma + TMA GEMM) at the
@@ -113,7 +118,7 @@ raises and the script exits non-zero. Phases:
      (ff_launches_per_request: 336 per request, each on ff_sm90).
  11. vae512, serve_512, train_512: the flagship at 512^2, the reference's
      train resolution. The VAE encodes and decodes one 512^2 image in
-     float32, card (flash_fwd_wide, head dim 512, in both mid-attentions)
+     float32, card (flash_fwd_d512_f32, head dim 512, in both mid-attentions)
      against CPU;
      three requests and a profiled one as phase 4 at 512^2; Trainer stage 2
      at 512^2, batch 2 x 8 frames (1 warm-up, 2 timed steps, one profiled)
@@ -126,10 +131,10 @@ raises and the script exits non-zero. Phases:
      (VAE pretraining): one float32 step of the flagship VAE at 256^2,
      batch 1, card against CPU (loss and gradients, the same weights and
      posterior noise) under EMOX_ATTENTION_IMPL=pallas, so that both
-     1024-token mid-attentions take flash_fwd_wide and the float32 d-512
+     1024-token mid-attentions take flash_fwd_d512_f32 and the float32 d-512
      backward; then Trainer stage 5 at 512^2 in bf16, batch 4 (1 warm-up, 3
      timed steps, one profiled), 2 launches per step of flash_fwd_sm90 and
-     of flash_bwd_d512 (the encoder's and the decoder's mid-attention);
+     of flash_bwd_d512_sm90 (the encoder's and the decoder's mid-attention);
      then the same steps under EMOX_GROUPNORM_IMPL=pallas
      (train_vae512_norms: every GroupNorm of the VAE on K8a, 52 launches a
      step), with the GroupNorm calls' device time in its profile.
@@ -190,14 +195,14 @@ QKV_SOURCES = {"bfloat16": "ln_qkv_sm90", "float32": "ln_qkv_wmma"}
 # set it (serve_attn_xla, step_attn_pallas).
 SWITCH_VARS += ("EMOX_ATTENTION_IMPL",)
 # the forward kernels behind the two layouts: bf16 (head dim <= 256, and 512:
-# the VAE's mid-attention, packed), float32 (<= 256), float32 at head dim 512
-FWD_SOURCES = ("flash_fwd_sm90", "flash_fwd_wmma", "flash_fwd_wide")
+# the VAE's mid-attention), float32 (<= 256), float32 at head dim 512
+FWD_SOURCES = ("flash_fwd_sm90", "flash_fwd_wmma", "flash_fwd_d512_f32")
 # the backward kernels behind the two layouts: bf16 at head dim <= 128, and
 # float32 (bf16 at 129-256), and head dim 512 in bf16 and in float32 (the
 # VAE's mid-attention, stage 5 only); and the backward launches per stage-2 step of
 # each train path (name, image size): its kernel sites (Lk >= KERNEL_MIN_KV)
 # that the loss differentiates
-BWD_SOURCES = ("flash_bwd_sm90", "flash_bwd_wmma", "flash_bwd_d512", "flash_bwd_d512_f32")
+BWD_SOURCES = ("flash_bwd_sm90", "flash_bwd_wmma", "flash_bwd_d512_sm90", "flash_bwd_d512_f32")
 BWD_PER_STEP = {("flagship", 256): 4, ("flagship", 512): 9, ("flagship-sd15", 256): 4}
 ATTN_XLA = {"EMOX_ATTENTION_IMPL": "xla"}
 ATTN_PALLAS = {"EMOX_ATTENTION_IMPL": "pallas"}
@@ -258,7 +263,7 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     EMOX_FF_IMPL=xla not the fused FF either, under EMOX_ATTENTION_IMPL=xla
     no attention kernel. Every forward launch of either layout went through
     exactly one kernel, the one for the type (dtype): FWD_SOURCES, bf16 never
-    on flash_fwd_wide; every backward launch (train) too: BWD_SOURCES, none
+    on flash_fwd_d512_f32; every backward launch (train) too: BWD_SOURCES, none
     without training; every FF call on the FF kernel of the type:
     FF_SOURCES; every K7 call on the K7 kernel of the type: QKV_SOURCES."""
     env = env or {}
@@ -276,7 +281,7 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     fwd = {"bfloat16": "flash_fwd_sm90", "float32": "flash_fwd_wmma"}[dtype]
     other += [k for k in ("flash_fwd_sm90", "flash_fwd_wmma") if k != fwd]
     if dtype == "bfloat16":
-        other.append("flash_fwd_wide")
+        other.append("flash_fwd_d512_f32")
     bwd = {"bfloat16": "flash_bwd_sm90", "float32": "flash_bwd_wmma"}[dtype]
     other += [k for k in BWD_SOURCES if k != bwd or not train]
     if env.get("EMOX_ATTENTION_IMPL") == "xla":
@@ -384,7 +389,7 @@ def fwd_sources_per_request(cfg, calls: int) -> dict:
     """The same launches by kernel in a bf16 request: every site, the VAE's
     head-dim-512 mid-attention included, on flash_fwd_sm90."""
     return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, calls).values()), "flash_fwd_wmma": 0,
-            "flash_fwd_wide": 0}
+            "flash_fwd_d512_f32": 0}
 
 
 def ff_launches_per_request(cfg, calls: int) -> int:
@@ -521,7 +526,7 @@ def _fwd_kernel(dtype, d: int) -> str:
 
     if dtype == torch.bfloat16:
         return "flash_fwd_sm90"
-    return "flash_fwd_wide" if d == 512 else "flash_fwd_wmma"
+    return "flash_fwd_d512_f32" if 256 < d <= 512 else "flash_fwd_wmma"
 
 
 def _peak(dtype) -> float:
@@ -532,11 +537,12 @@ def _peak(dtype) -> float:
 
 def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0):
     """The packed layout's forward (flash_attention_nlc: flash_fwd_sm90 in
-    bf16, flash_fwd_wmma in float32, flash_fwd_wide at head dim 512) against
+    bf16, flash_fwd_wmma in float32, flash_fwd_d512_f32 at head dims 257-512) against
     attention_nlc_plain (fp32 math on the same inputs, over batch chunks of
     `chunk` rows where the full batch's maps would not fit)."""
     import torch
     import torch.nn.functional as F
+    from emox_torch.ops import attention
     from emox_torch.ops.attention import attention_nlc_plain, flash_attention_nlc
 
     dtype = dtype or torch.bfloat16
@@ -575,6 +581,12 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=20)
         res["library_backend"] = _sdpa_backend(qh, kh, vh)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        if res["kernel"] == "flash_fwd_d512_f32":
+            # the kernel's own work: three bf16 products for each, on the tensor cores
+            res["issued_bound_ms"] = bound(3 * flops, nbytes)[0]
+            plan = attention.fwd_d512_f32_plan(n, heads, lq, lk)
+            res.update(_d512_plan(plan, plan["cluster"]))
+            res["device_ms"] = device_ms(lambda: flash_attention_nlc(q, k, v, heads), iters=10)
     emit(res)
     return res
 
@@ -584,8 +596,8 @@ def _bwd_kernel(dtype, d: int) -> str:
     (either layout): emox_torch.ops.attention's routing."""
     import torch
 
-    if d == 512:
-        return "flash_bwd_d512" if dtype == torch.bfloat16 else "flash_bwd_d512_f32"
+    if 256 < d <= 512:  # 257-511 are padded to 512
+        return "flash_bwd_d512_sm90" if dtype == torch.bfloat16 else "flash_bwd_d512_f32"
     return "flash_bwd_sm90" if dtype == torch.bfloat16 and d <= 128 else "flash_bwd_wmma"
 
 
@@ -626,13 +638,14 @@ def _check_grads(res, run, want, dtype, need_dq: bool, need_dkv: bool, repeat: b
 def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0, need_dq=True,
                     need_dkv=True, repeat=False):
     """K4: dq, dk, dv of flash_attention_nlc_bwd (flash_bwd_sm90 in bf16 at
-    head dim <= 128, flash_bwd_d512 / flash_bwd_d512_f32 at head dim 512,
+    head dim <= 128, flash_bwd_d512_sm90 / flash_bwd_d512_f32 at head dims 257-512,
     flash_bwd_wmma otherwise) against the plain version
     (fp32 math on the same inputs, over batch chunks of `chunk` rows where
     needed), from the fp32 forward's lse and its output rounded to the input
     type; only the gradients asked for (need_dq, need_dkv)."""
     import torch
     import torch.nn.functional as F
+    from emox_torch.ops import attention
     from emox_torch.ops.attention import attention_nlc_bwd_plain, attention_nlc_plain, flash_attention_nlc_bwd
 
     dtype = dtype or torch.bfloat16
@@ -671,8 +684,21 @@ def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chu
         res["library_backend"] = _sdpa_backend(qh, kh, vh)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
         del out
+        if res["kernel"] == "flash_bwd_d512_sm90":
+            # the kernels' own work: S and dP in both, 7 products rather than 5
+            res["issued_bound_ms"] = bound(1.4 * flops, nbytes)[0]
+            plan = attention.bwd_d512_plan(n, heads, lq, lk)
+            res.update(_d512_plan(plan["dq"], plan["cluster"]), dkv_grid_blocks=math.prod(plan["dkv"]["grid"]),
+                       dkv_smem_bytes=plan["dkv"]["smem"])
+            res["device_ms"] = device_ms(lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale), iters=10)
     emit(res)
     return res
+
+
+def _d512_plan(launch: dict, cluster: int) -> dict:
+    """A head-dim-512 launch's grid, shared memory and cluster, as the
+    kernels line reports them."""
+    return {"grid_blocks": math.prod(launch["grid"]), "smem_bytes": launch["smem"], "cluster": cluster}
 
 
 def _packed_heads(gen, n, l, heads, d, dtype):
@@ -1153,13 +1179,22 @@ def phase_kernels():
     check_geglu_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
     # head dim 512, the VAE's mid-attention at 512^2: bf16 on flash_fwd_sm90 at
     # the 16-frame decode (N 16, L 4096), the reference image's encode with a
-    # ragged L, and a ragged Lq != Lk; float32 on flash_fwd_wide, timed at one
-    # image (the float32 vae512 phase)
+    # ragged L, and a ragged Lq != Lk; float32 on flash_fwd_d512_f32,
+    # timed at one image (the float32 vae512 phase) and at N 16, with device_ms
     results["flash_d512"] = check_flash(gen, 16, 4096, 4096, c=512, heads=1)
     check_flash(gen, 1, 4000, 4000, c=512, heads=1, timing=False)
     check_flash(gen, 2, 1000, 2100, c=512, heads=1, timing=False)
     results["flash_d512_f32"] = check_flash(gen, 1, 4096, 4096, c=512, heads=1, dtype=torch.float32)
+    results["flash_d512_f32_n16"] = check_flash(gen, 16, 4096, 4096, c=512, heads=1, dtype=torch.float32, chunk=4)
     check_flash(gen, 2, 1000, 2100, c=512, heads=1, dtype=torch.float32, timing=False)
+    # head dims 257-511: padded to 512 in the wrapper, on the d-512
+    # kernels of each type, forward and backward: d 384 at L 4096 (a VAE of
+    # last width 384 at 512^2) on the packed layout, d 300 on the strided one
+    for dtype in (torch.bfloat16, torch.float32):
+        check_flash(gen, 1, 4096, 4096, c=768, heads=2, dtype=dtype, timing=False)
+        check_flash_bwd(gen, 1, 4096, 4096, c=768, heads=2, dtype=dtype, timing=False, chunk=1)
+        check_flash_strided(gen, 2, 1000, 2100, heads=2, d=300, dtype=dtype, timing=False)
+        check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=300, dtype=dtype, timing=False)
     # flash_fwd_sm90 and flash_bwd_sm90 at the 512^2 level-0 sites (Lq 4096, Lk 8192: reference tokens
     # appended) and level-1 sites (C 640, 10 heads, Lk 2048): serving under
     # CFG (N 32) and stage-2 training (N 16)
@@ -1168,10 +1203,11 @@ def phase_kernels():
     results["flash_bwd_512_l0"] = check_flash_bwd(gen, 16, 4096, 8192, chunk=2)
     results["flash_bwd_512_l1"] = check_flash_bwd(gen, 16, 1024, 2048, c=640, heads=10, chunk=4)
     # K4 at head dim 512, the VAE's mid-attention that stage 5 trains: bf16 on
-    # flash_bwd_d512 at stage 5's 512^2 shape (batch 4, 4096 tokens) and at
-    # 384^2 (2304 tokens, ragged against the 64-row tiles), each twice for the
-    # same bits; float32 on flash_bwd_d512_f32 at one 256^2 image (the float32
-    # step); dq only, dk/dv only and Lq != Lk in both types
+    # flash_bwd_d512_sm90 at stage 5's 512^2 shape (batch 4, 4096
+    # tokens) and at 384^2 (2304 tokens, ragged against the 64-row tiles), each
+    # twice for the same bits, with device_ms; float32 on flash_bwd_d512_f32 at
+    # one 256^2 image (the float32 step); dq only, dk/dv only and Lq != Lk in
+    # both types
     results["flash_bwd_d512"] = check_flash_bwd(gen, 4, 4096, 4096, c=512, heads=1, chunk=1, repeat=True)
     results["flash_bwd_d512_2304"] = check_flash_bwd(gen, 2, 2304, 2304, c=512, heads=1, chunk=1, repeat=True)
     results["flash_bwd_d512_f32"] = check_flash_bwd(gen, 1, 1024, 1024, c=512, heads=1, dtype=torch.float32,
@@ -1375,7 +1411,7 @@ def phase_step_attn_pallas():
            "tol": "pallas no farther than 2x xla", "seconds": {k: v["s"] for k, v in runs.items()},
            "setup_s": setup_s}
     emit(res)
-    if not (layouts == runs["pallas"]["dispatcher_calls"] == on["flash_fwd_sm90"] + on["flash_fwd_wide"] > 0):
+    if not (layouts == runs["pallas"]["dispatcher_calls"] == on["flash_fwd_sm90"] + on["flash_fwd_d512_f32"] > 0):
         raise AssertionError(f"step_attn_pallas: a kernel must launch at each of the "
                              f"{runs['pallas']['dispatcher_calls']} attention calls: {on}")
     if any(v for k, v in runs["xla"]["launches"].items() if k in ("flash_attn_nlc_fwd", "flash_attn_fwd", *FWD_SOURCES)):
@@ -1592,8 +1628,8 @@ def stage05_launches(stage: int, dtype: str = "bfloat16", calls: int = 1, env=No
     5, by counter: stage 0's face nets are convolutions and launch none;
     stage 5 differentiates the VAE, whose two mid-attentions (one head of
     dim 512; at 512^2 their 4096 tokens reach KERNEL_MIN_KV) each take one
-    packed forward (flash_fwd_sm90 in bf16, flash_fwd_wide in float32) and
-    one backward (flash_bwd_d512, flash_bwd_d512_f32). Under
+    packed forward (flash_fwd_sm90 in bf16, flash_fwd_d512_f32 in float32)
+    and one backward (flash_bwd_d512_sm90, flash_bwd_d512_f32). Under
     EMOX_GROUPNORM_IMPL=pallas (env) every GroupNorm of the VAE's encode and
     decode (vae_group_norms of cfg, the flagship's by default) takes K8a
     once; its backward recomputes through the plain formula."""
@@ -1601,8 +1637,8 @@ def stage05_launches(stage: int, dtype: str = "bfloat16", calls: int = 1, env=No
 
     want = dict.fromkeys(KERNEL_WRAPPERS, 0)
     if stage == 5:
-        fwd, bwd = (("flash_fwd_sm90", "flash_bwd_d512") if dtype == "bfloat16"
-                    else ("flash_fwd_wide", "flash_bwd_d512_f32"))
+        fwd, bwd = (("flash_fwd_sm90", "flash_bwd_d512_sm90") if dtype == "bfloat16"
+                    else ("flash_fwd_d512_f32", "flash_bwd_d512_f32"))
         for k in ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd", fwd, bwd):
             want[k] = 2 * calls
         if "group_norm" in switch_kernels(env):
@@ -1622,7 +1658,7 @@ def phase_train_step_vae(tmp: str, size: int = 256):
     size^2, batch 1: the loss and the VAE's gradients on the card against the same
     weights, images and posterior noise on the CPU, TF32 off, under
     EMOX_ATTENTION_IMPL=pallas, so that both (size/8)^2-token mid-attentions
-    take the float32 head-dim-512 kernels (flash_fwd_wide,
+    take the float32 head-dim-512 kernels (flash_fwd_d512_f32,
     flash_bwd_d512_f32) and nothing else launches."""
     import torch
     from emox_torch.core.presets import tiny_config
@@ -2143,10 +2179,11 @@ _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("group_norm", ("gn_cluster_kernel", "gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("ln_qkv", ("ln_qkv_kernel",)),
     ("flash_bwd_sm90", ("bwd_sm90::",)),  # ahead of the forward's "sm90::"
-    ("flash_bwd_d512", ("bwd_d512::",)),
+    ("flash_bwd_d512_sm90", ("bwd_d512_sm90::",)),
+    ("flash_bwd_d512_f32", ("bwd_d512::",)),
+    ("flash_fwd_d512_f32", ("fwd_d512_f32::",)),
     ("ff_sm90", ("ff_sm90::",)),  # the FF's LN pass and GEMMs, ahead of "sm90::"
     ("flash_fwd_sm90", ("sm90::",)),
-    ("flash_fwd_wide", ("flash_attn_nlc_fwd",)),
     ("flash_fwd_wmma", ("flash_fwd::",)),
     ("flash_bwd_wmma", ("flash_bwd_strided::",)),
     ("ff_wmma", ("ln_geglu_ff", "geglu_ff_kernel")),
@@ -2257,7 +2294,7 @@ def phase_profile(run, label: str, out_dir: str, filename: str) -> dict:
 def phase_vae512(size: int = 512):
     """The flagship VAE (random weights from a seed) encodes one size^2
     image (posterior mean) and decodes it, float32, on the card
-    (flash_fwd_wide, head dim 512, in both mid-attentions: (size/8)^2 tokens) against the same
+    (flash_fwd_d512_f32, head dim 512, in both mid-attentions: (size/8)^2 tokens) against the same
     weights on the CPU (plain versions), TF32 off for matmuls and
     convolutions."""
     import copy
@@ -2302,9 +2339,9 @@ def phase_vae512(size: int = 512):
     emit(res)
     if not all(math.isfinite(v) and v <= tol for v in rel.values()):
         raise AssertionError(f"vae512: card and CPU disagree: {rel}")
-    want = {"flash_attn_nlc_fwd": 2, "flash_fwd_wide": 2}  # the packed layout's head-dim-512 kernel
+    want = {"flash_attn_nlc_fwd": 2, "flash_fwd_d512_f32": 2}  # the float32 head-dim-512 kernel
     if any(n != want.get(k, 0) for k, n in counts.items()):
-        raise AssertionError(f"vae512: flash_fwd_wide must launch at both mid-attentions and nothing else: {counts}")
+        raise AssertionError(f"vae512: flash_fwd_d512_f32 must launch at both mid-attentions and nothing else: {counts}")
     del cpu, gpu, on_cpu, on_gpu
     torch.backends.cudnn.allow_tf32 = True
     return res
@@ -2443,7 +2480,7 @@ def main(argv=None) -> int:
     # the plain FF (the end-to-end A/B of K2/K3)
     geglu = phase_geglu_ff()["launches"]
     serve_ff_xla = phase_serve(args.out, requests=2, env=FF_XLA)["launches"]
-    # 512^2, the reference's train resolution: the float32 VAE (flash_fwd_wide,
+    # 512^2, the reference's train resolution: the float32 VAE (flash_fwd_d512_f32,
     # head dim 512, in its mid-attention), then serving (the bf16 VAE's d 512 on
     # flash_fwd_sm90) and stage-2 training at full width and depth
     with switches():
@@ -2483,27 +2520,28 @@ def main(argv=None) -> int:
                "face_nets": face["launches"], "train_stage0_per_step": train0["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
-    # flash_fwd_wide in the float32 512^2 VAE, flash_fwd_wmma and ff_wmma on
+    # flash_fwd_d512_f32 in the float32 512^2 VAE, flash_fwd_wmma and ff_wmma on
     # the float32 step), the timed stage-2 training steps for the backward
     # (flash_bwd_sm90; flash_bwd_wmma on the float32 train step; at head dim
     # 512 the stage-5 steps); the switch
     # kernels' on the serving path under their switches; K6's WMMA kernel
     # through its entry points (geglu_ff, float32)
     launches = dict(launches, flash_bwd_sm90=train2["launches"]["flash_bwd_sm90"],
-                    flash_fwd_wide=vae512["flash_fwd_wide"], flash_fwd_wmma=step["flash_fwd_wmma"],
+                    flash_fwd_d512_f32=vae512["flash_fwd_d512_f32"], flash_fwd_wmma=step["flash_fwd_wmma"],
                     flash_bwd_wmma=train_step["flash_bwd_wmma"], ff_wmma=step["ff_wmma"],
                     group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
                     ln_qkv_sm90=serve_norms["ln_qkv_sm90"], ln_qkv_wmma=step_norms["ln_qkv_wmma"],
                     group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"],
-                    flash_bwd_d512=train_vae512["launches"]["flash_bwd_d512"],
+                    flash_bwd_d512_sm90=train_vae512["launches"]["flash_bwd_d512_sm90"],
                     flash_bwd_d512_f32=train_step_vae["flash_bwd_d512_f32"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K7's and K8's times without the host's cost of issuing the calls (device_ms)
-    device_fields = ("device_ms", "library_device_ms")
+    # K7's, K8's and the head-dim-512 kernels' times without the host's cost of
+    # issuing the calls (device_ms); the latter's bound of the work they issue
+    device_fields = ("device_ms", "library_device_ms", "issued_bound_ms")
     shape = lambda k: {x: k[x] for x in ("function", "layout", "dtype", "n", "lq", "lk", "l", "c", "heads", "head_dim",
                                          "m", "f", "row_tile", "col_tile", "col_tiles_per_block", "grid_blocks",
                                          "smem_bytes", "blocks_per_sm", "gemm1_blocks", "gemm2_blocks", "splits",
-                                         "sms", "regime", "cluster", "chunks", "library_backend",
+                                         "sms", "regime", "cluster", "chunks", "library_backend", "dkv_grid_blocks", "dkv_smem_bytes",
                                          "plain_rows_per_call", "unfused_ms", "tflops", "gb_per_s") if x in k}
 
     def entry(source, replaces, main, others, main_launches=None):
@@ -2526,7 +2564,8 @@ def main(argv=None) -> int:
         entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
               kern["flash_n32"], [kern["flash_n16"], kern["flash_n128"], kern["flash_512_l0"], kern["flash_512_l1"],
                                   kern["flash_strided_n32"], kern["flash_strided_n16"], kern["flash_d512"]]),
-        entry("emox_torch/csrc/flash_attn_nlc.cu", ["emox/ops/attention.py:409"], kern["flash_d512_f32"], []),
+        entry("emox_torch/csrc/flash_fwd_d512_f32.cu", ["emox/ops/attention.py:409"], kern["flash_d512_f32"],
+              [kern["flash_d512_f32_n16"]]),
         entry("emox_torch/csrc/flash_attn.cu", ["emox/ops/attention.py:69", "emox/ops/attention.py:409"],
               kern["flash_wmma_n32"], []),
         # one launch entry for the three TPU FF kernels in bf16: level 0 is
@@ -2549,7 +2588,7 @@ def main(argv=None) -> int:
               kern["flash_bwd_wmma_f32"], []),
         # K4's pair at head dim 512 (the VAE's mid-attention, stage 5): bf16 on
         # the timed stage-5 steps at 512^2, float32 in train_step_vae
-        entry("emox_torch/csrc/flash_bwd_d512.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
+        entry("emox_torch/csrc/flash_bwd_d512_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
               kern["flash_bwd_d512"], [kern["flash_bwd_d512_2304"]]),
         entry("emox_torch/csrc/flash_bwd_d512.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
               kern["flash_bwd_d512_f32"], []),

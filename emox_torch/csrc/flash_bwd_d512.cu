@@ -1,40 +1,38 @@
-// Flash-attention backward at head dim 512 on WMMA (sm_90a), bf16 and float32 (3xTF32).
+// Flash-attention backward at head dim 512 on WMMA (sm_90a), float32 (3xTF32).
 //
 // Replaces the TPU kernels `_flash_bwd_nlc_dq_kernel` and
 // `_flash_bwd_nlc_dkv_kernel` (emox/ops/attention.py:465,508) where the head
-// dim is 512: the gradient of the VAE's single-head mid-attention, which only
-// VAE pretraining (stage 5) differentiates. From q, k, v, the output gradient
-// dO, the forward's log-sum-exp lse and delta = sum_d dO*O per row (both
-// fp32, computed outside the kernels as the TPU path computes delta), it
-// returns
+// dim is 512 and the type float32: the gradient of the float32 VAE's
+// single-head mid-attention (the train_step_vae check holds the card against
+// the CPU there). bf16 at head dim 512, stage 5's path, runs on
+// flash_bwd_d512_sm90.cu (wgmma + TMA). From q, k, v, the output gradient dO,
+// the forward's log-sum-exp lse and delta = sum_d dO*O per row (both fp32,
+// computed outside the kernels as the TPU path computes delta), it returns
 //   P = exp(q k^T * scale - lse),  dv = P^T dO,  dS = P (dO v^T - delta),
 //   dq = dS k * scale,             dk = dS^T q * scale.
 // The operands are [B, H, L, 512] with element strides (batch, head, row), so
 // head-split views of packed tokens [N, L, H*512] need no copy.
 //
-// What bounds it on the H100: stage 5 at 512^2 (N 4, L 4096, H 1) needs
-// 10*N*H*L*L*d = 344 GFLOP against 134 MB of operands and gradients: the
-// tensor cores, 0.347 ms at 989 TFLOP/s. What makes d 512 hard is room, not
-// work: the fp32 accumulator of one 64-row gradient tile is 128 KB, half the
-// SM's registers, and one 64 x 512 bf16 operand tile is 64 KB of the 227 KB
-// of shared memory a block can have. The design:
+// What bounds it on the H100: at N 1, L 1024 the function is 10*N*L*L*d =
+// 5.4 GFLOP, 0.080 ms at the CUDA cores' 67 TFLOP/s. What makes d 512 hard
+// is room, not work: the fp32 accumulator of one gradient tile of width 512
+// is 2 KB a row, and one float32 operand tile of width 512 2 KB a row of the
+// 227 KB of shared memory a block can have. The design:
 //   * two kernels, as the TPU kernels are, each block owning the rows it
 //     writes: no atomics, and the same bits from run to run. Both kernels
 //     compute S and dP (7 products of N*H*L*L*d multiply-adds, not 5);
 //   * dq kernel, a block per (32 query rows, head, batch), 8 warps: the Q and
-//     dO tiles stay in shared memory, K and V tiles (64 keys in bf16, 16 in
-//     float32) stream through it. S = Q K^T and dP = dO V^T (each warp one
-//     16-row strip of one of them, 32 keys wide in bf16 and 16 in float32,
-//     512 deep), dS = P (dP - delta) rounded to the input type, then
-//     dQ += dS K with the 32 x 512 fp32 accumulator split over the warps (a
-//     16 x 128 strip each: 64 registers a thread);
-//   * dkv kernel, a block per (32 keys in bf16, 16 in float32; head, batch),
-//     8 warps: K and V stay, Q and dO tiles (64 rows in bf16, 32 in float32)
-//     stream. S^T = K Q^T and dP^T = V dO^T, P^T and dS^T rounded to the
-//     input type, then dV += P^T dO and dK += dS^T Q, both fp32 accumulators
-//     split over the warps (128 registers a thread in bf16, 64 in float32);
+//     dO tiles stay in shared memory, 16-key K and V tiles stream through it.
+//     S = Q K^T and dP = dO V^T (each warp one 16-row strip of one of them,
+//     16 keys wide, 512 deep), dS = P (dP - delta), then dQ += dS K with the
+//     32 x 512 fp32 accumulator split over the warps (a 16 x 128 strip each:
+//     64 registers a thread);
+//   * dkv kernel, a block per (16 keys, head, batch), 8 warps: K and V stay,
+//     32-row Q and dO tiles stream. S^T = K Q^T and dP^T = V dO^T, then
+//     dV += P^T dO and dK += dS^T Q, both fp32 accumulators split over the
+//     warps (64 registers a thread);
 //   * the tiles are staged by 16-byte cp.async copies and multiplied by WMMA
-//     with fp32 accumulation (3xTF32 in float32). Shared memory holds one
+//     in the 3xTF32 split with fp32 accumulation. Shared memory holds one
 //     tile of each operand, so a streamed tile is refilled as soon as its
 //     last product is done: in the dq kernel V's next tile loads during the
 //     dS step and dQ += dS K, in the dkv kernel Q's next tile during
@@ -44,9 +42,7 @@
 //     q and dO rows are zero-filled) give P = 0 and dS = 0. Keys at or past
 //     Lk are zero-filled and masked to P = 0; only rows below Lq (dq) and Lk
 //     (dk, dv) are written.
-// This is the simple, right version; wgmma with the accumulators split over
-// two consumer warpgroups and TMA-fed rings is the redesign (ROADMAP.md,
-// Queue 2).
+// This is the simple, right version (ROADMAP.md, Queue 2).
 #include "common.cuh"
 
 namespace emox {
@@ -87,35 +83,11 @@ __device__ __forceinline__ void load_tile_async(T* dst, int ld, const T* src, lo
 
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
-// WMMA operand fragments of one 16-deep (bf16) or 8-deep (TF32) step; an
-// operand is loaded once and may feed several products. float32 operands
-// are split into TF32 high and low parts for the 3xTF32 product.
+// WMMA operand fragments of one 8-deep TF32 step; an operand is loaded once
+// and may feed several products, split into TF32 high and low parts for the
+// 3xTF32 product.
 template <typename T>
 struct Frag;
-
-template <>
-struct Frag<__nv_bfloat16> {
-  static constexpr int K = 16;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  struct A {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> x;
-  };
-  template <typename L>
-  struct B {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, L> x;
-  };
-  static __device__ __forceinline__ void load(A& a, const __nv_bfloat16* p, int ld) {
-    wmma::load_matrix_sync(a.x, p, ld);
-  }
-  template <typename L>
-  static __device__ __forceinline__ void load(B<L>& b, const __nv_bfloat16* p, int ld) {
-    wmma::load_matrix_sync(b.x, p, ld);
-  }
-  template <typename L>
-  static __device__ __forceinline__ void mma(Acc& c, const A& a, const B<L>& b) {
-    wmma::mma_sync(c, a.x, b.x, c);
-  }
-};
 
 template <typename F>
 __device__ __forceinline__ void split_tf32(F& hi, F& lo) {
@@ -228,8 +200,8 @@ __device__ __forceinline__ void store_tile(T* out, long long stride, const typen
 template <typename T>
 struct DqLayout {
   static constexpr int BQ = 32;                        // query rows a block owns
-  static constexpr int BK = sizeof(T) == 2 ? 64 : 16;  // keys a streamed tile
-  static constexpr int NB = BK >= 32 ? 2 : 1;          // key fragments a warp's S or dP strip
+  static constexpr int BK = 16;                        // keys a streamed tile
+  static constexpr int NB = 1;                         // key fragments a warp's S or dP strip
   static constexpr int LDT = D + Pad<T>::value;        // q, dO, k, v tiles (T)
   static constexpr int LDS = BK + 4;                   // S and dP (fp32)
   static constexpr int LDP = BK + Pad<T>::value;       // dS (T)
@@ -339,9 +311,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <typename T>
 struct DkvLayout {
-  static constexpr int BK = sizeof(T) == 2 ? 32 : 16;  // keys a block owns
-  static constexpr int BQ = sizeof(T) == 2 ? 64 : 32;  // query rows a streamed tile
-  static constexpr int NB = sizeof(T) == 2 ? 2 : 1;    // query fragments a warp's S^T or dP^T strip
+  static constexpr int BK = 16;                        // keys a block owns
+  static constexpr int BQ = 32;                        // query rows a streamed tile
+  static constexpr int NB = 1;                         // query fragments a warp's S^T or dP^T strip
   static constexpr int LDT = D + Pad<T>::value;        // k, v, q, dO tiles (T)
   static constexpr int LDS = BQ + 4;                   // S^T and dP^T (fp32)
   static constexpr int LDP = BQ + Pad<T>::value;       // P^T and dS^T (T)
@@ -503,32 +475,27 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const voi
 }  // namespace bwd_d512
 }  // namespace emox
 
-// dtype: 0 = float32, 1 = bfloat16. q, dout [batch, heads, lq, 512]; k, v
-// [batch, heads, lk, 512]; dq like q, dk and dv like k; each with its head
-// dim contiguous, every row 16-byte aligned, and the element strides (batch,
-// head, row) given in `strides` in the order q, k, v, dout, dq, dk, dv (21
-// values; those of an output not asked for are ignored). lse and delta
-// [batch, heads, lq_pad] float32, contiguous, lq_pad a multiple of 64 with
-// lq <= lq_pad < lq + 64, padded with +inf and 0. dq == NULL skips the dq
-// kernel; dk and dv are both given (the dkv kernel runs) or both NULL.
-// Returns a cudaError_t (0 = launched).
+// float32 q, dout [batch, heads, lq, 512]; k, v [batch, heads, lk, 512]; dq
+// like q, dk and dv like k; each with its head dim contiguous, every row
+// 16-byte aligned, and the element strides (batch, head, row) given in
+// `strides` in the order q, k, v, dout, dq, dk, dv (21 values; those of an
+// output not asked for are ignored). lse and delta [batch, heads, lq_pad]
+// float32, contiguous, lq_pad a multiple of 64 with lq <= lq_pad < lq + 64,
+// padded with +inf and 0. dq == NULL skips the dq kernel; dk and dv are both
+// given (the dkv kernel runs) or both NULL. Returns a cudaError_t (0 =
+// launched).
 extern "C" int emox_flash_bwd_d512(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                    const void* delta, void* dq, void* dk, void* dv, const long long* strides,
-                                   int batch, int heads, int lq, int lk, int lq_pad, float scale, int dtype,
-                                   void* stream) {
+                                   int batch, int heads, int lq, int lk, int lq_pad, float scale, void* stream) {
   using namespace emox;
   using namespace emox::bwd_d512;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || lq_pad < lq ||
-      lq_pad % kLqPad || lq_pad >= lq + kLqPad || (dk == nullptr) != (dv == nullptr) || (dtype != 0 && dtype != 1)) {
+      lq_pad % kLqPad || lq_pad >= lq + kLqPad || (dk == nullptr) != (dv == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Args st;
   Strides3* all[7] = {&st.q, &st.k, &st.v, &st.g, &st.dq, &st.dk, &st.dv};
   for (int i = 0; i < 7; ++i) *all[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  if (dtype == 1) {
-    return (int)launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, st, batch, heads, lq, lk, lq_pad, scale,
-                                      s);
-  }
   return (int)launch<float>(q, k, v, dout, lse, delta, dq, dk, dv, st, batch, heads, lq, lk, lq_pad, scale, s);
 }

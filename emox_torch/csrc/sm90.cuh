@@ -1,9 +1,10 @@
 // Shared Hopper (sm_90a) building blocks of the port's wgmma + TMA kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, ff_sm90.cu): PTX wrappers for
-// mbarriers, TMA tile and bulk loads and wgmma, the shared-memory descriptor
-// of a 128-byte-swizzled tile, and the host code that encodes a TMA tensor
-// map of a [B, H, L, d] bf16 operand with element strides or of a row-major
-// [rows, cols] bf16 matrix.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, ff_sm90.cu, ln_qkv_sm90.cu,
+// flash_bwd_d512_sm90.cu, flash_fwd_d512_f32.cu): PTX wrappers for
+// mbarriers (local, and across the blocks of a cluster), TMA tile and bulk
+// loads and wgmma, the shared-memory descriptor of a 128-byte-swizzled tile,
+// and the host code that encodes a TMA tensor map of a [B, H, L, d] bf16
+// operand with element strides or of a row-major [rows, cols] bf16 matrix.
 #pragma once
 
 #include <cuda.h>
@@ -110,10 +111,116 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ---- thread-block clusters: a pair of blocks exchanging partial products ----------
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `addr` (a shared::cta address of this
+// block) in the block of rank `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes into another block's shared memory (an address from map_rank),
+// counted as complete-tx bytes on that block's mbarrier `remote_bar` (also
+// from map_rank) once they have landed: no release fence on this side.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b, float c, float d, uint32_t remote_bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar)
+               : "memory");
+}
+
+// Arrive on an mbarrier of another block (an address from map_rank), with
+// release semantics at cluster scope: this thread's earlier accesses to
+// shared memory (the reads of a slot it frees) are ordered before the
+// arrival.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote_bar) : "memory");
+}
+
+// Wait for the phase of parity `parity` of a barrier of this block that
+// another block arrives on, acquiring at cluster scope what that block wrote
+// before its arrival. (A CTA-scope poll followed by fence.acq_rel.cluster
+// measured 20 % slower on the backward's exchange.)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT_CLUSTER_%=:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT_CLUSTER_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The 256 threads of the two consumer warpgroups (named barrier 1).
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// The 128 threads of consumer warpgroup `wg` (named barrier 2 + wg).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// A warpgroup's N accumulator values a thread (an m64n(2N) product), in
+// fragment order (float4 i of thread t at (i * 128 + t) * 16 bytes), into the
+// block of rank `peer` at shared address `slot`, each 16 bytes counted on
+// that block's barrier `bar` (a shared::cta address of ours, mapped there)
+// as they land: the receiver arms it for 128 * N * 4 bytes a phase.
+template <int N>
+__device__ __forceinline__ void send_part(uint32_t slot, uint32_t bar, uint32_t peer, const float* x, int t) {
+  const uint32_t remote = map_rank(slot, peer), remote_bar = map_rank(bar, peer);
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    st_async_v4(remote + (i * 128 + t) * 16, x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3], remote_bar);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_part(uint8_t* slot, const float* x, int t) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    *reinterpret_cast<float4*>(slot + (i * 128 + t) * 16) = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  }
+}
+
+// x[i] += the part at `slot` (this block's shared memory)
+template <int N>
+__device__ __forceinline__ void add_part(float* x, const uint8_t* slot, int t) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 p = *reinterpret_cast<const float4*>(slot + (i * 128 + t) * 16);
+    x[4 * i] += p.x;
+    x[4 * i + 1] += p.y;
+    x[4 * i + 2] += p.z;
+    x[4 * i + 3] += p.w;
+  }
+}
+
 template <int N>
 struct Wgmma;
 template <int N>
 struct WgmmaRS;
+
+template <>
+struct Wgmma<32> {
+  // d[16] (+)= A(64x16, shared, K-major) * B(16x32, shared, K-major); scale_d 0 overwrites d
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
 
 template <>
 struct Wgmma<64> {

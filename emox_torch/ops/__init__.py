@@ -7,12 +7,11 @@ Kernels (each wrapper counts its launches in `.launches`):
   * flash_attention_nlc     -> the attention forward on packed tokens (TPU
                                `_flash_nlc_kernel`), counted per call
   * flash_fwd_sm90          -> csrc/flash_fwd_sm90.cu: both layouts' forward,
-                               bfloat16, head dim <= 256, and the packed
-                               forward at head dim 512
+                               bfloat16, head dim <= 256 and 512
   * flash_fwd_wmma          -> csrc/flash_attn.cu: both layouts' forward,
                                float32, head dim <= 256
-  * flash_fwd_wide          -> csrc/flash_attn_nlc.cu: the packed forward at
-                               head dim 512, float32
+  * flash_fwd_d512_f32      -> csrc/flash_fwd_d512_f32.cu: both layouts'
+                               forward at head dim 512, float32
   * flash_attention_bwd     -> the backward of flash_attention (TPU
                                `_flash_bwd_dq_kernel` and
                                `_flash_bwd_dkv_kernel`), counted per call, by
@@ -26,9 +25,9 @@ Kernels (each wrapper counts its launches in `.launches`):
   * flash_bwd_wmma          -> csrc/flash_attn_bwd.cu: both layouts'
                                backward, float32 (head dim <= 256) and
                                bfloat16 at head dims 129-256
-  * flash_bwd_d512          -> csrc/flash_bwd_d512.cu: the packed
+  * flash_bwd_d512_sm90     -> csrc/flash_bwd_d512_sm90.cu: both layouts'
                                backward at head dim 512, bfloat16
-  * flash_bwd_d512_f32      -> the same kernels in float32
+  * flash_bwd_d512_f32      -> csrc/flash_bwd_d512.cu: the same in float32
   * fused_ln_geglu_ff       -> LN + GEGLU FF + residual (TPU `_ln_ff_kernel`
                                and `_ln_ff_wide_kernel`), counted per call,
                                by one of the kernels below
@@ -64,12 +63,12 @@ from emox_torch.ops.attention import (
     flash_attention_bwd,
     flash_attention_nlc,
     flash_attention_nlc_bwd,
-    flash_bwd_d512,
     flash_bwd_d512_f32,
+    flash_bwd_d512_sm90,
     flash_bwd_sm90,
     flash_bwd_wmma,
+    flash_fwd_d512_f32,
     flash_fwd_sm90,
-    flash_fwd_wide,
     flash_fwd_wmma,
     pad_head_dim,
     padded_attention,
@@ -105,10 +104,10 @@ KERNEL_WRAPPERS = {
     "flash_attn_nlc_bwd": flash_attention_nlc_bwd,
     "flash_fwd_sm90": flash_fwd_sm90,
     "flash_fwd_wmma": flash_fwd_wmma,
-    "flash_fwd_wide": flash_fwd_wide,
+    "flash_fwd_d512_f32": flash_fwd_d512_f32,
     "flash_bwd_sm90": flash_bwd_sm90,
     "flash_bwd_wmma": flash_bwd_wmma,
-    "flash_bwd_d512": flash_bwd_d512,
+    "flash_bwd_d512_sm90": flash_bwd_d512_sm90,
     "flash_bwd_d512_f32": flash_bwd_d512_f32,
     "ln_geglu_ff": fused_ln_geglu_ff,
     "geglu_ff": fused_geglu_ff,
@@ -150,12 +149,12 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_nlc",
     "flash_attention_nlc_bwd",
-    "flash_bwd_d512",
     "flash_bwd_d512_f32",
+    "flash_bwd_d512_sm90",
     "flash_bwd_sm90",
     "flash_bwd_wmma",
+    "flash_fwd_d512_f32",
     "flash_fwd_sm90",
-    "flash_fwd_wide",
     "flash_fwd_wmma",
     "fused_geglu_ff",
     "fused_group_norm",

@@ -14,29 +14,32 @@ Both are autograd functions whose forward saves (q, k, v, out, lse) and whose
 backward recomputes from them. On a CUDA tensor each wrapper launches a
 kernel, or raises for an input no kernel takes; there is no fallback:
 
-  * forward, bfloat16, head dim <= 256 and, packed, 512 (the VAE's
-    single-head mid-attention): `flash_fwd_sm90`
-    (emox_torch/csrc/flash_fwd_sm90.cu, wgmma + TMA), one kernel for both
-    layouts;
+  * forward, bfloat16, head dim <= 256 and 512 (the VAE's single-head
+    mid-attention): `flash_fwd_sm90` (emox_torch/csrc/flash_fwd_sm90.cu,
+    wgmma + TMA), one kernel for both layouts;
   * forward, float32, head dim <= 256: `flash_fwd_wmma`
     (emox_torch/csrc/flash_attn.cu, 3xTF32 WMMA), both layouts;
-  * forward, float32, head dim 512, packed: `flash_fwd_wide`
-    (emox_torch/csrc/flash_attn_nlc.cu);
+  * forward, float32, head dim 512: `flash_fwd_d512_f32`
+    (emox_torch/csrc/flash_fwd_d512_f32.cu, bf16 wgmma on a two-part split
+    of each operand, the head dim split over a cluster of two blocks);
   * backward, bfloat16, head dim <= 128: `flash_bwd_sm90`
     (emox_torch/csrc/flash_bwd_sm90.cu, wgmma + TMA), both layouts (packed
     tokens as head-split views);
   * backward, float32 at head dim <= 256 and bfloat16 at 129-256:
     `flash_bwd_wmma` (emox_torch/csrc/flash_attn_bwd.cu), both layouts;
-  * backward, head dim 512, packed (the VAE's mid-attention, which VAE
-    pretraining, stage 5, differentiates): `flash_bwd_d512` (bfloat16) and
-    `flash_bwd_d512_f32` (float32), two instantiations of
-    emox_torch/csrc/flash_bwd_d512.cu (WMMA; 3xTF32 in float32).
+  * backward, head dim 512 (the VAE's mid-attention, which VAE pretraining,
+    stage 5, differentiates): `flash_bwd_d512_sm90` in bfloat16
+    (emox_torch/csrc/flash_bwd_d512_sm90.cu, wgmma + TMA, the head dim split
+    over a cluster of two blocks) and `flash_bwd_d512_f32` in float32
+    (emox_torch/csrc/flash_bwd_d512.cu, 3xTF32 WMMA).
 
 Rows that are not 16-byte aligned (a head dim that is not a multiple of 8 in
 bfloat16, of 4 in float32) are zero-padded in the head dim before the launch
-(`padded_attention`), the reference's `_pad_dim`: exact, since zero columns
+(`padded_attention`), the reference's `_pad_dim`; so are head dims 257-511,
+to 512, which then run on the head-dim-512 kernels. Exact, since zero columns
 add nothing to q k^T, P v or any gradient product, and the scale comes from
-the true head dim. On a CPU tensor each wrapper runs the kernels' plain
+the true head dim. Head dims above 512 raise: the reference computes them
+(ROADMAP.md, Queue 3). On a CPU tensor each wrapper runs the kernels' plain
 versions (`attention_nlc_plain`, `attention_plain` and their backwards), the
 same functions in plain PyTorch with fp32 math, which the CPU tests hold
 against the reference.
@@ -73,12 +76,12 @@ from emox_torch.ops import build
 # (ROADMAP.md, Queue 2).
 KERNEL_MIN_KV = 2048
 ATTENTION_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
-_MAX_HEAD_DIM = 256  # every route but head dim 512
-_WIDE_HEAD_DIM = 512  # packed layout only: forward flash_fwd_sm90.cu (bf16), flash_attn_nlc.cu (float32);
-# backward flash_bwd_d512.cu
+_MAX_HEAD_DIM = 256  # the kernels for head dims up to this one
+_WIDE_HEAD_DIM = 512  # forward flash_fwd_sm90.cu (bf16), flash_fwd_d512_f32.cu; backward
+# flash_bwd_d512_sm90.cu (bf16), flash_bwd_d512.cu (float32); head dims 257-511 are padded to it
 _SM90_BWD_HEAD_DIM = 128  # flash_bwd_sm90.cu: bf16 backward up to this head dim
 _SM90_BWD_ROWS = 128  # flash_bwd_sm90 takes lse and delta padded to a multiple of these rows
-_D512_BWD_ROWS = 64  # flash_bwd_d512 takes lse and delta padded to a multiple of these rows
+_D512_BWD_ROWS = 64  # the d-512 backward kernels take lse and delta padded to a multiple of these rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -262,40 +265,51 @@ def flash_fwd_wmma(q, k, v, out, lse, scale: float) -> None:
 flash_fwd_wmma.launches = 0  # kernel launches since the last reset
 
 
-def flash_fwd_wide(q, k, v, heads: int, scale: float):
-    """Launch flash_attn_nlc.cu's head-dim-512 forward (the float32 route)
-    on contiguous, 16-byte aligned packed q [N, Lq, H*512], k/v
-    [N, Lk, H*512] -> (out like q, lse [N, Lq, H] fp32)."""
-    n, lq, _ = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((n, lq, heads), dtype=torch.float32, device=q.device)
+def flash_fwd_d512_f32(q, k, v, out, lse, scale: float) -> None:
+    """Launch flash_fwd_d512_f32.cu: float32 q, k, v [B, H, L, 512] with
+    16-byte aligned rows, into out (like q) and lse [B, H, Lq] fp32, each
+    with any strides. The call splits q, k and v into bf16 parts in scratch
+    it is handed ([B, H, L, 1024], hi | lo) before the attention kernel."""
+    b, h, lq, d = q.shape
+    if d != _WIDE_HEAD_DIM or q.dtype != torch.float32:
+        raise ValueError(f"flash_fwd_d512_f32 takes float32 head dim 512, got {tuple(q.shape)} {q.dtype}")
+    parts = [torch.empty((b, h, t.shape[2], 2 * d), dtype=torch.bfloat16, device=q.device) for t in (q, k, v)]
     with torch.cuda.device(q.device):
-        err = build.kernel("flash_attn_nlc")(
+        err = build.kernel("flash_fwd_d512_f32")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            n, lq, k.shape[1], heads, _WIDE_HEAD_DIM, float(scale), _DTYPES[q.dtype], _stream(q),
+            _stride_array((q, k, v, out, lse)), b, h, lq, k.shape[2], float(scale),
+            *(t.data_ptr() for t in parts), _stream(q),
         )
-    build.check(err, "flash_fwd_wide")
-    flash_fwd_wide.launches += 1
-    return out, lse
+    build.check(err, "flash_fwd_d512_f32")
+    flash_fwd_d512_f32.launches += 1
 
 
-flash_fwd_wide.launches = 0  # kernel launches since the last reset
+flash_fwd_d512_f32.launches = 0  # kernel launches since the last reset
+
+
+def _head_dim_multiple(t: torch.Tensor) -> int:
+    """The head-dim multiple a kernel route pads t's head dim to: 512 above
+    256 (the d-512 kernels), else the multiple that keeps rows of t's type
+    16-byte aligned."""
+    return _WIDE_HEAD_DIM if t.shape[-1] > _MAX_HEAD_DIM else _row_multiple(t)
 
 
 def _fwd_views(q, k, v, scale: float, packed_lse: bool):
-    """The forward kernel for [B, H, L, D] operands with D <= 256 (or bf16 D
-    512): bf16 -> flash_fwd_sm90, float32 -> flash_fwd_wmma, after zero-padding the head
-    dim where rows are not 16-byte aligned. Returns out (q's strides where q
-    is dense) and lse [B, H, Lq], or with packed_lse a [B, Lq, H] tensor."""
-    mult = _row_multiple(q)
+    """The forward kernel for [B, H, L, D] operands with D <= 512: bf16 ->
+    flash_fwd_sm90, float32 -> flash_fwd_wmma (D <= 256) or
+    flash_fwd_d512_f32 (D 512), after zero-padding the head dim where rows
+    are not 16-byte aligned or D is 257-511. Returns out (q's strides where
+    q is dense) and lse [B, H, Lq], or with packed_lse a [B, Lq, H] tensor."""
+    mult = _head_dim_multiple(q)
     if q.shape[-1] % mult:
         return padded_attention(lambda *a: _fwd_views(*a, packed_lse), q, k, v, scale, mult)
     out = torch.empty_like(q)
     _check_rows("flash attention forward", q=q, k=k, v=v, out=out)
-    b, h, lq, _ = q.shape
-    if q.dtype == torch.bfloat16:
+    b, h, lq, d = q.shape
+    if q.dtype == torch.bfloat16 or d == _WIDE_HEAD_DIM:
         lse = torch.empty((b, lq, h) if packed_lse else (b, h, lq), dtype=torch.float32, device=q.device)
-        flash_fwd_sm90(q, k, v, out, lse.transpose(1, 2) if packed_lse else lse, scale)
+        launch = flash_fwd_sm90 if q.dtype == torch.bfloat16 else flash_fwd_d512_f32
+        launch(q, k, v, out, lse.transpose(1, 2) if packed_lse else lse, scale)
         return out, lse
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     flash_fwd_wmma(q, k, v, out, lse, scale)
@@ -310,17 +324,17 @@ def _padded_rows(lse, delta, rows: int):
 
 
 def _bwd_views(q, k, v, o, dout, lse, scale: float, need_dq: bool, need_dkv: bool):
-    """The backward kernel for [B, H, L, D] operands with D <= 256 or D 512
-    (lse [B, H, Lq] fp32, any strides): bf16 with D <= 128 ->
-    flash_bwd_sm90, D 512 -> flash_bwd_d512 (bf16) or flash_bwd_d512_f32,
-    otherwise flash_bwd_wmma, after zero-padding the head dim where rows are
-    not 16-byte aligned: padded columns of q, k, v and dO add nothing to any
-    product, and those of the gradients are cut off."""
+    """The backward kernel for [B, H, L, D] operands with D <= 512 (lse
+    [B, H, Lq] fp32, any strides): bf16 with D <= 128 -> flash_bwd_sm90,
+    D 512 -> flash_bwd_d512_sm90 (bf16) or flash_bwd_d512_f32, otherwise
+    flash_bwd_wmma, after zero-padding the head dim where rows are not
+    16-byte aligned or D is 257-511: padded columns of q, k, v and dO add
+    nothing to any product, and those of the gradients are cut off."""
     # per-row delta = sum_d dO * O, [B, H, Lq] fp32: outside the kernels, as
     # the reference computes it outside its Pallas kernels
     delta = (dout.float() * o.float()).sum(dim=-1)
     d = q.shape[-1]
-    mult = _row_multiple(q)
+    mult = _head_dim_multiple(q)
     if d % mult:
         q, k, v, dout = (pad_head_dim(t, mult) for t in (q, k, v, dout))
     dq = torch.empty_like(q) if need_dq else None
@@ -330,8 +344,8 @@ def _bwd_views(q, k, v, o, dout, lse, scale: float, need_dq: bool, need_dkv: boo
                 **{n: t for n, t in outs.items() if t is not None})
     if q.dtype == torch.bfloat16 and q.shape[-1] <= _SM90_BWD_HEAD_DIM:
         flash_bwd_sm90(q, k, v, dout, *_padded_rows(lse, delta, _SM90_BWD_ROWS), dq, dk, dv, scale)
-    elif d == _WIDE_HEAD_DIM:
-        launch = flash_bwd_d512 if q.dtype == torch.bfloat16 else flash_bwd_d512_f32
+    elif q.shape[-1] == _WIDE_HEAD_DIM:
+        launch = flash_bwd_d512_sm90 if q.dtype == torch.bfloat16 else flash_bwd_d512_f32
         launch(q, k, v, dout, *_padded_rows(lse, delta, _D512_BWD_ROWS), dq, dk, dv, scale)
     else:
         flash_bwd_wmma(q, k, v, dout, lse.contiguous(), delta.contiguous(), dq, dk, dv, scale)
@@ -388,53 +402,100 @@ def flash_bwd_wmma(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
 flash_bwd_wmma.launches = 0  # kernel launches since the last reset
 
 
-def _launch_bwd_d512(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+def _launch_bwd_d512(library: str, name: str, q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
     b, h, lq, d = q.shape
     if d != _WIDE_HEAD_DIM or lse.shape[-1] % _D512_BWD_ROWS or not lq <= lse.shape[-1] < lq + _D512_BWD_ROWS:
-        raise ValueError(f"flash_bwd_d512 takes head dim 512 and lse [B, H, Lq_pad], Lq_pad the next multiple "
+        raise ValueError(f"{name} takes head dim 512 and lse [B, H, Lq_pad], Lq_pad the next multiple "
                          f"of {_D512_BWD_ROWS} rows: got q {tuple(q.shape)}, lse {tuple(lse.shape)}")
     with torch.cuda.device(q.device):
-        err = build.kernel("flash_bwd_d512")(
+        err = build.kernel(library)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             _ptr(dq), _ptr(dk), _ptr(dv), _bwd_strides(q, k, v, dout, dq, dk, dv), b, h, lq, k.shape[2],
-            lse.shape[-1], float(scale), _DTYPES[q.dtype], _stream(q),
+            lse.shape[-1], float(scale), _stream(q),
         )
-    build.check(err, "flash_bwd_d512")
+    build.check(err, name)
 
 
-def flash_bwd_d512(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
-    """Launch flash_bwd_d512.cu in bf16: q, k, v, dout [B, H, L, 512] with
-    16-byte aligned rows; lse and delta [B, H, Lq_pad] fp32 contiguous,
-    Lq_pad the next multiple of 64, padded with +inf and 0; into dq (None:
-    not computed) and dk, dv (both None: not computed), each with any
-    strides."""
+def flash_bwd_d512_sm90(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+    """Launch flash_bwd_d512_sm90.cu (bf16, wgmma + TMA): q, k, v, dout
+    [B, H, L, 512] with 16-byte aligned rows; lse and delta [B, H, Lq_pad]
+    fp32 contiguous, Lq_pad the next multiple of 64, padded with +inf and 0;
+    into dq (None: not computed) and dk, dv (both None: not computed), each
+    with any strides."""
     if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_bwd_d512 takes bfloat16, got {q.dtype}")
-    _launch_bwd_d512(q, k, v, dout, lse, delta, dq, dk, dv, scale)
-    flash_bwd_d512.launches += 1
+        raise TypeError(f"flash_bwd_d512_sm90 takes bfloat16, got {q.dtype}")
+    _launch_bwd_d512("flash_bwd_d512_sm90", "flash_bwd_d512_sm90", q, k, v, dout, lse, delta, dq, dk, dv, scale)
+    flash_bwd_d512_sm90.launches += 1
 
 
-flash_bwd_d512.launches = 0  # kernel launches since the last reset
+flash_bwd_d512_sm90.launches = 0  # kernel launches since the last reset
 
 
 def flash_bwd_d512_f32(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
-    """flash_bwd_d512 in float32 (3xTF32 WMMA), the same layouts."""
+    """Launch flash_bwd_d512.cu (float32, 3xTF32 WMMA), the layouts of
+    flash_bwd_d512_sm90."""
     if q.dtype != torch.float32:
         raise TypeError(f"flash_bwd_d512_f32 takes float32, got {q.dtype}")
-    _launch_bwd_d512(q, k, v, dout, lse, delta, dq, dk, dv, scale)
+    _launch_bwd_d512("flash_bwd_d512", "flash_bwd_d512_f32", q, k, v, dout, lse, delta, dq, dk, dv, scale)
     flash_bwd_d512_f32.launches += 1
 
 
 flash_bwd_d512_f32.launches = 0  # kernel launches since the last reset
 
 
+# ---- the launch plans of the head-dim-512 Hopper kernels --------------------------------
+# Twins of the layouts in flash_bwd_d512_sm90.cu (DqSmem, DkvSmem) and
+# flash_fwd_d512_f32.cu (Smem): every block belongs to a cluster of two, the
+# rank r block owning head-dim columns [256 r, 256 r + 256) of the pair's tile.
+_BOX64 = 64 * 128  # bytes of one 64-row box of 64 bf16 columns
+_PART = 4 * 128 * 16  # one warpgroup's [64, 32] fp32 partial of S or dP
+_D512_CLUSTER = 2
+
+
+def _pairs(length: int, rows: int) -> int:
+    return -(-length // rows)
+
+
+def bwd_d512_plan(n: int, h: int, lq: int, lk: int) -> dict:
+    """flash_bwd_d512_sm90's two launches for q [n, h, lq, 512] and k, v
+    [n, h, lk, 512]: grid (x, y, z) = (2 * pairs, heads, batch), the pair
+    x // 2 owning `rows` query rows (dq) or keys (dkv), with the streamed
+    tiles' rows, ring stages and shared memory a block (bytes, alignment
+    slack included)."""
+    dq_smem = 8 * _BOX64 + 2 * 8 * _BOX64 + 4 * _PART + 8 * 9 + 1024
+    # K and V, two stages of 64-row Q and dO tiles with their lse and delta,
+    # the S^T and dP^T slots ([64, 64] fp32 each), 10 barriers
+    dkv_smem = 8 * _BOX64 + 2 * 8 * _BOX64 + 2 * 2 * 64 * 4 + 2 * 64 * 64 * 4 + 8 * 10 + 1024
+    return {"cluster": _D512_CLUSTER, "half": _WIDE_HEAD_DIM // _D512_CLUSTER,
+            "dq": {"grid": (_D512_CLUSTER * _pairs(lq, 64), h, n), "rows": 64, "tile": 64, "stages": 2,
+                   "smem": dq_smem},
+            "dkv": {"grid": (_D512_CLUSTER * _pairs(lk, 64), h, n), "rows": 64, "tile": 64, "stages": 2,
+                    "smem": dkv_smem}}
+
+
+def fwd_d512_f32_plan(n: int, h: int, lq: int, lk: int) -> dict:
+    """flash_fwd_d512_f32's attention launch (after the three split
+    launches): as bwd_d512_plan's dq launch, 64-key K and V tiles of one
+    stage each, both bf16 parts of every operand."""
+    smem = 24 * _BOX64 + 2 * _PART + 8 * 9 + 1024
+    return {"cluster": _D512_CLUSTER, "half": _WIDE_HEAD_DIM // _D512_CLUSTER,
+            "grid": (_D512_CLUSTER * _pairs(lq, 64), h, n), "rows": 64, "tile": 64, "stages": 1, "smem": smem}
+
+
 # ---- the packed layout [N, L, H*D] ---------------------------------------------------
+def _check_head_dim(name: str, d: int) -> None:
+    if d > _WIDE_HEAD_DIM:
+        raise ValueError(f"{name} takes head_dim <= {_WIDE_HEAD_DIM}, got {d}: no kernel of the port takes a "
+                         f"wider head, where the reference computes (ROADMAP.md, Queue 3)")
+
+
 def _check_kernel_inputs(name: str, q, k, v, heads: int):
     n, lq, c = q.shape
     lk = k.shape[1]
     d = c // heads
-    if c != heads * d or not (d <= _MAX_HEAD_DIM or d == _WIDE_HEAD_DIM):
-        raise ValueError(f"{name} takes head_dim <= {_MAX_HEAD_DIM} or {_WIDE_HEAD_DIM}, got {c}/{heads}")
+    if c != heads * d:
+        raise ValueError(f"{name}: {c} channels do not split into {heads} heads")
+    _check_head_dim(name, d)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (n, lk, c) or v.shape != k.shape:
@@ -444,22 +505,12 @@ def _check_kernel_inputs(name: str, q, k, v, heads: int):
     return n, lq, lk, d
 
 
-def _aligned(name: str, *tensors) -> None:
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name} needs 16-byte aligned inputs")
-
-
 def _flash_kernel(q, k, v, heads: int, scale: float):
     n, lq, lk, d = _check_kernel_inputs("flash_attn_nlc_fwd", q, k, v, heads)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if d == _WIDE_HEAD_DIM and q.dtype == torch.float32:
-        _aligned("flash_attn_nlc_fwd", q, k, v)
-        out, lse = flash_fwd_wide(q, k, v, heads, scale)
-    else:  # head-split views of the packed tokens: no copy
-        out, lse = _fwd_views(*(_split_heads(t, heads) for t in (q, k, v)), scale, packed_lse=True)
-        out = out.transpose(1, 2).reshape(n, lq, heads * d)
+    # head-split views of the packed tokens: no copy
+    out, lse = _fwd_views(*(_split_heads(t.contiguous(), heads) for t in (q, k, v)), scale, packed_lse=True)
     flash_attention_nlc.launches += 1
-    return out, lse
+    return out.transpose(1, 2).reshape(n, lq, heads * d), lse
 
 
 def _flash_bwd_kernel(q, k, v, o, lse, dout, heads: int, scale: float, need_dq: bool, need_dkv: bool):
@@ -540,14 +591,12 @@ flash_attention_nlc.launches = 0  # forward launches on the packed layout since 
 
 
 # ---- [B, H, L, D] operands with strides ---------------------------------------------
-def _check_strided_inputs(name: str, q, k, v, bwd: bool = False) -> Tuple[int, int, int, int, int]:
+def _check_strided_inputs(name: str, q, k, v) -> Tuple[int, int, int, int, int]:
     if q.dim() != 4:
         raise ValueError(f"{name} takes [B, H, L, D] operands, got q {tuple(q.shape)}")
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"{name} takes head_dim <= {_MAX_HEAD_DIM}, got {d}"
-                         + ("" if bwd else " (head dim 512 runs on the packed layout, flash_attention_nlc)"))
+    _check_head_dim(name, d)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
@@ -565,7 +614,7 @@ def _flash_strided_kernel(q, k, v, scale: float):
 
 
 def _flash_strided_bwd_kernel(q, k, v, o, lse, dout, scale: float, need_dq: bool, need_dkv: bool):
-    b, h, lq, lk, d = _check_strided_inputs("flash_attn_bwd", q, k, v, bwd=True)
+    b, h, lq, lk, d = _check_strided_inputs("flash_attn_bwd", q, k, v)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"flash_attn_bwd: o {tuple(o.shape)} {o.dtype} and dout {tuple(dout.shape)} "
                          f"{dout.dtype} must be like q {tuple(q.shape)} {q.dtype}")

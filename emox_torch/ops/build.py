@@ -34,10 +34,11 @@ _LL = ctypes.POINTER(ctypes.c_longlong)  # an array of element strides
 KERNELS = {
     "flash_attn": {"emox_flash_attn_fwd": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _I, _P]},
     "flash_attn_bwd": {"emox_flash_attn_bwd": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _I, _P]},
-    "flash_attn_nlc": {"emox_flash_attn_nlc_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P]},
     "flash_fwd_sm90": {"emox_flash_fwd_sm90": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _P]},
     "flash_bwd_sm90": {"emox_flash_bwd_sm90": [_P] * 9 + [_LL] + [_I] * 6 + [_F, _P]},
-    "flash_bwd_d512": {"emox_flash_bwd_d512": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _I, _P]},
+    "flash_bwd_d512": {"emox_flash_bwd_d512": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _P]},
+    "flash_bwd_d512_sm90": {"emox_flash_bwd_d512_sm90": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _P]},
+    "flash_fwd_d512_f32": {"emox_flash_fwd_d512_f32": [_P] * 5 + [_LL] + [_I] * 4 + [_F] + [_P] * 4},
     "ff_sm90": {"emox_ff_sm90": [_P] * 11 + [_I] * 4 + [_F, _P]},
     "ln_geglu_ff": {"emox_ln_geglu_ff": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
                     "emox_ln_geglu_ff_plan": [_I, _I, _P]},

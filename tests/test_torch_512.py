@@ -127,7 +127,7 @@ def d512_card(monkeypatch):
         raise AssertionError("head dim 512 reached another backward kernel")
 
     monkeypatch.setattr(tattn, "_on_card_or_cpu", lambda name, x: True)
-    monkeypatch.setattr(tattn, "flash_bwd_d512", stand_in("flash_bwd_d512", torch.bfloat16))
+    monkeypatch.setattr(tattn, "flash_bwd_d512_sm90", stand_in("flash_bwd_d512_sm90", torch.bfloat16))
     monkeypatch.setattr(tattn, "flash_bwd_d512_f32", stand_in("flash_bwd_d512_f32", torch.float32))
     monkeypatch.setattr(tattn, "flash_bwd_sm90", refuse)
     monkeypatch.setattr(tattn, "flash_bwd_wmma", refuse)
@@ -144,24 +144,27 @@ def _d512_bwd_inputs(dtype, n=2, lq=70, lk=45, heads=1, seed=44):
 
 def test_d512_backward_is_refused_for_the_kernel(d512_card):
     """The packed backward at head dim 512, which only VAE pretraining
-    (stage 5) runs: bf16 reaches flash_bwd_d512 and float32
+    (stage 5) runs: bf16 reaches flash_bwd_d512_sm90 and float32
     flash_bwd_d512_f32 (two heads, Lq 70: six rows past a 64-row tile of
-    the lse padding), with the gradients of the plain version. The kernels
-    are refused for the head dims none of them takes (257-511, above 512),
-    before anything reaches the card; the plain backward still runs on the
-    CPU."""
-    for dtype, name in ((torch.bfloat16, "flash_bwd_d512"), (torch.float32, "flash_bwd_d512_f32")):
+    the lse padding), with the gradients of the plain version. Head dims
+    257-511 are padded to 512 and take the same kernels, as the reference
+    computes them; the kernels are refused for head dims above 512 (ROADMAP
+    Queue 3), before anything reaches the card; the plain backward still
+    runs on the CPU."""
+    for dtype, name in ((torch.bfloat16, "flash_bwd_d512_sm90"), (torch.float32, "flash_bwd_d512_f32")):
         q, k, v, o, lse, g = _d512_bwd_inputs(dtype, heads=2)
         want = tattn.attention_nlc_bwd_plain(q, k, v, o, lse, g, 2, 512 ** -0.5)
         got = tattn.flash_attention_nlc_bwd(q, k, v, o, lse, g, 2)
         assert d512_card[-1] == name
         for a, b in zip(got, want):
             assert a.dtype == dtype and rel(a, b.float().numpy()) <= (BF16_TOL if dtype == torch.bfloat16 else FP32_TOL)
-    assert d512_card == ["flash_bwd_d512", "flash_bwd_d512_f32"]
-    for d in (384, 1024):
-        x = torch.zeros(1, 8, d)
-        with pytest.raises(ValueError, match=f"head_dim <= 256 or 512, got {d}/1"):
-            tattn._flash_bwd_kernel(x, x, x, x, torch.zeros(1, 8, 1), x, 1, d ** -0.5, True, True)
+    assert d512_card == ["flash_bwd_d512_sm90", "flash_bwd_d512_f32"]
+    x = torch.zeros(1, 8, 384)
+    grads = tattn._flash_bwd_kernel(x, x, x, x, torch.zeros(1, 8, 1), x, 1, 384 ** -0.5, True, True)
+    assert d512_card[-1] == "flash_bwd_d512_f32" and all(gr.shape == x.shape for gr in grads)
+    x = torch.zeros(1, 8, 1024)
+    with pytest.raises(ValueError, match="head_dim <= 512, got 1024: .*Queue 3"):
+        tattn._flash_bwd_kernel(x, x, x, x, torch.zeros(1, 8, 1), x, 1, 1024 ** -0.5, True, True)
     q = torch.zeros(1, 8, 1024)
     dq, dk, dv = tattn.attention_nlc_bwd_plain(q, q, q, q, torch.zeros(1, 8, 1), q, 1, 1024 ** -0.5)
     assert dq.shape == dk.shape == dv.shape == q.shape
@@ -179,7 +182,7 @@ def test_d512_backward_subsets(d512_card, dtype, need):
     need_dq = need == "dq"
     got = tattn.flash_attention_nlc_bwd(q, k, v, o, lse, g, 1, need_dq=need_dq, need_dkv=not need_dq)
     want = tattn.attention_nlc_bwd_plain(q, k, v, o, lse, g, 1, 512 ** -0.5)
-    assert d512_card == ["flash_bwd_d512" if dt == torch.bfloat16 else "flash_bwd_d512_f32"]
+    assert d512_card == ["flash_bwd_d512_sm90" if dt == torch.bfloat16 else "flash_bwd_d512_f32"]
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         if (name == "dq") != need_dq:
             assert a is None, name

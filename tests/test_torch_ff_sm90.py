@@ -15,7 +15,7 @@ the plain versions and against the reference's Pallas kernels in interpret
 mode (bf16: two bf16 steps relative L2, float32 1e-5).
 
 The attention forward at head dim 512 reaches flash_fwd_sm90 in bf16 and
-flash_fwd_wide in float32, with stand-in launchers as in
+flash_fwd_d512_f32 in float32, with stand-in launchers as in
 tests/test_torch_head_dims.py.
 """
 
@@ -301,15 +301,17 @@ def attn_card(monkeypatch):
         ops.flash_fwd_sm90.launches += 1  # the launcher this stands in for counts its launches
         seen.append(("sm90", tuple(q.shape)))
 
-    def wide(q, k, v, heads, scale):
-        assert q.dtype == torch.float32 and q.is_contiguous() and q.shape[-1] == 512 * heads
-        ops.flash_fwd_wide.launches += 1
-        seen.append(("wide", tuple(q.shape)))
-        return tattn.attention_nlc_plain(q, k, v, heads, scale)
+    def d512_f32(q, k, v, out, lse, scale):
+        assert q.dtype == torch.float32 and tattn._rows_aligned(q) and q.shape[-1] == 512
+        o, l = tattn.attention_plain(q, k, v, scale)
+        out.copy_(o)
+        lse.copy_(l)
+        ops.flash_fwd_d512_f32.launches += 1
+        seen.append(("d512_f32", tuple(q.shape)))
 
     monkeypatch.setattr(tattn, "_on_card_or_cpu", lambda name, t: True)
     monkeypatch.setattr(tattn, "flash_fwd_sm90", sm90)
-    monkeypatch.setattr(tattn, "flash_fwd_wide", wide)
+    monkeypatch.setattr(tattn, "flash_fwd_d512_f32", d512_f32)
     yield seen
     ops.reset_launch_counts()
 
@@ -318,9 +320,9 @@ def attn_card(monkeypatch):
 def test_d512_forward_routes_by_type(attn_card, dtype):
     """flash_attention_nlc at head dim 512 (the VAE's single-head
     mid-attention, a ragged Lk): bf16 reaches flash_fwd_sm90 on a
-    head-split view [N, 1, L, 512], float32 flash_fwd_wide on the packed
-    tokens; output and lse [N, Lq, 1] against the reference's packed kernel
-    in interpret mode."""
+    head-split view [N, 1, L, 512], float32 flash_fwd_d512_f32 on the same
+    view; output and lse [N, Lq, 1] against the reference's packed kernel in
+    interpret mode."""
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(41)
     n, lq, lk, d = 2, 40, 100, 512
@@ -332,7 +334,7 @@ def test_d512_forward_routes_by_type(attn_card, dtype):
     assert out.dtype == dt and lse.shape == (n, lq, 1) and lse.dtype == torch.float32
     assert rel(out, want) <= (BF16_TOL if dt == torch.bfloat16 else FP32_TOL)
     assert rel(lse, np.asarray(want_lse)[:, :lq]) <= 1e-3
-    assert attn_card == [("sm90", (n, 1, lq, d))] if dt == torch.bfloat16 else [("wide", (n, lq, d))]
+    assert attn_card == [("sm90" if dt == torch.bfloat16 else "d512_f32", (n, 1, lq, d))]
     counts = ops.launch_counts()
     assert counts["flash_attn_nlc_fwd"] == 1
-    assert (counts["flash_fwd_sm90"], counts["flash_fwd_wide"]) == ((1, 0) if dt == torch.bfloat16 else (0, 1))
+    assert (counts["flash_fwd_sm90"], counts["flash_fwd_d512_f32"]) == ((1, 0) if dt == torch.bfloat16 else (0, 1))

@@ -290,28 +290,27 @@ def test_dispatch_routes_like_the_reference_auto_dispatch(monkeypatch, lk, d, ro
 
 def test_strided_wrapper_checks_head_dim_and_row_alignment():
     """What the kernels still refuse is refused before any launch: head dims
-    above 256 on [B, H, L, D] operands and above 512 on packed tokens, the
-    backward at head dim 512 (named: VAE pretraining, stage 5), and rows that
-    are not contiguous and 16-byte aligned where the head dim itself would
-    keep them aligned (a head dim that would not is zero-padded instead)."""
+    above 512 on either layout (257-511 are padded to 512 and run on the
+    d-512 kernels, as the reference computes them), and rows that are not
+    contiguous and 16-byte aligned where the head dim itself would keep them
+    aligned (a head dim that would not is zero-padded instead)."""
     from emox_torch.ops.attention import _check_kernel_inputs, _check_rows, _check_strided_inputs
 
-    for d in (4, 40, 64, 160, 256):
+    for d in (4, 40, 64, 160, 256, 300, 320, 512):
         y = torch.zeros(1, 2, 8, d)
         assert _check_strided_inputs("flash_attn_fwd", y, y, y) == (1, 2, 8, 8, d)
-    x = torch.zeros(1, 2, 8, 320)
-    with pytest.raises(ValueError, match="head_dim <= 256, got 320"):
+    x = torch.zeros(1, 2, 8, 640)
+    with pytest.raises(ValueError, match="head_dim <= 512, got 640"):
         _check_strided_inputs("flash_attn_fwd", x, x, x)
     p = torch.zeros(1, 8, 2 * 512)
     assert _check_kernel_inputs("flash_attn_nlc_fwd", p, p, p, 2) == (1, 8, 8, 512)
-    # the backward takes head dim 512 too (flash_bwd_d512, VAE pretraining)
+    # the backward takes head dim 512 too (VAE pretraining), and 384 (padded)
     assert _check_kernel_inputs("flash_attn_nlc_bwd", p, p, p, 2) == (1, 8, 8, 512)
+    assert _check_kernel_inputs("flash_attn_nlc_bwd", p[..., :768], p[..., :768], p[..., :768], 2) == (1, 8, 8, 384)
     w = torch.zeros(1, 8, 1024)
     for name in ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"):
-        with pytest.raises(ValueError, match="head_dim <= 256 or 512, got 1024/1"):
+        with pytest.raises(ValueError, match="head_dim <= 512, got 1024"):
             _check_kernel_inputs(name, w, w, w, 1)
-        with pytest.raises(ValueError, match="head_dim <= 256 or 512, got 768/2"):
-            _check_kernel_inputs(name, w[..., :768], w[..., :768], w[..., :768], 2)
     _check_rows("flash_attn_fwd", q=torch.zeros(1, 8, 2 * 40).view(1, 8, 2, 40).transpose(1, 2))
     with pytest.raises(ValueError, match="16-byte aligned rows"):
         _check_rows("flash_attn_fwd", q=torch.zeros(1, 2, 8, 41)[..., :40])  # row stride 41 floats
