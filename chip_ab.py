@@ -13,8 +13,12 @@ are timed on the same card in one run. The checks: the fused LN + q/k/v
 its statistics (group_norm_stats, K8b) at the UNet's and the VAE's slabs,
 bf16; the head-dim-512 attention (the VAE's mid-attention): the bf16
 backward at stage 5's 512^2 shape and at 384^2, and the float32 forward at
-one and at 16 512^2 images. `--only` keeps the checks whose labels start
-with one of the prefixes. Each check's `ms` is its chip_smoke.py time
+one and at 16 512^2 images; the float32 attention at head dims <= 256 (the
+forward at the float32 step's strided SD-1.5 shape and packed flagship
+shape, the backward at the float32 train step's shape) and the bf16
+backward at head dims 160 (SD-1.5's level 2 under EMOX_ATTENTION_IMPL=pallas)
+and 256 (the small preset's VAE mid-attention). `--only` keeps the checks
+whose labels start with one of the prefixes. Each check's `ms` is its chip_smoke.py time
 (CUDA events around the calls); `device_ms` is the same call's device time
 without the host's cost of issuing it (calls captured in one CUDA graph,
 timed by this checkout's code for both trees). Prints one JSON line per
@@ -46,13 +50,20 @@ CHECKS = [
     ("d512_bwd_2x2304", "check_flash_bwd", (2, 2304, 2304), {"c": 512, "heads": 1, "chunk": 1}),
     ("d512_fwd_f32_1x4096", "check_flash", (1, 4096, 4096), {"c": 512, "heads": 1, "dtype": "float32"}),
     ("d512_fwd_f32_16x4096", "check_flash", (16, 4096, 4096), {"c": 512, "heads": 1, "dtype": "float32", "chunk": 4}),
+    # float32 at head dims <= 256 (the float32 step and train step), bf16 backward at 160 and 256
+    ("f32_fwd_strided_32x1024x2048_d40", "check_flash_strided", (32, 1024, 2048),
+     {"heads": 8, "d": 40, "dtype": "float32"}),
+    ("f32_fwd_packed_2x1024x2048", "check_flash", (2, 1024, 2048), {"c": 320, "heads": 5, "dtype": "float32"}),
+    ("f32_bwd_packed_2x1024x2048", "check_flash_bwd", (2, 1024, 2048), {"c": 320, "heads": 5, "dtype": "float32"}),
+    ("bwd_d160_strided_16x256x512", "check_flash_strided_bwd", (16, 256, 512), {"heads": 8, "d": 160}),
+    ("bwd_d256_packed_4x1024", "check_flash_bwd", (4, 1024, 1024), {"c": 256, "heads": 1}),
 ]
 
 _TURN = """
 import json, sys, torch
 import chip_smoke as cs
-from emox_torch.ops import (flash_attention_nlc, flash_attention_nlc_bwd, fused_group_norm, fused_ln_qkv,
-                             group_norm_stats)
+from emox_torch.ops import (flash_attention, flash_attention_bwd, flash_attention_nlc, flash_attention_nlc_bwd,
+                             fused_group_norm, fused_ln_qkv, group_norm_stats)
 
 def device_ms(fn, iters=20):
     side = torch.cuda.Stream()
@@ -90,6 +101,17 @@ def call(fn, args, gen, kw):
         o, lse = flash_attention_nlc(q, k, v, heads, return_lse=True)
         dout = torch.randn((n, lq, c), generator=gen, device="cuda").to(dt)
         return lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads)
+    if fn in ("check_flash_strided", "check_flash_strided_bwd"):
+        n, lq, lk = args
+        heads, d, dt = kw["heads"], kw["d"], kw.get("dtype", torch.bfloat16)
+        split = lambda l: torch.randn((n, l, heads * d), generator=gen, device="cuda").to(dt).view(
+            n, l, heads, d).transpose(1, 2)  # head-split views of packed tokens
+        q, k, v = split(lq), split(lk), split(lk)
+        if fn == "check_flash_strided":
+            return lambda: flash_attention(q, k, v)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        dout = split(lq)
+        return lambda: flash_attention_bwd(q, k, v, o, lse, dout)
     if fn == "check_ln_qkv":
         m, c = args
         xs = (rand(m, c), rand(c, scale=0.1, shift=1.0), rand(c, scale=0.1),

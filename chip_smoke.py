@@ -24,20 +24,29 @@ raises and the script exits non-zero. Phases:
      (float32) at C 320 and 1280. The attention forward runs on one kernel
      per type for both layouts: flash_fwd_sm90 (bf16, wgmma + TMA) at the
      serving shapes of both, at Lk 5 and 16, at head dims 4, 40, 80, 128,
-     160, 256 and 512 (the VAE's mid-attention) and ragged; flash_fwd_wmma
-     (float32) at the same head dims up to 256, timed at K5's shape;
+     160, 256 and 512 (the VAE's mid-attention) and ragged;
+     flash_fwd_f32_sm90 (float32: the same source's kernels on a two-part
+     bf16 split) at the same head dims up to 256, timed at K5's shape and
+     the float32 step's packed shape with device_ms;
      flash_fwd_d512_f32 (bf16 wgmma on a two-part split, a cluster of two
      blocks a tile) at head dim 512 in float32, timed at N 1 and 16 x 4096
      tokens with device_ms; head dims 257-511 are padded to 512 (d 384 at
-     L 4096 and d 300 strided, both types, forward and backward). The
-     backward runs on one kernel per
+     L 4096 and d 300 strided, both types, forward and backward); head dims
+     above 512 on flash_attn_wide.cu (flash_fwd_wide, flash_bwd_wide: d 640
+     timed in float32 at the width-640 VAE's N 1 x 1024 of stage 5 and in
+     bf16 at N 1 x 4096, d 1024 packed and 576 strided in both types and
+     directions). The backward runs on one kernel per
      type for both layouts too: flash_bwd_sm90 (bf16, head dim <= 128,
      wgmma + TMA) at the training shapes of both (timed), at head dims 4,
      40, 64, 80 and 128 on both layouts with ragged Lq/Lk, with dq only and
      with dk/dv only, and twice on the same inputs (the same bits);
-     flash_bwd_wmma (flash_attn_bwd.cu: float32, and bf16 at head dims
-     129-256) at d 160 in both types, 256, packed 192, and in float32 at
-     the float32 train step's shape (timed). Head dim 512 (the VAE's
+     flash_bwd_f32_sm90 (float32 at head dim <= 128 on the same source's
+     pair, two-part split) timed at the float32 train step's shape;
+     flash_bwd_d256_sm90 (head dims 129-256, both types:
+     flash_bwd_d512_sm90.cu's pair at half width) timed in float32 at the
+     small VAE's d 256, N 1 x 1024 of stage 5 and in bf16 at d 160 (N 16,
+     Lq 256, Lk 512) and d 256 (N 4, L 1024), twice for the same bits, and
+     at d 160, 192 and 256 untimed. Head dim 512 (the VAE's
      mid-attention, which stage 5 trains): flash_bwd_d512_sm90 (bf16,
      wgmma + TMA, a cluster of two blocks a tile) at stage 5's shape (N 4,
      L 4096) and a ragged L 2304 with device_ms, flash_bwd_d512_f32 at N 1,
@@ -87,7 +96,7 @@ raises and the script exits non-zero. Phases:
      launches per step, and one more step under torch.profiler; then stage 3 (batch 2, 8 frames, 3-axis
      speeds and a face mask: 3 steps) the same way. Every train phase
      asserts that each attention backward landed on exactly one kernel of
-     its type (bf16: flash_bwd_sm90; float32: flash_bwd_wmma), at the
+     its type (bf16: flash_bwd_sm90; float32: flash_bwd_f32_sm90), at the
      stage-2 counts per step of BWD_PER_STEP.
   8. step_sd15, serve_sd15, train_sd15: phases 3, 4 + 5 and 7 (stage 2) on
      "flagship-sd15", the flagship with the SD-1.5 head layout (8 heads,
@@ -135,6 +144,9 @@ raises and the script exits non-zero. Phases:
      backward; then Trainer stage 5 at 512^2 in bf16, batch 4 (1 warm-up, 3
      timed steps, one profiled), 2 launches per step of flash_fwd_sm90 and
      of flash_bwd_d512_sm90 (the encoder's and the decoder's mid-attention);
+     the float32 step again with the small preset's VAE at 128^2 (head dim
+     256: flash_fwd_f32_sm90 and flash_bwd_d256_sm90) and with a VAE of last
+     width 640 at 256^2 (flash_fwd_wide, flash_bwd_wide), card against CPU;
      then the same steps under EMOX_GROUPNORM_IMPL=pallas
      (train_vae512_norms: every GroupNorm of the VAE on K8a, 52 launches a
      step), with the GroupNorm calls' device time in its profile.
@@ -195,14 +207,16 @@ QKV_SOURCES = {"bfloat16": "ln_qkv_sm90", "float32": "ln_qkv_wmma"}
 # set it (serve_attn_xla, step_attn_pallas).
 SWITCH_VARS += ("EMOX_ATTENTION_IMPL",)
 # the forward kernels behind the two layouts: bf16 (head dim <= 256, and 512:
-# the VAE's mid-attention), float32 (<= 256), float32 at head dim 512
-FWD_SOURCES = ("flash_fwd_sm90", "flash_fwd_wmma", "flash_fwd_d512_f32")
-# the backward kernels behind the two layouts: bf16 at head dim <= 128, and
-# float32 (bf16 at 129-256), and head dim 512 in bf16 and in float32 (the
-# VAE's mid-attention, stage 5 only); and the backward launches per stage-2 step of
-# each train path (name, image size): its kernel sites (Lk >= KERNEL_MIN_KV)
-# that the loss differentiates
-BWD_SOURCES = ("flash_bwd_sm90", "flash_bwd_wmma", "flash_bwd_d512_sm90", "flash_bwd_d512_f32")
+# the VAE's mid-attention), float32 (<= 256), float32 at head dim 512, and
+# both types above 512
+FWD_SOURCES = ("flash_fwd_sm90", "flash_fwd_f32_sm90", "flash_fwd_d512_f32", "flash_fwd_wide")
+# the backward kernels behind the two layouts: head dim <= 128 in bf16 and in
+# float32, 129-256 (both types), head dim 512 in bf16 and in float32 (the
+# VAE's mid-attention, stage 5 only), above 512 (both types); and the
+# backward launches per stage-2 step of each train path (name, image size):
+# its kernel sites (Lk >= KERNEL_MIN_KV) that the loss differentiates
+BWD_SOURCES = ("flash_bwd_sm90", "flash_bwd_f32_sm90", "flash_bwd_d256_sm90", "flash_bwd_d512_sm90",
+               "flash_bwd_d512_f32", "flash_bwd_wide")
 BWD_PER_STEP = {("flagship", 256): 4, ("flagship", 512): 9, ("flagship-sd15", 256): 4}
 ATTN_XLA = {"EMOX_ATTENTION_IMPL": "xla"}
 ATTN_PALLAS = {"EMOX_ATTENTION_IMPL": "pallas"}
@@ -263,7 +277,8 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     EMOX_FF_IMPL=xla not the fused FF either, under EMOX_ATTENTION_IMPL=xla
     no attention kernel. Every forward launch of either layout went through
     exactly one kernel, the one for the type (dtype): FWD_SOURCES, bf16 never
-    on flash_fwd_d512_f32; every backward launch (train) too: BWD_SOURCES, none
+    on flash_fwd_d512_f32, no model path on the wide kernels (no preset
+    reaches a head dim above 512); every backward launch (train) too: BWD_SOURCES, none
     without training; every FF call on the FF kernel of the type:
     FF_SOURCES; every K7 call on the K7 kernel of the type: QKV_SOURCES."""
     env = env or {}
@@ -278,11 +293,11 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     other += [k for k in FF_SOURCES.values() if k != ff]
     if env.get("EMOX_FF_IMPL") == "xla":
         other += ["ln_geglu_ff", ff]
-    fwd = {"bfloat16": "flash_fwd_sm90", "float32": "flash_fwd_wmma"}[dtype]
-    other += [k for k in ("flash_fwd_sm90", "flash_fwd_wmma") if k != fwd]
+    fwd = {"bfloat16": "flash_fwd_sm90", "float32": "flash_fwd_f32_sm90"}[dtype]
+    other += [k for k in ("flash_fwd_sm90", "flash_fwd_f32_sm90", "flash_fwd_wide") if k != fwd]
     if dtype == "bfloat16":
         other.append("flash_fwd_d512_f32")
-    bwd = {"bfloat16": "flash_bwd_sm90", "float32": "flash_bwd_wmma"}[dtype]
+    bwd = {"bfloat16": "flash_bwd_sm90", "float32": "flash_bwd_f32_sm90"}[dtype]
     other += [k for k in BWD_SOURCES if k != bwd or not train]
     if env.get("EMOX_ATTENTION_IMPL") == "xla":
         other += [*ATTN_KERNELS[name], *FWD_SOURCES, *BWD_SOURCES]
@@ -388,8 +403,8 @@ def attn_launches_per_request(cfg, calls: int) -> dict:
 def fwd_sources_per_request(cfg, calls: int) -> dict:
     """The same launches by kernel in a bf16 request: every site, the VAE's
     head-dim-512 mid-attention included, on flash_fwd_sm90."""
-    return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, calls).values()), "flash_fwd_wmma": 0,
-            "flash_fwd_d512_f32": 0}
+    return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, calls).values()), "flash_fwd_f32_sm90": 0,
+            "flash_fwd_d512_f32": 0, "flash_fwd_wide": 0}
 
 
 def ff_launches_per_request(cfg, calls: int) -> int:
@@ -524,9 +539,39 @@ def _fwd_kernel(dtype, d: int) -> str:
     (either layout): emox_torch.ops.attention's routing."""
     import torch
 
+    if d > 512:
+        return "flash_fwd_wide"
     if dtype == torch.bfloat16:
         return "flash_fwd_sm90"
-    return "flash_fwd_d512_f32" if 256 < d <= 512 else "flash_fwd_wmma"
+    return "flash_fwd_d512_f32" if d > 256 else "flash_fwd_f32_sm90"
+
+
+def _padded(d: int, multiple: int = 64) -> int:
+    return -(-d // multiple) * multiple
+
+
+def _issued_flops(kernel: str, dtype, n: int, heads: int, lq: int, lk: int, d: int) -> float:
+    """The bf16 tensor-core work a kernel issues for one call (the bound of
+    its own products, beside the function's): the head dim padded as the
+    kernel pads it, S shared by two warpgroups or S and dP recomputed where
+    its kernels do, and three products for each on float32's two-part split."""
+    import torch
+
+    unit = 2.0 * n * heads * lq * lk  # one [Lq, Lk] product over one head-dim column
+    parts = 3 if dtype == torch.float32 else 1
+    if kernel in ("flash_fwd_wide", "flash_bwd_wide"):
+        slices, width, depth = -(-d // 128), _padded(d, 128), _padded(d)
+        # every slice's block: S (and dP) over every 64-column chunk, then its slice's products
+        products = slices * depth + width if kernel == "flash_fwd_wide" else 2 * slices * depth * 2 + 3 * width
+        return unit * products * parts
+    if kernel == "flash_fwd_sm90":  # d 512: both warpgroups compute S
+        return unit * (3 * 512 if d > 256 else 2 * _padded(d))
+    if kernel == "flash_fwd_f32_sm90":  # d 129-256: both warpgroups compute S, at 256 columns
+        return unit * (3 * 256 if d > 128 else 2 * _padded(d)) * parts
+    if kernel == "flash_fwd_d512_f32":
+        return unit * 2 * 512 * parts
+    dp = 512 if d > 256 else (256 if d > 128 else _padded(d))
+    return unit * 7 * dp * parts  # the backward pairs: S and dP in both kernels, 7 products
 
 
 def _peak(dtype) -> float:
@@ -536,13 +581,12 @@ def _peak(dtype) -> float:
 
 
 def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0):
-    """The packed layout's forward (flash_attention_nlc: flash_fwd_sm90 in
-    bf16, flash_fwd_wmma in float32, flash_fwd_d512_f32 at head dims 257-512) against
-    attention_nlc_plain (fp32 math on the same inputs, over batch chunks of
-    `chunk` rows where the full batch's maps would not fit)."""
+    """The packed layout's forward (flash_attention_nlc: the kernel of
+    _fwd_kernel) against attention_nlc_plain (fp32 math on the same inputs,
+    over batch chunks of `chunk` rows where the full batch's maps would not
+    fit)."""
     import torch
     import torch.nn.functional as F
-    from emox_torch.ops import attention
     from emox_torch.ops.attention import attention_nlc_plain, flash_attention_nlc
 
     dtype = dtype or torch.bfloat16
@@ -581,14 +625,49 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=20)
         res["library_backend"] = _sdpa_backend(qh, kh, vh)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
-        if res["kernel"] == "flash_fwd_d512_f32":
-            # the kernel's own work: three bf16 products for each, on the tensor cores
-            res["issued_bound_ms"] = bound(3 * flops, nbytes)[0]
-            plan = attention.fwd_d512_f32_plan(n, heads, lq, lk)
-            res.update(_d512_plan(plan, plan["cluster"]))
-            res["device_ms"] = device_ms(lambda: flash_attention_nlc(q, k, v, heads), iters=10)
+        _device_extras(res, dtype, n, heads, lq, lk, d, nbytes, lambda: flash_attention_nlc(q, k, v, heads))
     emit(res)
     return res
+
+
+# the kernels whose rows carry device_ms, the bound of the products they
+# issue and their launch plan
+DEVICE_TIMED = ("flash_fwd_f32_sm90", "flash_fwd_d512_f32", "flash_fwd_wide", "flash_bwd_f32_sm90",
+                "flash_bwd_d256_sm90", "flash_bwd_d512_sm90", "flash_bwd_wide")
+
+
+def _device_extras(res, dtype, n, heads, lq, lk, d, nbytes, run) -> None:
+    """For the kernels of DEVICE_TIMED: device_ms of run() (the wrapper: split
+    launches, padding and delta included), the bound of the products the
+    kernel issues (issued_bound_ms) and its grid and shared memory."""
+    import torch
+    from emox_torch.ops import attention
+
+    kernel = res["kernel"]
+    if kernel not in DEVICE_TIMED:
+        return
+    res["issued_bound_ms"] = bound(_issued_flops(kernel, dtype, n, heads, lq, lk, d), nbytes)[0]
+    parts = 2 if dtype == torch.float32 else 1
+    if kernel == "flash_fwd_d512_f32":
+        plan = attention.fwd_d512_f32_plan(n, heads, lq, lk)
+        res.update(_d512_plan(plan, plan["cluster"]))
+    elif kernel in ("flash_bwd_d512_sm90", "flash_bwd_d256_sm90"):
+        plan = attention.bwd_d512_plan(n, heads, lq, lk, *((128, parts) if kernel == "flash_bwd_d256_sm90" else ()))
+        res.update(_d512_plan(plan["dq"], plan["cluster"]), dkv_grid_blocks=math.prod(plan["dkv"]["grid"]),
+                   dkv_smem_bytes=plan["dkv"]["smem"])
+    elif kernel in ("flash_fwd_wide", "flash_bwd_wide"):
+        plan = attention.wide_plan(n, heads, lq, lk, d, parts)
+        first = plan["fwd" if kernel == "flash_fwd_wide" else "dq"]
+        res.update(grid_blocks=math.prod(first["grid"]), smem_bytes=first["smem"], slices=plan["slices"])
+        if kernel == "flash_bwd_wide":
+            res.update(dkv_grid_blocks=math.prod(plan["dkv"]["grid"]), dkv_smem_bytes=plan["dkv"]["smem"])
+    else:
+        plan = attention.f32_plan(n, heads, lq, lk, d)
+        first = plan["fwd" if kernel == "flash_fwd_f32_sm90" else "dq"]
+        res.update(grid_blocks=math.prod(first["grid"]), smem_bytes=first["smem"])
+        if kernel == "flash_bwd_f32_sm90":
+            res.update(dkv_grid_blocks=math.prod(plan["dkv"]["grid"]), dkv_smem_bytes=plan["dkv"]["smem"])
+    res["device_ms"] = device_ms(run, iters=10)
 
 
 def _bwd_kernel(dtype, d: int) -> str:
@@ -596,9 +675,13 @@ def _bwd_kernel(dtype, d: int) -> str:
     (either layout): emox_torch.ops.attention's routing."""
     import torch
 
-    if 256 < d <= 512:  # 257-511 are padded to 512
+    if d > 512:
+        return "flash_bwd_wide"
+    if d > 256:  # 257-511 are padded to 512
         return "flash_bwd_d512_sm90" if dtype == torch.bfloat16 else "flash_bwd_d512_f32"
-    return "flash_bwd_sm90" if dtype == torch.bfloat16 and d <= 128 else "flash_bwd_wmma"
+    if d > 128:
+        return "flash_bwd_d256_sm90"
+    return "flash_bwd_sm90" if dtype == torch.bfloat16 else "flash_bwd_f32_sm90"
 
 
 def _check_grads(res, run, want, dtype, need_dq: bool, need_dkv: bool, repeat: bool) -> bool:
@@ -637,15 +720,13 @@ def _check_grads(res, run, want, dtype, need_dq: bool, need_dkv: bool, repeat: b
 
 def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0, need_dq=True,
                     need_dkv=True, repeat=False):
-    """K4: dq, dk, dv of flash_attention_nlc_bwd (flash_bwd_sm90 in bf16 at
-    head dim <= 128, flash_bwd_d512_sm90 / flash_bwd_d512_f32 at head dims 257-512,
-    flash_bwd_wmma otherwise) against the plain version
-    (fp32 math on the same inputs, over batch chunks of `chunk` rows where
-    needed), from the fp32 forward's lse and its output rounded to the input
-    type; only the gradients asked for (need_dq, need_dkv)."""
+    """K4: dq, dk, dv of flash_attention_nlc_bwd (the kernel of _bwd_kernel)
+    against the plain version (fp32 math on the same inputs, over batch
+    chunks of `chunk` rows where needed), from the fp32 forward's lse and its
+    output rounded to the input type; only the gradients asked for (need_dq,
+    need_dkv)."""
     import torch
     import torch.nn.functional as F
-    from emox_torch.ops import attention
     from emox_torch.ops.attention import attention_nlc_bwd_plain, attention_nlc_plain, flash_attention_nlc_bwd
 
     dtype = dtype or torch.bfloat16
@@ -684,13 +765,8 @@ def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chu
         res["library_backend"] = _sdpa_backend(qh, kh, vh)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
         del out
-        if res["kernel"] == "flash_bwd_d512_sm90":
-            # the kernels' own work: S and dP in both, 7 products rather than 5
-            res["issued_bound_ms"] = bound(1.4 * flops, nbytes)[0]
-            plan = attention.bwd_d512_plan(n, heads, lq, lk)
-            res.update(_d512_plan(plan["dq"], plan["cluster"]), dkv_grid_blocks=math.prod(plan["dkv"]["grid"]),
-                       dkv_smem_bytes=plan["dkv"]["smem"])
-            res["device_ms"] = device_ms(lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale), iters=10)
+        _device_extras(res, dtype, n, heads, lq, lk, d, nbytes,
+                       lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale))
     emit(res)
     return res
 
@@ -709,9 +785,9 @@ def _packed_heads(gen, n, l, heads, d, dtype):
 
 
 def check_flash_strided(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
-    """The strided layout's forward (flash_attention: flash_fwd_sm90 in bf16,
-    flash_fwd_wmma in float32) on head-split views of packed tokens against
-    its plain version (fp32 math on the same inputs)."""
+    """The strided layout's forward (flash_attention: the kernel of
+    _fwd_kernel) on head-split views of packed tokens against its plain
+    version (fp32 math on the same inputs)."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_plain, flash_attention
@@ -742,17 +818,18 @@ def check_flash_strided(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
         res["plain_ms"] = time_ms(lambda: attention_plain(q, k, v, scale), iters=3, warmup=1)
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=20)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        _device_extras(res, dtype, n, heads, lq, lk, d, nbytes, lambda: flash_attention(q, k, v))
     emit(res)
     return res
 
 
 def check_flash_strided_bwd(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True, need_dq=True,
                             need_dkv=True, repeat=False):
-    """K5 backward: dq, dk, dv of flash_attention_bwd (flash_bwd_sm90 in
-    bf16 at head dim <= 128, flash_bwd_wmma otherwise) on head-split views
-    against the plain version (fp32 math on the same inputs), from the fp32
-    forward's lse and its output rounded to the input type; only the
-    gradients asked for."""
+    """K5 backward: dq, dk, dv of flash_attention_bwd (the kernel of
+    _bwd_kernel) on head-split views against the plain version (fp32 math
+    on the same inputs), from the fp32 forward's lse and its output rounded
+    to the input type; only the gradients asked for; with repeat, twice on
+    the same inputs (the same bits)."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_bwd_plain, attention_plain, flash_attention_bwd
@@ -786,6 +863,8 @@ def check_flash_strided_bwd(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=Tr
                                     iters=10)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
         del out
+        _device_extras(res, dtype, n, heads, lq, lk, d, nbytes,
+                       lambda: flash_attention_bwd(q, k, v, o, lse, dout, scale))
     emit(res)
     return res
 
@@ -1041,13 +1120,14 @@ def phase_kernels():
     results = {}
     # flash_fwd_sm90 on the packed layout (K1's sites): the reader's level-0
     # self-attention with the reference tokens appended (Lk = 2 * 1024),
-    # without and with CFG, plus a ragged Lk; float32 takes flash_fwd_wmma
+    # without and with CFG, plus a ragged Lk; float32 takes flash_fwd_f32_sm90,
+    # timed at the float32 step's site (batch 1 x 2 frames under CFG)
     results["flash_n16"] = check_flash(gen, 16, 1024, 2048)
     results["flash_n32"] = check_flash(gen, 32, 1024, 2048)
     # the windowed sampler's calls: 4 windows x 16 frames under CFG (N 128)
     results["flash_n128"] = check_flash(gen, 128, 1024, 2048, chunk=32)
     check_flash(gen, 4, 1000, 2000, timing=False)
-    check_flash(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
+    results["flash_f32_packed"] = check_flash(gen, 2, 1024, 2048, dtype=torch.float32)
     # the audio and temporal lengths (Lk 5 and 16), which the kernels take
     # under EMOX_ATTENTION_IMPL=pallas, on both layouts
     for lk in (5, 16):
@@ -1055,7 +1135,8 @@ def phase_kernels():
         check_flash_strided(gen, 32, 1024, lk, timing=False)
     # every class of head dim on both layouts, ragged Lq and Lk: 40, 80 and
     # 160 pad in shared memory to 64, 128 and 192 columns; 4 pads its rows
-    # (16-byte alignment) in the wrapper first; float32 on flash_fwd_wmma
+    # (16-byte alignment) in the wrapper first; float32 on flash_fwd_f32_sm90
+    # (its split pads 40 to 64, 80 to 128, 160 to 256)
     for d in (40, 80, 128, 160, 256):
         check_flash(gen, 2, 1000, 2100, c=2 * d, heads=2, timing=False)
         check_flash_strided(gen, 2, 1000, 2100, heads=3, d=d, timing=False)
@@ -1063,8 +1144,11 @@ def phase_kernels():
     for d in (4, 128, 160, 256):
         check_flash_strided(gen, 2, 1000, 2100, heads=2, d=d, dtype=torch.float32, timing=False)
     check_flash(gen, 2, 1000, 2100, c=256, heads=2, dtype=torch.float32, timing=False)
-    # flash_fwd_wmma timed at K5's serving shape (the float32 step's route)
-    results["flash_wmma_n32"] = check_flash_strided(gen, 32, 1024, 2048, dtype=torch.float32)
+    # flash_fwd_f32_sm90 timed at K5's serving shape (the float32 step's route),
+    # and both types at d 64 on the same shape: what padding d 40 to 64 costs
+    results["flash_f32_n32"] = check_flash_strided(gen, 32, 1024, 2048, dtype=torch.float32)
+    results["flash_f32_n32_d64"] = check_flash_strided(gen, 32, 1024, 2048, d=64, dtype=torch.float32)
+    results["flash_strided_n32_d64"] = check_flash_strided(gen, 32, 1024, 2048, d=64)
     # ff_sm90 at the FF sub-layers under CFG at 16 frames: levels 0, 1, 2 and
     # mid at 256^2 (the mid block splits F in GEMM 2), then at 512^2; levels 0
     # and mid twice on the same inputs (the same bits); ragged M and M below
@@ -1097,9 +1181,10 @@ def phase_kernels():
             check_flash_strided_bwd(gen, 2, lq, lk, heads=3, d=d, timing=False)
         check_flash_bwd(gen, 2, 1000, 2100, c=2 * d, heads=2, timing=False, need_dkv=False)
         check_flash_strided_bwd(gen, 2, 1000, 2100, heads=3, d=d, timing=False, need_dq=False)
-    # flash_bwd_wmma timed at the float32 train step's site (batch 1 x 2
-    # frames), then float32 packed head dim 128 (dq only, dk/dv only)
-    results["flash_bwd_wmma_f32"] = check_flash_bwd(gen, 2, 1024, 2048, dtype=torch.float32)
+    # flash_bwd_f32_sm90 timed at the float32 train step's site (batch 1 x 2
+    # frames), twice (the same bits), then float32 packed head dim 128 (dq
+    # only, dk/dv only)
+    results["flash_bwd_f32"] = check_flash_bwd(gen, 2, 1024, 2048, dtype=torch.float32, repeat=True)
     check_flash_bwd(gen, 2, 1000, 2100, c=256, heads=2, dtype=torch.float32, timing=False, need_dkv=False)
     check_flash_bwd(gen, 2, 1000, 2100, c=256, heads=2, dtype=torch.float32, timing=False, need_dq=False)
     # the strided layout (K5's sites, flash_fwd_sm90 in bf16) with the SD-1.5
@@ -1118,14 +1203,27 @@ def phase_kernels():
     results["flash_strided_bwd_n16"] = check_flash_strided_bwd(gen, 16, 1024, 2048)
     check_flash_strided_bwd(gen, 2, 1024, 2048, d=80, timing=False)
     check_flash_strided_bwd(gen, 4, 1000, 2100, timing=False)
-    # flash_bwd_wmma: float32 (d 40, 80, 160), bf16 at d 160 (SD-1.5's level
-    # 2) and 256, and the packed layout at d 192 (head-split views)
+    # float32 (d 40, 80 on flash_bwd_f32_sm90; 160 on flash_bwd_d256_sm90);
+    # flash_bwd_d256_sm90 in bf16 timed at SD-1.5's level 2 at 256^2 under
+    # EMOX_ATTENTION_IMPL=pallas (d 160: batch 2 x 8 frames, Lq 256, Lk 512)
+    # and at the small preset's VAE mid-attention in stage 5 at 256^2 (d 256,
+    # batch 4, L 1024), each twice (the same bits); ragged at d 160 and 256,
+    # dq only, dk/dv only, and the packed layout at d 192 (head-split views)
     check_flash_strided_bwd(gen, 2, 1024, 2048, dtype=torch.float32, timing=False)
     check_flash_strided_bwd(gen, 2, 1000, 2100, d=80, dtype=torch.float32, timing=False)
     check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, dtype=torch.float32, timing=False)
-    check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, timing=False)
+    # float32 at the small VAE's stage-5 step at 128^2 (batch 1, 1024 tokens),
+    # the kernel's main path
+    results["flash_bwd_d256_f32"] = check_flash_bwd(gen, 1, 1024, 1024, c=256, heads=1, dtype=torch.float32,
+                                                    repeat=True)
+    results["flash_bwd_d160"] = check_flash_strided_bwd(gen, 16, 256, 512, d=160, repeat=True)
+    results["flash_bwd_d256"] = check_flash_bwd(gen, 4, 1024, 1024, c=256, heads=1, repeat=True)
+    check_flash_strided_bwd(gen, 2, 1000, 2100, d=160, timing=False, repeat=True)
     check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=256, timing=False)
     check_flash_bwd(gen, 2, 1000, 2100, c=384, heads=2, timing=False)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=2, dtype=dtype, timing=False, need_dkv=False)
+        check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=2, dtype=dtype, timing=False, need_dq=False)
     # K8a (with and without SiLU) and K8b at the GroupNorm slabs of a request
     # under CFG at 16 frames: the UNet's levels 0, 1 and 2 at 256^2 and at
     # 512^2 (each sample's slab in one cluster launch in bf16), the VAE's
@@ -1216,6 +1314,23 @@ def phase_kernels():
         check_flash_bwd(gen, 2, 1000, 2100, c=1024, heads=2, dtype=dtype, timing=False)
         check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dkv=False)
         check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dq=False)
+    # head dims above 512 on flash_attn_wide.cu: d 640 (a VAE of last width 640)
+    # timed in float32 at its stage-5 step at 256^2 (one image of 1024 tokens,
+    # the kernels' main path) and in bf16 at 512^2 (4096 tokens), forward and
+    # backward (twice, the same bits); d 1024 packed and d 576 strided in both
+    # types and both directions, ragged, dq only and dk/dv only
+    results["flash_wide_f32"] = check_flash(gen, 1, 1024, 1024, c=640, heads=1, dtype=torch.float32)
+    results["flash_bwd_wide_f32"] = check_flash_bwd(gen, 1, 1024, 1024, c=640, heads=1, dtype=torch.float32,
+                                                    repeat=True)
+    results["flash_wide"] = check_flash(gen, 1, 4096, 4096, c=640, heads=1)
+    results["flash_bwd_wide"] = check_flash_bwd(gen, 1, 4096, 4096, c=640, heads=1, repeat=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_flash(gen, 2, 1000, 2100, c=1024, heads=1, dtype=dtype, timing=False)
+        check_flash_bwd(gen, 2, 1000, 2100, c=1024, heads=1, dtype=dtype, timing=False, repeat=True)
+        check_flash_strided(gen, 2, 1000, 2100, heads=2, d=576, dtype=dtype, timing=False)
+        check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=576, dtype=dtype, timing=False)
+        check_flash_bwd(gen, 2, 300, 333, c=1280, heads=2, dtype=dtype, timing=False, need_dkv=False)
+        check_flash_bwd(gen, 2, 300, 333, c=1280, heads=2, dtype=dtype, timing=False, need_dq=False)
     return results
 
 
@@ -1623,23 +1738,26 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
     return res
 
 
-def stage05_launches(stage: int, dtype: str = "bfloat16", calls: int = 1, env=None, cfg=None) -> dict:
+def stage05_launches(stage: int, dtype: str = "bfloat16", calls: int = 1, env=None, cfg=None,
+                     head_dim: int = 512) -> dict:
     """The kernel launches of `calls` loss-and-gradient passes of stage 0 or
     5, by counter: stage 0's face nets are convolutions and launch none;
     stage 5 differentiates the VAE, whose two mid-attentions (one head of
-    dim 512; at 512^2 their 4096 tokens reach KERNEL_MIN_KV) each take one
-    packed forward (flash_fwd_sm90 in bf16, flash_fwd_d512_f32 in float32)
-    and one backward (flash_bwd_d512_sm90, flash_bwd_d512_f32). Under
-    EMOX_GROUPNORM_IMPL=pallas (env) every GroupNorm of the VAE's encode and
-    decode (vae_group_norms of cfg, the flagship's by default) takes K8a
-    once; its backward recomputes through the plain formula."""
+    dim head_dim, the VAE's last width: 512 in the flagship; at 512^2 their
+    4096 tokens reach KERNEL_MIN_KV) each take one packed forward and one
+    backward, on the kernels of _fwd_kernel and _bwd_kernel (at d 512:
+    flash_fwd_sm90 and flash_bwd_d512_sm90 in bf16, flash_fwd_d512_f32 and
+    flash_bwd_d512_f32 in float32). Under EMOX_GROUPNORM_IMPL=pallas (env)
+    every GroupNorm of the VAE's encode and decode (vae_group_norms of cfg,
+    the flagship's by default) takes K8a once; its backward recomputes
+    through the plain formula."""
+    import torch
     from emox_torch.ops import KERNEL_WRAPPERS
 
     want = dict.fromkeys(KERNEL_WRAPPERS, 0)
     if stage == 5:
-        fwd, bwd = (("flash_fwd_sm90", "flash_bwd_d512_sm90") if dtype == "bfloat16"
-                    else ("flash_fwd_d512_f32", "flash_bwd_d512_f32"))
-        for k in ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd", fwd, bwd):
+        dt = getattr(torch, dtype)
+        for k in ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd", _fwd_kernel(dt, head_dim), _bwd_kernel(dt, head_dim)):
             want[k] = 2 * calls
         if "group_norm" in switch_kernels(env):
             want["group_norm"] = sum(vae_group_norms(cfg or model_config("flagship", 512, 1))) * calls
@@ -1647,19 +1765,33 @@ def stage05_launches(stage: int, dtype: str = "bfloat16", calls: int = 1, env=No
 
 
 def check_stage05_launches(stage: int, counts: dict, steps: int, what: str, dtype: str = "bfloat16",
-                           env=None) -> None:
-    want = stage05_launches(stage, dtype, steps, env)
+                           env=None, head_dim: int = 512) -> None:
+    want = stage05_launches(stage, dtype, steps, env, head_dim=head_dim)
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
 
-def phase_train_step_vae(tmp: str, size: int = 256):
-    """One float32 stage-5 step (VAE pretraining) of the flagship VAE at
-    size^2, batch 1: the loss and the VAE's gradients on the card against the same
-    weights, images and posterior noise on the CPU, TF32 off, under
-    EMOX_ATTENTION_IMPL=pallas, so that both (size/8)^2-token mid-attentions
-    take the float32 head-dim-512 kernels (flash_fwd_d512_f32,
-    flash_bwd_d512_f32) and nothing else launches."""
+# The VAEs of phase_train_step_vae: the flagship's (mid-attention head dim
+# 512), the small preset's (256: the float32 head-dim-256 forward and the
+# cluster pair at half width) and one of last width 640 (the wide kernels)
+VAE_VARIANTS = {"flagship": None, "small": dict(base_channels=64, channel_multipliers=(1, 2, 4), num_res_blocks=1,
+                                                norm_groups=16),
+                "640": dict(base_channels=160, channel_multipliers=(1, 2, 4, 4))}
+
+
+def phase_train_step_vae(tmp: str, size: int = 256, vae: str = "flagship", impl: str = "pallas",
+                         check: bool = True):
+    """One float32 stage-5 step (VAE pretraining) of the flagship VAE (or a
+    VAE_VARIANTS one) at size^2, batch 1: the loss and the VAE's gradients on
+    the card against the same weights, images and posterior noise on the
+    CPU, TF32 off, under EMOX_ATTENTION_IMPL=impl. Under "pallas" both
+    mid-attentions take the float32 kernels of the VAE's last width (the
+    flagship's: flash_fwd_d512_f32, flash_bwd_d512_f32) and nothing else
+    launches. The result carries the eight trainable leaves with the largest
+    gradient gap; with check, the phase fails outside its limits or on other
+    launches."""
+    import dataclasses
+
     import torch
     from emox_torch.core.presets import tiny_config
     from emox_torch.models.emo import EMOModel
@@ -1674,6 +1806,10 @@ def phase_train_step_vae(tmp: str, size: int = 256):
     # model builds in seconds
     tiny = tiny_config(size, 1)
     cfg = cfg.replace(model=tiny.model, audio=tiny.audio)
+    if VAE_VARIANTS[vae]:
+        cfg = cfg.replace(vae=dataclasses.replace(cfg.vae, **VAE_VARIANTS[vae]))
+    head_dim = cfg.vae.base_channels * cfg.vae.channel_multipliers[-1]
+    phase = "train_step_vae" + ("" if vae == "flagship" else f"_{vae}")
     t0 = time.perf_counter()
     cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
     gpu = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
@@ -1684,7 +1820,7 @@ def phase_train_step_vae(tmp: str, size: int = 256):
     draws = sample_draws(cfg, tr_cpu.sched, 5, batch, gen)
     setup_s = time.perf_counter() - t0
     to_gpu = lambda d: {k: v.to("cuda") for k, v in d.items()}
-    with switches(ATTN_PALLAS):
+    with switches({"EMOX_ATTENTION_IMPL": impl}):
         t0 = time.perf_counter()
         m_cpu, g_cpu = tr_cpu.loss_and_grads(batch, draws)
         cpu_s = time.perf_counter() - t0
@@ -1696,22 +1832,27 @@ def phase_train_step_vae(tmp: str, size: int = 256):
         counts = launch_counts()
     loss_cpu, loss_gpu = m_cpu["loss"].double().item(), m_gpu["loss"].double().item()
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    diff = sum(float(torch.linalg.vector_norm(a.cpu().double() - b.double()) ** 2) for a, b in zip(g_gpu, g_cpu))
-    norm = sum(float(torch.linalg.vector_norm(b.double()) ** 2) for b in g_cpu)
-    grads_rel = math.sqrt(diff / norm)
+    # (gap L2, CPU gradient L2, name) per trainable leaf
+    l2 = lambda t: float(torch.linalg.vector_norm(t.double()))
+    leaves = [(l2(a.cpu().double() - b.double()), l2(b), name)
+              for a, b, name in zip(g_gpu, g_cpu, tr_cpu.trainable_names())]
+    grads_rel = math.sqrt(sum(x[0] ** 2 for x in leaves) / sum(x[1] ** 2 for x in leaves))
     limits = {"loss_rel": 1e-5, "grads_rel_l2": 2e-4}  # as train_step
     metrics = {k: v.item() for k, v in m_gpu.items()}
-    res = {"phase": "train_step_vae", "config": f"flagship VAE {size}^2 stage 5, batch 1, float32, "
-           f"EMOX_ATTENTION_IMPL=pallas (the UNets and audio encoder, which stage 5 never runs, at tiny widths)", "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel": loss_rel,
-           "grads_rel_l2": grads_rel, "limits": limits, "metrics_gpu": metrics, "trainable_leaves": len(g_cpu),
+    res = {"phase": phase, "config": f"{vae} VAE (mid-attention head dim {head_dim}) {size}^2 stage 5, batch 1, "
+           f"float32, EMOX_ATTENTION_IMPL={impl} (the UNets and audio encoder, which stage 5 never runs, at tiny "
+           f"widths)", "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel": loss_rel,
+           "grads_rel_l2": grads_rel, "worst_leaves": sorted(leaves, reverse=True)[:8], "limits": limits,
+           "metrics_gpu": metrics, "trainable_leaves": len(g_cpu),
            "trainable_params": sum(g.numel() for g in g_cpu), "launches": counts, "setup_s": setup_s,
            "cpu_s": cpu_s, "gpu_s": gpu_s}
     emit(res)
     tr_cpu.close()
     tr_gpu.close()
-    if not (loss_rel <= limits["loss_rel"] and grads_rel <= limits["grads_rel_l2"]):
-        raise AssertionError(f"train_step_vae: card and CPU disagree: loss {loss_rel}, grads {grads_rel}")
-    check_stage05_launches(5, counts, 1, "train_step_vae", dtype="float32")
+    if check and not (loss_rel <= limits["loss_rel"] and grads_rel <= limits["grads_rel_l2"]):
+        raise AssertionError(f"{phase}: card and CPU disagree: loss {loss_rel}, grads {grads_rel}")
+    if check:
+        check_stage05_launches(5, counts, 1, phase, dtype="float32", head_dim=head_dim)
     del cpu, gpu, tr_cpu, tr_gpu
     torch.backends.cudnn.allow_tf32 = True
     return res
@@ -1951,7 +2092,7 @@ def phase_step_long():
                torch.linalg.vector_norm(v.double()).clamp_min(1e-30)).item() for k, v in on_cpu.items()}
     calls = reader_calls(cfg, 1, frames)
     want = {"flash_attn_nlc_fwd": attn_launches_per_request(cfg, calls)["flash_attn_nlc_fwd"],
-            "flash_fwd_wmma": sum(attn_launches_per_request(cfg, calls).values()),
+            "flash_fwd_f32_sm90": sum(attn_launches_per_request(cfg, calls).values()),
             "ln_geglu_ff": ff_launches_per_request(cfg, calls), "ff_wmma": ff_launches_per_request(cfg, calls)}
     res = {"phase": "step_long",
            "config": f"flagship {size}^2, {frames} frames, context {icfg.context_frames}, overlap "
@@ -2184,8 +2325,8 @@ _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("flash_fwd_d512_f32", ("fwd_d512_f32::",)),
     ("ff_sm90", ("ff_sm90::",)),  # the FF's LN pass and GEMMs, ahead of "sm90::"
     ("flash_fwd_sm90", ("sm90::",)),
-    ("flash_fwd_wmma", ("flash_fwd::",)),
-    ("flash_bwd_wmma", ("flash_bwd_strided::",)),
+    ("flash_attn_wide", ("wide::",)),
+    ("float32 split", ("split_rows",)),
     ("ff_wmma", ("ln_geglu_ff", "geglu_ff_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "wgmma")),
@@ -2492,6 +2633,13 @@ def main(argv=None) -> int:
         # (the face nets, from the shipped weights)
         with tempfile.TemporaryDirectory() as tmp:
             train_step_vae = phase_train_step_vae(tmp)["launches"]
+            # the same float32 step with the small preset's VAE (head dim 256)
+            # at 128^2, its preset's size, and with a VAE of last width 640
+            # (the wide kernels) at 256^2, as the flagship's (at 128^2 its
+            # gradients differ from the CPU by 2.9e-4 with plain attention
+            # too: its convolutions)
+            train_step_vae_small = phase_train_step_vae(tmp, size=128, vae="small")["launches"]
+            train_step_vae_640 = phase_train_step_vae(tmp, vae="640")["launches"]
             train_vae512 = phase_train(tmp, stage=5, batch=4, frames=1, warmup=1, steps=3, out_dir=args.out,
                                        size=512, phase="train_vae512")
             # the same steps with every GroupNorm of the VAE on K8a
@@ -2515,20 +2663,25 @@ def main(argv=None) -> int:
                "vae512": vae512, "serve_512": serve_512,
                "train_512_stage2_per_step": train_512["launches_per_step"],
                "step_norms": step_norms,
-               "train_step_vae": train_step_vae, "train_vae512_per_step": train_vae512["launches_per_step"],
+               "train_step_vae": train_step_vae, "train_step_vae_small": train_step_vae_small,
+               "train_step_vae_640": train_step_vae_640, "train_vae512_per_step": train_vae512["launches_per_step"],
                "train_vae512_norms_per_step": train_vae512_norms["launches_per_step"],
                "face_nets": face["launches"], "train_stage0_per_step": train0["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
-    # flash_fwd_d512_f32 in the float32 512^2 VAE, flash_fwd_wmma and ff_wmma on
-    # the float32 step), the timed stage-2 training steps for the backward
-    # (flash_bwd_sm90; flash_bwd_wmma on the float32 train step; at head dim
-    # 512 the stage-5 steps); the switch
-    # kernels' on the serving path under their switches; K6's WMMA kernel
-    # through its entry points (geglu_ff, float32)
+    # flash_fwd_d512_f32 in the float32 512^2 VAE, flash_fwd_f32_sm90 and
+    # ff_wmma on the float32 step), the timed stage-2 training steps for the
+    # backward (flash_bwd_sm90; flash_bwd_f32_sm90 on the float32 train step;
+    # at head dim 512 the stage-5 steps; flash_bwd_d256_sm90 and the wide
+    # kernels on the float32 stage-5 steps of the small and the width-640
+    # VAEs); the switch kernels' on the serving path under their switches;
+    # K6's WMMA kernel through its entry points (geglu_ff, float32)
     launches = dict(launches, flash_bwd_sm90=train2["launches"]["flash_bwd_sm90"],
-                    flash_fwd_d512_f32=vae512["flash_fwd_d512_f32"], flash_fwd_wmma=step["flash_fwd_wmma"],
-                    flash_bwd_wmma=train_step["flash_bwd_wmma"], ff_wmma=step["ff_wmma"],
+                    flash_fwd_d512_f32=vae512["flash_fwd_d512_f32"], flash_fwd_f32_sm90=step["flash_fwd_f32_sm90"],
+                    flash_bwd_f32_sm90=train_step["flash_bwd_f32_sm90"], ff_wmma=step["ff_wmma"],
+                    flash_bwd_d256_sm90=train_step_vae_small["flash_bwd_d256_sm90"],
+                    flash_fwd_wide=train_step_vae_640["flash_fwd_wide"],
+                    flash_bwd_wide=train_step_vae_640["flash_bwd_wide"],
                     group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
                     ln_qkv_sm90=serve_norms["ln_qkv_sm90"], ln_qkv_wmma=step_norms["ln_qkv_wmma"],
                     group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"],
@@ -2541,7 +2694,7 @@ def main(argv=None) -> int:
     shape = lambda k: {x: k[x] for x in ("function", "layout", "dtype", "n", "lq", "lk", "l", "c", "heads", "head_dim",
                                          "m", "f", "row_tile", "col_tile", "col_tiles_per_block", "grid_blocks",
                                          "smem_bytes", "blocks_per_sm", "gemm1_blocks", "gemm2_blocks", "splits",
-                                         "sms", "regime", "cluster", "chunks", "library_backend", "dkv_grid_blocks", "dkv_smem_bytes",
+                                         "sms", "regime", "cluster", "chunks", "slices", "library_backend", "dkv_grid_blocks", "dkv_smem_bytes",
                                          "plain_rows_per_call", "unfused_ms", "tflops", "gb_per_s") if x in k}
 
     def entry(source, replaces, main, others, main_launches=None):
@@ -2563,11 +2716,22 @@ def main(argv=None) -> int:
         # _flash_nlc_kernel's, the strided (head-split) ones _flash_kernel's
         entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
               kern["flash_n32"], [kern["flash_n16"], kern["flash_n128"], kern["flash_512_l0"], kern["flash_512_l1"],
-                                  kern["flash_strided_n32"], kern["flash_strided_n16"], kern["flash_d512"]]),
+                                  kern["flash_strided_n32"], kern["flash_strided_n16"], kern["flash_d512"],
+                                  kern["flash_strided_n32_d64"]]),
         entry("emox_torch/csrc/flash_fwd_d512_f32.cu", ["emox/ops/attention.py:409"], kern["flash_d512_f32"],
               [kern["flash_d512_f32_n16"]]),
-        entry("emox_torch/csrc/flash_attn.cu", ["emox/ops/attention.py:69", "emox/ops/attention.py:409"],
-              kern["flash_wmma_n32"], []),
+        # float32 on the same source's kernels, on a two-part bf16 split; its
+        # main row at the float32 step's packed site, whose launches it counts
+        entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
+              kern["flash_f32_packed"], [kern["flash_f32_n32"], kern["flash_f32_n32_d64"]]),
+        # head dims above 512, both types, forward and backward; the main rows
+        # in float32 at the width-640 VAE's stage-5 step, whose launches they
+        # count, the bf16 timing at 4096 tokens in by_shape
+        entry("emox_torch/csrc/flash_attn_wide.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
+              kern["flash_wide_f32"], [kern["flash_wide"]]),
+        entry("emox_torch/csrc/flash_attn_wide.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
+                                                     "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
+              kern["flash_bwd_wide_f32"], [kern["flash_bwd_wide"]]),
         # one launch entry for the three TPU FF kernels in bf16: level 0 is
         # _ln_ff_kernel's shape, level 1 _ln_ff_wide_kernel's, geglu_ff the
         # FF alone (_ff_kernel's)
@@ -2583,9 +2747,16 @@ def main(argv=None) -> int:
                                                     "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
               kern["flash_bwd_n16"], [kern["flash_bwd_n4"], kern["flash_bwd_512_l0"], kern["flash_bwd_512_l1"],
                                       kern["flash_strided_bwd_n16"]]),
-        entry("emox_torch/csrc/flash_attn_bwd.cu", ["emox/ops/attention.py:118", "emox/ops/attention.py:160",
-                                                   "emox/ops/attention.py:465", "emox/ops/attention.py:508"],
-              kern["flash_bwd_wmma_f32"], []),
+        # float32 at head dim <= 128 on the same source's pair, on a two-part split
+        entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
+                                                    "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
+              kern["flash_bwd_f32"], []),
+        # head dims 129-256, both types: flash_bwd_d512_sm90.cu's pair at half
+        # width; the main row in float32 at the small VAE's stage-5 step, whose
+        # launches it counts, the bf16 timings in by_shape
+        entry("emox_torch/csrc/flash_bwd_d512_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
+                                                         "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
+              kern["flash_bwd_d256_f32"], [kern["flash_bwd_d160"], kern["flash_bwd_d256"]]),
         # K4's pair at head dim 512 (the VAE's mid-attention, stage 5): bf16 on
         # the timed stage-5 steps at 512^2, float32 in train_step_vae
         entry("emox_torch/csrc/flash_bwd_d512_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],

@@ -54,12 +54,22 @@
 //     P = 0 in the dq kernel; the dk/dv kernel does not store them. Rows past
 //     Lq are not stored. cluster.sync() at the end keeps each block's shared
 //     memory alive while its partner may still arrive on its barriers.
+// Head dims 129-256 (emox_flash_bwd_d256_sm90, both types) run the same two
+// kernels at half the width, HALF = 128 columns a block: bf16 on the
+// caller's operands (the columns past d arrive zero-filled), float32 on a
+// two-part bf16 split of q, k, v and dO (split.cuh, [B, H, L, 512] scratch:
+// hi in columns 0-255, lo in 256-511), PARTS = 2, every product
+// a_hi b_hi + a_hi b_lo + a_lo b_hi, P and dS split in registers. A
+// float32 block holds as many bytes as a bf16 one at d 512 (231,504 B for
+// dk/dv), and half the accumulator registers. They replace the WMMA kernels
+// that took these head dims before (flash_attn_bwd.cu), which spilled dK and
+// dV at 192 and 256.
 // Not yet done: a persistent grid (at L 2304, N 2, each kernel's 144 blocks
 // take two waves of 132 SMs), overlap of the exchange with the next tile's
 // products.
 #include <cooperative_groups.h>
 
-#include "sm90.cuh"
+#include "split.cuh"
 
 namespace emox {
 namespace bwd_d512_sm90 {
@@ -67,64 +77,74 @@ namespace bwd_d512_sm90 {
 using namespace emox::sm90;
 namespace coop = cooperative_groups;
 
-constexpr int kHalf = 256;                 // head-dim columns a block of the pair owns
 constexpr int kThreads = 384;              // warpgroups 0, 1: consumers; 2: producer
 constexpr int kLqPad = 64;                 // lse and delta come padded to a multiple of this
 constexpr uint32_t kBox64 = 64 * 128;      // one 64-row x 64-column bf16 box
 constexpr uint32_t kPart = 4 * 128 * 16;   // one warpgroup's [64, 32] fp32 partial, in fragment order
 
+template <typename TO>
 struct Args {
-  __nv_bfloat16 *dq, *dk, *dv;
+  TO *dq, *dk, *dv;
   const float* lse;    // [B, H, lq_pad]: +inf past lq
   const float* delta;  // [B, H, lq_pad]: 0 past lq
   long long dq_b, dq_h, dq_r, dk_b, dk_h, dk_r, dv_b, dv_h, dv_r;  // element strides (batch, head, row)
   int heads, lq, lk, lq_pad;
+  int d;             // the true head dim: columns at or past it are not stored
   float scale;       // the softmax scale
   float scale_log2;  // scale * log2(e): P runs in base 2
 };
 
-__device__ __forceinline__ float prob(float s, float scale_log2, float lse_log2) {
-  return exp2f(fmaf(s, scale_log2, -lse_log2));
-}
-
-// A warpgroup's [64, 256] accumulator (d[4i + e]: row row_lo (e < 2) or
-// row_lo + 8, column 8i + col0 + e % 2), times `mul`, to bf16 rows r0 and
-// r0 + 8 of a strided output whose columns start at `out`; rows at or past
-// `nrows` are dropped.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long stride, const float* acc, int r0, int nrows,
-                                           int col0, float mul) {
+// A warpgroup's [64, HALF] accumulator (d[4i + e]: row row_lo (e < 2) or
+// row_lo + 8, column 8i + col0 + e % 2), times `mul`, to rows r0 and r0 + 8
+// of a strided output of type TO whose columns start at `out`; rows at or
+// past `nrows` and columns at or past `ncols` are dropped.
+template <int HALF, typename TO>
+__device__ __forceinline__ void store_rows(TO* out, long long stride, const float* acc, int r0, int nrows, int col0,
+                                           int ncols, float mul) {
 #pragma unroll
-  for (int i = 0; i < kHalf / 8; ++i) {
+  for (int i = 0; i < HALF / 8; ++i) {
     const int col = 8 * i + col0;
-    if (r0 < nrows) {
-      *reinterpret_cast<uint32_t*>(out + r0 * stride + col) = pack_bf16(acc[4 * i] * mul, acc[4 * i + 1] * mul);
-    }
-    if (r0 + 8 < nrows) {
-      *reinterpret_cast<uint32_t*>(out + (r0 + 8) * stride + col) =
-          pack_bf16(acc[4 * i + 2] * mul, acc[4 * i + 3] * mul);
+    if (col < ncols) {
+      if (r0 < nrows) store_pair(out + r0 * stride + col, acc[4 * i] * mul, acc[4 * i + 1] * mul);
+      if (r0 + 8 < nrows) store_pair(out + (r0 + 8) * stride + col, acc[4 * i + 2] * mul, acc[4 * i + 3] * mul);
     }
   }
 }
 
+// HALF: the head-dim columns a block of the pair owns (256 at d 512, 128 at
+// d <= 256); PARTS: 1 (bf16 operands) or 2 (float32 as two bf16 parts, each
+// tile's lo boxes CH boxes after its hi ones, the lo columns of the scratch
+// 2 HALF after the hi ones)
+template <int HALF, int PARTS>
+struct Geometry {
+  static constexpr int CH = HALF / 64;                // 64-column boxes a block owns, per part
+  static constexpr int BOXES = PARTS * CH;            // boxes of a block's part of a row
+  static constexpr int LO = 2 * HALF;                 // the lo part's first column in the scratch
+};
+
 // ---- dq: a pair per 64 query rows; 64-key K/V tiles stream -------------------------
+template <int HALF, int PARTS>
 struct DqSmem {
+  using G = Geometry<HALF, PARTS>;
   static constexpr int STAGES = 2;
-  static constexpr uint32_t q_off = 0;                       // Q: 4 boxes of 64 rows (its half)
-  static constexpr uint32_t do_off = q_off + 4 * kBox64;     // dO
-  static constexpr uint32_t stage = 8 * kBox64;              // K then V, 4 boxes each
-  static constexpr uint32_t ring_off = do_off + 4 * kBox64;
+  static constexpr uint32_t q_off = 0;                         // Q: its boxes of 64 rows
+  static constexpr uint32_t do_off = q_off + G::BOXES * kBox64;  // dO
+  static constexpr uint32_t stage = 2 * G::BOXES * kBox64;     // K then V
+  static constexpr uint32_t ring_off = do_off + G::BOXES * kBox64;
   static constexpr uint32_t xch_off = ring_off + STAGES * stage;  // [warpgroup][S, dP] partials from the peer
   static constexpr uint32_t bar_off = xch_off + 4 * kPart;
   // q_full, full[STAGES], empty[STAGES], in_full[2], out_free[2]
   static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES + 4) + 1024;  // + alignment slack
-  static_assert(128 * 32 * 16 <= STAGES * stage, "dQ_1 staging fits the ring");
+  static_assert(128 * (HALF / 8) * 16 <= STAGES * stage, "dQ_1 staging fits the ring");
   static_assert(bytes <= 232448, "shared memory of a block");
 };
 
+template <int HALF, int PARTS, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args args) {
-  using S = DqSmem;
+              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args<TO> args) {
+  using S = DqSmem<HALF, PARTS>;
+  using G = Geometry<HALF, PARTS>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));  // `base` as a generic pointer
@@ -136,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = (blockIdx.x >> 1) * 64;
-  const int c0 = rank * kHalf;  // this block's head-dim columns
+  const int c0 = rank * HALF;  // this block's head-dim columns
   const int tiles = (args.lk + 63) / 64;
   coop::cluster_group cluster = coop::this_cluster();
 
@@ -159,19 +179,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- producer: one thread issues every TMA load -----------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, 8 * kBox64);
-      for (int c = 0; c < 4; ++c) {
-        tma_load_4d(base + S::q_off + c * kBox64, &tq, q_full, c0 + 64 * c, q0, h, b);
-        tma_load_4d(base + S::do_off + c * kBox64, &tdo, q_full, c0 + 64 * c, q0, h, b);
+      // box c of a tile: hi columns c0 + 64c (c < CH), lo columns LO + c0 + 64 (c - CH)
+      mbar_expect_tx(q_full, 2 * G::BOXES * kBox64);
+      for (int c = 0; c < G::BOXES; ++c) {
+        const int col = (c < G::CH ? 0 : G::LO - HALF) + c0 + 64 * c;
+        tma_load_4d(base + S::q_off + c * kBox64, &tq, q_full, col, q0, h, b);
+        tma_load_4d(base + S::do_off + c * kBox64, &tdo, q_full, col, q0, h, b);
       }
       for (int j = 0; j < tiles; ++j) {
         const int s = j % S::STAGES;
         if (j >= S::STAGES) mbar_wait(empty0 + 8 * s, ((j / S::STAGES) - 1) & 1);
         const uint32_t full = full0 + 8 * s, st = base + S::ring_off + s * S::stage;
         mbar_expect_tx(full, S::stage);
-        for (int c = 0; c < 4; ++c) {
-          tma_load_4d(st + c * kBox64, &tk, full, c0 + 64 * c, j * 64, h, b);
-          tma_load_4d(st + (4 + c) * kBox64, &tv, full, c0 + 64 * c, j * 64, h, b);
+        for (int c = 0; c < G::BOXES; ++c) {
+          const int col = (c < G::CH ? 0 : G::LO - HALF) + c0 + 64 * c;
+          tma_load_4d(st + c * kBox64, &tk, full, col, j * 64, h, b);
+          tma_load_4d(st + (G::BOXES + c) * kBox64, &tv, full, col, j * 64, h, b);
         }
       }
     }
@@ -189,42 +212,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t slot = base + S::xch_off + wg * 2 * kPart;  // the peer's partials of this warpgroup's keys
     const uint32_t in_full = in_full0 + 8 * wg, out_free = out_free0 + 8 * wg;
     const uint32_t peer_out_free = map_rank(out_free, peer);
-    float dq[128];
+    float dq[HALF / 2];
 #pragma unroll
-    for (int i = 0; i < 128; ++i) dq[i] = 0.f;
+    for (int i = 0; i < HALF / 2; ++i) dq[i] = 0.f;
 
     mbar_wait(q_full, 0);
     for (int j = 0; j < tiles; ++j) {
       const int s = j % S::STAGES;
       mbar_wait(full0 + 8 * s, (j / S::STAGES) & 1);
       const uint32_t k_tile = base + S::ring_off + s * S::stage;
-      const uint32_t v_tile = k_tile + 4 * kBox64;
+      const uint32_t v_tile = k_tile + G::BOXES * kBox64;
       const uint32_t keys = wg * 32 * 128;  // this warpgroup's 32 keys within each box
 
-      // partial S = Q K^T and dP = dO V^T over this block's 256 columns
+      // partial S = Q K^T and dP = dO V^T over this block's HALF columns
       float sc[16], dp[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.f;
       fence_regs<16>(sc);
       fence_regs<16>(dp);
       wgmma_fence();
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          Wgmma<32>::ss(sc, smem_desc(base + S::q_off + c * kBox64 + kk * 32, 16, 1024),
-                        smem_desc(k_tile + c * kBox64 + keys + kk * 32, 16, 1024), c + kk > 0);
-        }
-      }
+      product<32, G::CH, PARTS>(sc, base + S::q_off, kBox64, k_tile + keys, kBox64);
       wgmma_commit();  // S's products, then dP's: S goes to the peer while dP's run
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          Wgmma<32>::ss(dp, smem_desc(base + S::do_off + c * kBox64 + kk * 32, 16, 1024),
-                        smem_desc(v_tile + c * kBox64 + keys + kk * 32, 16, 1024), c + kk > 0);
-        }
-      }
+      product<32, G::CH, PARTS>(dp, base + S::do_off, kBox64, v_tile + keys, kBox64);
       wgmma_commit();
 
       // the exchange: our partials into the peer's slot, then theirs from ours
@@ -251,21 +260,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (ragged && j * 64 + wg * 32 + 8 * (i / 4) + col0 + (i % 2) >= args.lk) p = 0.f;
         dp[i] = p * (dp[i] - (lo ? dl_lo : dl_hi));
       }
-      uint32_t da[2][4];
+      uint32_t da[2][4], dl[2][4];
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) da[k][r] = pack_bf16(dp[8 * k + 2 * r], dp[8 * k + 2 * r + 1]);
-      }
+      for (int k = 0; k < 2; ++k) a_operand<PARTS>(dp + 8 * k, da[k], dl[k]);
       // dQ_w += dS K over this warpgroup's keys: K as an MN-major B operand
       // (keys on rows, head dim contiguous, 64-column boxes kBox64 apart)
-      fence_regs<128>(dq);
+      fence_regs<HALF / 2>(dq);
       wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < 2; ++k) WgmmaRS<256>::rs(dq, da[k], smem_desc(k_tile + keys + k * 16 * 128, kBox64, 1024));
+      for (int k = 0; k < 2; ++k) {
+        rs_product<HALF, G::CH, PARTS>(dq, da[k], dl[k], k_tile + keys + k * 16 * 128, kBox64);
+      }
       wgmma_commit();
       wgmma_wait0();
-      fence_regs<128>(dq);
+      fence_regs<HALF / 2>(dq);
       mbar_arrive(empty0 + 8 * s);
     }
 
@@ -274,34 +282,39 @@ __global__ void __launch_bounds__(kThreads, 1)
     float4* stage = reinterpret_cast<float4*>(gbase + S::ring_off);
     if (wg == 1) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) stage[i * 128 + t] = make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2], dq[4 * i + 3]);
+      for (int i = 0; i < HALF / 8; ++i) {
+        stage[i * 128 + t] = make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2], dq[4 * i + 3]);
+      }
     }
     consumers_sync();
     if (wg == 0) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < HALF / 8; ++i) {
         const float4 p = stage[i * 128 + t];
         dq[4 * i] += p.x;
         dq[4 * i + 1] += p.y;
         dq[4 * i + 2] += p.z;
         dq[4 * i + 3] += p.w;
       }
-      store_rows(args.dq + b * args.dq_b + h * args.dq_h + c0, args.dq_r, dq, r_lo, args.lq, col0, args.scale);
+      store_rows<HALF>(args.dq + b * args.dq_b + h * args.dq_h + c0, args.dq_r, dq, r_lo, args.lq, col0,
+                       args.d - c0, args.scale);
     }
   }
   cluster.sync();  // no block leaves while its partner may still arrive on its barriers
 }
 
 // ---- dk, dv: a pair per 64 keys; 64-row Q/dO tiles stream ------------------------------
+template <int HALF, int PARTS>
 struct DkvSmem {
+  using G = Geometry<HALF, PARTS>;
   static constexpr int BQ = 64;  // query rows a streamed tile
   static constexpr int STAGES = 2;
   static constexpr uint32_t box = BQ * 128;               // one BQ-row box of Q or dO
   static constexpr uint32_t part = BQ * 256;              // a warpgroup's [64, BQ] fp32 partial
-  static constexpr uint32_t k_off = 0;                    // K: 4 boxes of 64 rows (its half)
-  static constexpr uint32_t v_off = k_off + 4 * kBox64;   // V
-  static constexpr uint32_t stage = 8 * box;              // Q then dO, 4 boxes each
-  static constexpr uint32_t ring_off = v_off + 4 * kBox64;
+  static constexpr uint32_t k_off = 0;                    // K: its boxes of 64 rows
+  static constexpr uint32_t v_off = k_off + G::BOXES * kBox64;  // V
+  static constexpr uint32_t stage = 2 * G::BOXES * box;   // Q then dO
+  static constexpr uint32_t ring_off = v_off + G::BOXES * kBox64;
   static constexpr uint32_t vec = BQ * 4;                 // one tile's lse (or delta)
   static constexpr uint32_t vec_off = ring_off + STAGES * stage;
   static constexpr uint32_t xch_off = vec_off + STAGES * 2 * vec;  // S^T from the peer (then P^T), dP^T from the peer
@@ -312,10 +325,12 @@ struct DkvSmem {
   static_assert(bytes <= 232448, "shared memory of a block");
 };
 
+template <int HALF, int PARTS, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-               const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args args) {
-  using S = DkvSmem;
+               const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args<TO> args) {
+  using S = DkvSmem<HALF, PARTS>;
+  using G = Geometry<HALF, PARTS>;
   constexpr int BQ = S::BQ;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -332,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const int h = blockIdx.y, b = blockIdx.z;
   const int k0 = (blockIdx.x >> 1) * 64;
-  const int c0 = rank * kHalf;
+  const int c0 = rank * HALF;
   const int tiles = (args.lq + BQ - 1) / BQ;  // <= lq_pad / BQ
   coop::cluster_group cluster = coop::this_cluster();
 
@@ -356,10 +371,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(kv_full, 8 * kBox64);
-      for (int c = 0; c < 4; ++c) {
-        tma_load_4d(base + S::k_off + c * kBox64, &tk, kv_full, c0 + 64 * c, k0, h, b);
-        tma_load_4d(base + S::v_off + c * kBox64, &tv, kv_full, c0 + 64 * c, k0, h, b);
+      mbar_expect_tx(kv_full, 2 * G::BOXES * kBox64);
+      for (int c = 0; c < G::BOXES; ++c) {
+        const int col = (c < G::CH ? 0 : G::LO - HALF) + c0 + 64 * c;
+        tma_load_4d(base + S::k_off + c * kBox64, &tk, kv_full, col, k0, h, b);
+        tma_load_4d(base + S::v_off + c * kBox64, &tv, kv_full, col, k0, h, b);
       }
       const size_t vec = ((size_t)b * args.heads + h) * args.lq_pad;
       for (int i = 0; i < tiles; ++i) {
@@ -367,9 +383,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (i >= S::STAGES) mbar_wait(empty0 + 8 * s, ((i / S::STAGES) - 1) & 1);
         const uint32_t full = full0 + 8 * s, st = base + S::ring_off + s * S::stage;
         mbar_expect_tx(full, S::stage + 2 * S::vec);
-        for (int c = 0; c < 4; ++c) {
-          tma_load_4d(st + c * S::box, &tq, full, c0 + 64 * c, i * BQ, h, b);
-          tma_load_4d(st + (4 + c) * S::box, &tdo, full, c0 + 64 * c, i * BQ, h, b);
+        for (int c = 0; c < G::BOXES; ++c) {
+          const int col = (c < G::CH ? 0 : G::LO - HALF) + c0 + 64 * c;
+          tma_load_4d(st + c * S::box, &tq, full, col, i * BQ, h, b);
+          tma_load_4d(st + (G::BOXES + c) * S::box, &tdo, full, col, i * BQ, h, b);
         }
         const uint32_t vs = base + S::vec_off + s * 2 * S::vec;
         bulk_load(vs, args.lse + vec + i * BQ, S::vec, full);
@@ -383,9 +400,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = t / 32, lane = t % 32;
     const int row_lo = warp * 16 + lane / 4;  // this thread's keys: row_lo and row_lo + 8
     const int col0 = 2 * (lane % 4);          // and query rows col0, col0 + 1 of every 8
-    float acc[128];                           // dV (warpgroup 0) or dK (warpgroup 1), [64, 256]
+    float acc[HALF / 2];                      // dV (warpgroup 0) or dK (warpgroup 1), [64, HALF]
 #pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int i = 0; i < HALF / 2; ++i) acc[i] = 0.f;
     const uint32_t a_tile = base + (wg == 0 ? S::k_off : S::v_off);  // S^T = K Q^T, dP^T = V dO^T
 
     mbar_wait(kv_full, 0);
@@ -393,7 +410,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int s = i % S::STAGES;
       mbar_wait(full0 + 8 * s, (i / S::STAGES) & 1);
       const uint32_t q_tile = base + S::ring_off + s * S::stage;
-      const uint32_t do_tile = q_tile + 4 * S::box;
+      const uint32_t do_tile = q_tile + G::BOXES * S::box;
       const float* lse = reinterpret_cast<const float*>(gbase + S::vec_off + s * 2 * S::vec);
       const float* delta = lse + BQ;
 
@@ -404,14 +421,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < BQ / 2; ++e) x[e] = 0.f;
       fence_regs<BQ / 2>(x);
       wgmma_fence();
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          Wgmma<BQ>::ss(x, smem_desc(a_tile + c * kBox64 + kk * 32, 16, 1024),
-                        smem_desc(b_tile + c * S::box + kk * 32, 16, 1024), c + kk > 0);
-        }
-      }
+      product<BQ, G::CH, PARTS>(x, a_tile, kBox64, b_tile, S::box);
       wgmma_commit();
       wgmma_wait0();
       fence_regs<BQ / 2>(x);
@@ -426,7 +436,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait_cluster(wg == 0 ? in_s : in_dp, i & 1);
       add_part<BQ / 2>(x, gbase + (slot - base), t);  // S^T or dP^T = ours + the peer's (the peer: theirs + ours)
 
-      uint32_t frag[BQ / 16][4];  // P^T (warpgroup 0) or dS^T (warpgroup 1) as the register A operand
+      // P^T (warpgroup 0) or dS^T (warpgroup 1) as the register A operand (lo: its split's second part)
+      uint32_t frag[BQ / 16][4], lo[BQ / 16][4];
       if (wg == 0) {
 #pragma unroll
         for (int e = 0; e < BQ / 2; e += 2) {  // accumulator pair e, e + 1: query rows col, col + 1
@@ -439,10 +450,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         warpgroup_sync(wg);
         if (t == 0) mbar_arrive(p_ready);
 #pragma unroll
-        for (int k = 0; k < BQ / 16; ++k) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) frag[k][r] = pack_bf16(x[8 * k + 2 * r], x[8 * k + 2 * r + 1]);
-        }
+        for (int k = 0; k < BQ / 16; ++k) a_operand<PARTS>(x + 8 * k, frag[k], lo[k]);
       } else {
         mbar_wait(p_ready, i & 1);
         float p[BQ / 2];
@@ -455,41 +463,42 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_arrive_cluster(map_rank(free_dp, peer));
         }
 #pragma unroll
-        for (int k = 0; k < BQ / 16; ++k) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int e = 8 * k + 2 * r;
-            const float2 d2 = *reinterpret_cast<const float2*>(delta + 8 * (e / 4) + col0);
-            frag[k][r] = pack_bf16(p[e] * (x[e] - d2.x), p[e + 1] * (x[e + 1] - d2.y));
-          }
+        for (int e = 0; e < BQ / 2; e += 2) {
+          const float2 d2 = *reinterpret_cast<const float2*>(delta + 8 * (e / 4) + col0);
+          x[e] = p[e] * (x[e] - d2.x);
+          x[e + 1] = p[e + 1] * (x[e + 1] - d2.y);
         }
+#pragma unroll
+        for (int k = 0; k < BQ / 16; ++k) a_operand<PARTS>(x + 8 * k, frag[k], lo[k]);
       }
       // dV += P^T dO (0) or dK += dS^T Q (1): the tile's query rows are the
       // depth; dO and Q are MN-major B operands (64-column boxes S::box apart)
       const uint32_t rhs = wg == 0 ? do_tile : q_tile;
-      fence_regs<128>(acc);
+      fence_regs<HALF / 2>(acc);
       wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < BQ / 16; ++k) WgmmaRS<256>::rs(acc, frag[k], smem_desc(rhs + k * 16 * 128, S::box, 1024));
+      for (int k = 0; k < BQ / 16; ++k) rs_product<HALF, G::CH, PARTS>(acc, frag[k], lo[k], rhs + k * 16 * 128, S::box);
       wgmma_commit();
       wgmma_wait0();
-      fence_regs<128>(acc);
+      fence_regs<HALF / 2>(acc);
       mbar_arrive(empty0 + 8 * s);
     }
     const int r_lo = k0 + row_lo;
     if (wg == 0) {
-      store_rows(args.dv + b * args.dv_b + h * args.dv_h + c0, args.dv_r, acc, r_lo, args.lk, col0, 1.f);
+      store_rows<HALF>(args.dv + b * args.dv_b + h * args.dv_h + c0, args.dv_r, acc, r_lo, args.lk, col0,
+                       args.d - c0, 1.f);
     } else {
-      store_rows(args.dk + b * args.dk_b + h * args.dk_h + c0, args.dk_r, acc, r_lo, args.lk, col0, args.scale);
+      store_rows<HALF>(args.dk + b * args.dk_b + h * args.dk_h + c0, args.dk_r, acc, r_lo, args.lk, col0,
+                       args.d - c0, args.scale);
     }
   }
   cluster.sync();
 }
 
 // ---- host side ------------------------------------------------------------------
-template <typename Kernel>
+template <typename Kernel, typename TO>
 static cudaError_t launch_pairs(Kernel kernel, uint32_t smem, int pairs, int heads, int batch, const CUtensorMap* m,
-                                const Args& a, cudaStream_t stream) {
+                                const Args<TO>& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -509,6 +518,48 @@ static cudaError_t launch_pairs(Kernel kernel, uint32_t smem, int pairs, int hea
   return cudaGetLastError();
 }
 
+// Both kernels on q, dO, k and v as TMA maps of `width` columns and 64-row
+// boxes (st: their (batch, head, row) element strides, in the order q, k, v, dout)
+template <int HALF, int PARTS, typename TO>
+static cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const long long* st,
+                          int width, const Args<TO>& a, int batch, cudaStream_t stream) {
+  static_assert(DkvSmem<HALF, PARTS>::BQ == 64, "the dk/dv kernel's Q and dO tiles are the maps' boxes");
+  CUtensorMap m[4];
+  if (!make_map(&m[0], q, batch, a.heads, a.lq, width, st, 64) ||
+      !make_map(&m[1], dout, batch, a.heads, a.lq, width, st + 9, 64) ||
+      !make_map(&m[2], k, batch, a.heads, a.lk, width, st + 3, 64) ||
+      !make_map(&m[3], v, batch, a.heads, a.lk, width, st + 6, 64)) {
+    return cudaErrorInvalidValue;
+  }
+  if (a.dq != nullptr) {
+    const cudaError_t err = launch_pairs(dq_kernel<HALF, PARTS, TO>, DqSmem<HALF, PARTS>::bytes, (a.lq + 63) / 64,
+                                         a.heads, batch, m, a, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (a.dk != nullptr) {
+    return launch_pairs(dkv_kernel<HALF, PARTS, TO>, DkvSmem<HALF, PARTS>::bytes, (a.lk + 63) / 64, a.heads, batch,
+                        m, a, stream);
+  }
+  return cudaSuccess;
+}
+
+static bool bad_args(int batch, int heads, int lq, int lk, int lq_pad, const void* lse, const void* delta,
+                     const void* dk, const void* dv) {
+  return batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || lq_pad < lq ||
+         lq_pad % kLqPad || lq_pad >= lq + kLqPad || (dk == nullptr) != (dv == nullptr) ||
+         reinterpret_cast<uintptr_t>(lse) % 16 || reinterpret_cast<uintptr_t>(delta) % 16;
+}
+
+template <typename TO>
+static Args<TO> make_args(void* dq, void* dk, void* dv, const void* lse, const void* delta, const long long* strides,
+                          int heads, int lq, int lk, int lq_pad, int head_dim, float scale) {
+  const long long* so = strides + 12;
+  return Args<TO>{static_cast<TO*>(dq), static_cast<TO*>(dk), static_cast<TO*>(dv),
+                  static_cast<const float*>(lse), static_cast<const float*>(delta),
+                  so[0], so[1], so[2], so[3], so[4], so[5], so[6], so[7], so[8],
+                  heads, lq, lk, lq_pad, head_dim, scale, scale * kLog2e};
+}
+
 }  // namespace bwd_d512_sm90
 }  // namespace emox
 
@@ -525,32 +576,41 @@ extern "C" int emox_flash_bwd_d512_sm90(const void* q, const void* k, const void
                                         const void* lse, const void* delta, void* dq, void* dk, void* dv,
                                         const long long* strides, int batch, int heads, int lq, int lk, int lq_pad,
                                         float scale, void* stream) {
-  using namespace emox::sm90;
+  using namespace emox::bwd_d512_sm90;
+  if (bad_args(batch, heads, lq, lk, lq_pad, lse, delta, dk, dv)) return (int)cudaErrorInvalidValue;
+  const auto a = make_args<__nv_bfloat16>(dq, dk, dv, lse, delta, strides, heads, lq, lk, lq_pad, 512, scale);
+  return (int)launch<256, 1>(q, k, v, dout, strides, 512, a, batch, static_cast<cudaStream_t>(stream));
+}
+
+// Attention backward at head dims 129-256 in bf16 (dtype 1) or float32
+// (dtype 0), as emox_flash_bwd_d512_sm90 on [batch, heads, L, head_dim]
+// operands (bf16: head_dim a multiple of 8; float32: of 4). Float32 splits q,
+// k, v and dout first into q2, k2, v2, do2: bf16 scratch of [batch, heads,
+// lq or lk, 512] elements, contiguous (NULL in bf16).
+extern "C" int emox_flash_bwd_d256_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                        const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                                        const long long* strides, int batch, int heads, int lq, int lk, int lq_pad,
+                                        int head_dim, float scale, int dtype, void* q2, void* k2, void* v2, void* do2,
+                                        void* stream) {
   using namespace emox::bwd_d512_sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || lq_pad < lq ||
-      lq_pad % kLqPad || lq_pad >= lq + kLqPad || (dk == nullptr) != (dv == nullptr) ||
-      reinterpret_cast<uintptr_t>(lse) % 16 || reinterpret_cast<uintptr_t>(delta) % 16) {
+  if (bad_args(batch, heads, lq, lk, lq_pad, lse, delta, dk, dv) || head_dim <= 128 || head_dim > 256 ||
+      head_dim % (dtype == 1 ? 8 : 4) || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long* so = strides + 12;
-  const Args a{static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-               static_cast<const float*>(lse), static_cast<const float*>(delta),
-               so[0], so[1], so[2], so[3], so[4], so[5], so[6], so[7], so[8],
-               heads, lq, lk, lq_pad, scale, scale * kLog2e};
-  // q, dO, k and v as TMA maps of 64-row boxes: both kernels' tiles
-  static_assert(DkvSmem::BQ == 64, "the dk/dv kernel's Q and dO tiles are the maps' boxes");
-  CUtensorMap m[4];
-  if (!make_map(&m[0], q, batch, heads, lq, 512, strides, 64) ||
-      !make_map(&m[1], dout, batch, heads, lq, 512, strides + 9, 64) ||
-      !make_map(&m[2], k, batch, heads, lk, 512, strides + 3, 64) ||
-      !make_map(&m[3], v, batch, heads, lk, 512, strides + 6, 64)) {
-    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const auto a = make_args<__nv_bfloat16>(dq, dk, dv, lse, delta, strides, heads, lq, lk, lq_pad, head_dim, scale);
+    return (int)launch<128, 1>(q, k, v, dout, strides, head_dim, a, batch, s);
   }
-  if (dq != nullptr) {
-    const cudaError_t err = launch_pairs(dq_kernel, DqSmem::bytes, (lq + 63) / 64, heads, batch, m, a, s);
+  const void* src[4] = {q, k, v, dout};
+  void* parts[4] = {q2, k2, v2, do2};
+  const int lens[4] = {lq, lk, lk, lq};
+  long long st[12];
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = split_operand(src[i], strides + 3 * i, batch, heads, lens[i], head_dim, 256, parts[i], s);
     if (err != cudaSuccess) return (int)err;
+    scratch_strides(st + 3 * i, heads, lens[i], 256);
   }
-  if (dk != nullptr) return (int)launch_pairs(dkv_kernel, DkvSmem::bytes, (lk + 63) / 64, heads, batch, m, a, s);
-  return (int)cudaSuccess;
+  const auto a = make_args<float>(dq, dk, dv, lse, delta, strides, heads, lq, lk, lq_pad, head_dim, scale);
+  return (int)launch<128, 2>(q2, k2, v2, do2, st, 512, a, batch, s);
 }

@@ -46,10 +46,26 @@
 // N*H*Lq*Lk*d. The head dim pads in shared memory to the 64-column swizzle
 // atom (40 -> 64, 80 -> 128; zero columns, out-of-bounds fill, change no
 // product); rows not 16-byte aligned are padded by the wrapper first.
+// Float32 at head dims <= 128 (emox_flash_bwd_f32_sm90) runs the same two
+// kernels on a two-part bf16 split of q, k, v and dO (split.cuh: one launch
+// per operand into [B, H, L, 2 DP] scratch, hi | lo), PARTS = 2: every
+// product a b is a_hi b_hi + a_hi b_lo + a_lo b_hi with fp32 accumulation, P
+// and dS are split in registers as the register A operand, and the
+// gradients are stored in float32. The parts double the operand bytes, so
+// the tiles are reckoned again: d 64 streams 64-key K/V tiles (dq: Q and dO
+// 64 KB, three stages of K and V 96 KB) and 64-row Q/dO tiles (dk/dv), d 128
+// 32-key and 32-row tiles in two stages (192 KB each), which keeps dK and dV
+// (64 fp32 registers each) beside S^T, dP^T and their split A operands
+// within 240 registers. It replaces the 3xTF32 WMMA kernels that took
+// float32 before (flash_attn_bwd.cu), which spilled their dk/dv accumulators at 192 and 256.
+// What bounds it: at the float32 train step's shape (N 2, Lq 1024, Lk 2048,
+// H 5, d 64) the function is 13.4 GFLOP, 0.200 ms at the CUDA cores' 67
+// TFLOP/s; it issues 3 x 14 units of N*H*Lq*Lk*d on bf16 wgmma, 56 GFLOP,
+// 0.057 ms at 989 TFLOP/s. Head dims 129-256 (both types) run on
+// flash_bwd_d512_sm90.cu's cluster pair at half its width.
 // Not yet done (later PRs): dq accumulated across key blocks in fp32 (one
-// kernel, no recompute), overlap of the elementwise step with the products,
-// head dims 129-256 (those run on flash_attn_bwd.cu).
-#include "sm90.cuh"
+// kernel, no recompute), overlap of the elementwise step with the products.
+#include "split.cuh"
 
 namespace emox {
 namespace bwd_sm90 {
@@ -60,8 +76,9 @@ constexpr int kRows = 128;     // rows a block owns (query rows or keys): 64 per
 constexpr int kThreads = 384;  // warpgroups 0, 1: consumers; 2: producer
 constexpr int kLqPad = 128;    // lse and delta come padded to a multiple of this
 
+template <typename TO>
 struct Args {
-  __nv_bfloat16 *dq, *dk, *dv;
+  TO *dq, *dk, *dv;
   const float* lse;    // [B, H, lq_pad]: +inf past lq
   const float* delta;  // [B, H, lq_pad]: 0 past lq
   long long dq_b, dq_h, dq_r, dk_b, dk_h, dk_r, dv_b, dv_h, dv_r;  // element strides (batch, head, row)
@@ -70,53 +87,47 @@ struct Args {
   float scale_log2;  // scale * log2(e): P runs in base 2
 };
 
-// P = 2^(s * scale_log2 - lse_log2)
-__device__ __forceinline__ float prob(float s, float scale_log2, float lse_log2) {
-  return exp2f(fmaf(s, scale_log2, -lse_log2));
-}
-
 // One warpgroup's 64 accumulator rows (d[4i + e]: row row_lo (e < 2) or
-// row_lo + 8, column 8i + col0 + e % 2), times `mul`, to bf16 rows r0 and
-// r0 + 8 of a strided output; rows at or past `nrows` and columns at or past
-// `d` are dropped.
-template <int DP>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long stride, const float* acc, int r0,
-                                           int nrows, int col0, int d, float mul) {
+// row_lo + 8, column 8i + col0 + e % 2), times `mul`, to rows r0 and r0 + 8
+// of a strided output of type TO; rows at or past `nrows` and columns at or
+// past `d` are dropped.
+template <int DP, typename TO>
+__device__ __forceinline__ void store_rows(TO* out, long long stride, const float* acc, int r0, int nrows, int col0,
+                                           int d, float mul) {
 #pragma unroll
   for (int i = 0; i < DP / 8; ++i) {
     const int col = 8 * i + col0;
     if (col < d) {
-      if (r0 < nrows) {
-        *reinterpret_cast<uint32_t*>(out + r0 * stride + col) = pack_bf16(acc[4 * i] * mul, acc[4 * i + 1] * mul);
-      }
-      if (r0 + 8 < nrows) {
-        *reinterpret_cast<uint32_t*>(out + (r0 + 8) * stride + col) =
-            pack_bf16(acc[4 * i + 2] * mul, acc[4 * i + 3] * mul);
-      }
+      if (r0 < nrows) store_pair(out + r0 * stride + col, acc[4 * i] * mul, acc[4 * i + 1] * mul);
+      if (r0 + 8 < nrows) store_pair(out + (r0 + 8) * stride + col, acc[4 * i + 2] * mul, acc[4 * i + 3] * mul);
     }
   }
 }
 
 // ---- dq: a block per 128 query rows; K/V tiles of BN keys stream -------------------
-template <int DP, int BN, int STAGES>
+// PARTS: 1 (bf16 operands) or 2 (the hi and lo parts of float32 operands,
+// the lo boxes of a tile after its hi ones)
+template <int DP, int BN, int STAGES, int PARTS>
 struct DqSmem {
-  static constexpr int CHUNKS = DP / 64;            // 64-column boxes per row
+  static constexpr int CHUNKS = DP / 64;            // 64-column boxes per row and part
+  static constexpr int BOXES = PARTS * CHUNKS;      // boxes per row
   static constexpr uint32_t q_chunk = kRows * 128;  // one box of Q or dO
   static constexpr uint32_t kv_chunk = BN * 128;    // one box of K or V
   static constexpr uint32_t q_off = 0;
-  static constexpr uint32_t do_off = q_off + CHUNKS * q_chunk;
-  static constexpr uint32_t stage = CHUNKS * kv_chunk;  // one K (or V) tile
-  static constexpr uint32_t k_off = do_off + CHUNKS * q_chunk;
+  static constexpr uint32_t do_off = q_off + BOXES * q_chunk;
+  static constexpr uint32_t stage = BOXES * kv_chunk;  // one K (or V) tile
+  static constexpr uint32_t k_off = do_off + BOXES * q_chunk;
   static constexpr uint32_t v_off = k_off + STAGES * stage;
   static constexpr uint32_t bar_off = v_off + STAGES * stage;
   static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+  static_assert(bytes <= 232448, "shared memory of a block");
 };
 
-template <int DP, int BN, int STAGES>
+template <int DP, int BN, int STAGES, int PARTS, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args args) {
-  using S = DqSmem<DP, BN, STAGES>;
+              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args<TO> args) {
+  using S = DqSmem<DP, BN, STAGES, PARTS>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle is a function of address bits 4-9
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -142,8 +153,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- producer: one thread issues every TMA load -----------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, 2 * S::CHUNKS * S::q_chunk);
-      for (int c = 0; c < S::CHUNKS; ++c) {
+      mbar_expect_tx(q_full, 2 * S::BOXES * S::q_chunk);
+      for (int c = 0; c < S::BOXES; ++c) {
         tma_load_4d(base + S::q_off + c * S::q_chunk, &tq, q_full, c * 64, q0, h, b);
         tma_load_4d(base + S::do_off + c * S::q_chunk, &tdo, q_full, c * 64, q0, h, b);
       }
@@ -152,7 +163,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (j >= STAGES) mbar_wait(empty0 + 8 * s, ((j / STAGES) - 1) & 1);
         const uint32_t full = full0 + 8 * s;
         mbar_expect_tx(full, 2 * S::stage);
-        for (int c = 0; c < S::CHUNKS; ++c) {
+        for (int c = 0; c < S::BOXES; ++c) {
           tma_load_4d(base + S::k_off + s * S::stage + c * S::kv_chunk, &tk, full, c * 64, j * BN, h, b);
           tma_load_4d(base + S::v_off + s * S::stage + c * S::kv_chunk, &tv, full, c * 64, j * BN, h, b);
         }
@@ -189,22 +200,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs<BN / 2>(sc);
       fence_regs<BN / 2>(dp);
       wgmma_fence();
-#pragma unroll
-      for (int c = 0; c < S::CHUNKS; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          Wgmma<BN>::ss(sc, smem_desc(q_tile + c * S::q_chunk + kk * 32, 16, 1024),
-                        smem_desc(k_tile + c * S::kv_chunk + kk * 32, 16, 1024), c + kk > 0);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < S::CHUNKS; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          Wgmma<BN>::ss(dp, smem_desc(do_tile + c * S::q_chunk + kk * 32, 16, 1024),
-                        smem_desc(v_tile + c * S::kv_chunk + kk * 32, 16, 1024), c + kk > 0);
-        }
-      }
+      product<BN, S::CHUNKS, PARTS>(sc, q_tile, S::q_chunk, k_tile, S::kv_chunk);
+      product<BN, S::CHUNKS, PARTS>(dp, do_tile, S::q_chunk, v_tile, S::kv_chunk);
       wgmma_commit();
       wgmma_wait0();
       fence_regs<BN / 2>(sc);
@@ -222,17 +219,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       // dQ += dS K: dS (bf16) is the register A operand (keys 16k..16k+15 are
       // dp[8k..8k+7], in pairs); K is read as an MN-major B operand: keys on
       // rows, head dim contiguous, 64-column boxes BN rows apart
-      uint32_t da[BN / 16][4];
+      uint32_t da[BN / 16][4], dl[BN / 16][4];
 #pragma unroll
-      for (int k = 0; k < BN / 16; ++k) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) da[k][r] = pack_bf16(dp[8 * k + 2 * r], dp[8 * k + 2 * r + 1]);
-      }
+      for (int k = 0; k < BN / 16; ++k) a_operand<PARTS>(dp + 8 * k, da[k], dl[k]);
       fence_regs<DP / 2>(dq);
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BN / 16; ++k) {
-        WgmmaRS<DP>::rs(dq, da[k], smem_desc(k_tile + k * 16 * 128, S::kv_chunk, 1024));
+        rs_product<DP, S::CHUNKS, PARTS>(dq, da[k], dl[k], k_tile + k * 16 * 128, S::kv_chunk);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -245,28 +239,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---- dk, dv: a block per 128 keys; Q/dO tiles of BQ rows stream ---------------------
-template <int DP, int BQ, int STAGES>
+template <int DP, int BQ, int STAGES, int PARTS>
 struct DkvSmem {
   static constexpr int CHUNKS = DP / 64;
+  static constexpr int BOXES = PARTS * CHUNKS;
   static constexpr uint32_t kv_chunk = kRows * 128;  // one box of K or V
   static constexpr uint32_t q_chunk = BQ * 128;      // one box of Q or dO
   static constexpr uint32_t k_off = 0;
-  static constexpr uint32_t v_off = k_off + CHUNKS * kv_chunk;
-  static constexpr uint32_t tile = CHUNKS * q_chunk;  // one Q (or dO) tile
-  static constexpr uint32_t q_off = v_off + CHUNKS * kv_chunk;
+  static constexpr uint32_t v_off = k_off + BOXES * kv_chunk;
+  static constexpr uint32_t tile = BOXES * q_chunk;  // one Q (or dO) tile
+  static constexpr uint32_t q_off = v_off + BOXES * kv_chunk;
   static constexpr uint32_t do_off = q_off + STAGES * tile;
   static constexpr uint32_t vec = BQ * 4;  // one tile's lse (or delta)
   static constexpr uint32_t lse_off = do_off + STAGES * tile;
   static constexpr uint32_t delta_off = lse_off + STAGES * vec;
   static constexpr uint32_t bar_off = delta_off + STAGES * vec;
   static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(bytes <= 232448, "shared memory of a block");
+  static_assert(kLqPad % BQ == 0, "a Q tile never reads past the lse padding");
 };
 
-template <int DP, int BQ, int STAGES>
+template <int DP, int BQ, int STAGES, int PARTS, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-               const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args args) {
-  using S = DkvSmem<DP, BQ, STAGES>;
+               const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args<TO> args) {
+  using S = DkvSmem<DP, BQ, STAGES, PARTS>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));  // `base` as a generic pointer
@@ -291,8 +288,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(kv_full, 2 * S::CHUNKS * S::kv_chunk);
-      for (int c = 0; c < S::CHUNKS; ++c) {
+      mbar_expect_tx(kv_full, 2 * S::BOXES * S::kv_chunk);
+      for (int c = 0; c < S::BOXES; ++c) {
         tma_load_4d(base + S::k_off + c * S::kv_chunk, &tk, kv_full, c * 64, k0, h, b);
         tma_load_4d(base + S::v_off + c * S::kv_chunk, &tv, kv_full, c * 64, k0, h, b);
       }
@@ -302,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (i >= STAGES) mbar_wait(empty0 + 8 * s, ((i / STAGES) - 1) & 1);
         const uint32_t full = full0 + 8 * s;
         mbar_expect_tx(full, 2 * S::tile + 2 * S::vec);
-        for (int c = 0; c < S::CHUNKS; ++c) {
+        for (int c = 0; c < S::BOXES; ++c) {
           tma_load_4d(base + S::q_off + s * S::tile + c * S::q_chunk, &tq, full, c * 64, i * BQ, h, b);
           tma_load_4d(base + S::do_off + s * S::tile + c * S::q_chunk, &tdo, full, c * 64, i * BQ, h, b);
         }
@@ -339,22 +336,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs<BQ / 2>(st);
       fence_regs<BQ / 2>(dpt);
       wgmma_fence();
-#pragma unroll
-      for (int c = 0; c < S::CHUNKS; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          Wgmma<BQ>::ss(st, smem_desc(k_tile + c * S::kv_chunk + kk * 32, 16, 1024),
-                        smem_desc(q_tile + c * S::q_chunk + kk * 32, 16, 1024), c + kk > 0);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < S::CHUNKS; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          Wgmma<BQ>::ss(dpt, smem_desc(v_tile + c * S::kv_chunk + kk * 32, 16, 1024),
-                        smem_desc(do_tile + c * S::q_chunk + kk * 32, 16, 1024), c + kk > 0);
-        }
-      }
+      product<BQ, S::CHUNKS, PARTS>(st, k_tile, S::kv_chunk, q_tile, S::q_chunk);
+      product<BQ, S::CHUNKS, PARTS>(dpt, v_tile, S::kv_chunk, do_tile, S::q_chunk);
       wgmma_commit();
       wgmma_wait0();
       fence_regs<BQ / 2>(st);
@@ -363,20 +346,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       // P^T and dS^T = P^T (dP^T - delta), with the lse and delta of each
       // column (query row); rows past Lq have lse = +inf, so P = 0 there.
       // Keys past Lk need no mask: their rows of dk and dv are not stored.
-      uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+      for (int e = 0; e < BQ / 2; e += 2) {  // accumulator pair e, e + 1: query rows col, col + 1
+        const int col = 8 * (e / 4) + col0;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta + col);
+        st[e] = prob(st[e], args.scale_log2, l2.x * kLog2e);
+        st[e + 1] = prob(st[e + 1], args.scale_log2, l2.y * kLog2e);
+        dpt[e] = st[e] * (dpt[e] - d2.x);
+        dpt[e + 1] = st[e + 1] * (dpt[e + 1] - d2.y);
+      }
+      uint32_t pa[BQ / 16][4], pl[BQ / 16][4], sa[BQ / 16][4], sl[BQ / 16][4];
 #pragma unroll
       for (int k = 0; k < BQ / 16; ++k) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int e = 8 * k + 2 * r;  // accumulator pair e, e + 1: query rows col, col + 1
-          const int col = 8 * (e / 4) + col0;
-          const float2 l2 = *reinterpret_cast<const float2*>(lse + col);
-          const float2 d2 = *reinterpret_cast<const float2*>(delta + col);
-          const float p0 = prob(st[e], args.scale_log2, l2.x * kLog2e);
-          const float p1 = prob(st[e + 1], args.scale_log2, l2.y * kLog2e);
-          pa[k][r] = pack_bf16(p0, p1);
-          sa[k][r] = pack_bf16(p0 * (dpt[e] - d2.x), p1 * (dpt[e + 1] - d2.y));
-        }
+        a_operand<PARTS>(st + 8 * k, pa[k], pl[k]);
+        a_operand<PARTS>(dpt + 8 * k, sa[k], sl[k]);
       }
       // dV += P^T dO and dK += dS^T Q: the query rows are the products' depth;
       // dO and Q are MN-major B operands (64-column boxes BQ rows apart)
@@ -385,11 +369,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BQ / 16; ++k) {
-        WgmmaRS<DP>::rs(dv, pa[k], smem_desc(do_tile + k * 16 * 128, S::q_chunk, 1024));
+        rs_product<DP, S::CHUNKS, PARTS>(dv, pa[k], pl[k], do_tile + k * 16 * 128, S::q_chunk);
       }
 #pragma unroll
       for (int k = 0; k < BQ / 16; ++k) {
-        WgmmaRS<DP>::rs(dk, sa[k], smem_desc(q_tile + k * 16 * 128, S::q_chunk, 1024));
+        rs_product<DP, S::CHUNKS, PARTS>(dk, sa[k], sl[k], q_tile + k * 16 * 128, S::q_chunk);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -405,37 +389,39 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---- host side ------------------------------------------------------------------
-// st: (batch, head, row) element strides of q, k, v, dout; ROWS_Q / ROWS_KV: the
-// box rows of q and dO / of k and v.
+// st: (batch, head, row) element strides of q, k, v, dout; `width`: the maps'
+// columns (the head dim in bf16, the scratch's 2 DP in float32); rows_q /
+// rows_kv: the box rows of q and dO / of k and v.
+template <typename TO>
 static bool make_maps(CUtensorMap* m, const void* q, const void* k, const void* v, const void* dout,
-                      const long long* st, int batch, const Args& a, int rows_q, int rows_kv) {
-  return make_map(&m[0], q, batch, a.heads, a.lq, a.d, st, rows_q) &&
-         make_map(&m[1], dout, batch, a.heads, a.lq, a.d, st + 9, rows_q) &&
-         make_map(&m[2], k, batch, a.heads, a.lk, a.d, st + 3, rows_kv) &&
-         make_map(&m[3], v, batch, a.heads, a.lk, a.d, st + 6, rows_kv);
+                      const long long* st, int batch, const Args<TO>& a, int width, int rows_q, int rows_kv) {
+  return make_map(&m[0], q, batch, a.heads, a.lq, width, st, rows_q) &&
+         make_map(&m[1], dout, batch, a.heads, a.lq, width, st + 9, rows_q) &&
+         make_map(&m[2], k, batch, a.heads, a.lk, width, st + 3, rows_kv) &&
+         make_map(&m[3], v, batch, a.heads, a.lk, width, st + 6, rows_kv);
 }
 
-template <int DP, int BN, int STAGES>
-static cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout, const long long* st,
-                             const Args& a, int batch, cudaStream_t stream) {
-  using S = DqSmem<DP, BN, STAGES>;
+// DP: the padded head dim; the dq kernel's keys per tile and stages, then the
+// dkv kernel's query rows per tile and stages
+template <int DP, int BN, int DQ_STAGES, int BQ, int DKV_STAGES, int PARTS, typename TO>
+static cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const long long* st,
+                          int width, const Args<TO>& a, int batch, cudaStream_t stream) {
   CUtensorMap m[4];
-  if (!make_maps(m, q, k, v, dout, st, batch, a, kRows, BN)) return cudaErrorInvalidValue;
-  auto kernel = dq_kernel<DP, BN, STAGES>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.lq + kRows - 1) / kRows, a.heads, batch), kThreads, S::bytes, stream>>>(m[0], m[1], m[2], m[3],
-                                                                                            a);
-  return cudaGetLastError();
-}
-
-template <int DP, int BQ, int STAGES>
-static cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const long long* st,
-                              const Args& a, int batch, cudaStream_t stream) {
-  using S = DkvSmem<DP, BQ, STAGES>;
-  CUtensorMap m[4];
-  if (!make_maps(m, q, k, v, dout, st, batch, a, BQ, kRows)) return cudaErrorInvalidValue;
-  auto kernel = dkv_kernel<DP, BQ, STAGES>;
+  if (a.dq != nullptr) {
+    using S = DqSmem<DP, BN, DQ_STAGES, PARTS>;
+    if (!make_maps(m, q, k, v, dout, st, batch, a, width, kRows, BN)) return cudaErrorInvalidValue;
+    auto kernel = dq_kernel<DP, BN, DQ_STAGES, PARTS, TO>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((a.lq + kRows - 1) / kRows, a.heads, batch), kThreads, S::bytes, stream>>>(m[0], m[1], m[2],
+                                                                                              m[3], a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (a.dk == nullptr) return cudaSuccess;
+  using S = DkvSmem<DP, BQ, DKV_STAGES, PARTS>;
+  if (!make_maps(m, q, k, v, dout, st, batch, a, width, BQ, kRows)) return cudaErrorInvalidValue;
+  auto kernel = dkv_kernel<DP, BQ, DKV_STAGES, PARTS, TO>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.lk + kRows - 1) / kRows, a.heads, batch), kThreads, S::bytes, stream>>>(m[0], m[1], m[2], m[3],
@@ -443,17 +429,21 @@ static cudaError_t launch_dkv(const void* q, const void* k, const void* v, const
   return cudaGetLastError();
 }
 
-// DP: the padded head dim; the dq kernel's keys per tile and stages, then the
-// dkv kernel's query rows per tile and stages
-template <int DP, int BN, int DQ_STAGES, int BQ, int DKV_STAGES>
-static cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const long long* st,
-                          const Args& a, int batch, cudaStream_t stream) {
-  if (a.dq != nullptr) {
-    const cudaError_t err = launch_dq<DP, BN, DQ_STAGES>(q, k, v, dout, st, a, batch, stream);
-    if (err != cudaSuccess) return err;
-  }
-  if (a.dk != nullptr) return launch_dkv<DP, BQ, DKV_STAGES>(q, k, v, dout, st, a, batch, stream);
-  return cudaSuccess;
+static bool bad_args(int batch, int heads, int lq, int lk, int lq_pad, const void* lse, const void* delta,
+                     const void* dk, const void* dv) {
+  return batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || lq_pad < lq ||
+         lq_pad % kLqPad || (dk == nullptr) != (dv == nullptr) || reinterpret_cast<uintptr_t>(lse) % 16 ||
+         reinterpret_cast<uintptr_t>(delta) % 16;
+}
+
+template <typename TO>
+static Args<TO> make_args(void* dq, void* dk, void* dv, const void* lse, const void* delta, const long long* strides,
+                          int heads, int lq, int lk, int lq_pad, int head_dim, float scale) {
+  const long long* so = strides + 12;
+  return Args<TO>{static_cast<TO*>(dq), static_cast<TO*>(dk), static_cast<TO*>(dv),
+                  static_cast<const float*>(lse), static_cast<const float*>(delta),
+                  so[0], so[1], so[2], so[3], so[4], so[5], so[6], so[7], so[8],
+                  heads, lq, lk, lq_pad, head_dim, scale, scale * kLog2e};
 }
 
 }  // namespace bwd_sm90
@@ -475,19 +465,48 @@ extern "C" int emox_flash_bwd_sm90(const void* q, const void* k, const void* v, 
                                    int head_dim, float scale, void* stream) {
   using namespace emox::bwd_sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || head_dim <= 0 ||
-      head_dim > 128 || head_dim % 8 || lq_pad < lq || lq_pad % kLqPad || (dk == nullptr) != (dv == nullptr) ||
-      reinterpret_cast<uintptr_t>(lse) % 16 || reinterpret_cast<uintptr_t>(delta) % 16) {
+  if (bad_args(batch, heads, lq, lk, lq_pad, lse, delta, dk, dv) || head_dim <= 0 || head_dim > 128 ||
+      head_dim % 8) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long* so = strides + 12;
-  const Args a{static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-               static_cast<const float*>(lse), static_cast<const float*>(delta),
-               so[0], so[1], so[2], so[3], so[4], so[5], so[6], so[7], so[8],
-               heads, lq, lk, lq_pad, head_dim, scale, scale * emox::sm90::kLog2e};
+  const auto a = make_args<__nv_bfloat16>(dq, dk, dv, lse, delta, strides, heads, lq, lk, lq_pad, head_dim, scale);
   // tiles chosen on the H100: at d 64 the dkv kernel streams 128-row Q tiles
   // (S^T and dP^T are 64 fp32 registers a thread each); at d 128 dK and dV
   // take 128, so it streams 64-row tiles there
-  if (head_dim <= 64) return (int)launch<64, 128, 3, 128, 3>(q, k, v, dout, strides, a, batch, s);
-  return (int)launch<128, 64, 3, 64, 3>(q, k, v, dout, strides, a, batch, s);
+  if (head_dim <= 64) return (int)launch<64, 128, 3, 128, 3, 1>(q, k, v, dout, strides, head_dim, a, batch, s);
+  return (int)launch<128, 64, 3, 64, 3, 1>(q, k, v, dout, strides, head_dim, a, batch, s);
+}
+
+// float32 attention backward, as emox_flash_bwd_sm90 with float32 q, k, v,
+// dout, dq, dk and dv (rows 16-byte aligned) and head_dim <= 128, a multiple
+// of 4. q2, k2, v2, do2: bf16 scratch of [batch, heads, lq or lk, 2w]
+// elements, contiguous, w = 64 for head_dim <= 64 and 128 above, which this
+// call fills with the operands' parts before the kernels read them.
+extern "C" int emox_flash_bwd_f32_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                       const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                                       const long long* strides, int batch, int heads, int lq, int lk, int lq_pad,
+                                       int head_dim, float scale, void* q2, void* k2, void* v2, void* do2,
+                                       void* stream) {
+  using namespace emox::bwd_sm90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_args(batch, heads, lq, lk, lq_pad, lse, delta, dk, dv) || head_dim <= 0 || head_dim > 128 ||
+      head_dim % 4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int w = head_dim <= 64 ? 64 : 128;
+  const void* src[4] = {q, k, v, dout};
+  void* parts[4] = {q2, k2, v2, do2};
+  const int lens[4] = {lq, lk, lk, lq};
+  long long st[12];
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = split_operand(src[i], strides + 3 * i, batch, heads, lens[i], head_dim, w, parts[i], s);
+    if (err != cudaSuccess) return (int)err;
+    scratch_strides(st + 3 * i, heads, lens[i], w);
+  }
+  const auto a = make_args<float>(dq, dk, dv, lse, delta, strides, heads, lq, lk, lq_pad, head_dim, scale);
+  // both parts double the operand bytes: at d 64 the dq kernel streams
+  // 64-key tiles in three stages (160 KB), the dkv kernel 64-row tiles; at d
+  // 128 both stream 32-row tiles in two stages (192 KB)
+  if (w == 64) return (int)launch<64, 64, 3, 64, 3, 2>(q2, k2, v2, do2, st, 2 * w, a, batch, s);
+  return (int)launch<128, 32, 2, 32, 2, 2>(q2, k2, v2, do2, st, 2 * w, a, batch, s);
 }

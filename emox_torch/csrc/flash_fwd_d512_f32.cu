@@ -15,9 +15,9 @@
 // a_lo b_hi on bf16 wgmma with fp32 accumulation. The dropped a_lo b_lo and
 // the split's remainder are each about 2^-18 of |a b|, well below the
 // 2e-4-of-the-largest-output bar (tests/test_torch_d512_sm90.py holds a
-// numpy twin of the split against fp64 at L 1024). A small kernel splits q, k and
-// v into [B, H, L, 1024] bf16 scratch (hi in columns 0-511, lo in 512-1023)
-// before the attention kernel runs; P is split in registers.
+// numpy twin of the split against fp64 at L 1024). split.cuh's split launch
+// writes q, k and v into [B, H, L, 1024] bf16 scratch (hi in columns 0-511,
+// lo in 512-1023) before the attention kernel runs; P is split in registers.
 //
 // What bounds it on the H100: at N 1, L 4096 the function is 4*N*L*L*d =
 // 34.4 GFLOP, 0.513 ms at the CUDA cores' 67 TFLOP/s (float32 without the
@@ -48,7 +48,7 @@
 // with the products.
 #include <cooperative_groups.h>
 
-#include "sm90.cuh"
+#include "split.cuh"
 
 namespace emox {
 namespace fwd_d512_f32 {
@@ -82,32 +82,6 @@ struct Out {
   int lq, lk;
   float scale_log2;         // scale * log2(e): the softmax runs in base 2
 };
-
-// a = hi + lo (each rounded to bf16), for a pair: the register A operand's
-// halves of the split
-__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// One row of a float32 [B, H, L, 512] operand (element strides) into the
-// [B, H, L, 1024] bf16 scratch: hi in columns 0-511, lo in 512-1023. A block
-// per row, 128 threads of four columns each.
-__global__ void __launch_bounds__(128) split_kernel(const float* __restrict__ x, long long sb, long long sh,
-                                                    long long sr, __nv_bfloat16* __restrict__ out, int heads,
-                                                    int len) {
-  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const float4 v = *reinterpret_cast<const float4*>(x + b * sb + h * sh + (long long)r * sr + 4 * threadIdx.x);
-  uint2 hi, lo;
-  split_pair(v.x, v.y, hi.x, lo.x);
-  split_pair(v.z, v.w, hi.y, lo.y);
-  __nv_bfloat16* row = out + (((long long)b * heads + h) * len + r) * 1024;
-  *reinterpret_cast<uint2*>(row + 4 * threadIdx.x) = hi;
-  *reinterpret_cast<uint2*>(row + 512 + 4 * threadIdx.x) = lo;
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -356,16 +330,14 @@ extern "C" int emox_flash_fwd_d512_f32(const void* q, const void* k, const void*
   const void* src[3] = {q, k, v};
   void* parts[3] = {q2, k2, v2};
   const int lens[3] = {lq, lk, lk};
+  long long sq[3], skv[3];
   for (int i = 0; i < 3; ++i) {
-    const long long* st = strides + 3 * i;
-    split_kernel<<<dim3(lens[i], heads, batch), 128, 0, s>>>(static_cast<const float*>(src[i]), st[0], st[1], st[2],
-                                                             static_cast<__nv_bfloat16*>(parts[i]), heads, lens[i]);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err = split_operand(src[i], strides + 3 * i, batch, heads, lens[i], 512, 512, parts[i], s);
     if (err != cudaSuccess) return (int)err;
   }
+  scratch_strides(sq, heads, lq, 512);
+  scratch_strides(skv, heads, lk, 512);
   CUtensorMap tq, tk, tv;
-  const long long sq[3] = {(long long)heads * lq * 1024, (long long)lq * 1024, 1024};
-  const long long skv[3] = {(long long)heads * lk * 1024, (long long)lk * 1024, 1024};
   if (!make_map(&tq, q2, batch, heads, lq, 1024, sq, 64) || !make_map(&tk, k2, batch, heads, lk, 1024, skv, 64) ||
       !make_map(&tv, v2, batch, heads, lk, 1024, skv, 64)) {
     return (int)cudaErrorInvalidValue;

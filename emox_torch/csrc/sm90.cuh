@@ -1,10 +1,12 @@
 // Shared Hopper (sm_90a) building blocks of the port's wgmma + TMA kernels
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu, ff_sm90.cu, ln_qkv_sm90.cu,
-// flash_bwd_d512_sm90.cu, flash_fwd_d512_f32.cu): PTX wrappers for
-// mbarriers (local, and across the blocks of a cluster), TMA tile and bulk
-// loads and wgmma, the shared-memory descriptor of a 128-byte-swizzled tile,
-// and the host code that encodes a TMA tensor map of a [B, H, L, d] bf16
-// operand with element strides or of a row-major [rows, cols] bf16 matrix.
+// flash_bwd_d512_sm90.cu, flash_fwd_d512_f32.cu, flash_attn_wide.cu): PTX
+// wrappers for mbarriers (local, and across the blocks of a cluster), TMA
+// tile and bulk loads and wgmma, the shared-memory descriptor of a
+// 128-byte-swizzled tile, float32's two-part bf16 split and the attention
+// kernels' products on it, and the host code that encodes a TMA tensor map
+// of a [B, H, L, d] bf16 operand with element strides or of a row-major
+// [rows, cols] bf16 matrix.
 #pragma once
 
 #include <cuda.h>
@@ -109,6 +111,46 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- float32 on bf16 products: the two-part split -----------------------------------
+// x = hi + lo, hi = bf16(x), lo = bf16(x - hi): 16 of float32's 24 mantissa
+// bits, and a product a b runs as a_hi b_hi + a_hi b_lo + a_lo b_hi with fp32
+// accumulation (the dropped a_lo b_lo and the remainder are ~2^-18 of |a b|).
+// For a pair of values: the register A operand's halves of the split.
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The A operand of an m64nNk16 register product from fp32 values p[8k..8k+7]
+// (keys or rows 16k..16k+15 of the accumulator layout, in pairs): one bf16
+// part (PARTS 1) or both parts of the split (PARTS 2, lo in `lo`).
+template <int PARTS>
+__device__ __forceinline__ void a_operand(const float* p, uint32_t* hi, uint32_t* lo) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if constexpr (PARTS == 1) {
+      hi[r] = pack_bf16(p[2 * r], p[2 * r + 1]);
+    } else {
+      split_pair(p[2 * r], p[2 * r + 1], hi[r], lo[r]);
+    }
+  }
+}
+
+// Two adjacent output values, rounded to the output's type
+template <typename TO>
+__device__ __forceinline__ void store_pair(TO* p, float a, float b);
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 // ---- thread-block clusters: a pair of blocks exchanging partial products ----------
@@ -411,6 +453,49 @@ struct WgmmaRS<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+
+// ---- the products of the attention kernels, on one or both parts of the split ------------
+// x (+)= A B^T over CHUNKS 64-column boxes of two K-major tiles (A: 64 rows at
+// `a`, boxes a_box bytes apart; B: N rows at `b`, boxes b_box apart), 16
+// columns a step; the first step overwrites x unless `accumulate`. With
+// PARTS 2 each tile's lo boxes follow its hi ones (CHUNKS boxes on) and the
+// sum is A_hi B_hi + A_hi B_lo + A_lo B_hi.
+template <int N, int CHUNKS, int PARTS>
+__device__ __forceinline__ void product(float* x, uint32_t a, uint32_t a_box, uint32_t b, uint32_t b_box,
+                                        bool accumulate = false) {
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t ah = smem_desc(a + c * a_box + kk * 32, 16, 1024);
+      const uint64_t bh = smem_desc(b + c * b_box + kk * 32, 16, 1024);
+      Wgmma<N>::ss(x, ah, bh, (accumulate || c + kk > 0) ? 1 : 0);
+      if constexpr (PARTS == 2) {
+        Wgmma<N>::ss(x, ah, smem_desc(b + (CHUNKS + c) * b_box + kk * 32, 16, 1024), 1);
+        Wgmma<N>::ss(x, smem_desc(a + (CHUNKS + c) * a_box + kk * 32, 16, 1024), bh, 1);
+      }
+    }
+  }
+}
+
+// acc += A B for one 16-deep step: A (16 columns of 64 rows) from registers,
+// hi (and lo with PARTS 2); B the MN-major rows at `b` of N columns (64-column
+// boxes `box` bytes apart, the lo boxes CHUNKS boxes on).
+template <int N, int CHUNKS, int PARTS>
+__device__ __forceinline__ void rs_product(float* acc, const uint32_t* ah, const uint32_t* al, uint32_t b,
+                                           uint32_t box) {
+  const uint64_t bh = smem_desc(b, box, 1024);
+  WgmmaRS<N>::rs(acc, ah, bh);
+  if constexpr (PARTS == 2) {
+    WgmmaRS<N>::rs(acc, ah, smem_desc(b + CHUNKS * box, box, 1024));
+    WgmmaRS<N>::rs(acc, al, bh);
+  }
+}
+
+// P = 2^(s * scale_log2 - lse_log2)
+__device__ __forceinline__ float prob(float s, float scale_log2, float lse_log2) {
+  return exp2f(fmaf(s, scale_log2, -lse_log2));
+}
 
 // ---- host side: TMA tensor maps --------------------------------------------------
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

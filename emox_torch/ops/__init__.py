@@ -8,10 +8,13 @@ Kernels (each wrapper counts its launches in `.launches`):
                                `_flash_nlc_kernel`), counted per call
   * flash_fwd_sm90          -> csrc/flash_fwd_sm90.cu: both layouts' forward,
                                bfloat16, head dim <= 256 and 512
-  * flash_fwd_wmma          -> csrc/flash_attn.cu: both layouts' forward,
-                               float32, head dim <= 256
+  * flash_fwd_f32_sm90      -> csrc/flash_fwd_sm90.cu on a two-part bf16
+                               split: both layouts' forward, float32, head
+                               dim <= 256
   * flash_fwd_d512_f32      -> csrc/flash_fwd_d512_f32.cu: both layouts'
                                forward at head dim 512, float32
+  * flash_fwd_wide          -> csrc/flash_attn_wide.cu: both layouts'
+                               forward at head dims above 512, both types
   * flash_attention_bwd     -> the backward of flash_attention (TPU
                                `_flash_bwd_dq_kernel` and
                                `_flash_bwd_dkv_kernel`), counted per call, by
@@ -22,12 +25,16 @@ Kernels (each wrapper counts its launches in `.launches`):
                                views, counted per call
   * flash_bwd_sm90          -> csrc/flash_bwd_sm90.cu: both layouts'
                                backward, bfloat16, head dim <= 128
-  * flash_bwd_wmma          -> csrc/flash_attn_bwd.cu: both layouts'
-                               backward, float32 (head dim <= 256) and
-                               bfloat16 at head dims 129-256
+  * flash_bwd_f32_sm90      -> csrc/flash_bwd_sm90.cu on a two-part bf16
+                               split: the same in float32
+  * flash_bwd_d256_sm90     -> csrc/flash_bwd_d512_sm90.cu at half its
+                               width: both layouts' backward at head dims
+                               129-256, both types
   * flash_bwd_d512_sm90     -> csrc/flash_bwd_d512_sm90.cu: both layouts'
                                backward at head dim 512, bfloat16
   * flash_bwd_d512_f32      -> csrc/flash_bwd_d512.cu: the same in float32
+  * flash_bwd_wide          -> csrc/flash_attn_wide.cu: both layouts'
+                               backward at head dims above 512, both types
   * fused_ln_geglu_ff       -> LN + GEGLU FF + residual (TPU `_ln_ff_kernel`
                                and `_ln_ff_wide_kernel`), counted per call,
                                by one of the kernels below
@@ -63,13 +70,16 @@ from emox_torch.ops.attention import (
     flash_attention_bwd,
     flash_attention_nlc,
     flash_attention_nlc_bwd,
+    flash_bwd_d256_sm90,
     flash_bwd_d512_f32,
     flash_bwd_d512_sm90,
+    flash_bwd_f32_sm90,
     flash_bwd_sm90,
-    flash_bwd_wmma,
+    flash_bwd_wide,
     flash_fwd_d512_f32,
+    flash_fwd_f32_sm90,
     flash_fwd_sm90,
-    flash_fwd_wmma,
+    flash_fwd_wide,
     pad_head_dim,
     padded_attention,
 )
@@ -103,12 +113,15 @@ KERNEL_WRAPPERS = {
     "flash_attn_nlc_fwd": flash_attention_nlc,
     "flash_attn_nlc_bwd": flash_attention_nlc_bwd,
     "flash_fwd_sm90": flash_fwd_sm90,
-    "flash_fwd_wmma": flash_fwd_wmma,
+    "flash_fwd_f32_sm90": flash_fwd_f32_sm90,
     "flash_fwd_d512_f32": flash_fwd_d512_f32,
+    "flash_fwd_wide": flash_fwd_wide,
     "flash_bwd_sm90": flash_bwd_sm90,
-    "flash_bwd_wmma": flash_bwd_wmma,
+    "flash_bwd_f32_sm90": flash_bwd_f32_sm90,
+    "flash_bwd_d256_sm90": flash_bwd_d256_sm90,
     "flash_bwd_d512_sm90": flash_bwd_d512_sm90,
     "flash_bwd_d512_f32": flash_bwd_d512_f32,
+    "flash_bwd_wide": flash_bwd_wide,
     "ln_geglu_ff": fused_ln_geglu_ff,
     "geglu_ff": fused_geglu_ff,
     "ff_sm90": ff_sm90,
@@ -149,13 +162,16 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_nlc",
     "flash_attention_nlc_bwd",
+    "flash_bwd_d256_sm90",
     "flash_bwd_d512_f32",
     "flash_bwd_d512_sm90",
+    "flash_bwd_f32_sm90",
     "flash_bwd_sm90",
-    "flash_bwd_wmma",
+    "flash_bwd_wide",
     "flash_fwd_d512_f32",
+    "flash_fwd_f32_sm90",
     "flash_fwd_sm90",
-    "flash_fwd_wmma",
+    "flash_fwd_wide",
     "fused_geglu_ff",
     "fused_group_norm",
     "fused_ln_geglu_ff",

@@ -12,34 +12,39 @@ Counterpart of emox/ops/attention.py. Two layouts, as in the reference:
 
 Both are autograd functions whose forward saves (q, k, v, out, lse) and whose
 backward recomputes from them. On a CUDA tensor each wrapper launches a
-kernel, or raises for an input no kernel takes; there is no fallback:
+kernel, or raises for an input no kernel takes; there is no fallback. Every
+kernel is wgmma + TMA (sm_90a) and serves both layouts (packed tokens as
+head-split views); float32 runs on bf16 products of a two-part split of
+each operand (hi + lo, three products for each) unless named:
 
   * forward, bfloat16, head dim <= 256 and 512 (the VAE's single-head
-    mid-attention): `flash_fwd_sm90` (emox_torch/csrc/flash_fwd_sm90.cu,
-    wgmma + TMA), one kernel for both layouts;
-  * forward, float32, head dim <= 256: `flash_fwd_wmma`
-    (emox_torch/csrc/flash_attn.cu, 3xTF32 WMMA), both layouts;
+    mid-attention): `flash_fwd_sm90` (emox_torch/csrc/flash_fwd_sm90.cu);
+  * forward, float32, head dim <= 256: `flash_fwd_f32_sm90` (the same
+    source, its kernels on the split);
   * forward, float32, head dim 512: `flash_fwd_d512_f32`
-    (emox_torch/csrc/flash_fwd_d512_f32.cu, bf16 wgmma on a two-part split
-    of each operand, the head dim split over a cluster of two blocks);
+    (emox_torch/csrc/flash_fwd_d512_f32.cu, the head dim split over a
+    cluster of two blocks);
   * backward, bfloat16, head dim <= 128: `flash_bwd_sm90`
-    (emox_torch/csrc/flash_bwd_sm90.cu, wgmma + TMA), both layouts (packed
-    tokens as head-split views);
-  * backward, float32 at head dim <= 256 and bfloat16 at 129-256:
-    `flash_bwd_wmma` (emox_torch/csrc/flash_attn_bwd.cu), both layouts;
+    (emox_torch/csrc/flash_bwd_sm90.cu); float32 at <= 128:
+    `flash_bwd_f32_sm90` (the same source on the split);
+  * backward, head dims 129-256, both types: `flash_bwd_d256_sm90`
+    (emox_torch/csrc/flash_bwd_d512_sm90.cu at half its width: a cluster of
+    two blocks of 128 columns);
   * backward, head dim 512 (the VAE's mid-attention, which VAE pretraining,
-    stage 5, differentiates): `flash_bwd_d512_sm90` in bfloat16
-    (emox_torch/csrc/flash_bwd_d512_sm90.cu, wgmma + TMA, the head dim split
-    over a cluster of two blocks) and `flash_bwd_d512_f32` in float32
-    (emox_torch/csrc/flash_bwd_d512.cu, 3xTF32 WMMA).
+    stage 5, differentiates): `flash_bwd_d512_sm90` in bfloat16 (the head
+    dim split over a cluster of two blocks) and `flash_bwd_d512_f32` in
+    float32 (emox_torch/csrc/flash_bwd_d512.cu, 3xTF32 WMMA);
+  * head dims above 512, both types, forward and backward: `flash_fwd_wide`
+    and `flash_bwd_wide` (emox_torch/csrc/flash_attn_wide.cu: 128-column
+    slices of the outputs, a block a slice, S and dP over the whole head
+    dim in every block).
 
 Rows that are not 16-byte aligned (a head dim that is not a multiple of 8 in
 bfloat16, of 4 in float32) are zero-padded in the head dim before the launch
 (`padded_attention`), the reference's `_pad_dim`; so are head dims 257-511,
 to 512, which then run on the head-dim-512 kernels. Exact, since zero columns
 add nothing to q k^T, P v or any gradient product, and the scale comes from
-the true head dim. Head dims above 512 raise: the reference computes them
-(ROADMAP.md, Queue 3). On a CPU tensor each wrapper runs the kernels' plain
+the true head dim. On a CPU tensor each wrapper runs the kernels' plain
 versions (`attention_nlc_plain`, `attention_plain` and their backwards), the
 same functions in plain PyTorch with fp32 math, which the CPU tests hold
 against the reference.
@@ -77,11 +82,12 @@ from emox_torch.ops import build
 KERNEL_MIN_KV = 2048
 ATTENTION_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
 _MAX_HEAD_DIM = 256  # the kernels for head dims up to this one
-_WIDE_HEAD_DIM = 512  # forward flash_fwd_sm90.cu (bf16), flash_fwd_d512_f32.cu; backward
-# flash_bwd_d512_sm90.cu (bf16), flash_bwd_d512.cu (float32); head dims 257-511 are padded to it
-_SM90_BWD_HEAD_DIM = 128  # flash_bwd_sm90.cu: bf16 backward up to this head dim
+_D512 = 512  # forward flash_fwd_sm90.cu (bf16), flash_fwd_d512_f32.cu; backward flash_bwd_d512_sm90.cu
+# (bf16), flash_bwd_d512.cu (float32); head dims 257-511 are padded to it; above it the wide kernels
+_SM90_BWD_HEAD_DIM = 128  # flash_bwd_sm90.cu: the backward up to this head dim
 _SM90_BWD_ROWS = 128  # flash_bwd_sm90 takes lse and delta padded to a multiple of these rows
-_D512_BWD_ROWS = 64  # the d-512 backward kernels take lse and delta padded to a multiple of these rows
+_D512_BWD_ROWS = 64  # the pair (d 129-512) and wide backward kernels take lse and delta padded to these rows
+_WIDE_SLICE = 128  # flash_attn_wide.cu: the head-dim columns a block owns
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -248,21 +254,61 @@ def flash_fwd_sm90(q, k, v, out, lse, scale: float) -> None:
 flash_fwd_sm90.launches = 0  # kernel launches since the last reset
 
 
-def flash_fwd_wmma(q, k, v, out, lse, scale: float) -> None:
-    """Launch flash_attn.cu's float32 forward (3xTF32 WMMA): q, k, v
-    [B, H, L, D] with 16-byte aligned rows and D <= 256, out like q, lse
-    [B, H, Lq] fp32 contiguous."""
+def split_width(d: int) -> int:
+    """The width w of each bf16 part of a float32 operand's split (scratch
+    rows of 2w: hi | lo, zero past d) that flash_fwd_sm90.cu and
+    flash_bwd_sm90.cu take at head dim d <= 256: 64, 128 or 256."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def _split_scratch(w: int, *tensors):
+    """bf16 scratch [B, H, L, 2w] for the parts of each [B, H, L, d] tensor."""
+    return [torch.empty((*t.shape[:3], 2 * w), dtype=torch.bfloat16, device=t.device) for t in tensors]
+
+
+def flash_fwd_f32_sm90(q, k, v, out, lse, scale: float) -> None:
+    """Launch flash_fwd_sm90.cu's float32 forward: q, k, v [B, H, L, D] with
+    16-byte aligned rows, D <= 256 and a multiple of 4, into out (like q) and
+    lse [B, H, Lq] fp32, each with any strides. The call splits q, k and v
+    into bf16 scratch it is handed ([B, H, L, 2w], split_width) first."""
     b, h, lq, d = q.shape
+    if q.dtype != torch.float32 or d > _MAX_HEAD_DIM:
+        raise ValueError(f"flash_fwd_f32_sm90 takes float32 head dims <= 256, got {tuple(q.shape)} {q.dtype}")
+    parts = _split_scratch(split_width(d), q, k, v)
     with torch.cuda.device(q.device):
-        err = build.kernel("flash_attn")(
+        err = build.kernel("flash_fwd_sm90", "emox_flash_fwd_f32_sm90")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _stride_array((q, k, v, out)), b, h, lq, k.shape[2], d, float(scale), _DTYPES[q.dtype], _stream(q),
+            _stride_array((q, k, v, out, lse)), b, h, lq, k.shape[2], d, float(scale),
+            *(t.data_ptr() for t in parts), _stream(q),
         )
-    build.check(err, "flash_fwd_wmma")
-    flash_fwd_wmma.launches += 1
+    build.check(err, "flash_fwd_f32_sm90")
+    flash_fwd_f32_sm90.launches += 1
 
 
-flash_fwd_wmma.launches = 0  # kernel launches since the last reset
+flash_fwd_f32_sm90.launches = 0  # kernel launches since the last reset
+
+
+def flash_fwd_wide(q, k, v, out, lse, scale: float) -> None:
+    """Launch flash_attn_wide.cu's forward: q, k, v [B, H, L, D] with D > 512
+    and 16-byte aligned rows, bf16 or float32, into out (like q) and lse
+    [B, H, Lq] fp32, each with any strides. Float32 is split first into
+    scratch of [B, H, L, 2w] bf16, w = 128 * ceil(D / 128)."""
+    b, h, lq, d = q.shape
+    if d <= _D512:
+        raise ValueError(f"flash_fwd_wide takes head dims above 512, got {d}")
+    f32 = q.dtype == torch.float32
+    parts = _split_scratch(wide_plan(b, h, lq, k.shape[2], d)["width"], q, k, v) if f32 else [None] * 3
+    with torch.cuda.device(q.device):
+        err = build.kernel("flash_attn_wide", "emox_flash_fwd_wide")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _stride_array((q, k, v, out, lse)), b, h, lq, k.shape[2], d, float(scale), _DTYPES[q.dtype],
+            *(_ptr(t) for t in parts), _stream(q),
+        )
+    build.check(err, "flash_fwd_wide")
+    flash_fwd_wide.launches += 1
+
+
+flash_fwd_wide.launches = 0  # kernel launches since the last reset
 
 
 def flash_fwd_d512_f32(q, k, v, out, lse, scale: float) -> None:
@@ -271,9 +317,9 @@ def flash_fwd_d512_f32(q, k, v, out, lse, scale: float) -> None:
     with any strides. The call splits q, k and v into bf16 parts in scratch
     it is handed ([B, H, L, 1024], hi | lo) before the attention kernel."""
     b, h, lq, d = q.shape
-    if d != _WIDE_HEAD_DIM or q.dtype != torch.float32:
+    if d != _D512 or q.dtype != torch.float32:
         raise ValueError(f"flash_fwd_d512_f32 takes float32 head dim 512, got {tuple(q.shape)} {q.dtype}")
-    parts = [torch.empty((b, h, t.shape[2], 2 * d), dtype=torch.bfloat16, device=q.device) for t in (q, k, v)]
+    parts = _split_scratch(_D512, q, k, v)
     with torch.cuda.device(q.device):
         err = build.kernel("flash_fwd_d512_f32")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -288,32 +334,34 @@ flash_fwd_d512_f32.launches = 0  # kernel launches since the last reset
 
 
 def _head_dim_multiple(t: torch.Tensor) -> int:
-    """The head-dim multiple a kernel route pads t's head dim to: 512 above
-    256 (the d-512 kernels), else the multiple that keeps rows of t's type
-    16-byte aligned."""
-    return _WIDE_HEAD_DIM if t.shape[-1] > _MAX_HEAD_DIM else _row_multiple(t)
+    """The head-dim multiple a kernel route pads t's head dim to: 512 at
+    257-511 (the d-512 kernels), else the multiple that keeps rows of t's
+    type 16-byte aligned."""
+    return _D512 if _MAX_HEAD_DIM < t.shape[-1] < _D512 else _row_multiple(t)
 
 
 def _fwd_views(q, k, v, scale: float, packed_lse: bool):
-    """The forward kernel for [B, H, L, D] operands with D <= 512: bf16 ->
-    flash_fwd_sm90, float32 -> flash_fwd_wmma (D <= 256) or
-    flash_fwd_d512_f32 (D 512), after zero-padding the head dim where rows
-    are not 16-byte aligned or D is 257-511. Returns out (q's strides where
-    q is dense) and lse [B, H, Lq], or with packed_lse a [B, Lq, H] tensor."""
+    """The forward kernel for [B, H, L, D] operands: D > 512 ->
+    flash_fwd_wide; bf16 -> flash_fwd_sm90; float32 -> flash_fwd_f32_sm90
+    (D <= 256) or flash_fwd_d512_f32 (D 512), after zero-padding the head
+    dim where rows are not 16-byte aligned or D is 257-511. Returns out (q's
+    strides where q is dense) and lse [B, H, Lq], or with packed_lse a
+    [B, Lq, H] tensor."""
     mult = _head_dim_multiple(q)
     if q.shape[-1] % mult:
         return padded_attention(lambda *a: _fwd_views(*a, packed_lse), q, k, v, scale, mult)
     out = torch.empty_like(q)
     _check_rows("flash attention forward", q=q, k=k, v=v, out=out)
     b, h, lq, d = q.shape
-    if q.dtype == torch.bfloat16 or d == _WIDE_HEAD_DIM:
-        lse = torch.empty((b, lq, h) if packed_lse else (b, h, lq), dtype=torch.float32, device=q.device)
-        launch = flash_fwd_sm90 if q.dtype == torch.bfloat16 else flash_fwd_d512_f32
-        launch(q, k, v, out, lse.transpose(1, 2) if packed_lse else lse, scale)
-        return out, lse
-    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    flash_fwd_wmma(q, k, v, out, lse, scale)
-    return out, (lse.transpose(1, 2) if packed_lse else lse)
+    lse = torch.empty((b, lq, h) if packed_lse else (b, h, lq), dtype=torch.float32, device=q.device)
+    if d > _D512:
+        launch = flash_fwd_wide
+    elif q.dtype == torch.bfloat16:
+        launch = flash_fwd_sm90
+    else:
+        launch = flash_fwd_d512_f32 if d == _D512 else flash_fwd_f32_sm90
+    launch(q, k, v, out, lse.transpose(1, 2) if packed_lse else lse, scale)
+    return out, lse
 
 
 def _padded_rows(lse, delta, rows: int):
@@ -324,12 +372,13 @@ def _padded_rows(lse, delta, rows: int):
 
 
 def _bwd_views(q, k, v, o, dout, lse, scale: float, need_dq: bool, need_dkv: bool):
-    """The backward kernel for [B, H, L, D] operands with D <= 512 (lse
-    [B, H, Lq] fp32, any strides): bf16 with D <= 128 -> flash_bwd_sm90,
-    D 512 -> flash_bwd_d512_sm90 (bf16) or flash_bwd_d512_f32, otherwise
-    flash_bwd_wmma, after zero-padding the head dim where rows are not
-    16-byte aligned or D is 257-511: padded columns of q, k, v and dO add
-    nothing to any product, and those of the gradients are cut off."""
+    """The backward kernel for [B, H, L, D] operands (lse [B, H, Lq] fp32,
+    any strides): D <= 128 -> flash_bwd_sm90 (bf16) or flash_bwd_f32_sm90,
+    129-256 -> flash_bwd_d256_sm90, 512 -> flash_bwd_d512_sm90 (bf16) or
+    flash_bwd_d512_f32, above 512 -> flash_bwd_wide, after zero-padding the
+    head dim where rows are not 16-byte aligned or D is 257-511: padded
+    columns of q, k, v and dO add nothing to any product, and those of the
+    gradients are cut off."""
     # per-row delta = sum_d dO * O, [B, H, Lq] fp32: outside the kernels, as
     # the reference computes it outside its Pallas kernels
     delta = (dout.float() * o.float()).sum(dim=-1)
@@ -342,13 +391,16 @@ def _bwd_views(q, k, v, o, dout, lse, scale: float, need_dq: bool, need_dkv: boo
     outs = dict(dq=dq, dk=dk, dv=dv)
     _check_rows("flash attention backward", q=q, k=k, v=v, dout=dout,
                 **{n: t for n, t in outs.items() if t is not None})
-    if q.dtype == torch.bfloat16 and q.shape[-1] <= _SM90_BWD_HEAD_DIM:
-        flash_bwd_sm90(q, k, v, dout, *_padded_rows(lse, delta, _SM90_BWD_ROWS), dq, dk, dv, scale)
-    elif q.shape[-1] == _WIDE_HEAD_DIM:
-        launch = flash_bwd_d512_sm90 if q.dtype == torch.bfloat16 else flash_bwd_d512_f32
-        launch(q, k, v, dout, *_padded_rows(lse, delta, _D512_BWD_ROWS), dq, dk, dv, scale)
+    bf16, dp = q.dtype == torch.bfloat16, q.shape[-1]
+    if dp <= _SM90_BWD_HEAD_DIM:
+        launch, rows = (flash_bwd_sm90 if bf16 else flash_bwd_f32_sm90), _SM90_BWD_ROWS
+    elif dp <= _MAX_HEAD_DIM:
+        launch, rows = flash_bwd_d256_sm90, _D512_BWD_ROWS
+    elif dp == _D512:
+        launch, rows = (flash_bwd_d512_sm90 if bf16 else flash_bwd_d512_f32), _D512_BWD_ROWS
     else:
-        flash_bwd_wmma(q, k, v, dout, lse.contiguous(), delta.contiguous(), dq, dk, dv, scale)
+        launch, rows = flash_bwd_wide, _D512_BWD_ROWS
+    launch(q, k, v, dout, *_padded_rows(lse, delta, rows), dq, dk, dv, scale)
     return tuple(None if g is None else g[..., :d] for g in (dq, dk, dv))
 
 
@@ -383,30 +435,88 @@ def flash_bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
 flash_bwd_sm90.launches = 0  # kernel launches since the last reset
 
 
-def flash_bwd_wmma(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
-    """Launch flash_attn_bwd.cu (WMMA; 3xTF32 in float32): q, k, v, dout
-    [B, H, L, D] with 16-byte aligned rows and D <= 256, lse and delta
-    [B, H, Lq] fp32 contiguous, into dq (None: not computed) and dk, dv
-    (both None: not computed), each with any strides."""
+def flash_bwd_f32_sm90(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+    """Launch flash_bwd_sm90.cu's float32 pair: the layouts of flash_bwd_sm90
+    in float32, D <= 128 and a multiple of 4. The call splits q, k, v and
+    dout into bf16 scratch ([B, H, L, 2w], split_width) first."""
     b, h, lq, d = q.shape
+    if q.dtype != torch.float32 or d > _SM90_BWD_HEAD_DIM:
+        raise ValueError(f"flash_bwd_f32_sm90 takes float32 head dims <= 128, got {tuple(q.shape)} {q.dtype}")
+    parts = _split_scratch(split_width(d), q, k, v, dout)
     with torch.cuda.device(q.device):
-        err = build.kernel("flash_attn_bwd")(
+        err = build.kernel("flash_bwd_sm90", "emox_flash_bwd_f32_sm90")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _ptr(dq), _ptr(dk), _ptr(dv), _bwd_strides(q, k, v, dout, dq, dk, dv), b, h, lq, k.shape[2], d,
-            float(scale), _DTYPES[q.dtype], _stream(q),
+            _ptr(dq), _ptr(dk), _ptr(dv), _bwd_strides(q, k, v, dout, dq, dk, dv), b, h, lq, k.shape[2],
+            lse.shape[-1], d, float(scale), *(t.data_ptr() for t in parts), _stream(q),
         )
-    build.check(err, "flash_bwd_wmma")
-    flash_bwd_wmma.launches += 1
+    build.check(err, "flash_bwd_f32_sm90")
+    flash_bwd_f32_sm90.launches += 1
 
 
-flash_bwd_wmma.launches = 0  # kernel launches since the last reset
+flash_bwd_f32_sm90.launches = 0  # kernel launches since the last reset
+
+
+def _check_lq_pad(name: str, lq: int, lse) -> None:
+    if lse.shape[-1] % _D512_BWD_ROWS or not lq <= lse.shape[-1] < lq + _D512_BWD_ROWS:
+        raise ValueError(f"{name} takes lse [B, H, Lq_pad], Lq_pad the next multiple of {_D512_BWD_ROWS} rows: "
+                         f"got Lq {lq}, lse {tuple(lse.shape)}")
+
+
+def _launch_bwd_split(library: str, fn: str, name: str, width: int, q, k, v, dout, lse, delta, dq, dk, dv,
+                      scale: float) -> None:
+    """A backward entry of both types that splits float32 operands into
+    bf16 scratch of [B, H, L, 2 width] first (flash_bwd_d256_sm90,
+    flash_bwd_wide)."""
+    b, h, lq, d = q.shape
+    _check_lq_pad(name, lq, lse)
+    parts = _split_scratch(width, q, k, v, dout) if q.dtype == torch.float32 else [None] * 4
+    with torch.cuda.device(q.device):
+        err = build.kernel(library, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _ptr(dq), _ptr(dk), _ptr(dv), _bwd_strides(q, k, v, dout, dq, dk, dv), b, h, lq, k.shape[2],
+            lse.shape[-1], d, float(scale), _DTYPES[q.dtype], *(_ptr(t) for t in parts), _stream(q),
+        )
+    build.check(err, name)
+
+
+def flash_bwd_d256_sm90(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+    """Launch flash_bwd_d512_sm90.cu at half its width: q, k, v, dout
+    [B, H, L, D], 128 < D <= 256, bf16 or float32, 16-byte aligned rows;
+    lse and delta [B, H, Lq_pad] fp32 contiguous, Lq_pad the next multiple
+    of 64, padded with +inf and 0; into dq (None: not computed) and dk, dv
+    (both None: not computed), each with any strides. Float32 is split first
+    into [B, H, L, 512] bf16 scratch."""
+    if not _SM90_BWD_HEAD_DIM < q.shape[-1] <= _MAX_HEAD_DIM:
+        raise ValueError(f"flash_bwd_d256_sm90 takes head dims 129-256, got {q.shape[-1]}")
+    _launch_bwd_split("flash_bwd_d512_sm90", "emox_flash_bwd_d256_sm90", "flash_bwd_d256_sm90", _MAX_HEAD_DIM,
+                      q, k, v, dout, lse, delta, dq, dk, dv, scale)
+    flash_bwd_d256_sm90.launches += 1
+
+
+flash_bwd_d256_sm90.launches = 0  # kernel launches since the last reset
+
+
+def flash_bwd_wide(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+    """Launch flash_attn_wide.cu's backward pair: q, k, v, dout [B, H, L, D],
+    D > 512, bf16 or float32, with lse and delta as flash_bwd_d256_sm90
+    takes them. Float32 is split first into [B, H, L, 2w] bf16 scratch,
+    w = 128 * ceil(D / 128)."""
+    b, h, lq, d = q.shape
+    if d <= _D512:
+        raise ValueError(f"flash_bwd_wide takes head dims above 512, got {d}")
+    _launch_bwd_split("flash_attn_wide", "emox_flash_bwd_wide", "flash_bwd_wide",
+                      wide_plan(b, h, lq, k.shape[2], d)["width"], q, k, v, dout, lse, delta, dq, dk, dv, scale)
+    flash_bwd_wide.launches += 1
+
+
+flash_bwd_wide.launches = 0  # kernel launches since the last reset
 
 
 def _launch_bwd_d512(library: str, name: str, q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
     b, h, lq, d = q.shape
-    if d != _WIDE_HEAD_DIM or lse.shape[-1] % _D512_BWD_ROWS or not lq <= lse.shape[-1] < lq + _D512_BWD_ROWS:
-        raise ValueError(f"{name} takes head dim 512 and lse [B, H, Lq_pad], Lq_pad the next multiple "
-                         f"of {_D512_BWD_ROWS} rows: got q {tuple(q.shape)}, lse {tuple(lse.shape)}")
+    if d != _D512:
+        raise ValueError(f"{name} takes head dim 512, got {tuple(q.shape)}")
+    _check_lq_pad(name, lq, lse)
     with torch.cuda.device(q.device):
         err = build.kernel(library)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -443,10 +553,11 @@ def flash_bwd_d512_f32(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> N
 flash_bwd_d512_f32.launches = 0  # kernel launches since the last reset
 
 
-# ---- the launch plans of the head-dim-512 Hopper kernels --------------------------------
-# Twins of the layouts in flash_bwd_d512_sm90.cu (DqSmem, DkvSmem) and
-# flash_fwd_d512_f32.cu (Smem): every block belongs to a cluster of two, the
-# rank r block owning head-dim columns [256 r, 256 r + 256) of the pair's tile.
+# ---- the launch plans of the Hopper kernels -------------------------------------------
+# Twins of the shared-memory layouts in the sources. flash_bwd_d512_sm90.cu
+# (DqSmem, DkvSmem) and flash_fwd_d512_f32.cu (Smem): every block belongs to
+# a cluster of two, the rank r block owning head-dim columns
+# [half r, half r + half) of the pair's tile.
 _BOX64 = 64 * 128  # bytes of one 64-row box of 64 bf16 columns
 _PART = 4 * 128 * 16  # one warpgroup's [64, 32] fp32 partial of S or dP
 _D512_CLUSTER = 2
@@ -456,17 +567,20 @@ def _pairs(length: int, rows: int) -> int:
     return -(-length // rows)
 
 
-def bwd_d512_plan(n: int, h: int, lq: int, lk: int) -> dict:
-    """flash_bwd_d512_sm90's two launches for q [n, h, lq, 512] and k, v
-    [n, h, lk, 512]: grid (x, y, z) = (2 * pairs, heads, batch), the pair
+def bwd_d512_plan(n: int, h: int, lq: int, lk: int, half: int = 256, parts: int = 1) -> dict:
+    """flash_bwd_d512_sm90's two launches for q [n, h, lq, 2 half] and k, v
+    [n, h, lk, 2 half]: grid (x, y, z) = (2 * pairs, heads, batch), the pair
     x // 2 owning `rows` query rows (dq) or keys (dkv), with the streamed
     tiles' rows, ring stages and shared memory a block (bytes, alignment
-    slack included)."""
-    dq_smem = 8 * _BOX64 + 2 * 8 * _BOX64 + 4 * _PART + 8 * 9 + 1024
+    slack included). half 256: head dim 512 in bf16 (parts 1); half 128:
+    head dims 129-256 (flash_bwd_d256_sm90), bf16 (parts 1) or float32's
+    two bf16 parts (parts 2)."""
+    boxes = parts * half // 64  # a block's boxes of one operand tile
+    dq_smem = 2 * boxes * _BOX64 + 2 * 2 * boxes * _BOX64 + 4 * _PART + 8 * 9 + 1024
     # K and V, two stages of 64-row Q and dO tiles with their lse and delta,
     # the S^T and dP^T slots ([64, 64] fp32 each), 10 barriers
-    dkv_smem = 8 * _BOX64 + 2 * 8 * _BOX64 + 2 * 2 * 64 * 4 + 2 * 64 * 64 * 4 + 8 * 10 + 1024
-    return {"cluster": _D512_CLUSTER, "half": _WIDE_HEAD_DIM // _D512_CLUSTER,
+    dkv_smem = 2 * boxes * _BOX64 + 2 * 2 * boxes * _BOX64 + 2 * 2 * 64 * 4 + 2 * 64 * 64 * 4 + 8 * 10 + 1024
+    return {"cluster": _D512_CLUSTER, "half": half, "parts": parts,
             "dq": {"grid": (_D512_CLUSTER * _pairs(lq, 64), h, n), "rows": 64, "tile": 64, "stages": 2,
                    "smem": dq_smem},
             "dkv": {"grid": (_D512_CLUSTER * _pairs(lk, 64), h, n), "rows": 64, "tile": 64, "stages": 2,
@@ -478,24 +592,66 @@ def fwd_d512_f32_plan(n: int, h: int, lq: int, lk: int) -> dict:
     launches): as bwd_d512_plan's dq launch, 64-key K and V tiles of one
     stage each, both bf16 parts of every operand."""
     smem = 24 * _BOX64 + 2 * _PART + 8 * 9 + 1024
-    return {"cluster": _D512_CLUSTER, "half": _WIDE_HEAD_DIM // _D512_CLUSTER,
+    return {"cluster": _D512_CLUSTER, "half": _D512 // _D512_CLUSTER,
             "grid": (_D512_CLUSTER * _pairs(lq, 64), h, n), "rows": 64, "tile": 64, "stages": 1, "smem": smem}
 
 
+def f32_plan(n: int, h: int, lq: int, lk: int, d: int) -> dict:
+    """The float32 kernels of flash_fwd_sm90.cu and flash_bwd_sm90.cu at
+    head dim d <= 256 (the twins of Smem, WideSmem, DqSmem and DkvSmem with
+    PARTS 2): the split's width w, then per launch its grid (x, y, z) =
+    (row tiles, heads, batch), the rows a block owns, the streamed tile's
+    rows, the ring's stages and the shared memory a block. d 129-256
+    forward on the wide kernel (64 rows a block, O split across two
+    warpgroups); their backward is bwd_d512_plan(half=128, parts=2)."""
+    w = split_width(d)
+    boxes = 2 * w // 64  # boxes of a row: both parts
+    if w == 256:
+        fwd = {"grid": (_pairs(lq, 64), h, n), "rows": 64, "tile": 64, "stages": 1,
+               "smem": 3 * boxes * _BOX64 + 8 * 5 + 1024}
+    else:
+        bn, stages = (128, 2) if w == 64 else (64, 2)
+        fwd = {"grid": (_pairs(lq, 128), h, n), "rows": 128, "tile": bn, "stages": stages,
+               "smem": boxes * 128 * 128 + 2 * stages * boxes * bn * 128 + 8 * (1 + 2 * stages) + 1024}
+    plan = {"width": w, "fwd": fwd}
+    if d <= _SM90_BWD_HEAD_DIM:
+        bn, stages = (64, 3) if w == 64 else (32, 2)
+        plan["dq"] = {"grid": (_pairs(lq, 128), h, n), "rows": 128, "tile": bn, "stages": stages,
+                      "smem": 2 * boxes * 128 * 128 + 2 * stages * boxes * bn * 128 + 8 * (1 + 2 * stages) + 1024}
+        plan["dkv"] = {"grid": (_pairs(lk, 128), h, n), "rows": 128, "tile": bn, "stages": stages,
+                       "smem": 2 * boxes * 128 * 128 + 2 * stages * boxes * bn * 128 + 2 * stages * bn * 4
+                       + 8 * (1 + 2 * stages) + 1024}
+    return plan
+
+
+def wide_plan(n: int, h: int, lq: int, lk: int, d: int, parts: int = 1) -> dict:
+    """flash_attn_wide.cu's launches for head dim d > 512 (the twins of
+    FwdSmem, DqSmem and DkvSmem): 128-column slices (`slices` of them, the
+    float32 scratch `width` = 128 * slices columns a part), 64-column chunks
+    of the whole head dim streamed through a two-stage ring; grid (x, y, z)
+    = (row tiles * slices, heads, batch), block x owning rows
+    [rows (x // slices), + rows) and columns [128 (x % slices), + 128); the
+    dk/dv launch streams 32-row query tiles. parts: 1 (bf16) or 2 (float32's
+    two bf16 parts)."""
+    slices = -(-d // _WIDE_SLICE)
+    qbox = 32 * 128
+    fwd_smem = 2 * 2 * parts * _BOX64 + 2 * parts * _BOX64 + 8 * 6 + 1024
+    dq_smem = 2 * 4 * parts * _BOX64 + 2 * parts * _BOX64 + 8 * 6 + 1024
+    dkv_smem = 2 * parts * (2 * _BOX64 + 2 * qbox) + 4 * parts * qbox + 2 * 32 * 4 + 8 * 6 + 1024
+    launch = lambda length, tile, smem: {"grid": (_pairs(length, 64) * slices, h, n), "rows": 64, "tile": tile,
+                                         "stages": 2, "smem": smem}
+    return {"slice": _WIDE_SLICE, "slices": slices, "chunks": -(-d // 64), "width": slices * _WIDE_SLICE,
+            "parts": parts, "fwd": launch(lq, 64, fwd_smem), "dq": launch(lq, 64, dq_smem),
+            "dkv": launch(lk, 32, dkv_smem)}
+
+
 # ---- the packed layout [N, L, H*D] ---------------------------------------------------
-def _check_head_dim(name: str, d: int) -> None:
-    if d > _WIDE_HEAD_DIM:
-        raise ValueError(f"{name} takes head_dim <= {_WIDE_HEAD_DIM}, got {d}: no kernel of the port takes a "
-                         f"wider head, where the reference computes (ROADMAP.md, Queue 3)")
-
-
 def _check_kernel_inputs(name: str, q, k, v, heads: int):
     n, lq, c = q.shape
     lk = k.shape[1]
     d = c // heads
     if c != heads * d:
         raise ValueError(f"{name}: {c} channels do not split into {heads} heads")
-    _check_head_dim(name, d)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (n, lk, c) or v.shape != k.shape:
@@ -596,7 +752,6 @@ def _check_strided_inputs(name: str, q, k, v) -> Tuple[int, int, int, int, int]:
         raise ValueError(f"{name} takes [B, H, L, D] operands, got q {tuple(q.shape)}")
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    _check_head_dim(name, d)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if k.shape != (b, h, lk, d) or v.shape != k.shape:

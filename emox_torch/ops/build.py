@@ -32,12 +32,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.POINTER(ctypes.c_longlong)  # an array of element strides
 # library -> {C function: argtypes}; the first function launches the kernel
 KERNELS = {
-    "flash_attn": {"emox_flash_attn_fwd": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _I, _P]},
-    "flash_attn_bwd": {"emox_flash_attn_bwd": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _I, _P]},
-    "flash_fwd_sm90": {"emox_flash_fwd_sm90": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _P]},
-    "flash_bwd_sm90": {"emox_flash_bwd_sm90": [_P] * 9 + [_LL] + [_I] * 6 + [_F, _P]},
+    "flash_fwd_sm90": {"emox_flash_fwd_sm90": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _P],
+                       "emox_flash_fwd_f32_sm90": [_P] * 5 + [_LL] + [_I] * 5 + [_F] + [_P] * 4},
+    "flash_bwd_sm90": {"emox_flash_bwd_sm90": [_P] * 9 + [_LL] + [_I] * 6 + [_F, _P],
+                       "emox_flash_bwd_f32_sm90": [_P] * 9 + [_LL] + [_I] * 6 + [_F] + [_P] * 5},
     "flash_bwd_d512": {"emox_flash_bwd_d512": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _P]},
-    "flash_bwd_d512_sm90": {"emox_flash_bwd_d512_sm90": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _P]},
+    "flash_bwd_d512_sm90": {"emox_flash_bwd_d512_sm90": [_P] * 9 + [_LL] + [_I] * 5 + [_F, _P],
+                            "emox_flash_bwd_d256_sm90": [_P] * 9 + [_LL] + [_I] * 6 + [_F, _I] + [_P] * 5},
+    "flash_attn_wide": {"emox_flash_fwd_wide": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _I] + [_P] * 4,
+                        "emox_flash_bwd_wide": [_P] * 9 + [_LL] + [_I] * 6 + [_F, _I] + [_P] * 5},
     "flash_fwd_d512_f32": {"emox_flash_fwd_d512_f32": [_P] * 5 + [_LL] + [_I] * 4 + [_F] + [_P] * 4},
     "ff_sm90": {"emox_ff_sm90": [_P] * 11 + [_I] * 4 + [_F, _P]},
     "ln_geglu_ff": {"emox_ln_geglu_ff": [_P] * 8 + [_I] * 3 + [_F, _I, _P],

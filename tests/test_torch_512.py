@@ -103,8 +103,8 @@ def d512_card(monkeypatch):
     (head-split views [B, H, L, 512] with 16-byte aligned rows; lse and delta
     [B, H, Lq_pad] fp32 contiguous, Lq_pad the next multiple of 64 rows,
     padded with +inf and 0) and write the plain result into the outputs the
-    wrapper allocated; every other backward launcher fails. Returns the
-    launches."""
+    wrapper allocated; head dims above 512 reach a stand-in of the wide
+    backward; every other backward launcher fails. Returns the launches."""
     seen = []
 
     def stand_in(name, dtype):
@@ -129,8 +129,18 @@ def d512_card(monkeypatch):
     monkeypatch.setattr(tattn, "_on_card_or_cpu", lambda name, x: True)
     monkeypatch.setattr(tattn, "flash_bwd_d512_sm90", stand_in("flash_bwd_d512_sm90", torch.bfloat16))
     monkeypatch.setattr(tattn, "flash_bwd_d512_f32", stand_in("flash_bwd_d512_f32", torch.float32))
-    monkeypatch.setattr(tattn, "flash_bwd_sm90", refuse)
-    monkeypatch.setattr(tattn, "flash_bwd_wmma", refuse)
+    for name in ("flash_bwd_sm90", "flash_bwd_f32_sm90", "flash_bwd_d256_sm90"):
+        monkeypatch.setattr(tattn, name, refuse)
+
+    def wide(q, k, v, dout, lse, delta, dq, dk, dv, scale):
+        assert q.shape[-1] > 512 and lse.shape[2] % 64 == 0
+        lq = q.shape[2]
+        for out, want in zip((dq, dk, dv), _bwd_formulas(q, k, v, dout, lse[..., :lq], delta[..., :lq], scale)):
+            if out is not None:
+                out.copy_(want)
+        seen.append("flash_bwd_wide")
+
+    monkeypatch.setattr(tattn, "flash_bwd_wide", wide)
     yield seen
     tattn.flash_attention_nlc_bwd.launches = 0
 
@@ -148,9 +158,9 @@ def test_d512_backward_is_refused_for_the_kernel(d512_card):
     flash_bwd_d512_f32 (two heads, Lq 70: six rows past a 64-row tile of
     the lse padding), with the gradients of the plain version. Head dims
     257-511 are padded to 512 and take the same kernels, as the reference
-    computes them; the kernels are refused for head dims above 512 (ROADMAP
-    Queue 3), before anything reaches the card; the plain backward still
-    runs on the CPU."""
+    computes them; head dims above 512 are no longer refused: d 1024 reaches
+    the wide backward (flash_bwd_wide, a stand-in here) with the plain
+    backward's gradients, as the reference computes them."""
     for dtype, name in ((torch.bfloat16, "flash_bwd_d512_sm90"), (torch.float32, "flash_bwd_d512_f32")):
         q, k, v, o, lse, g = _d512_bwd_inputs(dtype, heads=2)
         want = tattn.attention_nlc_bwd_plain(q, k, v, o, lse, g, 2, 512 ** -0.5)
@@ -162,12 +172,13 @@ def test_d512_backward_is_refused_for_the_kernel(d512_card):
     x = torch.zeros(1, 8, 384)
     grads = tattn._flash_bwd_kernel(x, x, x, x, torch.zeros(1, 8, 1), x, 1, 384 ** -0.5, True, True)
     assert d512_card[-1] == "flash_bwd_d512_f32" and all(gr.shape == x.shape for gr in grads)
-    x = torch.zeros(1, 8, 1024)
-    with pytest.raises(ValueError, match="head_dim <= 512, got 1024: .*Queue 3"):
-        tattn._flash_bwd_kernel(x, x, x, x, torch.zeros(1, 8, 1), x, 1, 1024 ** -0.5, True, True)
-    q = torch.zeros(1, 8, 1024)
-    dq, dk, dv = tattn.attention_nlc_bwd_plain(q, q, q, q, torch.zeros(1, 8, 1), q, 1, 1024 ** -0.5)
-    assert dq.shape == dk.shape == dv.shape == q.shape
+    q, k, v, g = (t(np.random.default_rng(1024 + i).standard_normal((1, 8, 1024)).astype(np.float32))
+                  for i in range(4))
+    o, lse = tattn.attention_nlc_plain(q, k, v, 1, 1024 ** -0.5)
+    grads = tattn._flash_bwd_kernel(q, k, v, o, lse, g, 1, 1024 ** -0.5, True, True)
+    assert d512_card[-1] == "flash_bwd_wide"
+    for a, b in zip(grads, tattn.attention_nlc_bwd_plain(q, k, v, o, lse, g, 1, 1024 ** -0.5)):
+        assert a.shape == q.shape and rel(a, b.numpy()) <= FP32_TOL
 
 
 D512_SUBSETS = [(dtype, need) for dtype in ("bfloat16", "float32") for need in ("dq", "dkv")]

@@ -36,8 +36,9 @@ def no_kernel_launches():
     yield
     counts = ops.launch_counts()
     assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_nlc_fwd", "flash_attn_nlc_bwd", "flash_fwd_sm90",
-                           "flash_fwd_wmma", "flash_fwd_d512_f32", "flash_bwd_sm90", "flash_bwd_wmma", "flash_bwd_d512_sm90",
-                           "flash_bwd_d512_f32", "ln_geglu_ff",
+                           "flash_fwd_f32_sm90", "flash_fwd_d512_f32", "flash_fwd_wide", "flash_bwd_sm90",
+                           "flash_bwd_f32_sm90", "flash_bwd_d256_sm90", "flash_bwd_d512_sm90", "flash_bwd_d512_f32",
+                           "flash_bwd_wide", "ln_geglu_ff",
                            "geglu_ff", "ff_sm90", "ff_wmma", "group_norm", "group_norm_stats", "ln_qkv",
                            "ln_qkv_sm90", "ln_qkv_wmma"}
     assert not any(counts.values()), counts

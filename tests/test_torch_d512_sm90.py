@@ -88,7 +88,8 @@ def wide_card(monkeypatch):
     monkeypatch.setattr(tattn, "flash_fwd_sm90", forward("flash_fwd_sm90"))
     monkeypatch.setattr(tattn, "flash_bwd_d512_f32", backward("flash_bwd_d512_f32"))
     monkeypatch.setattr(tattn, "flash_bwd_d512_sm90", backward("flash_bwd_d512_sm90"))
-    for name in ("flash_fwd_wmma", "flash_bwd_wmma", "flash_bwd_sm90"):
+    for name in ("flash_fwd_f32_sm90", "flash_fwd_wide", "flash_bwd_sm90", "flash_bwd_f32_sm90",
+                 "flash_bwd_d256_sm90", "flash_bwd_wide"):
         monkeypatch.setattr(tattn, name, _refuse)
     yield seen
     ops.reset_launch_counts()
@@ -132,17 +133,28 @@ def test_head_dims_257_511_match_the_reference(request, d, layout, route):
         assert got.shape == x.shape and rel(got, ref_grad) <= FP32_TOL, name
 
 
-def test_head_dims_above_512_are_refused(wide_card):
-    """Head dims above 512 raise on both layouts before any launch (no
-    kernel of the port holds their accumulators; ROADMAP Queue 3), while
-    the reference computes them; the plain versions still run on the CPU."""
-    x = torch.zeros(1, 8, 640)
-    with pytest.raises(ValueError, match="head_dim <= 512, got 640: .*Queue 3"):
-        tattn.flash_attention_nlc(x, x, x, 1)
-    y = torch.zeros(1, 1, 8, 576)
-    with pytest.raises(ValueError, match="head_dim <= 512, got 576: .*Queue 3"):
-        tattn.flash_attention(y, y, y)
-    assert wide_card == [512]
+def test_head_dims_above_512_are_refused(wide_card, monkeypatch):
+    """Head dims above 512 are no longer refused: on both layouts they reach
+    the wide kernels (flash_fwd_wide, a stand-in here that checks its
+    operands are unpadded, aligned and above 512) and give the reference's
+    result in interpret mode, where the port once raised; the d-512 kernels
+    never see them."""
+    def wide(q, k, v, out, lse, scale):
+        assert q.shape[-1] > 512 and all(tattn._rows_aligned(x) for x in (q, k, v))
+        o, l = tattn.attention_plain(q, k, v, scale)
+        out.copy_(o)
+        lse.copy_(l)
+        wide_card.append("flash_fwd_wide")
+
+    monkeypatch.setattr(tattn, "flash_fwd_wide", wide)
+    rng = np.random.default_rng(640)
+    x, x2, x3 = (rng.standard_normal((1, l, 640)).astype(np.float32) for l in (8, 12, 12))
+    got = tattn.flash_attention_nlc(t(x), t(x2), t(x3), 1)
+    assert got.shape == (1, 8, 640) and rel(got, jattn.flash_attention_nlc(j(x), j(x2), j(x3), 1, interpret=True)) <= FP32_TOL
+    y, y2, y3 = (rng.standard_normal((1, 1, l, 576)).astype(np.float32) for l in (8, 12, 12))
+    got = tattn.flash_attention(t(y), t(y2), t(y3))
+    assert got.shape == (1, 1, 8, 576) and rel(got, jattn.flash_attention(j(y), j(y2), j(y3), interpret=True)) <= FP32_TOL
+    assert wide_card == [512, "flash_fwd_wide", "flash_fwd_wide"]
 
 
 # ---- the bf16 backward's routes ----------------------------------------------------------

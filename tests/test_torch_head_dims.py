@@ -1,8 +1,9 @@
 """Every head dim up to 256 on the port's attention routes, on the CPU.
 
 The kernels zero-pad the head dim: in shared memory (flash_fwd_sm90.cu and
-flash_bwd_sm90.cu pad to a multiple of 64 columns, the WMMA kernels to a
-multiple of 16) and, where a row is not 16-byte aligned, in the wrapper
+flash_bwd_sm90.cu pad to a multiple of 64 columns, their float32 split to 64,
+128 or 256, flash_bwd_d512_sm90.cu's pair at half width to 256) and, where a
+row is not 16-byte aligned, in the wrapper
 (`padded_attention`, the reference's `_pad_dim`). Zero columns change no
 product and the scale comes from the true head dim, so padding is exact: the
 padded plain versions are held against the reference's Pallas kernels in
@@ -112,13 +113,13 @@ def card(monkeypatch):
         lse.copy_(l)
         seen.append("sm90")
 
-    def wmma(q, k, v, out, lse, scale):
-        assert q.dtype == torch.float32 and lse.is_contiguous()
+    def f32_sm90(q, k, v, out, lse, scale):
+        assert q.dtype == torch.float32
         aligned(q, k, v)
         o, l = tattn.attention_plain(q, k, v, scale)
         out.copy_(o)
         lse.copy_(l)
-        seen.append("wmma")
+        seen.append("f32_sm90")
 
     def grads(q, k, v, dout, lse, delta, dq, dk, dv, scale):
         assert (dk is None) == (dv is None) and (dq is not None or dk is not None)
@@ -127,31 +128,31 @@ def card(monkeypatch):
                 assert got.shape == want.shape
                 got.copy_(want)
 
-    def bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, scale):
-        assert q.dtype == torch.bfloat16 and q.shape[-1] <= 128 and q.shape[-1] % 8 == 0
-        aligned(q, k, v, dout, *(t for t in (dq, dk, dv) if t is not None))
-        b, h, lq, _ = q.shape
-        # [B, H, Lq_pad] fp32 contiguous, padded to a multiple of 128 rows
+    def padded_rows(q, lse, delta, rows):
+        # [B, H, Lq_pad] fp32 contiguous, padded to a multiple of `rows` rows
         # with lse = +inf and delta = 0
+        b, h, lq, _ = q.shape
         for t in (lse, delta):
             assert t.dtype == torch.float32 and t.is_contiguous() and t.data_ptr() % 16 == 0
-            assert t.shape[:2] == (b, h) and t.shape[2] % 128 == 0 and lq <= t.shape[2] < lq + 128
+            assert t.shape[:2] == (b, h) and t.shape[2] % rows == 0 and lq <= t.shape[2] < lq + rows
         assert torch.isposinf(lse[..., lq:]).all() and not delta[..., lq:].any()
-        grads(q, k, v, dout, lse[..., :lq], delta[..., :lq], dq, dk, dv, scale)
-        seen.append("bwd_sm90")
+        return lse[..., :lq], delta[..., :lq]
 
-    def bwd_wmma(q, k, v, dout, lse, delta, dq, dk, dv, scale):
-        assert q.dtype == torch.float32 or q.shape[-1] > 128
-        aligned(q, k, v, dout, *(t for t in (dq, dk, dv) if t is not None))
-        assert lse.is_contiguous() and delta.is_contiguous() and lse.shape == delta.shape == q.shape[:3]
-        grads(q, k, v, dout, lse, delta, dq, dk, dv, scale)
-        seen.append("bwd_wmma")
+    def backward(name, dtypes, head_dims, rows):
+        def launch(q, k, v, dout, lse, delta, dq, dk, dv, scale):
+            assert q.dtype in dtypes and q.shape[-1] in head_dims, (q.dtype, q.shape)
+            aligned(q, k, v, dout, *(t for t in (dq, dk, dv) if t is not None))
+            grads(q, k, v, dout, *padded_rows(q, lse, delta, rows), dq, dk, dv, scale)
+            seen.append(name)
+        return launch
 
+    both = (torch.bfloat16, torch.float32)
     monkeypatch.setattr(tattn, "_on_card_or_cpu", lambda name, t: True)
     monkeypatch.setattr(tattn, "flash_fwd_sm90", sm90)
-    monkeypatch.setattr(tattn, "flash_fwd_wmma", wmma)
-    monkeypatch.setattr(tattn, "flash_bwd_sm90", bwd_sm90)
-    monkeypatch.setattr(tattn, "flash_bwd_wmma", bwd_wmma)
+    monkeypatch.setattr(tattn, "flash_fwd_f32_sm90", f32_sm90)
+    monkeypatch.setattr(tattn, "flash_bwd_sm90", backward("bwd_sm90", (torch.bfloat16,), range(8, 129, 8), 128))
+    monkeypatch.setattr(tattn, "flash_bwd_f32_sm90", backward("bwd_f32_sm90", (torch.float32,), range(4, 129, 4), 128))
+    monkeypatch.setattr(tattn, "flash_bwd_d256_sm90", backward("bwd_d256_sm90", both, range(132, 257, 4), 64))
     yield seen
     ops.reset_launch_counts()
 
@@ -162,9 +163,11 @@ GLUE = [(layout, dtype, d) for layout in ("packed", "strided") for dtype in ("bf
 
 def _bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward kernel a (dtype, head dim) reaches on either layout: the
-    Hopper pair for bf16 up to head dim 128 (after row padding), WMMA
-    otherwise."""
-    return "bwd_sm90" if dtype == torch.bfloat16 and d <= 128 else "bwd_wmma"
+    Hopper pair up to head dim 128 (after row padding; float32 on its
+    split), the cluster pair at half width at 129-256 in both types."""
+    if d > 128:
+        return "bwd_d256_sm90"
+    return "bwd_sm90" if dtype == torch.bfloat16 else "bwd_f32_sm90"
 
 
 @pytest.mark.parametrize("layout,dtype,d", GLUE, ids=[f"{a}-{b}-d{c}" for a, b, c in GLUE])
@@ -196,7 +199,7 @@ def test_card_path_wrappers(card, layout, dtype, d):
         g = tattn.attention_bwd_plain(split(q), split(k), split(v), want, want_lse, split(w), scale)
         grads_want = [x.transpose(1, 2).reshape(n, -1, heads * d) for x in g]
         w = split(w)
-    assert card[0] == ("sm90" if dt == torch.bfloat16 else "wmma")
+    assert card[0] == ("sm90" if dt == torch.bfloat16 else "f32_sm90")
     assert out.dtype == dt and rel_err(out.float(), want.float().numpy()) <= tol
     assert rel_err(lse, want_lse.numpy()) <= TOL
     got = torch.autograd.grad((out.float() * w.float()).sum(), args)

@@ -289,19 +289,19 @@ def test_dispatch_routes_like_the_reference_auto_dispatch(monkeypatch, lk, d, ro
 
 
 def test_strided_wrapper_checks_head_dim_and_row_alignment():
-    """What the kernels still refuse is refused before any launch: head dims
-    above 512 on either layout (257-511 are padded to 512 and run on the
-    d-512 kernels, as the reference computes them), and rows that are not
-    contiguous and 16-byte aligned where the head dim itself would keep them
-    aligned (a head dim that would not is zero-padded instead)."""
+    """What the kernels still refuse is refused before any launch: rows that
+    are not contiguous and 16-byte aligned where the head dim itself would
+    keep them aligned (a head dim that would not is zero-padded instead).
+    Every head dim passes the checks on either layout, as the reference
+    computes every one: 257-511 are padded to 512 for the d-512 kernels, and
+    above 512 the wide kernels take them."""
     from emox_torch.ops.attention import _check_kernel_inputs, _check_rows, _check_strided_inputs
 
     for d in (4, 40, 64, 160, 256, 300, 320, 512):
         y = torch.zeros(1, 2, 8, d)
         assert _check_strided_inputs("flash_attn_fwd", y, y, y) == (1, 2, 8, 8, d)
     x = torch.zeros(1, 2, 8, 640)
-    with pytest.raises(ValueError, match="head_dim <= 512, got 640"):
-        _check_strided_inputs("flash_attn_fwd", x, x, x)
+    assert _check_strided_inputs("flash_attn_fwd", x, x, x) == (1, 2, 8, 8, 640)
     p = torch.zeros(1, 8, 2 * 512)
     assert _check_kernel_inputs("flash_attn_nlc_fwd", p, p, p, 2) == (1, 8, 8, 512)
     # the backward takes head dim 512 too (VAE pretraining), and 384 (padded)
@@ -309,8 +309,7 @@ def test_strided_wrapper_checks_head_dim_and_row_alignment():
     assert _check_kernel_inputs("flash_attn_nlc_bwd", p[..., :768], p[..., :768], p[..., :768], 2) == (1, 8, 8, 384)
     w = torch.zeros(1, 8, 1024)
     for name in ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"):
-        with pytest.raises(ValueError, match="head_dim <= 512, got 1024"):
-            _check_kernel_inputs(name, w, w, w, 1)
+        assert _check_kernel_inputs(name, w, w, w, 1) == (1, 8, 8, 1024)
     _check_rows("flash_attn_fwd", q=torch.zeros(1, 8, 2 * 40).view(1, 8, 2, 40).transpose(1, 2))
     with pytest.raises(ValueError, match="16-byte aligned rows"):
         _check_rows("flash_attn_fwd", q=torch.zeros(1, 2, 8, 41)[..., :40])  # row stride 41 floats
