@@ -17,14 +17,20 @@ one and at 16 512^2 images; the float32 attention at head dims <= 256 (the
 forward at the float32 step's strided SD-1.5 shape and packed flagship
 shape, the backward at the float32 train step's shape) and the bf16
 backward at head dims 160 (SD-1.5's level 2 under EMOX_ATTENTION_IMPL=pallas)
-and 256 (the small preset's VAE mid-attention). `--only` keeps the checks
-whose labels start with one of the prefixes. Each check's `ms` is its chip_smoke.py time
+and 256 (the small preset's VAE mid-attention); the feed-forward
+(fused_ln_geglu_ff, K2/K3, and fused_geglu_ff, K6) in float32 at the float32
+step's level 0 and in bf16 at the flagship's level 0 and mid; and K7 in
+float32 at M 4096, C 320 and M 2048, C 1280. `--only` keeps the checks
+whose labels start with one of the prefixes (e.g. `--only ff_,geglu_ff_,ln_qkv_f32`
+for the FF and float32 K7). Each check's `ms` is its chip_smoke.py time
 (CUDA events around the calls); `device_ms` is the same call's device time
 without the host's cost of issuing it (calls captured in one CUDA graph,
-timed by this checkout's code for both trees). Prints one JSON line per
-check and turn, then one summary line per check: each checkout's faster
-turn and their ratio. Exits non-zero where a check fails in either checkout
-or where there is no card.
+timed by this checkout's code for both trees), and `checksum` a hash of the
+call's output bits on inputs drawn from a fixed seed, the same in both
+trees. Prints one JSON line per check and turn, then one summary line per
+check: each checkout's faster turn, their ratio, and whether the two
+checkouts gave the same bits. Exits non-zero where a check fails in either
+checkout or where there is no card.
 """
 
 from __future__ import annotations
@@ -57,13 +63,23 @@ CHECKS = [
     ("f32_bwd_packed_2x1024x2048", "check_flash_bwd", (2, 1024, 2048), {"c": 320, "heads": 5, "dtype": "float32"}),
     ("bwd_d160_strided_16x256x512", "check_flash_strided_bwd", (16, 256, 512), {"heads": 8, "d": 160}),
     ("bwd_d256_packed_4x1024", "check_flash_bwd", (4, 1024, 1024), {"c": 256, "heads": 1}),
+    # the FF: float32 at the float32 step's level 0, both functions; bf16 at
+    # the flagship's level 0 (both functions) and mid (GEMM 2 split over F)
+    ("ff_f32_4096x320", "check_ff", (4096, 320), {"dtype": "float32"}),
+    ("geglu_ff_f32_4096x320", "check_geglu_ff", (4096, 320), {"dtype": "float32"}),
+    ("ff_32768x320", "check_ff", (32768, 320), {}),
+    ("ff_512x1280", "check_ff", (512, 1280), {}),
+    ("geglu_ff_32768x320", "check_geglu_ff", (32768, 320), {}),
+    # K7 in float32: the float32 step's level 0, and level 2's width
+    ("ln_qkv_f32_4096x320", "check_ln_qkv", (4096, 320), {"dtype": "float32"}),
+    ("ln_qkv_f32_2048x1280", "check_ln_qkv", (2048, 1280), {"dtype": "float32"}),
 ]
 
 _TURN = """
-import json, sys, torch
+import hashlib, json, sys, torch
 import chip_smoke as cs
 from emox_torch.ops import (flash_attention, flash_attention_bwd, flash_attention_nlc, flash_attention_nlc_bwd,
-                             fused_group_norm, fused_ln_qkv, group_norm_stats)
+                             fused_geglu_ff, fused_group_norm, fused_ln_geglu_ff, fused_ln_qkv, group_norm_stats)
 
 def device_ms(fn, iters=20):
     side = torch.cuda.Stream()
@@ -89,9 +105,16 @@ def device_ms(fn, iters=20):
     torch.cuda.empty_cache()
     return ms
 
+def checksum(out):
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
 def call(fn, args, gen, kw):
-    bf = torch.bfloat16
-    rand = lambda *shape, scale=1.0, shift=0.0: (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(bf)
+    dt = kw.get("dtype", torch.bfloat16)
+    rand = lambda *shape, scale=1.0, shift=0.0: (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dt)
     if fn in ("check_flash", "check_flash_bwd"):
         n, lq, lk = args
         c, heads, dt = kw["c"], kw["heads"], kw.get("dtype", torch.bfloat16)
@@ -112,6 +135,15 @@ def call(fn, args, gen, kw):
         o, lse = flash_attention(q, k, v, return_lse=True)
         dout = split(lq)
         return lambda: flash_attention_bwd(q, k, v, o, lse, dout)
+    if fn in ("check_ff", "check_geglu_ff"):
+        m, c = args
+        f = 4 * c
+        x, w1, b1 = rand(m, c), rand(2 * f, c, scale=c ** -0.5), rand(2 * f, scale=0.1)
+        w2, b2 = rand(c, f, scale=f ** -0.5), rand(c, scale=0.1)
+        if fn == "check_geglu_ff":
+            return lambda: fused_geglu_ff(x, w1, b1, w2, b2)
+        ln_w, ln_b = rand(c, scale=0.1, shift=1.0), rand(c, scale=0.1)
+        return lambda: fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2)
     if fn == "check_ln_qkv":
         m, c = args
         xs = (rand(m, c), rand(c, scale=0.1, shift=1.0), rand(c, scale=0.1),
@@ -130,9 +162,13 @@ for label, fn, args, kw in checks:
     if "dtype" in kw:
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
     res = getattr(cs, fn)(gen, *args, **kw)
+    run = call(fn, args, torch.Generator(device="cuda").manual_seed(4321), kw)
     print("AB " + json.dumps({"label": label, "kernel": res["kernel"], "ms": res["ms"],
-                              "device_ms": device_ms(call(fn, args, gen, kw), iters=10 if "flash" in fn else 20),
-                              "bound_ms": res["bound_ms"], "max_abs_err": res["max_abs_err"]}), flush=True)
+                              "device_ms": device_ms(run, iters=10 if "flash" in fn else 20),
+                              "checksum": checksum(run()), "bound_ms": res["bound_ms"],
+                              "max_abs_err": res["max_abs_err"]}), flush=True)
+    del run
+    torch.cuda.empty_cache()
 """
 
 
@@ -181,7 +217,9 @@ def main(argv=None) -> int:
                         "other_kernel": turns[0][label]["kernel"], "this_kernel": turns[1][label]["kernel"],
                         "speedup": best["other", "ms"] / best["this", "ms"],
                         "device_speedup": best["other", "device_ms"] / best["this", "device_ms"],
-                        "bound_ms": turns[1][label]["bound_ms"]})
+                        "bound_ms": turns[1][label]["bound_ms"],
+                        "checksums": [t[label]["checksum"] for t in turns],
+                        "same_bits": len({t[label]["checksum"] for t in turns}) == 1})
         print(json.dumps({"summary": summary[-1]}), flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)

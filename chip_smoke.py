@@ -20,8 +20,11 @@ raises and the script exits non-zero. Phases:
      EMOX_FF_IMPL=xla runs). The FF runs on one kernel per type for both its
      functions (LN + FF + residual, and K6's FF alone): ff_sm90 (bf16, wgmma
      + TMA) at the four 256^2 and the four 512^2 sub-layer shapes, ragged M,
-     M below one tile, twice on the same inputs (the same bits); ff_wmma
-     (float32) at C 320 and 1280. The attention forward runs on one kernel
+     M below one tile, twice on the same inputs (the same bits); ff_f32_sm90
+     (float32: the same kernels on a two-part bf16 split) timed at the
+     float32 step's level 0 (M 4096, C 320) in both functions, ragged M, C
+     80 and 1280; every FF timing with device_ms (calls in one CUDA graph)
+     and the bound of the bf16 products it issues. The attention forward runs on one kernel
      per type for both layouts: flash_fwd_sm90 (bf16, wgmma + TMA) at the
      serving shapes of both, at Lk 5 and 16, at head dims 4, 40, 80, 128,
      160, 256 and 512 (the VAE's mid-attention) and ragged;
@@ -54,7 +57,10 @@ raises and the script exits non-zero. Phases:
      only and Lq != Lk in both types. The fused-norm kernels: K7 on
      ln_qkv_sm90 (bf16, LN in the prologue of a wgmma + TMA GEMM) at the
      four 256^2 and four 512^2 self-attention shapes, ragged M and C, twice
-     for the same bits, ln_qkv_wmma (float32); K8a and K8b (group_norm.cu:
+     for the same bits, ln_qkv_f32_sm90 (float32: an LN + split pass, then
+     a wgmma + TMA GEMM on the two-part split) timed at M 4096, C 320 and M
+     2048, C 1280, twice for the same bits, ragged M and C, C past 1280;
+     K8a and K8b (group_norm.cu:
      one cluster launch per call where the slab fits, else two) at the
      UNet's levels 0-2 at 256^2 and 512^2, the VAE's decode and stage 5's
      [4, 262144, 128], ragged L, both types, twice for the same bits. K7's
@@ -180,8 +186,9 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 BF16_EPS = 2.0 ** -8  # spacing of bf16 values in [1, 2)
 FORWARD_KERNELS = ("flash_attn_nlc_fwd", "flash_attn_fwd", "ln_geglu_ff")  # the kernels of the serving paths
 # the FF kernels behind both FF functions (ln_geglu_ff: K2/K3, geglu_ff: K6):
-# bf16 -> ff_sm90 (wgmma + TMA), float32 -> ff_wmma
-FF_SOURCES = {"bfloat16": "ff_sm90", "float32": "ff_wmma"}
+# bf16 -> ff_sm90 (wgmma + TMA), float32 -> ff_f32_sm90 (the same kernels on
+# the two-part bf16 split)
+FF_SOURCES = {"bfloat16": "ff_sm90", "float32": "ff_f32_sm90"}
 # The attention routes (forward, backward) each configuration's path takes at
 # its level-0 reference-concat sites (Lk 2048): head dim 64 (the flagship) ->
 # the packed layout (flash_attn_nlc_fwd counts its forward launches, K4 its
@@ -201,8 +208,13 @@ PROMPT = "a person talking to the camera, studio lighting, sharp focus"
 SWITCH_VARS = ("EMOX_GROUPNORM_IMPL", "EMOX_LN_QKV", "EMOX_FUSED_QKV", "EMOX_FF_IMPL")
 SWITCH_KERNELS = ("group_norm", "group_norm_stats", "ln_qkv")
 # the kernels behind K7's calls (ln_qkv): bf16 -> ln_qkv_sm90 (wgmma + TMA),
-# float32 -> ln_qkv_wmma
-QKV_SOURCES = {"bfloat16": "ln_qkv_sm90", "float32": "ln_qkv_wmma"}
+# float32 -> ln_qkv_f32_sm90 (an LN + split pass, then a GEMM on the split)
+QKV_SOURCES = {"bfloat16": "ln_qkv_sm90", "float32": "ln_qkv_f32_sm90"}
+# (M, C) of the float32 FF and K7 sites: the float32 CFG step's levels 0, 1,
+# 2 and mid (batch 1 x 2 frames under CFG at 256^2), then the float32 train
+# step's (batch 1 x 2 frames)
+F32_STEP_SITES = ((4096, 320), (1024, 640), (256, 1280), (64, 1280), (2048, 320), (512, 640), (128, 1280),
+                  (32, 1280))
 # The attention switch, EMOX_ATTENTION_IMPL, is unset too but in the phases that
 # set it (serve_attn_xla, step_attn_pallas).
 SWITCH_VARS += ("EMOX_ATTENTION_IMPL",)
@@ -418,6 +430,30 @@ def ff_launches_per_request(cfg, calls: int) -> int:
     return sites * (1 + calls * (2 if m.use_temporal else 1))
 
 
+def train_step_sublayers(cfg) -> int:
+    """Exact TransformerBlock calls in one stage-2 loss-and-gradient step
+    with remat, each one FF sub-layer (and, under EMOX_LN_QKV, one K7 call),
+    from the code: the forward's writer pass and one reader call
+    (ff_launches_per_request), then remat's recompute in the backward of
+    every reader block whose output carries a gradient: the temporal ones
+    (stage 2 trains them) and every spatial one but the first, which no
+    trained parameter precedes. The writer is frozen."""
+    m = cfg.model
+    sites = len(m.attention_levels) * (2 * m.layers_per_block + 1) + 1
+    return ff_launches_per_request(cfg, 1) + sites + (sites - 1)
+
+
+def step_sublayer_launches(cfg, sublayers: int, env=None) -> dict:
+    """The float32 FF's and K7's launches expected in a float32 step of
+    `sublayers` TransformerBlock calls: every FF sub-layer on the float32
+    FF kernel and, with EMOX_LN_QKV on, every K7 call on the float32 K7
+    kernel."""
+    want = {"ln_geglu_ff": sublayers, FF_SOURCES["float32"]: sublayers}
+    if "ln_qkv" in switch_kernels(env):
+        want.update({"ln_qkv": sublayers, QKV_SOURCES["float32"]: sublayers})
+    return want
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -555,10 +591,8 @@ def _issued_flops(kernel: str, dtype, n: int, heads: int, lq: int, lk: int, d: i
     its own products, beside the function's): the head dim padded as the
     kernel pads it, S shared by two warpgroups or S and dP recomputed where
     its kernels do, and three products for each on float32's two-part split."""
-    import torch
-
     unit = 2.0 * n * heads * lq * lk  # one [Lq, Lk] product over one head-dim column
-    parts = 3 if dtype == torch.float32 else 1
+    parts = _parts(dtype)
     if kernel in ("flash_fwd_wide", "flash_bwd_wide"):
         slices, width, depth = -(-d // 128), _padded(d, 128), _padded(d)
         # every slice's block: S (and dP) over every 64-column chunk, then its slice's products
@@ -874,19 +908,43 @@ def _ff_kernel(dtype) -> str:
     emox_torch.ops.ff's routing."""
     import torch
 
-    return "ff_sm90" if dtype == torch.bfloat16 else "ff_wmma"
+    return FF_SOURCES[str(dtype).split(".")[-1]]
 
 
 def _ff_plan(m, c, f, dtype) -> dict:
     """The launch geometry of the FF kernel of this type, against the card's SMs."""
     import torch
-    from emox_torch.ops.ff import ff_plan, ff_sm90_plan
+    from emox_torch.ops.ff import ff_f32_sm90_plan, ff_sm90_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    if dtype == torch.bfloat16:
-        return dict(ff_sm90_plan(m, c, f, sms), sms=sms)
-    plan = ff_plan(c, dtype)
-    return dict(plan, grid_blocks=-(-m // plan["row_tile"]), sms=sms)
+    plan = ff_sm90_plan if dtype == torch.bfloat16 else ff_f32_sm90_plan
+    return dict(plan(m, c, f, sms), sms=sms)
+
+
+def _parts(dtype) -> int:
+    """The bf16 products a kernel issues for each product of the function:
+    3 on float32's two-part split (hi hi + hi lo + lo hi), else 1."""
+    import torch
+
+    return 3 if dtype == torch.float32 else 1
+
+
+def _time_ff(res, run, plain, unfused, flops, nbytes, dtype):
+    """The FF checks' times: the kernel's (CUDA events, and device_ms from
+    calls in one CUDA graph), its bounds (the function on the type's peak:
+    float32 on the CUDA cores; the bf16 products it issues, issued_bound_ms),
+    the plain version's, and the unfused route's that EMOX_FF_IMPL=xla takes
+    (host and device time)."""
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
+    res["issued_bound_ms"] = _parts(dtype) * flops / PEAK_BF16_FLOPS * 1e3
+    res["ms"] = time_ms(run, iters=10)
+    res["device_ms"] = device_ms(run)
+    res["plain_ms"] = time_ms(plain, iters=3, warmup=1)
+    res["library_ms"] = None  # no single PyTorch call computes the gated FF
+    res["unfused_ms"] = time_ms(unfused, iters=10)
+    res["unfused_device_ms"] = device_ms(unfused)
+    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    res["device_tflops"] = flops / (res["device_ms"] * 1e-3) / 1e12
 
 
 def _check_ff_out(res, out, again, ref, dtype, what):
@@ -904,10 +962,10 @@ def _check_ff_out(res, out, again, ref, dtype, what):
 
 
 def check_ff(gen, m, c, dtype=None, timing=True, repeat=False):
-    """fused_ln_geglu_ff (ff_sm90 in bf16, the WMMA kernel in float32) against
+    """fused_ln_geglu_ff (ff_sm90 in bf16, ff_f32_sm90 in float32) against
     ln_geglu_ff_plain on x [m, c] with F = 4C; with repeat, twice on the
-    same inputs for the same bits. Timed: the kernel, the plain version and
-    the unfused bf16 route EMOX_FF_IMPL=xla takes (ln_geglu_ff_xla)."""
+    same inputs for the same bits. Timed (_time_ff): the kernel, the plain
+    version and the unfused route EMOX_FF_IMPL=xla takes (ln_geglu_ff_xla)."""
     import torch
     from emox_torch.ops.ff import fused_ln_geglu_ff, ln_geglu_ff_plain, ln_geglu_ff_xla
 
@@ -928,23 +986,18 @@ def check_ff(gen, m, c, dtype=None, timing=True, repeat=False):
     _check_ff_out(res, out, again, ref, dtype, "fused_ln_geglu_ff")
     del ref, again
     if timing:
-        flops = 6.0 * m * c * f
         nbytes = args[0].element_size() * (2 * m * c + 3 * c * f + 2 * f + 3 * c)
-        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
-        res["ms"] = time_ms(lambda: fused_ln_geglu_ff(*args), iters=10)
-        res["plain_ms"] = time_ms(lambda: ln_geglu_ff_plain(*args), iters=3, warmup=1)
-        res["library_ms"] = None  # no single PyTorch call computes LN + GEGLU + residual
-        res["unfused_ms"] = time_ms(lambda: ln_geglu_ff_xla(*args), iters=10)  # EMOX_FF_IMPL=xla's route
-        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        _time_ff(res, lambda: fused_ln_geglu_ff(*args), lambda: ln_geglu_ff_plain(*args),
+                 lambda: ln_geglu_ff_xla(*args), 6.0 * m * c * f, nbytes, dtype)
         res.update(_ff_plan(m, c, f, dtype))
     emit(res)
     return res
 
 
 def check_geglu_ff(gen, m, c, dtype=None, timing=True, repeat=False):
-    """fused_geglu_ff (K6: ff_sm90 in bf16, the WMMA kernel in float32)
-    against geglu_ff_plain (h rounded to x's type, fp32 products, the output
-    rounded once) on x [m, c] with F = 4C; repeat as check_ff."""
+    """fused_geglu_ff (K6: ff_sm90 in bf16, ff_f32_sm90 in float32) against
+    geglu_ff_plain (h rounded to x's type, fp32 products, the output rounded
+    once) on x [m, c] with F = 4C; repeat and timing as check_ff."""
     import torch
     from emox_torch.ops.ff import fused_geglu_ff, geglu_ff_plain, geglu_ff_xla
 
@@ -962,14 +1015,9 @@ def check_geglu_ff(gen, m, c, dtype=None, timing=True, repeat=False):
     _check_ff_out(res, out, again, ref, dtype, "fused_geglu_ff")
     del ref, again
     if timing:
-        flops = 6.0 * m * c * f
         nbytes = args[0].element_size() * (2 * m * c + 3 * c * f + 2 * f + c)
-        res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
-        res["ms"] = time_ms(lambda: fused_geglu_ff(*args), iters=10)
-        res["plain_ms"] = time_ms(lambda: geglu_ff_plain(*args), iters=3, warmup=1)
-        res["library_ms"] = None  # no single PyTorch call computes the gated FF
-        res["unfused_ms"] = time_ms(lambda: geglu_ff_xla(*args), iters=10)
-        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        _time_ff(res, lambda: fused_geglu_ff(*args), lambda: geglu_ff_plain(*args), lambda: geglu_ff_xla(*args),
+                 6.0 * m * c * f, nbytes, dtype)
         res.update(_ff_plan(m, c, f, dtype))
     emit(res)
     return res
@@ -977,7 +1025,8 @@ def check_geglu_ff(gen, m, c, dtype=None, timing=True, repeat=False):
 
 def _tol(ref, dtype):
     """A few bf16 steps at the output's largest value (the output is rounded
-    to bf16 once); float32: float32-level sums (3xTF32 in the products)."""
+    to bf16 once); float32: 2e-4 of it (products on the two-part split keep
+    about 16 bits of each operand, sums in another order)."""
     import torch
 
     top = ref.abs().max().item()
@@ -1071,11 +1120,14 @@ def check_group_norm_stats(gen, n, l, c, dtype=None, timing=True, repeat=False):
 def check_ln_qkv(gen, m, c, dtype=None, timing=True, repeat=False):
     """K7 against ln_qkv_plain (xn rounded to x's type, fp32 products, each
     output rounded once) on x [m, c] with three [c, c] projections: bf16 on
-    ln_qkv_sm90 (its plan: tiles, column tiles per block, blocks), float32
-    on ln_qkv_wmma; with repeat, twice on the same inputs (the same bits)."""
+    ln_qkv_sm90, float32 on ln_qkv_f32_sm90 (each with its plan: tiles,
+    blocks); with repeat, twice on the same inputs (the same bits). Timed:
+    the kernel (device_ms too), its bounds (the function on the type's peak;
+    the bf16 products it issues), the plain version, and LN + one matmul of
+    the concatenated weights (the library)."""
     import torch
     import torch.nn.functional as F
-    from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_plain, ln_qkv_sm90_plan
+    from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_f32_sm90_plan, ln_qkv_plain, ln_qkv_sm90_plan
 
     dtype = dtype or torch.bfloat16
     args = (_rand(gen, m, c, dtype=dtype), _rand(gen, c, scale=0.1, shift=1.0, dtype=dtype),
@@ -1094,6 +1146,10 @@ def check_ln_qkv(gen, m, c, dtype=None, timing=True, repeat=False):
         plan = ln_qkv_sm90_plan(m, c, c, torch.cuda.get_device_properties(0).multi_processor_count)
         res.update(row_tile=plan["bm"], col_tile=plan["bn"], col_tiles_per_block=plan["per"],
                    grid_blocks=plan["blocks"])
+    else:
+        plan = ln_qkv_f32_sm90_plan(m, c, c)
+        res.update(row_tile=plan["bm"], col_tile=plan["bn"], grid_blocks=plan["blocks"],
+                   smem_bytes=plan["smem_bytes"])
     if not (err <= tol and math.isfinite(err) and res["same_bits_twice"]):
         emit(res)
         raise AssertionError(f"ln_qkv disagrees with its plain version or with itself: {res}")
@@ -1101,6 +1157,7 @@ def check_ln_qkv(gen, m, c, dtype=None, timing=True, repeat=False):
         flops = 6.0 * m * c * c
         nbytes = args[0].element_size() * (m * c + 3 * m * c + 3 * c * c + 2 * c)
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes, _peak(dtype))
+        res["issued_bound_ms"] = _parts(dtype) * flops / PEAK_BF16_FLOPS * 1e3
         res["ms"] = time_ms(lambda: fused_ln_qkv(*args), iters=20)
         res["device_ms"] = device_ms(lambda: fused_ln_qkv(*args))
         res["plain_ms"] = time_ms(lambda: ln_qkv_plain(*args), iters=3, warmup=1)
@@ -1152,8 +1209,11 @@ def phase_kernels():
     # ff_sm90 at the FF sub-layers under CFG at 16 frames: levels 0, 1, 2 and
     # mid at 256^2 (the mid block splits F in GEMM 2), then at 512^2; levels 0
     # and mid twice on the same inputs (the same bits); ragged M and M below
-    # one 128-row tile; float32 on the WMMA kernel at C 320 and 1280, timed at
-    # the float32 step's level 0 (batch 1 x 2 frames under CFG)
+    # one 128-row tile; float32 on ff_f32_sm90, timed at the float32 step's
+    # level 0 (batch 1 x 2 frames under CFG), then at every other float32
+    # step and train step site (F32_STEP_SITES: at M 64, C 1280 GEMM 2 splits
+    # F the most), ragged M, C 80 (parts padded to 128 columns) and C 1280;
+    # step sites and ragged M twice (the same bits)
     results["ff_l0"] = check_ff(gen, 32768, 320, repeat=True)
     results["ff_l1"] = check_ff(gen, 8192, 640)
     results["ff_l2"] = check_ff(gen, 2048, 1280)
@@ -1164,9 +1224,12 @@ def phase_kernels():
     check_ff(gen, 1000, 320, timing=False, repeat=True)
     check_ff(gen, 500, 1280, timing=False, repeat=True)
     check_ff(gen, 37, 640, timing=False)
-    results["ff_f32"] = check_ff(gen, 4096, 320, dtype=torch.float32)
-    check_ff(gen, 1000, 320, dtype=torch.float32, timing=False)
+    results["ff_f32"] = check_ff(gen, 4096, 320, dtype=torch.float32, repeat=True)
+    for m, c in F32_STEP_SITES[1:]:
+        check_ff(gen, m, c, dtype=torch.float32, timing=False, repeat=True)
+    check_ff(gen, 1000, 320, dtype=torch.float32, timing=False, repeat=True)
     check_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
+    check_ff(gen, 37, 80, dtype=torch.float32, timing=False)
     # flash_bwd_sm90 at K4's level-0 reference-concat sites of training:
     # stage 2 (batch 2 x 8 frames; twice, the same bits) and stage 1 (batch 4)
     results["flash_bwd_n16"] = check_flash_bwd(gen, 16, 1024, 2048, repeat=True)
@@ -1254,7 +1317,10 @@ def phase_kernels():
     # mid at 256^2 (M 32768 / 8192 / 2048 / 512, C 320 / 640 / 1280 / 1280) and at
     # 512^2 (M x 4), bf16 on ln_qkv_sm90, each twice (the same bits); ragged M,
     # M below one row tile and C past a 64-column chunk (200); float32 on
-    # ln_qkv_wmma, timed at the float32 step's level 0 (batch 1 x 2 frames under CFG)
+    # ln_qkv_f32_sm90, timed at the float32 step's level 0 (batch 1 x 2 frames
+    # under CFG) and at M 2048, C 1280, each twice (the same bits), then at
+    # every other float32 step and train step site twice, ragged M twice, C
+    # 200 and C 1344 (past bf16's 1280)
     for key, (m, c) in (("ln_qkv_l0", (32768, 320)), ("ln_qkv_l1", (8192, 640)), ("ln_qkv_l2", (2048, 1280)),
                         ("ln_qkv_mid", (512, 1280)), ("ln_qkv_512_l0", (131072, 320)),
                         ("ln_qkv_512_l1", (32768, 640)), ("ln_qkv_512_l2", (8192, 1280)),
@@ -1262,19 +1328,23 @@ def phase_kernels():
         results[key] = check_ln_qkv(gen, m, c, repeat=True)
     for m, c in ((1000, 320), (1000, 640), (1000, 1280), (37, 640), (500, 200)):
         check_ln_qkv(gen, m, c, timing=False, repeat=True)
-    results["ln_qkv_f32"] = check_ln_qkv(gen, 4096, 320, dtype=torch.float32)
-    check_ln_qkv(gen, 2048, 1280, dtype=torch.float32, timing=False)
-    check_ln_qkv(gen, 1000, 320, dtype=torch.float32, timing=False)
+    results["ln_qkv_f32"] = check_ln_qkv(gen, 4096, 320, dtype=torch.float32, repeat=True)
+    results["ln_qkv_f32_l2"] = check_ln_qkv(gen, 2048, 1280, dtype=torch.float32, repeat=True)
+    for m, c in F32_STEP_SITES[1:]:
+        check_ln_qkv(gen, m, c, dtype=torch.float32, timing=False, repeat=True)
+    check_ln_qkv(gen, 1000, 320, dtype=torch.float32, timing=False, repeat=True)
+    check_ln_qkv(gen, 500, 200, dtype=torch.float32, timing=False)
+    check_ln_qkv(gen, 100, 1344, dtype=torch.float32, timing=False)
     # K6 (ff_sm90 without LN) at level 0 under CFG at 256^2 (M 32768 x C 320,
     # the only width the TPU kernel takes), then C 640 and 1280 (which the
     # port takes and the reference leaves to XLA), a ragged M twice (the same
-    # bits), and float32 on the WMMA kernel (timed at M 4096)
+    # bits), and float32 on ff_f32_sm90 (timed at M 4096, twice; ragged M twice)
     results["geglu_ff_l0"] = check_geglu_ff(gen, 32768, 320)
     results["geglu_ff_l1"] = check_geglu_ff(gen, 8192, 640)
     results["geglu_ff_l2"] = check_geglu_ff(gen, 2048, 1280)
     check_geglu_ff(gen, 1000, 320, timing=False, repeat=True)
-    results["geglu_ff_f32"] = check_geglu_ff(gen, 4096, 320, dtype=torch.float32)
-    check_geglu_ff(gen, 500, 1280, dtype=torch.float32, timing=False)
+    results["geglu_ff_f32"] = check_geglu_ff(gen, 4096, 320, dtype=torch.float32, repeat=True)
+    check_geglu_ff(gen, 500, 1280, dtype=torch.float32, timing=False, repeat=True)
     # head dim 512, the VAE's mid-attention at 512^2: bf16 on flash_fwd_sm90 at
     # the 16-frame decode (N 16, L 4096), the reference image's encode with a
     # ragged L, and a ragged Lq != Lk; float32 on flash_fwd_d512_f32,
@@ -1429,15 +1499,19 @@ def phase_step(name: str = "flagship", runs=(("", None),)):
             got = on_gpu[key].cpu().double()
             rel[key] = (torch.linalg.vector_norm(got - ref.double()) /
                         torch.linalg.vector_norm(ref.double()).clamp_min(1e-30)).item()
+        want = step_sublayer_launches(cfg, ff_launches_per_request(cfg, 1), env)
         res = {"phase": ("step" if name == "flagship" else "step_sd15") + suffix,
                "config": f"{name} 256^2, 2 frames, CFG-batched{', prompt' if prompted else ''}, float32",
-               "switches": env or {}, "rel_l2": rel, "tol": tol, "launches": counts, "setup_s": setup_s,
-               "cpu_s": cpu_s, "gpu_s": gpu_s, "eps_abs_mean": on_cpu["eps"].abs().mean().item()}
+               "switches": env or {}, "rel_l2": rel, "tol": tol, "launches": counts, "launches_expected": want,
+               "setup_s": setup_s, "cpu_s": cpu_s, "gpu_s": gpu_s,
+               "eps_abs_mean": on_cpu["eps"].abs().mean().item()}
         emit(res)
         if not all(math.isfinite(v) and v <= tol for v in rel.values()):
             raise AssertionError(f"card and CPU disagree: {rel}")
         check_path_launches(name, counts, train=False, what=f"the float32 {name} step{suffix}", env=env,
                             dtype="float32")
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"the float32 {name} step{suffix}: launched {counts}, expected {want}")
         results.append(res)
         del on_cpu, on_gpu
     del cpu, gpu
@@ -1628,11 +1702,12 @@ def phase_train_step(tmp: str, env=None):
     # measured on an H100: loss 1.1e-6, grads 4.3e-5 relative; the limits keep
     # a margin of about 10x and 5x
     limits = {"loss_rel": 1e-5, "grads_rel_l2": 2e-4}
+    want = step_sublayer_launches(cfg, train_step_sublayers(cfg), env)
     res = {"phase": "train_step_norms" if env else "train_step", "config": "flagship 256^2 stage 2, batch 1, "
            "2 frames, float32, remat, full depth", "switches": env or {}, "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel": loss_rel,
            "grads_rel_l2": grads_rel, "worst_leaf_rel_l2": leaf_rel, "limits": limits,
            "trainable_leaves": len(g_cpu), "trainable_params": sum(g.numel() for g in g_cpu),
-           "launches": counts, "setup_s": setup_s, "cpu_s": cpu_s, "gpu_s": gpu_s}
+           "launches": counts, "launches_expected": want, "setup_s": setup_s, "cpu_s": cpu_s, "gpu_s": gpu_s}
     emit(res)
     tr_cpu.close()
     tr_gpu.close()
@@ -1640,6 +1715,8 @@ def phase_train_step(tmp: str, env=None):
         raise AssertionError(f"card and CPU gradients disagree: loss {loss_rel}, grads {grads_rel}")
     check_path_launches("flagship", counts, train=True, what=f"the float32 train step {env or ''}", env=env,
                         dtype="float32")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"the float32 train step {env or ''}: launched {counts}, expected {want}")
     torch.backends.cudnn.allow_tf32 = True
     return res
 
@@ -2093,7 +2170,8 @@ def phase_step_long():
     calls = reader_calls(cfg, 1, frames)
     want = {"flash_attn_nlc_fwd": attn_launches_per_request(cfg, calls)["flash_attn_nlc_fwd"],
             "flash_fwd_f32_sm90": sum(attn_launches_per_request(cfg, calls).values()),
-            "ln_geglu_ff": ff_launches_per_request(cfg, calls), "ff_wmma": ff_launches_per_request(cfg, calls)}
+            "ln_geglu_ff": ff_launches_per_request(cfg, calls),
+            FF_SOURCES["float32"]: ff_launches_per_request(cfg, calls)}
     res = {"phase": "step_long",
            "config": f"flagship {size}^2, {frames} frames, context {icfg.context_frames}, overlap "
                      f"{icfg.context_overlap}: windows {plan.indices[0].tolist()} in {calls} call, CFG-batched, "
@@ -2318,16 +2396,15 @@ def phase_long(out_dir: str, requests: int = 2, steps: int = 10, frames: int = 4
 # ---- phase 5: where the time of a request goes ---------------------------------------
 _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("group_norm", ("gn_cluster_kernel", "gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
-    ("ln_qkv", ("ln_qkv_kernel",)),
+    ("ln_qkv", ("ln_qkv_kernel", "ln_qkv_f32::")),
+    ("float32 split", ("split_rows", "split_matrices", "ln_rows_kernel<float")),  # ahead of "sm90::"
     ("flash_bwd_sm90", ("bwd_sm90::",)),  # ahead of the forward's "sm90::"
     ("flash_bwd_d512_sm90", ("bwd_d512_sm90::",)),
     ("flash_bwd_d512_f32", ("bwd_d512::",)),
     ("flash_fwd_d512_f32", ("fwd_d512_f32::",)),
-    ("ff_sm90", ("ff_sm90::",)),  # the FF's LN pass and GEMMs, ahead of "sm90::"
+    ("ff_sm90", ("ff_sm90::", "ln_rows_kernel<__nv_bfloat16")),  # the FF's GEMMs and LN pass, ahead of "sm90::"
     ("flash_fwd_sm90", ("sm90::",)),
     ("flash_attn_wide", ("wide::",)),
-    ("float32 split", ("split_rows",)),
-    ("ff_wmma", ("ln_geglu_ff", "geglu_ff_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "wgmma")),
     ("softmax", ("softmax",)),
@@ -2495,8 +2572,8 @@ def phase_geglu_ff():
     4 bf16 steps of impl "xla"), under EMOX_FF_IMPL=xla (no launch); then
     one backward through the autograd function, dx and the weight gradients
     against geglu_ff_xla's autograd; then the module in float32 with impl
-    "fused" (one launch of the WMMA kernel, geglu_ff.cu), within 2e-4 of
-    "xla" in float32."""
+    "fused" (one launch of ff_f32_sm90), within 2e-4 of "xla" in
+    float32."""
     import torch
     from emox_torch.nn.attention_blocks import GEGLUFeedForward
     from emox_torch.ops import launch_counts, reset_launch_counts
@@ -2537,7 +2614,7 @@ def phase_geglu_ff():
     bwd = {}
     for name, g, r in zip(("dx", "dw1", "db1", "dw2", "db2"), grads["fused"], grads["xla"]):
         bwd[name] = {"max_abs_err": (g.float() - r.float()).abs().max().item(), "tol": _tol(r.float(), torch.bfloat16)}
-    # float32: the WMMA kernel (geglu_ff.cu)
+    # float32: ff_f32_sm90
     ff32, x32 = ff.float(), x.float()
     with switches(), torch.no_grad():
         ff32.impl = "xla"
@@ -2559,8 +2636,9 @@ def phase_geglu_ff():
         raise AssertionError(f"geglu_ff: gradients disagree with geglu_ff_xla's: {bwd}")
     if not f32["max_abs_err"] <= f32["tol"]:
         raise AssertionError(f"geglu_ff: float32 disagrees with xla: {f32}")
-    if counts["ff_wmma"] != 1 or any(n for k, n in counts.items() if k not in ("geglu_ff", "ff_sm90", "ff_wmma")):
-        raise AssertionError(f"geglu_ff: one float32 launch on ff_wmma and no other kernel expected: {counts}")
+    f32_ff = FF_SOURCES["float32"]
+    if counts[f32_ff] != 1 or any(n for k, n in counts.items() if k not in ("geglu_ff", "ff_sm90", f32_ff)):
+        raise AssertionError(f"geglu_ff: one float32 launch on {f32_ff} and no other kernel expected: {counts}")
     return res
 
 
@@ -2670,42 +2748,44 @@ def main(argv=None) -> int:
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
     # flash_fwd_d512_f32 in the float32 512^2 VAE, flash_fwd_f32_sm90 and
-    # ff_wmma on the float32 step), the timed stage-2 training steps for the
+    # ff_f32_sm90 on the float32 step), the timed stage-2 training steps for the
     # backward (flash_bwd_sm90; flash_bwd_f32_sm90 on the float32 train step;
     # at head dim 512 the stage-5 steps; flash_bwd_d256_sm90 and the wide
     # kernels on the float32 stage-5 steps of the small and the width-640
-    # VAEs); the switch kernels' on the serving path under their switches;
-    # K6's WMMA kernel through its entry points (geglu_ff, float32)
+    # VAEs); the switch kernels' on the serving path under their switches
+    # (float32 K7 on the float32 step under them); K6 through its entry
+    # points (geglu_ff)
     launches = dict(launches, flash_bwd_sm90=train2["launches"]["flash_bwd_sm90"],
                     flash_fwd_d512_f32=vae512["flash_fwd_d512_f32"], flash_fwd_f32_sm90=step["flash_fwd_f32_sm90"],
-                    flash_bwd_f32_sm90=train_step["flash_bwd_f32_sm90"], ff_wmma=step["ff_wmma"],
+                    flash_bwd_f32_sm90=train_step["flash_bwd_f32_sm90"], ff_f32_sm90=step["ff_f32_sm90"],
                     flash_bwd_d256_sm90=train_step_vae_small["flash_bwd_d256_sm90"],
                     flash_fwd_wide=train_step_vae_640["flash_fwd_wide"],
                     flash_bwd_wide=train_step_vae_640["flash_bwd_wide"],
                     group_norm=serve_norms["group_norm"], ln_qkv=serve_norms["ln_qkv"],
-                    ln_qkv_sm90=serve_norms["ln_qkv_sm90"], ln_qkv_wmma=step_norms["ln_qkv_wmma"],
+                    ln_qkv_sm90=serve_norms["ln_qkv_sm90"], ln_qkv_f32_sm90=step_norms["ln_qkv_f32_sm90"],
                     group_norm_stats=serve_fast["group_norm_stats"], geglu_ff=geglu["geglu_ff"],
                     flash_bwd_d512_sm90=train_vae512["launches"]["flash_bwd_d512_sm90"],
                     flash_bwd_d512_f32=train_step_vae["flash_bwd_d512_f32"])
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K7's, K8's and the head-dim-512 kernels' times without the host's cost of
     # issuing the calls (device_ms); the latter's bound of the work they issue
-    device_fields = ("device_ms", "library_device_ms", "issued_bound_ms")
+    device_fields = ("device_ms", "library_device_ms", "issued_bound_ms", "unfused_device_ms")
     shape = lambda k: {x: k[x] for x in ("function", "layout", "dtype", "n", "lq", "lk", "l", "c", "heads", "head_dim",
                                          "m", "f", "row_tile", "col_tile", "col_tiles_per_block", "grid_blocks",
                                          "smem_bytes", "blocks_per_sm", "gemm1_blocks", "gemm2_blocks", "splits",
                                          "sms", "regime", "cluster", "chunks", "slices", "library_backend", "dkv_grid_blocks", "dkv_smem_bytes",
-                                         "plain_rows_per_call", "unfused_ms", "tflops", "gb_per_s") if x in k}
+                                         "plain_rows_per_call", "unfused_ms", "tflops", "device_tflops",
+                                         "gb_per_s") if x in k}
 
-    def entry(source, replaces, main, others, main_launches=None):
+    def entry(source, replaces, main, others):
         """One row per CUDA kernel: its numbers at `main` (the shape of the
         TPU kernel named first), and every timed shape in by_shape; its
-        launches from its launcher's counter on the kernel's main path (or
-        main_launches) and on every path."""
+        launches from its launcher's counter on the kernel's main path and
+        on every path."""
         counter = main["kernel"]
         return {"name": counter, "route": "cuda", "source": source, "replaces": replaces[0],
                 "also_replaces": replaces[1:],
-                "launches": launches[counter] if main_launches is None else main_launches,
+                "launches": launches[counter],
                 "launches_by_path": {p: c[counter] for p, c in by_path.items()},
                 **{f: main[f] for f in (*fields, *device_fields) if f in main}, "shape": shape(main),
                 "by_shape": [{**shape(k), **{f: k[f] for f in (*fields, *device_fields) if f in k}}
@@ -2739,8 +2819,11 @@ def main(argv=None) -> int:
               kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"], kern["ff_512_l0"], kern["ff_512_l1"],
                               kern["ff_512_l2"], kern["ff_512_mid"], kern["geglu_ff_l0"], kern["geglu_ff_l1"],
                               kern["geglu_ff_l2"]]),
-        # float32: the WMMA body of geglu_ff.cuh, with LN (K2/K3) and without (K6)
-        entry("emox_torch/csrc/ln_geglu_ff.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120"], kern["ff_f32"], []),
+        # float32 on the same source's kernels, on a two-part bf16 split: with
+        # LN (K2/K3) at the float32 step's level 0, whose launches it counts,
+        # and without (K6) in by_shape
+        entry("emox_torch/csrc/ff_sm90.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120", "emox/ops/ff.py:455"],
+              kern["ff_f32"], [kern["geglu_ff_f32"]]),
         # one kernel pair for both layouts' bf16 backward (head dim <= 128):
         # the packed sites are K4's, the strided (head-split) one K5's
         entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
@@ -2770,15 +2853,12 @@ def main(argv=None) -> int:
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:74"],
               kern["gn_l0_stats"], [kern[f"{k}_stats"] for k in ("gn_l1", "gn_l2", "gn_vae", "gn_512_l0", "gn_512_l1",
                                                                  "gn_512_l2", "gn_vae512")]),
-        # K7: bf16 on the wgmma + TMA kernel (serve_norms), float32 on the WMMA one (step_norms)
+        # K7: bf16 on the wgmma + TMA kernel (serve_norms), float32 on the same
+        # source's LN + split pass and GEMM on the split (step_norms)
         entry("emox_torch/csrc/ln_qkv_sm90.cu", ["emox/ops/ff.py:353"], kern["ln_qkv_l0"],
               [kern[k] for k in ("ln_qkv_l1", "ln_qkv_l2", "ln_qkv_mid", "ln_qkv_512_l0", "ln_qkv_512_l1",
                                  "ln_qkv_512_l2", "ln_qkv_512_mid")]),
-        entry("emox_torch/csrc/ln_qkv.cu", ["emox/ops/ff.py:353"], kern["ln_qkv_f32"], []),
-        # its float32 launch in the geglu_ff phase (the other ff_wmma launches
-        # are ln_geglu_ff.cu's)
-        entry("emox_torch/csrc/geglu_ff.cu", ["emox/ops/ff.py:455"], kern["geglu_ff_f32"], [],
-              main_launches=geglu["ff_wmma"]),
+        entry("emox_torch/csrc/ln_qkv_sm90.cu", ["emox/ops/ff.py:353"], kern["ln_qkv_f32"], [kern["ln_qkv_f32_l2"]]),
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi_line(), flush=True)

@@ -1,12 +1,13 @@
-// The GEGLU feed-forward for Hopper (sm_90a) in bf16: wgmma + TMA GEMMs.
+// The GEGLU feed-forward for Hopper (sm_90a): wgmma + TMA GEMMs, in bf16 and,
+// on the two-part split, in float32.
 //
 //   y = [x +] W2 (a * gelu(g)) + b2,   [a | g] = [LN](x) W1 + b1
 //
 // Replaces the TPU kernels `_ln_ff_kernel` and `_ln_ff_wide_kernel`
 // (emox/ops/ff.py:102,120: LayerNorm, the gated FF and the residual; every
 // FF sub-layer of the model) and `_ff_kernel` (:455: the gated FF alone,
-// behind `fused_geglu_ff`). float32 stays on the WMMA body of geglu_ff.cuh
-// (ln_geglu_ff.cu, geglu_ff.cu).
+// behind `fused_geglu_ff`), in both types: bf16 (emox_ff_sm90) and float32
+// (emox_ff_f32_sm90).
 //
 // What bounds it on the H100: at level 0 of a 256^2 request (M 32768 rows,
 // C 320, F 1280) the function does 6*M*C*F = 80.5 GFLOP against 42 MB of x
@@ -44,243 +45,168 @@
 // Every operand is K-major, like Q K^T in flash_fwd_sm90.cu: xn and h as
 // [M, K], W1 as PyTorch's [2F, C], W2 as [C, F]; the TMA boxes are 64 columns
 // (128 bytes, the 128-byte swizzle wgmma's descriptors name) by the tile's
-// rows. Ragged edges: rows past M, columns past C or F and depth past the
-// contraction arrive as zeros (TMA's out-of-bounds fill) and the epilogues
-// store only what lies inside, so any M, and C and F that keep rows 16-byte
-// aligned (multiples of 8), are taken. Each consumer keeps one wgmma group
-// in flight and hands a stage back once the group that read it is done.
+// rows; the main loop is gemm_sm90.cuh's. Ragged edges: rows past M,
+// columns past C or F and depth past the contraction arrive as zeros (TMA's
+// out-of-bounds fill) and the epilogues store only what lies inside, so any
+// M, and C and F that keep rows 16-byte aligned (multiples of 8 in bf16, of
+// 4 in float32), are taken. Each consumer keeps one wgmma group in flight
+// and hands a stage back once the group that read it is done.
+//
+// Float32 (PARTS 2) runs the same kernels on bf16 wgmma over the two-part
+// split: every operand becomes bf16 scratch [rows, 2w], hi in columns
+// [0, w) and lo in [w, 2w), w the contraction padded to 64 with zeros (a hi
+// box never reads the lo part), and every product runs as a_hi b_hi + a_hi
+// b_lo + a_lo b_hi with fp32 accumulation (about 16 of float32's 24 bits of
+// each operand; 3xTF32 kept about 21). The LN pass (gemm_sm90.cuh's
+// ln_rows_kernel) writes xn's parts; without LN x is split instead, in the
+// one launch that splits W1 and W2 at every call (no cache: an optimizer
+// step updates the weights in place). GEMM 1's epilogue writes h's parts
+// from its fp32 registers (h is not rounded in float32), zero past F;
+// GEMM 2 adds b2 and x in fp32 and writes y in float32. A stage holds both
+// parts of A and of B, twice bf16's bytes, so the rings are shorter: GEMM 1
+// 2 stages of 96 KB, GEMM 2 3 of 72 KB. What bounds it on the H100 at the
+// float32 step's level 0 (M 4096, C 320, F 1280): the three products a
+// step issue 3 x 6*M*C*F = 30 GFLOP of bf16 work (0.031 ms at 989
+// TFLOP/s), float32 on the CUDA cores would take 0.150 ms (67 TFLOP/s).
 // Not yet done: LN folded into GEMM 1, a persistent grid whose
 // epilogue overlaps the next tile's loads, TMA stores, keeping h on chip.
-#include "sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace emox {
 namespace ff_sm90 {
 
 using namespace emox::sm90;
+using namespace emox::gemm_sm90;
 
-constexpr int kThreads = 384;  // warpgroups 0, 1: consumers; 2: producer
-constexpr int kBM = 128;       // rows per block: 64 per consumer warpgroup
-constexpr int kBK = 64;        // contraction depth per stage (one 128-byte box)
-constexpr int kBF = 128;       // GEMM 1: hidden features per block
-constexpr int kBC = 160;       // GEMM 2: output columns per block
-constexpr int kStages1 = 4;
-constexpr int kStages2 = 5;
-constexpr int kLnWarps = 8;    // LN: rows per 256-thread block
+constexpr int kBF = 128;  // GEMM 1: hidden features per block
+constexpr int kBC = 160;  // GEMM 2: output columns per block
+
+// The rings' stages: a float32 stage (PARTS 2) holds both parts
+template <int PARTS>
+struct Stages {
+  static constexpr int gemm1 = PARTS == 1 ? 4 : 2;
+  static constexpr int gemm2 = PARTS == 1 ? 5 : 3;
+};
 
 __device__ __forceinline__ float gelu_erf(float g) {
   return 0.5f * g * (1.0f + erff(g * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ float bf(const __nv_bfloat16* p, size_t i) { return __bfloat162float(p[i]); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// ---- 1. LayerNorm rows: xn = (x - mean) * rstd * w + b, rounded to bf16 ----------
-__global__ void __launch_bounds__(32 * kLnWarps)
-    ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                   const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ xn, int m, int c, float eps) {
-  const int row = blockIdx.x * kLnWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= m) return;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * c);  // 8 values a vector
-  const int vecs = c / 8;
-  float s = 0.f;
-  for (int v = lane; v < vecs; v += 32) {
-    const uint4 u = xr[v];
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s += __bfloat162float(e[i]);
-  }
-  const float mu = warp_sum(s) / c;
-  float ss = 0.f;
-  for (int v = lane; v < vecs; v += 32) {
-    const uint4 u = xr[v];
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float d = __bfloat162float(e[i]) - mu;
-      ss += d * d;
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(ss) / c + eps);
-  uint4* out = reinterpret_cast<uint4*>(xn + (size_t)row * c);
-  for (int v = lane; v < vecs; v += 32) {
-    const uint4 u = xr[v];
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
-    uint4 o;
-    uint32_t* op = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = 8 * v + 2 * i;
-      const float y0 = (__bfloat162float(e[2 * i]) - mu) * rstd * bf(w, j) + bf(b, j);
-      const float y1 = (__bfloat162float(e[2 * i + 1]) - mu) * rstd * bf(w, j + 1) + bf(b, j + 1);
-      op[i] = pack_bf16(y0, y1);
-    }
-    out[v] = o;
-  }
-}
-
-// ---- the GEMMs' shared main loop --------------------------------------------------------
-// A stage holds the A tile [kBM rows, kBK] and the B tile [BN rows, kBK], both
-// K-major and 128-byte swizzled; full[s]: the stage's bytes arrived; empty[s]:
-// both consumer warpgroups are done with it.
-template <int BN, int STAGES>
-struct Ring {
-  static constexpr uint32_t a_bytes = kBM * 128;
-  static constexpr uint32_t b_bytes = BN * 128;
-  static constexpr uint32_t stage = a_bytes + b_bytes;  // a multiple of 1024
-  static constexpr uint32_t bar_off = STAGES * stage;
-  static constexpr uint32_t bytes = bar_off + 16 * STAGES + 1024;  // + alignment slack
-};
-
-// The producer's thread: k-steps [k0, k1) of A (rows m0..) and of B, whose
-// boxes come from `nb` maps at rows n0 and lie one after the other.
-template <int BN, int STAGES>
-__device__ __forceinline__ void produce(uint32_t base, const CUtensorMap* ta, const CUtensorMap* tb0,
-                                        const CUtensorMap* tb1, int nb, int m0, int n0, int k0, int k1) {
-  using R = Ring<BN, STAGES>;
-  const uint32_t full0 = base + R::bar_off, empty0 = full0 + 8 * STAGES;
-  for (int j = 0; j < k1 - k0; ++j) {
-    const int s = j % STAGES;
-    if (j >= STAGES) mbar_wait(empty0 + 8 * s, ((j / STAGES) - 1) & 1);
-    const uint32_t full = full0 + 8 * s, st = base + s * R::stage;
-    mbar_expect_tx(full, R::stage);
-    const int kc = (k0 + j) * kBK;
-    tma_load_2d(st, ta, full, kc, m0);
-    tma_load_2d(st + R::a_bytes, tb0, full, kc, n0);
-    if (nb == 2) tma_load_2d(st + R::a_bytes + R::b_bytes / 2, tb1, full, kc, n0);
-  }
-}
-
-// A consumer warpgroup: acc[BN / 2] = its 64 rows of A times B over `steps`
-// k-steps; one wgmma group stays in flight, and a stage is handed back once
-// the group that read it has completed.
-template <int BN, int STAGES>
-__device__ __forceinline__ void consume(float* acc, uint32_t base, int wg, int steps) {
-  using R = Ring<BN, STAGES>;
-  const uint32_t full0 = base + R::bar_off, empty0 = full0 + 8 * STAGES;
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  fence_regs<BN / 2>(acc);
-  for (int j = 0; j < steps; ++j) {
-    const int s = j % STAGES;
-    mbar_wait(full0 + 8 * s, (j / STAGES) & 1);
-    const uint32_t a = base + s * R::stage + wg * 64 * 128, b = base + s * R::stage + R::a_bytes;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      Wgmma<BN>::ss(acc, smem_desc(a + kk * 32, 16, 1024), smem_desc(b + kk * 32, 16, 1024), j + kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait1();
-    if (j > 0) mbar_arrive(empty0 + 8 * ((j - 1) % STAGES));
-  }
-  wgmma_wait0();
-  fence_regs<BN / 2>(acc);
-}
-
-__device__ __forceinline__ void init_ring(uint32_t full0, uint32_t empty0, int stages) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 2 * 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
+// 1. LayerNorm rows: gemm_sm90.cuh's ln_rows_kernel (bf16: xn rounded to bf16;
+// float32: xn's parts)
 
 // ---- 2. GEMM 1 + GEGLU: h = (xn W1v^T + b1v) * gelu(xn W1g^T + b1g) ------------------
+template <typename T>
 struct Geglu {
-  __nv_bfloat16* h;
-  const __nv_bfloat16* b1;
+  __nv_bfloat16* h;  // bf16: [M, F]; float32: h's parts [M, 2 wh]
+  const T* b1;
   int m, f, ksteps;
+  int w, wh;  // float32: the lo parts' column in A and W1, and h's part width
 };
 
+// One pair of h's columns (col, col + 1) of one row: bf16 rounded, or its
+// two parts in float32 (PARTS 2)
+template <int PARTS>
+__device__ __forceinline__ void store_h(__nv_bfloat16* h, int f, int wh, int row, int col, float v0, float v1) {
+  if constexpr (PARTS == 1) {
+    *reinterpret_cast<uint32_t*>(h + (size_t)row * f + col) = pack_bf16(v0, v1);
+  } else {
+    uint32_t hi, lo;
+    split_pair(v0, v1, hi, lo);
+    __nv_bfloat16* p = h + (size_t)row * 2 * wh + col;
+    *reinterpret_cast<uint32_t*>(p) = hi;
+    *reinterpret_cast<uint32_t*>(p + wh) = lo;
+  }
+}
+
+template <int PARTS, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     geglu_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap tg, const Geglu args) {
-  using R = Ring<2 * kBF, kStages1>;
+                      const __grid_constant__ CUtensorMap tg, const Geglu<T> args) {
+  constexpr int STAGES = Stages<PARTS>::gemm1;
+  using R = Ring<2 * kBF, STAGES, PARTS>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle reads address bits 4-9
   const int n0 = blockIdx.x * kBF, m0 = blockIdx.y * kBM;
-  init_ring(base + R::bar_off, base + R::bar_off + 8 * kStages1, kStages1);
+  init_ring(base + R::bar_off, base + R::bar_off + 8 * STAGES, STAGES);
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 256) produce<2 * kBF, kStages1>(base, &ta, &tv, &tg, 2, m0, n0, 0, args.ksteps);
+    if (threadIdx.x == 256) produce<2 * kBF, STAGES, PARTS>(base, &ta, &tv, &tg, 2, m0, n0, 0, args.ksteps, args.w);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   float acc[kBF];  // [0, 64): value columns, [64, 128): the same columns of the gate
-  consume<2 * kBF, kStages1>(acc, base, wg, args.ksteps);
+  consume<2 * kBF, STAGES, PARTS>(acc, base, wg, args.ksteps);
 
-  // acc[4i + e] is row r_lo (e < 2) or r_lo + 8, feature n0 + 8i + col0 + e % 2
+  // acc[4i + e] is row r_lo (e < 2) or r_lo + 8, feature n0 + 8i + col0 + e % 2.
+  // Float32 writes h's parts up to their padded width wh: past F the
+  // accumulators hold TMA's zero fill, and with no bias there h is 0.
   const int t = threadIdx.x % 128, lane = t % 32;
   const int r_lo = m0 + wg * 64 + (t / 32) * 16 + lane / 4, r_hi = r_lo + 8;
   const int col0 = 2 * (lane % 4);
+  const int cols = PARTS == 1 ? args.f : args.wh;
 #pragma unroll
   for (int i = 0; i < kBF / 8; ++i) {
     const int col = n0 + 8 * i + col0;
-    if (col < args.f) {  // f % 8 == 0 and col even: col + 1 < f too
-      const float av0 = bf(args.b1, col), av1 = bf(args.b1, col + 1);
-      const float gv0 = bf(args.b1, args.f + col), gv1 = bf(args.b1, args.f + col + 1);
+    if (col < cols) {  // f % 8 == 0 (bf16) or % 4 (float32) and col even: col + 1 < f too where col < f
+      const bool in = PARTS == 1 || col < args.f;
+      const float av0 = in ? ld(args.b1, col) : 0.f, av1 = in ? ld(args.b1, col + 1) : 0.f;
+      const float gv0 = in ? ld(args.b1, args.f + col) : 0.f, gv1 = in ? ld(args.b1, args.f + col + 1) : 0.f;
       if (r_lo < args.m) {
-        *reinterpret_cast<uint32_t*>(args.h + (size_t)r_lo * args.f + col) =
-            pack_bf16((acc[4 * i] + av0) * gelu_erf(acc[64 + 4 * i] + gv0),
-                      (acc[4 * i + 1] + av1) * gelu_erf(acc[64 + 4 * i + 1] + gv1));
+        store_h<PARTS>(args.h, args.f, args.wh, r_lo, col, (acc[4 * i] + av0) * gelu_erf(acc[64 + 4 * i] + gv0),
+                       (acc[4 * i + 1] + av1) * gelu_erf(acc[64 + 4 * i + 1] + gv1));
       }
       if (r_hi < args.m) {
-        *reinterpret_cast<uint32_t*>(args.h + (size_t)r_hi * args.f + col) =
-            pack_bf16((acc[4 * i + 2] + av0) * gelu_erf(acc[64 + 4 * i + 2] + gv0),
-                      (acc[4 * i + 3] + av1) * gelu_erf(acc[64 + 4 * i + 3] + gv1));
+        store_h<PARTS>(args.h, args.f, args.wh, r_hi, col, (acc[4 * i + 2] + av0) * gelu_erf(acc[64 + 4 * i + 2] + gv0),
+                       (acc[4 * i + 3] + av1) * gelu_erf(acc[64 + 4 * i + 3] + gv1));
       }
     }
   }
 }
 
 // ---- 3. GEMM 2: y = h W2^T + b2 (+ x), or one split's fp32 partial ---------------------
+template <typename T>
 struct Out {
-  __nv_bfloat16* y;
+  T* y;
   float* ws;                    // [splits, M, C] partials (splits > 1)
-  const __nv_bfloat16* x;       // residual, or nullptr
-  const __nv_bfloat16* b2;
+  const T* x;                   // residual, or nullptr
+  const T* b2;
   int m, c, ksteps, per_split;  // k-steps in all and per split
 };
 
-__device__ __forceinline__ uint32_t out_pair(float v0, float v1, const Out& a, int row, int col) {
-  v0 += bf(a.b2, col);
-  v1 += bf(a.b2, col + 1);
+template <typename T>
+__device__ __forceinline__ void out_pair(float v0, float v1, const Out<T>& a, int row, int col) {
+  const size_t g = (size_t)row * a.c + col;
+  v0 += ld(a.b2, col);
+  v1 += ld(a.b2, col + 1);
   if (a.x != nullptr) {
-    const size_t g = (size_t)row * a.c + col;
-    v0 += bf(a.x, g);
-    v1 += bf(a.x, g + 1);
+    v0 += ld(a.x, g);
+    v1 += ld(a.x, g + 1);
   }
-  return pack_bf16(v0, v1);
+  store_pair<T>(a.y + g, v0, v1);
 }
 
+template <int PARTS, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     out_gemm_kernel(const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tw,
-                    const Out args) {
-  using R = Ring<kBC, kStages2>;
+                    const Out<T> args, int w) {  // w: float32's lo parts' column in h and W2
+  constexpr int STAGES = Stages<PARTS>::gemm2;
+  using R = Ring<kBC, STAGES, PARTS>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const int n0 = blockIdx.x * kBC, m0 = blockIdx.y * kBM, split = blockIdx.z;
   const int k0 = split * args.per_split, k1 = min(args.ksteps, k0 + args.per_split);
-  init_ring(base + R::bar_off, base + R::bar_off + 8 * kStages2, kStages2);
+  init_ring(base + R::bar_off, base + R::bar_off + 8 * STAGES, STAGES);
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 256) produce<kBC, kStages2>(base, &th, &tw, &tw, 1, m0, n0, k0, k1);
+    if (threadIdx.x == 256) produce<kBC, STAGES, PARTS>(base, &th, &tw, &tw, 1, m0, n0, k0, k1, w);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   float acc[kBC / 2];
-  consume<kBC, kStages2>(acc, base, wg, k1 - k0);
+  consume<kBC, STAGES, PARTS>(acc, base, wg, k1 - k0);
 
   const int t = threadIdx.x % 128, lane = t % 32;
   const int r_lo = m0 + wg * 64 + (t / 32) * 16 + lane / 4, r_hi = r_lo + 8;
@@ -290,19 +216,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < kBC / 8; ++i) {
     const int col = n0 + 8 * i + col0;
-    if (col < args.c) {  // c % 8 == 0 and col even: col + 1 < c too
+    if (col < args.c) {  // c even and col even: col + 1 < c too
       if (r_lo < args.m) {
         if (whole) {
-          *reinterpret_cast<uint32_t*>(args.y + (size_t)r_lo * args.c + col) =
-              out_pair(acc[4 * i], acc[4 * i + 1], args, r_lo, col);
+          out_pair(acc[4 * i], acc[4 * i + 1], args, r_lo, col);
         } else {
           *reinterpret_cast<float2*>(part + (size_t)r_lo * args.c + col) = make_float2(acc[4 * i], acc[4 * i + 1]);
         }
       }
       if (r_hi < args.m) {
         if (whole) {
-          *reinterpret_cast<uint32_t*>(args.y + (size_t)r_hi * args.c + col) =
-              out_pair(acc[4 * i + 2], acc[4 * i + 3], args, r_hi, col);
+          out_pair(acc[4 * i + 2], acc[4 * i + 3], args, r_hi, col);
         } else {
           *reinterpret_cast<float2*>(part + (size_t)r_hi * args.c + col) =
               make_float2(acc[4 * i + 2], acc[4 * i + 3]);
@@ -313,7 +237,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---- 4. the split partials, added in a fixed order, with b2 and x ---------------------
-__global__ void __launch_bounds__(256) split_sum_kernel(const Out args, int splits) {
+template <typename T>
+__global__ void __launch_bounds__(256) split_sum_kernel(const Out<T> args, int splits) {
   const size_t pairs = (size_t)args.m * args.c / 2;
   for (size_t p = blockIdx.x * (size_t)blockDim.x + threadIdx.x; p < pairs; p += (size_t)gridDim.x * blockDim.x) {
     const size_t g = 2 * p;
@@ -323,58 +248,83 @@ __global__ void __launch_bounds__(256) split_sum_kernel(const Out args, int spli
       s.x += v.x;
       s.y += v.y;
     }
-    const int row = (int)(g / args.c), col = (int)(g % args.c);
-    *reinterpret_cast<uint32_t*>(args.y + g) = out_pair(s.x, s.y, args, row, col);
+    out_pair(s.x, s.y, args, (int)(g / args.c), (int)(g % args.c));
   }
 }
 
 // ---- host side ------------------------------------------------------------------
-template <typename Kernel>
-static cudaError_t smem_attr(Kernel kernel, uint32_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
+// The caller's scratch: bf16 xn [M, C] (with LN), h [M, F] and fp32 ws
+// [splits, M, C] (splits > 1); float32 adds the parts of W1 and W2 and holds
+// x's or xn's parts in xn [M, 2wc] and h's in h [M, 2wf].
+struct Scratch {
+  __nv_bfloat16 *xn, *w1, *w2, *h;
+  float* ws;
+};
 
-static cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* ln_w, const __nv_bfloat16* ln_b,
-                       const __nv_bfloat16* w1, const __nv_bfloat16* b1, const __nv_bfloat16* w2,
-                       const __nv_bfloat16* b2, __nv_bfloat16* xn, __nv_bfloat16* h, float* ws, __nv_bfloat16* y,
-                       int m, int c, int f, int splits, float eps, cudaStream_t stream) {
+template <int PARTS, typename T>
+static cudaError_t run(const T* x, const T* ln_w, const T* ln_b, const T* w1, const T* b1, const T* w2, const T* b2,
+                       const Scratch& s, T* y, int m, int c, int f, int splits, float eps, cudaStream_t stream) {
   const bool ln = ln_w != nullptr;
   const int m_tiles = (m + kBM - 1) / kBM;
   if (m_tiles > 65535) return cudaErrorInvalidValue;
-  const __nv_bfloat16* a = x;
   cudaError_t err;
-  if (ln) {
-    ln_rows_kernel<<<(m + kLnWarps - 1) / kLnWarps, 32 * kLnWarps, 0, stream>>>(x, ln_w, ln_b, xn, m, c, eps);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    a = xn;
-  }
   CUtensorMap ta, tv, tg, th, tw;
-  if (!make_map_2d(&ta, a, m, c, kBM) || !make_map_2d(&tv, w1, f, c, kBF) ||
-      !make_map_2d(&tg, w1 + (size_t)f * c, f, c, kBF) || !make_map_2d(&th, h, m, f, kBM) ||
-      !make_map_2d(&tw, w2, c, f, kBC)) {
-    return cudaErrorInvalidValue;
+  int wc = 0, wf = 0;  // float32: the parts' widths of the contractions over C and F
+  if constexpr (PARTS == 1) {
+    const __nv_bfloat16* a = x;
+    if (ln) {
+      if ((err = ln_rows(x, ln_w, ln_b, s.xn, m, c, c, eps, stream)) != cudaSuccess) return err;
+      a = s.xn;
+    }
+    if (!make_map_2d(&ta, a, m, c, kBM) || !make_map_2d(&tv, w1, f, c, kBF) ||
+        !make_map_2d(&tg, w1 + (size_t)f * c, f, c, kBF) || !make_map_2d(&th, s.h, m, f, kBM) ||
+        !make_map_2d(&tw, w2, c, f, kBC)) {
+      return cudaErrorInvalidValue;
+    }
+  } else {
+    wc = split_width(c);
+    wf = split_width(f);
+    SplitJobs jobs{{{w1, s.w1, 2 * f, c, wc}, {w2, s.w2, c, f, wf}}, 2};
+    if (ln) {
+      if ((err = ln_rows(x, ln_w, ln_b, s.xn, m, c, wc, eps, stream)) != cudaSuccess) return err;
+    } else {
+      jobs.job[jobs.count++] = SplitJob{x, s.xn, m, c, wc};
+    }
+    if ((err = split_matrices(jobs, stream)) != cudaSuccess) return err;
+    if (!make_map_2d(&ta, s.xn, m, 2 * wc, kBM) || !make_map_2d(&tv, s.w1, f, 2 * wc, kBF) ||
+        !make_map_2d(&tg, s.w1 + (size_t)f * 2 * wc, f, 2 * wc, kBF) || !make_map_2d(&th, s.h, m, 2 * wf, kBM) ||
+        !make_map_2d(&tw, s.w2, c, 2 * wf, kBC)) {
+      return cudaErrorInvalidValue;
+    }
   }
-  using R1 = Ring<2 * kBF, kStages1>;
-  if ((err = smem_attr(geglu_gemm_kernel, R1::bytes)) != cudaSuccess) return err;
-  const Geglu g1{h, b1, m, f, (c + kBK - 1) / kBK};
-  geglu_gemm_kernel<<<dim3((f + kBF - 1) / kBF, m_tiles), kThreads, R1::bytes, stream>>>(ta, tv, tg, g1);
+  using R1 = Ring<2 * kBF, Stages<PARTS>::gemm1, PARTS>;
+  if ((err = smem_attr(geglu_gemm_kernel<PARTS, T>, R1::bytes)) != cudaSuccess) return err;
+  const Geglu<T> g1{s.h, b1, m, f, (c + kBK - 1) / kBK, wc, wf};
+  geglu_gemm_kernel<PARTS, T><<<dim3((f + kBF - 1) / kBF, m_tiles), kThreads, R1::bytes, stream>>>(ta, tv, tg, g1);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const int ksteps = (f + kBK - 1) / kBK;
   const int per_split = (ksteps + splits - 1) / splits;
   splits = (ksteps + per_split - 1) / per_split;  // no empty split
-  using R2 = Ring<kBC, kStages2>;
-  if ((err = smem_attr(out_gemm_kernel, R2::bytes)) != cudaSuccess) return err;
-  const Out o{y, ws, ln ? x : nullptr, b2, m, c, ksteps, per_split};
-  out_gemm_kernel<<<dim3((c + kBC - 1) / kBC, m_tiles, splits), kThreads, R2::bytes, stream>>>(th, tw, o);
+  using R2 = Ring<kBC, Stages<PARTS>::gemm2, PARTS>;
+  if ((err = smem_attr(out_gemm_kernel<PARTS, T>, R2::bytes)) != cudaSuccess) return err;
+  const Out<T> o{y, s.ws, ln ? x : nullptr, b2, m, c, ksteps, per_split};
+  out_gemm_kernel<PARTS, T><<<dim3((c + kBC - 1) / kBC, m_tiles, splits), kThreads, R2::bytes, stream>>>(th, tw, o,
+                                                                                                        wf);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (splits > 1) {
     const size_t pairs = (size_t)m * c / 2;
     const int blocks = (int)((pairs + 255) / 256 < 8192 ? (pairs + 255) / 256 : 8192);
-    split_sum_kernel<<<blocks, 256, 0, stream>>>(o, splits);
+    split_sum_kernel<T><<<blocks, 256, 0, stream>>>(o, splits);
     err = cudaGetLastError();
   }
   return err;
+}
+
+static bool bad_shape(const void* ln_w, const void* ln_b, const void* xn, const void* ws, int m, int c, int f,
+                      int splits, int mult) {
+  return m <= 0 || c <= 0 || f <= 0 || c % mult || f % mult || splits < 1 || splits > (f + kBK - 1) / kBK ||
+         (ln_w != nullptr && (ln_b == nullptr || xn == nullptr)) || (splits > 1 && ws == nullptr);
 }
 
 }  // namespace ff_sm90
@@ -393,12 +343,33 @@ extern "C" int emox_ff_sm90(const void* x, const void* ln_w, const void* ln_b, c
                             int f, int splits, float eps, void* stream) {
   using namespace emox::ff_sm90;
   using T = __nv_bfloat16;
-  if (m <= 0 || c <= 0 || f <= 0 || c % 8 || f % 8 || splits < 1 || splits > (f + kBK - 1) / kBK ||
-      (ln_w != nullptr && (ln_b == nullptr || xn == nullptr)) || (splits > 1 && ws == nullptr)) {
+  if (bad_shape(ln_w, ln_b, xn, ws, m, c, f, splits, 8)) return (int)cudaErrorInvalidValue;
+  const Scratch s{static_cast<T*>(xn), nullptr, nullptr, static_cast<T*>(h), static_cast<float*>(ws)};
+  return (int)run<1>(static_cast<const T*>(x), static_cast<const T*>(ln_w), static_cast<const T*>(ln_b),
+                     static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
+                     static_cast<const T*>(b2), s, static_cast<T*>(y), m, c, f, splits, eps,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// float32 GEGLU feed-forward on the two-part split: the operands as
+// emox_ff_sm90's, in float32. Scratch from the caller, bf16 (wc and wf: c and
+// f padded to multiples of 64): xp [m, 2wc] (x's parts, or with LN xn's),
+// w1p [2f, 2wc], w2p [c, 2wf], hp [m, 2wf], and with splits > 1 ws [splits,
+// m, c] fp32. Contiguous, 16-byte aligned, c % 4 == 0, f % 4 == 0.
+extern "C" int emox_ff_f32_sm90(const void* x, const void* ln_w, const void* ln_b, const void* w1, const void* b1,
+                                const void* w2, const void* b2, void* xp, void* w1p, void* w2p, void* hp, void* ws,
+                                void* y, int m, int c, int f, int splits, float eps, void* stream) {
+  using namespace emox::ff_sm90;
+  using B = __nv_bfloat16;
+  using T = float;
+  if (bad_shape(ln_w, ln_b, xp, ws, m, c, f, splits, 4) || xp == nullptr || w1p == nullptr || w2p == nullptr ||
+      hp == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)run(static_cast<const T*>(x), static_cast<const T*>(ln_w), static_cast<const T*>(ln_b),
-                  static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
-                  static_cast<const T*>(b2), static_cast<T*>(xn), static_cast<T*>(h), static_cast<float*>(ws),
-                  static_cast<T*>(y), m, c, f, splits, eps, static_cast<cudaStream_t>(stream));
+  const Scratch s{static_cast<B*>(xp), static_cast<B*>(w1p), static_cast<B*>(w2p), static_cast<B*>(hp),
+                  static_cast<float*>(ws)};
+  return (int)run<2>(static_cast<const T*>(x), static_cast<const T*>(ln_w), static_cast<const T*>(ln_b),
+                     static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
+                     static_cast<const T*>(b2), s, static_cast<T*>(y), m, c, f, splits, eps,
+                     static_cast<cudaStream_t>(stream));
 }

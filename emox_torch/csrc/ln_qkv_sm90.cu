@@ -1,12 +1,12 @@
-// Fused LayerNorm + bias-free q/k/v projections for Hopper (sm_90a) in bf16:
-// LN in the prologue of one wgmma + TMA GEMM.
+// Fused LayerNorm + bias-free q/k/v projections for Hopper (sm_90a): in bf16
+// LN in the prologue of one wgmma + TMA GEMM; in float32 (at the end of the
+// file) an LN + split pass, then a streamed GEMM on the two-part split.
 //
-//   xn = LN(x) rounded to bf16;  q = xn Wq^T,  k = xn Wk^T,  v = xn Wv^T
+//   xn = LN(x) rounded to x's type;  q = xn Wq^T,  k = xn Wk^T,  v = xn Wv^T
 //
 // Replaces the TPU kernel `_ln_qkv_kernel` (emox/ops/ff.py:353, called at
-// :373) in bf16: one read of x feeds the three projections, and the
-// normalised tokens never reach device memory. float32 stays on the WMMA
-// kernel of ln_qkv.cu.
+// :373). In bf16 one read of x feeds the three projections, and the
+// normalised tokens never reach device memory.
 //
 // What bounds it on the H100: at level 0 of a 256^2 request under CFG (M
 // 32768, C 320, inner 320) it does 2*M*C*3*inner = 20 GFLOP against 21 MB
@@ -58,7 +58,7 @@
 // weight tiles at 64-128 rows a block, and the grid's partly empty last
 // wave. Not yet done: a persistent grid, LN on the producer's warps too,
 // overlapping a tile's stores with the next tile's products.
-#include "sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace emox {
 namespace ln_qkv_sm90 {
@@ -364,4 +364,111 @@ extern "C" int emox_ln_qkv_sm90(const void* x, const void* ln_w, const void* ln_
   if (chunks <= 5) return (int)launch<256, 160, 3, 5>(xp, w, a, s);
   if (chunks <= 10) return (int)launch<128, 128, 4, 10>(xp, w, a, s);
   return (int)launch<64, 128, 4, 20>(xp, w, a, s);
+}
+
+// ---- float32: LN + split, then one streamed GEMM over the split -------------------
+// The bf16 design keeps the block's whole x tile resident; float32's two
+// parts double its bytes, and 64 rows x 1280 columns of parts would need
+// 320 KB. So xn goes through device memory: gemm_sm90.cuh's ln_rows_kernel
+// writes its parts [M, 2w] (w: C padded to 64, zeros past C; xn is not
+// rounded), one split launch writes Wq's, Wk's and Wv's parts into one
+// scratch [3 inner, 2w] (at every call: an optimizer step updates the
+// weights in place), and a streamed wgmma + TMA GEMM (gemm_sm90.cuh's ring,
+// PARTS 2: A_hi B_hi + A_hi B_lo + A_lo B_hi with fp32 accumulation) runs
+// over tiles of 128 rows x 160 output columns, each column tile inside one
+// of q, k, v: one tensor map covers the three weights' parts, and a tile's
+// rows past its weight's `inner` (the next weight's, or TMA's zeros past the
+// last) feed only columns the epilogue drops. Its epilogue writes float32
+// pairs. Any C is taken (the contraction streams), C and
+// inner multiples of 4. What bounds it on the H100 at the float32 step's
+// level 0 (M 4096, C 320, inner 320): the issued bf16 products, 3 x
+// 6*M*C*inner = 7.5 GFLOP (0.0076 ms at 989 TFLOP/s), and the 21 MB of x
+// read and q, k, v written (0.006 ms at 3.35 TB/s); at M 2048, C 1280 the
+// products (0.031 ms).
+namespace emox {
+namespace ln_qkv_f32 {
+
+using namespace emox::sm90;
+using namespace emox::gemm_sm90;
+
+constexpr int kBN = 160;  // output columns per block
+constexpr int kStages = 3;
+using R = Ring<kBN, kStages, 2>;
+
+struct Args {
+  float* out[3];  // q, k, v [m, inner]
+  int m, inner, ksteps, tiles_per_out, w;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    qkv_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, const Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle reads address bits 4-9
+  const int o = blockIdx.x / a.tiles_per_out, n0 = (blockIdx.x % a.tiles_per_out) * kBN, m0 = blockIdx.y * kBM;
+  init_ring(base + R::bar_off, base + R::bar_off + 8 * kStages, kStages);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    // B's rows from output o's first row in the parts of all three weights
+    if (threadIdx.x == 256) produce<kBN, kStages, 2>(base, &ta, &tb, &tb, 1, m0, o * a.inner + n0, 0, a.ksteps, a.w);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  float acc[kBN / 2];
+  consume<kBN, kStages, 2>(acc, base, wg, a.ksteps);
+
+  // acc[4i + e] is row r_lo (e < 2) or r_lo + 8, column n0 + 8i + col0 + e % 2
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r_lo = m0 + wg * 64 + (t / 32) * 16 + lane / 4, r_hi = r_lo + 8;
+  const int col0 = 2 * (lane % 4);
+  float* out = o == 0 ? a.out[0] : (o == 1 ? a.out[1] : a.out[2]);
+#pragma unroll
+  for (int i = 0; i < kBN / 8; ++i) {
+    const int col = n0 + 8 * i + col0;
+    if (col < a.inner) {  // inner even and col even: col + 1 < inner too
+      if (r_lo < a.m) store_pair<float>(out + (size_t)r_lo * a.inner + col, acc[4 * i], acc[4 * i + 1]);
+      if (r_hi < a.m) store_pair<float>(out + (size_t)r_hi * a.inner + col, acc[4 * i + 2], acc[4 * i + 3]);
+    }
+  }
+}
+
+}  // namespace ln_qkv_f32
+}  // namespace emox
+
+// float32 LN + q/k/v on the two-part split: x [m, c]; ln_w, ln_b [c]; wq, wk,
+// wv [inner, c]; q, k, v [m, inner]. Scratch from the caller, bf16 (w: c
+// padded to a multiple of 64): xp [m, 2w] (xn's parts), wp [3 inner, 2w] (the
+// weights' parts). Contiguous, 16-byte aligned, c % 4 == 0, inner % 4 == 0.
+// Returns a cudaError_t (0 = launched).
+extern "C" int emox_ln_qkv_f32_sm90(const void* x, const void* ln_w, const void* ln_b, const void* wq, const void* wk,
+                                    const void* wv, void* q, void* k, void* v, void* xp, void* wp, int m, int c,
+                                    int inner, float eps, void* stream) {
+  using namespace emox::ln_qkv_f32;
+  using B = __nv_bfloat16;
+  const int m_tiles = (m + kBM - 1) / kBM;
+  if (m <= 0 || c <= 0 || c % 4 || inner <= 0 || inner % 4 || m_tiles > 65535 || xp == nullptr || wp == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int w = split_width(c);
+  B* xs = static_cast<B*>(xp);
+  B* ws = static_cast<B*>(wp);
+  const size_t per = (size_t)inner * 2 * w;  // one weight's parts
+  cudaError_t err = ln_rows(static_cast<const float*>(x), static_cast<const float*>(ln_w),
+                             static_cast<const float*>(ln_b), xs, m, c, w, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  const SplitJobs jobs{{{static_cast<const float*>(wq), ws, inner, c, w},
+                        {static_cast<const float*>(wk), ws + per, inner, c, w},
+                        {static_cast<const float*>(wv), ws + 2 * per, inner, c, w}},
+                       3};
+  if ((err = split_matrices(jobs, s)) != cudaSuccess) return (int)err;
+  CUtensorMap ta, tb;
+  if (!make_map_2d(&ta, xs, m, 2 * w, kBM) || !make_map_2d(&tb, ws, 3 * inner, 2 * w, kBN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((err = smem_attr(qkv_gemm_kernel, R::bytes)) != cudaSuccess) return (int)err;
+  const int tiles = (inner + kBN - 1) / kBN;
+  const Args a{{static_cast<float*>(q), static_cast<float*>(k), static_cast<float*>(v)}, m, inner, w / kBK, tiles, w};
+  qkv_gemm_kernel<<<dim3(3 * tiles, m_tiles), kThreads, R::bytes, s>>>(ta, tb, a);
+  return (int)cudaGetLastError();
 }

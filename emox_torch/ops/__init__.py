@@ -42,8 +42,8 @@ Kernels (each wrapper counts its launches in `.launches`):
                                dispatcher geglu_ff (EMOX_FF_IMPL), counted
                                per call, by one of the kernels below
   * ff_sm90                 -> csrc/ff_sm90.cu: both FF functions, bfloat16
-  * ff_wmma                 -> csrc/ln_geglu_ff.cu and csrc/geglu_ff.cu: both
-                               FF functions, float32
+  * ff_f32_sm90             -> csrc/ff_sm90.cu on a two-part bf16 split:
+                               both FF functions, float32
   * fused_group_norm        -> csrc/group_norm.cu (TPU `_gn_kernel`), under
                                EMOX_GROUPNORM_IMPL=pallas
   * group_norm_stats        -> csrc/group_norm.cu (TPU `_gn_stats_kernel`),
@@ -52,7 +52,8 @@ Kernels (each wrapper counts its launches in `.launches`):
                                EMOX_LN_QKV=1, counted per call, by one of
                                the kernels below
   * ln_qkv_sm90             -> csrc/ln_qkv_sm90.cu: bfloat16
-  * ln_qkv_wmma             -> csrc/ln_qkv.cu: float32
+  * ln_qkv_f32_sm90         -> csrc/ln_qkv_sm90.cu's float32 entry: an LN +
+                               split pass, then one GEMM on the split
 """
 
 from emox_torch.ops.attention import (
@@ -85,8 +86,8 @@ from emox_torch.ops.attention import (
 )
 from emox_torch.ops.ff import (
     ff_default_impl,
+    ff_f32_sm90,
     ff_sm90,
-    ff_wmma,
     fused_geglu_ff,
     fused_ln_geglu_ff,
     geglu_ff,
@@ -105,7 +106,7 @@ from emox_torch.ops.groupnorm import (
     group_norm_stats_plain,
     group_norm_xla,
 )
-from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_plain, ln_qkv_sm90, ln_qkv_wmma, ln_qkv_xla
+from emox_torch.ops.ln_qkv import fused_ln_qkv, ln_qkv_f32_sm90, ln_qkv_plain, ln_qkv_sm90, ln_qkv_xla
 
 KERNEL_WRAPPERS = {
     "flash_attn_fwd": flash_attention,
@@ -125,12 +126,12 @@ KERNEL_WRAPPERS = {
     "ln_geglu_ff": fused_ln_geglu_ff,
     "geglu_ff": fused_geglu_ff,
     "ff_sm90": ff_sm90,
-    "ff_wmma": ff_wmma,
+    "ff_f32_sm90": ff_f32_sm90,
     "group_norm": fused_group_norm,
     "group_norm_stats": group_norm_stats,
     "ln_qkv": fused_ln_qkv,
     "ln_qkv_sm90": ln_qkv_sm90,
-    "ln_qkv_wmma": ln_qkv_wmma,
+    "ln_qkv_f32_sm90": ln_qkv_f32_sm90,
 }
 
 
@@ -156,8 +157,8 @@ __all__ = [
     "dot_product_attention",
     "dot_product_attention_nlc",
     "ff_default_impl",
+    "ff_f32_sm90",
     "ff_sm90",
-    "ff_wmma",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_nlc",
@@ -189,9 +190,9 @@ __all__ = [
     "launch_counts",
     "ln_geglu_ff_plain",
     "ln_geglu_ff_xla",
+    "ln_qkv_f32_sm90",
     "ln_qkv_plain",
     "ln_qkv_sm90",
-    "ln_qkv_wmma",
     "ln_qkv_xla",
     "pad_head_dim",
     "padded_attention",

@@ -42,15 +42,13 @@ KERNELS = {
     "flash_attn_wide": {"emox_flash_fwd_wide": [_P] * 5 + [_LL] + [_I] * 5 + [_F, _I] + [_P] * 4,
                         "emox_flash_bwd_wide": [_P] * 9 + [_LL] + [_I] * 6 + [_F, _I] + [_P] * 5},
     "flash_fwd_d512_f32": {"emox_flash_fwd_d512_f32": [_P] * 5 + [_LL] + [_I] * 4 + [_F] + [_P] * 4},
-    "ff_sm90": {"emox_ff_sm90": [_P] * 11 + [_I] * 4 + [_F, _P]},
-    "ln_geglu_ff": {"emox_ln_geglu_ff": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
-                    "emox_ln_geglu_ff_plan": [_I, _I, _P]},
-    "geglu_ff": {"emox_geglu_ff": [_P] * 6 + [_I] * 4 + [_P]},
+    "ff_sm90": {"emox_ff_sm90": [_P] * 11 + [_I] * 4 + [_F, _P],
+                "emox_ff_f32_sm90": [_P] * 13 + [_I] * 4 + [_F, _P]},
     "group_norm": {"emox_group_norm": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
                    "emox_group_norm_stats": [_P] * 3 + [_I] * 6 + [_P],
                    "emox_group_norm_clusters": [_I] * 5},
-    "ln_qkv": {"emox_ln_qkv": [_P] * 9 + [_I] * 3 + [_F, _I, _P]},
-    "ln_qkv_sm90": {"emox_ln_qkv_sm90": [_P] * 9 + [_I] * 4 + [_F, _P]},
+    "ln_qkv_sm90": {"emox_ln_qkv_sm90": [_P] * 9 + [_I] * 4 + [_F, _P],
+                    "emox_ln_qkv_f32_sm90": [_P] * 11 + [_I] * 3 + [_F, _P]},
 }
 
 _loaded: Dict[str, Dict[str, ctypes._CFuncPtr]] = {}

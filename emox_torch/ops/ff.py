@@ -15,8 +15,10 @@ input the kernel does not take; there is no fallback:
   * bfloat16 -> `ff_sm90` (emox_torch/csrc/ff_sm90.cu): LN pass, then two
     wgmma + TMA GEMMs with the GEGLU and the bias + residual epilogues,
     one C entry for both functions (C % 8, F % 8);
-  * float32 -> `ff_wmma`: the WMMA body of emox_torch/csrc/geglu_ff.cuh,
-    ln_geglu_ff.cu with LN and geglu_ff.cu without (C % 16, F % 64).
+  * float32 -> `ff_f32_sm90`: the same kernels on bf16 wgmma over the
+    two-part split (each operand's hi and lo bf16 parts in scratch, every
+    product as hi hi + hi lo + lo hi), another C entry of ff_sm90.cu
+    (C % 4, F % 4).
 
 On a CPU tensor each runs its plain version (`ln_geglu_ff_plain`,
 `geglu_ff_plain`), the same function with the kernels' rounding points in
@@ -34,7 +36,6 @@ its kernel compiler had no erf; both versions here use the exact erf.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import os
 from typing import Optional
@@ -45,9 +46,10 @@ import torch.nn.functional as F
 from emox_torch.ops import build
 from emox_torch.ops.attention import _on_card_or_cpu, _stream
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _SM90_ROWS, _SM90_FEATURES, _SM90_COLS = 128, 128, 160  # ff_sm90.cu's tiles: kBM, kBF, kBC
 _SM90_DEPTH = 64  # ff_sm90.cu's contraction depth per stage (kBK)
+_F32_STAGES = (2, 3)  # ff_sm90.cu's rings in float32 (Stages<2>): GEMM 1, GEMM 2
 
 
 def geglu_ff_xla(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -130,36 +132,72 @@ def ff_sm90(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
 ff_sm90.launches = 0  # kernel launches since the last reset
 
 
-def ff_wmma(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
-    """Launch the float32 WMMA kernel on x [M, C] and weights, contiguous and
-    16-byte aligned: ln_geglu_ff.cu with LN, geglu_ff.cu without (ln_w and
-    ln_b None)."""
+def parts_width(d: int) -> int:
+    """The width w of a float32 operand's parts ([rows, 2w] bf16, hi | lo):
+    its contraction d padded to whole 64-column TMA boxes, zeros past d
+    (split.cuh's split_width), so that no hi box reads the lo part."""
+    return -(-d // _SM90_DEPTH) * _SM90_DEPTH
+
+
+def parts_scratch(rows: int, w: int, device) -> torch.Tensor:
+    """bf16 scratch [rows, 2w] for the parts of a float32 operand [rows, d]
+    of width w = parts_width(d): hi in columns [0, w), lo in [w, 2w)."""
+    return torch.empty((rows, 2 * w), dtype=torch.bfloat16, device=device)
+
+
+def ring_bytes(bn: int, stages: int, parts: int) -> int:
+    """A block's dynamic shared memory in gemm_sm90.cuh's ring (Ring::bytes):
+    `stages` stages of the parts of a 128-row A box and a BN-row B box, 64
+    columns deep (128 bytes a row), 16 bytes of mbarriers a stage and 1024
+    bytes of alignment slack."""
+    return stages * parts * 128 * (_SM90_ROWS + bn) + 16 * stages + 1024
+
+
+def ff_f32_sm90_plan(m: int, c: int, f: int, sms: int) -> dict:
+    """How ff_sm90.cu runs float32 on the two-part split: ff_sm90_plan's
+    grids and split of F (its tiles are float32's too), the parts' widths
+    (C and F padded to 64: the scratch xp [M, 2wc], w1p [2F, 2wc], w2p
+    [C, 2wf], hp [M, 2wf]), and each GEMM's shared memory with both parts
+    in a stage: GEMM 1 2 stages of a 128-row A box and W1's value and gate
+    boxes (256 rows), GEMM 2 3 stages of 128 and 160 rows."""
+    return dict(ff_sm90_plan(m, c, f, sms), width_c=parts_width(c), width_f=parts_width(f),
+                gemm1_smem=ring_bytes(2 * _SM90_FEATURES, _F32_STAGES[0], 2),
+                gemm2_smem=ring_bytes(_SM90_COLS, _F32_STAGES[1], 2))
+
+
+def ff_f32_sm90(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    """Launch ff_sm90.cu's float32 entry on x [M, C] and weights, contiguous
+    and 16-byte aligned; ln_w and ln_b None: no LN and no residual (K6).
+    Allocates the bf16 scratch of the parts (ff_f32_sm90_plan): x's (or
+    xn's) [M, 2wc], W1's [2F, 2wc], W2's [C, 2wf] and h's [M, 2wf], and
+    where GEMM 2 splits F the fp32 partials [splits, M, C]. The weights are
+    split at every call: an optimizer step changes them in place."""
     m, c = x.shape
     f = w1.shape[0] // 2
+    plan = ff_f32_sm90_plan(m, c, f, _sm_count(x.device.index or 0))
+    wc, wf, splits = plan["width_c"], plan["width_f"], plan["splits"]
+    xp, w1p, w2p, hp = (parts_scratch(rows, w, x.device) for rows, w in ((m, wc), (2 * f, wc), (c, wf), (m, wf)))
+    ws = torch.empty((splits, m, c), dtype=torch.float32, device=x.device) if splits > 1 else None
     y = torch.empty_like(x)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
-        if ln_w is not None:
-            err = build.kernel("ln_geglu_ff")(
-                x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                b2.data_ptr(), y.data_ptr(), m, c, f, float(eps), _DTYPES[x.dtype], _stream(x),
-            )
-        else:
-            err = build.kernel("geglu_ff")(
-                x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(), m, c, f,
-                _DTYPES[x.dtype], _stream(x),
-            )
-    build.check(err, "ff_wmma")
-    ff_wmma.launches += 1
+        err = build.kernel("ff_sm90", "emox_ff_f32_sm90")(
+            x.data_ptr(), ptr(ln_w), ptr(ln_b), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            xp.data_ptr(), w1p.data_ptr(), w2p.data_ptr(), hp.data_ptr(), ptr(ws), y.data_ptr(), m, c, f, splits,
+            float(eps), _stream(x),
+        )
+    build.check(err, "ff_f32_sm90")
+    ff_f32_sm90.launches += 1
     return y
 
 
-ff_wmma.launches = 0  # kernel launches since the last reset
+ff_f32_sm90.launches = 0  # kernel launches since the last reset
 
 
 def _launch_ff(name: str, x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     """Check the inputs, then launch the kernel of x's type: bf16 ->
-    ff_sm90, float32 -> ff_wmma. ln_w, ln_b None: the function without LN
-    and residual."""
+    ff_sm90, float32 -> ff_f32_sm90. ln_w, ln_b None: the function without
+    LN and residual."""
     c = x.shape[-1]
     two_f = w1.shape[0]
     f = two_f // 2
@@ -171,17 +209,17 @@ def _launch_ff(name: str, x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Te
         raise TypeError(f"{name} needs every weight on x's device and in x's type")
     shapes = [tuple(p.shape) for p in params]
     want = [(c,)] * len(ln) + [(two_f, c), (two_f,), (c, f), (c,)]
-    c_mult, f_mult = (8, 8) if x.dtype == torch.bfloat16 else (16, 64)
-    if shapes != want or c % c_mult or f % f_mult or two_f != 2 * f:
+    mult = 8 if x.dtype == torch.bfloat16 else 4  # 16-byte rows
+    if shapes != want or c % mult or f % mult or two_f != 2 * f:
         raise ValueError(f"{name} shapes: x [.., {c}], weights {shapes} (bfloat16: C % 8, F % 8 on ff_sm90; "
-                         f"float32: C % 16, F % 64 on the WMMA kernel)")
+                         f"float32: C % 4, F % 4 on ff_f32_sm90)")
     xm = x.reshape(-1, c).contiguous()
     params = tuple(p.contiguous() for p in params)
     if any(t.data_ptr() % 16 for t in (xm, *params)):
         raise ValueError(f"{name} needs 16-byte aligned inputs")
     if ln:
         ln_w, ln_b, *params = params
-    launch = ff_sm90 if x.dtype == torch.bfloat16 else ff_wmma
+    launch = ff_sm90 if x.dtype == torch.bfloat16 else ff_f32_sm90
     return launch(xm, ln_w, ln_b, *params, eps).reshape(x.shape)
 
 
@@ -221,24 +259,13 @@ def fused_ln_geglu_ff(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w
                       b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       eps: float = 1e-5) -> torch.Tensor:
     """x + GEGLU_FF(LayerNorm(x)) on x [..., C], differentiable. Launches a
-    kernel for CUDA tensors (ff_sm90 in bf16, the WMMA kernel in float32) and
+    kernel for CUDA tensors (ff_sm90 in bf16, ff_f32_sm90 in float32) and
     runs the plain version for CPU tensors."""
     _on_card_or_cpu("fused_ln_geglu_ff", x)
     return _LnGegluFF.apply(x, ln_w, ln_b, w1, b1, w2, b2, float(eps))
 
 
 fused_ln_geglu_ff.launches = 0  # calls on the card (either kernel) since the last reset
-
-
-def ff_plan(c: int, dtype: torch.dtype, device="cuda") -> dict:
-    """How the float32 WMMA kernel runs at width C on a CUDA device, for
-    reports: the row tile (the grid is ceil(M / row_tile) blocks), a
-    block's dynamic shared memory, and the blocks resident on one SM."""
-    plan = (ctypes.c_int * 3)()
-    with torch.cuda.device(device):
-        build.check(build.kernel("ln_geglu_ff", "emox_ln_geglu_ff_plan")(c, _DTYPES[dtype], plan),
-                    "ln_geglu_ff plan")
-    return {"row_tile": plan[0], "smem_bytes": plan[1], "blocks_per_sm": plan[2]}
 
 
 # ---- K6: GEGLU feed-forward without LN or residual (TPU `_ff_kernel`) --------------
@@ -287,7 +314,7 @@ class _GegluFF(torch.autograd.Function):
 def fused_geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                    b2: torch.Tensor) -> torch.Tensor:
     """GEGLU_FF(x) on x [..., C], differentiable. Launches a kernel for CUDA
-    tensors (ff_sm90 in bf16, the WMMA kernel in float32) and runs
+    tensors (ff_sm90 in bf16, ff_f32_sm90 in float32) and runs
     geglu_ff_plain for CPU tensors."""
     _on_card_or_cpu("fused_geglu_ff", x)
     return _GegluFF.apply(x, w1, b1, w2, b2)
@@ -317,7 +344,7 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tens
     The reference sends "auto" and even "fused" to XLA where its
     weights-resident kernel would not fit VMEM (C > 448); that budget does
     not carry over, and on the card K6 takes every width its kernels take
-    (bfloat16 C % 8, F % 8; float32 C % 16, F % 64). Any other impl raises
+    (bfloat16 C % 8, F % 8; float32 C % 4, F % 4). Any other impl raises
     ValueError."""
     impl = impl or ff_default_impl()
     if impl in ("auto", "fused"):

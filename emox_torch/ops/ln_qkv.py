@@ -11,8 +11,10 @@ its calls on the card:
       - bfloat16 -> `ln_qkv_sm90` (emox_torch/csrc/ln_qkv_sm90.cu): LN in
         the prologue of one wgmma + TMA GEMM over the three projections'
         column tiles (C % 8, C <= 1280, inner % 8);
-      - float32 -> `ln_qkv_wmma` (emox_torch/csrc/ln_qkv.cu, WMMA with
-        3xTF32 products; C % 16, inner % 16);
+      - float32 -> `ln_qkv_f32_sm90` (ln_qkv_sm90.cu's float32 entry): an
+        LN pass and one split launch write xn's and the weights' two bf16
+        parts, then one wgmma + TMA GEMM over the split (every product as
+        hi hi + hi lo + lo hi) writes q, k, v (C % 4, inner % 4, any C);
   * on a CPU tensor it runs `ln_qkv_plain`, the same function with the
     kernels' rounding points in plain PyTorch.
 
@@ -35,13 +37,14 @@ import torch.nn.functional as F
 
 from emox_torch.ops import build
 from emox_torch.ops.attention import _on_card_or_cpu, _stream
-from emox_torch.ops.ff import _sm_count
+from emox_torch.ops.ff import _sm_count, parts_scratch, parts_width, ring_bytes
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 SM90_MAX_C = 1280  # the x tile [rows, C] of ln_qkv_sm90.cu stays in shared memory
 # ln_qkv_sm90.cu's tiles by the 64-column chunks of C: (most chunks, BM rows, BN columns, ring stages)
 _SM90_TILES = ((5, 256, 160, 3), (10, 128, 128, 4), (20, 64, 128, 4))
+_F32_ROWS, _F32_COLS, _F32_STAGES = 128, 160, 3  # ln_qkv_sm90.cu's float32 GEMM: kBM, kBN, kStages
 
 
 def sw128_channel(chunk: int, row: int, unit: int) -> int:
@@ -120,28 +123,44 @@ def ln_qkv_sm90(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
 ln_qkv_sm90.launches = 0  # kernel launches since the last reset
 
 
-def ln_qkv_wmma(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
-    """Launch the float32 WMMA kernel (ln_qkv.cu) on x [M, C] and its
-    weights, contiguous and 16-byte aligned."""
+def ln_qkv_f32_sm90_plan(m: int, c: int, inner: int) -> dict:
+    """How ln_qkv_sm90.cu runs float32 on x [m, c] with three [inner, c]
+    weights: the parts' width (C padded to 64: the scratch xp [m, 2w] and
+    wp [3 inner, 2w]), the GEMM's tiles (128 rows x 160 columns, each
+    column tile inside one of q, k, v: ceil(inner / 160) per output), its
+    ring (3 stages, both parts in a stage) and shared memory, and its grid."""
+    tiles = -(-inner // _F32_COLS)
+    return {"width": parts_width(c), "bm": _F32_ROWS, "bn": _F32_COLS, "stages": _F32_STAGES,
+            "smem_bytes": ring_bytes(_F32_COLS, _F32_STAGES, 2), "col_tiles": 3 * tiles,
+            "blocks": 3 * tiles * -(-m // _F32_ROWS)}
+
+
+def ln_qkv_f32_sm90(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
+    """Launch ln_qkv_sm90.cu's float32 entry on x [M, C] and its weights,
+    contiguous and 16-byte aligned, with the bf16 scratch of the parts:
+    xn's [M, 2w] and the three weights' [3 inner, 2w], split at every call
+    (an optimizer step changes the weights in place)."""
     m, c = x.shape
     inner = wq.shape[0]
+    w = parts_width(c)
     outs = [torch.empty((m, inner), device=x.device, dtype=x.dtype) for _ in range(3)]
+    xp, wp = parts_scratch(m, w, x.device), parts_scratch(3 * inner, w, x.device)
     with torch.cuda.device(x.device):
-        err = build.kernel("ln_qkv")(
+        err = build.kernel("ln_qkv_sm90", "emox_ln_qkv_f32_sm90")(
             x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
-            *(o.data_ptr() for o in outs), m, c, inner, float(eps), _DTYPES[x.dtype], _stream(x),
+            *(o.data_ptr() for o in outs), xp.data_ptr(), wp.data_ptr(), m, c, inner, float(eps), _stream(x),
         )
-    build.check(err, "ln_qkv_wmma")
-    ln_qkv_wmma.launches += 1
+    build.check(err, "ln_qkv_f32_sm90")
+    ln_qkv_f32_sm90.launches += 1
     return tuple(outs)
 
 
-ln_qkv_wmma.launches = 0  # kernel launches since the last reset
+ln_qkv_f32_sm90.launches = 0  # kernel launches since the last reset
 
 
 def _qkv_kernel(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
     """Check the inputs, then launch the kernel of x's type: bf16 ->
-    ln_qkv_sm90, float32 -> ln_qkv_wmma."""
+    ln_qkv_sm90, float32 -> ln_qkv_f32_sm90."""
     c = x.shape[-1]
     inner = wq.shape[0]
     if x.dtype not in _DTYPES:
@@ -151,15 +170,15 @@ def _qkv_kernel(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
         raise TypeError("ln_qkv needs every weight on x's device and in x's type")
     shapes = [tuple(p.shape) for p in params]
     bf16 = x.dtype == torch.bfloat16
-    mult = 8 if bf16 else 16
+    mult = 8 if bf16 else 4  # 16-byte rows
     if shapes != [(c,), (c,)] + [(inner, c)] * 3 or c % mult or inner % mult or (bf16 and c > SM90_MAX_C):
         raise ValueError(f"ln_qkv shapes: x [.., {c}], weights {shapes} (bfloat16: C % 8, C <= {SM90_MAX_C}, "
-                         "inner % 8 on ln_qkv_sm90; float32: C % 16, inner % 16 on the WMMA kernel)")
+                         "inner % 8 on ln_qkv_sm90; float32: C % 4, inner % 4 on ln_qkv_f32_sm90)")
     xm = x.reshape(-1, c).contiguous()
     params = tuple(p.contiguous() for p in params)
     if any(t.data_ptr() % 16 for t in (xm, *params)):
         raise ValueError("ln_qkv needs 16-byte aligned inputs")
-    outs = (ln_qkv_sm90 if bf16 else ln_qkv_wmma)(xm, *params, eps)
+    outs = (ln_qkv_sm90 if bf16 else ln_qkv_f32_sm90)(xm, *params, eps)
     fused_ln_qkv.launches += 1
     shape = x.shape[:-1] + (inner,)
     return tuple(o.reshape(shape) for o in outs)

@@ -39,8 +39,8 @@ def no_kernel_launches():
                            "flash_fwd_f32_sm90", "flash_fwd_d512_f32", "flash_fwd_wide", "flash_bwd_sm90",
                            "flash_bwd_f32_sm90", "flash_bwd_d256_sm90", "flash_bwd_d512_sm90", "flash_bwd_d512_f32",
                            "flash_bwd_wide", "ln_geglu_ff",
-                           "geglu_ff", "ff_sm90", "ff_wmma", "group_norm", "group_norm_stats", "ln_qkv",
-                           "ln_qkv_sm90", "ln_qkv_wmma"}
+                           "geglu_ff", "ff_sm90", "ff_f32_sm90", "group_norm", "group_norm_stats", "ln_qkv",
+                           "ln_qkv_sm90", "ln_qkv_f32_sm90"}
     assert not any(counts.values()), counts
 
 

@@ -4,8 +4,9 @@ attention forward, on the CPU.
 In bf16 both FF functions (`fused_ln_geglu_ff`, K2/K3; `fused_geglu_ff`,
 K6) launch one C entry, `emox_ff_sm90` (emox_torch/csrc/ff_sm90.cu: an LN
 pass, GEMM 1 with the GEGLU epilogue, GEMM 2 with the bias + residual
-epilogue, split over F where its grid is small); in float32 they launch the
-WMMA kernels (ln_geglu_ff.cu, geglu_ff.cu). Here `build.kernel` hands the
+epilogue, split over F where its grid is small); in float32 they launch
+`emox_ff_f32_sm90`, the same kernels on the two-part bf16 split (its card
+path in detail: tests/test_torch_ff_f32_sm90.py). Here `build.kernel` hands the
 wrappers stand-in C entries that read the tensors at the pointers they are
 given, check what the kernels require (16-byte aligned pointers, the
 scratch the wrapper allocates: xn [M, C], h [M, F], the fp32 partials
@@ -68,8 +69,8 @@ def _geglu(a, w1, b1):
 @pytest.fixture
 def card(monkeypatch):
     """The FF wrappers' card path on CPU tensors: `_on_card_or_cpu` says
-    "card", and build.kernel hands out stand-in C entries for ff_sm90,
-    ln_geglu_ff and geglu_ff that record each call. Returns the calls."""
+    "card", and build.kernel hands out stand-in C entries for ff_sm90.cu's
+    bf16 and float32 entries that record each call. Returns the calls."""
     calls = []
 
     def ff_sm90(x, ln_w, ln_b, w1, b1, w2, b2, xn, h, ws, y, m, c, f, splits, eps, stream):
@@ -111,26 +112,22 @@ def card(monkeypatch):
                           xn=None if xn is None else XN.clone(), h=H.clone()))
         return 0
 
-    def ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2, y, m, c, f, eps, dtype, stream):
-        assert dtype == 0 and all(p % 16 == 0 for p in (x, ln_w, ln_b, w1, b1, w2, b2, y))
-        f32 = torch.float32
-        X = _view(x, (m, c), f32)
-        args = (_view(ln_w, (c,), f32), _view(ln_b, (c,), f32), _view(w1, (2 * f, c), f32),
-                _view(b1, (2 * f,), f32), _view(w2, (c, f), f32), _view(b2, (c,), f32))
-        _view(y, (m, c), f32).copy_(tff.ln_geglu_ff_plain(X, *args, eps))
-        calls.append(dict(entry="emox_ln_geglu_ff", m=m, c=c, f=f))
-        return 0
-
-    def geglu_ff(x, w1, b1, w2, b2, y, m, c, f, dtype, stream):
-        assert dtype == 0 and all(p % 16 == 0 for p in (x, w1, b1, w2, b2, y))
+    def ff_f32_sm90(x, ln_w, ln_b, w1, b1, w2, b2, xp, w1p, w2p, hp, ws, y, m, c, f, splits, eps, stream):
+        assert all(p is None or p % 16 == 0 for p in (x, ln_w, ln_b, w1, b1, w2, b2, xp, w1p, w2p, hp, ws, y))
+        assert c % 4 == 0 and f % 4 == 0
         f32 = torch.float32
         args = (_view(w1, (2 * f, c), f32), _view(b1, (2 * f,), f32), _view(w2, (c, f), f32), _view(b2, (c,), f32))
-        _view(y, (m, c), f32).copy_(tff.geglu_ff_plain(_view(x, (m, c), f32), *args))
-        calls.append(dict(entry="emox_geglu_ff", m=m, c=c, f=f))
+        X = _view(x, (m, c), f32)
+        if ln_w is not None:
+            y_ = tff.ln_geglu_ff_plain(X, _view(ln_w, (c,), f32), _view(ln_b, (c,), f32), *args, eps)
+        else:
+            y_ = tff.geglu_ff_plain(X, *args)
+        _view(y, (m, c), f32).copy_(y_)
+        calls.append(dict(entry="emox_ff_f32_sm90", m=m, c=c, f=f, splits=splits, ln=ln_w is not None))
         return 0
 
-    entries = {"ff_sm90": ff_sm90, "ln_geglu_ff": ln_geglu_ff, "geglu_ff": geglu_ff}
-    monkeypatch.setattr(build, "kernel", lambda name, fn_name="": entries[name])
+    entries = {"emox_ff_sm90": ff_sm90, "emox_ff_f32_sm90": ff_f32_sm90}
+    monkeypatch.setattr(build, "kernel", lambda name, fn_name="": entries[fn_name or f"emox_{name}"])
     monkeypatch.setattr(tff, "_on_card_or_cpu", lambda name, x: True)
     monkeypatch.setattr(tff, "_stream", lambda x: 0)
     monkeypatch.setattr(tff, "_sm_count", lambda index: SMS)
@@ -163,7 +160,7 @@ def test_ln_ff_card_path_bf16(card, m, c):
     assert torch.equal(call["xn"], _ln(args[0], args[1], args[2], 1e-5))
     assert call["h"].shape == (m, f) and rel(call["h"], _geglu(call["xn"], args[3], args[4]).float().numpy()) == 0
     counts = ops.launch_counts()
-    assert counts["ln_geglu_ff"] == counts["ff_sm90"] == 1 and counts["ff_wmma"] == counts["geglu_ff"] == 0
+    assert counts["ln_geglu_ff"] == counts["ff_sm90"] == 1 and counts["ff_f32_sm90"] == counts["geglu_ff"] == 0
 
 
 @pytest.mark.parametrize("m,c", [(37, 64), (100, 128)], ids=["below_one_tile", "split_f"])
@@ -193,13 +190,13 @@ def test_geglu_ff_card_path_bf16(card, m, c):
     (call,) = card
     assert (call["m"], call["ln"], call["xn"]) == (2 * m, False, None)
     counts = ops.launch_counts()
-    assert counts["geglu_ff"] == counts["ff_sm90"] == 1 and counts["ff_wmma"] == counts["ln_geglu_ff"] == 0
+    assert counts["geglu_ff"] == counts["ff_sm90"] == 1 and counts["ff_f32_sm90"] == counts["ln_geglu_ff"] == 0
 
 
 @pytest.mark.parametrize("fn", ["ln_geglu_ff", "geglu_ff"])
-def test_float32_takes_the_wmma_kernel(card, fn):
-    """float32 reaches the WMMA entries (ln_geglu_ff.cu with LN, geglu_ff.cu
-    without), counted on ff_wmma, never ff_sm90."""
+def test_float32_takes_ff_f32_sm90(card, fn):
+    """float32 reaches ff_sm90.cu's float32 entry (with LN and without),
+    counted on ff_f32_sm90, never ff_sm90."""
     x, ln_w, ln_b, w1, b1, w2, b2 = _ff_port_args(_ff_inputs(70, 64, seed=3))
     if fn == "ln_geglu_ff":
         got, want = ops.fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2), tff.ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1,
@@ -207,9 +204,9 @@ def test_float32_takes_the_wmma_kernel(card, fn):
     else:
         got, want = ops.fused_geglu_ff(x, w1, b1, w2, b2), tff.geglu_ff_plain(x, w1, b1, w2, b2)
     assert rel(got, want.numpy()) <= FP32_TOL
-    assert [c["entry"] for c in card] == [f"emox_{fn}"]
+    assert [(c["entry"], c["ln"]) for c in card] == [("emox_ff_f32_sm90", fn == "ln_geglu_ff")]
     counts = ops.launch_counts()
-    assert counts["ff_wmma"] == counts[fn] == 1 and counts["ff_sm90"] == 0
+    assert counts["ff_f32_sm90"] == counts[fn] == 1 and counts["ff_sm90"] == 0
 
 
 def test_card_path_gradients(card):
@@ -246,21 +243,23 @@ def test_ff_switch_under_xla_launches_nothing(card, monkeypatch):
             got, _ = tmod(xb)
         want, _ = jmod.apply({"params": params}, jnp.asarray(x))
         counts = ops.launch_counts()
-        assert counts["ff_sm90"] == counts["ln_geglu_ff"] == launches and counts["ff_wmma"] == 0, (env, counts)
+        assert counts["ff_sm90"] == counts["ln_geglu_ff"] == launches and counts["ff_f32_sm90"] == 0, (env, counts)
         assert rel(got, want) <= 4 * BF16_TOL
 
 
 def test_wrappers_raise_for_what_the_kernels_do_not_take(card):
     """The wrappers check before any launch: C and F each a multiple of 8 in
-    bf16 (16-byte rows for TMA), C % 16 and F % 64 in float32 (the WMMA
-    tiles), 16-byte aligned inputs, one type for every weight."""
+    bf16 and of 4 in float32 (16-byte rows for TMA and the split), 16-byte
+    aligned inputs, one type for every weight."""
     p = _ff_inputs(16, 24, seed=12)
     x, ln_w, ln_b, w1, b1, w2, b2 = _ff_port_args(p, torch.bfloat16)
     ops.fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2)  # C 24 is taken in bf16
     with pytest.raises(ValueError, match="C % 8"):
         ops.fused_ln_geglu_ff(x[:, :12], ln_w[:12], ln_b[:12], w1[:, :12], b1, w2[:12], b2[:12])
-    with pytest.raises(ValueError, match="C % 16"):
-        ops.fused_ln_geglu_ff(*_ff_port_args(p))  # C 24 in float32
+    ops.fused_ln_geglu_ff(*_ff_port_args(p))  # C 24 is taken in float32
+    with pytest.raises(ValueError, match="C % 4"):  # C 22 in float32
+        ops.fused_ln_geglu_ff(*(a.float() for a in (x[:, :22], ln_w[:22], ln_b[:22], w1[:, :22], b1, w2[:22],
+                                                     b2[:22])))
     with pytest.raises(ValueError, match="C % 8"):  # F 92: not a multiple of 8
         keep = torch.cat([torch.arange(92), torch.arange(96, 188)])
         ops.fused_geglu_ff(x, w1[keep], b1[keep], w2[:, :92], b2)
@@ -272,7 +271,7 @@ def test_wrappers_raise_for_what_the_kernels_do_not_take(card):
         ops.fused_geglu_ff(x, w1.float(), b1, w2, b2)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.fused_geglu_ff(x.half(), w1.half(), b1.half(), w2.half(), b2.half())
-    assert len(card) == 1
+    assert [c["entry"] for c in card] == ["emox_ff_sm90", "emox_ff_f32_sm90"]
 
 
 def test_sm90_plan_at_the_model_shapes():

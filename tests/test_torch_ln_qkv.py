@@ -108,8 +108,8 @@ def test_wrapper_checks_before_launching():
         tln._qkv_kernel(x.half(), gamma, beta, wq, wk, wv, 1e-5)
     with pytest.raises(TypeError, match="in x's type"):
         tln._qkv_kernel(x, gamma.bfloat16(), beta, wq, wk, wv, 1e-5)
-    with pytest.raises(ValueError, match="C % 16"):
-        tln._qkv_kernel(x[..., :40], gamma[:40], beta[:40], wq[:, :40], wk[:, :40], wv[:, :40], 1e-5)
+    with pytest.raises(ValueError, match="C % 4"):
+        tln._qkv_kernel(x[..., :42], gamma[:42], beta[:42], wq[:, :42], wk[:, :42], wv[:, :42], 1e-5)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         ops.fused_ln_qkv(x.to("meta"), gamma, beta, wq, wk, wv)
     with pytest.raises(ValueError, match="self-attention path"):

@@ -1,8 +1,9 @@
 """The card path of the fused LN + q/k/v (K7), on the CPU.
 
 In bf16 `fused_ln_qkv` launches `emox_ln_qkv_sm90` (emox_torch/csrc/ln_qkv_sm90.cu:
-LN in the prologue of one wgmma + TMA GEMM), in float32 the WMMA kernel
-`emox_ln_qkv` (ln_qkv.cu). Here `build.kernel` hands the wrapper stand-in
+LN in the prologue of one wgmma + TMA GEMM), in float32 the same file's
+`emox_ln_qkv_f32_sm90` (an LN + split pass, then a GEMM on the two-part
+split; in detail in tests/test_torch_ff_f32_sm90.py). Here `build.kernel` hands the wrapper stand-in
 C entries that read the tensors at the pointers they are given and check
 what the kernels require (16-byte aligned pointers, C % 8 and C <= 1280 in
 bf16, the wrapper's column tiles per block). The bf16 stand-in computes as
@@ -157,7 +158,7 @@ def test_quad_transpose_gives_each_lane_one_whole_group():
 @pytest.fixture
 def card(monkeypatch):
     """fused_ln_qkv's card path on CPU tensors: stand-in C entries for
-    ln_qkv_sm90 (bf16) and ln_qkv (float32) that record each call."""
+    ln_qkv_sm90.cu's bf16 and float32 entries that record each call."""
     calls = []
 
     def sm90(x, ln_w, ln_b, wq, wk, wv, q, k, v, m, c, inner, per, eps, stream):
@@ -180,19 +181,19 @@ def card(monkeypatch):
         calls.append(dict(entry="emox_ln_qkv_sm90", m=m, c=c, inner=inner, per=per))
         return 0
 
-    def wmma(x, ln_w, ln_b, wq, wk, wv, q, k, v, m, c, inner, eps, dtype, stream):
-        assert dtype == 0 and all(p % 16 == 0 for p in (x, ln_w, ln_b, wq, wk, wv, q, k, v))
-        assert c % 16 == 0 and inner % 16 == 0
+    def f32(x, ln_w, ln_b, wq, wk, wv, q, k, v, xp, wp, m, c, inner, eps, stream):
+        assert all(p % 16 == 0 for p in (x, ln_w, ln_b, wq, wk, wv, q, k, v, xp, wp))
+        assert c % 4 == 0 and inner % 4 == 0
         f32 = torch.float32
         args = [_view(x, (m, c), f32), _view(ln_w, (c,), f32), _view(ln_b, (c,), f32),
                 *(_view(p, (inner, c), f32) for p in (wq, wk, wv))]
         for out, want in zip((q, k, v), tln.ln_qkv_plain(*args, eps=eps)):
             _view(out, (m, inner), f32).copy_(want)
-        calls.append(dict(entry="emox_ln_qkv", m=m, c=c, inner=inner))
+        calls.append(dict(entry="emox_ln_qkv_f32_sm90", m=m, c=c, inner=inner))
         return 0
 
-    entries = {"ln_qkv_sm90": sm90, "ln_qkv": wmma}
-    monkeypatch.setattr(build, "kernel", lambda name, fn_name="": entries[name])
+    entries = {"emox_ln_qkv_sm90": sm90, "emox_ln_qkv_f32_sm90": f32}
+    monkeypatch.setattr(build, "kernel", lambda name, fn_name="": entries[fn_name or f"emox_{name}"])
     monkeypatch.setattr(tln, "_on_card_or_cpu", lambda name, x: True)
     monkeypatch.setattr(tln, "_stream", lambda x: 0)
     monkeypatch.setattr(tln, "_sm_count", lambda index: SMS)
@@ -223,20 +224,20 @@ def test_bf16_reaches_ln_qkv_sm90(card, m, c, inner):
     assert [d["entry"] for d in card] == ["emox_ln_qkv_sm90"]
     for g, w in zip(got, want):
         assert g.shape == (m, inner) and rel(g.float(), w.float().numpy()) <= BF16_TOL
-    assert (ops.fused_ln_qkv.launches, tln.ln_qkv_sm90.launches, tln.ln_qkv_wmma.launches) == (1, 1, 0)
+    assert (ops.fused_ln_qkv.launches, tln.ln_qkv_sm90.launches, tln.ln_qkv_f32_sm90.launches) == (1, 1, 0)
 
 
-def test_float32_reaches_the_wmma_kernel(card):
+def test_float32_reaches_ln_qkv_f32_sm90(card):
     args = _inputs(50, 64, 32, torch.float32)
     got = ops.fused_ln_qkv(*args)
-    assert [d["entry"] for d in card] == ["emox_ln_qkv"]
+    assert [d["entry"] for d in card] == ["emox_ln_qkv_f32_sm90"]
     for g, w in zip(got, tln.ln_qkv_plain(*args)):
         assert rel(g, w.numpy()) <= FP32_TOL
-    assert (ops.fused_ln_qkv.launches, tln.ln_qkv_sm90.launches, tln.ln_qkv_wmma.launches) == (1, 0, 1)
+    assert (ops.fused_ln_qkv.launches, tln.ln_qkv_sm90.launches, tln.ln_qkv_f32_sm90.launches) == (1, 0, 1)
 
 
 def test_what_neither_kernel_takes_raises(card):
-    """C or inner not a multiple of 8 (bf16) or 16 (float32), bf16 C past
+    """C or inner not a multiple of 8 (bf16) or 4 (float32), bf16 C past
     1280 and unaligned rows raise before any launch: no fallback."""
     with pytest.raises(ValueError, match="C % 8"):
         ops.fused_ln_qkv(*_inputs(8, 36, 32, torch.bfloat16))
@@ -244,8 +245,8 @@ def test_what_neither_kernel_takes_raises(card):
         ops.fused_ln_qkv(*_inputs(8, 64, 36, torch.bfloat16))
     with pytest.raises(ValueError, match="C <= 1280"):
         ops.fused_ln_qkv(*_inputs(8, 1288, 64, torch.bfloat16))
-    with pytest.raises(ValueError, match="C % 16"):
-        ops.fused_ln_qkv(*_inputs(8, 40, 32, torch.float32))
+    with pytest.raises(ValueError, match="C % 4"):
+        ops.fused_ln_qkv(*_inputs(8, 42, 32, torch.float32))
     _, *weights = _inputs(8, 64, 64, torch.bfloat16)
     unaligned = torch.zeros(8 * 64 + 4, dtype=torch.bfloat16)[4:].view(8, 64)  # 8 bytes past a 16-byte boundary
     with pytest.raises(ValueError, match="16-byte aligned"):
