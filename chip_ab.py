@@ -17,7 +17,10 @@ one and at 16 512^2 images; the float32 attention at head dims <= 256 (the
 forward at the float32 step's strided SD-1.5 shape and packed flagship
 shape, the backward at the float32 train step's shape) and the bf16
 backward at head dims 160 (SD-1.5's level 2 under EMOX_ATTENTION_IMPL=pallas)
-and 256 (the small preset's VAE mid-attention); the feed-forward
+and 256 (the small preset's VAE mid-attention, and in float32); the float32
+head-dim-512 backward at the float32 stage-5 step's N 1 x 1024; the wide
+kernels at d 640 (bf16 at N 1 x 4096, float32 at N 1 x 1024), forward and
+backward; the feed-forward
 (fused_ln_geglu_ff, K2/K3, and fused_geglu_ff, K6) in float32 at the float32
 step's level 0 and in bf16 at the flagship's level 0 and mid; and K7 in
 float32 at M 4096, C 320 and M 2048, C 1280. `--only` keeps the checks
@@ -27,7 +30,8 @@ for the FF and float32 K7). Each check's `ms` is its chip_smoke.py time
 without the host's cost of issuing it (calls captured in one CUDA graph,
 timed by this checkout's code for both trees), and `checksum` a hash of the
 call's output bits on inputs drawn from a fixed seed, the same in both
-trees. Prints one JSON line per check and turn, then one summary line per
+trees (a backward's o and lse come from the plain forward, so that its
+checksum is the backward kernel's alone). Prints one JSON line per check and turn, then one summary line per
 check: each checkout's faster turn, their ratio, and whether the two
 checkouts gave the same bits. Exits non-zero where a check fails in either
 checkout or where there is no card.
@@ -63,6 +67,15 @@ CHECKS = [
     ("f32_bwd_packed_2x1024x2048", "check_flash_bwd", (2, 1024, 2048), {"c": 320, "heads": 5, "dtype": "float32"}),
     ("bwd_d160_strided_16x256x512", "check_flash_strided_bwd", (16, 256, 512), {"heads": 8, "d": 160}),
     ("bwd_d256_packed_4x1024", "check_flash_bwd", (4, 1024, 1024), {"c": 256, "heads": 1}),
+    ("bwd_d256_f32_packed_1x1024", "check_flash_bwd", (1, 1024, 1024), {"c": 256, "heads": 1, "dtype": "float32"}),
+    # the float32 head-dim-512 backward (the float32 stage-5 step's shape) and
+    # the wide kernels at d 640: bf16 at 512^2 (N 1 x 4096), float32 at the
+    # width-640 VAE's stage-5 step (N 1 x 1024), forward and backward
+    ("d512_bwd_f32_1x1024", "check_flash_bwd", (1, 1024, 1024), {"c": 512, "heads": 1, "dtype": "float32"}),
+    ("wide_fwd_1x4096", "check_flash", (1, 4096, 4096), {"c": 640, "heads": 1}),
+    ("wide_fwd_f32_1x1024", "check_flash", (1, 1024, 1024), {"c": 640, "heads": 1, "dtype": "float32"}),
+    ("wide_bwd_1x4096", "check_flash_bwd", (1, 4096, 4096), {"c": 640, "heads": 1}),
+    ("wide_bwd_f32_1x1024", "check_flash_bwd", (1, 1024, 1024), {"c": 640, "heads": 1, "dtype": "float32"}),
     # the FF: float32 at the float32 step's level 0, both functions; bf16 at
     # the flagship's level 0 (both functions) and mid (GEMM 2 split over F)
     ("ff_f32_4096x320", "check_ff", (4096, 320), {"dtype": "float32"}),
@@ -80,6 +93,7 @@ import hashlib, json, sys, torch
 import chip_smoke as cs
 from emox_torch.ops import (flash_attention, flash_attention_bwd, flash_attention_nlc, flash_attention_nlc_bwd,
                              fused_geglu_ff, fused_group_norm, fused_ln_geglu_ff, fused_ln_qkv, group_norm_stats)
+from emox_torch.ops.attention import attention_nlc_plain, attention_plain
 
 def device_ms(fn, iters=20):
     side = torch.cuda.Stream()
@@ -121,7 +135,8 @@ def call(fn, args, gen, kw):
         q, k, v = (torch.randn((n, l, c), generator=gen, device="cuda").to(dt) for l in (lq, lk, lk))
         if fn == "check_flash":
             return lambda: flash_attention_nlc(q, k, v, heads)
-        o, lse = flash_attention_nlc(q, k, v, heads, return_lse=True)
+        # the backward's o and lse from the plain forward: the same inputs in both trees
+        o, lse = attention_nlc_plain(q, k, v, heads, (c // heads) ** -0.5)
         dout = torch.randn((n, lq, c), generator=gen, device="cuda").to(dt)
         return lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads)
     if fn in ("check_flash_strided", "check_flash_strided_bwd"):
@@ -132,7 +147,7 @@ def call(fn, args, gen, kw):
         q, k, v = split(lq), split(lk), split(lk)
         if fn == "check_flash_strided":
             return lambda: flash_attention(q, k, v)
-        o, lse = flash_attention(q, k, v, return_lse=True)
+        o, lse = attention_plain(q, k, v, d ** -0.5)
         dout = split(lq)
         return lambda: flash_attention_bwd(q, k, v, o, lse, dout)
     if fn in ("check_ff", "check_geglu_ff"):

@@ -35,10 +35,16 @@ raises and the script exits non-zero. Phases:
      blocks a tile) at head dim 512 in float32, timed at N 1 and 16 x 4096
      tokens with device_ms; head dims 257-511 are padded to 512 (d 384 at
      L 4096 and d 300 strided, both types, forward and backward); head dims
-     above 512 on flash_attn_wide.cu (flash_fwd_wide, flash_bwd_wide: d 640
-     timed in float32 at the width-640 VAE's N 1 x 1024 of stage 5 and in
-     bf16 at N 1 x 4096, d 1024 packed and 576 strided in both types and
-     directions). The backward runs on one kernel per
+     above 512 on flash_fwd_wide.cu and flash_attn_wide.cu (flash_fwd_wide:
+     up to d 2240 in bf16 and 1152 in float32 a cluster of column slices
+     that computes S once, wider a block a 128-column slice; flash_fwd_wide
+     and flash_bwd_wide: d 640 timed in float32 at the width-640 VAE's N 1 x
+     1024 of stage 5 and in bf16 at N 1 x 4096, twice for the same bits, d
+     1024 packed and 576 strided in both types and directions, the forward
+     twice; d 768, 896, 1024 and 1152 forward (other cluster shapes, the
+     keys split in two, single-stage rings) and one key tile, 2304 on the
+     slice forward). The
+     backward runs on one kernel per
      type for both layouts too: flash_bwd_sm90 (bf16, head dim <= 128,
      wgmma + TMA) at the training shapes of both (timed), at head dims 4,
      40, 64, 80 and 128 on both layouts with ragged Lq/Lk, with dq only and
@@ -52,9 +58,11 @@ raises and the script exits non-zero. Phases:
      at d 160, 192 and 256 untimed. Head dim 512 (the VAE's
      mid-attention, which stage 5 trains): flash_bwd_d512_sm90 (bf16,
      wgmma + TMA, a cluster of two blocks a tile) at stage 5's shape (N 4,
-     L 4096) and a ragged L 2304 with device_ms, flash_bwd_d512_f32 at N 1,
-     L 1024, each timed and twice for the same bits, with dq only, dk/dv
-     only and Lq != Lk in both types. The fused-norm kernels: K7 on
+     L 4096) and a ragged L 2304 with device_ms, flash_bwd_d512_f32 (the
+     same source's kernels on the two-part split, a cluster of four blocks
+     of 128 columns a tile) at N 1, L 1024 with device_ms and at N 2 x
+     2304, each timed and twice for the same bits, with dq only, dk/dv only
+     and Lq != Lk in both types (float32 twice). The fused-norm kernels: K7 on
      ln_qkv_sm90 (bf16, LN in the prologue of a wgmma + TMA GEMM) at the
      four 256^2 and four 512^2 self-attention shapes, ragged M and C, twice
      for the same bits, ln_qkv_f32_sm90 (float32: an LN + split pass, then
@@ -594,7 +602,14 @@ def _issued_flops(kernel: str, dtype, n: int, heads: int, lq: int, lk: int, d: i
     unit = 2.0 * n * heads * lq * lk  # one [Lq, Lk] product over one head-dim column
     parts = _parts(dtype)
     if kernel in ("flash_fwd_wide", "flash_bwd_wide"):
+        import torch
+        from emox_torch.ops import attention
+
         slices, width, depth = -(-d // 128), _padded(d, 128), _padded(d)
+        # the plan takes the operand parts (float32's hi and lo), not the products
+        fwd = attention.wide_plan(n, heads, lq, lk, d, 2 if dtype == torch.float32 else 1)["fwd"]
+        if kernel == "flash_fwd_wide" and fwd["cluster"] > 1:  # S once, then P v, over the slices' columns
+            return unit * 2 * fwd["width"] * parts
         # every slice's block: S (and dP) over every 64-column chunk, then its slice's products
         products = slices * depth + width if kernel == "flash_fwd_wide" else 2 * slices * depth * 2 + 3 * width
         return unit * products * parts
@@ -605,7 +620,7 @@ def _issued_flops(kernel: str, dtype, n: int, heads: int, lq: int, lk: int, d: i
     if kernel == "flash_fwd_d512_f32":
         return unit * 2 * 512 * parts
     dp = 512 if d > 256 else (256 if d > 128 else _padded(d))
-    return unit * 7 * dp * parts  # the backward pairs: S and dP in both kernels, 7 products
+    return unit * 7 * dp * parts  # the backward pairs (and four): S and dP in both kernels, 7 products
 
 
 def _peak(dtype) -> float:
@@ -614,11 +629,12 @@ def _peak(dtype) -> float:
     return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
 
 
-def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0):
+def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0, repeat=False):
     """The packed layout's forward (flash_attention_nlc: the kernel of
     _fwd_kernel) against attention_nlc_plain (fp32 math on the same inputs,
     over batch chunks of `chunk` rows where the full batch's maps would not
-    fit)."""
+    fit); with repeat, twice on the same inputs (the same bits of out and
+    lse)."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_nlc_plain, flash_attention_nlc
@@ -643,7 +659,9 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0
            "lq": lq, "lk": lk, "c": c, "heads": heads, "head_dim": d, "max_abs_err": err, "tol": tol,
            "lse_max_abs_err": lse_err, "lse_tol": 1e-3}
     del ref, ref_lse
-    if not (err <= tol and lse_err <= 1e-3 and math.isfinite(err)):
+    if repeat:
+        res["bit_identical"] = _same_bits((out, lse), flash_attention_nlc(q, k, v, heads, return_lse=True))
+    if not (err <= tol and lse_err <= 1e-3 and math.isfinite(err) and res.get("bit_identical", True)):
         emit(res)
         raise AssertionError(f"{res['kernel']} (packed) disagrees with its plain version: {res}")
     if timing:
@@ -667,7 +685,7 @@ def check_flash(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chunk=0
 # the kernels whose rows carry device_ms, the bound of the products they
 # issue and their launch plan
 DEVICE_TIMED = ("flash_fwd_f32_sm90", "flash_fwd_d512_f32", "flash_fwd_wide", "flash_bwd_f32_sm90",
-                "flash_bwd_d256_sm90", "flash_bwd_d512_sm90", "flash_bwd_wide")
+                "flash_bwd_d256_sm90", "flash_bwd_d512_sm90", "flash_bwd_d512_f32", "flash_bwd_wide")
 
 
 def _device_extras(res, dtype, n, heads, lq, lk, d, nbytes, run) -> None:
@@ -685,14 +703,18 @@ def _device_extras(res, dtype, n, heads, lq, lk, d, nbytes, run) -> None:
     if kernel == "flash_fwd_d512_f32":
         plan = attention.fwd_d512_f32_plan(n, heads, lq, lk)
         res.update(_d512_plan(plan, plan["cluster"]))
-    elif kernel in ("flash_bwd_d512_sm90", "flash_bwd_d256_sm90"):
-        plan = attention.bwd_d512_plan(n, heads, lq, lk, *((128, parts) if kernel == "flash_bwd_d256_sm90" else ()))
+    elif kernel in ("flash_bwd_d512_sm90", "flash_bwd_d256_sm90", "flash_bwd_d512_f32"):
+        shape = {"flash_bwd_d512_sm90": (), "flash_bwd_d256_sm90": (128, parts), "flash_bwd_d512_f32": (128, 2, 4)}
+        plan = attention.bwd_d512_plan(n, heads, lq, lk, *shape[kernel])
         res.update(_d512_plan(plan["dq"], plan["cluster"]), dkv_grid_blocks=math.prod(plan["dkv"]["grid"]),
                    dkv_smem_bytes=plan["dkv"]["smem"])
     elif kernel in ("flash_fwd_wide", "flash_bwd_wide"):
         plan = attention.wide_plan(n, heads, lq, lk, d, parts)
         first = plan["fwd" if kernel == "flash_fwd_wide" else "dq"]
-        res.update(grid_blocks=math.prod(first["grid"]), smem_bytes=first["smem"], slices=plan["slices"])
+        res.update(grid_blocks=math.prod(first["grid"]), smem_bytes=first["smem"],
+                   slices=first.get("slices", plan["slices"]), cluster=first.get("cluster", 1), stages=first["stages"])
+        if kernel == "flash_fwd_wide":
+            res.update(slice_cols=first["slice_cols"], key_parts=first["key_parts"])
         if kernel == "flash_bwd_wide":
             res.update(dkv_grid_blocks=math.prod(plan["dkv"]["grid"]), dkv_smem_bytes=plan["dkv"]["smem"])
     else:
@@ -818,10 +840,11 @@ def _packed_heads(gen, n, l, heads, d, dtype):
     return t.view(n, l, heads, d).transpose(1, 2)
 
 
-def check_flash_strided(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
+def check_flash_strided(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True, repeat=False):
     """The strided layout's forward (flash_attention: the kernel of
     _fwd_kernel) on head-split views of packed tokens against its plain
-    version (fp32 math on the same inputs)."""
+    version (fp32 math on the same inputs); with repeat, twice on the same
+    inputs (the same bits)."""
     import torch
     import torch.nn.functional as F
     from emox_torch.ops.attention import attention_plain, flash_attention
@@ -841,7 +864,9 @@ def check_flash_strided(gen, n, lq, lk, heads=8, d=40, dtype=None, timing=True):
     res = {"kernel": _fwd_kernel(dtype, d), "layout": "strided", "dtype": str(dtype).split(".")[-1], "n": n,
            "lq": lq, "lk": lk, "c": heads * d, "heads": heads, "head_dim": d, "max_abs_err": err, "tol": tol,
            "lse_max_abs_err": lse_err, "lse_tol": 1e-3, "out_strides_packed": out.stride() == q.stride()}
-    if not (err <= tol and lse_err <= 1e-3 and math.isfinite(err)):
+    if repeat:
+        res["bit_identical"] = _same_bits((out, lse), flash_attention(q, k, v, return_lse=True))
+    if not (err <= tol and lse_err <= 1e-3 and math.isfinite(err) and res.get("bit_identical", True)):
         emit(res)
         raise AssertionError(f"{res['kernel']} (strided) disagrees with its plain version: {res}")
     if timing:
@@ -1373,31 +1398,42 @@ def phase_kernels():
     # K4 at head dim 512, the VAE's mid-attention that stage 5 trains: bf16 on
     # flash_bwd_d512_sm90 at stage 5's 512^2 shape (batch 4, 4096
     # tokens) and at 384^2 (2304 tokens, ragged against the 64-row tiles), each
-    # twice for the same bits, with device_ms; float32 on flash_bwd_d512_f32 at
-    # one 256^2 image (the float32 step); dq only, dk/dv only and Lq != Lk in
-    # both types
+    # twice for the same bits, with device_ms; float32 on flash_bwd_d512_f32 (a
+    # cluster of four a tile) at one 256^2 image (the float32 step) and at
+    # 384^2, twice, with device_ms; dq only, dk/dv only and Lq != Lk in both
+    # types, float32 twice
     results["flash_bwd_d512"] = check_flash_bwd(gen, 4, 4096, 4096, c=512, heads=1, chunk=1, repeat=True)
     results["flash_bwd_d512_2304"] = check_flash_bwd(gen, 2, 2304, 2304, c=512, heads=1, chunk=1, repeat=True)
     results["flash_bwd_d512_f32"] = check_flash_bwd(gen, 1, 1024, 1024, c=512, heads=1, dtype=torch.float32,
                                                     repeat=True)
+    results["flash_bwd_d512_f32_2304"] = check_flash_bwd(gen, 2, 2304, 2304, c=512, heads=1, dtype=torch.float32,
+                                                         chunk=1, repeat=True)
     for dtype in (torch.bfloat16, torch.float32):
-        check_flash_bwd(gen, 2, 1000, 2100, c=1024, heads=2, dtype=dtype, timing=False)
-        check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dkv=False)
-        check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dq=False)
-    # head dims above 512 on flash_attn_wide.cu: d 640 (a VAE of last width 640)
-    # timed in float32 at its stage-5 step at 256^2 (one image of 1024 tokens,
+        f32 = dtype == torch.float32
+        check_flash_bwd(gen, 2, 1000, 2100, c=1024, heads=2, dtype=dtype, timing=False, repeat=f32)
+        check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dkv=False, repeat=f32)
+        check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dq=False, repeat=f32)
+    # head dims above 512 on flash_fwd_wide.cu and flash_attn_wide.cu: d 640 (a
+    # VAE of last width 640) timed in float32 at its stage-5 step at 256^2 (one image of 1024 tokens,
     # the kernels' main path) and in bf16 at 512^2 (4096 tokens), forward and
     # backward (twice, the same bits); d 1024 packed and d 576 strided in both
-    # types and both directions, ragged, dq only and dk/dv only
-    results["flash_wide_f32"] = check_flash(gen, 1, 1024, 1024, c=640, heads=1, dtype=torch.float32)
+    # types and both directions, ragged, the forward twice, dq only and dk/dv
+    # only; the cluster forward's other shapes (d 768, 896, 1024, 1152: other
+    # slice widths and cluster sizes, the keys split in two over an odd count
+    # of tiles, single-stage rings; one key tile, where bf16's second
+    # warpgroup has none) and the slice forward past the cluster's reach (d 2304)
+    results["flash_wide_f32"] = check_flash(gen, 1, 1024, 1024, c=640, heads=1, dtype=torch.float32, repeat=True)
     results["flash_bwd_wide_f32"] = check_flash_bwd(gen, 1, 1024, 1024, c=640, heads=1, dtype=torch.float32,
                                                     repeat=True)
-    results["flash_wide"] = check_flash(gen, 1, 4096, 4096, c=640, heads=1)
+    results["flash_wide"] = check_flash(gen, 1, 4096, 4096, c=640, heads=1, repeat=True)
     results["flash_bwd_wide"] = check_flash_bwd(gen, 1, 4096, 4096, c=640, heads=1, repeat=True)
     for dtype in (torch.bfloat16, torch.float32):
-        check_flash(gen, 2, 1000, 2100, c=1024, heads=1, dtype=dtype, timing=False)
+        check_flash(gen, 2, 1000, 2100, c=1024, heads=1, dtype=dtype, timing=False, repeat=True)
         check_flash_bwd(gen, 2, 1000, 2100, c=1024, heads=1, dtype=dtype, timing=False, repeat=True)
-        check_flash_strided(gen, 2, 1000, 2100, heads=2, d=576, dtype=dtype, timing=False)
+        check_flash_strided(gen, 2, 1000, 2100, heads=2, d=576, dtype=dtype, timing=False, repeat=True)
+        for d in (768, 896, 1024, 1152, 2304):
+            check_flash(gen, 1, 1000, 1030, c=d, heads=1, dtype=dtype, timing=False, repeat=True)
+        check_flash(gen, 1, 70, 45, c=640, heads=1, dtype=dtype, timing=False, repeat=True)
         check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=576, dtype=dtype, timing=False)
         check_flash_bwd(gen, 2, 300, 333, c=1280, heads=2, dtype=dtype, timing=False, need_dkv=False)
         check_flash_bwd(gen, 2, 300, 333, c=1280, heads=2, dtype=dtype, timing=False, need_dq=False)
@@ -2399,12 +2435,12 @@ _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("ln_qkv", ("ln_qkv_kernel", "ln_qkv_f32::")),
     ("float32 split", ("split_rows", "split_matrices", "ln_rows_kernel<float")),  # ahead of "sm90::"
     ("flash_bwd_sm90", ("bwd_sm90::",)),  # ahead of the forward's "sm90::"
+    ("flash_bwd_d512_f32", ("dq_kernel<128, 2, 4", "dkv_kernel<128, 2, 4")),  # ahead of the pair's namespace
     ("flash_bwd_d512_sm90", ("bwd_d512_sm90::",)),
-    ("flash_bwd_d512_f32", ("bwd_d512::",)),
     ("flash_fwd_d512_f32", ("fwd_d512_f32::",)),
     ("ff_sm90", ("ff_sm90::", "ln_rows_kernel<__nv_bfloat16")),  # the FF's GEMMs and LN pass, ahead of "sm90::"
     ("flash_fwd_sm90", ("sm90::",)),
-    ("flash_attn_wide", ("wide::",)),
+    ("flash_attn_wide", ("wide::",)),  # both wide files' kernels
     ("convolution", ("conv", "fprop", "dgrad", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas", "wgmma")),
     ("softmax", ("softmax",)),
@@ -2773,7 +2809,8 @@ def main(argv=None) -> int:
     shape = lambda k: {x: k[x] for x in ("function", "layout", "dtype", "n", "lq", "lk", "l", "c", "heads", "head_dim",
                                          "m", "f", "row_tile", "col_tile", "col_tiles_per_block", "grid_blocks",
                                          "smem_bytes", "blocks_per_sm", "gemm1_blocks", "gemm2_blocks", "splits",
-                                         "sms", "regime", "cluster", "chunks", "slices", "library_backend", "dkv_grid_blocks", "dkv_smem_bytes",
+                                         "sms", "regime", "cluster", "stages", "chunks", "slices", "slice_cols",
+                                         "key_parts", "library_backend", "dkv_grid_blocks", "dkv_smem_bytes",
                                          "plain_rows_per_call", "unfused_ms", "tflops", "device_tflops",
                                          "gb_per_s") if x in k}
 
@@ -2807,7 +2844,7 @@ def main(argv=None) -> int:
         # head dims above 512, both types, forward and backward; the main rows
         # in float32 at the width-640 VAE's stage-5 step, whose launches they
         # count, the bf16 timing at 4096 tokens in by_shape
-        entry("emox_torch/csrc/flash_attn_wide.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
+        entry("emox_torch/csrc/flash_fwd_wide.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
               kern["flash_wide_f32"], [kern["flash_wide"]]),
         entry("emox_torch/csrc/flash_attn_wide.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
                                                      "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
@@ -2844,8 +2881,9 @@ def main(argv=None) -> int:
         # the timed stage-5 steps at 512^2, float32 in train_step_vae
         entry("emox_torch/csrc/flash_bwd_d512_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
               kern["flash_bwd_d512"], [kern["flash_bwd_d512_2304"]]),
-        entry("emox_torch/csrc/flash_bwd_d512.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
-              kern["flash_bwd_d512_f32"], []),
+        # float32 on the same source's kernels, on the split, a cluster of four a tile
+        entry("emox_torch/csrc/flash_bwd_d512_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508"],
+              kern["flash_bwd_d512_f32"], [kern["flash_bwd_d512_f32_2304"]]),
         # K8a and K8b: one cluster launch per call at the UNet's slabs, two at the VAE's
         entry("emox_torch/csrc/group_norm.cu", ["emox/ops/groupnorm.py:184"],
               kern["gn_l0"], [kern[k] for k in ("gn_l1", "gn_l2", "gn_vae", "gn_512_l0", "gn_512_l1", "gn_512_l2",

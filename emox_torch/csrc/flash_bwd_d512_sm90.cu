@@ -64,6 +64,23 @@
 // dk/dv), and half the accumulator registers. They replace the WMMA kernels
 // that took these head dims before (flash_attn_bwd.cu), which spilled dK and
 // dV at 192 and 256.
+// Float32 at head dims 257-512 (emox_flash_bwd_d512_f32; 257-511 arrive
+// zero-padded to 512) runs the same kernels with HALF 128, PARTS 2 and a
+// cluster of four blocks a tile (CLUSTER 4), each owning 128 of the 512
+// columns: the per-block geometry of float32 d 129-256, on a [B, H, L, 1024]
+// split scratch (hi in columns 0-511, lo in 512-1023). It replaces the 3xTF32
+// WMMA kernels of flash_bwd_d512.cu (17x the fp32 CUDA cores' bound). A
+// HALF 256 float32 pair does not fit: its resident Q/dO and one stage of K/V
+// alone exceed 227 KB. The four S (dP) partials are summed in two rounds of
+// the pair's exchange on the pair's slots: first with rank ^ 1, then the
+// pair sums with rank ^ 2, so every rank holds (p0 + p1) + (p2 + p3) in the
+// same bits: rank 1 adds (p1 + p0) + (p3 + p2), rank 2 (p2 + p3) + (p0 + p1),
+// and IEEE addition is commutative. A slot takes round 1 from rank ^ 1 and
+// round 2 from rank ^ 2, so each round has its own `free` arrival: the
+// receiver frees it to rank ^ 2 once it has read round 1, and to rank ^ 1
+// (for the next tile) once it has read round 2; the receiver's in_full
+// barrier completes twice a tile. The second round costs a round trip a
+// tile and 16 B of barriers (230,488 / 231,520 B a block).
 // Not yet done: a persistent grid (at L 2304, N 2, each kernel's 144 blocks
 // take two waves of 132 SMs), overlap of the exchange with the next tile's
 // products.
@@ -111,21 +128,25 @@ __device__ __forceinline__ void store_rows(TO* out, long long stride, const floa
   }
 }
 
-// HALF: the head-dim columns a block of the pair owns (256 at d 512, 128 at
-// d <= 256); PARTS: 1 (bf16 operands) or 2 (float32 as two bf16 parts, each
-// tile's lo boxes CH boxes after its hi ones, the lo columns of the scratch
-// 2 HALF after the hi ones)
-template <int HALF, int PARTS>
+// HALF: the head-dim columns a block owns (256 at d 512 in bf16, 128 at
+// d <= 256 and in float32 at d 512); PARTS: 1 (bf16 operands) or 2 (float32
+// as two bf16 parts, each tile's lo boxes CH boxes after its hi ones, the lo
+// columns of the scratch CLUSTER HALF after the hi ones); CLUSTER: the blocks
+// of a tile, 2 (a pair) or 4 (two rounds of the pair's exchange)
+template <int HALF, int PARTS, int CLUSTER>
 struct Geometry {
   static constexpr int CH = HALF / 64;                // 64-column boxes a block owns, per part
   static constexpr int BOXES = PARTS * CH;            // boxes of a block's part of a row
-  static constexpr int LO = 2 * HALF;                 // the lo part's first column in the scratch
+  static constexpr int LO = CLUSTER * HALF;           // the lo part's first column in the scratch
+  static constexpr int ROUNDS = CLUSTER / 2;          // exchanges a tile: with rank ^ 1, then rank ^ 2
+  static constexpr int FREE2 = ROUNDS - 1;            // the second round's `free` barriers (per slot)
+  static_assert(CLUSTER == 2 || CLUSTER == 4, "a pair, or two pairs");
 };
 
-// ---- dq: a pair per 64 query rows; 64-key K/V tiles stream -------------------------
-template <int HALF, int PARTS>
+// ---- dq: a cluster per 64 query rows; 64-key K/V tiles stream -------------------------
+template <int HALF, int PARTS, int CLUSTER>
 struct DqSmem {
-  using G = Geometry<HALF, PARTS>;
+  using G = Geometry<HALF, PARTS, CLUSTER>;
   static constexpr int STAGES = 2;
   static constexpr uint32_t q_off = 0;                         // Q: its boxes of 64 rows
   static constexpr uint32_t do_off = q_off + G::BOXES * kBox64;  // dO
@@ -133,29 +154,30 @@ struct DqSmem {
   static constexpr uint32_t ring_off = do_off + G::BOXES * kBox64;
   static constexpr uint32_t xch_off = ring_off + STAGES * stage;  // [warpgroup][S, dP] partials from the peer
   static constexpr uint32_t bar_off = xch_off + 4 * kPart;
-  // q_full, full[STAGES], empty[STAGES], in_full[2], out_free[2]
-  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES + 4) + 1024;  // + alignment slack
+  // q_full, full[STAGES], empty[STAGES], in_full[2], out_free[2] (, out_free2[2])
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES + 4 + 2 * G::FREE2) + 1024;  // + alignment slack
   static_assert(128 * (HALF / 8) * 16 <= STAGES * stage, "dQ_1 staging fits the ring");
   static_assert(bytes <= 232448, "shared memory of a block");
 };
 
-template <int HALF, int PARTS, typename TO>
+template <int HALF, int PARTS, int CLUSTER, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
               const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args<TO> args) {
-  using S = DqSmem<HALF, PARTS>;
-  using G = Geometry<HALF, PARTS>;
+  using S = DqSmem<HALF, PARTS, CLUSTER>;
+  using G = Geometry<HALF, PARTS, CLUSTER>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));  // `base` as a generic pointer
   const uint32_t q_full = base + S::bar_off;
   const uint32_t full0 = q_full + 8;                    // full[s]: K and V of stage s arrived
   const uint32_t empty0 = full0 + 8 * S::STAGES;        // empty[s]: both consumers are done with s
-  const uint32_t in_full0 = empty0 + 8 * S::STAGES;     // in_full[w]: the peer's warpgroup w sent its partials
-  const uint32_t out_free0 = in_full0 + 16;             // out_free[w]: the peer's warpgroup w read ours
+  const uint32_t in_full0 = empty0 + 8 * S::STAGES;     // in_full[w]: the partner's warpgroup w sent its partials
+  const uint32_t out_free0 = in_full0 + 16;             // out_free[w]: rank ^ 1's warpgroup w read ours
+  const uint32_t out_free20 = out_free0 + 16;           // out_free2[w]: rank ^ 2's warpgroup w read ours (CLUSTER 4)
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = (blockIdx.x >> 1) * 64;
+  const int q0 = (blockIdx.x / CLUSTER) * 64;
   const int c0 = rank * HALF;  // this block's head-dim columns
   const int tiles = (args.lk + 63) / 64;
   coop::cluster_group cluster = coop::this_cluster();
@@ -166,13 +188,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 2 * 128);
     }
-    for (int w = 0; w < 2; ++w) {  // armed for the peer's bytes; one arrival frees
+    for (int w = 0; w < 2; ++w) {  // armed for the partner's bytes; one arrival frees
       mbar_init(in_full0 + 8 * w, 1);
       mbar_init(out_free0 + 8 * w, 1);
+      if constexpr (G::FREE2) mbar_init(out_free20 + 8 * w, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster.sync();  // both blocks' barriers exist before either arrives on the other's
+  cluster.sync();  // every block's barriers exist before any arrives on another's
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -245,10 +268,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait0();
       fence_regs<16>(dp);
       send_part<16>(slot + kPart, in_full, peer, dp, t);
-      mbar_wait_cluster(in_full, j & 1);
+      mbar_wait_cluster(in_full, (j * G::ROUNDS) & 1);
       add_part<16>(sc, gbase + (slot - base), t);
       add_part<16>(dp, gbase + (slot - base) + kPart, t);
       warpgroup_sync(wg);
+      if constexpr (G::FREE2) {
+        // round 2: the pair's sums into rank ^ 2's slot, once it has read its round 1
+        const uint32_t far = rank ^ 2;
+        if (t == 0) {
+          mbar_expect_tx(in_full, 2 * kPart);
+          mbar_arrive_cluster(map_rank(out_free20 + 8 * wg, far));
+        }
+        mbar_wait_cluster(out_free20 + 8 * wg, j & 1);
+        send_part<16>(slot, in_full, far, sc, t);
+        send_part<16>(slot + kPart, in_full, far, dp, t);
+        mbar_wait_cluster(in_full, (j * G::ROUNDS + 1) & 1);
+        add_part<16>(sc, gbase + (slot - base), t);
+        add_part<16>(dp, gbase + (slot - base) + kPart, t);
+        warpgroup_sync(wg);
+      }
       if (t == 0) mbar_arrive_cluster(peer_out_free);
 
       // P and dS = P (dP - delta); keys past Lk get P = 0
@@ -303,10 +341,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();  // no block leaves while its partner may still arrive on its barriers
 }
 
-// ---- dk, dv: a pair per 64 keys; 64-row Q/dO tiles stream ------------------------------
-template <int HALF, int PARTS>
+// ---- dk, dv: a cluster per 64 keys; 64-row Q/dO tiles stream ------------------------------
+template <int HALF, int PARTS, int CLUSTER>
 struct DkvSmem {
-  using G = Geometry<HALF, PARTS>;
+  using G = Geometry<HALF, PARTS, CLUSTER>;
   static constexpr int BQ = 64;  // query rows a streamed tile
   static constexpr int STAGES = 2;
   static constexpr uint32_t box = BQ * 128;               // one BQ-row box of Q or dO
@@ -319,18 +357,18 @@ struct DkvSmem {
   static constexpr uint32_t vec_off = ring_off + STAGES * stage;
   static constexpr uint32_t xch_off = vec_off + STAGES * 2 * vec;  // S^T from the peer (then P^T), dP^T from the peer
   static constexpr uint32_t bar_off = xch_off + 2 * part;
-  // kv_full, full[STAGES], empty[STAGES], in_s, in_dp, free_s, free_dp, p_ready
-  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES + 5) + 1024;
+  // kv_full, full[STAGES], empty[STAGES], in_s, in_dp, free_s, free_dp, p_ready (, free_s2, free_dp2)
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES + 5 + 2 * G::FREE2) + 1024;
   static_assert(kLqPad % BQ == 0, "a Q tile never reads past the lse padding");
   static_assert(bytes <= 232448, "shared memory of a block");
 };
 
-template <int HALF, int PARTS, typename TO>
+template <int HALF, int PARTS, int CLUSTER, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv, const Args<TO> args) {
-  using S = DkvSmem<HALF, PARTS>;
-  using G = Geometry<HALF, PARTS>;
+  using S = DkvSmem<HALF, PARTS, CLUSTER>;
+  using G = Geometry<HALF, PARTS, CLUSTER>;
   constexpr int BQ = S::BQ;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -343,10 +381,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t free_s = in_s + 16;               // the peer's warpgroup 1 read P^T from the slot we sent S^T to
   const uint32_t free_dp = in_s + 24;              // the peer's warpgroup 1 read our dP^T partial
   const uint32_t p_ready = in_s + 32;              // our warpgroup 0 wrote P^T over the peer's S^T partial
+  const uint32_t free_s2 = in_s + 40;              // CLUSTER 4: rank ^ 2's warpgroup 0 read its round 1 of S^T
+  const uint32_t free_dp2 = in_s + 48;             // CLUSTER 4: rank ^ 2's warpgroup 1 read its round 1 of dP^T
   const uint32_t slot_s = base + S::xch_off, slot_dp = slot_s + S::part;
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = (blockIdx.x >> 1) * 64;
+  const int k0 = (blockIdx.x / CLUSTER) * 64;
   const int c0 = rank * HALF;
   const int tiles = (args.lq + BQ - 1) / BQ;  // <= lq_pad / BQ
   coop::cluster_group cluster = coop::this_cluster();
@@ -363,6 +403,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_init(free_s, 1);
     mbar_init(free_dp, 1);
     mbar_init(p_ready, 1);
+    if constexpr (G::FREE2) {
+      mbar_init(free_s2, 1);
+      mbar_init(free_dp2, 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster.sync();
@@ -433,8 +477,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (i > 0) mbar_wait_cluster(wg == 0 ? free_s : free_dp, (i - 1) & 1);
       if (t == 0) mbar_expect_tx(wg == 0 ? in_s : in_dp, S::part);  // the peer's partial of this tile
       send_part<BQ / 2>(slot, wg == 0 ? in_s : in_dp, peer, x, t);
-      mbar_wait_cluster(wg == 0 ? in_s : in_dp, i & 1);
+      mbar_wait_cluster(wg == 0 ? in_s : in_dp, (i * G::ROUNDS) & 1);
       add_part<BQ / 2>(x, gbase + (slot - base), t);  // S^T or dP^T = ours + the peer's (the peer: theirs + ours)
+      if constexpr (G::FREE2) {
+        // round 2: the pair's sum into rank ^ 2's slot, once it has read its round 1
+        const uint32_t far = rank ^ 2, in = wg == 0 ? in_s : in_dp, free2 = wg == 0 ? free_s2 : free_dp2;
+        warpgroup_sync(wg);
+        if (t == 0) {
+          mbar_expect_tx(in, S::part);
+          mbar_arrive_cluster(map_rank(free2, far));
+        }
+        mbar_wait_cluster(free2, i & 1);
+        send_part<BQ / 2>(slot, in, far, x, t);
+        mbar_wait_cluster(in, (i * G::ROUNDS + 1) & 1);
+        add_part<BQ / 2>(x, gbase + (slot - base), t);  // (ours + rank ^ 1's) + (rank ^ 2's + rank ^ 3's)
+      }
 
       // P^T (warpgroup 0) or dS^T (warpgroup 1) as the register A operand (lo: its split's second part)
       uint32_t frag[BQ / 16][4], lo[BQ / 16][4];
@@ -496,19 +553,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---- host side ------------------------------------------------------------------
-template <typename Kernel, typename TO>
-static cudaError_t launch_pairs(Kernel kernel, uint32_t smem, int pairs, int heads, int batch, const CUtensorMap* m,
+template <int CLUSTER, typename Kernel, typename TO>
+static cudaError_t launch_pairs(Kernel kernel, uint32_t smem, int tiles, int heads, int batch, const CUtensorMap* m,
                                 const Args<TO>& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * pairs, heads, batch);
+  cfg.gridDim = dim3(CLUSTER * tiles, heads, batch);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.x = CLUSTER;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -520,10 +577,12 @@ static cudaError_t launch_pairs(Kernel kernel, uint32_t smem, int pairs, int hea
 
 // Both kernels on q, dO, k and v as TMA maps of `width` columns and 64-row
 // boxes (st: their (batch, head, row) element strides, in the order q, k, v, dout)
-template <int HALF, int PARTS, typename TO>
+template <int HALF, int PARTS, int CLUSTER, typename TO>
 static cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const long long* st,
                           int width, const Args<TO>& a, int batch, cudaStream_t stream) {
-  static_assert(DkvSmem<HALF, PARTS>::BQ == 64, "the dk/dv kernel's Q and dO tiles are the maps' boxes");
+  using Dq = DqSmem<HALF, PARTS, CLUSTER>;
+  using Dkv = DkvSmem<HALF, PARTS, CLUSTER>;
+  static_assert(Dkv::BQ == 64, "the dk/dv kernel's Q and dO tiles are the maps' boxes");
   CUtensorMap m[4];
   if (!make_map(&m[0], q, batch, a.heads, a.lq, width, st, 64) ||
       !make_map(&m[1], dout, batch, a.heads, a.lq, width, st + 9, 64) ||
@@ -532,13 +591,13 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const voi
     return cudaErrorInvalidValue;
   }
   if (a.dq != nullptr) {
-    const cudaError_t err = launch_pairs(dq_kernel<HALF, PARTS, TO>, DqSmem<HALF, PARTS>::bytes, (a.lq + 63) / 64,
-                                         a.heads, batch, m, a, stream);
+    const cudaError_t err = launch_pairs<CLUSTER>(dq_kernel<HALF, PARTS, CLUSTER, TO>, Dq::bytes, (a.lq + 63) / 64,
+                                                  a.heads, batch, m, a, stream);
     if (err != cudaSuccess) return err;
   }
   if (a.dk != nullptr) {
-    return launch_pairs(dkv_kernel<HALF, PARTS, TO>, DkvSmem<HALF, PARTS>::bytes, (a.lk + 63) / 64, a.heads, batch,
-                        m, a, stream);
+    return launch_pairs<CLUSTER>(dkv_kernel<HALF, PARTS, CLUSTER, TO>, Dkv::bytes, (a.lk + 63) / 64, a.heads,
+                                 batch, m, a, stream);
   }
   return cudaSuccess;
 }
@@ -560,6 +619,23 @@ static Args<TO> make_args(void* dq, void* dk, void* dv, const void* lse, const v
                   heads, lq, lk, lq_pad, head_dim, scale, scale * kLog2e};
 }
 
+// The parts of q, k, v and dout (float32, head_dim columns) into their
+// scratch [batch, heads, L, 2w]; st: the scratch's element strides, in the
+// order q, k, v, dout.
+static cudaError_t split_operands(const void* q, const void* k, const void* v, const void* dout,
+                                  const long long* strides, int batch, int heads, int lq, int lk, int head_dim, int w,
+                                  void* q2, void* k2, void* v2, void* do2, long long* st, cudaStream_t s) {
+  const void* src[4] = {q, k, v, dout};
+  void* parts[4] = {q2, k2, v2, do2};
+  const int lens[4] = {lq, lk, lk, lq};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = split_operand(src[i], strides + 3 * i, batch, heads, lens[i], head_dim, w, parts[i], s);
+    if (err != cudaSuccess) return err;
+    scratch_strides(st + 3 * i, heads, lens[i], w);
+  }
+  return cudaSuccess;
+}
+
 }  // namespace bwd_d512_sm90
 }  // namespace emox
 
@@ -579,7 +655,7 @@ extern "C" int emox_flash_bwd_d512_sm90(const void* q, const void* k, const void
   using namespace emox::bwd_d512_sm90;
   if (bad_args(batch, heads, lq, lk, lq_pad, lse, delta, dk, dv)) return (int)cudaErrorInvalidValue;
   const auto a = make_args<__nv_bfloat16>(dq, dk, dv, lse, delta, strides, heads, lq, lk, lq_pad, 512, scale);
-  return (int)launch<256, 1>(q, k, v, dout, strides, 512, a, batch, static_cast<cudaStream_t>(stream));
+  return (int)launch<256, 1, 2>(q, k, v, dout, strides, 512, a, batch, static_cast<cudaStream_t>(stream));
 }
 
 // Attention backward at head dims 129-256 in bf16 (dtype 1) or float32
@@ -600,17 +676,30 @@ extern "C" int emox_flash_bwd_d256_sm90(const void* q, const void* k, const void
   }
   if (dtype == 1) {
     const auto a = make_args<__nv_bfloat16>(dq, dk, dv, lse, delta, strides, heads, lq, lk, lq_pad, head_dim, scale);
-    return (int)launch<128, 1>(q, k, v, dout, strides, head_dim, a, batch, s);
+    return (int)launch<128, 1, 2>(q, k, v, dout, strides, head_dim, a, batch, s);
   }
-  const void* src[4] = {q, k, v, dout};
-  void* parts[4] = {q2, k2, v2, do2};
-  const int lens[4] = {lq, lk, lk, lq};
   long long st[12];
-  for (int i = 0; i < 4; ++i) {
-    const cudaError_t err = split_operand(src[i], strides + 3 * i, batch, heads, lens[i], head_dim, 256, parts[i], s);
-    if (err != cudaSuccess) return (int)err;
-    scratch_strides(st + 3 * i, heads, lens[i], 256);
-  }
+  const cudaError_t err = split_operands(q, k, v, dout, strides, batch, heads, lq, lk, head_dim, 256, q2, k2, v2, do2,
+                                         st, s);
+  if (err != cudaSuccess) return (int)err;
   const auto a = make_args<float>(dq, dk, dv, lse, delta, strides, heads, lq, lk, lq_pad, head_dim, scale);
-  return (int)launch<128, 2>(q2, k2, v2, do2, st, 512, a, batch, s);
+  return (int)launch<128, 2, 2>(q2, k2, v2, do2, st, 512, a, batch, s);
+}
+
+// float32 attention backward at head dim 512, as emox_flash_bwd_d512_sm90 on
+// float32 operands (16-byte aligned rows), on a cluster of four blocks of
+// 128 columns: q, k, v and dout are split first into q2, k2, v2, do2, bf16
+// scratch of [batch, heads, lq or lk, 1024] elements, contiguous.
+extern "C" int emox_flash_bwd_d512_f32(const void* q, const void* k, const void* v, const void* dout,
+                                       const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                                       const long long* strides, int batch, int heads, int lq, int lk, int lq_pad,
+                                       float scale, void* q2, void* k2, void* v2, void* do2, void* stream) {
+  using namespace emox::bwd_d512_sm90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_args(batch, heads, lq, lk, lq_pad, lse, delta, dk, dv)) return (int)cudaErrorInvalidValue;
+  long long st[12];
+  const cudaError_t err = split_operands(q, k, v, dout, strides, batch, heads, lq, lk, 512, 512, q2, k2, v2, do2, st, s);
+  if (err != cudaSuccess) return (int)err;
+  const auto a = make_args<float>(dq, dk, dv, lse, delta, strides, heads, lq, lk, lq_pad, 512, scale);
+  return (int)launch<128, 2, 4>(q2, k2, v2, do2, st, 1024, a, batch, s);
 }

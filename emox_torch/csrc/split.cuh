@@ -1,6 +1,6 @@
 // The split launches of the float32 kernels that run on bf16 wgmma (the
 // attention kernels of flash_fwd_sm90.cu, flash_bwd_sm90.cu,
-// flash_bwd_d512_sm90.cu and flash_attn_wide.cu; the GEMMs of ff_sm90.cu and
+// flash_bwd_d512_sm90.cu, flash_fwd_wide.cu and flash_attn_wide.cu; the GEMMs of ff_sm90.cu and
 // ln_qkv_sm90.cu): each float32 operand x is written once into bf16 scratch
 // as its two parts (sm90.cuh's split_pair), which the kernel then reads by
 // TMA like any bf16 operand; a row of width w of the scratch holds hi in

@@ -13,8 +13,10 @@ Kernels (each wrapper counts its launches in `.launches`):
                                dim <= 256
   * flash_fwd_d512_f32      -> csrc/flash_fwd_d512_f32.cu: both layouts'
                                forward at head dim 512, float32
-  * flash_fwd_wide          -> csrc/flash_attn_wide.cu: both layouts'
+  * flash_fwd_wide          -> csrc/flash_fwd_wide.cu: both layouts'
                                forward at head dims above 512, both types
+                               (up to 2240 / 1152 in float32: a cluster of
+                               column slices that computes S once)
   * flash_attention_bwd     -> the backward of flash_attention (TPU
                                `_flash_bwd_dq_kernel` and
                                `_flash_bwd_dkv_kernel`), counted per call, by
@@ -32,7 +34,9 @@ Kernels (each wrapper counts its launches in `.launches`):
                                129-256, both types
   * flash_bwd_d512_sm90     -> csrc/flash_bwd_d512_sm90.cu: both layouts'
                                backward at head dim 512, bfloat16
-  * flash_bwd_d512_f32      -> csrc/flash_bwd_d512.cu: the same in float32
+  * flash_bwd_d512_f32      -> csrc/flash_bwd_d512_sm90.cu on a two-part
+                               bf16 split, a cluster of four blocks a tile:
+                               the same in float32
   * flash_bwd_wide          -> csrc/flash_attn_wide.cu: both layouts'
                                backward at head dims above 512, both types
   * fused_ln_geglu_ff       -> LN + GEGLU FF + residual (TPU `_ln_ff_kernel`

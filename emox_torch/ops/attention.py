@@ -33,11 +33,15 @@ each operand (hi + lo, three products for each) unless named:
   * backward, head dim 512 (the VAE's mid-attention, which VAE pretraining,
     stage 5, differentiates): `flash_bwd_d512_sm90` in bfloat16 (the head
     dim split over a cluster of two blocks) and `flash_bwd_d512_f32` in
-    float32 (emox_torch/csrc/flash_bwd_d512.cu, 3xTF32 WMMA);
+    float32 (the same source's kernels on the split, the head dim split
+    over a cluster of four blocks of 128 columns);
   * head dims above 512, both types, forward and backward: `flash_fwd_wide`
-    and `flash_bwd_wide` (emox_torch/csrc/flash_attn_wide.cu: 128-column
-    slices of the outputs, a block a slice, S and dP over the whole head
-    dim in every block).
+    and `flash_bwd_wide` (emox_torch/csrc/flash_fwd_wide.cu and
+    flash_attn_wide.cu: column slices of the outputs; the forward up to
+    2240 (bfloat16) / 1152 (float32) on a
+    cluster of one block a slice that computes S once, exchanging the
+    slices' partials, wider heads and the backward a block a 128-column
+    slice with S and dP over the whole head dim in every block).
 
 Rows that are not 16-byte aligned (a head dim that is not a multiple of 8 in
 bfloat16, of 4 in float32) are zero-padded in the head dim before the launch
@@ -83,11 +87,14 @@ KERNEL_MIN_KV = 2048
 ATTENTION_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
 _MAX_HEAD_DIM = 256  # the kernels for head dims up to this one
 _D512 = 512  # forward flash_fwd_sm90.cu (bf16), flash_fwd_d512_f32.cu; backward flash_bwd_d512_sm90.cu
-# (bf16), flash_bwd_d512.cu (float32); head dims 257-511 are padded to it; above it the wide kernels
+# (both types); head dims 257-511 are padded to it; above it the wide kernels
 _SM90_BWD_HEAD_DIM = 128  # flash_bwd_sm90.cu: the backward up to this head dim
 _SM90_BWD_ROWS = 128  # flash_bwd_sm90 takes lse and delta padded to a multiple of these rows
 _D512_BWD_ROWS = 64  # the pair (d 129-512) and wide backward kernels take lse and delta padded to these rows
-_WIDE_SLICE = 128  # flash_attn_wide.cu: the head-dim columns a block owns
+_WIDE_SLICE = 128  # wide.cuh: the head-dim columns a block of the slice kernels owns
+_MAX_CLUSTER = 8  # the portable cluster size: flash_fwd_wide.cu's cluster forward takes up to 8 blocks
+_SMEM_PER_BLOCK = 232448  # the shared memory a block may have on the H100
+_SMS = 132  # the H100 SXM's SMs: the wide forward's key split keeps its grid one wave
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -289,20 +296,23 @@ flash_fwd_f32_sm90.launches = 0  # kernel launches since the last reset
 
 
 def flash_fwd_wide(q, k, v, out, lse, scale: float) -> None:
-    """Launch flash_attn_wide.cu's forward: q, k, v [B, H, L, D] with D > 512
+    """Launch flash_fwd_wide.cu: q, k, v [B, H, L, D] with D > 512
     and 16-byte aligned rows, bf16 or float32, into out (like q) and lse
-    [B, H, Lq] fp32, each with any strides. Float32 is split first into
-    scratch of [B, H, L, 2w] bf16, w = 128 * ceil(D / 128)."""
+    [B, H, Lq] fp32, each with any strides, on wide_plan's "fwd": the
+    kernel takes the plan (and only checks it). Float32 is split first
+    into scratch of [B, H, L, 2w] bf16, w the columns its blocks cover
+    (the plan's "width")."""
     b, h, lq, d = q.shape
     if d <= _D512:
         raise ValueError(f"flash_fwd_wide takes head dims above 512, got {d}")
     f32 = q.dtype == torch.float32
-    parts = _split_scratch(wide_plan(b, h, lq, k.shape[2], d)["width"], q, k, v) if f32 else [None] * 3
+    fwd = wide_plan(b, h, lq, k.shape[2], d, 2 if f32 else 1)["fwd"]
+    parts = _split_scratch(fwd["width"], q, k, v) if f32 else [None] * 3
     with torch.cuda.device(q.device):
-        err = build.kernel("flash_attn_wide", "emox_flash_fwd_wide")(
+        err = build.kernel("flash_fwd_wide", "emox_flash_fwd_wide")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _stride_array((q, k, v, out, lse)), b, h, lq, k.shape[2], d, float(scale), _DTYPES[q.dtype],
-            *(_ptr(t) for t in parts), _stream(q),
+            *cluster_fwd_args(fwd), *(_ptr(t) for t in parts), _stream(q),
         )
     build.check(err, "flash_fwd_wide")
     flash_fwd_wide.launches += 1
@@ -344,9 +354,13 @@ def _fwd_views(q, k, v, scale: float, packed_lse: bool):
     """The forward kernel for [B, H, L, D] operands: D > 512 ->
     flash_fwd_wide; bf16 -> flash_fwd_sm90; float32 -> flash_fwd_f32_sm90
     (D <= 256) or flash_fwd_d512_f32 (D 512), after zero-padding the head
-    dim where rows are not 16-byte aligned or D is 257-511. Returns out (q's
-    strides where q is dense) and lse [B, H, Lq], or with packed_lse a
-    [B, Lq, H] tensor."""
+    dim where rows are not 16-byte aligned or D is 257-511. flash_fwd_wide
+    routes by shape inside its C entry (wide_plan's "fwd"): D up to 2240 in
+    bfloat16 and 1152 in float32 on its cluster kernel (S issued once), wider
+    on its slice kernel, since a cluster of at most 8 blocks cannot hold the
+    slices' S partials beside their operands there.
+    Returns out (q's strides where q is dense) and lse [B, H, Lq], or with
+    packed_lse a [B, Lq, H] tensor."""
     mult = _head_dim_multiple(q)
     if q.shape[-1] % mult:
         return padded_attention(lambda *a: _fwd_views(*a, packed_lse), q, k, v, scale, mult)
@@ -512,16 +526,18 @@ def flash_bwd_wide(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
 flash_bwd_wide.launches = 0  # kernel launches since the last reset
 
 
-def _launch_bwd_d512(library: str, name: str, q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
+def _launch_bwd_d512(fn: str, name: str, q, k, v, dout, lse, delta, dq, dk, dv, scale: float, parts=()) -> None:
+    """A C entry of flash_bwd_d512_sm90.cu at head dim 512; `parts`: the
+    split scratch of a float32 entry."""
     b, h, lq, d = q.shape
     if d != _D512:
         raise ValueError(f"{name} takes head dim 512, got {tuple(q.shape)}")
     _check_lq_pad(name, lq, lse)
     with torch.cuda.device(q.device):
-        err = build.kernel(library)(
+        err = build.kernel("flash_bwd_d512_sm90", fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             _ptr(dq), _ptr(dk), _ptr(dv), _bwd_strides(q, k, v, dout, dq, dk, dv), b, h, lq, k.shape[2],
-            lse.shape[-1], float(scale), _stream(q),
+            lse.shape[-1], float(scale), *(t.data_ptr() for t in parts), _stream(q),
         )
     build.check(err, name)
 
@@ -534,7 +550,7 @@ def flash_bwd_d512_sm90(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> 
     with any strides."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"flash_bwd_d512_sm90 takes bfloat16, got {q.dtype}")
-    _launch_bwd_d512("flash_bwd_d512_sm90", "flash_bwd_d512_sm90", q, k, v, dout, lse, delta, dq, dk, dv, scale)
+    _launch_bwd_d512("emox_flash_bwd_d512_sm90", "flash_bwd_d512_sm90", q, k, v, dout, lse, delta, dq, dk, dv, scale)
     flash_bwd_d512_sm90.launches += 1
 
 
@@ -542,11 +558,14 @@ flash_bwd_d512_sm90.launches = 0  # kernel launches since the last reset
 
 
 def flash_bwd_d512_f32(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
-    """Launch flash_bwd_d512.cu (float32, 3xTF32 WMMA), the layouts of
-    flash_bwd_d512_sm90."""
+    """Launch flash_bwd_d512_sm90.cu's float32 entry (bf16 wgmma on the
+    two-part split, a cluster of four blocks of 128 columns a tile), the
+    layouts of flash_bwd_d512_sm90 in float32. The call splits q, k, v and
+    dout into bf16 scratch ([B, H, L, 1024], hi | lo) first."""
     if q.dtype != torch.float32:
         raise TypeError(f"flash_bwd_d512_f32 takes float32, got {q.dtype}")
-    _launch_bwd_d512("flash_bwd_d512", "flash_bwd_d512_f32", q, k, v, dout, lse, delta, dq, dk, dv, scale)
+    _launch_bwd_d512("emox_flash_bwd_d512_f32", "flash_bwd_d512_f32", q, k, v, dout, lse, delta, dq, dk, dv, scale,
+                     parts=_split_scratch(_D512, q, k, v, dout))
     flash_bwd_d512_f32.launches += 1
 
 
@@ -556,8 +575,8 @@ flash_bwd_d512_f32.launches = 0  # kernel launches since the last reset
 # ---- the launch plans of the Hopper kernels -------------------------------------------
 # Twins of the shared-memory layouts in the sources. flash_bwd_d512_sm90.cu
 # (DqSmem, DkvSmem) and flash_fwd_d512_f32.cu (Smem): every block belongs to
-# a cluster of two, the rank r block owning head-dim columns
-# [half r, half r + half) of the pair's tile.
+# a cluster (of two, or four in the float32 d-512 backward), the rank r block
+# owning head-dim columns [half r, half r + half) of the cluster's tile.
 _BOX64 = 64 * 128  # bytes of one 64-row box of 64 bf16 columns
 _PART = 4 * 128 * 16  # one warpgroup's [64, 32] fp32 partial of S or dP
 _D512_CLUSTER = 2
@@ -567,23 +586,28 @@ def _pairs(length: int, rows: int) -> int:
     return -(-length // rows)
 
 
-def bwd_d512_plan(n: int, h: int, lq: int, lk: int, half: int = 256, parts: int = 1) -> dict:
-    """flash_bwd_d512_sm90's two launches for q [n, h, lq, 2 half] and k, v
-    [n, h, lk, 2 half]: grid (x, y, z) = (2 * pairs, heads, batch), the pair
-    x // 2 owning `rows` query rows (dq) or keys (dkv), with the streamed
-    tiles' rows, ring stages and shared memory a block (bytes, alignment
-    slack included). half 256: head dim 512 in bf16 (parts 1); half 128:
-    head dims 129-256 (flash_bwd_d256_sm90), bf16 (parts 1) or float32's
-    two bf16 parts (parts 2)."""
+def bwd_d512_plan(n: int, h: int, lq: int, lk: int, half: int = 256, parts: int = 1, cluster: int = 2) -> dict:
+    """flash_bwd_d512_sm90's two launches for q [n, h, lq, cluster * half]
+    and k, v [n, h, lk, cluster * half]: grid (x, y, z) =
+    (cluster * tiles, heads, batch), the cluster x // cluster owning `rows`
+    query rows (dq) or keys (dkv), with the streamed tiles' rows, ring
+    stages and shared memory a block (bytes, alignment slack included).
+    half 256: head dim 512 in bf16 (parts 1); half 128: head dims 129-256
+    (flash_bwd_d256_sm90), bf16 (parts 1) or float32's two bf16 parts
+    (parts 2); half 128, parts 2, cluster 4: float32 head dim 512
+    (flash_bwd_d512_f32: two rounds of the pair's exchange, two more
+    barriers a block)."""
     boxes = parts * half // 64  # a block's boxes of one operand tile
-    dq_smem = 2 * boxes * _BOX64 + 2 * 2 * boxes * _BOX64 + 4 * _PART + 8 * 9 + 1024
+    free2 = cluster // 2 - 1  # the second round's free barriers: one a slot
+    dq_smem = 2 * boxes * _BOX64 + 2 * 2 * boxes * _BOX64 + 4 * _PART + 8 * (9 + 2 * free2) + 1024
     # K and V, two stages of 64-row Q and dO tiles with their lse and delta,
-    # the S^T and dP^T slots ([64, 64] fp32 each), 10 barriers
-    dkv_smem = 2 * boxes * _BOX64 + 2 * 2 * boxes * _BOX64 + 2 * 2 * 64 * 4 + 2 * 64 * 64 * 4 + 8 * 10 + 1024
-    return {"cluster": _D512_CLUSTER, "half": half, "parts": parts,
-            "dq": {"grid": (_D512_CLUSTER * _pairs(lq, 64), h, n), "rows": 64, "tile": 64, "stages": 2,
+    # the S^T and dP^T slots ([64, 64] fp32 each), 10 barriers (+ 2)
+    dkv_smem = (2 * boxes * _BOX64 + 2 * 2 * boxes * _BOX64 + 2 * 2 * 64 * 4 + 2 * 64 * 64 * 4
+                + 8 * (10 + 2 * free2) + 1024)
+    return {"cluster": cluster, "half": half, "parts": parts,
+            "dq": {"grid": (cluster * _pairs(lq, 64), h, n), "rows": 64, "tile": 64, "stages": 2,
                    "smem": dq_smem},
-            "dkv": {"grid": (_D512_CLUSTER * _pairs(lk, 64), h, n), "rows": 64, "tile": 64, "stages": 2,
+            "dkv": {"grid": (cluster * _pairs(lk, 64), h, n), "rows": 64, "tile": 64, "stages": 2,
                     "smem": dkv_smem}}
 
 
@@ -624,25 +648,85 @@ def f32_plan(n: int, h: int, lq: int, lk: int, d: int) -> dict:
     return plan
 
 
+def _cluster_fwd_smem(parts: int, ch: int, cs: int, kst: int, vst: int, pp: int) -> int:
+    """flash_fwd_wide.cu's ClusterFwdSmem: Q's slice of 64 ch columns, rings
+    of `kst` K and `vst` V slices, each warpgroup's S partial slots (pp 0:
+    [64, 32] partials, one for each other slice; pp 1: [64, 64] partials,
+    one for every slice), the barriers."""
+    tile = ch * parts * _BOX64
+    slots = cs * 2 * _PART if pp else (cs - 1) * _PART
+    return tile + (kst + vst) * tile + 2 * slots + 8 * (1 + 2 + kst + 2 * vst + 6) + 1024
+
+
+def _cluster_fwd_plan(parts: int, d: int, row_blocks: int, key_tiles: int) -> Optional[dict]:
+    """The plan of flash_fwd_wide.cu's cluster forward (which only checks
+    it, cluster_fwd_fits): the fewest slices cs (2 to 8)
+    whose width of ch 64-column chunks is instantiated (bf16 4 or 5, float32
+    3 or 4) and fits 227 KB, bf16 with whole tiles a warpgroup (pp 1, with
+    two V stages) where it fits, with the deepest (K, V) rings of (2, 2),
+    (1, 2), (2, 1), (1, 1);
+    the keys split in two parts (ck 2) where the rings can hold two O tiles
+    at the end and the doubled grid (row_blocks clusters) fits one wave of
+    the H100's SMs. None where no slicing fits (the slice kernel)."""
+    chunks = -(-d // 64)
+    lo, hi = (4, 5) if parts == 1 else (3, 4)
+    for cs in range(2, _MAX_CLUSTER + 1):
+        ch = -(-chunks // cs)
+        if not lo <= ch <= hi:
+            continue
+        for pp in ((1, 0) if parts == 1 else (0,)):
+            for kst, vst in ((2, 2), (1, 2), (2, 1), (1, 1)):
+                if (pp and vst < 2) or _cluster_fwd_smem(parts, ch, cs, kst, vst, pp) > _SMEM_PER_BLOCK:
+                    continue
+                split = ((kst + vst) * parts >= 4 and 2 * cs <= _MAX_CLUSTER and key_tiles >= 2
+                         and 2 * cs * row_blocks <= _SMS)
+                return {"cs": cs, "ch": ch, "ck": 2 if split else 1, "stages": (kst, vst), "pp": pp}
+    return None
+
+
 def wide_plan(n: int, h: int, lq: int, lk: int, d: int, parts: int = 1) -> dict:
-    """flash_attn_wide.cu's launches for head dim d > 512 (the twins of
-    FwdSmem, DqSmem and DkvSmem): 128-column slices (`slices` of them, the
-    float32 scratch `width` = 128 * slices columns a part), 64-column chunks
-    of the whole head dim streamed through a two-stage ring; grid (x, y, z)
-    = (row tiles * slices, heads, batch), block x owning rows
+    """flash_fwd_wide.cu's and flash_attn_wide.cu's launches for head dim d > 512 (the forward's
+    cluster plan, passed to the kernel; the twins of ClusterFwdSmem, FwdSmem, DqSmem and DkvSmem). The
+    backward: 128-column slices (`slices` of them, the float32 scratch
+    `width` = 128 * slices columns a part); grid (x, y, z) =
+    (row tiles * slices, heads, batch), block x owning rows
     [rows (x // slices), + rows) and columns [128 (x % slices), + 128); the
-    dk/dv launch streams 32-row query tiles. parts: 1 (bf16) or 2 (float32's
-    two bf16 parts)."""
+    dk/dv launch streams 32-row query tiles. The forward ("fwd"), where a
+    cluster plan fits: clusters of "slices" blocks of "slice_cols" columns
+    times "key_parts" (1 or 2) key parts, grid x = row tiles * cluster,
+    block x of rank r = x % cluster owning slice r % slices of key part
+    r // slices (part 0's blocks write), "stages" its (K, V) rings,
+    "whole_tiles" 1 where its two warpgroups take alternate whole 64-key
+    tiles (bf16), 0 where they split every tile's keys, S issued once; its
+    float32 scratch "width" = slices * slice_cols. Else the slice
+    kernel (cluster 1: every block streams S over 64-column chunks of the
+    whole head dim). parts: 1 (bf16) or 2 (float32's two bf16 parts)."""
     slices = -(-d // _WIDE_SLICE)
     qbox = 32 * 128
-    fwd_smem = 2 * 2 * parts * _BOX64 + 2 * parts * _BOX64 + 8 * 6 + 1024
     dq_smem = 2 * 4 * parts * _BOX64 + 2 * parts * _BOX64 + 8 * 6 + 1024
     dkv_smem = 2 * parts * (2 * _BOX64 + 2 * qbox) + 4 * parts * qbox + 2 * 32 * 4 + 8 * 6 + 1024
     launch = lambda length, tile, smem: {"grid": (_pairs(length, 64) * slices, h, n), "rows": 64, "tile": tile,
                                          "stages": 2, "smem": smem}
+    c = _cluster_fwd_plan(parts, d, _pairs(lq, 64) * h * n, _pairs(lk, 64))
+    if c is None:
+        fwd = dict(launch(lq, 64, 2 * 2 * parts * _BOX64 + 2 * parts * _BOX64 + 8 * 6 + 1024), cluster=1,
+                   slices=slices, slice_cols=_WIDE_SLICE, key_parts=1, width=slices * _WIDE_SLICE)
+    else:
+        cluster = c["cs"] * c["ck"]
+        fwd = {"grid": (_pairs(lq, 64) * cluster, h, n), "rows": 64, "tile": 64, "stages": c["stages"],
+               "smem": _cluster_fwd_smem(parts, c["ch"], c["cs"], *c["stages"], c["pp"]), "cluster": cluster,
+               "slices": c["cs"], "slice_cols": 64 * c["ch"], "key_parts": c["ck"], "whole_tiles": c["pp"],
+               "width": c["cs"] * 64 * c["ch"]}
     return {"slice": _WIDE_SLICE, "slices": slices, "chunks": -(-d // 64), "width": slices * _WIDE_SLICE,
-            "parts": parts, "fwd": launch(lq, 64, fwd_smem), "dq": launch(lq, 64, dq_smem),
-            "dkv": launch(lk, 32, dkv_smem)}
+            "parts": parts, "fwd": fwd, "dq": launch(lq, 64, dq_smem), "dkv": launch(lk, 32, dkv_smem)}
+
+
+def cluster_fwd_args(fwd: dict) -> tuple:
+    """wide_plan's "fwd" as emox_flash_fwd_wide takes it: (cs, ch, ck,
+    K stages, V stages, pp), cs 0 for the slice kernel."""
+    if fwd["cluster"] == 1:
+        return (0,) * 6
+    return (fwd["slices"], fwd["slice_cols"] // 64, fwd["key_parts"], *fwd["stages"], fwd["whole_tiles"])
 
 
 # ---- the packed layout [N, L, H*D] ---------------------------------------------------

@@ -1,6 +1,6 @@
 """The float32 attention kernels on Hopper and the backward at head dims
 129-256 (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_d512_sm90.cu at
-half width, flash_attn_wide.cu's entries), on the CPU.
+half width, flash_fwd_wide.cu's and flash_attn_wide.cu's entries), on the CPU.
 
 Float32 runs on bf16 wgmma: each operand x is split into hi = bf16(x) and
 lo = bf16(x - hi) in scratch the wrapper allocates, every product a b runs
@@ -142,8 +142,9 @@ def entries(monkeypatch):
     c_entries = {
         "emox_flash_fwd_f32_sm90": lambda q, k, v, o, lse, st, b, h, lq, lk, d, scale, q2, k2, v2, stream: forward(
             "fwd_f32_sm90", 2, q, k, v, o, lse, st, b, h, lq, lk, d, scale, 0, q2, k2, v2, width(d)),
-        "emox_flash_fwd_wide": lambda q, k, v, o, lse, st, b, h, lq, lk, d, scale, dtype, q2, k2, v2, stream: forward(
-            "fwd_wide", 2 - dtype, q, k, v, o, lse, st, b, h, lq, lk, d, scale, dtype, q2, k2, v2, -(-d // 128) * 128),
+        "emox_flash_fwd_wide": lambda q, k, v, o, lse, st, b, h, lq, lk, d, scale, dtype, cs, ch, ck, kst, vst, pp,
+        q2, k2, v2, stream: forward("fwd_wide", 2 - dtype, q, k, v, o, lse, st, b, h, lq, lk, d, scale, dtype, q2, k2,
+                                    v2, cs * 64 * ch if cs else -(-d // 128) * 128),
         "emox_flash_bwd_f32_sm90": lambda q, k, v, g, lse, delta, dq, dk, dv, st, b, h, lq, lk, lq_pad, d, scale,
         q2, k2, v2, do2, stream: backward("bwd_f32_sm90", 2, q, k, v, g, lse, delta, dq, dk, dv, st, b, h, lq, lk,
                                           lq_pad, d, scale, q2, k2, v2, do2, width(d), 128),

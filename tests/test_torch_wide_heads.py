@@ -1,4 +1,4 @@
-"""Head dims above 512 (flash_attn_wide.cu), on the CPU.
+"""Head dims above 512 (flash_fwd_wide.cu, flash_attn_wide.cu), on the CPU.
 
 The reference computes every head dim: its kernel route sends d % 64 == 0
 to the packed kernel and any other d to the strided one, with no width
@@ -204,16 +204,23 @@ PLAN_SHAPES = [(1, 1, 4096, 4096, 640), (2, 2, 1000, 2100, 1024), (2, 2, 70, 45,
 
 
 def _owned(launch, plan, n, h, length, d) -> np.ndarray:
-    """How many blocks own each (sample, head, row, column) of an
-    [n, h, length, d] output: block (x, y, z) owns rows
-    [rows (x // slices), + rows) below length and columns
-    [128 (x % slices), + 128) below d."""
+    """How many blocks write each (sample, head, row, column) of an
+    [n, h, length, d] output: block (x, y, z) of a launch with `per` blocks a
+    row tile (plan["slices"], or the forward's cluster) is rank r = x % per,
+    owns rows [rows (x // per), + rows) below length and columns
+    [cols (r % slices), + cols) below d, and writes them if its key part
+    r // slices is 0 (the forward's clusters may split the keys in two)."""
     gx, gy, gz = launch["grid"]
-    assert (gy, gz) == (h, n) and gx % plan["slices"] == 0
+    per = launch["cluster"] if launch.get("cluster", 1) > 1 else plan["slices"]
+    slices, cols = launch.get("slices", plan["slices"]), launch.get("slice_cols", plan["slice"])
+    assert (gy, gz) == (h, n) and gx % per == 0
     count = np.zeros((n, h, length, d), np.int32)
     for x in range(gx):
-        r0, c0 = launch["rows"] * (x // plan["slices"]), plan["slice"] * (x % plan["slices"])
-        count[:, :, r0:min(r0 + launch["rows"], length), c0:min(c0 + plan["slice"], d)] += 1
+        r = x % per
+        if r // slices:
+            continue
+        r0, c0 = launch["rows"] * (x // per), cols * (r % slices)
+        count[:, :, r0:min(r0 + launch["rows"], length), c0:min(c0 + cols, d)] += 1
     return count
 
 
@@ -221,13 +228,16 @@ def _owned(launch, plan, n, h, length, d) -> np.ndarray:
 @pytest.mark.parametrize("n,h,lq,lk,d", PLAN_SHAPES, ids=["d640-4096", "d1024-ragged", "d576-small", "d600-3h"])
 def test_wide_plan_covers_every_row_and_column_once(n, h, lq, lk, d, parts):
     """The forward, dq and dk/dv launches: every query row (forward, dq) and
-    key (dk, dv), each head-dim column, written by exactly one block; the
-    chunks cover the head dim, the float32 scratch's width the slices; the
-    dk/dv kernel's 32-row query tiles never read past lse's padding to 64
-    rows; a block's shared memory fits the H100's 227 KB."""
+    key (dk, dv), each head-dim column, written by exactly one block (the
+    forward's clusters: by the blocks of key part 0); the chunks cover the
+    head dim, the float32 scratch's width the slices (the forward's its own
+    slices); the dk/dv kernel's 32-row query tiles never read past lse's
+    padding to 64 rows; a block's shared memory fits the H100's 227 KB."""
     plan = tattn.wide_plan(n, h, lq, lk, d, parts)
     assert plan["slices"] * plan["slice"] == plan["width"] >= d > plan["width"] - plan["slice"]
     assert plan["chunks"] * 64 >= d > (plan["chunks"] - 1) * 64
+    fwd = plan["fwd"]
+    assert fwd["width"] == fwd["slices"] * fwd["slice_cols"] >= d > fwd["width"] - fwd["slice_cols"]
     for name, length in (("fwd", lq), ("dq", lq), ("dkv", lk)):
         launch = plan[name]
         assert launch["smem"] <= SMEM_PER_BLOCK, name
