@@ -25,7 +25,9 @@ backward; the feed-forward
 step's level 0 and in bf16 at the flagship's level 0 and mid; and K7 in
 float32 at M 4096, C 320 and M 2048, C 1280. `--only` keeps the checks
 whose labels start with one of the prefixes (e.g. `--only ff_,geglu_ff_,ln_qkv_f32`
-for the FF and float32 K7). Each check's `ms` is its chip_smoke.py time
+for the FF and float32 K7; `--only wide_,d512_,bwd_d` for the attention at
+head dims 160 to 640: the wide forward and backward against the other
+checkout, the other backward kernels' checksums). Each check's `ms` is its chip_smoke.py time
 (CUDA events around the calls); `device_ms` is the same call's device time
 without the host's cost of issuing it (calls captured in one CUDA graph,
 timed by this checkout's code for both trees), and `checksum` a hash of the

@@ -35,15 +35,20 @@ raises and the script exits non-zero. Phases:
      blocks a tile) at head dim 512 in float32, timed at N 1 and 16 x 4096
      tokens with device_ms; head dims 257-511 are padded to 512 (d 384 at
      L 4096 and d 300 strided, both types, forward and backward); head dims
-     above 512 on flash_fwd_wide.cu and flash_attn_wide.cu (flash_fwd_wide:
-     up to d 2240 in bf16 and 1152 in float32 a cluster of column slices
-     that computes S once, wider a block a 128-column slice; flash_fwd_wide
-     and flash_bwd_wide: d 640 timed in float32 at the width-640 VAE's N 1 x
+     above 512 on flash_fwd_wide.cu (forward) and flash_bwd_wide_sm90.cu
+     (backward; flash_attn_wide.cu past its reach): flash_fwd_wide up to d
+     2240 in bf16 and 1152 in float32, flash_bwd_wide up to 2048 / 1536, a
+     cluster of column slices that computes S (and dP) once, wider a block a
+     128-column slice; d 640 timed in float32 at the width-640 VAE's N 1 x
      1024 of stage 5 and in bf16 at N 1 x 4096, twice for the same bits, d
-     1024 packed and 576 strided in both types and directions, the forward
-     twice; d 768, 896, 1024 and 1152 forward (other cluster shapes, the
-     keys split in two, single-stage rings) and one key tile, 2304 on the
-     slice forward). The
+     1024 packed and 576 strided in both types and directions, twice; d 768,
+     896, 1024 and 1152 forward (other cluster shapes, the keys split in
+     two, single-stage rings) and one key tile, 2304 on the slice forward;
+     the backward at d 768, 1024 and 2048 (four and eight slices; float32
+     2048 and both at 2304 on the slice kernels), d 640 at N 1 x 300 (the
+     streamed dimension in two
+     parts) and with one key tile, twice, and with 2 heads dq only and dk/dv
+     only). The
      backward runs on one kernel per
      type for both layouts too: flash_bwd_sm90 (bf16, head dim <= 128,
      wgmma + TMA) at the training shapes of both (timed), at head dims 4,
@@ -594,11 +599,12 @@ def _padded(d: int, multiple: int = 64) -> int:
     return -(-d // multiple) * multiple
 
 
-def _issued_flops(kernel: str, dtype, n: int, heads: int, lq: int, lk: int, d: int) -> float:
+def _issued_flops(kernel: str, dtype, n: int, heads: int, lq: int, lk: int, d: int, sms: int = 0) -> float:
     """The bf16 tensor-core work a kernel issues for one call (the bound of
     its own products, beside the function's): the head dim padded as the
     kernel pads it, S shared by two warpgroups or S and dP recomputed where
-    its kernels do, and three products for each on float32's two-part split."""
+    its kernels do, and three products for each on float32's two-part split.
+    sms: the SMs the wide kernels' plans take (default: the card's)."""
     unit = 2.0 * n * heads * lq * lk  # one [Lq, Lk] product over one head-dim column
     parts = _parts(dtype)
     if kernel in ("flash_fwd_wide", "flash_bwd_wide"):
@@ -607,9 +613,13 @@ def _issued_flops(kernel: str, dtype, n: int, heads: int, lq: int, lk: int, d: i
 
         slices, width, depth = -(-d // 128), _padded(d, 128), _padded(d)
         # the plan takes the operand parts (float32's hi and lo), not the products
-        fwd = attention.wide_plan(n, heads, lq, lk, d, 2 if dtype == torch.float32 else 1)["fwd"]
+        plan = (attention.wide_plan(n, heads, lq, lk, d, 2 if dtype == torch.float32 else 1, sms) if sms
+                else attention.card_wide_plan(n, heads, lq, lk, d, dtype, 0))
+        fwd = plan["fwd"]
         if kernel == "flash_fwd_wide" and fwd["cluster"] > 1:  # S once, then P v, over the slices' columns
             return unit * 2 * fwd["width"] * parts
+        if kernel == "flash_bwd_wide" and plan["dq"]["cluster"] > 1:  # S and dP once in each kernel, 7 products
+            return unit * 7 * plan["dq"]["width"] * parts
         # every slice's block: S (and dP) over every 64-column chunk, then its slice's products
         products = slices * depth + width if kernel == "flash_fwd_wide" else 2 * slices * depth * 2 + 3 * width
         return unit * products * parts
@@ -709,14 +719,16 @@ def _device_extras(res, dtype, n, heads, lq, lk, d, nbytes, run) -> None:
         res.update(_d512_plan(plan["dq"], plan["cluster"]), dkv_grid_blocks=math.prod(plan["dkv"]["grid"]),
                    dkv_smem_bytes=plan["dkv"]["smem"])
     elif kernel in ("flash_fwd_wide", "flash_bwd_wide"):
-        plan = attention.wide_plan(n, heads, lq, lk, d, parts)
+        plan = attention.card_wide_plan(n, heads, lq, lk, d, dtype, 0)
         first = plan["fwd" if kernel == "flash_fwd_wide" else "dq"]
-        res.update(grid_blocks=math.prod(first["grid"]), smem_bytes=first["smem"],
-                   slices=first.get("slices", plan["slices"]), cluster=first.get("cluster", 1), stages=first["stages"])
+        res.update(grid_blocks=math.prod(first["grid"]), smem_bytes=first["smem"], slices=first["slices"],
+                   slice_cols=first["slice_cols"], cluster=first["cluster"], stages=first["stages"])
         if kernel == "flash_fwd_wide":
-            res.update(slice_cols=first["slice_cols"], key_parts=first["key_parts"])
+            res.update(key_parts=first["key_parts"])
         if kernel == "flash_bwd_wide":
-            res.update(dkv_grid_blocks=math.prod(plan["dkv"]["grid"]), dkv_smem_bytes=plan["dkv"]["smem"])
+            res.update(dkv_grid_blocks=math.prod(plan["dkv"]["grid"]), dkv_smem_bytes=plan["dkv"]["smem"],
+                       dkv_cluster=plan["dkv"]["cluster"], stream_parts=[first.get("stream_parts", 1),
+                                                                         plan["dkv"].get("stream_parts", 1)])
     else:
         plan = attention.f32_plan(n, heads, lq, lk, d)
         first = plan["fwd" if kernel == "flash_fwd_f32_sm90" else "dq"]
@@ -797,6 +809,10 @@ def check_flash_bwd(gen, n, lq, lk, c=320, heads=5, dtype=None, timing=True, chu
     want = _by_rows(plain, chunk, q.float(), k.float(), v.float(), o.float(), lse, dout.float())
     res = {"kernel": _bwd_kernel(dtype, d), "layout": "packed", "dtype": str(dtype).split(".")[-1], "n": n,
            "lq": lq, "lk": lk, "c": c, "heads": heads, "head_dim": d, "need_dq": need_dq, "need_dkv": need_dkv}
+    if res["kernel"] == "flash_bwd_wide":  # the cluster plan (slices, width, stages, parts), [] the slice kernels
+        from emox_torch.ops import attention
+
+        res["bwd_plan"] = list(attention.cluster_bwd_args(attention.card_wide_plan(n, heads, lq, lk, d, dtype, 0)))
     run = lambda: flash_attention_nlc_bwd(q, k, v, o, lse, dout, heads, scale, need_dq=need_dq, need_dkv=need_dkv)
     ok = _check_grads(res, run, want, dtype, need_dq, need_dkv, repeat)
     del want
@@ -1413,7 +1429,7 @@ def phase_kernels():
         check_flash_bwd(gen, 2, 1000, 2100, c=1024, heads=2, dtype=dtype, timing=False, repeat=f32)
         check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dkv=False, repeat=f32)
         check_flash_bwd(gen, 2, 1000, 2100, c=512, heads=1, dtype=dtype, timing=False, need_dq=False, repeat=f32)
-    # head dims above 512 on flash_fwd_wide.cu and flash_attn_wide.cu: d 640 (a
+    # head dims above 512 on flash_fwd_wide.cu and flash_bwd_wide_sm90.cu: d 640 (a
     # VAE of last width 640) timed in float32 at its stage-5 step at 256^2 (one image of 1024 tokens,
     # the kernels' main path) and in bf16 at 512^2 (4096 tokens), forward and
     # backward (twice, the same bits); d 1024 packed and d 576 strided in both
@@ -1421,7 +1437,11 @@ def phase_kernels():
     # only; the cluster forward's other shapes (d 768, 896, 1024, 1152: other
     # slice widths and cluster sizes, the keys split in two over an odd count
     # of tiles, single-stage rings; one key tile, where bf16's second
-    # warpgroup has none) and the slice forward past the cluster's reach (d 2304)
+    # warpgroup has none) and the slice forward past the cluster's reach (d 2304);
+    # the cluster backward's (d 768, 1024, 2048: four and eight slices in bf16,
+    # float32 2048 past its reach; d 640 at 300 rows, its streamed dimension in
+    # two parts; one key tile, dk/dv in two parts) and the slice backward past
+    # its reach (d 2304), twice each
     results["flash_wide_f32"] = check_flash(gen, 1, 1024, 1024, c=640, heads=1, dtype=torch.float32, repeat=True)
     results["flash_bwd_wide_f32"] = check_flash_bwd(gen, 1, 1024, 1024, c=640, heads=1, dtype=torch.float32,
                                                     repeat=True)
@@ -1437,6 +1457,10 @@ def phase_kernels():
         check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=576, dtype=dtype, timing=False)
         check_flash_bwd(gen, 2, 300, 333, c=1280, heads=2, dtype=dtype, timing=False, need_dkv=False)
         check_flash_bwd(gen, 2, 300, 333, c=1280, heads=2, dtype=dtype, timing=False, need_dq=False)
+        for d in (768, 2048, 2304):
+            check_flash_bwd(gen, 1, 1000, 1030, c=d, heads=1, dtype=dtype, timing=False, repeat=True)
+        check_flash_bwd(gen, 1, 300, 333, c=640, heads=1, dtype=dtype, timing=False, repeat=True)
+        check_flash_bwd(gen, 1, 70, 45, c=640, heads=1, dtype=dtype, timing=False, repeat=True)
     return results
 
 
@@ -2435,6 +2459,8 @@ _GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("ln_qkv", ("ln_qkv_kernel", "ln_qkv_f32::")),
     ("float32 split", ("split_rows", "split_matrices", "ln_rows_kernel<float")),  # ahead of "sm90::"
     ("flash_bwd_sm90", ("bwd_sm90::",)),  # ahead of the forward's "sm90::"
+    # the cluster backward above head dim 512 (CLUSTER 0), ahead of the pair's namespace
+    ("flash_bwd_wide", tuple(f"_kernel<{h}, {p}, 0," for h, p in ((320, 1), (192, 1), (256, 1), (192, 2), (128, 2)))),
     ("flash_bwd_d512_f32", ("dq_kernel<128, 2, 4", "dkv_kernel<128, 2, 4")),  # ahead of the pair's namespace
     ("flash_bwd_d512_sm90", ("bwd_d512_sm90::",)),
     ("flash_fwd_d512_f32", ("fwd_d512_f32::",)),
@@ -2810,7 +2836,8 @@ def main(argv=None) -> int:
                                          "m", "f", "row_tile", "col_tile", "col_tiles_per_block", "grid_blocks",
                                          "smem_bytes", "blocks_per_sm", "gemm1_blocks", "gemm2_blocks", "splits",
                                          "sms", "regime", "cluster", "stages", "chunks", "slices", "slice_cols",
-                                         "key_parts", "library_backend", "dkv_grid_blocks", "dkv_smem_bytes",
+                                         "key_parts", "stream_parts", "bwd_plan", "dkv_cluster",
+                                         "library_backend", "dkv_grid_blocks", "dkv_smem_bytes",
                                          "plain_rows_per_call", "unfused_ms", "tflops", "device_tflops",
                                          "gb_per_s") if x in k}
 
@@ -2846,7 +2873,9 @@ def main(argv=None) -> int:
         # count, the bf16 timing at 4096 tokens in by_shape
         entry("emox_torch/csrc/flash_fwd_wide.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
               kern["flash_wide_f32"], [kern["flash_wide"]]),
-        entry("emox_torch/csrc/flash_attn_wide.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
+        # the backward's cluster kernels (flash_bwd_cluster.cuh's, CLUSTER 0);
+        # flash_attn_wide.cu's slice kernels past their reach, checked at d 2304
+        entry("emox_torch/csrc/flash_bwd_wide_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
                                                      "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
               kern["flash_bwd_wide_f32"], [kern["flash_bwd_wide"]]),
         # one launch entry for the three TPU FF kernels in bf16: level 0 is

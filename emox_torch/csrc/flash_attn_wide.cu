@@ -1,5 +1,7 @@
 // Flash attention backward at head dims above 512 for Hopper (sm_90a):
-// wgmma + TMA, bf16 and float32 (a two-part bf16 split).
+// wgmma + TMA, bf16 and float32 (a two-part bf16 split). Past the reach of
+// flash_bwd_wide_sm90.cu's clusters (bf16 above 2048, float32 above 1536):
+// the reference has no width limit.
 //
 // Replaces the TPU backward pairs `_flash_bwd_nlc_dq_kernel` /
 // `_flash_bwd_nlc_dkv_kernel` (emox/ops/attention.py:465, :508) and

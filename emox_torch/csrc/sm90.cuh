@@ -1,6 +1,7 @@
 // Shared Hopper (sm_90a) building blocks of the port's wgmma + TMA kernels
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu, ff_sm90.cu, ln_qkv_sm90.cu,
-// flash_bwd_d512_sm90.cu, flash_fwd_d512_f32.cu, flash_fwd_wide.cu, flash_attn_wide.cu): PTX
+// flash_bwd_d512_sm90.cu, flash_fwd_d512_f32.cu, flash_fwd_wide.cu, flash_attn_wide.cu,
+// flash_bwd_wide_sm90.cu): PTX
 // wrappers for mbarriers (local, and across the blocks of a cluster), TMA
 // tile and bulk loads and wgmma, the shared-memory descriptor of a
 // 128-byte-swizzled tile, float32's two-part bf16 split and the attention

@@ -37,7 +37,9 @@ Kernels (each wrapper counts its launches in `.launches`):
   * flash_bwd_d512_f32      -> csrc/flash_bwd_d512_sm90.cu on a two-part
                                bf16 split, a cluster of four blocks a tile:
                                the same in float32
-  * flash_bwd_wide          -> csrc/flash_attn_wide.cu: both layouts'
+  * flash_bwd_wide          -> csrc/flash_bwd_wide_sm90.cu (a cluster of
+                               head-dim slices a tile; past its reach
+                               csrc/flash_attn_wide.cu): both layouts'
                                backward at head dims above 512, both types
   * fused_ln_geglu_ff       -> LN + GEGLU FF + residual (TPU `_ln_ff_kernel`
                                and `_ln_ff_wide_kernel`), counted per call,

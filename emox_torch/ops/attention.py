@@ -37,11 +37,12 @@ each operand (hi + lo, three products for each) unless named:
     over a cluster of four blocks of 128 columns);
   * head dims above 512, both types, forward and backward: `flash_fwd_wide`
     and `flash_bwd_wide` (emox_torch/csrc/flash_fwd_wide.cu and
-    flash_attn_wide.cu: column slices of the outputs; the forward up to
-    2240 (bfloat16) / 1152 (float32) on a
-    cluster of one block a slice that computes S once, exchanging the
-    slices' partials, wider heads and the backward a block a 128-column
-    slice with S and dP over the whole head dim in every block).
+    flash_bwd_wide_sm90.cu: column slices of the outputs; the forward up to
+    2240 (bfloat16) / 1152 (float32), the backward up to 2048 / 1536, on a
+    cluster of one block a slice that computes S (and dP) once, exchanging
+    the slices' partials; wider heads a block a 128-column slice with S and
+    dP over the whole head dim in every block, flash_fwd_wide.cu's and
+    flash_attn_wide.cu's slice kernels).
 
 Rows that are not 16-byte aligned (a head dim that is not a multiple of 8 in
 bfloat16, of 4 in float32) are zero-padded in the head dim before the launch
@@ -71,8 +72,9 @@ library attention.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,8 +96,13 @@ _D512_BWD_ROWS = 64  # the pair (d 129-512) and wide backward kernels take lse a
 _WIDE_SLICE = 128  # wide.cuh: the head-dim columns a block of the slice kernels owns
 _MAX_CLUSTER = 8  # the portable cluster size: flash_fwd_wide.cu's cluster forward takes up to 8 blocks
 _SMEM_PER_BLOCK = 232448  # the shared memory a block may have on the H100
-_SMS = 132  # the H100 SXM's SMs: the wide forward's key split keeps its grid one wave
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`, which the launch plans size their grids by."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def attention_default_impl() -> str:
@@ -306,7 +313,7 @@ def flash_fwd_wide(q, k, v, out, lse, scale: float) -> None:
     if d <= _D512:
         raise ValueError(f"flash_fwd_wide takes head dims above 512, got {d}")
     f32 = q.dtype == torch.float32
-    fwd = wide_plan(b, h, lq, k.shape[2], d, 2 if f32 else 1)["fwd"]
+    fwd = card_wide_plan(b, h, lq, k.shape[2], d, q.dtype, q.device.index or 0)["fwd"]
     parts = _split_scratch(fwd["width"], q, k, v) if f32 else [None] * 3
     with torch.cuda.device(q.device):
         err = build.kernel("flash_fwd_wide", "emox_flash_fwd_wide")(
@@ -477,10 +484,10 @@ def _check_lq_pad(name: str, lq: int, lse) -> None:
 
 
 def _launch_bwd_split(library: str, fn: str, name: str, width: int, q, k, v, dout, lse, delta, dq, dk, dv,
-                      scale: float) -> None:
+                      scale: float, plan: tuple = ()) -> None:
     """A backward entry of both types that splits float32 operands into
     bf16 scratch of [B, H, L, 2 width] first (flash_bwd_d256_sm90,
-    flash_bwd_wide)."""
+    flash_bwd_wide); `plan`: the launch plan the entry takes, if any."""
     b, h, lq, d = q.shape
     _check_lq_pad(name, lq, lse)
     parts = _split_scratch(width, q, k, v, dout) if q.dtype == torch.float32 else [None] * 4
@@ -488,7 +495,7 @@ def _launch_bwd_split(library: str, fn: str, name: str, width: int, q, k, v, dou
         err = build.kernel(library, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             _ptr(dq), _ptr(dk), _ptr(dv), _bwd_strides(q, k, v, dout, dq, dk, dv), b, h, lq, k.shape[2],
-            lse.shape[-1], d, float(scale), _DTYPES[q.dtype], *(_ptr(t) for t in parts), _stream(q),
+            lse.shape[-1], d, float(scale), _DTYPES[q.dtype], *plan, *(_ptr(t) for t in parts), _stream(q),
         )
     build.check(err, name)
 
@@ -511,15 +518,22 @@ flash_bwd_d256_sm90.launches = 0  # kernel launches since the last reset
 
 
 def flash_bwd_wide(q, k, v, dout, lse, delta, dq, dk, dv, scale: float) -> None:
-    """Launch flash_attn_wide.cu's backward pair: q, k, v, dout [B, H, L, D],
-    D > 512, bf16 or float32, with lse and delta as flash_bwd_d256_sm90
-    takes them. Float32 is split first into [B, H, L, 2w] bf16 scratch,
-    w = 128 * ceil(D / 128)."""
+    """Launch the backward pair at head dims above 512: q, k, v, dout
+    [B, H, L, D], D > 512, bf16 or float32, with lse and delta as
+    flash_bwd_d256_sm90 takes them, on wide_plan's "dq" and "dkv": within
+    the clusters' reach flash_bwd_wide_sm90.cu, which takes the plan (and
+    only checks it), wider flash_attn_wide.cu's slice kernels. Float32 is
+    split first into [B, H, L, 2w] bf16 scratch, w the columns the plan's
+    blocks cover (its "width")."""
     b, h, lq, d = q.shape
     if d <= _D512:
         raise ValueError(f"flash_bwd_wide takes head dims above 512, got {d}")
-    _launch_bwd_split("flash_attn_wide", "emox_flash_bwd_wide", "flash_bwd_wide",
-                      wide_plan(b, h, lq, k.shape[2], d)["width"], q, k, v, dout, lse, delta, dq, dk, dv, scale)
+    plan = card_wide_plan(b, h, lq, k.shape[2], d, q.dtype, q.device.index or 0)
+    args = cluster_bwd_args(plan)
+    library, fn = ("flash_bwd_wide_sm90", "emox_flash_bwd_wide_sm90") if args else ("flash_attn_wide",
+                                                                                   "emox_flash_bwd_wide")
+    _launch_bwd_split(library, fn, "flash_bwd_wide", plan["dq"]["width"], q, k, v, dout, lse, delta, dq, dk, dv,
+                      scale, args)
     flash_bwd_wide.launches += 1
 
 
@@ -586,6 +600,25 @@ def _pairs(length: int, rows: int) -> int:
     return -(-length // rows)
 
 
+def _bwd_cluster_smem(half: int, parts: int, stages: int, cluster: int) -> Tuple[int, int]:
+    """flash_bwd_cluster.cuh's DqSmem and DkvSmem (bytes a block, alignment
+    slack included) for blocks of `half` columns of `parts` bf16 parts and
+    rings of `stages` stages: cluster 2 or 4 (flash_bwd_d512_sm90.cu), or 0
+    (flash_bwd_wide_sm90.cu: the plan's cluster at run time, room for three
+    rounds of the exchange and the merge of two parts)."""
+    boxes = parts * half // 64  # a block's boxes of one operand tile
+    free2 = {2: 0, 4: 1, 0: 2}[cluster]  # the later rounds' free barriers: two a round
+    merge = cluster == 0
+    # Q and dO, the ring of K and V tiles, the [S, dP] slots of both warpgroups, the barriers
+    dq = (2 * boxes * _BOX64 + stages * 2 * boxes * _BOX64 + 4 * _PART
+          + 8 * (1 + 2 * stages + 4 + 2 * free2 + 2 * merge) + 1024)
+    # K and V, the ring of 64-row Q and dO tiles with their lse and delta,
+    # the S^T and dP^T slots ([64, 64] fp32 each), the barriers
+    dkv = (2 * boxes * _BOX64 + stages * 2 * boxes * _BOX64 + stages * 2 * 64 * 4 + 2 * 64 * 64 * 4
+           + 8 * (1 + 2 * stages + 5 + 2 * free2 + 3 * merge) + 1024)
+    return dq, dkv
+
+
 def bwd_d512_plan(n: int, h: int, lq: int, lk: int, half: int = 256, parts: int = 1, cluster: int = 2) -> dict:
     """flash_bwd_d512_sm90's two launches for q [n, h, lq, cluster * half]
     and k, v [n, h, lk, cluster * half]: grid (x, y, z) =
@@ -597,13 +630,7 @@ def bwd_d512_plan(n: int, h: int, lq: int, lk: int, half: int = 256, parts: int 
     (parts 2); half 128, parts 2, cluster 4: float32 head dim 512
     (flash_bwd_d512_f32: two rounds of the pair's exchange, two more
     barriers a block)."""
-    boxes = parts * half // 64  # a block's boxes of one operand tile
-    free2 = cluster // 2 - 1  # the second round's free barriers: one a slot
-    dq_smem = 2 * boxes * _BOX64 + 2 * 2 * boxes * _BOX64 + 4 * _PART + 8 * (9 + 2 * free2) + 1024
-    # K and V, two stages of 64-row Q and dO tiles with their lse and delta,
-    # the S^T and dP^T slots ([64, 64] fp32 each), 10 barriers (+ 2)
-    dkv_smem = (2 * boxes * _BOX64 + 2 * 2 * boxes * _BOX64 + 2 * 2 * 64 * 4 + 2 * 64 * 64 * 4
-                + 8 * (10 + 2 * free2) + 1024)
+    dq_smem, dkv_smem = _bwd_cluster_smem(half, parts, 2, cluster)
     return {"cluster": cluster, "half": half, "parts": parts,
             "dq": {"grid": (cluster * _pairs(lq, 64), h, n), "rows": 64, "tile": 64, "stages": 2,
                    "smem": dq_smem},
@@ -658,7 +685,7 @@ def _cluster_fwd_smem(parts: int, ch: int, cs: int, kst: int, vst: int, pp: int)
     return tile + (kst + vst) * tile + 2 * slots + 8 * (1 + 2 + kst + 2 * vst + 6) + 1024
 
 
-def _cluster_fwd_plan(parts: int, d: int, row_blocks: int, key_tiles: int) -> Optional[dict]:
+def _cluster_fwd_plan(parts: int, d: int, row_blocks: int, key_tiles: int, sms: int) -> Optional[dict]:
     """The plan of flash_fwd_wide.cu's cluster forward (which only checks
     it, cluster_fwd_fits): the fewest slices cs (2 to 8)
     whose width of ch 64-column chunks is instantiated (bf16 4 or 5, float32
@@ -667,7 +694,7 @@ def _cluster_fwd_plan(parts: int, d: int, row_blocks: int, key_tiles: int) -> Op
     (1, 2), (2, 1), (1, 1);
     the keys split in two parts (ck 2) where the rings can hold two O tiles
     at the end and the doubled grid (row_blocks clusters) fits one wave of
-    the H100's SMs. None where no slicing fits (the slice kernel)."""
+    the card's `sms` SMs. None where no slicing fits (the slice kernel)."""
     chunks = -(-d // 64)
     lo, hi = (4, 5) if parts == 1 else (3, 4)
     for cs in range(2, _MAX_CLUSTER + 1):
@@ -679,19 +706,42 @@ def _cluster_fwd_plan(parts: int, d: int, row_blocks: int, key_tiles: int) -> Op
                 if (pp and vst < 2) or _cluster_fwd_smem(parts, ch, cs, kst, vst, pp) > _SMEM_PER_BLOCK:
                     continue
                 split = ((kst + vst) * parts >= 4 and 2 * cs <= _MAX_CLUSTER and key_tiles >= 2
-                         and 2 * cs * row_blocks <= _SMS)
+                         and 2 * cs * row_blocks <= sms)
                 return {"cs": cs, "ch": ch, "ck": 2 if split else 1, "stages": (kst, vst), "pp": pp}
     return None
 
 
-def wide_plan(n: int, h: int, lq: int, lk: int, d: int, parts: int = 1) -> dict:
-    """flash_fwd_wide.cu's and flash_attn_wide.cu's launches for head dim d > 512 (the forward's
-    cluster plan, passed to the kernel; the twins of ClusterFwdSmem, FwdSmem, DqSmem and DkvSmem). The
-    backward: 128-column slices (`slices` of them, the float32 scratch
-    `width` = 128 * slices columns a part); grid (x, y, z) =
-    (row tiles * slices, heads, batch), block x owning rows
-    [rows (x // slices), + rows) and columns [128 (x % slices), + 128); the
-    dk/dv launch streams 32-row query tiles. The forward ("fwd"), where a
+# flash_bwd_wide_sm90.cu's clusters, in the order the plan tries them: (slices,
+# slice width, ring stages) of each type (parts). bf16: a pair of 320 columns
+# (one stage: two do not fit), then four and eight slices of 192 and 256 (two
+# stages); float32: four slices of 192 (one stage; a float32 block of 256
+# does not fit), eight of 128 (two stages), eight of 192.
+BWD_CLUSTERS = {1: ((2, 320, 1), (4, 192, 2), (4, 256, 2), (8, 192, 2), (8, 256, 2)),
+                2: ((4, 192, 1), (8, 128, 2), (8, 192, 1))}
+
+
+def _cluster_bwd_launch(cs: int, half: int, stages: int, smem: int, tiles: int, streamed: int, h: int, n: int,
+                        split: bool) -> dict:
+    """One kernel of the cluster backward: `tiles` 64-row tiles it owns
+    (query rows in dq, keys in dk/dv), `streamed` tiles of the other side,
+    split over two parts of the cluster where the plan splits and there are
+    two tiles to split."""
+    parts = 2 if split and streamed >= 2 else 1
+    return {"grid": (tiles * cs * parts, h, n), "rows": 64, "tile": 64, "stages": stages, "smem": smem,
+            "cluster": cs * parts, "slices": cs, "slice_cols": half, "stream_parts": parts, "width": cs * half}
+
+
+def wide_plan(n: int, h: int, lq: int, lk: int, d: int, parts: int, sms: int,
+              held: Optional[Callable[[int, int, int], int]] = None) -> dict:
+    """The launches at head dim d > 512 of flash_fwd_wide.cu (forward) and of
+    flash_bwd_wide_sm90.cu or flash_attn_wide.cu (backward) on a card of
+    `sms` SMs that holds held(half, stages, cluster) clusters of `cluster`
+    blocks of the cluster backward's instance at once (default: sms //
+    cluster; the wrappers ask the card, _clusters_held); parts: 1 (bf16) or
+    2 (float32's two bf16 parts). Each plan is passed to its kernel, which
+    only checks it; the twins of ClusterFwdSmem, FwdSmem, DqSmem and
+    DkvSmem.
+    The forward ("fwd"), where a
     cluster plan fits: clusters of "slices" blocks of "slice_cols" columns
     times "key_parts" (1 or 2) key parts, grid x = row tiles * cluster,
     block x of rank r = x % cluster owning slice r % slices of key part
@@ -700,25 +750,83 @@ def wide_plan(n: int, h: int, lq: int, lk: int, d: int, parts: int = 1) -> dict:
     tiles (bf16), 0 where they split every tile's keys, S issued once; its
     float32 scratch "width" = slices * slice_cols. Else the slice
     kernel (cluster 1: every block streams S over 64-column chunks of the
-    whole head dim). parts: 1 (bf16) or 2 (float32's two bf16 parts)."""
+    whole head dim).
+    The backward ("dq", "dkv"), within a cluster's reach: the first of
+    BWD_CLUSTERS whose slices cover d, "slices" blocks of "slice_cols"
+    columns a 64-row tile (query rows in dq, keys in dk/dv) times
+    "stream_parts" (1 or 2) parts of the streamed dimension, laid out as the
+    forward's key parts (two where the two kernels' clusters, side by side,
+    take fewer waves of what the card holds at once, each wave half as long:
+    on a tie the merge's cost decides for one part); S and dP summed over
+    the slices once a tile; the
+    float32 scratch "width" = slices * slice_cols. Else the slice kernels:
+    128-column slices ("slice", "slices", the float32 scratch "width" = 128
+    * slices columns a part), grid (x, y, z) = (row tiles * slices, heads,
+    batch), block x owning rows [rows (x // slices), + rows) and columns
+    [128 (x % slices), + 128); the dk/dv launch streams 32-row query tiles."""
     slices = -(-d // _WIDE_SLICE)
     qbox = 32 * 128
-    dq_smem = 2 * 4 * parts * _BOX64 + 2 * parts * _BOX64 + 8 * 6 + 1024
-    dkv_smem = 2 * parts * (2 * _BOX64 + 2 * qbox) + 4 * parts * qbox + 2 * 32 * 4 + 8 * 6 + 1024
     launch = lambda length, tile, smem: {"grid": (_pairs(length, 64) * slices, h, n), "rows": 64, "tile": tile,
-                                         "stages": 2, "smem": smem}
-    c = _cluster_fwd_plan(parts, d, _pairs(lq, 64) * h * n, _pairs(lk, 64))
+                                         "stages": 2, "smem": smem, "cluster": 1, "slices": slices,
+                                         "slice_cols": _WIDE_SLICE, "width": slices * _WIDE_SLICE}
+    c = _cluster_fwd_plan(parts, d, _pairs(lq, 64) * h * n, _pairs(lk, 64), sms)
     if c is None:
-        fwd = dict(launch(lq, 64, 2 * 2 * parts * _BOX64 + 2 * parts * _BOX64 + 8 * 6 + 1024), cluster=1,
-                   slices=slices, slice_cols=_WIDE_SLICE, key_parts=1, width=slices * _WIDE_SLICE)
+        fwd = dict(launch(lq, 64, 2 * 2 * parts * _BOX64 + 2 * parts * _BOX64 + 8 * 6 + 1024), key_parts=1)
     else:
         cluster = c["cs"] * c["ck"]
         fwd = {"grid": (_pairs(lq, 64) * cluster, h, n), "rows": 64, "tile": 64, "stages": c["stages"],
                "smem": _cluster_fwd_smem(parts, c["ch"], c["cs"], *c["stages"], c["pp"]), "cluster": cluster,
                "slices": c["cs"], "slice_cols": 64 * c["ch"], "key_parts": c["ck"], "whole_tiles": c["pp"],
                "width": c["cs"] * 64 * c["ch"]}
+    bwd = next(((cs, half, st) for cs, half, st in BWD_CLUSTERS[parts] if cs * half >= d), None)
+    if bwd is None:
+        dq = launch(lq, 64, 2 * 4 * parts * _BOX64 + 2 * parts * _BOX64 + 8 * 6 + 1024)
+        dkv = launch(lk, 32, 2 * parts * (2 * _BOX64 + 2 * qbox) + 4 * parts * qbox + 2 * 32 * 4 + 8 * 6 + 1024)
+    else:
+        cs, half, stages = bwd
+        dq_smem, dkv_smem = _bwd_cluster_smem(half, parts, stages, 0)
+        q_tiles, k_tiles = _pairs(lq, 64), _pairs(lk, 64)
+        # dq and dk/dv run side by side (two streams): their clusters share
+        # the card, `at_once(c)` clusters of c blocks at a time, and two parts
+        # halve each cluster's work
+        at_once = lambda c: held(half, stages, c) if held else sms // c
+        clusters = (q_tiles + k_tiles) * h * n
+        waves = lambda p: -(-clusters // at_once(cs * p)) / p
+        split = 2 * cs <= _MAX_CLUSTER and at_once(2 * cs) > 0 and waves(2) < waves(1)
+        dq = _cluster_bwd_launch(cs, half, stages, dq_smem, q_tiles, k_tiles, h, n, split)
+        dkv = _cluster_bwd_launch(cs, half, stages, dkv_smem, k_tiles, q_tiles, h, n, split)
     return {"slice": _WIDE_SLICE, "slices": slices, "chunks": -(-d // 64), "width": slices * _WIDE_SLICE,
-            "parts": parts, "fwd": fwd, "dq": launch(lq, 64, dq_smem), "dkv": launch(lk, 32, dkv_smem)}
+            "parts": parts, "fwd": fwd, "dq": dq, "dkv": dkv}
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_held(index: int, parts: int, half: int, stages: int, cluster: int) -> int:
+    """How many clusters of `cluster` blocks of flash_bwd_wide_sm90.cu's
+    (parts, half, stages) kernels CUDA device `index` holds at once (the
+    fewer of its dq and dk/dv kernels'; emox_flash_bwd_wide_clusters)."""
+    with torch.cuda.device(index):
+        fn = build.kernel("flash_bwd_wide_sm90", "emox_flash_bwd_wide_clusters")
+        got = [fn(2 - parts, half, stages, cluster, dkv) for dkv in (0, 1)]
+    for g in got:
+        if g < 0:
+            build.check(-g, "flash_bwd_wide_clusters")
+    return min(got)
+
+
+def card_wide_plan(n: int, h: int, lq: int, lk: int, d: int, dtype: torch.dtype, index: int) -> dict:
+    """wide_plan on CUDA device `index`: its SMs and the clusters it holds."""
+    parts = 2 if dtype == torch.float32 else 1
+    return wide_plan(n, h, lq, lk, d, parts, _sm_count(index),
+                     lambda half, stages, cluster: _clusters_held(index, parts, half, stages, cluster))
+
+
+def cluster_bwd_args(plan: dict) -> tuple:
+    """wide_plan's backward as emox_flash_bwd_wide_sm90 takes it: (cs, half,
+    stages, dq parts, dk/dv parts); () for the slice kernels."""
+    dq, dkv = plan["dq"], plan["dkv"]
+    if dq["cluster"] == 1:
+        return ()
+    return (dq["slices"], dq["slice_cols"], dq["stages"], dq["stream_parts"], dkv["stream_parts"])
 
 
 def cluster_fwd_args(fwd: dict) -> tuple:

@@ -41,6 +41,8 @@ KERNELS = {
                             "emox_flash_bwd_d512_f32": [_P] * 9 + [_LL] + [_I] * 5 + [_F] + [_P] * 5},
     "flash_fwd_wide": {"emox_flash_fwd_wide": [_P] * 5 + [_LL] + [_I] * 5 + [_F] + [_I] * 7 + [_P] * 4},
     "flash_attn_wide": {"emox_flash_bwd_wide": [_P] * 9 + [_LL] + [_I] * 6 + [_F, _I] + [_P] * 5},
+    "flash_bwd_wide_sm90": {"emox_flash_bwd_wide_sm90": [_P] * 9 + [_LL] + [_I] * 6 + [_F, _I] + [_I] * 5 + [_P] * 5,
+                            "emox_flash_bwd_wide_clusters": [_I] * 5},
     "flash_fwd_d512_f32": {"emox_flash_fwd_d512_f32": [_P] * 5 + [_LL] + [_I] * 4 + [_F] + [_P] * 4},
     "ff_sm90": {"emox_ff_sm90": [_P] * 11 + [_I] * 4 + [_F, _P],
                 "emox_ff_f32_sm90": [_P] * 13 + [_I] * 4 + [_F, _P]},

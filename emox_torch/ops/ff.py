@@ -36,7 +36,6 @@ its kernel compiler had no erf; both versions here use the exact erf.
 
 from __future__ import annotations
 
-import functools
 import os
 from typing import Optional
 
@@ -44,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from emox_torch.ops import build
-from emox_torch.ops.attention import _on_card_or_cpu, _stream
+from emox_torch.ops.attention import _on_card_or_cpu, _sm_count, _stream
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _SM90_ROWS, _SM90_FEATURES, _SM90_COLS = 128, 128, 160  # ff_sm90.cu's tiles: kBM, kBF, kBC
@@ -87,11 +86,6 @@ def ln_geglu_ff_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w
     a, g = h.chunk(2, dim=-1)
     hg = (a * F.gelu(g)).to(x.dtype).float()
     return (F.linear(hg, w2.float(), b2.float()) + xf).to(x.dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ff_sm90_plan(m: int, c: int, f: int, sms: int) -> dict:

@@ -1,6 +1,7 @@
 """The float32 attention kernels on Hopper and the backward at head dims
 129-256 (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_d512_sm90.cu at
-half width, flash_fwd_wide.cu's and flash_attn_wide.cu's entries), on the CPU.
+half width, flash_fwd_wide.cu's, flash_attn_wide.cu's and
+flash_bwd_wide_sm90.cu's entries), on the CPU.
 
 Float32 runs on bf16 wgmma: each operand x is split into hi = bf16(x) and
 lo = bf16(x - hi) in scratch the wrapper allocates, every product a b runs
@@ -16,7 +17,9 @@ plain versions. Then:
   * which entry each (layout, type, head dim) reaches: float32 forward at
     d <= 256 -> emox_flash_fwd_f32_sm90, float32 backward at <= 128 ->
     emox_flash_bwd_f32_sm90, both types at 129-256 ->
-    emox_flash_bwd_d256_sm90, bf16 at <= 128 untouched;
+    emox_flash_bwd_d256_sm90, bf16 at <= 128 untouched, above 512 the
+    cluster backward emox_flash_bwd_wide_sm90 (its float32 scratch as wide
+    as the plan's slices);
   * the launch plans (`f32_plan`, `bwd_d512_plan` at half width in both
     types): every row owned by one block, shared memory within 227 KB;
   * numpy twins of the split forward at d 64 and 256 and of the split
@@ -40,6 +43,10 @@ from tests.test_torch_ops import BF16_TOL, rel, t
 
 SMEM_PER_BLOCK = 232448  # bytes a block may have on the H100 (227 KB)
 F32_BAR = 2e-4  # float32 against the plain version: of the largest output value (chip_smoke.py's bar)
+SMS = 132  # the H100 SXM's SMs, which the launch plans read from the card
+# clusters of 2, 4 and 8 blocks of ~227 KB an H100 80GB HBM3 holds at once
+# (emox_flash_bwd_wide_clusters on the card), which the wide backward's plan reads
+H100_HELD = {2: 66, 4: 30, 8: 15}
 LOG2E = math.log2(math.e)
 
 
@@ -154,6 +161,11 @@ def entries(monkeypatch):
         "emox_flash_bwd_wide": lambda q, k, v, g, lse, delta, dq, dk, dv, st, b, h, lq, lk, lq_pad, d, scale,
         dtype, q2, k2, v2, do2, stream: backward("bwd_wide", 2 - dtype, q, k, v, g, lse, delta, dq, dk, dv, st, b, h,
                                                  lq, lk, lq_pad, d, scale, q2, k2, v2, do2, -(-d // 128) * 128, 64),
+        # the cluster backward: the float32 scratch as wide as the plan's slices
+        "emox_flash_bwd_wide_sm90": lambda q, k, v, g, lse, delta, dq, dk, dv, st, b, h, lq, lk, lq_pad, d, scale,
+        dtype, cs, half, stages, dq_parts, dkv_parts, q2, k2, v2, do2, stream: backward(
+            "bwd_wide_sm90", 2 - dtype, q, k, v, g, lse, delta, dq, dk, dv, st, b, h, lq, lk, lq_pad, d, scale,
+            q2, k2, v2, do2, cs * half, 64),
     }
 
     def kernel(name, fn_name=""):
@@ -165,6 +177,8 @@ def entries(monkeypatch):
     monkeypatch.setattr(tattn, "_split_scratch", recording_scratch)
     monkeypatch.setattr(tattn, "_on_card_or_cpu", lambda name, x: True)
     monkeypatch.setattr(tattn, "_stream", lambda x: 0)
+    monkeypatch.setattr(tattn, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(tattn, "_clusters_held", lambda index, parts, half, stages, cluster: H100_HELD[cluster])
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(tattn, "flash_fwd_sm90", lambda *a: calls.append(("fwd_sm90",)))
     monkeypatch.setattr(tattn, "flash_bwd_sm90", lambda *a: calls.append(("bwd_sm90",)))
@@ -206,7 +220,7 @@ def test_entries_take_the_split_and_match_the_plain_version(entries, layout, dty
     out, got_lse = fwd()
     grads = bwd()
     fwd_entry = "fwd_wide" if wide else ("fwd_f32_sm90" if f32 else "fwd_sm90")
-    bwd_entry = "bwd_wide" if wide else ("bwd_d256_sm90" if d > 128 else ("bwd_f32_sm90" if f32 else "bwd_sm90"))
+    bwd_entry = "bwd_wide_sm90" if wide else ("bwd_d256_sm90" if d > 128 else ("bwd_f32_sm90" if f32 else "bwd_sm90"))
     assert [c[0] for c in entries] == [fwd_entry, bwd_entry]
     checks = [] if fwd_entry == "fwd_sm90" else [("out", out, o)]
     checks += [] if bwd_entry == "bwd_sm90" else list(zip(("dq", "dk", "dv"), grads, want))

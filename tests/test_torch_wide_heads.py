@@ -1,10 +1,13 @@
-"""Head dims above 512 (flash_fwd_wide.cu, flash_attn_wide.cu), on the CPU.
+"""Head dims above 512 (flash_fwd_wide.cu; flash_bwd_wide_sm90.cu and
+flash_attn_wide.cu), on the CPU.
 
 The reference computes every head dim: its kernel route sends d % 64 == 0
 to the packed kernel and any other d to the strided one, with no width
 limit. The port takes d > 512 to `flash_fwd_wide` and `flash_bwd_wide`
-(128-column slices of the outputs, a block a slice, S and dP over the whole
-head dim in every block). Here:
+(column slices of the outputs; within the clusters' reach a cluster of
+blocks a tile that sums the slices' S and dP partials, wider heads a block
+a 128-column slice with S and dP over the whole head dim in every block).
+Here, with the slice decomposition:
 
   * the port's plain route and its card route (the wrappers' own work, with
     the two wide launchers replaced by stand-ins that check what the kernels
@@ -229,15 +232,19 @@ def _owned(launch, plan, n, h, length, d) -> np.ndarray:
 def test_wide_plan_covers_every_row_and_column_once(n, h, lq, lk, d, parts):
     """The forward, dq and dk/dv launches: every query row (forward, dq) and
     key (dk, dv), each head-dim column, written by exactly one block (the
-    forward's clusters: by the blocks of key part 0); the chunks cover the
-    head dim, the float32 scratch's width the slices (the forward's its own
-    slices); the dk/dv kernel's 32-row query tiles never read past lse's
-    padding to 64 rows; a block's shared memory fits the H100's 227 KB."""
-    plan = tattn.wide_plan(n, h, lq, lk, d, parts)
+    clusters: by the blocks of part 0 of the streamed dimension); the chunks
+    cover the head dim, the slice kernels' float32 scratch's width their
+    slices (the clusters' their own slices); the dk/dv kernel's query tiles
+    never read past lse's padding to 64 rows; a block's shared memory fits
+    the H100's 227 KB."""
+    plan = tattn.wide_plan(n, h, lq, lk, d, parts, 132)
     assert plan["slices"] * plan["slice"] == plan["width"] >= d > plan["width"] - plan["slice"]
     assert plan["chunks"] * 64 >= d > (plan["chunks"] - 1) * 64
     fwd = plan["fwd"]
     assert fwd["width"] == fwd["slices"] * fwd["slice_cols"] >= d > fwd["width"] - fwd["slice_cols"]
+    for name in ("dq", "dkv"):  # the backward's clusters: 2, 4 or 8 slices, the last may be padding
+        launch = plan[name]
+        assert launch["width"] == launch["slices"] * launch["slice_cols"] >= d, name
     for name, length in (("fwd", lq), ("dq", lq), ("dkv", lk)):
         launch = plan[name]
         assert launch["smem"] <= SMEM_PER_BLOCK, name
