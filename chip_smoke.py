@@ -175,7 +175,18 @@ raises and the script exits non-zero. Phases:
      float32, batch 8 at 256^2 (1 warm-up, 5 timed steps), which launches
      no kernel of the port. Each checks that only the stage's submodels
      changed.
- 13. the `kernels` line: every ported kernel with the TPU kernel it
+ 13. cli: the port's command line (emox_torch.cli.main, in-process) on
+     the flagship at 256^2 in bf16: the port's fixtures (2 clips x 24
+     frames), `precompute` (the trained face nets on the card) and
+     `pack-records`; `train` from a stage-2 config written by save_config
+     (batch 2 x 8 frames, 3 steps, checkpoint at step 3) on the records,
+     the kernels' launches per step as phase 7 asserts them; `infer` from
+     that checkpoint (16 frames, 10 DDIM steps, CFG 7.5, --face-mask auto,
+     --speeds), its video bit for bit against a direct EMOPipeline call on
+     the restored weights and its launches those of one request; then
+     `train-face` (20 steps at 128^2). Each command's seconds, the first and
+     steady train steps, the checkpoint's save and restore.
+ 14. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
@@ -2053,6 +2064,174 @@ def phase_face_nets(batch: int = 8, size: int = 256):
     return res, tree
 
 
+# ---- the command line ----------------------------------------------------------------
+def _cli(argv) -> tuple:
+    """(seconds, stdout lines) of one `python -m emox_torch` command run
+    in-process through emox_torch.cli.main, so that the launch counters see
+    its kernels. A command that fails raises."""
+    import io
+
+    from emox_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"emox_torch {' '.join(argv)} exited {rc}: {buf.getvalue()[-2000:]}")
+    return secs, buf.getvalue().splitlines()
+
+
+def _write_wav(path: str, seconds: float, seed: int, rate: int = 16000) -> None:
+    """A 16-bit mono .wav of seeded noise, written with the standard library."""
+    import wave
+
+    import numpy as np
+
+    pcm = np.random.default_rng(seed).normal(0.0, 0.1, int(rate * seconds)).clip(-1, 1)
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(rate)
+        f.writeframes((pcm * 32767).astype(np.int16).tobytes())
+
+
+def phase_cli(tmp: str, steps: int = 10, frames: int = 16):
+    """The port's command line on the flagship at 256^2 in bf16, through
+    emox_torch.cli.main in this process: the port's fixtures (2 clips x 24
+    frames), then `precompute` (the trained face nets on the card) and
+    `pack-records`; `train` from a stage-2 config that save_config wrote
+    (batch 2 x 8 frames, 3 steps, a checkpoint at step 3) on the records,
+    with the kernels' launches per step as phase_train asserts them; `infer`
+    from that checkpoint (16 frames, 10 DDIM steps, CFG 7.5, --face-mask
+    auto, --speeds) against a direct EMOPipeline call on the restored
+    weights with the same inputs (the same video, bit for bit) and the
+    launches of one request; `train-face` (20 steps at 128^2), its loss
+    falling and its file read back."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from emox_torch.cli import _load_audio, _load_weights, _restore_params
+    from emox_torch.core.config import save_config
+    from emox_torch.data.face import geometric_prior_mask
+    from emox_torch.data.fixtures import write_fixture_dataset
+    from emox_torch.infer.pipeline import EMOPipeline
+    from emox_torch.infer.video_io import frames_to_uint8
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+    from emox_torch.train.face_nets import load_face_nets
+
+    torch.cuda.empty_cache()
+    secs = {}
+    t0 = time.perf_counter()
+    meta = write_fixture_dataset(f"{tmp}/clips", num_clips=2, num_frames=24, size=256)
+    secs["fixtures"] = time.perf_counter() - t0
+    reset_launch_counts()
+    secs["precompute"], _ = _cli(["precompute", "--metadata", meta, "--videos", f"{tmp}/clips",
+                                  "--cache", f"{tmp}/cache"])
+    secs["pack_records"], _ = _cli(["pack-records", "--cache", f"{tmp}/cache", "--out", f"{tmp}/records"])
+    prep_counts = launch_counts()
+
+    batch, train_frames, train_steps = 2, 8, 3
+    cfg = _train_config(2, batch=batch, frames=train_frames, dtype="bfloat16", checkpoint_dir=f"{tmp}/ckpt")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, cache_dir=f"{tmp}/records"),
+                      train=dataclasses.replace(cfg.train, num_steps=train_steps, checkpoint_every=train_steps,
+                                                log_every=1))
+    save_config(cfg, f"{tmp}/stage2.yaml")
+    reset_launch_counts()
+    secs["train"], train_out = _cli(["train", "--config", f"{tmp}/stage2.yaml"])
+    train_counts = launch_counts()
+    torch.cuda.empty_cache()
+    with open(f"{tmp}/ckpt/stage2_metrics.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    steps_log = [r for r in log if "loss" in r]
+    secs["train_first_step"] = next(r["first_step_s"] for r in log if "first_step_s" in r)
+    secs["train_steady_step"] = (steps_log[-1]["time"] - steps_log[0]["time"]) / (len(steps_log) - 1)
+    ckpt_path = f"{tmp}/ckpt/stage2/step_{train_steps}.pt"
+    # the save follows step 3's metrics record: the file's time less the record's
+    secs["checkpoint_save"] = os.path.getmtime(ckpt_path) - steps_log[-1]["time"]
+    losses = [r["loss"] for r in steps_log]
+
+    ref = np.random.default_rng(5).uniform(-1, 1, (256, 256, 3)).astype(np.float32)
+    np.save(f"{tmp}/ref.npy", ref)
+    _write_wav(f"{tmp}/speech.wav", (frames + 4) / 25.0, seed=6)
+    argv = ["infer", "--config", f"{tmp}/stage2.yaml", "--params", f"{tmp}/ckpt/stage2", "--ref-image",
+            f"{tmp}/ref.npy", "--audio", f"{tmp}/speech.wav", "--frames", str(frames), "--steps", str(steps),
+            "--guidance", "7.5", "--face-mask", "auto", "--speeds", "0.1,0,0", "--out", f"{tmp}/out.npz"]
+    reset_launch_counts()
+    secs["infer"], infer_out = _cli(argv)
+    infer_counts = launch_counts()
+    with np.load(f"{tmp}/out.npz") as z:
+        cli_video = z["frames"]
+
+    # the same request, called directly on the restored weights
+    t0 = time.perf_counter()
+    params = _restore_params(f"{tmp}/ckpt/stage2")
+    secs["checkpoint_restore"] = time.perf_counter() - t0
+    model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda")
+    _load_weights(model, params)
+    del params
+    wav, _ = _load_audio(f"{tmp}/speech.wav", cfg.audio.sample_rate)
+    img = torch.from_numpy(ref[None]).cuda()
+    with torch.no_grad():
+        mask = (torch.sigmoid(model.locate_face(img).float()) > 0.5).float()
+    prior = float(mask.mean()) < 0.01
+    if prior:
+        mask = torch.from_numpy(geometric_prior_mask(256, 256)[None]).cuda()
+    speeds = torch.tensor([0.1, 0.0, 0.0]).expand(1, frames, 3).contiguous().cuda()
+    t0 = time.perf_counter()
+    video = EMOPipeline(model)(img, torch.from_numpy(wav[None]).cuda(), video_length=frames,
+                               num_inference_steps=steps, guidance_scale=7.5, face_mask=mask, speeds=speeds)
+    direct = frames_to_uint8(video[0].float().cpu().numpy())
+    secs["request"] = time.perf_counter() - t0
+    del model, video
+    torch.cuda.empty_cache()
+
+    secs["train_face"], face_out = _cli(["train-face", "--steps", "20", "--size", "128", "--out",
+                                         f"{tmp}/face_nets.npz"])
+    face_losses = [float(line.split("loss ")[1].split()[0]) for line in face_out if line.startswith("step ")]
+    face_tree = load_face_nets(f"{tmp}/face_nets.npz")
+
+    want_train = {k: train_steps * v for k, v in {**dict.fromkeys(BWD_SOURCES, 0),
+                                                   "flash_bwd_sm90": BWD_PER_STEP[("flagship", 256)]}.items()}
+    want_infer = {**attn_launches_per_request(cfg, steps), **fwd_sources_per_request(cfg, steps),
+                  **{k: ff_launches_per_request(cfg, steps) for k in ("ln_geglu_ff", FF_SOURCES["bfloat16"])}}
+    launches = {k: train_counts[k] + infer_counts[k] + prep_counts[k] for k in train_counts}
+    res = {"phase": "cli", "config": f"flagship 256^2 bf16 through emox_torch.cli.main: fixtures 2 x 24 frames; "
+           f"train stage 2 batch {batch} x {train_frames} frames, {train_steps} steps; infer {frames} frames, "
+           f"{steps} DDIM steps, CFG 7.5, --face-mask auto; train-face 20 steps at 128^2",
+           "seconds": secs, "s_per_request": secs["request"], "losses": losses,
+           "checkpoint_bytes": os.path.getsize(ckpt_path), "face_prior_mask": prior,
+           "video_shape": list(cli_video.shape), "video_equal": bool(np.array_equal(cli_video, direct)),
+           "video_max_abs_diff": int(np.abs(cli_video.astype(np.int16) - direct.astype(np.int16)).max()),
+           "face_losses": face_losses, "face_leaves": sorted(face_tree) if face_tree else None,
+           "launches": launches, "launches_train": train_counts, "launches_infer": infer_counts,
+           "launches_precompute": prep_counts,
+           "train_launches_expected": want_train, "infer_launches_expected": want_infer,
+           "stdout_tail": {"train": train_out[-2:], "infer": infer_out[-2:], "train_face": face_out[-2:]}}
+    emit(res)
+    if not (losses and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"cli train: a loss is not finite: {losses}")
+    if any(prep_counts.values()):
+        raise AssertionError(f"cli precompute launched kernels of the port: {prep_counts}")
+    check_path_launches("flagship", train_counts, train=True, what="cli train stage 2")
+    if {k: train_counts[k] for k in want_train} != want_train:
+        raise AssertionError(f"cli train: backward kernels {train_counts}, expected {want_train}")
+    check_path_launches("flagship", infer_counts, train=False, what="cli infer")
+    if {k: infer_counts[k] for k in want_infer} != want_infer:
+        raise AssertionError(f"cli infer: launched {infer_counts}, expected {want_infer}")
+    if cli_video.shape != (frames, 256, 256, 3) or not res["video_equal"]:
+        raise AssertionError(f"cli infer: the video {cli_video.shape} differs from the direct pipeline call "
+                             f"(max |diff| {res['video_max_abs_diff']})")
+    if not (len(face_losses) >= 2 and face_losses[-1] < face_losses[0]):
+        raise AssertionError(f"cli train-face: the loss did not fall: {face_losses}")
+    if face_tree is None or set(face_tree) != {"face_locator", "landmarker"}:
+        raise AssertionError("cli train-face: load_face_nets does not read the file back")
+    return res
+
+
 # ---- phase 4 ------------------------------------------------------------------
 def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "flagship", prompt=None, env=None,
                 profile: bool = True, size: int = 256):
@@ -2791,6 +2970,9 @@ def main(argv=None) -> int:
             train0 = phase_train(tmp, stage=0, batch=8, frames=1, warmup=1, steps=5, out_dir=args.out,
                                  dtype="float32", phase="train_stage0",
                                  prepare=lambda m: load_face_nets_into(m.modules, face_tree))
+        # the command line: precompute, pack-records, train, infer, train-face
+        with tempfile.TemporaryDirectory() as tmp:
+            cli = phase_cli(tmp)
     by_path = {"step": step, "serve": launches, "step_long": step_long, **long["launches_by_path"], "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
                "train_step": train_step,
                "train_stage2_per_step": train2["launches_per_step"],
@@ -2806,7 +2988,8 @@ def main(argv=None) -> int:
                "train_step_vae": train_step_vae, "train_step_vae_small": train_step_vae_small,
                "train_step_vae_640": train_step_vae_640, "train_vae512_per_step": train_vae512["launches_per_step"],
                "train_vae512_norms_per_step": train_vae512_norms["launches_per_step"],
-               "face_nets": face["launches"], "train_stage0_per_step": train0["launches_per_step"]}
+               "face_nets": face["launches"], "train_stage0_per_step": train0["launches_per_step"],
+               "cli": cli["launches"]}
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
     # flash_fwd_d512_f32 in the float32 512^2 VAE, flash_fwd_f32_sm90 and

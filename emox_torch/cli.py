@@ -1,0 +1,570 @@
+"""Command-line entry points of the port (counterpart of emox/cli.py):
+
+  python -m emox_torch precompute --metadata data/overfit.json --videos data/videos --cache data/cache
+  python -m emox_torch pack-records --cache data/cache --out data/records
+  python -m emox_torch train --stage 2 --config configs/stage2.yaml
+  python -m emox_torch train --stage 3 --from-stage 2
+  python -m emox_torch infer --config configs/inference.yaml --params checkpoints/stage2 \\
+      --ref-image face.npy --audio speech.wav --out out.mp4
+  python -m emox_torch train-face --out face_nets.npz
+
+Every command that builds a model (precompute, train, infer, train-face)
+runs on the CUDA card and stops when there is none; `--device cpu` asks
+for the CPU (the plain PyTorch versions of the kernels) instead.
+Checkpoints are the port's own (`torch.save` files `step_<n>.pt`, written
+by `train`); a flax param tree from the reference reaches the port through
+emox_torch.interop.from_flax. YAML is read and written by
+emox_torch.core.yamlio, so PyYAML is not needed.
+
+Registered but not yet ported, each exiting non-zero with its item of
+ROADMAP.md's Queue 1: `train --stage 4` and `infer --identity` (item 7),
+`train --coordinator/--num-processes` (item 9), `import-weights`, `export`
+and `eval` (item 10); `bench` comes with the port's benchmark.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import Any, Dict, Iterable, Iterator, List, Optional
+
+# ROADMAP.md Queue 1 items of what the port has not ported yet
+_NOT_PORTED = {
+    "identity": "--identity (the CLIP identity embedding) waits for a later slice of the port "
+                "(ROADMAP.md, Queue 1 item 7)",
+    "stage4": "train --stage 4 (the ControlNet branch) waits for a later slice of the port "
+              "(ROADMAP.md, Queue 1 item 7)",
+    "distributed": "--coordinator/--num-processes (multi-process training) wait for a later slice of the port "
+                   "(ROADMAP.md, Queue 1 item 9)",
+    "import-weights": "import-weights waits for a later slice of the port (ROADMAP.md, Queue 1 item 10)",
+    "export": "export waits for a later slice of the port (ROADMAP.md, Queue 1 item 10)",
+    "eval": "eval waits for a later slice of the port (ROADMAP.md, Queue 1 item 10)",
+    "bench": "bench comes with the port's benchmark, which a benchmark PR writes with BENCHMARK.json",
+}
+
+
+def _parse_overrides(pairs: List[str]) -> Dict[str, Dict[str, Any]]:
+    """--set section.key=value (YAML-typed) -> nested override dict."""
+    from emox_torch.core import yamlio
+
+    out: Dict[str, Dict[str, Any]] = {}
+    for p in pairs:
+        if "=" not in p or "." not in p.split("=", 1)[0]:
+            raise SystemExit(f"--set expects section.key=value, got {p!r}")
+        k, v = p.split("=", 1)
+        sec, key = k.split(".", 1)
+        val = yamlio.loads(v)
+        if isinstance(val, str):
+            try:  # YAML 1.1 doesn't parse '1e-3' as a float; users expect it
+                val = float(val)
+            except ValueError:
+                pass
+        out.setdefault(sec, {})[key] = val
+    return out
+
+
+def _load_config(args):
+    import dataclasses
+
+    from emox_torch.core.config import load_config, stage_presets
+
+    overrides = _parse_overrides(args.set or [])
+    if getattr(args, "stage", None) is not None and args.config is None:
+        # stage presets as the base when no YAML given
+        base = stage_presets(args.stage) if args.stage in (1, 2, 3, 5) else {}
+        for sec, vals in overrides.items():
+            base.setdefault(sec, {}).update(vals)
+        overrides = base
+    cfg = load_config(args.config, overrides)
+    if getattr(args, "stage", None) is not None:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, stage=args.stage))
+    return cfg
+
+
+def _device(args):
+    """The command's device: --device, else the CUDA card (none: exit)."""
+    from emox_torch.core.device import resolve_device
+
+    try:
+        return resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"{e} (pass --device cpu)") from None
+
+
+def _restore_params(path: str, use_ema: bool = False):
+    """Every parameter of the newest checkpoint under `path` (a directory of
+    the port's step_<n>.pt files), the EMA shadow weights with use_ema."""
+    from emox_torch.train.trainer import Checkpointer
+
+    if not os.path.isdir(path):
+        raise SystemExit(f"no checkpoint directory {path}")
+    ckpt = Checkpointer(path)
+    if ckpt.latest_step() is None:
+        entries = os.listdir(path)
+        if any(e.isdigit() for e in entries):
+            raise SystemExit(
+                f"{path} holds checkpoints in the reference's Orbax layout; the port reads its own torch.save "
+                "checkpoints (step_<n>.pt): load a flax param tree with emox_torch.interop.from_flax")
+        raise SystemExit(f"no checkpoint under {path}")
+    return ckpt.restore_params(use_ema=use_ema)
+
+
+def _load_weights(model, params) -> None:
+    """Copy a checkpoint's parameters into the model (every one named)."""
+    import torch
+
+    own = dict(model.modules.named_parameters())
+    missing = sorted(set(own) - set(params))
+    if missing:
+        raise SystemExit(f"the checkpoint lacks parameters {missing[:8]} of this configuration")
+    with torch.no_grad():
+        for n, p in own.items():
+            p.copy_(params[n])
+
+
+def cmd_precompute(args) -> int:
+    from emox_torch.data.precompute import precompute_dataset
+
+    dev = _device(args)
+    face_helper = None
+    if args.face_ckpt:
+        # trained stage-0 FaceLocator + FaceLandmarkNet replace MediaPipe as
+        # the mask/pose provider (reference Net.py:861-1156 FaceHelper)
+        from emox_torch.core.config import Config, load_config
+        from emox_torch.data.face import FaceHelper
+        from emox_torch.models.emo import EMOModel
+
+        cfg = load_config(args.config) if args.config else Config()
+        params = _restore_params(args.face_ckpt)
+        model = EMOModel(cfg, device=dev)
+        _load_weights(model, params)
+        face_helper = FaceHelper.from_model(model)
+        print(f"face provider: trained stage-0 nets from {args.face_ckpt}")
+
+    man = precompute_dataset(
+        args.metadata, args.videos, args.cache, width=args.width, height=args.height, fps=args.fps,
+        face_helper=face_helper, with_control=not args.skip_control, device=dev,
+    )
+    with open(man) as f:
+        manifest = json.load(f)
+    if args.debug_overlays:
+        # head-pose axis overlays per clip, the reference's *_debug.jpg
+        # dataset-prep artifact (reference Net.py:1077-1087 draw_axis)
+        import numpy as np
+
+        from emox_torch.data.face import pose_debug_overlay
+        from emox_torch.infer.video_io import frames_to_uint8
+
+        for cid, entry in manifest.items():
+            with np.load(entry["path"]) as z:
+                if "landmarks" not in z:
+                    continue
+                ov = pose_debug_overlay(z["frames"], z["landmarks"])
+            if ov is None:
+                continue
+            dbg = os.path.join(args.cache, f"{cid}_debug.png")
+            try:
+                import imageio.v3 as iio
+
+                iio.imwrite(dbg, frames_to_uint8(ov))
+            except Exception:
+                dbg = os.path.join(args.cache, f"{cid}_debug.npy")
+                np.save(dbg, ov)
+            print(f"pose debug overlay: {dbg}")
+    print(f"precomputed {len(manifest)} clips -> {args.cache}")
+    return 0
+
+
+def cmd_pack_records(args) -> int:
+    from emox_torch.data.records import write_shards
+
+    idx = write_shards(args.cache, args.out, shard_bytes=args.shard_mb * 1024 * 1024)
+    with open(idx) as f:
+        meta = json.load(f)
+    print(f"packed {len(meta['clips'])} clips into {len(meta['shards'])} shard(s) -> {args.out}")
+    return 0
+
+
+def build_train_data(cfg, stage: int, stage_name: str):
+    """Dataset + loader exactly as DataConfig/AugmentConfig specify
+    (augmentation, motion-frame priming, stage>=2 first-frame reference,
+    multi-worker prefetch)."""
+    from emox_torch.data.dataset import DataLoader, EMODataset
+
+    ds = EMODataset(
+        cfg.data.cache_dir, stage_name, num_frames=cfg.data.num_frames,
+        audio_context_frames=cfg.audio.context_frames, sample_rate=cfg.audio.sample_rate,
+        fps=cfg.audio.video_fps, speed_axes=cfg.model.speed_axes,
+        augment=cfg.augment if cfg.augment.enabled else None,
+        num_motion_frames=cfg.data.num_motion_frames if stage >= 1 else 0,
+        # stage >= 2: clip frame 0 is the identity reference (the reference's
+        # convention, reference train_stage_2_temporal_audio.py first frame)
+        ref_mode="first" if stage >= 2 else "random",
+    )
+    dl = DataLoader(
+        ds, batch_size=cfg.data.batch_size, seed=cfg.data.seed,
+        num_workers=max(1, cfg.data.num_workers),
+        prefetch=0 if cfg.data.num_workers == 0 else 2,
+    )
+    return ds, dl
+
+
+def device_batches(batches: Iterable[Dict[str, Any]], device) -> Iterator[Dict[str, Any]]:
+    """The loader's numpy batches as tensors on `device`, converted here, in
+    the consumer's thread (the loader threads never touch the card): a pinned
+    host copy, then a copy that does not block the host."""
+    import numpy as np
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    for batch in batches:
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = t.pin_memory().to(device, non_blocking=True) if cuda else t.to(device)
+        yield out
+
+
+def cmd_train(args) -> int:
+    from emox_torch.core.config import save_config
+    from emox_torch.train.stages import STAGE_DESCRIPTIONS
+    from emox_torch.train.trainer import Trainer
+
+    if args.coordinator or args.num_processes:
+        raise SystemExit(_NOT_PORTED["distributed"])
+    cfg = _load_config(args)
+    stage = cfg.train.stage
+    if stage == 4:
+        raise SystemExit(_NOT_PORTED["stage4"])
+    dev = _device(args)
+    stage_name = {0: "stage0-facelocator", 1: "stage1", 2: "stage2", 3: "stage3",
+                  5: "stage1"}[stage]  # stage 5 (VAE) trains on stage-1 single frames
+    print(f"stage {stage}: {STAGE_DESCRIPTIONS[stage]}")
+
+    trainer = Trainer(cfg, device=dev)
+    if args.from_stage is not None:
+        if not trainer.load_params_from_stage(args.from_stage):
+            raise SystemExit(f"no stage-{args.from_stage} checkpoint under {cfg.train.checkpoint_dir}")
+        print(f"initialised from stage-{args.from_stage} checkpoint")
+    resumed = trainer.resume()
+    if resumed:
+        print(f"resumed at step {resumed}")
+    os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+    save_config(cfg, os.path.join(cfg.train.checkpoint_dir, f"stage{stage}_config.yaml"))
+
+    _, dl = build_train_data(cfg, stage, stage_name)
+    metrics = trainer.fit(device_batches(dl, trainer.device))
+    trainer.close()
+    print(json.dumps({"final_step": int(trainer.state.step), **metrics}))
+    return 0
+
+
+def cmd_infer(args) -> int:
+    import numpy as np
+    import torch
+
+    from emox_torch.core.dtypes import dtype_by_name
+    from emox_torch.infer.pipeline import EMOPipeline
+    from emox_torch.infer.video_io import save_video, save_videos_grid
+    from emox_torch.models.emo import EMOModel
+
+    if args.identity:
+        raise SystemExit(_NOT_PORTED["identity"])
+    cfg = _load_config(args)
+    dev = _device(args)
+    # the model serves in the compute dtype it trained in
+    model = EMOModel(cfg, dtype=dtype_by_name(cfg.train.compute_dtype), device=dev)
+    if args.params:
+        _load_weights(model, _restore_params(args.params, use_ema=args.ema))
+    else:
+        print("WARNING: no --params given; using random init (smoke test)")
+
+    ref = _load_image(args.ref_image, cfg.inference.width, cfg.inference.height)
+    wav, sr = _load_audio(args.audio, cfg.audio.sample_rate)
+    fps = cfg.inference.fps
+    total = args.frames or int(len(wav) / sr * fps) or cfg.inference.video_length
+
+    face_mask = None
+    if args.face_mask == "auto":
+        # stage-0 FaceLocator on the reference image (the geometric prior
+        # where the locator finds no face)
+        with torch.no_grad():
+            logits = model.locate_face(torch.from_numpy(ref[None]))
+        face_mask = (torch.sigmoid(logits.float()) > 0.5).float()
+        if float(face_mask.mean()) < 0.01:
+            from emox_torch.data.face import geometric_prior_mask
+
+            face_mask = torch.from_numpy(geometric_prior_mask(cfg.inference.height, cfg.inference.width)[None])
+    elif args.face_mask:
+        face_mask = torch.from_numpy(
+            _load_image(args.face_mask, cfg.inference.width, cfg.inference.height)[None, ..., :1])
+
+    speeds = _parse_speeds(args.speeds, total, cfg.model.speed_axes)
+    tokenizer = None
+    if args.prompt is not None:
+        from emox_torch.data.tokenizer import CLIPTokenizer
+
+        tokenizer = CLIPTokenizer(args.vocab)
+        if tokenizer.is_fallback:
+            print("NOTE: no CLIP vocab file (--vocab/EMOX_CLIP_VOCAB); using "
+                  "byte-level fallback tokenization")
+
+    n = max(1, args.grid)
+    # N samples in one batched call: the initial latents carry the batch
+    # axis, so each row draws its own noise — N distinct samples
+    ref_b = torch.from_numpy(np.repeat(ref[None], n, axis=0)).to(dev)
+    wav_b = torch.from_numpy(np.repeat(wav[None], n, axis=0)).to(dev)
+    if face_mask is not None:
+        face_mask = face_mask.to(dev).repeat_interleave(n, dim=0)
+    if speeds is not None:
+        speeds = speeds.to(dev).repeat_interleave(n, dim=0)
+
+    pipe = EMOPipeline(model, cfg)
+    t0 = time.perf_counter()
+    if total > cfg.inference.context_frames and args.autoregressive:
+        frames = pipe.generate_long(
+            ref_b, wav_b, total_frames=total, segment_length=cfg.inference.context_frames,
+            num_inference_steps=args.steps, guidance_scale=args.guidance, speeds=speeds, face_mask=face_mask,
+            prompt=args.prompt, negative_prompt=args.negative_prompt, tokenizer=tokenizer,
+        )
+    else:
+        frames = pipe(
+            ref_b, wav_b, video_length=total, num_inference_steps=args.steps, guidance_scale=args.guidance,
+            face_mask=face_mask, speeds=speeds, prompt=args.prompt, negative_prompt=args.negative_prompt,
+            tokenizer=tokenizer,
+        )
+    frames = frames.float().cpu().numpy()  # waits for the card
+    secs = time.perf_counter() - t0
+    if n > 1:
+        # tiled multi-sample grid (reference util.py:21-33 save_videos_grid)
+        out = save_videos_grid(frames, args.out, fps=fps)
+        print(f"wrote {out} ({n}-sample grid, {total} frames @ {fps} fps, {secs:.3f} s)")
+    else:
+        out = save_video(frames[0], args.out, fps=fps, wav=wav, sample_rate=sr)
+        print(f"wrote {out} ({total} frames @ {fps} fps, {secs:.3f} s)")
+    return 0
+
+
+def cmd_train_face(args) -> int:
+    """Train the FaceLocator+FaceLandmarkNet provider nets on the synthetic
+    face distribution and write them as the reference's asset format."""
+    import numpy as np
+
+    from emox_torch.train.face_nets import ASSET_PATH, save_face_nets, train_face_nets
+
+    dev = _device(args)
+    params, metrics = train_face_nets(
+        steps=args.steps, batch_size=args.batch_size, image_size=args.size,
+        learning_rate=args.lr, seed=args.seed, device=dev,
+    )
+    path = save_face_nets(params, args.out or ASSET_PATH, dtype=np.float32 if args.fp32 else np.float16)
+    print(json.dumps({"asset": path, **{k: round(v, 6) for k, v in metrics.items()}}))
+    return 0
+
+
+def _not_ported(key: str):
+    def cmd(args) -> int:
+        raise SystemExit(_NOT_PORTED[key])
+
+    return cmd
+
+
+def _parse_speeds(spec, total_frames: int, speed_axes: int):
+    """--speeds: .npy path ([T] or [T, A]) or comma-separated floats (one
+    per axis, held constant over the clip) -> [1, T(, A)] float32 tensor.
+    Reaches the trained stage-3 speed conditioning (reference
+    EMOAnimationPipeline.py:577 head_rotation_speeds)."""
+    if not spec:
+        return None
+    import numpy as np
+    import torch
+
+    if os.path.exists(spec):
+        arr = np.load(spec).astype(np.float32)
+        if arr.ndim == 1:
+            arr = arr[:, None] if speed_axes > 1 else arr
+        elif arr.ndim == 2 and speed_axes == 1 and arr.shape[1] == 1:
+            arr = arr[:, 0]  # the documented [T, axes] form at axes=1
+    else:
+        vals = np.asarray([float(v) for v in spec.split(",")], np.float32)
+        if len(vals) != speed_axes:
+            raise SystemExit(
+                f"--speeds got {len(vals)} comma-separated values but the model "
+                f"has speed_axes={speed_axes}; pass exactly one value per axis"
+            )
+        arr = np.tile(vals[None], (total_frames, 1)) if speed_axes > 1 else np.full(
+            (total_frames,), vals[0], np.float32)
+    # pad/trim to the clip length
+    if arr.shape[0] < total_frames:
+        arr = np.concatenate([arr, np.repeat(arr[-1:], total_frames - arr.shape[0], axis=0)])
+    arr = arr[:total_frames]
+    expected_ndim = 2 if speed_axes > 1 else 1
+    if arr.ndim != expected_ndim or (speed_axes > 1 and arr.shape[1] != speed_axes):
+        raise SystemExit(f"--speeds needs {speed_axes} axis values per frame, got shape {arr.shape}")
+    return torch.from_numpy(np.ascontiguousarray(arr[None]))
+
+
+def _load_image(path: str, width: int, height: int):
+    """.npy, or an image file through imageio or cv2 -> [H, W, 3] float32 in
+    [-1, 1] at (height, width)."""
+    import numpy as np
+
+    from emox_torch.data.native import resize_bilinear, u8_to_unit
+
+    if path.endswith(".npy"):
+        img = np.load(path)
+    else:
+        try:
+            import imageio.v3 as iio
+
+            img = iio.imread(path)
+        except Exception as e_iio:
+            try:
+                import cv2
+
+                img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+            except Exception as e_cv2:
+                raise SystemExit(f"cannot read {path}: imageio ({e_iio}) and cv2 ({e_cv2}) both failed; "
+                                 "a .npy image always works") from None
+    if img.dtype == np.uint8:
+        img = u8_to_unit(img)
+    if img.shape[:2] != (height, width):
+        img = resize_bilinear(np.ascontiguousarray(img, np.float32), height, width)
+    return img[..., :3].astype(np.float32)
+
+
+def _load_audio(path: str, sample_rate: int):
+    """.npy (taken at sample_rate) or a 16-bit .wav (mixed to mono and
+    resampled) -> (float32 waveform, sample_rate)."""
+    import wave
+
+    import numpy as np
+
+    from emox_torch.data.native import resample_linear
+
+    if path.endswith(".npy"):
+        return np.load(path).astype(np.float32), sample_rate
+    with wave.open(path, "rb") as f:
+        sr = f.getframerate()
+        n = f.getnframes()
+        raw = f.readframes(n)
+        pcm = np.frombuffer(raw, np.int16).astype(np.float32) / 32767.0
+        if f.getnchannels() > 1:
+            pcm = pcm.reshape(-1, f.getnchannels()).mean(axis=1)
+    if sr != sample_rate:
+        pcm = resample_linear(pcm, float(sr), float(sample_rate))
+    return pcm, sample_rate
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs the plain versions on the CPU)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="emox_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="command", required=True)
+
+    pp = sub.add_parser("precompute", help="video/audio -> cached training arrays")
+    pp.add_argument("--metadata", required=True)
+    pp.add_argument("--videos", required=True)
+    pp.add_argument("--cache", required=True)
+    pp.add_argument("--width", type=int, default=256)
+    pp.add_argument("--height", type=int, default=256)
+    pp.add_argument("--fps", type=float, default=25.0)
+    pp.add_argument("--face-ckpt", default=None,
+                    help="stage-0 checkpoint dir (the port's, written by train --stage 0): trained "
+                         "FaceLocator+landmarks as mask/pose provider")
+    pp.add_argument("--config", default=None, help="YAML config for --face-ckpt model shape")
+    pp.add_argument("--skip-control", action="store_true",
+                    help="skip the stage-4 landmark-skeleton control renders (saves cache space when ControlNet training is not planned)")
+    pp.add_argument("--debug-overlays", action="store_true",
+                    help="write a head-pose axis overlay image per clip (the reference's *_debug.jpg prep artifact)")
+    _add_device(pp)
+    pp.set_defaults(fn=cmd_precompute)
+
+    pk = sub.add_parser(
+        "pack-records",
+        help="per-clip .npz caches -> sharded mmap records (streaming loader for the 36k-clip corpus)",
+    )
+    pk.add_argument("--cache", required=True, help="dir of per-clip .npz caches (precompute output)")
+    pk.add_argument("--out", required=True, help="output dir for shard-*.rec + index.json")
+    pk.add_argument("--shard-mb", type=int, default=512)
+    pk.set_defaults(fn=cmd_pack_records)
+
+    pt = sub.add_parser("train", help="run a training stage")
+    pt.add_argument("--stage", type=int, choices=(0, 1, 2, 3, 4, 5),
+                    help="5 = VAE pretraining (bootstrap the autoencoder where the reference "
+                         "loads SD's pretrained one); 4 is not ported yet")
+    pt.add_argument("--config", default=None, help="YAML config path")
+    pt.add_argument("--from-stage", type=int, default=None, help="init from this stage's checkpoint")
+    pt.add_argument("--coordinator", default=None, help="multi-host coordinator (not ported yet)")
+    pt.add_argument("--num-processes", type=int, default=None, help="not ported yet")
+    pt.add_argument("--process-id", type=int, default=None, help="not ported yet")
+    pt.add_argument("--set", nargs="*", action="extend", default=[], metavar="SEC.KEY=VAL", help="config overrides (repeatable)")
+    _add_device(pt)
+    pt.set_defaults(fn=cmd_train)
+
+    pi = sub.add_parser("infer", help="reference image + audio -> talking-head video")
+    pi.add_argument("--config", default=None)
+    pi.add_argument("--params", default=None, help="checkpoint directory (the port's, e.g. checkpoints/stage2)")
+    pi.add_argument("--ref-image", required=True, help=".npy [H, W, 3], or an image file (imageio or cv2)")
+    pi.add_argument("--audio", required=True, help=".wav (16-bit) or .npy at audio.sample_rate")
+    pi.add_argument("--out", default="out.mp4", help=".mp4, or .npz for the frames as arrays")
+    pi.add_argument("--frames", type=int, default=None)
+    pi.add_argument("--steps", type=int, default=None)
+    pi.add_argument("--guidance", type=float, default=None)
+    pi.add_argument("--autoregressive", action="store_true")
+    pi.add_argument("--grid", type=int, default=1, metavar="N",
+                    help="sample N videos in one batch and write a tiled grid mp4 "
+                         "(reference save_videos_grid, util.py:21-33)")
+    pi.add_argument("--face-mask", default=None, help="'auto' (FaceLocator) or mask image path")
+    pi.add_argument("--speeds", default=None,
+                    help="head-rotation speeds: .npy ([T] or [T,axes]) or comma floats per axis")
+    pi.add_argument("--prompt", default=None, help="text prompt (requires clip.text_enabled)")
+    pi.add_argument("--negative-prompt", default="")
+    pi.add_argument("--vocab", default=None,
+                    help="CLIP vocab: HF dir/vocab.json or openai bpe .txt(.gz); default EMOX_CLIP_VOCAB")
+    pi.add_argument("--identity", action="store_true", help="CLIP identity embedding (not ported yet)")
+    pi.add_argument("--ema", action="store_true", help="serve EMA shadow weights when present")
+    pi.add_argument("--set", nargs="*", action="extend", default=[], metavar="SEC.KEY=VAL")
+    _add_device(pi)
+    pi.set_defaults(fn=cmd_infer)
+
+    pf = sub.add_parser("train-face", help="train + write the FaceLocator/FaceLandmarkNet asset")
+    pf.add_argument("--steps", type=int, default=1500)
+    pf.add_argument("--batch-size", type=int, default=32)
+    pf.add_argument("--size", type=int, default=128)
+    pf.add_argument("--lr", type=float, default=2e-3)
+    pf.add_argument("--seed", type=int, default=0)
+    pf.add_argument("--out", default=None,
+                    help="default: emox_torch/assets/face_nets.npz (stored float16; "
+                         "pass --fp32 for full-precision storage)")
+    pf.add_argument("--fp32", action="store_true",
+                    help="store the asset in float32 instead of the default float16")
+    _add_device(pf)
+    pf.set_defaults(fn=cmd_train_face)
+
+    for name, help_text in (("import-weights", "PyTorch SD/wav2vec2 checkpoints -> params (not ported yet)"),
+                            ("export", "export the denoise step for serving (not ported yet)"),
+                            ("eval", "quality metrics on a generated clip (not ported yet)"),
+                            ("bench", "denoise-step throughput benchmark (not ported yet)")):
+        sub.add_parser(name, help=help_text).set_defaults(fn=_not_ported(name), not_ported=True)
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = build_parser()
+    # an unported command takes the reference's arguments and exits naming its item
+    args, extra = parser.parse_known_args(argv)
+    if extra and not getattr(args, "not_ported", False):
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,9 +2,9 @@
 
 Field for field the same dataclasses as emox/core/config.py (a test holds
 them equal), so a YAML written for the reference loads here unchanged.
-The port imports nothing of emox, so AugmentConfig is copied in too, and
-PyYAML is imported only inside load_config/save_config: a deployment
-that builds its Config in code never needs it.
+The port imports nothing of emox, so AugmentConfig is copied in too.
+load_config and save_config read and write YAML through the port's own
+reader (emox_torch.core.yamlio): PyYAML is not needed.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
+
+from emox_torch.core import yamlio
 
 
 @dataclass(frozen=True)
@@ -406,10 +408,9 @@ def load_config(path: Optional[str] = None, overrides: Optional[Dict[str, Dict[s
     """Load a Config from YAML with optional nested-dict overrides."""
     raw: Dict[str, Any] = {}
     if path is not None:
-        import yaml  # only here: the serving path never reads YAML
-
-        with open(path) as f:
-            raw = yaml.safe_load(f) or {}
+        raw = yamlio.load(path) or {}
+        if not isinstance(raw, dict):
+            raise ValueError(f"{path}: a configuration is a mapping of sections, got {type(raw).__name__}")
     if overrides:
         for sec, vals in overrides.items():
             raw.setdefault(sec, {}).update(vals)
@@ -424,14 +425,11 @@ def load_config(path: Optional[str] = None, overrides: Optional[Dict[str, Dict[s
 
 
 def save_config(cfg: Config, path: str) -> None:
-    import yaml
-
     out = {}
     for sec in _SECTIONS:
         d = dataclasses.asdict(getattr(cfg, sec))
         out[sec] = {k: (list(v) if isinstance(v, tuple) else v) for k, v in d.items()}
-    with open(path, "w") as f:
-        yaml.safe_dump(out, f, sort_keys=False)
+    yamlio.dump(out, path)
 
 
 # Per-stage presets mirroring the reference recipes.

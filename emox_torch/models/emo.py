@@ -39,6 +39,14 @@ from emox_torch.nn.layers import init_weights
 Banks = List[List[torch.Tensor]]
 
 
+def _row_major(shape) -> Tuple[int, ...]:
+    strides, step = [], 1
+    for n in reversed(shape):
+        strides.append(step)
+        step *= n
+    return tuple(reversed(strides))
+
+
 def _check_config(config: Config) -> None:
     check_supported(config.model)
     if config.clip.vision_enabled:
@@ -105,7 +113,13 @@ class EMOModel:
         return self
 
     def _in(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        """x on the model's device in its dtype, with the row-major strides of
+        its shape. cuDNN picks a convolution's algorithm by its input's
+        strides, those of size-1 dims included (numpy's x[None] has stride 0
+        there), and the algorithms round differently: equal inputs must not
+        differ in them."""
+        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        return x if x.stride() == _row_major(x.shape) else x.clone(memory_format=torch.contiguous_format)
 
     # ---- submodel applies --------------------------------------------------
     def encode_images(self, images: torch.Tensor, eps: Optional[torch.Tensor] = None) -> torch.Tensor:

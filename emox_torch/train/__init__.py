@@ -1,7 +1,7 @@
 """Training: per-stage losses and masks, the optimizer, the trainer, and the
-face nets' weight files."""
+face nets' training and weight files."""
 
-from emox_torch.train.face_nets import load_face_nets, load_face_nets_into, save_face_nets
+from emox_torch.train.face_nets import load_face_nets, load_face_nets_into, save_face_nets, train_face_nets
 from emox_torch.train.stages import (
     STAGE_DESCRIPTIONS,
     downsample_mask,
@@ -32,5 +32,6 @@ __all__ = [
     "sample_draws",
     "save_face_nets",
     "stage_loss_fn",
+    "train_face_nets",
     "trainable_mask",
 ]

@@ -4,7 +4,9 @@ emox_torch and chip_smoke.py run on machines that have no JAX (and no
 PyYAML), so every module of the port is imported in a fresh interpreter
 and the test asserts that none of jax, flax, emox or yaml came in; the
 sources are also scanned for such imports, including those inside
-functions; importing the trainer leaves optax and orbax out as well. Entry points run on the CUDA card unless told otherwise, and
+functions; importing the trainer leaves optax and orbax out as well, and
+the command line (`python -m emox_torch`) and the config reader pull in
+none of them either. Entry points run on the CUDA card unless told otherwise, and
 raise rather than fall back to the CPU when there is none.
 """
 
@@ -50,7 +52,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_emox():
     assert {"emox_torch.ops.attention", "emox_torch.ops.ff", "emox_torch.infer.pipeline",
             "emox_torch.interop.from_flax", "emox_torch.train.stages", "emox_torch.train.trainer",
             "emox_torch.train.face_nets",
-            "emox_torch.core.dtypes", "emox_torch.data.tokenizer", "emox_torch.models.clip"} <= set(res["modules"])
+            "emox_torch.core.dtypes", "emox_torch.data.tokenizer", "emox_torch.models.clip",
+            "emox_torch.cli", "emox_torch.data.dataset", "emox_torch.data.records", "emox_torch.data.precompute",
+            "emox_torch.core.yamlio"} <= set(res["modules"])
     leaked = sorted(set(res["roots"]) & set(FORBIDDEN + ("yaml",)))
     assert not leaked, f"importing emox_torch pulled in {leaked}"
 
@@ -100,17 +104,44 @@ def test_sources_import_nothing_of_jax_or_emox(path):
 
 
 def test_yaml_only_inside_load_and_save_config():
-    """PyYAML is not on the card machine: only the two YAML functions touch it."""
+    """PyYAML is not on the card machine: not even load_config and
+    save_config import it now; they read and write YAML through
+    emox_torch.core.yamlio."""
     for path in sorted(PORT.rglob("*.py")):
-        tree = ast.parse(path.read_text())
-        for fn in ast.walk(tree):
-            body_imports = [n for n in ast.walk(fn) if isinstance(n, ast.Import)
-                            and any(a.name == "yaml" for a in n.names)]
-            if isinstance(fn, ast.Module):
-                top = [n for n in fn.body if isinstance(n, ast.Import) and any(a.name == "yaml" for a in n.names)]
-                assert not top, path
-            elif isinstance(fn, ast.FunctionDef) and body_imports:
-                assert fn.name in ("load_config", "save_config"), (path, fn.name)
+        assert "yaml" not in [m.split(".")[0] for m in _imports(path)], path
+
+
+_CLI_PROBE = r"""
+import json, runpy, sys
+sys.argv = ["emox_torch", "--help"]
+try:
+    runpy.run_module("emox_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+from emox_torch.core.config import load_config
+assert load_config("configs/stage2.yaml").train.stage == 2
+print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+"""
+
+
+def test_command_line_and_config_reader_pull_in_no_jax_emox_or_yaml():
+    """A fresh `python -m emox_torch --help` and load_config of a shipped
+    YAML, as on the card machine."""
+    out = subprocess.run([sys.executable, "-c", _CLI_PROBE], cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "precompute" in out.stdout and "train-face" in out.stdout
+    roots = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    leaked = sorted(roots & {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "emox"})
+    assert not leaked, f"the command line pulled in {leaked}"
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_never_name_the_reference_host_library(path):
+    """The reference builds native/libemoxhost.so at first use, racing its
+    loader threads; the port keeps numpy copies and never loads or builds it."""
+    assert "libemoxhost" not in path.read_text(), path.relative_to(ROOT)
 
 
 def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
