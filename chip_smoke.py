@@ -186,7 +186,29 @@ raises and the script exits non-zero. Phases:
      the restored weights and its launches those of one request; then
      `train-face` (20 steps at 128^2). Each command's seconds, the first and
      steady train steps, the checkpoint's save and restore.
- 14. the `kernels` line: every ported kernel with the TPU kernel it
+ 14. cli_control, step_control, control, train_control_512: the side
+     models (model_config "flagship-control": the ControlNet, and the CLIP
+     ViT-L/14 vision encoder at full width feeding the identity
+     embedding). Through the command line on the cli phase's records (with
+     their landmark-skeleton control renders): `train --stage 4` (batch 2 x
+     8 frames, 3 steps; the ControlNet's masters changed and nothing else,
+     the backward launches per step from the code, stage4_bwd_per_step)
+     and `infer --identity` from its checkpoint, bit for bit a direct
+     EMOPipeline(..., use_identity=True) call. Float32 on the small preset
+     with CLIP cut to 2 layers at 128^2, card against CPU: a CFG step with
+     control renders and the identity embedding (eps within 3e-4), the
+     loss and gradients of a stage-4 step (1e-5, 2e-4). Serving in bf16 at
+     256^2 and 512^2 on one model: a warm-up, a request with per-frame
+     control renders of a fixture clip and use_identity=True, the same
+     request without (different frames), each with its launches from the
+     code (attn_launches_per_request and ff_launches_per_request with the
+     ControlNet's term: 7 FF sub-layers a call, and at 512^2 its two level-0
+     sites on K1), s/request, phase timings and peak memory. Trainer stage 4
+     at 512^2, batch 1 x 8 frames (1 warm-up, 2 timed steps, one profiled):
+     8 flash_bwd_sm90 launches a step (the reader's 6 up-path sites at
+     levels 0 and 1, the ControlNet's 2 at level 0), the ControlNet alone
+     changed, peak memory.
+ 15. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
@@ -220,7 +242,9 @@ FF_SOURCES = {"bfloat16": "ff_sm90", "float32": "ff_f32_sm90"}
 # (flash_attn_fwd, K5's backward). Neither path launches the other's. Both
 # layouts' forward runs on one kernel per type: FWD_SOURCES.
 ATTN_KERNELS = {"flagship": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"),
-                "flagship-sd15": ("flash_attn_fwd", "flash_attn_bwd")}
+                "flagship-sd15": ("flash_attn_fwd", "flash_attn_bwd"),
+                "flagship-control": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd")}
+NAME_TAGS = {"flagship": "", "flagship-sd15": "_sd15", "flagship-control": "_control"}  # in phase and file names
 PROMPT = "a person talking to the camera, studio lighting, sharp focus"
 # The reference's fused-norm switches, off (unset) in every phase but the *_norms
 # ones, and the kernel each selects. NORMS is the configuration served and
@@ -263,10 +287,13 @@ FF_XLA = {"EMOX_FF_IMPL": "xla"}
 
 
 def model_config(name: str, image_size: int, num_frames: int):
-    """The flagship preset, or with name "flagship-sd15" the flagship with
-    the SD-1.5 head layout and nothing else changed: 8 heads (head dim 40,
-    80, 160), ResNet time embedding added, text cross-attention fed by the
-    CLIP-L text encoder."""
+    """The flagship preset; with name "flagship-sd15" the flagship with the
+    SD-1.5 head layout and nothing else changed: 8 heads (head dim 40, 80,
+    160), ResNet time embedding added, text cross-attention fed by the
+    CLIP-L text encoder; with name "flagship-control" the flagship with the
+    side models: the ControlNet on 3-channel control renders, and the CLIP
+    ViT-L/14 vision encoder (24 layers, 1024 wide, 257 tokens) feeding the
+    identity embedding."""
     import dataclasses
 
     from emox_torch.core.presets import flagship_config
@@ -274,6 +301,9 @@ def model_config(name: str, image_size: int, num_frames: int):
     cfg = flagship_config(image_size=image_size, num_frames=num_frames)
     if name == "flagship":
         return cfg
+    if name == "flagship-control":
+        return cfg.replace(model=dataclasses.replace(cfg.model, use_controlnet=True, use_identity_embed=True),
+                           clip=dataclasses.replace(cfg.clip, vision_enabled=True))
     assert name == "flagship-sd15", name
     return cfg.replace(
         model=dataclasses.replace(cfg.model, attention_heads=8, resnet_temb_mode="add", use_cross_attention=True),
@@ -319,7 +349,7 @@ def check_path_launches(name: str, counts: dict, train: bool, what: str, env=Non
     FF_SOURCES; every K7 call on the K7 kernel of the type: QKV_SOURCES."""
     env = env or {}
     on = switch_kernels(env)
-    other = [k for n, ks in ATTN_KERNELS.items() if n != name for k in ks]
+    other = [k for n, ks in ATTN_KERNELS.items() if n != name for k in ks if k not in ATTN_KERNELS[name]]
     other += [k for k in SWITCH_KERNELS if k not in on] + ["geglu_ff"]
     qkv = QKV_SOURCES[dtype]
     other += [k for k in QKV_SOURCES.values() if k != qkv or "ln_qkv" not in on]
@@ -403,7 +433,15 @@ def reader_calls(cfg, steps: int, frames: int) -> int:
     return sum(-(-int((w > 0).sum()) // WINDOWS_PER_CALL) for w in plan.weights)
 
 
-def attn_launches_per_request(cfg, calls: int) -> dict:
+def control_sites(cfg) -> list:
+    """(level, sites) of the ControlNet's spatial transformers: lpb per
+    attention level of its down path, and its mid block at the deepest
+    level. They attend to their own tokens only (no reference concat)."""
+    m = cfg.model
+    return [(level, m.layers_per_block) for level in m.attention_levels] + [(len(m.block_channels) - 1, 1)]
+
+
+def attn_launches_per_request(cfg, calls: int, control: bool = False) -> dict:
     """Exact launches of the attention forward kernels in one serving
     request whose reader makes `calls` predict_noise calls (the steps for a
     clip of one window, reader_calls for a longer one), from the code. A
@@ -413,10 +451,14 @@ def attn_launches_per_request(cfg, calls: int) -> dict:
     attention level, and the mid block at the deepest level) in the writer
     (one batched pass for all steps, Lk = the level's tokens) and in each
     reader call (CFG-batched, the reference tokens appended: Lk = 2 x
-    tokens); the VAE's single-head mid-attention, head dim its last width,
-    at the encode of the reference image and at the decode (decode_chunk
-    0), Lk = the latent's tokens. Text, audio and temporal attention stay
-    far below the cutoff."""
+    tokens); with `control` (a request with control renders to a model
+    with model.use_controlnet) the ControlNet's (control_sites) once per
+    reader call, Lk = the level's tokens; the VAE's single-head
+    mid-attention, head dim its last width, at the encode of the reference
+    image and at the decode (decode_chunk 0), Lk = the latent's tokens.
+    Text (the ControlNet's null context included), audio and temporal
+    attention stay far below the cutoff; the CLIP vision encoder's
+    attention is plain."""
     from emox_torch.ops.attention import KERNEL_MIN_KV
 
     m, v = cfg.model, cfg.vae
@@ -431,40 +473,71 @@ def attn_launches_per_request(cfg, calls: int) -> dict:
         for lk, passes in ((2 * tokens, calls), (tokens, 1)):  # reader, writer
             if lk >= KERNEL_MIN_KV:
                 want[kernel(head_dim(m.block_channels[level]))] += count * passes
+    if control and m.use_controlnet:
+        for level, count in control_sites(cfg):
+            if (lat >> level) ** 2 >= KERNEL_MIN_KV:
+                want[kernel(head_dim(m.block_channels[level]))] += count * calls
     if lat * lat >= KERNEL_MIN_KV:
         want[kernel(v.base_channels * v.channel_multipliers[-1])] += 2
     return want
 
 
-def fwd_sources_per_request(cfg, calls: int) -> dict:
+def fwd_sources_per_request(cfg, calls: int, control: bool = False) -> dict:
     """The same launches by kernel in a bf16 request: every site, the VAE's
     head-dim-512 mid-attention included, on flash_fwd_sm90."""
-    return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, calls).values()), "flash_fwd_f32_sm90": 0,
+    return {"flash_fwd_sm90": sum(attn_launches_per_request(cfg, calls, control).values()), "flash_fwd_f32_sm90": 0,
             "flash_fwd_d512_f32": 0, "flash_fwd_wide": 0}
 
 
-def ff_launches_per_request(cfg, calls: int) -> int:
+def ff_launches_per_request(cfg, calls: int, control: bool = False) -> int:
     """Exact FF sub-layers (fused_ln_geglu_ff calls) in one serving request
     whose reader makes `calls` predict_noise calls, from the code: one per
     TransformerBlock, so as many as K7's sites (norm_launches_per_request):
     every spatial transformer of the writer (one batched pass) and, per
-    reader call, of the reader and its temporal ones."""
+    reader call, of the reader and its temporal ones, and with `control`
+    of the ControlNet (control_sites; one call per reader call)."""
     m = cfg.model
     sites = len(m.attention_levels) * (2 * m.layers_per_block + 1) + 1
-    return sites * (1 + calls * (2 if m.use_temporal else 1))
+    extra = sum(n for _, n in control_sites(cfg)) if control and m.use_controlnet else 0
+    return sites * (1 + calls * (2 if m.use_temporal else 1)) + extra * calls
 
 
-def train_step_sublayers(cfg) -> int:
-    """Exact TransformerBlock calls in one stage-2 loss-and-gradient step
-    with remat, each one FF sub-layer (and, under EMOX_LN_QKV, one K7 call),
+def train_step_sublayers(cfg, stage: int = 2) -> int:
+    """Exact TransformerBlock calls in one loss-and-gradient step with
+    remat, each one FF sub-layer (and, under EMOX_LN_QKV, one K7 call),
     from the code: the forward's writer pass and one reader call
-    (ff_launches_per_request), then remat's recompute in the backward of
-    every reader block whose output carries a gradient: the temporal ones
-    (stage 2 trains them) and every spatial one but the first, which no
-    trained parameter precedes. The writer is frozen."""
+    (ff_launches_per_request; at stage 4 with the ControlNet's), then
+    remat's recompute in the backward of every reader block whose output
+    carries a gradient. Stage 2: the temporal ones (stage 2 trains them)
+    and every spatial one but the first, which no trained parameter
+    precedes. Stage 4: the up path's spatial and temporal ones, whose
+    inputs take the ControlNet's residuals; the down path and the mid
+    block precede every residual, and the ControlNet runs without remat.
+    The writer is frozen."""
     m = cfg.model
     sites = len(m.attention_levels) * (2 * m.layers_per_block + 1) + 1
+    if stage == 4:
+        up = len(m.attention_levels) * (m.layers_per_block + 1)
+        return ff_launches_per_request(cfg, 1, control=True) + up * (2 if m.use_temporal else 1)
     return ff_launches_per_request(cfg, 1) + sites + (sites - 1)
+
+
+def stage4_bwd_per_step(cfg) -> int:
+    """Exact attention backward launches in one stage-4 loss-and-gradient
+    step, from the code: a kernel site (Lk >= KERNEL_MIN_KV) whose output
+    carries a gradient. In the frozen denoiser those are the up path's
+    sites (lpb + 1 per attention level, Lk = 2 x the level's tokens with
+    the reference concatenated): the ControlNet's residuals join the skips
+    after the down path and the mid block's output after its attention. In
+    the ControlNet every site (control_sites, Lk = the level's tokens),
+    since all its weights train."""
+    from emox_torch.ops.attention import KERNEL_MIN_KV
+
+    m = cfg.model
+    lat = cfg.data.height // cfg.vae.downscale
+    tokens = lambda level: (lat >> level) ** 2
+    up = sum(m.layers_per_block + 1 for level in m.attention_levels if 2 * tokens(level) >= KERNEL_MIN_KV)
+    return up + sum(n for level, n in control_sites(cfg) if tokens(level) >= KERNEL_MIN_KV)
 
 
 def step_sublayer_launches(cfg, sublayers: int, env=None) -> dict:
@@ -1417,11 +1490,15 @@ def phase_kernels():
         check_flash_strided_bwd(gen, 2, 1000, 2100, heads=2, d=300, dtype=dtype, timing=False)
     # flash_fwd_sm90 and flash_bwd_sm90 at the 512^2 level-0 sites (Lq 4096, Lk 8192: reference tokens
     # appended) and level-1 sites (C 640, 10 heads, Lk 2048): serving under
-    # CFG (N 32) and stage-2 training (N 16)
+    # CFG (N 32) and stage-2 training (N 16); and at the ControlNet's level-0
+    # self-attention at 512^2 (Lq = Lk 4096, no reference concat): serving
+    # under CFG (N 32) and stage 4 (N 8)
     results["flash_512_l0"] = check_flash(gen, 32, 4096, 8192, chunk=4)
     results["flash_512_l1"] = check_flash(gen, 32, 1024, 2048, c=640, heads=10, chunk=8)
+    results["flash_512_control"] = check_flash(gen, 32, 4096, 4096, chunk=4)
     results["flash_bwd_512_l0"] = check_flash_bwd(gen, 16, 4096, 8192, chunk=2)
     results["flash_bwd_512_l1"] = check_flash_bwd(gen, 16, 1024, 2048, c=640, heads=10, chunk=4)
+    results["flash_bwd_512_control"] = check_flash_bwd(gen, 8, 4096, 4096, chunk=2)
     # K4 at head dim 512, the VAE's mid-attention that stage 5 trains: bf16 on
     # flash_bwd_d512_sm90 at stage 5's 512^2 shape (batch 4, 4096
     # tokens) and at 384^2 (2304 tokens, ragged against the 64-row tiles), each
@@ -1478,7 +1555,9 @@ def phase_kernels():
 # ---- phase 3 ------------------------------------------------------------------
 def _fill_zero_init(model, seed: int) -> None:
     """Small seeded values in the zero-initialised output projections, so
-    that every conditioning branch reaches the output."""
+    that every conditioning branch reaches the output: with the side models
+    also the identity projection, the ControlNet's conditioning embedding
+    output and its zero convs."""
     import torch
 
     gen = torch.Generator(device=model.device).manual_seed(seed)
@@ -1489,6 +1568,11 @@ def _fill_zero_init(model, seed: int) -> None:
             targets.append(mod.proj_out)
         elif name.endswith("_audio"):
             targets.append(mod.attn.to_out)
+    if getattr(den, "has_identity", False):
+        targets.append(den.identity_embed_proj)
+    cn = model.modules.controlnet
+    if cn is not None:
+        targets += [cn.cond_embed.conv_out] + [getattr(cn, f"zero_conv_{i}") for i in range(cn.num_zero_convs)]
     with torch.no_grad():
         for mod in targets:
             w = mod.weight
@@ -1685,7 +1769,7 @@ def phase_step_attn_pallas():
 
 # ---- phases 6 and 7: training -------------------------------------------------------
 # the reference's learning rates: configs/training/stage{0,1,2,3}.yaml and its stage-5 preset
-_STAGE_LR = {0: 1e-4, 1: 1e-4, 2: 1e-5, 3: 1e-5, 5: 1e-4}
+_STAGE_LR = {0: 1e-4, 1: 1e-4, 2: 1e-5, 3: 1e-5, 4: 1e-5, 5: 1e-4}
 
 
 def _train_config(stage: int, batch: int, frames: int, dtype: str, checkpoint_dir: str, name: str = "flagship",
@@ -1702,7 +1786,8 @@ def _train_config(stage: int, batch: int, frames: int, dtype: str, checkpoint_di
 
 def _train_batch(gen, stage: int, batch: int, frames: int, cfg, device):
     """A synthetic batch shaped as the reference's train benchmark builds it
-    (bench.py), with random audio in place of silence."""
+    (bench.py), with random audio in place of silence; stage 4's as the
+    dataset gives it: control renders in [0, 1] and no audio."""
     import torch
 
     size = cfg.data.height
@@ -1720,6 +1805,10 @@ def _train_batch(gen, stage: int, batch: int, frames: int, cfg, device):
     out = {"ref_image": normal(batch, size, size, 3)}
     if stage == 1:
         out["images"] = normal(batch, size, size, 3)
+    elif stage == 4:
+        out["frames"] = normal(batch, frames, size, size, 3)
+        out["control"] = torch.rand((batch, frames, size, size, cfg.model.control_cond_channels), generator=gen,
+                                    device=device)
     else:
         out["frames"] = normal(batch, frames, size, size, 3)
         out["wav"] = normal(batch, int(16000 * (frames + 2 * cfg.audio.context_frames) / 25.0))
@@ -1808,7 +1897,7 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
 
     torch.cuda.empty_cache()
     cfg = _train_config(stage, batch=batch, frames=frames, dtype=dtype, checkpoint_dir=tmp, name=name, size=size)
-    tag = ("" if name == "flagship" else "_sd15") + ("" if size == 256 else f"_{size}") + ("_norms" if env else "")
+    tag = NAME_TAGS[name] + ("" if size == 256 else f"_{size}") + ("_norms" if env else "")
     t0 = time.perf_counter()
     model = EMOModel(cfg, dtype=getattr(torch, dtype), device="cuda", seed=0)
     _fill_zero_init(model, seed=3)  # every trainable leaf of stage 2 gets a gradient from step 1
@@ -1850,7 +1939,7 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
                          for n, p in model.modules.named_parameters() if n in before_frozen)
     ms = 1e3 * secs / steps
     compute = "bf16 compute, fp32 masters" if dtype == "bfloat16" else "float32"
-    remat = ", remat" if stage in (1, 2, 3) else ""  # of the UNets' attention stacks, which stages 0 and 5 leave out
+    remat = ", remat" if stage in (1, 2, 3, 4) else ""  # of the UNets' attention stacks, which stages 0 and 5 leave out
     res = {"phase": phase or f"train{tag}", "stage": stage,
            "config": f"{name} {size}^2 stage {stage}, batch {batch}, {frames} frame(s), {compute}, "
                      f"AdamW lr {_STAGE_LR[stage]}{remat}; {warmup} warm-up + {steps} timed steps",
@@ -1866,7 +1955,8 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
            "launches": counts, "launches_per_step": {k: v / steps for k, v in counts.items()},
            "warmup_launches_per_step": {k: v / warmup for k, v in warm_counts.items()},
            "bwd_sources_per_step": {k: counts[k] / steps for k in BWD_SOURCES},
-           "bwd_sm90_per_step_expected": BWD_PER_STEP.get((name, size)) if stage == 2 else None}
+           "bwd_sm90_per_step_expected": (BWD_PER_STEP.get((name, size)) if stage == 2 else
+                                          stage4_bwd_per_step(cfg) if stage == 4 else None)}
     emit(res)
     tr.close()
     if not res["all_finite"]:
@@ -1880,8 +1970,8 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
         check_path_launches(name, counts, train=True, what=f"{name} stage {stage} training {env or ''}", env=env)
     want = res["bwd_sm90_per_step_expected"]
     if want is not None and res["bwd_sources_per_step"] != {**dict.fromkeys(BWD_SOURCES, 0), "flash_bwd_sm90": want}:
-        raise AssertionError(f"{name} {size}^2 stage 2: backward kernels per step {res['bwd_sources_per_step']}, "
-                             f"expected {want} on flash_bwd_sm90")
+        raise AssertionError(f"{name} {size}^2 stage {stage}: backward kernels per step "
+                             f"{res['bwd_sources_per_step']}, expected {want} on flash_bwd_sm90")
     del tr, model, data
     return res
 
@@ -2232,6 +2322,332 @@ def phase_cli(tmp: str, steps: int = 10, frames: int = 16):
     return res
 
 
+# ---- the side models: ControlNet, CLIP vision and the identity embedding -----------------------
+def control_request(size: int, frames: int, seed: int):
+    """A request's reference image and per-frame control renders from the
+    port's fixture clip (seeded): its first frame [size, size, 3] in [-1, 1]
+    and render_landmark_skeleton of its landmark series [frames, size,
+    size, 3] in [0, 1], as `precompute` writes them."""
+    from emox_torch.data.face import render_landmark_skeleton
+    from emox_torch.data.fixtures import make_synthetic_clip
+
+    clip = make_synthetic_clip(seed=seed, num_frames=frames, height=size, width=size)
+    return clip["frames"][0], render_landmark_skeleton(clip["landmarks"], size, size)
+
+
+def phase_control(steps: int = 10, frames: int = 16) -> dict:
+    """The flagship with the side models (model_config "flagship-control":
+    the ControlNet, and CLIP ViT-L/14 at its full width feeding the
+    identity embedding) in bf16, its zero-initialised projections filled
+    with small seeded values so that every branch is live. At 256^2 and at
+    512^2, on one model: a warm-up request, then one request with the
+    control renders of a fixture clip and use_identity=True, and the same
+    request without either; 16 frames, 10 DDIM steps, CFG 7.5 batched,
+    3-axis speeds, face mask. The frames are finite and differ between the
+    two; each request's launches are those the code gives
+    (attn_launches_per_request and ff_launches_per_request with and
+    without the ControlNet's term: at 512^2 the ControlNet's two level-0
+    sites, 4096 tokens, take K1)."""
+    import torch
+    from emox_torch.infer.pipeline import EMOPipeline
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.empty_cache()
+    name = "flagship-control"
+    t0 = time.perf_counter()
+    model = EMOModel(model_config(name, 256, frames), dtype=torch.bfloat16, device="cuda", seed=0)
+    _fill_zero_init(model, seed=4)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = {k: sum(p.numel() for p in m.parameters()) for k, m in model.modules.named_children()}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {"phase": "control", "config": f"{name}: flagship + ControlNet + CLIP ViT-L/14 identity embedding, "
+           f"bf16, {frames} frames, CFG 7.5 batched, {steps} DDIM steps", "params": params, "setup_s": setup_s}
+    for size in (256, 512):
+        cfg = model_config(name, size, frames)
+        pipe = EMOPipeline(model, cfg)
+        img_np, ctrl_np = control_request(size, frames, seed=size)
+        img = torch.from_numpy(img_np[None]).to("cuda", torch.bfloat16)
+        ctrl = torch.from_numpy(ctrl_np[None]).to("cuda", torch.bfloat16)
+        _, wav, speeds, mask = _request_inputs(gen, "cuda", size, frames, torch.bfloat16)
+
+        def request(side: bool, timings=None):
+            extra = dict(use_identity=True, control_cond=ctrl) if side else {}
+            video = pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5, speeds=speeds,
+                         face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(7), timings=timings,
+                         **extra)
+            torch.cuda.synchronize()
+            return video
+
+        request(True)  # warm-up: this size's shapes
+        runs = {}
+        for side in (True, False):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            timings = {}
+            t0 = time.perf_counter()
+            video = request(side, timings)
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            want = {**attn_launches_per_request(cfg, steps, side), **fwd_sources_per_request(cfg, steps, side),
+                    **{k: ff_launches_per_request(cfg, steps, side) for k in ("ln_geglu_ff", FF_SOURCES["bfloat16"])}}
+            runs["side" if side else "plain"] = {
+                "s_per_request": secs, "ms_per_step": 1e3 * timings["denoise_s"] / steps, "phases_s": timings,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+                "launches_expected": want, "finite": bool(torch.isfinite(video.float()).all().item()),
+                "shape": list(video.shape), "video": video}
+        side, plain = runs["side"].pop("video"), runs["plain"].pop("video")
+        rel = (torch.linalg.vector_norm((side - plain).float()) / torch.linalg.vector_norm(plain.float())).item()
+        out[f"{size}"] = {**runs, "side_vs_plain_rel_l2": rel}
+        del side, plain, pipe
+        torch.cuda.empty_cache()
+        for key, run in runs.items():
+            what = f"{name} {size}^2 {key} request"
+            if not run["finite"] or run["shape"] != [1, frames, size, size, 3]:
+                emit(out)
+                raise AssertionError(f"{what}: output finite={run['finite']} shape={run['shape']}")
+            check_path_launches(name, run["launches"], train=False, what=what)
+            if {k: run["launches"][k] for k in run["launches_expected"]} != run["launches_expected"]:
+                emit(out)
+                raise AssertionError(f"{what}: launched {run['launches']}, expected {run['launches_expected']}")
+        if not rel > 0:
+            emit(out)
+            raise AssertionError(f"{name} {size}^2: control and identity did not change the frames")
+    emit(out)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _small_control_config(frames: int):
+    """The small preset with the side models and CLIP cut to 2 layers (its
+    widths, 224-pixel input and projection as CLIP ViT-L/14's): the float32
+    card-against-CPU checks' reduced depth."""
+    import dataclasses
+
+    from emox_torch.core.presets import small_config
+
+    cfg = small_config(image_size=128, num_frames=frames)
+    return cfg.replace(model=dataclasses.replace(cfg.model, use_controlnet=True, use_identity_embed=True),
+                       clip=dataclasses.replace(cfg.clip, vision_enabled=True, vision_layers=2))
+
+
+def phase_step_control(tmp: str) -> dict:
+    """Float32, the card against the CPU with the same weights and inputs,
+    TF32 off, on the small preset with the side models (CLIP cut to 2
+    layers) at 128^2, 2 frames: one CFG-batched denoise step with per-frame
+    control renders and the identity embedding (eps within 3e-4 relative
+    L2, phase step's bar), then the loss and gradients of one stage-4 step
+    (the ControlNet's, through the frozen denoiser; the loss within 1e-5,
+    the gradients within 2e-4, phase train_step's bars). No attention site
+    of this size reaches KERNEL_MIN_KV: every FF sub-layer takes
+    ff_f32_sm90, at the counts the code gives, and nothing else launches."""
+    import dataclasses
+
+    import torch
+    from emox_torch.infer.pipeline import EMOPipeline
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+    from emox_torch.train import Trainer, sample_draws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    size, frames = 128, 2
+    cfg = _small_control_config(frames)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, stage=4, learning_rate=_STAGE_LR[4],
+                                                compute_dtype="float32", checkpoint_dir=tmp, resume=False))
+    t0 = time.perf_counter()
+    cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
+    _fill_zero_init(cpu, seed=8)
+    gpu = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
+    gpu.modules.load_state_dict(cpu.modules.state_dict())
+    setup_s = time.perf_counter() - t0
+
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    img, wav, _, mask = _request_inputs(gen, "cpu", size, frames, torch.float32)
+    speeds = torch.rand((1, frames), generator=gen) * 2 - 1  # the small preset's scalar speeds
+    lat = size // cfg.vae.downscale
+    noisy = torch.randn((1, frames, lat, lat, 4), generator=gen)
+    ctrl = torch.from_numpy(control_request(size, frames, seed=3)[1][None])
+    t = torch.tensor([500])
+
+    def step(model, dev):
+        mv = lambda x: x.to(dev)
+        ref = model.encode_images(mv(img))
+        audio = model.encode_audio(mv(wav), frames)
+        face = model.encode_face_mask(mv(mask), lat)
+        ide = EMOPipeline(model).encode_identity(mv(img))
+        cat = lambda x: torch.cat([x, x])
+        eps = model.predict_noise(cat(mv(noisy)), cat(mv(t)), cat(ref), audio_windows=torch.cat(
+            [torch.zeros_like(audio), audio]), speeds=cat(mv(speeds)), face_feat=cat(face), control_cond=cat(mv(ctrl)),
+            identity_embed=torch.cat([torch.zeros_like(ide), ide]), ref_dropout=mv(torch.tensor([True, False])))
+        return {"identity": ide, "eps": eps}
+
+    rel_l2 = lambda a, b: (torch.linalg.vector_norm(a.cpu().double() - b.double())
+                           / torch.linalg.vector_norm(b.double()).clamp_min(1e-30)).item()
+    t0 = time.perf_counter()
+    on_cpu = step(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    reset_launch_counts()
+    on_gpu = step(gpu, "cuda")
+    torch.cuda.synchronize()
+    step_counts = launch_counts()
+    step_rel = {k: rel_l2(on_gpu[k], v) for k, v in on_cpu.items()}
+
+    tr_cpu, tr_gpu = Trainer(cfg, model=cpu), Trainer(cfg, model=gpu)
+    batch = _train_batch(gen, 4, 1, frames, cfg, "cpu")
+    batch["control"] = ctrl.clone()
+    draws = sample_draws(cfg, tr_cpu.sched, 4, batch, gen)
+    t0 = time.perf_counter()
+    m_cpu, g_cpu = tr_cpu.loss_and_grads(batch, draws)
+    cpu_s += time.perf_counter() - t0
+    reset_launch_counts()
+    m_gpu, g_gpu = tr_gpu.loss_and_grads({k: v.cuda() for k, v in batch.items()},
+                                         {k: v.cuda() for k, v in draws.items()})
+    torch.cuda.synchronize()
+    train_counts = launch_counts()
+    tr_cpu.close()
+    tr_gpu.close()
+    loss_rel = abs(m_gpu["loss"].double().item() - m_cpu["loss"].double().item()) / abs(m_cpu["loss"].item())
+    diff = sum(float(torch.linalg.vector_norm(a.cpu().double() - b.double()) ** 2) for a, b in zip(g_gpu, g_cpu))
+    grads_rel = math.sqrt(diff / sum(float(torch.linalg.vector_norm(b.double()) ** 2) for b in g_cpu))
+    limits = {"eps_rel_l2": 3e-4, "loss_rel": 1e-5, "grads_rel_l2": 2e-4}
+    want_step = step_sublayer_launches(cfg, ff_launches_per_request(cfg, 1, control=True))
+    want_train = step_sublayer_launches(cfg, train_step_sublayers(cfg, stage=4))
+    res = {"phase": "step_control", "config": f"small {size}^2 + ControlNet + CLIP vision (2 layers of ViT-L/14 "
+           f"width) + identity embedding, {frames} frames, float32: a CFG-batched step, then a stage-4 step",
+           "rel_l2": step_rel, "loss_cpu": m_cpu["loss"].item(), "loss_gpu": m_gpu["loss"].item(),
+           "loss_rel": loss_rel, "grads_rel_l2": grads_rel, "limits": limits, "trainable_leaves": len(g_cpu),
+           "trainable_params": sum(g.numel() for g in g_cpu), "launches_step": step_counts,
+           "launches_step_expected": want_step, "launches_train": train_counts,
+           "launches_train_expected": want_train, "setup_s": setup_s, "cpu_s": cpu_s}
+    emit(res)
+    del cpu, gpu, tr_cpu, tr_gpu
+    torch.backends.cudnn.allow_tf32 = True
+    if not (step_rel["eps"] <= limits["eps_rel_l2"] and step_rel["identity"] <= limits["eps_rel_l2"]):
+        raise AssertionError(f"step_control: card and CPU disagree: {step_rel}")
+    if not (loss_rel <= limits["loss_rel"] and grads_rel <= limits["grads_rel_l2"]):
+        raise AssertionError(f"step_control: stage-4 loss {loss_rel} or gradients {grads_rel} disagree")
+    for counts, want, what in ((step_counts, want_step, "step"), (train_counts, want_train, "stage-4 step")):
+        if counts != {**dict.fromkeys(counts, 0), **want}:
+            raise AssertionError(f"step_control {what}: launched {counts}, expected only {want}")
+    return res
+
+
+def phase_cli_control(tmp: str, steps: int = 10, frames: int = 16) -> dict:
+    """The side models through emox_torch.cli.main on the cli phase's
+    records (whose `precompute` wrote the landmark-skeleton control renders)
+    and request files, flagship-control at 256^2 in bf16: `train --stage 4`
+    from a config that save_config wrote (batch 2 x 8 frames, no motion
+    frames, 3 steps, a checkpoint at step 3) from the trainer's seeded
+    init, the backward launches per step at stage4_bwd_per_step; the
+    checkpoint against that init (the ControlNet's masters changed, every
+    other leaf the same bits); then `infer --identity` from the checkpoint
+    (16 frames, 10 DDIM steps, CFG 7.5, --speeds), bit for bit the frames of
+    a direct EMOPipeline(..., use_identity=True) call on the restored
+    weights, with the launches of one request without control."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from emox_torch.cli import _load_audio, _load_weights, _restore_params
+    from emox_torch.core.config import save_config
+    from emox_torch.infer.pipeline import EMOPipeline
+    from emox_torch.infer.video_io import frames_to_uint8
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+
+    name = "flagship-control"
+    shutil.rmtree(f"{tmp}/ckpt", ignore_errors=True)  # the cli phase's checkpoints: disk for this one's
+    torch.cuda.empty_cache()
+    secs = {}
+    batch, train_frames, train_steps = 2, 8, 3
+    cfg = _train_config(4, batch=batch, frames=train_frames, dtype="bfloat16", checkpoint_dir=f"{tmp}/ckpt_control",
+                        name=name)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, cache_dir=f"{tmp}/records", num_motion_frames=0),
+                      train=dataclasses.replace(cfg.train, num_steps=train_steps, checkpoint_every=train_steps,
+                                                log_every=1))
+    save_config(cfg, f"{tmp}/stage4.yaml")
+    reset_launch_counts()
+    secs["train"], train_out = _cli(["train", "--config", f"{tmp}/stage4.yaml"])
+    train_counts = launch_counts()
+    torch.cuda.empty_cache()
+    with open(f"{tmp}/ckpt_control/stage4_metrics.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    steps_log = [r for r in log if "loss" in r]
+    secs["train_first_step"] = next(r["first_step_s"] for r in log if "first_step_s" in r)
+    secs["train_steady_step"] = (steps_log[-1]["time"] - steps_log[0]["time"]) / (len(steps_log) - 1)
+    losses = [r["loss"] for r in steps_log]
+
+    t0 = time.perf_counter()
+    params = _restore_params(f"{tmp}/ckpt_control/stage4")
+    secs["checkpoint_restore"] = time.perf_counter() - t0
+    model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=cfg.train.seed)  # the trainer's init
+    changed, frozen_changed = 0, []
+    for n, p in model.modules.named_parameters():
+        same = torch.equal(params[n].to("cuda").float(), p.float())
+        if n.startswith("controlnet."):
+            changed += not same
+        elif not same:
+            frozen_changed.append(n)
+    controlnet_leaves = sum(1 for n in params if n.startswith("controlnet."))
+    _load_weights(model, params)
+    del params
+
+    argv = ["infer", "--config", f"{tmp}/stage4.yaml", "--params", f"{tmp}/ckpt_control/stage4", "--ref-image",
+            f"{tmp}/ref.npy", "--audio", f"{tmp}/speech.wav", "--frames", str(frames), "--steps", str(steps),
+            "--guidance", "7.5", "--speeds", "0.1,0,0", "--identity", "--out", f"{tmp}/identity.npz"]
+    reset_launch_counts()
+    secs["infer"], infer_out = _cli(argv)
+    infer_counts = launch_counts()
+    with np.load(f"{tmp}/identity.npz") as z:
+        cli_video = z["frames"]
+    wav, _ = _load_audio(f"{tmp}/speech.wav", cfg.audio.sample_rate)
+    img = torch.from_numpy(np.load(f"{tmp}/ref.npy")[None]).cuda()
+    speeds = torch.tensor([0.1, 0.0, 0.0]).expand(1, frames, 3).contiguous().cuda()
+    t0 = time.perf_counter()
+    video = EMOPipeline(model)(img, torch.from_numpy(wav[None]).cuda(), video_length=frames,
+                               num_inference_steps=steps, guidance_scale=7.5, speeds=speeds, use_identity=True)
+    direct = frames_to_uint8(video[0].float().cpu().numpy())
+    secs["request"] = time.perf_counter() - t0
+    del model, video
+    torch.cuda.empty_cache()
+
+    want_train = {k: train_steps * v for k, v in {**dict.fromkeys(BWD_SOURCES, 0),
+                                                   "flash_bwd_sm90": stage4_bwd_per_step(cfg)}.items()}
+    want_infer = {**attn_launches_per_request(cfg, steps), **fwd_sources_per_request(cfg, steps),
+                  **{k: ff_launches_per_request(cfg, steps) for k in ("ln_geglu_ff", FF_SOURCES["bfloat16"])}}
+    res = {"phase": "cli_control", "config": f"{name} 256^2 bf16 through emox_torch.cli.main on the cli phase's "
+           f"records: train --stage 4 batch {batch} x {train_frames} frames, {train_steps} steps; infer --identity "
+           f"{frames} frames, {steps} DDIM steps, CFG 7.5", "seconds": secs, "s_per_request": secs["request"],
+           "losses": losses, "checkpoint_bytes": os.path.getsize(f"{tmp}/ckpt_control/stage4/step_{train_steps}.pt"),
+           "controlnet_leaves": controlnet_leaves, "controlnet_leaves_changed": changed,
+           "frozen_leaves_changed": frozen_changed[:8], "video_shape": list(cli_video.shape),
+           "video_equal": bool(np.array_equal(cli_video, direct)),
+           "video_max_abs_diff": int(np.abs(cli_video.astype(np.int16) - direct.astype(np.int16)).max()),
+           "launches_train": train_counts, "launches_infer": infer_counts, "train_launches_expected": want_train,
+           "infer_launches_expected": want_infer,
+           "stdout_tail": {"train": train_out[-2:], "infer": infer_out[-2:]}}
+    emit(res)
+    if not (losses and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"cli train --stage 4: a loss is not finite: {losses}")
+    if not changed or frozen_changed:
+        raise AssertionError(f"cli train --stage 4: {changed} ControlNet leaves changed, frozen ones changed: "
+                             f"{frozen_changed[:8]}")
+    check_path_launches(name, train_counts, train=True, what="cli train stage 4")
+    if {k: train_counts[k] for k in want_train} != want_train:
+        raise AssertionError(f"cli train --stage 4: backward kernels {train_counts}, expected {want_train}")
+    check_path_launches(name, infer_counts, train=False, what="cli infer --identity")
+    if {k: infer_counts[k] for k in want_infer} != want_infer:
+        raise AssertionError(f"cli infer --identity: launched {infer_counts}, expected {want_infer}")
+    if cli_video.shape != (frames, 256, 256, 3) or not res["video_equal"]:
+        raise AssertionError(f"cli infer --identity: the video {cli_video.shape} differs from the direct pipeline "
+                             f"call (max |diff| {res['video_max_abs_diff']})")
+    return res
+
+
 # ---- phase 4 ------------------------------------------------------------------
 def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "flagship", prompt=None, env=None,
                 profile: bool = True, size: int = 256):
@@ -2248,7 +2664,7 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
     torch.cuda.empty_cache()
     frames = 16
     cfg = model_config(name, size, frames)
-    tag = ("" if name == "flagship" else "_sd15") + ("" if size == 256 else f"_{size}")
+    tag = NAME_TAGS[name] + ("" if size == 256 else f"_{size}")
     if env and "EMOX_FF_IMPL" in env:
         tag += "_ff_" + env["EMOX_FF_IMPL"]
     elif env and "EMOX_ATTENTION_IMPL" in env:
@@ -2970,9 +3386,19 @@ def main(argv=None) -> int:
             train0 = phase_train(tmp, stage=0, batch=8, frames=1, warmup=1, steps=5, out_dir=args.out,
                                  dtype="float32", phase="train_stage0",
                                  prepare=lambda m: load_face_nets_into(m.modules, face_tree))
-        # the command line: precompute, pack-records, train, infer, train-face
+        # the command line: precompute, pack-records, train, infer, train-face;
+        # then train --stage 4 and infer --identity on the same records
         with tempfile.TemporaryDirectory() as tmp:
             cli = phase_cli(tmp)
+            cli_control = phase_cli_control(tmp)
+        # the side models: the float32 step and stage-4 step against the CPU,
+        # serving with control renders and the identity embedding at 256^2 and
+        # 512^2 (the ControlNet's level-0 sites on K1), stage 4 at 512^2
+        with tempfile.TemporaryDirectory() as tmp:
+            step_control = phase_step_control(tmp)
+            control = phase_control()
+            train_control = phase_train(tmp, stage=4, batch=1, frames=8, warmup=1, steps=2, out_dir=args.out,
+                                        name="flagship-control", size=512, phase="train_control_512")
     by_path = {"step": step, "serve": launches, "step_long": step_long, **long["launches_by_path"], "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
                "train_step": train_step,
                "train_stage2_per_step": train2["launches_per_step"],
@@ -2989,7 +3415,12 @@ def main(argv=None) -> int:
                "train_step_vae_640": train_step_vae_640, "train_vae512_per_step": train_vae512["launches_per_step"],
                "train_vae512_norms_per_step": train_vae512_norms["launches_per_step"],
                "face_nets": face["launches"], "train_stage0_per_step": train0["launches_per_step"],
-               "cli": cli["launches"]}
+               "cli": cli["launches"], "cli_control_train": cli_control["launches_train"],
+               "cli_control_infer": cli_control["launches_infer"], "step_control": step_control["launches_step"],
+               "step_control_train": step_control["launches_train"],
+               **{f"control_{size}{'' if key == 'side' else '_plain'}": control[str(size)][key]["launches"]
+                  for size in (256, 512) for key in ("side", "plain")},
+               "train_control_512_per_step": train_control["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
     # flash_fwd_d512_f32 in the float32 512^2 VAE, flash_fwd_f32_sm90 and
@@ -3043,6 +3474,7 @@ def main(argv=None) -> int:
         # _flash_nlc_kernel's, the strided (head-split) ones _flash_kernel's
         entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
               kern["flash_n32"], [kern["flash_n16"], kern["flash_n128"], kern["flash_512_l0"], kern["flash_512_l1"],
+                                  kern["flash_512_control"],
                                   kern["flash_strided_n32"], kern["flash_strided_n16"], kern["flash_d512"],
                                   kern["flash_strided_n32_d64"]]),
         entry("emox_torch/csrc/flash_fwd_d512_f32.cu", ["emox/ops/attention.py:409"], kern["flash_d512_f32"],
@@ -3078,6 +3510,7 @@ def main(argv=None) -> int:
         entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
                                                     "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
               kern["flash_bwd_n16"], [kern["flash_bwd_n4"], kern["flash_bwd_512_l0"], kern["flash_bwd_512_l1"],
+                                      kern["flash_bwd_512_control"],
                                       kern["flash_strided_bwd_n16"]]),
         # float32 at head dim <= 128 on the same source's pair, on a two-part split
         entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",

@@ -4,6 +4,7 @@
   python -m emox_torch pack-records --cache data/cache --out data/records
   python -m emox_torch train --stage 2 --config configs/stage2.yaml
   python -m emox_torch train --stage 3 --from-stage 2
+  python -m emox_torch train --stage 4 --config configs/controlnet.yaml
   python -m emox_torch infer --config configs/inference.yaml --params checkpoints/stage2 \\
       --ref-image face.npy --audio speech.wav --out out.mp4
   python -m emox_torch train-face --out face_nets.npz
@@ -17,9 +18,9 @@ emox_torch.interop.from_flax. YAML is read and written by
 emox_torch.core.yamlio, so PyYAML is not needed.
 
 Registered but not yet ported, each exiting non-zero with its item of
-ROADMAP.md's Queue 1: `train --stage 4` and `infer --identity` (item 7),
-`train --coordinator/--num-processes` (item 9), `import-weights`, `export`
-and `eval` (item 10); `bench` comes with the port's benchmark.
+ROADMAP.md's Queue 1: `train --coordinator/--num-processes` (item 9),
+`import-weights`, `export` and `eval` (item 10); `bench` comes with the
+port's benchmark.
 """
 
 from __future__ import annotations
@@ -33,10 +34,6 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 # ROADMAP.md Queue 1 items of what the port has not ported yet
 _NOT_PORTED = {
-    "identity": "--identity (the CLIP identity embedding) waits for a later slice of the port "
-                "(ROADMAP.md, Queue 1 item 7)",
-    "stage4": "train --stage 4 (the ControlNet branch) waits for a later slice of the port "
-              "(ROADMAP.md, Queue 1 item 7)",
     "distributed": "--coordinator/--num-processes (multi-process training) wait for a later slice of the port "
                    "(ROADMAP.md, Queue 1 item 9)",
     "import-weights": "import-weights waits for a later slice of the port (ROADMAP.md, Queue 1 item 10)",
@@ -237,11 +234,9 @@ def cmd_train(args) -> int:
         raise SystemExit(_NOT_PORTED["distributed"])
     cfg = _load_config(args)
     stage = cfg.train.stage
-    if stage == 4:
-        raise SystemExit(_NOT_PORTED["stage4"])
     dev = _device(args)
     stage_name = {0: "stage0-facelocator", 1: "stage1", 2: "stage2", 3: "stage3",
-                  5: "stage1"}[stage]  # stage 5 (VAE) trains on stage-1 single frames
+                  4: "stage4-control", 5: "stage1"}[stage]  # stage 5 (VAE) trains on stage-1 single frames
     print(f"stage {stage}: {STAGE_DESCRIPTIONS[stage]}")
 
     trainer = Trainer(cfg, device=dev)
@@ -271,8 +266,6 @@ def cmd_infer(args) -> int:
     from emox_torch.infer.video_io import save_video, save_videos_grid
     from emox_torch.models.emo import EMOModel
 
-    if args.identity:
-        raise SystemExit(_NOT_PORTED["identity"])
     cfg = _load_config(args)
     dev = _device(args)
     # the model serves in the compute dtype it trained in
@@ -329,12 +322,13 @@ def cmd_infer(args) -> int:
             ref_b, wav_b, total_frames=total, segment_length=cfg.inference.context_frames,
             num_inference_steps=args.steps, guidance_scale=args.guidance, speeds=speeds, face_mask=face_mask,
             prompt=args.prompt, negative_prompt=args.negative_prompt, tokenizer=tokenizer,
+            use_identity=args.identity,
         )
     else:
         frames = pipe(
             ref_b, wav_b, video_length=total, num_inference_steps=args.steps, guidance_scale=args.guidance,
             face_mask=face_mask, speeds=speeds, prompt=args.prompt, negative_prompt=args.negative_prompt,
-            tokenizer=tokenizer,
+            tokenizer=tokenizer, use_identity=args.identity,
         )
     frames = frames.float().cpu().numpy()  # waits for the card
     secs = time.perf_counter() - t0
@@ -529,7 +523,9 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--negative-prompt", default="")
     pi.add_argument("--vocab", default=None,
                     help="CLIP vocab: HF dir/vocab.json or openai bpe .txt(.gz); default EMOX_CLIP_VOCAB")
-    pi.add_argument("--identity", action="store_true", help="CLIP identity embedding (not ported yet)")
+    pi.add_argument("--identity", action="store_true",
+                    help="CLIP-encode the reference image as an identity embedding "
+                         "(requires clip.vision_enabled + model.use_identity_embed)")
     pi.add_argument("--ema", action="store_true", help="serve EMA shadow weights when present")
     pi.add_argument("--set", nargs="*", action="extend", default=[], metavar="SEC.KEY=VAL")
     _add_device(pi)

@@ -5,13 +5,16 @@
     the face mask once;
   * with a prompt (clip.text_enabled): the prompt and the negative prompt
     encoded once by the CLIP text encoder (`encode_prompt`);
+  * with use_identity (model.use_identity_embed): the reference image
+    encoded once by the CLIP vision encoder (`encode_identity`);
   * one batched ReferenceNet writer pass for all sampler steps (with
     model.use_gn_ref, the AdaIN statistic banks too);
   * a DDIM loop. Each step runs one CFG-batched, fully conditioned
     predict_noise (uncond = no reference + zeroed audio + the negative
-    prompt's context, in the same batch), or with
-    inference.cfg_batching=False two calls, the uncond one with no
-    reference branch at all. A clip of at most inference.context_frames
+    prompt's context + a zeroed identity embedding, in the same batch), or
+    with inference.cfg_batching=False two calls, the uncond one with no
+    reference branch at all; a ControlNet conditioning (`control_cond`,
+    model.use_controlnet) steers both halves. A clip of at most inference.context_frames
     frames is one window; a longer one is denoised in overlapping windows
     (diffusion/context.py), WINDOWS_PER_CALL of them folded into the batch
     of one call, their outputs averaged per frame;
@@ -19,8 +22,7 @@
     known latents at every step; `generate_long` chains segments so;
   * optional latent slerp interpolation, then VAE decode.
 
-`invert` runs DDIM inversion of real frames. Identity embeddings and
-ControlNet conditioning wait for later slices (ROADMAP.md).
+`invert` runs DDIM inversion of real frames.
 """
 
 from __future__ import annotations
@@ -73,11 +75,26 @@ class EMOPipeline:
             )
         return self.model.encode_text(torch.from_numpy(ids)), self.model.encode_text(torch.from_numpy(uids))
 
+    @torch.inference_mode()
+    def encode_identity(self, ref_image: torch.Tensor) -> torch.Tensor:
+        """Reference image [B, H, W, 3] in [-1, 1] -> the CLIP identity
+        embedding [B, proj] (EMOModel.identity_embedding). Raises when
+        model.use_identity_embed is off: the denoiser would drop the
+        embedding."""
+        if not self.config.model.use_identity_embed:
+            raise ValueError(
+                "identity embedding requested but model.use_identity_embed is False: the denoiser would "
+                "ignore it; enable model.use_identity_embed (and clip.vision_enabled) in the config"
+            )
+        return self.model.identity_embedding(ref_image)
+
     def _model_out(self, latents, t, ref_latent, audio, speeds, face_mask, guidance_scale,
-                   context=None, uncond_context=None, ref_features=None, ref_gn=None):
+                   context=None, uncond_context=None, ref_features=None, ref_gn=None,
+                   control_cond=None, identity_embed=None):
         """CFG-combined noise prediction. face_mask holds the PRE-ENCODED
         residual (EMOModel.encode_face_mask). The uncond branch sees no
-        reference, zeroed audio and uncond_context in place of context:
+        reference, zeroed audio, uncond_context in place of context and a
+        zeroed identity embedding, and keeps the ControlNet conditioning:
         with inference.cfg_batching in the same batch (per-sample
         ref_dropout), else as a second call with ref_latent=None, which runs
         no writer and no AdaIN.
@@ -89,7 +106,7 @@ class EMOPipeline:
         if guidance_scale == 1.0:
             return self.model.predict_noise(latents, t, ref_latent, audio_windows=audio, speeds=speeds,
                                             face_feat=face_mask, context=context, ref_features=ref_features,
-                                            ref_gn=ref_gn)
+                                            ref_gn=ref_gn, control_cond=control_cond, identity_embed=identity_embed)
         if context is not None and uncond_context is None:
             raise ValueError(
                 "prompt-conditioned CFG needs uncond_context (the empty-prompt embedding); "
@@ -99,10 +116,11 @@ class EMOPipeline:
         if not self.config.inference.cfg_batching:
             cond = self.model.predict_noise(latents, t, ref_latent, audio_windows=audio, speeds=speeds,
                                             face_feat=face_mask, context=context, ref_features=ref_features,
-                                            ref_gn=ref_gn)
-            uncond = self.model.predict_noise(latents, t, None,
-                                              audio_windows=None if audio is None else torch.zeros_like(audio),
-                                              speeds=speeds, face_feat=face_mask, context=uncond_context)
+                                            ref_gn=ref_gn, control_cond=control_cond, identity_embed=identity_embed)
+            uncond = self.model.predict_noise(
+                latents, t, None, audio_windows=None if audio is None else torch.zeros_like(audio),
+                speeds=speeds, face_feat=face_mask, context=uncond_context, control_cond=control_cond,
+                identity_embed=None if identity_embed is None else torch.zeros_like(identity_embed))
             return cfg_combine(uncond, cond, guidance_scale)
         cat = lambda x, y: torch.cat([x, y], dim=0)
         drop = torch.cat([torch.ones(b, dtype=torch.bool), torch.zeros(b, dtype=torch.bool)]).to(self.device)
@@ -114,18 +132,21 @@ class EMOPipeline:
             speeds=None if speeds is None else cat(speeds, speeds),
             face_feat=None if face_mask is None else cat(face_mask, face_mask),
             context=None if context is None else cat(uncond_context, context),
+            control_cond=None if control_cond is None else cat(control_cond, control_cond),
+            identity_embed=None if identity_embed is None else cat(torch.zeros_like(identity_embed), identity_embed),
             ref_dropout=drop, ref_features=rf2, ref_gn=rg2,
         )
         return cfg_combine(out[:b], out[b:], guidance_scale)
 
     def _denoise_windows(self, windows, t, frame_idx, ref_latent, audio, speeds, face_mask, guidance_scale,
-                         context, uncond_context, ref_features, ref_gn):
+                         context, uncond_context, ref_features, ref_gn, control_cond=None, identity_embed=None):
         """windows [W, B, c, h, w, C], frame_idx [W, c] -> CFG-combined
         outputs of the same shape. Up to WINDOWS_PER_CALL windows at a time
-        are folded into the batch (window-major): their audio and speeds
-        gathered along the frame axis, the per-clip conditioning (reference
-        latent, face residual, writer and AdaIN banks, prompt context)
-        repeated, one _model_out call per group."""
+        are folded into the batch (window-major): their audio, speeds and
+        per-frame (5-D) control gathered along the frame axis, the per-clip
+        conditioning (reference latent, face residual, writer and AdaIN
+        banks, prompt context, identity embedding, a 4-D control) repeated,
+        one _model_out call per group."""
         b = windows.shape[1]
         outs = []
         for s in range(0, windows.shape[0], WINDOWS_PER_CALL):
@@ -139,6 +160,9 @@ class EMOPipeline:
                 guidance_scale, context=tile(context), uncond_context=tile(uncond_context),
                 ref_features=None if ref_features is None else [[tile(x) for x in site] for site in ref_features],
                 ref_gn=None if ref_gn is None else [tile(x) for x in ref_gn],
+                control_cond=(frames(control_cond) if control_cond is not None and control_cond.dim() == 5
+                              else tile(control_cond)),
+                identity_embed=tile(identity_embed),
             )
             outs.append(out.reshape(n, b, *out.shape[1:]))
         return torch.cat(outs)
@@ -154,7 +178,8 @@ class EMOPipeline:
     # ---- sampler -----------------------------------------------------------
     def _sample(self, generator, ref_latent, audio, speeds, face_mask, num_frames, num_steps, guidance_scale,
                 latents=None, lock_latents=None, num_locked=0, lock_noise=None, context=None,
-                uncond_context=None, timings: Optional[Dict[str, float]] = None):
+                uncond_context=None, control_cond=None, identity_embed=None,
+                timings: Optional[Dict[str, float]] = None):
         """The DDIM loop: one window over the clip when num_frames <=
         inference.context_frames, else the overlapping windows of a
         WindowPlan. With lock_latents, the first num_locked frames are the
@@ -196,10 +221,12 @@ class EMOPipeline:
             cond = (ref_latent, audio, speeds, face_mask, guidance_scale)
             if plan is None:
                 out = self._model_out(latents, tb, *cond, context=context, uncond_context=uncond_context,
-                                      ref_features=rf, ref_gn=rg)
+                                      ref_features=rf, ref_gn=rg, control_cond=control_cond,
+                                      identity_embed=identity_embed)
             else:
                 out = windowed_model_out(
-                    lambda wl, tw, wi: self._denoise_windows(wl, tw, wi, *cond, context, uncond_context, rf, rg),
+                    lambda wl, tw, wi: self._denoise_windows(wl, tw, wi, *cond, context, uncond_context, rf, rg,
+                                                             control_cond, identity_embed),
                     latents, tb, plan.indices[i], plan.weights[i])
             latents = ddim_step(self.sched, out, latents, tb,
                                 torch.full((b,), t_prev, dtype=torch.int64, device=self.device),
@@ -220,9 +247,12 @@ class EMOPipeline:
                          lock_noise: Optional[torch.Tensor] = None,  # [steps, B, T, h, w, C] re-noise draws
                          context: Optional[torch.Tensor] = None,  # [B, Lc, cross_dim] prompt embedding
                          uncond_context: Optional[torch.Tensor] = None,  # negative-prompt embedding (CFG)
+                         control_cond: Optional[torch.Tensor] = None,  # [B(, T), H, W, Cc] control renders
+                         identity_embed: Optional[torch.Tensor] = None,  # [B, proj] (encode_identity)
                          timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
         """Latents [B, T, h, w, C] of a clip of video_length frames; speeds
-        [B, T(, axes)] per frame. A clip longer than
+        [B, T(, axes)] per frame; control_cond per frame [B, T, H, W, Cc]
+        or per clip [B, H, W, Cc] (model.use_controlnet). A clip longer than
         inference.context_frames takes the windowed sampler."""
         icfg = self.config.inference
         n_frames = video_length or icfg.video_length
@@ -237,11 +267,13 @@ class EMOPipeline:
             face_mask = self.model.encode_face_mask(face_mask, ref_latent.shape[1])
         if speeds is not None:
             speeds = torch.as_tensor(speeds).to(self.device)
+        if control_cond is not None:
+            control_cond = torch.as_tensor(control_cond).to(self.device)
         mark("face_mask_s")
         return self._sample(generator, ref_latent, audio, speeds, face_mask, n_frames, steps, g,
                             latents=latents, lock_latents=lock_latents, num_locked=num_locked,
                             lock_noise=lock_noise, context=context, uncond_context=uncond_context,
-                            timings=timings)
+                            control_cond=control_cond, identity_embed=identity_embed, timings=timings)
 
     @torch.inference_mode()
     def __call__(self, ref_image: torch.Tensor, wav: torch.Tensor, video_length: Optional[int] = None,
@@ -249,24 +281,35 @@ class EMOPipeline:
                  speeds: Optional[torch.Tensor] = None, face_mask: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None, latents: Optional[torch.Tensor] = None,
                  interpolation_factor: Optional[int] = None, prompt: Optional[str] = None,
-                 negative_prompt: str = "", tokenizer=None,
+                 negative_prompt: str = "", tokenizer=None, use_identity: bool = False,
+                 control_cond: Optional[torch.Tensor] = None,
                  timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
         """Returns video frames [B, T', H, W, 3] in [-1, 1]: T' = T, or
         (T-1)*f + 1 with latent slerp interpolation by f =
         interpolation_factor (default inference.interpolation_factor).
         `prompt` is tokenized and CLIP-encoded, and the denoiser's text
         cross-attention reads it (the CFG uncond half reads
-        `negative_prompt`; requires clip.text_enabled). `latents` injects the
-        initial noise; `timings`, when given, is filled with the seconds of
-        each phase (the device is synchronised at each phase boundary)."""
+        `negative_prompt`; requires clip.text_enabled). use_identity:
+        the reference image's CLIP identity embedding conditions the
+        denoiser (encode_identity; requires model.use_identity_embed).
+        control_cond: control renders [B, T, H, W, Cc] (or one per clip,
+        [B, H, W, Cc]) for the ControlNet (model.use_controlnet). `latents`
+        injects the initial noise; `timings`, when given, is filled with the
+        seconds of each phase (the device is synchronised at each phase
+        boundary)."""
         mark = _Marks(self.device, timings)
         context = uncond_context = None
         if prompt is not None:
             context, uncond_context = self.encode_prompt(prompt, negative_prompt, tokenizer)
             mark("prompt_s")
+        identity_embed = None
+        if use_identity:
+            identity_embed = self.encode_identity(ref_image)
+            mark("identity_s")
         lat = self.generate_latents(ref_image, wav, video_length, num_inference_steps, guidance_scale,
                                     speeds, face_mask, generator, latents=latents, context=context,
-                                    uncond_context=uncond_context, timings=timings)
+                                    uncond_context=uncond_context, control_cond=control_cond,
+                                    identity_embed=identity_embed, timings=timings)
         mark = _Marks(self.device, timings)
         f = interpolation_factor or self.config.inference.interpolation_factor
         if f > 1:
@@ -300,6 +343,7 @@ class EMOPipeline:
                       speeds: Optional[torch.Tensor] = None,  # [B, total_frames(, axes)]
                       face_mask: Optional[torch.Tensor] = None,  # [B, H, W, 1] static face region
                       prompt: Optional[str] = None, negative_prompt: str = "", tokenizer=None,
+                      use_identity: bool = False,
                       latents: Optional[Sequence[torch.Tensor]] = None,
                       lock_noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
                       timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
@@ -309,7 +353,9 @@ class EMOPipeline:
         audio (zero-padded past the end of wav) and of the speeds (zero-padded
         past their end). Returns the decoded video [B, total_frames, H, W, 3].
         `latents` and `lock_noise` hold one entry per segment (the first
-        segment's lock noise is None) in place of the generator's draws."""
+        segment's lock noise is None) in place of the generator's draws.
+        use_identity: the reference image's CLIP identity embedding, encoded
+        once, conditions every segment."""
         icfg = self.config.inference
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(icfg.seed)
@@ -320,6 +366,7 @@ class EMOPipeline:
         context = uncond_context = None
         if prompt is not None:
             context, uncond_context = self.encode_prompt(prompt, negative_prompt, tokenizer)
+        identity_embed = self.encode_identity(ref_image) if use_identity else None
         wav = torch.as_tensor(wav).to(self.device)
         if speeds is not None:
             speeds = torch.as_tensor(speeds).to(self.device)
@@ -351,7 +398,7 @@ class EMOPipeline:
                 latents=None if latents is None else latents[seg],
                 lock_latents=lock, num_locked=0 if first else num_motion_frames,
                 lock_noise=None if lock_noise is None else lock_noise[seg],
-                context=context, uncond_context=uncond_context, timings=timings,
+                context=context, uncond_context=uncond_context, identity_embed=identity_embed, timings=timings,
             )
             segs.append(lat if first else lat[:, num_motion_frames:])
             prev_tail = lat[:, -num_motion_frames:]

@@ -11,10 +11,12 @@ depends only on the leaf (the reverse of emox/interop/torch_import.py):
   norm `scale`                       norm `weight`       rename only
   Embed `embedding` [num, features]  Embed `weight`      rename only
   `bias`, `null_context`,            same name           none
-  `position_embedding`
+  `position_embedding`,
+  `class_embedding`
 
 Submodels: vae, reference_net, denoiser, audio_encoder, face_locator,
-landmarker, and clip_text when the model has one (clip.text_enabled). Any
+landmarker, and those the config enables: controlnet (model.use_controlnet),
+clip_text (clip.text_enabled) and clip_vision (clip.vision_enabled). Any
 other top-level entry, any leaf that maps to no parameter, any shape
 mismatch, and any port parameter left unset raises.
 """
@@ -28,7 +30,7 @@ import torch
 import torch.nn as nn
 
 SUBMODELS = ("vae", "reference_net", "denoiser", "audio_encoder", "face_locator", "landmarker")  # always present
-OPTIONAL_SUBMODELS = ("clip_text",)  # present when the config enables them
+OPTIONAL_SUBMODELS = ("controlnet", "clip_text", "clip_vision")  # present when the config enables them
 
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -54,7 +56,7 @@ def _convert(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
         leaf = "weight"
     elif leaf in ("scale", "embedding"):
         leaf = "weight"
-    elif leaf not in ("bias", "null_context", "position_embedding"):
+    elif leaf not in ("bias", "null_context", "position_embedding", "class_embedding"):
         raise ValueError(f"{'/'.join(path)}: leaf {leaf!r} has no port mapping")
     return ".".join([*mods, leaf]), np.array(a, copy=True, order="C")
 

@@ -1,16 +1,23 @@
-"""The CLIP text encoder (counterpart of emox/models/clip.py).
+"""The CLIP text and vision encoders (counterpart of emox/models/clip.py).
 
-transformers' CLIPTextModel compute (the openai/clip-vit-large-patch14
-layout SD-1.5 ships): token + position embeddings, a causal pre-LN
-transformer with biased q/k/v/out projections, a final LayerNorm. It gives
-the per-token hidden states the denoiser's text cross-attention (`attn2`)
-reads. The sequences are 77 tokens, so attention is plain PyTorch with the
-causal mask, as the reference leaves it to XLA: scores in fp32, masked
-scores -1e9, softmax in fp32, P rounded to v's type for P v.
+transformers' CLIPTextModel and CLIPVisionModelWithProjection compute (the
+openai/clip-vit-large-patch14 layout SD-1.5 ships):
+
+  * text: token + position embeddings, a causal pre-LN transformer with
+    biased q/k/v/out projections, a final LayerNorm. It gives the per-token
+    hidden states the denoiser's text cross-attention (`attn2`) reads.
+  * vision: a bias-free patch convolution, the class token and position
+    embeddings, a pre-LayerNorm, the same transformer without the mask, a
+    post-LayerNorm on the class token and a bias-free projection. It gives
+    the identity embedding the denoiser adds to its time embedding
+    (model.use_identity_embed).
+
+The sequences are 77 tokens and 257 patches, so attention is plain PyTorch,
+as the reference leaves it to XLA: scores in fp32 (masked scores -1e9 in
+the text encoder), softmax in fp32, P rounded to v's type for P v.
 
 Attribute names are the flax submodule names, so the weight bridge is a
-rename plus a transpose. `CLIPVisionEncoder` and `clip_normalize` wait with
-the identity embedding (ROADMAP.md, Queue 1 item 7).
+rename plus a transpose. Images are channels-last [B, H, W, 3].
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from emox_torch.core.config import CLIPConfig
-from emox_torch.nn.layers import Dense, LayerNorm
+from emox_torch.nn.layers import Conv, Dense, LayerNorm
 
 _NEG_INF = -1e9  # the reference's masked score
 
@@ -113,3 +120,50 @@ class CLIPTextEncoder(nn.Module):
         hidden = self(input_ids)
         idx = torch.argmax((input_ids == eos_token_id).int(), dim=1)
         return hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+
+
+class CLIPVisionEncoder(nn.Module):
+    """transformers CLIPVisionModelWithProjection: patch conv (no bias) +
+    class token + position embeddings -> pre-LN -> transformer -> post-LN on
+    the class token -> linear projection (no bias)."""
+
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        c = cfg.vision_hidden_dim
+        self.hidden = c
+        self.patch_embedding = Conv(3, c, (cfg.patch_size, cfg.patch_size), stride=cfg.patch_size, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(c))
+        self.position_embedding = nn.Parameter(torch.empty(1 + (cfg.image_size // cfg.patch_size) ** 2, c))
+        self.normal_init = {"class_embedding": 0.02, "position_embedding": 0.01}
+        self.pre_norm = LayerNorm(c)
+        self.layers = cfg.vision_layers
+        for i in range(cfg.vision_layers):
+            setattr(self, f"layer_{i}", CLIPEncoderLayer(c, cfg.vision_heads, False, cfg.hidden_act))
+        self.post_norm = LayerNorm(c)
+        self.visual_projection = Dense(c, cfg.projection_dim, bias=False)
+
+    def forward(self, images: torch.Tensor, project: bool = True) -> torch.Tensor:
+        """images [B, H, W, 3] (CLIP-normalised) -> [B, proj] (project=True)
+        or the hidden states [B, 1+P, C]."""
+        b = images.shape[0]
+        p = self.patch_embedding(images).reshape(b, -1, self.hidden)
+        cls = self.class_embedding.to(p.dtype).expand(b, 1, self.hidden)
+        x = torch.cat([cls, p], dim=1)
+        x = self.pre_norm(x + self.position_embedding[None, : x.shape[1]].to(x.dtype))
+        for i in range(self.layers):
+            x = getattr(self, f"layer_{i}")(x)
+        if not project:
+            return x
+        return self.visual_projection(self.post_norm(x[:, 0]))
+
+
+# openai CLIP image preprocessing constants (transformers CLIPImageProcessor)
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def clip_normalize(images_01: torch.Tensor) -> torch.Tensor:
+    """[0,1]-ranged [B, H, W, 3] -> CLIP-normalised."""
+    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=images_01.dtype, device=images_01.device)
+    std = torch.tensor(CLIP_IMAGE_STD, dtype=images_01.dtype, device=images_01.device)
+    return (images_01 - mean) / std

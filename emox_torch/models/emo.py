@@ -14,10 +14,17 @@ calls (`EMOPipeline`, and here `decode_latents`,
 `reference_outputs_for_steps`, `encode_face_mask`) run under
 `torch.inference_mode`.
 
-With clip.text_enabled the CLIP text encoder (`clip_text`) is built too:
-`encode_text` turns prompt ids into the context the denoiser's text
-cross-attention reads (`predict_noise(context=...)`). ControlNet and the
-CLIP vision encoder wait for later slices (ROADMAP.md).
+The side models are built where the config enables them:
+  * clip.text_enabled: the CLIP text encoder (`clip_text`); `encode_text`
+    turns prompt ids into the context the denoiser's text cross-attention
+    reads (`predict_noise(context=...)`);
+  * clip.vision_enabled: the CLIP vision encoder (`clip_vision`);
+    `encode_image_embedding` turns CLIP-normalised images into the identity
+    embedding that model.use_identity_embed adds to the denoiser's time
+    embedding (`predict_noise(identity_embed=...)`);
+  * model.use_controlnet: the ControlNet (`controlnet`), run inside
+    `predict_noise(control_cond=...)` on the same noisy latents and
+    timesteps as the denoiser, whose skips take its residuals.
 """
 
 from __future__ import annotations
@@ -30,11 +37,12 @@ import torch.nn as nn
 from emox_torch.core.config import Config
 from emox_torch.core.device import resolve_device
 from emox_torch.models.audio import AudioEncoder, align_audio_to_frames, audio_feature_rate
-from emox_torch.models.clip import CLIPTextEncoder
+from emox_torch.models.clip import CLIPTextEncoder, CLIPVisionEncoder, clip_normalize
+from emox_torch.models.controlnet import ControlNetEncoder
 from emox_torch.models.unet import UNet, UNetOutputs, check_supported, reference_net_config
 from emox_torch.models.vae import AutoencoderKL
 from emox_torch.nn.conditioners import FaceLandmarkNet, FaceLocator
-from emox_torch.nn.layers import init_weights
+from emox_torch.nn.layers import init_weights, resize_bilinear
 
 Banks = List[List[torch.Tensor]]
 
@@ -49,10 +57,10 @@ def _row_major(shape) -> Tuple[int, ...]:
 
 def _check_config(config: Config) -> None:
     check_supported(config.model)
-    if config.clip.vision_enabled:
-        raise NotImplementedError(
-            "clip.vision_enabled: the CLIP vision encoder waits for a later slice of the port "
-            "(ROADMAP.md, Queue 1 item 7)"
+    if config.model.use_identity_embed and not config.clip.vision_enabled:
+        raise ValueError(
+            "model.use_identity_embed=True needs clip.vision_enabled=True: the identity embedding is "
+            "the CLIP-vision encoding of the reference image"
         )
 
 
@@ -64,11 +72,14 @@ class EMOModules(nn.Module):
         face_downs = max(0, config.vae.downscale.bit_length() - 1)
         self.vae = AutoencoderKL(config.vae)
         self.reference_net = UNet(reference_net_config(config.model), face_mask_downs=face_downs)
-        self.denoiser = UNet(config.model, face_mask_downs=face_downs)
+        self.denoiser = UNet(config.model, face_mask_downs=face_downs, identity_dim=config.clip.projection_dim)
         self.audio_encoder = AudioEncoder(config.audio)
         self.clip_text = CLIPTextEncoder(config.clip) if config.clip.text_enabled else None
         self.face_locator = FaceLocator()
         self.landmarker = FaceLandmarkNet()
+        self.controlnet = (ControlNetEncoder(config.model, cond_num_downs=face_downs)
+                           if config.model.use_controlnet else None)
+        self.clip_vision = CLIPVisionEncoder(config.clip) if config.clip.vision_enabled else None
 
 
 class EMOModel:
@@ -189,6 +200,22 @@ class EMOModel:
             raise ValueError("clip.text_enabled is False in this config")
         return self.modules.clip_text(torch.as_tensor(input_ids).to(self.device).long())
 
+    def encode_image_embedding(self, images: torch.Tensor) -> torch.Tensor:
+        """CLIP-normalised images [B, H, W, 3] -> the projected identity
+        embedding [B, proj]."""
+        if self.modules.clip_vision is None:
+            raise ValueError("clip.vision_enabled is False in this config")
+        return self.modules.clip_vision(self._in(images))
+
+    def identity_embedding(self, ref_image: torch.Tensor) -> torch.Tensor:
+        """Reference image [B, H, W, 3] in [-1, 1] -> the identity embedding
+        [B, proj]: mapped to [0, 1] in float32, resized to clip.image_size as
+        jax.image.resize does (antialiased when it shrinks), normalised,
+        encoded."""
+        size = self.config.clip.image_size
+        x01 = (torch.as_tensor(ref_image).to(self.device).float() + 1.0) * 0.5
+        return self.encode_image_embedding(clip_normalize(resize_bilinear(x01, size, size)))
+
     @torch.inference_mode()
     def encode_face_mask(self, face_mask: torch.Tensor, latent_size: int) -> torch.Tensor:
         """Pre-encode the face-region mask residual once per clip; pass the
@@ -210,7 +237,10 @@ class EMOModel:
         speeds: Optional[torch.Tensor] = None,  # [B, T] or [B, T, axes]
         face_mask: Optional[torch.Tensor] = None,  # [B, H, W, 1]
         context: Optional[torch.Tensor] = None,  # [B, Lc, cross_dim] CLIP text tokens
+        control_cond: Optional[torch.Tensor] = None,  # [B(, T), H, W, Cc] pixel space
+        control_scale: float = 1.0,
         ref_dropout: Optional[torch.Tensor] = None,  # [B] bool, True = sample sees no ref
+        identity_embed: Optional[torch.Tensor] = None,  # [B, proj] CLIP image embedding
         ref_features: Optional[Banks] = None,  # precomputed writer banks
         ref_gn: Optional[List[torch.Tensor]] = None,  # precomputed AdaIN banks (model.use_gn_ref)
         face_feat: Optional[torch.Tensor] = None,  # pre-encoded mask residual
@@ -218,15 +248,22 @@ class EMOModel:
         """ref_latent=None runs no reference branch at all (the two-call CFG's
         uncond program); ref_dropout drops the reference per sample inside
         one batch. Without ref_features the writer runs here, and its banks
-        (and AdaIN statistics) replace ref_gn."""
+        (and AdaIN statistics) replace ref_gn. With a ControlNet and
+        control_cond, the ControlNet runs on the same noisy latents and
+        timesteps, its residuals scaled by control_scale."""
         timesteps = timesteps.to(self.device)
         ref_feats = ref_features
         if ref_latent is not None and ref_feats is None:
             rout = self.reference_outputs(ref_latent, timesteps)
             ref_feats, ref_gn = rout.ref_features, rout.ref_gn
         opt = lambda x: None if x is None else self._in(x)
+        noisy_latents = self._in(noisy_latents)
+        control = None
+        if control_cond is not None and self.modules.controlnet is not None:
+            control = self.modules.controlnet(noisy_latents, timesteps, self._in(control_cond),
+                                              conditioning_scale=control_scale)
         out = self.modules.denoiser(
-            self._in(noisy_latents), timesteps,
+            noisy_latents, timesteps,
             context=opt(context),
             ref_features=ref_feats,
             ref_gn=ref_gn,
@@ -234,6 +271,8 @@ class EMOModel:
             speeds=None if speeds is None else torch.as_tensor(speeds).to(self.device),
             face_mask=opt(face_mask),
             face_feat=opt(face_feat),
+            control=control,
+            identity_embed=opt(identity_embed),
             ref_dropout=None if ref_dropout is None else ref_dropout.to(self.device),
         )
         return out.sample

@@ -18,15 +18,17 @@ them in nn.remat: their activations are recomputed in the backward pass
 instead of stored. With cfg.use_gn_ref the writer also emits each site's
 fp32 spatial (mean, var) of its activations (`ref_gn`), and the reader
 renormalises its own activations to them after each spatial transformer
-(AdaIN). ControlNet residuals and the identity embedding wait for later
-slices (ROADMAP.md).
+(AdaIN). With cfg.use_identity_embed a CLIP image embedding is projected
+(bias-free, zero-initialised) and added to the time embedding; with
+ControlNet residuals (`control`) each skip connection and the mid block's
+output take their residual.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, NamedTuple, Optional
+from typing import TYPE_CHECKING, List, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -37,11 +39,12 @@ from emox_torch.nn.attention_blocks import AudioCrossAttention, SpatialTransform
 from emox_torch.nn.blocks import Downsample, FusedGroupNorm, ResBlock, Upsample, fold_time, unfold_time
 from emox_torch.nn.conditioners import FaceMaskEncoder, SpeedEncoder
 from emox_torch.nn.embeddings import TimestepEmbedder
-from emox_torch.nn.layers import Conv
+from emox_torch.nn.layers import Conv, Dense
+
+if TYPE_CHECKING:
+    from emox_torch.models.controlnet import ControlSignals
 
 _DEFERRED = {
-    "use_controlnet": "ControlNet (ROADMAP.md, Queue 1 item 7)",
-    "use_identity_embed": "the CLIP identity embedding (ROADMAP.md, Queue 1 item 7)",
     "use_sparse_causal": "sparse-causal attention (ROADMAP.md, Queue 1 item 3)",
     "separable_convs": "separable ResBlock convs (ROADMAP.md, Queue 1 item 2)",
 }
@@ -52,6 +55,14 @@ def check_supported(cfg: ModelConfig) -> None:
     for name, what in _DEFERRED.items():
         if getattr(cfg, name):
             raise NotImplementedError(f"model.{name}=True: {what} waits for a later slice of the port")
+
+
+def attention_heads(cfg: ModelConfig, ch: int):
+    """(heads, head_dim) at width ch: fixed head count when
+    cfg.attention_heads > 0, else the fixed head dim."""
+    if cfg.attention_heads > 0:
+        return cfg.attention_heads, ch // cfg.attention_heads
+    return max(1, ch // cfg.attention_head_dim), cfg.attention_head_dim
 
 
 class UNetOutputs(NamedTuple):
@@ -89,9 +100,13 @@ def _adain(h: torch.Tensor, stats: torch.Tensor, t: int, style_fidelity: float,
 
 
 class UNet(nn.Module):
-    def __init__(self, cfg: ModelConfig, face_mask_downs: int = 3, spatial_depth: int = 1):
+    def __init__(self, cfg: ModelConfig, face_mask_downs: int = 3, spatial_depth: int = 1,
+                 identity_dim: Optional[int] = None):
         """face_mask_downs: stride-2 convs of the face-mask encoder, log2 of
-        the VAE's downscale (the reference derives it from the mask at init)."""
+        the VAE's downscale (the reference derives it from the mask at init);
+        identity_dim: the identity embedding's width (clip.projection_dim),
+        given for the denoiser only: the writer is never handed an embedding,
+        so the reference creates no projection there."""
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -99,6 +114,11 @@ class UNet(nn.Module):
         temb_dim = 4 * cfg.base_channels
         g = cfg.norm_groups
         self.time_embed = TimestepEmbedder(temb_dim, cfg.base_channels)
+        self.has_identity = cfg.use_identity_embed and identity_dim is not None
+        if self.has_identity:
+            # zero-init and bias-free: a zero embedding (the CFG uncond half)
+            # adds exactly nothing, and a new identity branch starts as a no-op
+            self.identity_embed_proj = Dense(identity_dim, temb_dim, bias=False, zero_init=True)
         if cfg.use_speed:
             self.speed_embed = SpeedEncoder(
                 temb_dim, cfg.speed_axes, cfg.num_speed_buckets, cfg.speed_bucket_radius
@@ -138,16 +158,9 @@ class UNet(nn.Module):
         self.norm_out = FusedGroupNorm(chans[0], g, silu=True)
         self.conv_out = Conv(chans[0], cfg.out_channels, (3, 3))
 
-    def _heads(self, ch: int):
-        """(heads, head_dim): fixed head count when cfg.attention_heads > 0,
-        else the fixed head dim."""
-        if self.cfg.attention_heads > 0:
-            return self.cfg.attention_heads, ch // self.cfg.attention_heads
-        return max(1, ch // self.cfg.attention_head_dim), self.cfg.attention_head_dim
-
     def _add_attn_stack(self, name: str, ch: int, depth: int) -> None:
         cfg = self.cfg
-        heads, head_dim = self._heads(ch)
+        heads, head_dim = attention_heads(cfg, ch)
         setattr(self, f"{name}_attn", SpatialTransformer(
             ch, heads, head_dim, depth=depth, groups=cfg.norm_groups,
             use_cross=cfg.use_cross_attention, cross_dim=cfg.cross_attention_dim,
@@ -168,6 +181,8 @@ class UNet(nn.Module):
         speeds: Optional[torch.Tensor] = None,  # [B], [B, T] or [B, T, axes]
         face_mask: Optional[torch.Tensor] = None,  # [B, H, W, 1] pixel space
         face_feat: Optional[torch.Tensor] = None,  # [B, h, w, C0] PRE-ENCODED mask residual
+        control: Optional["ControlSignals"] = None,  # ControlNet residuals (models/controlnet.py)
+        identity_embed: Optional[torch.Tensor] = None,  # [B, proj] CLIP image embedding
         emit_ref: bool = False,
         ref_dropout: Optional[torch.Tensor] = None,  # [B] bool, True = this sample sees no ref
     ) -> UNetOutputs:
@@ -183,6 +198,8 @@ class UNet(nn.Module):
 
         # ---- embeddings -------------------------------------------------
         temb = self.time_embed(timesteps)
+        if self.has_identity and identity_embed is not None:
+            temb = temb + self.identity_embed_proj(identity_embed)
         if cfg.use_speed and speeds is not None:
             if speeds.dim() == 1:
                 speeds = speeds[:, None].expand(b, t)
@@ -258,10 +275,16 @@ class UNet(nn.Module):
                 h = fold_time(getattr(self, f"down_{level}_ds")(unfold_time(h, t)))[0]
                 skips.append(h)
 
+        # ---- ControlNet residuals: one per skip, one after the mid block --
+        if control is not None:
+            skips = [s + r for s, r in zip(skips, control.down)]
+
         # ---- mid ---------------------------------------------------------
         h = resblock("mid_res_0", h)
         h = attn_stack(h, "mid")
         h = resblock("mid_res_1", h)
+        if control is not None:
+            h = h + control.mid
 
         # ---- up path -----------------------------------------------------
         for level in reversed(range(len(chans))):

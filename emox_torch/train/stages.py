@@ -10,19 +10,23 @@ emox/train/stages.py):
           layers (zero-init, so training starts from stage-1 behaviour).
   stage3  trains only the speed embedding and the face-mask encoder, with
           the face-region weighted loss.
+  stage4  trains the ControlNet alone on the clip's control renders
+          (batch["control"]); the denoiser stays frozen and its residual
+          inputs take the gradient through its mid and up path.
   stage5  VAE pretraining: L2 + L1 reconstruction of a posterior sample plus
           a small KL term; trains the VAE only.
 
 The denoise losses use min-SNR-gamma weighting, the noise offset, and CFG
 dropout of the reference and of the audio, as the reference configures
-them. Stage 2 and 3 clips may carry motion frames, which join the clip for
+them. With model.use_identity_embed they also CLIP-encode the reference
+image (frozen) into the identity embedding, zeroed where the reference is
+dropped. Stage 2 and 3 clips may carry motion frames, which join the clip for
 temporal attention but are left out of the loss.
 
 The reference's loss draws its random numbers inside, from a JAX key. Here
 they are drawn apart, by `sample_draws` from a torch.Generator, and the
 loss is a deterministic function of the batch and those draws: a test can
-feed it the reference's own draws. Stage 4 (ControlNet) and the identity
-embedding wait for a later slice (ROADMAP.md, Queue 1 items 7 and 8).
+feed it the reference's own draws.
 """
 
 from __future__ import annotations
@@ -47,7 +51,6 @@ STAGE_DESCRIPTIONS = {
     5: "VAE pretraining (recon + KL; the reference loads SD's pretrained "
        "VAE instead — this stage bootstraps one where no weights exist)",
 }
-PORTED_STAGES = (0, 1, 2, 3, 5)
 
 # parameter-name substrings per conditioning family (denoiser collection)
 _TEMPORAL_KEYS = ("_temporal",)
@@ -63,11 +66,6 @@ Batch = Dict[str, torch.Tensor]
 def check_stage(stage: int) -> None:
     if stage not in STAGE_DESCRIPTIONS:
         raise ValueError(f"bad stage {stage}")
-    if stage not in PORTED_STAGES:
-        raise NotImplementedError(
-            f"stage {stage} ({STAGE_DESCRIPTIONS[stage]}) waits for a later slice of the port "
-            "(ROADMAP.md, Queue 1 item 8)"
-        )
 
 
 def is_trainable(name: str, stage: int) -> bool:
@@ -77,6 +75,8 @@ def is_trainable(name: str, stage: int) -> bool:
     top = name.split(".")[0]
     if stage == 0:
         return top in ("face_locator", "landmarker")  # the two face nets train together
+    if stage == 4:
+        return top == "controlnet"  # the ControlNet branch alone
     if stage == 5:
         return top == "vae"  # VAE pretraining: the autoencoder alone
     if top in _FROZEN_SUBMODELS:
@@ -96,7 +96,7 @@ def is_trainable(name: str, stage: int) -> bool:
 def trainable_mask(modules: nn.Module, stage: int) -> Dict[str, bool]:
     """{parameter name: True when the optimizer updates it} over `modules`
     (an EMOModules: vae, reference_net, denoiser, audio_encoder,
-    face_locator, landmarker)."""
+    face_locator, landmarker, and the side models the config builds)."""
     return {name: is_trainable(name, stage) for name, _ in modules.named_parameters()}
 
 
@@ -169,11 +169,6 @@ def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule,
     """Returns loss(batch, draws) -> (loss, metrics), deterministic given the
     draws of `sample_draws`. `sched` lives on the model's device."""
     check_stage(stage)
-    if config.model.use_identity_embed:
-        raise NotImplementedError(
-            "model.use_identity_embed: the CLIP identity embedding waits for a later slice of the port "
-            "(ROADMAP.md, Queue 1 item 7)"
-        )
     dcfg, acfg, tcfg = config.diffusion, config.audio, config.train
 
     def facelocator_loss(batch: Batch, draws: Draws):
@@ -230,6 +225,15 @@ def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule,
         # themselves in place of the reference tokens
         ref_dropout = draws["ref_drop"] if tcfg.uncond_ratio > 0 else None
 
+        identity_embed = None
+        if config.model.use_identity_embed:
+            # the frozen CLIP vision encoding of the reference image, dropped
+            # with the reference: a zero embedding adds nothing through the
+            # bias-free projection
+            identity_embed = model.identity_embedding(batch["ref_image"])
+            if ref_dropout is not None:
+                identity_embed = identity_embed * (1.0 - ref_dropout.to(identity_embed.dtype))[:, None]
+
         audio_windows = None
         if stage >= 2 and "wav" in batch:
             feats = model.modules.audio_encoder(model._in(batch["wav"]))
@@ -244,8 +248,10 @@ def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule,
 
         speeds = batch.get("speeds") if stage == 3 else None
         face_mask = batch.get("masks") if stage == 3 else None
+        control_cond = batch.get("control") if stage == 4 else None
         pred = model.predict_noise(noisy, ts, ref_latent, audio_windows=audio_windows, speeds=speeds,
-                                   face_mask=face_mask, ref_dropout=ref_dropout)
+                                   face_mask=face_mask, control_cond=control_cond, ref_dropout=ref_dropout,
+                                   identity_embed=identity_embed)
         target = noise if sched.prediction_type == "epsilon" else get_velocity(sched, latents, noise, ts)
         err = (pred.float() - target.float()) ** 2
         if num_motion > 0:

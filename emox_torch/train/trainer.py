@@ -1,7 +1,7 @@
 """Unified trainer for the port (counterpart of emox/train/trainer.py):
 per-stage parameter freezing, the reference's optimizer chain, checkpoints
-with torch.save, jsonl metrics. Stages 0 (the face nets), 1-3 (denoising)
-and 5 (the VAE) run through one loop; the stage's loss and draws come from
+with torch.save, jsonl metrics. Stages 0 (the face nets), 1-3 (denoising),
+4 (the ControlNet) and 5 (the VAE) run through one loop; the stage's loss and draws come from
 emox_torch.train.stages, its checkpoints go to `stage<N>/` under
 train.checkpoint_dir, and a later stage starts from an earlier one's
 (`load_params_from_stage`: stage 1 from the stage-5 VAE, for one).
@@ -9,7 +9,10 @@ train.checkpoint_dir, and a later stage starts from an earlier one's
   * structural freezing: the modules hold every leaf in the compute dtype;
     only the trainable leaves take a gradient (requires_grad), and each has
     an fp32 master kept by the optimizer, copied into the module after every
-    applied update. Frozen leaves get no gradient buffer and no master.
+    applied update. Frozen leaves get no gradient buffer and no master. At
+    stage 4 autograd runs back through the frozen denoiser's up and mid
+    path to the ControlNet's residuals and computes no frozen weight's
+    gradient.
   * the optimizer is the reference's optax chain
     MultiSteps(apply_if_finite(chain(clip_by_global_norm, adamw(schedule))))
     on the masters, with torch.optim.AdamW as the AdamW (its decoupled
@@ -304,6 +307,14 @@ class Trainer:
         own = dict(self.model.modules.named_parameters())
         missing = sorted(set(own) - set(params))
         if missing:
+            # a whole submodel the config builds (a stage-4 run's controlnet
+            # from a stage-3 checkpoint, say) is named as such: a fresh init
+            # must not stand in for trained weights
+            trees = sorted({n.split(".")[0] for n in params})
+            absent = sorted({n.split(".")[0] for n in missing} - set(trees))
+            if absent:
+                raise ValueError(f"checkpoint lacks the submodels {absent} that this config builds "
+                                 f"(it holds {trees})")
             raise ValueError(f"checkpoint lacks parameters {missing[:8]}")
         for n, p in own.items():
             p.copy_(params[n])

@@ -21,7 +21,7 @@ from emox.core import presets as jpresets
 from emox.models.emo import EMOModel as JEMOModel
 from emox_torch import ops
 from emox_torch.core import presets as tpresets
-from emox_torch.interop.from_flax import SUBMODELS, from_flax, load_flax, load_module
+from emox_torch.interop.from_flax import OPTIONAL_SUBMODELS, SUBMODELS, from_flax, load_flax, load_module
 from emox_torch.models.emo import EMOModel
 
 IMAGE, FRAMES = 32, 2
@@ -54,15 +54,25 @@ SD15_CLIP = dict(text_enabled=True, vocab_size=49408, text_hidden_dim=16, text_l
                  max_positions=24)
 
 
+# the side models at tiny widths: the ControlNet, and a CLIP vision encoder
+# of 2 layers, width 64, 4 heads, image 28 (so the reference image shrinks
+# to it), patch 14 and projection 32 feeding the identity embedding
+SIDE_MODEL = dict(use_controlnet=True, use_identity_embed=True)
+SIDE_CLIP = dict(vision_enabled=True, vision_hidden_dim=64, vision_layers=2, vision_heads=4, image_size=28,
+                 patch_size=14, projection_dim=32)
+
+
 def configs(name: str):
     """(reference Config, port Config) for 'tiny', 'tiny_sd15' (tiny with
-    the SD-1.5 head layout and a CLIP text encoder) or 'small_flag' (small
-    with the flagship's options: no text cross-attention, 3-axis speeds)."""
+    the SD-1.5 head layout and a CLIP text encoder), 'tiny_side' (tiny with
+    the side models: ControlNet, CLIP vision and the identity embedding) or
+    'small_flag' (small with the flagship's options: no text
+    cross-attention, 3-axis speeds)."""
     if name == "tiny":
         return jpresets.tiny_config(IMAGE, FRAMES), tpresets.tiny_config(IMAGE, FRAMES)
-    if name == "tiny_sd15":
-        return tuple(c.replace(model=dataclasses.replace(c.model, **SD15_MODEL),
-                               clip=dataclasses.replace(c.clip, **SD15_CLIP))
+    if name in ("tiny_sd15", "tiny_side"):
+        model, clip = (SD15_MODEL, SD15_CLIP) if name == "tiny_sd15" else (SIDE_MODEL, SIDE_CLIP)
+        return tuple(c.replace(model=dataclasses.replace(c.model, **model), clip=dataclasses.replace(c.clip, **clip))
                      for c in (jpresets.tiny_config(IMAGE, FRAMES), tpresets.tiny_config(IMAGE, FRAMES)))
     jc, tc = jpresets.small_config(IMAGE, FRAMES), tpresets.small_config(IMAGE, FRAMES)
     flags = dict(use_cross_attention=False, speed_axes=3)
@@ -127,16 +137,20 @@ def _leaf_paths(tree, prefix=()):
             yield prefix + (k,)
 
 
-@pytest.fixture(scope="module", params=["tiny", "small_flag", "tiny_sd15"])
+@pytest.fixture(scope="module", params=["tiny", "small_flag", "tiny_sd15", "tiny_side"])
 def bundle(request):
     return (request.param, *model_params(request.param))
+
+
+def _submodels(name: str):
+    return SUBMODELS + {"tiny_sd15": ("clip_text",), "tiny_side": ("controlnet", "clip_vision")}.get(name, ())
 
 
 def test_from_flax_maps_every_leaf(bundle):
     name, _, params, _ = bundle
     state = from_flax(params)
-    subs = SUBMODELS + (("clip_text",) if name == "tiny_sd15" else ())
-    assert set(state) == set(subs)
+    subs = _submodels(name)
+    assert set(state) == set(subs) and set(OPTIONAL_SUBMODELS) >= set(subs) - set(SUBMODELS)
     for sub in subs:
         assert len(state[sub]) == len(list(_leaf_paths(params[sub]))), sub
 
@@ -146,7 +160,7 @@ def test_load_sets_every_port_parameter(bundle):
     unset; the values arrive transposed as the table in from_flax says."""
     name, _, params, tcfg = bundle
     model = EMOModel(tcfg, device="cpu", seed=123).load_flax(params)
-    subs = SUBMODELS + (("clip_text",) if name == "tiny_sd15" else ())
+    subs = _submodels(name)
     for sub in subs:
         own = getattr(model.modules, sub).state_dict()
         assert len(own) == len(list(_leaf_paths(params[sub])))
@@ -158,6 +172,17 @@ def test_load_sets_every_port_parameter(bundle):
                                       np.asarray(clip["position_embedding"]))
         np.testing.assert_array_equal(model.modules.clip_text.layer_0.attn.to_q.weight.numpy(),
                                       np.asarray(clip["layer_0"]["attn"]["to_q"]["kernel"]).T)
+    if name == "tiny_side":  # the class token arrives as it is, the 14x14 patch conv HWIO -> OIHW
+        vis = params["clip_vision"]
+        np.testing.assert_array_equal(model.modules.clip_vision.class_embedding.detach().numpy(),
+                                      np.asarray(vis["class_embedding"]))
+        np.testing.assert_array_equal(model.modules.clip_vision.patch_embedding.weight.numpy(),
+                                      np.asarray(vis["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1))
+        assert model.modules.clip_vision.patch_embedding.bias is None
+        np.testing.assert_array_equal(model.modules.controlnet.zero_conv_0.weight.numpy(),
+                                      np.asarray(params["controlnet"]["zero_conv_0"]["kernel"]).transpose(3, 2, 0, 1))
+        np.testing.assert_array_equal(model.modules.denoiser.identity_embed_proj.weight.numpy(),
+                                      np.asarray(params["denoiser"]["identity_embed_proj"]["kernel"]).T)
     den = params["denoiser"]
     np.testing.assert_array_equal(model.modules.denoiser.conv_in.weight.numpy(),
                                   np.asarray(den["conv_in"]["kernel"]).transpose(3, 2, 0, 1))
@@ -189,7 +214,7 @@ def test_unmapped_leaf_raises():
     with pytest.raises(ValueError, match="no port parameter"):
         load_flax(model.modules, bad)
     with pytest.raises(ValueError, match="no port mapping"):
-        from_flax(dict(params, controlnet={}))
+        from_flax(dict(params, not_a_submodel={}))
 
 
 def test_unset_parameter_raises():

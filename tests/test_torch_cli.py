@@ -2,7 +2,8 @@
 YAML reader (emox_torch.core.yamlio), held against the reference's
 (emox.cli, PyYAML) where both exist, and run end to end on the tiny preset
 on the CPU (--device cpu): fixtures -> precompute -> pack-records -> train
--> infer.
+-> infer, and with the side models (ControlNet, CLIP vision, the identity
+embedding) train --stage 4 -> infer --identity.
 
 The reference's CLI draws its sampler noise from jax.random, which torch
 cannot reproduce, so its pieces are compared here and the port's video is
@@ -192,10 +193,8 @@ def test_unreadable_image_names_both_readers(tmp_path):
     (["export", "--out", "o"], "item 10"),
     (["eval", "--gen", "g.npz"], "item 10"),
     (["bench", "--preset", "tiny"], "benchmark"),
-    (["train", "--stage", "4", "--device", "cpu"], "item 7"),
     (["train", "--stage", "2", "--coordinator", "h:1", "--device", "cpu"], "item 9"),
-    (["infer", "--ref-image", "r.npy", "--audio", "a.wav", "--identity", "--device", "cpu"], "item 7"),
-], ids=["import-weights", "export", "eval", "bench", "stage4", "distributed", "identity"])
+], ids=["import-weights", "export", "eval", "bench", "distributed"])
 def test_unported_commands_exit_naming_their_item(argv, item):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
@@ -348,6 +347,80 @@ def test_python_m_emox_torch_infer(run):
     assert "random init" in res.stdout and "wrote" in res.stdout
     with np.load(d / "sub.npz") as z:
         assert z["frames"].shape == (2, 32, 32, 3)
+
+
+# ---- the side models: train --stage 4, infer --identity -------------------------------------
+@pytest.fixture(scope="module")
+def side_run(run):
+    """On the records of `run`, from a config written by save_config with
+    the ControlNet, a 2-layer CLIP vision encoder and the identity
+    embedding: train --stage 1 (1 step, which moves the zero-initialised
+    identity projection), then train --stage 4 --from-stage 1 (3 steps, a
+    checkpoint at step 3). No motion frames: the control renders cover the
+    clip only, so the reference's stage-4 loss fails with them, as the
+    port's does."""
+    d = run["dir"]
+    base = run["cfg"]
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, use_controlnet=True, use_identity_embed=True),
+        clip=dataclasses.replace(base.clip, vision_enabled=True, vision_hidden_dim=16, vision_layers=2,
+                                 vision_heads=2, image_size=28, patch_size=14, projection_dim=8),
+        data=dataclasses.replace(base.data, num_motion_frames=0),
+        train=dataclasses.replace(base.train, stage=4, num_steps=3, checkpoint_every=3, learning_rate=1e-3,
+                                  checkpoint_dir=str(d / "side_ckpt")))
+    tconfig.save_config(cfg, str(d / "side.yaml"))
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["train", "--stage", "1", "--config", str(d / "side.yaml"), "--set", "train.num_steps=1",
+                         "train.checkpoint_every=1", "--device", "cpu"]) == 0
+        assert cli.main(["train", "--stage", "4", "--from-stage", "1", "--config", str(d / "side.yaml"),
+                         "--device", "cpu"]) == 0
+    return {"cfg": cfg, "out": buf.getvalue()}
+
+
+def test_train_stage4_changes_the_controlnet_alone(run, side_run):
+    """The stage-4 checkpoint against the stage-1 one it started from: every
+    ControlNet zero conv moved, no leaf outside the ControlNet did."""
+    d = run["dir"]
+    assert os.path.exists(d / "side_ckpt" / "stage4" / "step_3.pt")
+    assert "stage 4: ControlNet" in side_run["out"] and '"final_step": 3' in side_run["out"]
+    assert "initialised from stage-1 checkpoint" in side_run["out"]
+    start = cli._restore_params(str(d / "side_ckpt" / "stage1"))
+    trained = cli._restore_params(str(d / "side_ckpt" / "stage4"))
+    assert set(trained) == set(start)
+    changed = {n for n in start if not torch.equal(trained[n], start[n])}
+    assert changed and all(n.startswith("controlnet.") for n in changed)
+    assert {n for n in start if n.startswith("controlnet.zero_conv")} <= changed
+    assert bool(start["denoiser.identity_embed_proj.weight"].any())  # stage 1 trained it
+
+
+def test_infer_identity_is_a_direct_pipeline_call(run, side_run):
+    """infer --identity on the stage-4 checkpoint equals EMOPipeline(...,
+    use_identity=True) on the restored weights, bit for bit."""
+    from emox_torch.infer.pipeline import EMOPipeline
+    from emox_torch.infer.video_io import frames_to_uint8
+    from emox_torch.models.emo import EMOModel
+
+    d = run["dir"]
+    argv = ["infer", "--config", str(d / "side.yaml"), "--params", str(d / "side_ckpt" / "stage4"), "--ref-image",
+            str(d / "ref.npy"), "--audio", str(d / "speech.wav"), "--frames", "2", "--steps", "2", "--identity",
+            "--out", str(d / "identity.npz"), "--device", "cpu"]
+    assert cli.main(argv) == 0
+    with np.load(d / "identity.npz") as z:
+        frames = z["frames"]
+    model = EMOModel(side_run["cfg"], device="cpu")
+    cli._load_weights(model, cli._restore_params(str(d / "side_ckpt" / "stage4")))
+    ref = torch.from_numpy(np.load(d / "ref.npy"))[None]
+    wav, _ = cli._load_audio(str(d / "speech.wav"), 16000)
+    pipe = EMOPipeline(model)
+    video = pipe(ref, torch.from_numpy(wav[None]), video_length=2, num_inference_steps=2, use_identity=True)
+    assert frames.shape == (2, 32, 32, 3)
+    np.testing.assert_array_equal(frames, frames_to_uint8(video[0].numpy()))
+    plain = pipe(ref, torch.from_numpy(wav[None]), video_length=2, num_inference_steps=2)
+    assert not torch.equal(plain, video)  # the identity embedding reached the frames (stage 1 trained it)
 
 
 def test_train_face_writes_where_told_and_leaves_the_shipped_asset(run, tmp_path):

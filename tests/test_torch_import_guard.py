@@ -165,13 +165,17 @@ def test_unsupported_options_raise_with_their_roadmap_item():
     from emox_torch.models.emo import EMOModel
 
     cfg = tiny_config()
-    for field in ("use_sparse_causal", "use_controlnet", "use_identity_embed"):
-        bad = cfg.replace(model=dataclasses.replace(cfg.model, **{field: True}))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EMOModel(bad, device="cpu")
-    bad = cfg.replace(clip=dataclasses.replace(cfg.clip, vision_enabled=True))
+    bad = cfg.replace(model=dataclasses.replace(cfg.model, use_sparse_causal=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EMOModel(bad, device="cpu")
+    # the side models are ported: the ControlNet, and the CLIP vision encoder
+    # with the identity embedding it feeds
+    vision = dataclasses.replace(cfg.clip, vision_enabled=True, vision_hidden_dim=8, vision_layers=1, vision_heads=2,
+                                 image_size=28, patch_size=14, projection_dim=8)
+    side = cfg.replace(model=dataclasses.replace(cfg.model, use_controlnet=True, use_identity_embed=True), clip=vision)
+    mods = EMOModel(side, device="cpu").modules
+    assert mods.controlnet is not None and mods.clip_vision is not None
+    assert EMOModel(cfg.replace(clip=vision), device="cpu").modules.clip_vision is not None
     # the CLIP text encoder is ported: text_enabled builds it
     text = cfg.replace(clip=dataclasses.replace(cfg.clip, text_enabled=True, text_hidden_dim=8, text_layers=1,
                                                 text_heads=2, vocab_size=64, max_positions=8))

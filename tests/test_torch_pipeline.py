@@ -208,16 +208,21 @@ def test_initial_latents_come_from_the_generator():
 
 
 def test_out_of_slice_options_raise():
-    """The options the port still leaves out raise NotImplementedError and
-    name their ROADMAP item: the CLIP vision encoder and the model options
-    of later slices. (The windowed sampler, the two-call CFG program, latent
-    interpolation and use_gn_ref run: tests/test_torch_windowed.py,
-    test_torch_cfg_programs.py, test_torch_adain.py.)"""
+    """The model options the port still leaves out raise NotImplementedError
+    and name their ROADMAP item. The side models build: the CLIP vision
+    encoder, the identity embedding and the ControlNet
+    (tests/test_torch_identity.py, test_torch_controlnet.py). (The windowed
+    sampler, the two-call CFG program, latent interpolation and use_gn_ref
+    run: tests/test_torch_windowed.py, test_torch_cfg_programs.py,
+    test_torch_adain.py.)"""
     _, _, tcfg = model_params("tiny")
-    vision = tcfg.replace(clip=dataclasses.replace(tcfg.clip, vision_enabled=True))
-    with pytest.raises(NotImplementedError, match="vision.*ROADMAP"):
-        EMOModel(vision, device="cpu")
-    for field in ("use_controlnet", "use_identity_embed", "use_sparse_causal", "separable_convs"):
+    side = tcfg.replace(clip=dataclasses.replace(tcfg.clip, vision_enabled=True, vision_hidden_dim=8, vision_layers=1,
+                                                 vision_heads=2, image_size=28, patch_size=14, projection_dim=8),
+                        model=dataclasses.replace(tcfg.model, use_controlnet=True, use_identity_embed=True))
+    mods = EMOModel(side, device="cpu").modules
+    assert mods.clip_vision is not None and mods.controlnet is not None
+    assert mods.denoiser.identity_embed_proj.weight.shape == (4 * tcfg.model.base_channels, 8)
+    for field in ("use_sparse_causal", "separable_convs"):
         bad = tcfg.replace(model=dataclasses.replace(tcfg.model, **{field: True}))
         with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
             EMOModel(bad, device="cpu")

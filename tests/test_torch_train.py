@@ -68,10 +68,11 @@ def test_trainable_mask_partitions_like_the_reference(stage):
 
 
 def test_stages_outside_the_slice_raise():
-    """Stage 4 (ControlNet) waits for a later slice; stages 0 and 5 are
-    ported (test_torch_stage0.py, test_torch_stage5.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        is_trainable("denoiser.conv_in.weight", 4)
+    """Every stage of the reference is ported: stage 4 trains the ControlNet
+    alone (test_torch_controlnet.py), stages 0 and 5 the face nets and the
+    VAE (test_torch_stage0.py, test_torch_stage5.py); a stage outside 0-5
+    raises."""
+    assert is_trainable("controlnet.conv_in.weight", 4) and not is_trainable("denoiser.conv_in.weight", 4)
     assert is_trainable("face_locator.conv0.weight", 0) and not is_trainable("vae.encoder.conv_in.weight", 0)
     assert is_trainable("vae.encoder.conv_in.weight", 5) and not is_trainable("denoiser.conv_in.weight", 5)
     with pytest.raises(ValueError, match="bad stage"):
