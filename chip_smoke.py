@@ -179,7 +179,7 @@ raises and the script exits non-zero. Phases:
      the flagship at 256^2 in bf16: the port's fixtures (2 clips x 24
      frames), `precompute` (the trained face nets on the card) and
      `pack-records`; `train` from a stage-2 config written by save_config
-     (batch 2 x 8 frames, 3 steps, checkpoint at step 3) on the records,
+     (batch 2 x 8 frames, 7 steps, checkpoint at step 7, steps 3-5 traced) on the records,
      the kernels' launches per step as phase 7 asserts them; `infer` from
      that checkpoint (16 frames, 10 DDIM steps, CFG 7.5, --face-mask auto,
      --speeds), its video bit for bit against a direct EMOPipeline call on
@@ -208,7 +208,24 @@ raises and the script exits non-zero. Phases:
      8 flash_bwd_sm90 launches a step (the reader's 6 up-path sites at
      levels 0 and 1, the ControlNet's 2 at level 0), the ControlNet alone
      changed, peak memory.
- 15. the `kernels` line: every ported kernel with the TPU kernel it
+ 15. step_sparse_causal, serve_sparse_causal, train_sparse_causal,
+     serve_separable, step_separable, train_adafactor_512, and in cli and
+     cli_control the trace capture and eval: the rest of the model and
+     training options. "flagship-sc" (model.use_sparse_causal): the float32
+     step against the CPU, two requests and a profiled one, stage 2 (batch
+     2 x 8 frames), each with K1's launches at two a level-0 reader site (Lk
+     3072 with the reference, 2048 without) and K4's at BWD_PER_STEP;
+     "flagship-sep" (model.separable_convs): two requests and a profiled
+     one; step_separable: step_control's float32 step and stage-4 step with
+     every ResBlock of the writer, the denoiser and the ControlNet
+     separable; train_adafactor_512: stage 1 at 512^2 with
+     train.optimizer="adafactor" and train.frozen_dtype="param", its state
+     bytes against AdamW's, peak memory and a checkpoint round trip. The
+     kernels phase holds K1 and K4 at the sparse-causal Lk 3072 too;
+     step_sparse_causal runs after step and step_norms: on the card a model
+     built from "flagship-sc" with the step phase's weights, on the CPU the
+     step phase's model with the flag set on the same modules.
+ 16. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
@@ -218,6 +235,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import json
 import math
 import os
@@ -243,8 +261,11 @@ FF_SOURCES = {"bfloat16": "ff_sm90", "float32": "ff_f32_sm90"}
 # layouts' forward runs on one kernel per type: FWD_SOURCES.
 ATTN_KERNELS = {"flagship": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"),
                 "flagship-sd15": ("flash_attn_fwd", "flash_attn_bwd"),
-                "flagship-control": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd")}
-NAME_TAGS = {"flagship": "", "flagship-sd15": "_sd15", "flagship-control": "_control"}  # in phase and file names
+                "flagship-control": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"),
+                "flagship-sc": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd"),
+                "flagship-sep": ("flash_attn_nlc_fwd", "flash_attn_nlc_bwd")}
+NAME_TAGS = {"flagship": "", "flagship-sd15": "_sd15", "flagship-control": "_control",  # in phase and file names
+             "flagship-sc": "_sparse_causal", "flagship-sep": "_separable"}
 PROMPT = "a person talking to the camera, studio lighting, sharp focus"
 # The reference's fused-norm switches, off (unset) in every phase but the *_norms
 # ones, and the kernel each selects. NORMS is the configuration served and
@@ -277,7 +298,10 @@ FWD_SOURCES = ("flash_fwd_sm90", "flash_fwd_f32_sm90", "flash_fwd_d512_f32", "fl
 # its kernel sites (Lk >= KERNEL_MIN_KV) that the loss differentiates
 BWD_SOURCES = ("flash_bwd_sm90", "flash_bwd_f32_sm90", "flash_bwd_d256_sm90", "flash_bwd_d512_sm90",
                "flash_bwd_d512_f32", "flash_bwd_wide")
-BWD_PER_STEP = {("flagship", 256): 4, ("flagship", 512): 9, ("flagship-sd15", 256): 4}
+# (sparse-causal attention: two attentions at each level-0 site, with the
+# reference's tokens and without, as the loss's reference dropout asks)
+BWD_PER_STEP = {("flagship", 256): 4, ("flagship", 512): 9, ("flagship-sd15", 256): 4, ("flagship-sc", 256): 8,
+                ("flagship-sep", 256): 4}
 ATTN_XLA = {"EMOX_ATTENTION_IMPL": "xla"}
 ATTN_PALLAS = {"EMOX_ATTENTION_IMPL": "pallas"}
 NORMS = {"EMOX_GROUPNORM_IMPL": "pallas", "EMOX_LN_QKV": "1"}
@@ -293,7 +317,9 @@ def model_config(name: str, image_size: int, num_frames: int):
     CLIP-L text encoder; with name "flagship-control" the flagship with the
     side models: the ControlNet on 3-channel control renders, and the CLIP
     ViT-L/14 vision encoder (24 layers, 1024 wide, 257 tokens) feeding the
-    identity embedding."""
+    identity embedding; "flagship-sc" the flagship with sparse-causal
+    self-attention (model.use_sparse_causal), "flagship-sep" with separable
+    ResBlock convs (model.separable_convs)."""
     import dataclasses
 
     from emox_torch.core.presets import flagship_config
@@ -301,6 +327,9 @@ def model_config(name: str, image_size: int, num_frames: int):
     cfg = flagship_config(image_size=image_size, num_frames=num_frames)
     if name == "flagship":
         return cfg
+    if name in ("flagship-sc", "flagship-sep"):
+        flag = "use_sparse_causal" if name == "flagship-sc" else "separable_convs"
+        return cfg.replace(model=dataclasses.replace(cfg.model, **{flag: True}))
     if name == "flagship-control":
         return cfg.replace(model=dataclasses.replace(cfg.model, use_controlnet=True, use_identity_embed=True),
                            clip=dataclasses.replace(cfg.clip, vision_enabled=True))
@@ -458,7 +487,11 @@ def attn_launches_per_request(cfg, calls: int, control: bool = False) -> dict:
     image and at the decode (decode_chunk 0), Lk = the latent's tokens.
     Text (the ControlNet's null context included), audio and temporal
     attention stay far below the cutoff; the CLIP vision encoder's
-    attention is plain."""
+    attention is plain. With model.use_sparse_causal the reader's sites
+    (clips of several frames) attend to the first and previous frames'
+    tokens: two attentions each, Lk = 3 x tokens with the reference and 2 x
+    tokens without it (the CFG-batched call drops the reference per row);
+    the writer, one frame, gathers nothing."""
     from emox_torch.ops.attention import KERNEL_MIN_KV
 
     m, v = cfg.model, cfg.vae
@@ -470,7 +503,8 @@ def attn_launches_per_request(cfg, calls: int, control: bool = False) -> dict:
     want = {"flash_attn_nlc_fwd": 0, "flash_attn_fwd": 0}
     for level, count in sites:
         tokens = (lat >> level) ** 2
-        for lk, passes in ((2 * tokens, calls), (tokens, 1)):  # reader, writer
+        reader = ((3 * tokens, calls), (2 * tokens, calls)) if m.use_sparse_causal else ((2 * tokens, calls),)
+        for lk, passes in (*reader, (tokens, 1)):  # reader, writer
             if lk >= KERNEL_MIN_KV:
                 want[kernel(head_dim(m.block_channels[level]))] += count * passes
     if control and m.use_controlnet:
@@ -1499,6 +1533,12 @@ def phase_kernels():
     results["flash_bwd_512_l0"] = check_flash_bwd(gen, 16, 4096, 8192, chunk=2)
     results["flash_bwd_512_l1"] = check_flash_bwd(gen, 16, 1024, 2048, c=640, heads=10, chunk=4)
     results["flash_bwd_512_control"] = check_flash_bwd(gen, 8, 4096, 4096, chunk=2)
+    # sparse-causal attention (model.use_sparse_causal) at 256^2 level 0: K/V
+    # are the first and previous frames' tokens with the reference's appended
+    # (Lk 3072); without the reference (the CFG uncond rows, training's
+    # reference dropout) Lk 2048, flash_n32's and flash_bwd_n16's shapes
+    results["flash_sc"] = check_flash(gen, 32, 1024, 3072)
+    results["flash_bwd_sc"] = check_flash_bwd(gen, 16, 1024, 3072)
     # K4 at head dim 512, the VAE's mid-attention that stage 5 trains: bf16 on
     # flash_bwd_d512_sm90 at stage 5's 512^2 shape (batch 4, 4096
     # tokens) and at 384^2 (2304 tokens, ragged against the 64-row tiles), each
@@ -1590,9 +1630,61 @@ def _request_inputs(gen, device, size: int, frames: int, dtype):
     return img, wav, speeds, mask
 
 
-def phase_step(name: str = "flagship", runs=(("", None),)):
-    """runs: (phase suffix, switches) pairs, each one step on the card and on
-    the CPU with the same weights and inputs under those switches."""
+def cpu_model(cfg, shared=None):
+    """The float32 model on the CPU of a card-against-CPU phase: random from
+    seed 7 with the zero-initialised branches filled from seed 8, or, given
+    `shared` (such a model of the same preset, built once in main), its
+    modules under this phase's configuration, frozen and in eval mode: the
+    same weights without the CPU's ~20 s of init."""
+    import copy
+
+    import torch
+    from emox_torch.models.emo import EMOModel
+
+    if shared is None:
+        model = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
+        _fill_zero_init(model, seed=8)
+        return model
+    model = copy.copy(shared)
+    model.config = cfg
+    model.modules.eval().requires_grad_(False)
+    return model
+
+
+def set_sparse_causal(model, on: bool) -> set:
+    """Sparse-causal self-attention on or off in a built CPU model's UNets,
+    so that one CPU model serves both the plain and the sparse-causal step
+    (the option adds no parameter). Returns the names of the modules it set;
+    phase_step holds them to those that EMOModel sets for
+    model.use_sparse_causal."""
+    from emox_torch.nn.attention_blocks import SpatialTransformer
+
+    names = set()
+    for part in ("reference_net", "denoiser"):
+        for sub, mod in getattr(model.modules, part).named_modules():
+            if isinstance(mod, SpatialTransformer):
+                mod.sparse_causal = on
+                names.add(f"{part}.{sub}")
+    return names
+
+
+def sparse_causal_modules(model) -> set:
+    """The names of the modules of a built model that run sparse-causal
+    self-attention."""
+    return {name for name, mod in model.modules.named_modules() if getattr(mod, "sparse_causal", False)}
+
+
+def phase_step(name: str = "flagship", runs=(("", None),), shared=None):
+    """runs: (phase suffix, switches[, "sparse_causal"]) tuples, each one
+    step on the card and on the CPU with the same weights and inputs under
+    those switches (and with sparse-causal self-attention, phase
+    step_sparse_causal: the card model is built by EMOModel from
+    model_config("flagship-sc") and given the CPU model's weights; the CPU
+    model gets the flag by set_sparse_causal on exactly the modules that
+    EMOModel set). The FF and attention kernels' launches are
+    asserted at the counts the code gives (one reader call:
+    attn_launches_per_request(cfg, 1), every site on the float32 forward
+    kernel). shared: the CPU model to reuse (cpu_model)."""
     import torch
     from emox_torch.data.tokenizer import CLIPTokenizer
     from emox_torch.models.emo import EMOModel
@@ -1604,8 +1696,7 @@ def phase_step(name: str = "flagship", runs=(("", None),)):
     cfg = model_config(name, size, frames)
     prompted = cfg.clip.text_enabled
     t0 = time.perf_counter()
-    cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
-    _fill_zero_init(cpu, seed=8)
+    cpu = cpu_model(cfg, shared)
     gpu = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
     gpu.modules.load_state_dict(cpu.modules.state_dict())
     setup_s = time.perf_counter() - t0
@@ -1637,7 +1728,21 @@ def phase_step(name: str = "flagship", runs=(("", None),)):
         return out
 
     results = []
-    for suffix, env in runs:
+    for suffix, env, *option in runs:
+        sparse = "sparse_causal" in option
+        run_cfg = model_config("flagship-sc", size, frames) if sparse else cfg
+        if gpu.config.model != run_cfg.model:
+            del gpu
+            torch.cuda.empty_cache()
+            gpu = EMOModel(run_cfg, dtype=torch.float32, device="cuda", seed=0)
+            gpu.modules.load_state_dict(cpu.modules.state_dict())
+        flagged = set_sparse_causal(cpu, sparse)
+        cpu.config = run_cfg
+        if sparse and flagged != sparse_causal_modules(gpu):
+            raise AssertionError("set_sparse_causal and EMOModel(model.use_sparse_causal) differ: "
+                                 f"{sorted(flagged ^ sparse_causal_modules(gpu))}")
+        if not sparse and sparse_causal_modules(gpu):
+            raise AssertionError("the plain step's card model runs sparse-causal attention")
         with switches(env):
             t0 = time.perf_counter()
             on_cpu = run(cpu, "cpu")
@@ -1655,8 +1760,11 @@ def phase_step(name: str = "flagship", runs=(("", None),)):
             rel[key] = (torch.linalg.vector_norm(got - ref.double()) /
                         torch.linalg.vector_norm(ref.double()).clamp_min(1e-30)).item()
         want = step_sublayer_launches(cfg, ff_launches_per_request(cfg, 1), env)
-        res = {"phase": ("step" if name == "flagship" else "step_sd15") + suffix,
-               "config": f"{name} 256^2, 2 frames, CFG-batched{', prompt' if prompted else ''}, float32",
+        attn = attn_launches_per_request(run_cfg, 1)
+        want.update(attn, flash_fwd_f32_sm90=sum(attn.values()))
+        res = {"phase": "step" + NAME_TAGS[name] + suffix,
+               "config": f"{name} 256^2, 2 frames, CFG-batched{', prompt' if prompted else ''}"
+                         f"{', sparse-causal self-attention' if sparse else ''}, float32",
                "switches": env or {}, "rel_l2": rel, "tol": tol, "launches": counts, "launches_expected": want,
                "setup_s": setup_s, "cpu_s": cpu_s, "gpu_s": gpu_s,
                "eps_abs_mean": on_cpu["eps"].abs().mean().item()}
@@ -1669,6 +1777,8 @@ def phase_step(name: str = "flagship", runs=(("", None),)):
             raise AssertionError(f"the float32 {name} step{suffix}: launched {counts}, expected {want}")
         results.append(res)
         del on_cpu, on_gpu
+    set_sparse_causal(cpu, False)  # the CPU model may be shared with later phases
+    cpu.config = cfg
     del cpu, gpu
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
@@ -1820,9 +1930,10 @@ def _train_batch(gen, stage: int, batch: int, frames: int, cfg, device):
     return out
 
 
-def phase_train_step(tmp: str, env=None):
+def phase_train_step(tmp: str, env=None, shared=None):
     """env: the switches of the step (none: phase train_step; with some:
-    train_step_norms)."""
+    train_step_norms). shared: the CPU model to reuse (cpu_model; the
+    trainer marks its trainable leaves, cpu_model clears them again)."""
     import torch
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, reset_launch_counts
@@ -1832,8 +1943,7 @@ def phase_train_step(tmp: str, env=None):
     torch.backends.cudnn.allow_tf32 = False
     cfg = _train_config(2, batch=1, frames=2, dtype="float32", checkpoint_dir=tmp)
     t0 = time.perf_counter()
-    cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
-    _fill_zero_init(cpu, seed=8)
+    cpu = cpu_model(cfg, shared)
     gpu = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
     gpu.modules.load_state_dict(cpu.modules.state_dict())
     tr_cpu, tr_gpu = Trainer(cfg, model=cpu), Trainer(cfg, model=gpu)
@@ -1973,6 +2083,97 @@ def phase_train(tmp: str, stage: int, batch: int, frames: int, warmup: int, step
         raise AssertionError(f"{name} {size}^2 stage {stage}: backward kernels per step "
                              f"{res['bwd_sources_per_step']}, expected {want} on flash_bwd_sm90")
     del tr, model, data
+    return res
+
+
+def phase_train_adafactor(tmp: str, size: int = 512, batch: int = 2, warmup: int = 1, steps: int = 2) -> dict:
+    """Trainer stage 1 at 512^2 in bf16 with train.optimizer="adafactor" and
+    train.frozen_dtype="param", the model drawn by the trainer (the fp32
+    init cast to bf16, the frozen leaves' fp32 copies kept): batch 2 x 1
+    frame, ms/step, peak memory, the losses finite, trainable masters moved
+    and no frozen leaf; the optimizer's state bytes against AdamW's for the
+    same trainable set (torch.optim.AdamW's two fp32 moments a parameter).
+    Then a checkpoint round trip: the file read back (memory-mapped) holds
+    the frozen leaves in fp32 with the bits of the trainer's copies, and the
+    moments with the optimizer's bits (resume itself: the CPU tests). The
+    kernels' launches as phase train asserts them."""
+    import dataclasses
+
+    import torch
+    from emox_torch.ops import launch_counts, reset_launch_counts
+    from emox_torch.train import Trainer
+
+    torch.cuda.empty_cache()
+    cfg = _train_config(1, batch=batch, frames=1, dtype="bfloat16", checkpoint_dir=tmp, size=size)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, optimizer="adafactor", frozen_dtype="param"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    data = _train_batch(gen, 1, batch, 1, cfg, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cpu = lambda t: t.detach().to("cpu", copy=True)
+    start = {n: m.sum(dtype=torch.float64).item() for n, m in tr.state.masters.items()}
+    frozen_start = {n: cpu(p) for n, p in tr.model.modules.named_parameters() if n in tr.frozen}
+    losses = []
+    for _ in range(warmup):
+        losses.append(float(tr.train_step(data, gen)["loss"]))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(float(tr.train_step(data, gen)["loss"]))
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = sum(m.sum(dtype=torch.float64).item() != start[n] for n, m in tr.state.masters.items())
+    frozen_changed = sum(not torch.equal(cpu(p), frozen_start[n]) for n, p in tr.model.modules.named_parameters()
+                         if n in frozen_start)
+    n_train = sum(m.numel() for m in tr.state.masters.values())
+    state_bytes = tr.state.optimizer.state_bytes()
+
+    # the checkpoint round trip
+    t0 = time.perf_counter()
+    tr.ckpt.save(tr.state.step, tr._payload())
+    save_s = time.perf_counter() - t0
+    path = tr.ckpt._path(tr.state.step)
+    t0 = time.perf_counter()
+    saved = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    frozen_dtypes = sorted({str(saved["params"][n].dtype) for n in tr.frozen})
+    frozen_bits = all(torch.equal(saved["params"][n], cpu(f)) for n, f in tr.frozen.items())
+    live = tr.state.optimizer.adafactor.state_dict()
+    restored = all((a is None and b is None) or torch.equal(cpu(a), b) for key in ("v_row", "v_col", "v")
+                   for a, b in zip(live[key], saved["opt_state"]["adafactor"][key]))
+    read_s = time.perf_counter() - t0
+    del saved, live
+    factored = sum(d is not None for d in tr.state.optimizer.adafactor.dims)
+    ms = 1e3 * secs / steps
+    res = {"phase": "train_adafactor_512", "stage": 1,
+           "config": f"flagship {size}^2 stage 1, batch {batch}, 1 frame, bf16 compute, fp32 masters, adafactor "
+                     f"lr {_STAGE_LR[1]}, frozen_dtype=param, remat; {warmup} warm-up + {steps} timed steps",
+           "params": sum(p.numel() for p in tr.model.modules.parameters()), "trainable_params": n_train,
+           "trainable_leaves": len(tr.state.masters), "factored_leaves": factored, "frozen_leaves": len(tr.frozen),
+           "frozen_params": sum(f.numel() for f in tr.frozen.values()),
+           "frozen_copies_on": sorted({str(f.device) for f in tr.frozen.values()}),
+           "setup_s": setup_s, "ms_per_step": ms, "frames_per_s": batch * 1e3 / ms, "peak_mem_gb": peak,
+           "optimizer_state_bytes": state_bytes, "optimizer_state_bytes_per_param": state_bytes / n_train,
+           "adamw_state_bytes": 8 * n_train, "losses": losses, "trainable_masters_moved": moved,
+           "frozen_leaves_changed": frozen_changed, "checkpoint_bytes": os.path.getsize(path),
+           "checkpoint_save_s": save_s, "checkpoint_read_s": read_s,
+           "saved_frozen_dtypes": frozen_dtypes, "saved_frozen_bits_equal": frozen_bits, "saved_moments_equal": restored,
+           "launches": counts, "launches_per_step": {k: v / steps for k, v in counts.items()}}
+    emit(res)
+    tr.close()
+    del tr, data
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses) or not moved or frozen_changed:
+        raise AssertionError(f"train_adafactor_512: losses {losses}, {moved} masters moved, "
+                             f"{frozen_changed} frozen leaves changed")
+    if frozen_dtypes != ["torch.float32"] or not frozen_bits or not restored:
+        raise AssertionError(f"train_adafactor_512: the checkpoint round trip failed: {res}")
+    if not state_bytes < 4 * n_train:
+        raise AssertionError(f"train_adafactor_512: {state_bytes} bytes of state for {n_train} parameters")
+    check_path_launches("flagship", counts, train=True, what="flagship 512^2 stage 1 with adafactor")
     return res
 
 
@@ -2192,13 +2393,19 @@ def phase_cli(tmp: str, steps: int = 10, frames: int = 16):
     emox_torch.cli.main in this process: the port's fixtures (2 clips x 24
     frames), then `precompute` (the trained face nets on the card) and
     `pack-records`; `train` from a stage-2 config that save_config wrote
-    (batch 2 x 8 frames, 3 steps, a checkpoint at step 3) on the records,
+    (batch 2 x 8 frames, 7 steps, a checkpoint at step 7) on the records,
     with the kernels' launches per step as phase_train asserts them; `infer`
     from that checkpoint (16 frames, 10 DDIM steps, CFG 7.5, --face-mask
     auto, --speeds) against a direct EMOPipeline call on the restored
     weights with the same inputs (the same video, bit for bit) and the
     launches of one request; `train-face` (20 steps at 128^2), its loss
-    falling and its file read back."""
+    falling and its file read back. The `train` runs 7 steps with
+    EMOX_PROFILE_DIR set: the trace file holds steps 3-5 (fit's annotations
+    train_step_3..5) and the card's kernel events in them, the attention
+    forward and backward and the FF kernels among them. Then `eval` of the
+    infer output against the first clip's cache (its frames, face masks,
+    wav and fps) with the checkpoint (latent_frechet from the VAE on the
+    card), each metric within 1e-4 of evaluate_clip on the CPU."""
     import dataclasses
 
     import numpy as np
@@ -2224,23 +2431,33 @@ def phase_cli(tmp: str, steps: int = 10, frames: int = 16):
     secs["pack_records"], _ = _cli(["pack-records", "--cache", f"{tmp}/cache", "--out", f"{tmp}/records"])
     prep_counts = launch_counts()
 
-    batch, train_frames, train_steps = 2, 8, 3
+    batch, train_frames, train_steps = 2, 8, 7
     cfg = _train_config(2, batch=batch, frames=train_frames, dtype="bfloat16", checkpoint_dir=f"{tmp}/ckpt")
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, cache_dir=f"{tmp}/records"),
                       train=dataclasses.replace(cfg.train, num_steps=train_steps, checkpoint_every=train_steps,
                                                 log_every=1))
     save_config(cfg, f"{tmp}/stage2.yaml")
     reset_launch_counts()
-    secs["train"], train_out = _cli(["train", "--config", f"{tmp}/stage2.yaml"])
+    # with fit's trace capture: steps [3, 6) of the run
+    saved_env = os.environ.get("EMOX_PROFILE_DIR")
+    os.environ["EMOX_PROFILE_DIR"] = f"{tmp}/trace"
+    try:
+        secs["train"], train_out = _cli(["train", "--config", f"{tmp}/stage2.yaml"])
+    finally:
+        if saved_env is None:
+            os.environ.pop("EMOX_PROFILE_DIR")
+        else:
+            os.environ["EMOX_PROFILE_DIR"] = saved_env
     train_counts = launch_counts()
     torch.cuda.empty_cache()
     with open(f"{tmp}/ckpt/stage2_metrics.jsonl") as f:
         log = [json.loads(line) for line in f]
     steps_log = [r for r in log if "loss" in r]
-    secs["train_first_step"] = next(r["first_step_s"] for r in log if "first_step_s" in r)
-    secs["train_steady_step"] = (steps_log[-1]["time"] - steps_log[0]["time"]) / (len(steps_log) - 1)
+    secs["train_first_step"] = next(r["compile_s"] for r in log if "compile_s" in r)
+    # steps 1-3, before the trace starts
+    secs["train_steady_step"] = (steps_log[2]["time"] - steps_log[0]["time"]) / 2
     ckpt_path = f"{tmp}/ckpt/stage2/step_{train_steps}.pt"
-    # the save follows step 3's metrics record: the file's time less the record's
+    # the save follows the last step's metrics record: the file's time less the record's
     secs["checkpoint_save"] = os.path.getmtime(ckpt_path) - steps_log[-1]["time"]
     losses = [r["loss"] for r in steps_log]
 
@@ -2284,6 +2501,36 @@ def phase_cli(tmp: str, steps: int = 10, frames: int = 16):
     face_losses = [float(line.split("loss ")[1].split()[0]) for line in face_out if line.startswith("step ")]
     face_tree = load_face_nets(f"{tmp}/face_nets.npz")
 
+    traces = glob.glob(f"{tmp}/trace/*.pt.trace.json")
+    events = []
+    if len(traces) == 1:
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    steps_traced = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+                          and e.get("name", "").startswith("train_step_"))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    first = min((e["ts"] for e in events if e.get("name") == "train_step_3"), default=float("inf"))
+    trace = {"files": len(traces), "bytes": os.path.getsize(traces[0]) if traces else 0, "steps": steps_traced,
+             "kernel_events": len(kernels), "kernel_events_before_step_3": sum(e["ts"] < first for e in kernels),
+             **{f"{k}_events": sum(k in e["name"] for e in kernels)
+                for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "geglu_gemm_kernel")}}
+    del events, kernels
+
+    # eval: the infer output against the first clip's cache, with the checkpoint
+    from emox_torch.eval import evaluate_clip
+
+    cache = sorted(glob.glob(f"{tmp}/cache/*.npz"))[0]
+    secs["eval"], eval_out = _cli(["eval", "--gen", f"{tmp}/out.npz", "--gt", cache, "--params", f"{tmp}/ckpt/stage2",
+                                   "--config", f"{tmp}/stage2.yaml", "--out", f"{tmp}/metrics.json"])
+    metrics = json.loads(eval_out[-1])
+    with np.load(cache) as z:
+        gt = z["frames"][:frames]
+        gt = gt.astype(np.float32) / 127.5 - 1.0 if gt.dtype == np.uint8 else gt.astype(np.float32)
+        want = evaluate_clip(cli_video.astype(np.float32) / 127.5 - 1.0, gt=gt, masks=z["face_masks"][:frames],
+                             wav=z["wav"], fps=float(z["fps"]) if "fps" in z.files else 25.0, device="cpu")
+    # the command prints 6 decimals: half a unit of the last one besides 1e-4 relative
+    eval_gap = {k: abs(metrics[k] - v) - (1e-4 * abs(v) + 5e-7) for k, v in want.items()}
+
     want_train = {k: train_steps * v for k, v in {**dict.fromkeys(BWD_SOURCES, 0),
                                                    "flash_bwd_sm90": BWD_PER_STEP[("flagship", 256)]}.items()}
     want_infer = {**attn_launches_per_request(cfg, steps), **fwd_sources_per_request(cfg, steps),
@@ -2300,6 +2547,7 @@ def phase_cli(tmp: str, steps: int = 10, frames: int = 16):
            "launches": launches, "launches_train": train_counts, "launches_infer": infer_counts,
            "launches_precompute": prep_counts,
            "train_launches_expected": want_train, "infer_launches_expected": want_infer,
+           "trace": trace, "eval": metrics, "eval_cpu": want, "eval_gap_over_limit": eval_gap,
            "stdout_tail": {"train": train_out[-2:], "infer": infer_out[-2:], "train_face": face_out[-2:]}}
     emit(res)
     if not (losses and all(math.isfinite(x) for x in losses)):
@@ -2319,6 +2567,14 @@ def phase_cli(tmp: str, steps: int = 10, frames: int = 16):
         raise AssertionError(f"cli train-face: the loss did not fall: {face_losses}")
     if face_tree is None or set(face_tree) != {"face_locator", "landmarker"}:
         raise AssertionError("cli train-face: load_face_nets does not read the file back")
+    if not (trace["files"] == 1 and trace["steps"] == ["train_step_3", "train_step_4", "train_step_5"]
+            and trace["kernel_events"] > 0 and not trace["kernel_events_before_step_3"]
+            and min(trace[f"{k}_events"] for k in ("fwd_kernel", "dkv_kernel", "geglu_gemm_kernel")) > 0):
+        raise AssertionError(f"cli train with EMOX_PROFILE_DIR: the trace does not hold steps 3-5's kernels: {trace}")
+    if set(metrics) != set(want) | {"latent_frechet"} or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cli eval: metrics {metrics}, expected those of {want} and latent_frechet")
+    if max(eval_gap.values()) > 0:
+        raise AssertionError(f"cli eval: the card's metrics differ from the CPU's by more than 1e-4: {eval_gap}")
     return res
 
 
@@ -2433,10 +2689,12 @@ def _small_control_config(frames: int):
                        clip=dataclasses.replace(cfg.clip, vision_enabled=True, vision_layers=2))
 
 
-def phase_step_control(tmp: str) -> dict:
+def phase_step_control(tmp: str, separable: bool = False) -> dict:
     """Float32, the card against the CPU with the same weights and inputs,
     TF32 off, on the small preset with the side models (CLIP cut to 2
-    layers) at 128^2, 2 frames: one CFG-batched denoise step with per-frame
+    layers; with `separable`, phase step_separable, every ResBlock of the
+    writer, the denoiser and the ControlNet on separable convs) at 128^2, 2
+    frames: one CFG-batched denoise step with per-frame
     control renders and the identity embedding (eps within 3e-4 relative
     L2, phase step's bar), then the loss and gradients of one stage-4 step
     (the ControlNet's, through the frozen denoiser; the loss within 1e-5,
@@ -2455,8 +2713,10 @@ def phase_step_control(tmp: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     size, frames = 128, 2
     cfg = _small_control_config(frames)
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, stage=4, learning_rate=_STAGE_LR[4],
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, separable_convs=separable),
+                      train=dataclasses.replace(cfg.train, stage=4, learning_rate=_STAGE_LR[4],
                                                 compute_dtype="float32", checkpoint_dir=tmp, resume=False))
+    phase = "step_separable" if separable else "step_control"
     t0 = time.perf_counter()
     cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
     _fill_zero_init(cpu, seed=8)
@@ -2515,8 +2775,9 @@ def phase_step_control(tmp: str) -> dict:
     limits = {"eps_rel_l2": 3e-4, "loss_rel": 1e-5, "grads_rel_l2": 2e-4}
     want_step = step_sublayer_launches(cfg, ff_launches_per_request(cfg, 1, control=True))
     want_train = step_sublayer_launches(cfg, train_step_sublayers(cfg, stage=4))
-    res = {"phase": "step_control", "config": f"small {size}^2 + ControlNet + CLIP vision (2 layers of ViT-L/14 "
-           f"width) + identity embedding, {frames} frames, float32: a CFG-batched step, then a stage-4 step",
+    res = {"phase": phase, "config": f"small {size}^2 + ControlNet + CLIP vision (2 layers of ViT-L/14 "
+           f"width) + identity embedding{', separable ResBlock convs' if separable else ''}, {frames} frames, "
+           "float32: a CFG-batched step, then a stage-4 step",
            "rel_l2": step_rel, "loss_cpu": m_cpu["loss"].item(), "loss_gpu": m_gpu["loss"].item(),
            "loss_rel": loss_rel, "grads_rel_l2": grads_rel, "limits": limits, "trainable_leaves": len(g_cpu),
            "trainable_params": sum(g.numel() for g in g_cpu), "launches_step": step_counts,
@@ -2526,12 +2787,12 @@ def phase_step_control(tmp: str) -> dict:
     del cpu, gpu, tr_cpu, tr_gpu
     torch.backends.cudnn.allow_tf32 = True
     if not (step_rel["eps"] <= limits["eps_rel_l2"] and step_rel["identity"] <= limits["eps_rel_l2"]):
-        raise AssertionError(f"step_control: card and CPU disagree: {step_rel}")
+        raise AssertionError(f"{phase}: card and CPU disagree: {step_rel}")
     if not (loss_rel <= limits["loss_rel"] and grads_rel <= limits["grads_rel_l2"]):
-        raise AssertionError(f"step_control: stage-4 loss {loss_rel} or gradients {grads_rel} disagree")
+        raise AssertionError(f"{phase}: stage-4 loss {loss_rel} or gradients {grads_rel} disagree")
     for counts, want, what in ((step_counts, want_step, "step"), (train_counts, want_train, "stage-4 step")):
         if counts != {**dict.fromkeys(counts, 0), **want}:
-            raise AssertionError(f"step_control {what}: launched {counts}, expected only {want}")
+            raise AssertionError(f"{phase} {what}: launched {counts}, expected only {want}")
     return res
 
 
@@ -2546,7 +2807,9 @@ def phase_cli_control(tmp: str, steps: int = 10, frames: int = 16) -> dict:
     other leaf the same bits); then `infer --identity` from the checkpoint
     (16 frames, 10 DDIM steps, CFG 7.5, --speeds), bit for bit the frames of
     a direct EMOPipeline(..., use_identity=True) call on the restored
-    weights, with the launches of one request without control."""
+    weights, with the launches of one request without control; then `eval
+    --ref-image` of that video with the checkpoint: identity_similarity from
+    its CLIP vision encoder (float32, on the card), finite, in [-1, 1]."""
     import dataclasses
     import shutil
 
@@ -2577,7 +2840,7 @@ def phase_cli_control(tmp: str, steps: int = 10, frames: int = 16) -> dict:
     with open(f"{tmp}/ckpt_control/stage4_metrics.jsonl") as f:
         log = [json.loads(line) for line in f]
     steps_log = [r for r in log if "loss" in r]
-    secs["train_first_step"] = next(r["first_step_s"] for r in log if "first_step_s" in r)
+    secs["train_first_step"] = next(r["compile_s"] for r in log if "compile_s" in r)
     secs["train_steady_step"] = (steps_log[-1]["time"] - steps_log[0]["time"]) / (len(steps_log) - 1)
     losses = [r["loss"] for r in steps_log]
 
@@ -2614,6 +2877,10 @@ def phase_cli_control(tmp: str, steps: int = 10, frames: int = 16) -> dict:
     secs["request"] = time.perf_counter() - t0
     del model, video
     torch.cuda.empty_cache()
+    secs["eval"], eval_out = _cli(["eval", "--gen", f"{tmp}/identity.npz", "--ref-image", f"{tmp}/ref.npy",
+                                   "--params", f"{tmp}/ckpt_control/stage4", "--config", f"{tmp}/stage4.yaml"])
+    metrics = json.loads(eval_out[-1])
+    torch.cuda.empty_cache()
 
     want_train = {k: train_steps * v for k, v in {**dict.fromkeys(BWD_SOURCES, 0),
                                                    "flash_bwd_sm90": stage4_bwd_per_step(cfg)}.items()}
@@ -2628,7 +2895,7 @@ def phase_cli_control(tmp: str, steps: int = 10, frames: int = 16) -> dict:
            "video_equal": bool(np.array_equal(cli_video, direct)),
            "video_max_abs_diff": int(np.abs(cli_video.astype(np.int16) - direct.astype(np.int16)).max()),
            "launches_train": train_counts, "launches_infer": infer_counts, "train_launches_expected": want_train,
-           "infer_launches_expected": want_infer,
+           "infer_launches_expected": want_infer, "eval": metrics,
            "stdout_tail": {"train": train_out[-2:], "infer": infer_out[-2:]}}
     emit(res)
     if not (losses and all(math.isfinite(x) for x in losses)):
@@ -2645,6 +2912,9 @@ def phase_cli_control(tmp: str, steps: int = 10, frames: int = 16) -> dict:
     if cli_video.shape != (frames, 256, 256, 3) or not res["video_equal"]:
         raise AssertionError(f"cli infer --identity: the video {cli_video.shape} differs from the direct pipeline "
                              f"call (max |diff| {res['video_max_abs_diff']})")
+    sim = metrics.get("identity_similarity", float("nan"))
+    if set(metrics) != {"identity_similarity"} or not -1.0 <= sim <= 1.0:
+        raise AssertionError(f"cli eval --ref-image: {metrics}")
     return res
 
 
@@ -2763,12 +3033,12 @@ def bf16_launches_per_request(cfg, calls: int) -> dict:
             "ln_geglu_ff": ff, FF_SOURCES["bfloat16"]: ff}
 
 
-def phase_step_long():
+def phase_step_long(shared=None):
     """One windowed CFG-batched denoise step of the flagship at 256^2 (T 6,
     context 4, overlap 1: 2 windows, wrapping around the clip, folded into
     one call), float32, on the card (kernels) against the same weights on
     the CPU (plain versions), TF32 off: the per-frame average of the
-    windows' eps at t 500."""
+    windows' eps at t 500. shared: the CPU model to reuse (cpu_model)."""
     import dataclasses
 
     import torch
@@ -2786,8 +3056,7 @@ def phase_step_long():
     icfg = cfg.inference
     plan = window_plan(1, frames, icfg.context_frames, icfg.context_stride, icfg.context_overlap)
     t0 = time.perf_counter()
-    cpu = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
-    _fill_zero_init(cpu, seed=8)
+    cpu = cpu_model(cfg, shared)
     gpu = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=0)
     gpu.modules.load_state_dict(cpu.modules.state_dict())
     setup_s = time.perf_counter() - t0
@@ -3323,7 +3592,14 @@ def main(argv=None) -> int:
     phase_build(args.out)
     with switches():  # the default paths: every switch unset
         kern = phase_kernels()
-        step = phase_step()[0]["launches"]
+        # the float32 step on one pair of models: plain, under the fused-norm
+        # switches (each run sets its own), and with sparse-causal attention
+        # the flagship's float32 CPU model, shared by every flagship
+        # card-against-CPU phase (the step, the windowed step, the train steps)
+        flagship_cpu = cpu_model(model_config("flagship", 256, 2))
+        steps = phase_step(runs=(("", None), ("_norms", NORMS), ("_norms", NORMS_FAST),
+                                 ("_sparse_causal", None, "sparse_causal")), shared=flagship_cpu)
+        step, step_norms, step_sc = (steps[i]["launches"] for i in (0, 1, 3))
         launches = phase_serve(args.out)["launches"]
         # the attention switch: a kernel at every site (and against the plain
         # step), then the serving request with plain attention at every site
@@ -3331,10 +3607,10 @@ def main(argv=None) -> int:
         serve_attn_xla = phase_serve(args.out, requests=2, env=ATTN_XLA)["launches"]
         # clips longer than one context window, generate_long, invert, and the
         # two-call CFG program, interpolation and AdaIN
-        step_long = phase_step_long()["launches"]
+        step_long = phase_step_long(shared=flagship_cpu)["launches"]
         long = phase_long(args.out)
         with tempfile.TemporaryDirectory() as tmp:
-            train_step = phase_train_step(tmp)["launches"]
+            train_step = phase_train_step(tmp, shared=flagship_cpu)["launches"]
             train2 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out)
             train1 = phase_train(tmp, stage=1, batch=4, frames=1, warmup=1, steps=2, out_dir=args.out)
             train3 = phase_train(tmp, stage=3, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out)
@@ -3344,13 +3620,21 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             train_sd15 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out,
                                      name="flagship-sd15")
+        # sparse-causal self-attention: two K1 launches at each level-0 site of
+        # the reader (Lk 3072 with the reference, 2048 without), K4 likewise
+        serve_sc = phase_serve(args.out, requests=2, name="flagship-sc")["launches"]
+        with tempfile.TemporaryDirectory() as tmp:
+            train_sc = phase_train(tmp, stage=2, batch=2, frames=8, warmup=1, steps=3, out_dir=args.out,
+                                   name="flagship-sc")
+        # separable ResBlock convs (the ControlNet's in step_separable, below)
+        serve_sep = phase_serve(args.out, requests=2, name="flagship-sep")["launches"]
     # the flagship under the reference's fused-norm switches: GroupNorm K8a (or
     # K8b) and the fused LN + q/k/v (K7); each phase sets its switches itself
-    step_norms = phase_step(runs=(("_norms", NORMS), ("_norms", NORMS_FAST)))[0]["launches"]
     serve_norms = phase_serve(args.out, env=NORMS)["launches"]
     serve_fast = phase_serve(args.out, requests=1, env=NORMS_FAST, profile=False)["launches"]
     with tempfile.TemporaryDirectory() as tmp:
-        phase_train_step(tmp, env=NORMS)
+        phase_train_step(tmp, env=NORMS, shared=flagship_cpu)
+        del flagship_cpu
         train_norms = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out, env=NORMS)
     # the reference's FF switch: K6's entry points, and the serving request with
     # the plain FF (the end-to-end A/B of K2/K3)
@@ -3364,6 +3648,9 @@ def main(argv=None) -> int:
         serve_512 = phase_serve(args.out, size=512)["launches"]
         with tempfile.TemporaryDirectory() as tmp:
             train_512 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out, size=512)
+        # adafactor with fp32 frozen leaves, stage 1 at 512^2, and its checkpoint
+        with tempfile.TemporaryDirectory() as tmp:
+            train_adafactor = phase_train_adafactor(tmp)
         # training stages 5 (the VAE, through K4's head-dim-512 backward) and 0
         # (the face nets, from the shipped weights)
         with tempfile.TemporaryDirectory() as tmp:
@@ -3396,6 +3683,7 @@ def main(argv=None) -> int:
         # 512^2 (the ControlNet's level-0 sites on K1), stage 4 at 512^2
         with tempfile.TemporaryDirectory() as tmp:
             step_control = phase_step_control(tmp)
+            step_sep = phase_step_control(tmp, separable=True)
             control = phase_control()
             train_control = phase_train(tmp, stage=4, batch=1, frames=8, warmup=1, steps=2, out_dir=args.out,
                                         name="flagship-control", size=512, phase="train_control_512")
@@ -3420,7 +3708,11 @@ def main(argv=None) -> int:
                "step_control_train": step_control["launches_train"],
                **{f"control_{size}{'' if key == 'side' else '_plain'}": control[str(size)][key]["launches"]
                   for size in (256, 512) for key in ("side", "plain")},
-               "train_control_512_per_step": train_control["launches_per_step"]}
+               "train_control_512_per_step": train_control["launches_per_step"],
+               "step_sparse_causal": step_sc, "serve_sparse_causal": serve_sc,
+               "train_sparse_causal_stage2_per_step": train_sc["launches_per_step"], "serve_separable": serve_sep,
+               "step_separable": step_sep["launches_step"], "step_separable_train": step_sep["launches_train"],
+               "train_adafactor_512_per_step": train_adafactor["launches_per_step"]}
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
     # flash_fwd_d512_f32 in the float32 512^2 VAE, flash_fwd_f32_sm90 and
@@ -3474,7 +3766,7 @@ def main(argv=None) -> int:
         # _flash_nlc_kernel's, the strided (head-split) ones _flash_kernel's
         entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
               kern["flash_n32"], [kern["flash_n16"], kern["flash_n128"], kern["flash_512_l0"], kern["flash_512_l1"],
-                                  kern["flash_512_control"],
+                                  kern["flash_512_control"], kern["flash_sc"],
                                   kern["flash_strided_n32"], kern["flash_strided_n16"], kern["flash_d512"],
                                   kern["flash_strided_n32_d64"]]),
         entry("emox_torch/csrc/flash_fwd_d512_f32.cu", ["emox/ops/attention.py:409"], kern["flash_d512_f32"],
@@ -3510,7 +3802,7 @@ def main(argv=None) -> int:
         entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
                                                     "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
               kern["flash_bwd_n16"], [kern["flash_bwd_n4"], kern["flash_bwd_512_l0"], kern["flash_bwd_512_l1"],
-                                      kern["flash_bwd_512_control"],
+                                      kern["flash_bwd_512_control"], kern["flash_bwd_sc"],
                                       kern["flash_strided_bwd_n16"]]),
         # float32 at head dim <= 128 on the same source's pair, on a two-part split
         entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",

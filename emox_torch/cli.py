@@ -8,9 +8,10 @@
   python -m emox_torch infer --config configs/inference.yaml --params checkpoints/stage2 \\
       --ref-image face.npy --audio speech.wav --out out.mp4
   python -m emox_torch train-face --out face_nets.npz
+  python -m emox_torch eval --gen out.npz --gt data/cache/clip0.npz --params checkpoints/stage2
 
-Every command that builds a model (precompute, train, infer, train-face)
-runs on the CUDA card and stops when there is none; `--device cpu` asks
+Every command that builds a model or computes (precompute, train, infer,
+train-face, eval) runs on the CUDA card and stops when there is none; `--device cpu` asks
 for the CPU (the plain PyTorch versions of the kernels) instead.
 Checkpoints are the port's own (`torch.save` files `step_<n>.pt`, written
 by `train`); a flax param tree from the reference reaches the port through
@@ -19,8 +20,8 @@ emox_torch.core.yamlio, so PyYAML is not needed.
 
 Registered but not yet ported, each exiting non-zero with its item of
 ROADMAP.md's Queue 1: `train --coordinator/--num-processes` (item 9),
-`import-weights`, `export` and `eval` (item 10); `bench` comes with the
-port's benchmark.
+`import-weights` and `export` (item 10); `bench` comes with the port's
+benchmark.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ _NOT_PORTED = {
                    "(ROADMAP.md, Queue 1 item 9)",
     "import-weights": "import-weights waits for a later slice of the port (ROADMAP.md, Queue 1 item 10)",
     "export": "export waits for a later slice of the port (ROADMAP.md, Queue 1 item 10)",
-    "eval": "eval waits for a later slice of the port (ROADMAP.md, Queue 1 item 10)",
     "bench": "bench comes with the port's benchmark, which a benchmark PR writes with BENCHMARK.json",
 }
 
@@ -359,6 +359,113 @@ def cmd_train_face(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    """Quality metrics on a generated clip: PSNR, SSIM and flicker against a
+    ground truth; audio sync from its face masks and audio; with --params,
+    the CLIP identity similarity to --ref-image (a checkpoint with
+    clip_vision) and the Fréchet distance of the two clips' VAE latents
+    pooled to 4x4."""
+    import numpy as np
+    import torch
+
+    from emox_torch.eval import evaluate_clip, frechet_distance, identity_similarity
+
+    dev = _device(args)
+    gen = _load_frames(args.gen)
+    gt = masks = wav = None
+    fps, sr = args.fps, 16000
+    if args.gt:
+        if args.gt.endswith(".npz"):
+            # a precompute cache carries its masks, wav and fps with the frames
+            with np.load(args.gt) as z:
+                gt = np.asarray(z["frames"])
+                if gt.dtype == np.uint8:
+                    gt = gt.astype(np.float32) / 127.5 - 1.0
+                masks = np.asarray(z["face_masks"]) if "face_masks" in z else None
+                wav = np.asarray(z["wav"]) if "wav" in z else None
+                if fps is None and "fps" in z:  # an explicit --fps wins
+                    fps = float(z["fps"])
+        else:
+            gt = _load_frames(args.gt)
+    fps = 25.0 if fps is None else fps
+    if args.audio:
+        wav, sr = _load_audio(args.audio, sr)
+    if gt is not None:
+        t = min(len(gen), len(gt))
+        gen, gt = gen[:t], gt[:t]
+        masks = masks[:t] if masks is not None else None
+        if gen.shape[1:3] != gt.shape[1:3]:
+            from emox_torch.data.native import resize_bilinear
+
+            h, w = gt.shape[1:3]
+            gen = np.stack([resize_bilinear(np.ascontiguousarray(f, np.float32), h, w) for f in gen])
+    metrics = evaluate_clip(gen, gt=gt, masks=masks, wav=wav, fps=fps, sample_rate=sr, device=dev)
+
+    if args.params:
+        from emox_torch.models.emo import EMOModel
+
+        cfg = _load_config(args)
+        model = EMOModel(cfg, device=dev)  # float32, as the reference evaluates
+        params = _restore_params(args.params, use_ema=args.ema)
+        _load_weights(model, params)
+        del params
+        if args.ref_image:
+            if model.modules.clip_vision is not None:
+                from emox_torch.data.native import resize_bilinear
+                from emox_torch.models.clip import clip_normalize
+
+                s = cfg.clip.image_size
+                ref = _load_image(args.ref_image, s, s)
+                small = np.stack([resize_bilinear(np.ascontiguousarray(f, np.float32), s, s) for f in gen])
+                with torch.inference_mode():
+                    emb = model.encode_image_embedding(clip_normalize(torch.from_numpy((small + 1.0) / 2.0)))
+                    ref_emb = model.encode_image_embedding(clip_normalize(torch.from_numpy((ref[None] + 1.0) / 2.0)))
+                metrics["identity_similarity"] = float(identity_similarity(emb, ref_emb[0]))
+            else:
+                print("NOTE: config/checkpoint has no clip_vision; skipping identity metric")
+        if gt is not None:
+            from emox_torch.nn.layers import resize_bilinear as resize_latents
+
+            def enc(frames):
+                # pooled to a compact per-frame descriptor: a clip has only T
+                # samples, so the Gaussian fit needs D << the latent's size
+                with torch.inference_mode():
+                    lat = model.encode_images(torch.from_numpy(np.ascontiguousarray(frames, np.float32)))
+                    return resize_latents(lat, 4, 4).reshape(lat.shape[0], -1)
+
+            if len(gen) >= 2 and len(gt) >= 2:
+                metrics["latent_frechet"] = float(frechet_distance(enc(gen), enc(gt)))
+            else:
+                print("NOTE: latent_frechet needs >= 2 frames per set; skipping")
+
+    line = json.dumps({k: round(v, 6) for k, v in metrics.items()})
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+def _load_frames(path: str):
+    """.npz (its "frames"), .npy or a video file (cv2) -> [T, H, W, 3]
+    float32 in [-1, 1]."""
+    import numpy as np
+
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            fr = np.asarray(z["frames"])
+    elif path.endswith(".npy"):
+        fr = np.load(path)
+    else:
+        from emox_torch.infer.video_io import VideoReader
+
+        with VideoReader(path) as r:
+            fr = np.stack(list(r))
+    if fr.dtype == np.uint8:
+        fr = fr.astype(np.float32) / 127.5 - 1.0
+    return fr[..., :3].astype(np.float32)
+
+
 def _not_ported(key: str):
     def cmd(args) -> int:
         raise SystemExit(_NOT_PORTED[key])
@@ -545,9 +652,22 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(pf)
     pf.set_defaults(fn=cmd_train_face)
 
+    pe = sub.add_parser("eval", help="quality metrics on a generated clip (PSNR/SSIM/flicker/sync/identity)")
+    pe.add_argument("--gen", required=True, help="generated video (.npz/.npy, or a video file through cv2)")
+    pe.add_argument("--gt", help="ground-truth clip (.npz cache with frames/face_masks/wav, or video)")
+    pe.add_argument("--audio", help="driving audio (.wav/.npy); overrides the gt cache's wav")
+    pe.add_argument("--ref-image", help="reference image for the CLIP identity metric")
+    pe.add_argument("--params", help="checkpoint directory (the port's): the identity metric and latent_frechet")
+    pe.add_argument("--config", help="config YAML (the checkpoint's model)")
+    pe.add_argument("--ema", action="store_true", help="use the EMA shadow weights")
+    pe.add_argument("--fps", type=float, default=None, help="frame rate (default: the gt cache's fps, else 25)")
+    pe.add_argument("--out", help="also write the metrics JSON to this file")
+    pe.add_argument("--set", nargs="*", action="extend", default=[], metavar="SEC.KEY=VAL")
+    _add_device(pe)
+    pe.set_defaults(fn=cmd_eval, stage=None)
+
     for name, help_text in (("import-weights", "PyTorch SD/wav2vec2 checkpoints -> params (not ported yet)"),
                             ("export", "export the denoise step for serving (not ported yet)"),
-                            ("eval", "quality metrics on a generated clip (not ported yet)"),
                             ("bench", "denoise-step throughput benchmark (not ported yet)")):
         sub.add_parser(name, help=help_text).set_defaults(fn=_not_ported(name), not_ported=True)
     return p

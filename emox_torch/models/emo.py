@@ -39,7 +39,7 @@ from emox_torch.core.device import resolve_device
 from emox_torch.models.audio import AudioEncoder, align_audio_to_frames, audio_feature_rate
 from emox_torch.models.clip import CLIPTextEncoder, CLIPVisionEncoder, clip_normalize
 from emox_torch.models.controlnet import ControlNetEncoder
-from emox_torch.models.unet import UNet, UNetOutputs, check_supported, reference_net_config
+from emox_torch.models.unet import UNet, UNetOutputs, reference_net_config
 from emox_torch.models.vae import AutoencoderKL
 from emox_torch.nn.conditioners import FaceLandmarkNet, FaceLocator
 from emox_torch.nn.layers import init_weights, resize_bilinear
@@ -56,7 +56,6 @@ def _row_major(shape) -> Tuple[int, ...]:
 
 
 def _check_config(config: Config) -> None:
-    check_supported(config.model)
     if config.model.use_identity_embed and not config.clip.vision_enabled:
         raise ValueError(
             "model.use_identity_embed=True needs clip.vision_enabled=True: the identity embedding is "

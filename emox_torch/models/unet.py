@@ -44,19 +44,6 @@ from emox_torch.nn.layers import Conv, Dense
 if TYPE_CHECKING:
     from emox_torch.models.controlnet import ControlSignals
 
-_DEFERRED = {
-    "use_sparse_causal": "sparse-causal attention (ROADMAP.md, Queue 1 item 3)",
-    "separable_convs": "separable ResBlock convs (ROADMAP.md, Queue 1 item 2)",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for model options outside the port so far."""
-    for name, what in _DEFERRED.items():
-        if getattr(cfg, name):
-            raise NotImplementedError(f"model.{name}=True: {what} waits for a later slice of the port")
-
-
 def attention_heads(cfg: ModelConfig, ch: int):
     """(heads, head_dim) at width ch: fixed head count when
     cfg.attention_heads > 0, else the fixed head dim."""
@@ -108,7 +95,6 @@ class UNet(nn.Module):
         given for the denoiser only: the writer is never handed an embedding,
         so the reference creates no projection there."""
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         chans = list(cfg.block_channels)
         temb_dim = 4 * cfg.base_channels
@@ -131,7 +117,8 @@ class UNet(nn.Module):
         if cfg.use_face_mask:
             self.face_mask_encoder = FaceMaskEncoder(chans[0], num_downs=face_mask_downs)
 
-        res = lambda cin, cout: ResBlock(cin, cout, groups=g, temb_dim=temb_dim, temb_mode=cfg.resnet_temb_mode)
+        res = lambda cin, cout: ResBlock(cin, cout, groups=g, temb_dim=temb_dim, temb_mode=cfg.resnet_temb_mode,
+                                         separable=cfg.separable_convs)
         skips = [chans[0]]
         prev = chans[0]
         for level, ch in enumerate(chans):
@@ -164,6 +151,7 @@ class UNet(nn.Module):
         setattr(self, f"{name}_attn", SpatialTransformer(
             ch, heads, head_dim, depth=depth, groups=cfg.norm_groups,
             use_cross=cfg.use_cross_attention, cross_dim=cfg.cross_attention_dim,
+            sparse_causal=cfg.use_sparse_causal,
         ))
         if cfg.use_audio:
             setattr(self, f"{name}_audio", AudioCrossAttention(ch, heads, head_dim, cfg.audio_context_dim))

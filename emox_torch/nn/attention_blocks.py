@@ -24,8 +24,12 @@ by default as there:
   * EMOX_FUSED_QKV: every other self-attention projects q, k and v with one
     matmul over the concatenated weights (plain PyTorch).
 
-Sparse-causal attention and ring attention wait for later slices
-(ROADMAP.md).
+With sparse-causal attention (model.use_sparse_causal) each frame's
+self-attention takes its keys and values from the normed tokens of the
+clip's first frame and of the frame before it (`sc_gather`), the reference
+tokens appended; a batch with per-row reference dropout then runs the
+attention with and without the reference tokens and selects per row, as
+the reference does. Ring attention waits for a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -199,34 +203,60 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 ref_kv: Optional[torch.Tensor] = None, ref_drop: Optional[torch.Tensor] = None,
                 ref_tile: int = 1, ctx_tile: int = 1, emit_bank: bool = True,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None, sc_frames: int = 0):
         """ref_kv [B, Lr, C] UNREPEATED writer tokens; ref_drop [N] bool
-        (True = this row sees no reference); impl: both attentions' impl.
-        Returns (x, normed1): normed1 is
+        (True = this row sees no reference); impl: both attentions' impl;
+        sc_frames > 1: sparse-causal self-attention over clips of that many
+        frames (sc_gather). Returns (x, normed1): normed1 is
         what a ReferenceNet writer banks for the reader. Under EMOX_LN_QKV
         the self-attention reads the fused LN + q/k/v kernel, and normed1 is
         computed only with emit_bank (None otherwise): the reference leaves
-        an unused bank to dead-code elimination."""
-        qkv1 = _maybe_ln_qkv(self.norm1, self.attn1, x)
-        normed1 = self.norm1(x) if qkv1 is None or emit_bank else None
-        x = x + self.attn1(normed1, extra_kv=ref_kv, extra_tile=ref_tile,
-                           extra_drop=ref_drop if ref_kv is not None else None, qkv=qkv1, impl=impl)
+        an unused bank to dead-code elimination. Sparse-causal K/V skip the
+        fused projections: they read other frames' tokens."""
+        if sc_frames > 1:
+            normed1 = self.norm1(x)
+            sc_kv = sc_gather(normed1, sc_frames)
+            if ref_kv is not None and ref_drop is not None:
+                # the K/V base [first, prev] is longer than the reference bank, so
+                # the duplication trick cannot say "no reference": both branches
+                # run for every row, and each row takes its own
+                with_ref = self.attn1(normed1, context=sc_kv, extra_kv=ref_kv, extra_tile=ref_tile, impl=impl)
+                without = self.attn1(normed1, context=sc_kv, impl=impl)
+                x = x + torch.where(ref_drop[:, None, None], without, with_ref)
+            else:
+                x = x + self.attn1(normed1, context=sc_kv, extra_kv=ref_kv, extra_tile=ref_tile, impl=impl)
+        else:
+            qkv1 = _maybe_ln_qkv(self.norm1, self.attn1, x)
+            normed1 = self.norm1(x) if qkv1 is None or emit_bank else None
+            x = x + self.attn1(normed1, extra_kv=ref_kv, extra_tile=ref_tile,
+                               extra_drop=ref_drop if ref_kv is not None else None, qkv=qkv1, impl=impl)
         if self.use_cross and context is not None:
             x = x + self.attn2(self.norm2(x), context=context, context_tile=ctx_tile, impl=impl)
         return _ff_sublayer(self.norm3, self.ff, x), normed1
 
 
+def sc_gather(tokens: torch.Tensor, t: int) -> torch.Tensor:
+    """Sparse-causal K/V tokens: [(B T), L, C] -> [(B T), 2L, C], each
+    frame's row the clip's first frame's tokens, then the previous frame's
+    (frame 0 sees itself twice)."""
+    bt, l, c = tokens.shape
+    v = tokens.reshape(bt // t, t, l, c)
+    first = v[:, :1].expand_as(v)
+    prev = torch.cat([v[:, :1], v[:, :-1]], dim=1)
+    return torch.cat([first, prev], dim=2).reshape(bt, 2 * l, c)
+
+
 class SpatialTransformer(nn.Module):
-    """GN -> linear proj -> TransformerBlocks over H*W tokens -> proj + residual."""
+    """GN -> linear proj -> TransformerBlocks over H*W tokens -> proj + residual.
+
+    sparse_causal: self-attention over the first and previous frames'
+    tokens (sc_gather) when a call has more than one frame."""
 
     def __init__(self, channels: int, heads: int, head_dim: int, depth: int = 1, groups: int = 32,
                  use_cross: bool = True, cross_dim: Optional[int] = None,
                  sparse_causal: bool = False):
         super().__init__()
-        if sparse_causal:
-            raise NotImplementedError(
-                "use_sparse_causal waits for a later slice of the port (ROADMAP.md, Queue 1 item 3)"
-            )
+        self.sparse_causal = sparse_causal
         self.depth = depth
         self.norm = FusedGroupNorm(channels, groups)
         self.proj_in = Dense(channels, channels)
@@ -244,11 +274,12 @@ class SpatialTransformer(nn.Module):
         n, h, w, c = x.shape
         t = num_frames
         hdn = self.proj_in(self.norm(x).reshape(n, h * w, c))
+        sc_frames = t if self.sparse_causal and t > 1 else 0
         banks = []
         for i in range(self.depth):
             hdn, normed1 = getattr(self, f"block_{i}")(
                 hdn, context=context, ref_kv=None if ref_kv is None else ref_kv[i],
-                ref_drop=ref_drop, ref_tile=t, ctx_tile=t, emit_bank=emit_bank, impl=impl,
+                ref_drop=ref_drop, ref_tile=t, ctx_tile=t, emit_bank=emit_bank, impl=impl, sc_frames=sc_frames,
             )
             banks.append(normed1)
         return x + self.proj_out(hdn).reshape(n, h, w, c), banks

@@ -50,33 +50,45 @@ class FusedGroupNorm(AffineNorm):
 class ResBlock(nn.Module):
     """GN+SiLU -> conv3x3 -> (+time scale-shift) -> GN+SiLU -> conv3x3 + skip.
 
-    temb_dim=None builds the block without a time projection (the VAE's)."""
+    temb_dim=None builds the block without a time projection (the VAE's).
+    separable=True makes each 3x3 conv `{name}_dw`, a depthwise 3x3 (one
+    filter a channel, with bias), followed by `{name}_pw`, a 1x1 to the
+    output width: the reference's flax names and its plain convolutions."""
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
                  temb_dim: Optional[int] = None, temb_mode: str = "scale_shift",
                  separable: bool = False):
         super().__init__()
-        if separable:
-            raise NotImplementedError(
-                "separable_convs waits for a later slice of the port (ROADMAP.md, Queue 1 item 2)"
-            )
         if temb_mode not in ("scale_shift", "add"):
             raise ValueError(f"unknown temb_mode {temb_mode!r}")
         self.temb_mode = temb_mode
+        self.separable = separable
         self.norm1 = FusedGroupNorm(in_channels, groups, silu=True)
-        self.conv1 = Conv(in_channels, out_channels, (3, 3))
+        self._add_conv3x3("conv1", in_channels, out_channels)
         if temb_dim is not None:
             n_out = 2 * out_channels if temb_mode == "scale_shift" else out_channels
             self.time_proj = Dense(temb_dim, n_out)
         self.norm2 = FusedGroupNorm(out_channels, groups, silu=True)
-        self.conv2 = Conv(out_channels, out_channels, (3, 3))
+        self._add_conv3x3("conv2", out_channels, out_channels)
         if in_channels != out_channels:
             self.skip = Conv(in_channels, out_channels, (1, 1))
+
+    def _add_conv3x3(self, name: str, cin: int, cout: int) -> None:
+        if self.separable:
+            setattr(self, f"{name}_dw", Conv(cin, cin, (3, 3), groups=cin))
+            setattr(self, f"{name}_pw", Conv(cin, cout, (1, 1)))
+        else:
+            setattr(self, name, Conv(cin, cout, (3, 3)))
+
+    def _conv3x3(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        if self.separable:
+            return getattr(self, f"{name}_pw")(getattr(self, f"{name}_dw")(h))
+        return getattr(self, name)(h)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         was_4d = x.dim() == 4
         xf, t = fold_time(x)
-        h = self.conv1(self.norm1(xf))
+        h = self._conv3x3("conv1", self.norm1(xf))
         if temb is not None:
             # temb [B, D] (repeated over frames) or [(B T), D] (per-frame)
             ss = self.time_proj(F.silu(temb))
@@ -91,7 +103,7 @@ class ResBlock(nn.Module):
                 h = self.norm2(h + ss)
         else:
             h = self.norm2(h)
-        h = self.conv2(h)
+        h = self._conv3x3("conv2", h)
         if hasattr(self, "skip"):
             xf = self.skip(xf)
         out = xf + h

@@ -191,10 +191,9 @@ def test_unreadable_image_names_both_readers(tmp_path):
 @pytest.mark.parametrize("argv, item", [
     (["import-weights", "--vae", "v.safetensors", "--out", "o"], "item 10"),
     (["export", "--out", "o"], "item 10"),
-    (["eval", "--gen", "g.npz"], "item 10"),
     (["bench", "--preset", "tiny"], "benchmark"),
     (["train", "--stage", "2", "--coordinator", "h:1", "--device", "cpu"], "item 9"),
-], ids=["import-weights", "export", "eval", "bench", "distributed"])
+], ids=["import-weights", "export", "bench", "distributed"])
 def test_unported_commands_exit_naming_their_item(argv, item):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)

@@ -20,6 +20,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,7 +55,7 @@ def test_importing_every_module_pulls_in_no_jax_and_no_emox():
             "emox_torch.train.face_nets",
             "emox_torch.core.dtypes", "emox_torch.data.tokenizer", "emox_torch.models.clip",
             "emox_torch.cli", "emox_torch.data.dataset", "emox_torch.data.records", "emox_torch.data.precompute",
-            "emox_torch.core.yamlio"} <= set(res["modules"])
+            "emox_torch.core.yamlio", "emox_torch.utils.profiling", "emox_torch.eval.metrics"} <= set(res["modules"])
     leaked = sorted(set(res["roots"]) & set(FORBIDDEN + ("yaml",)))
     assert not leaked, f"importing emox_torch pulled in {leaked}"
 
@@ -147,6 +148,7 @@ def test_sources_never_name_the_reference_host_library(path):
 def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     from emox_torch.core.device import resolve_device
     from emox_torch.core.presets import tiny_config
+    from emox_torch.eval import evaluate_clip
     from emox_torch.models.emo import EMOModel
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -156,18 +158,26 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         EMOModel(tiny_config())
     assert resolve_device("cpu") == torch.device("cpu")
     assert EMOModel(tiny_config(), device="cpu").device.type == "cpu"
+    frames = np.zeros((2, 16, 16, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        evaluate_clip(frames, gt=frames)
+    assert evaluate_clip(frames, gt=frames, device="cpu")["psnr_db"] == pytest.approx(100.0)
 
 
 def test_unsupported_options_raise_with_their_roadmap_item():
     import dataclasses
 
+    from emox_torch import cli
     from emox_torch.core.presets import tiny_config
     from emox_torch.models.emo import EMOModel
 
+    # what the port still leaves out is a command: it exits naming its item
+    with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1 item 10"):
+        cli.main(["import-weights", "--vae", "v.safetensors", "--out", "o"])
     cfg = tiny_config()
-    bad = cfg.replace(model=dataclasses.replace(cfg.model, use_sparse_causal=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EMOModel(bad, device="cpu")
+    # every model option builds: sparse-causal attention, separable convs
+    for field in ("use_sparse_causal", "separable_convs"):
+        EMOModel(cfg.replace(model=dataclasses.replace(cfg.model, **{field: True})), device="cpu")
     # the side models are ported: the ControlNet, and the CLIP vision encoder
     # with the identity embedding it feeds
     vision = dataclasses.replace(cfg.clip, vision_enabled=True, vision_hidden_dim=8, vision_layers=1, vision_heads=2,

@@ -208,13 +208,14 @@ def test_initial_latents_come_from_the_generator():
 
 
 def test_out_of_slice_options_raise():
-    """The model options the port still leaves out raise NotImplementedError
-    and name their ROADMAP item. The side models build: the CLIP vision
-    encoder, the identity embedding and the ControlNet
-    (tests/test_torch_identity.py, test_torch_controlnet.py). (The windowed
-    sampler, the two-call CFG program, latent interpolation and use_gn_ref
-    run: tests/test_torch_windowed.py, test_torch_cfg_programs.py,
-    test_torch_adain.py.)"""
+    """No model option is left out of the port any more: the side models
+    build (the CLIP vision encoder, the identity embedding and the
+    ControlNet; tests/test_torch_identity.py, test_torch_controlnet.py), and
+    so do sparse-causal attention and separable ResBlock convs
+    (tests/test_torch_sparse_causal.py, test_torch_separable.py), whose
+    denoise step runs here. (The windowed sampler, the two-call CFG program,
+    latent interpolation and use_gn_ref run: tests/test_torch_windowed.py,
+    test_torch_cfg_programs.py, test_torch_adain.py.)"""
     _, _, tcfg = model_params("tiny")
     side = tcfg.replace(clip=dataclasses.replace(tcfg.clip, vision_enabled=True, vision_hidden_dim=8, vision_layers=1,
                                                  vision_heads=2, image_size=28, patch_size=14, projection_dim=8),
@@ -222,7 +223,9 @@ def test_out_of_slice_options_raise():
     mods = EMOModel(side, device="cpu").modules
     assert mods.clip_vision is not None and mods.controlnet is not None
     assert mods.denoiser.identity_embed_proj.weight.shape == (4 * tcfg.model.base_channels, 8)
+    lat = tcfg.data.height // tcfg.vae.downscale
+    x = torch.randn((1, 2, lat, lat, 4), generator=torch.Generator().manual_seed(0))
     for field in ("use_sparse_causal", "separable_convs"):
-        bad = tcfg.replace(model=dataclasses.replace(tcfg.model, **{field: True}))
-        with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
-            EMOModel(bad, device="cpu")
+        model = EMOModel(tcfg.replace(model=dataclasses.replace(tcfg.model, **{field: True})), device="cpu")
+        eps = model.predict_noise(x, torch.tensor([500]), torch.zeros((1, lat, lat, 4)))
+        assert eps.shape == x.shape and bool(torch.isfinite(eps).all())
