@@ -82,7 +82,8 @@ raises and the script exits non-zero. Phases:
      issuing them, for the kernel and for its library call.
   3. step: one CFG-batched denoise step of the flagship model at 256^2,
      2 frames, float32, on the card (kernels) against the same weights on
-     the CPU (plain versions), TF32 off for matmuls and convolutions.
+     the CPU (plain versions), TF32 off for matmuls and convolutions. The
+     CPU models' weights are drawn on the card and copied over (cpu_model).
   4. serve: the flagship EMOPipeline in bf16 answers three requests (256^2
      reference image, 16 frames of audio, 3-axis speeds, face mask, CFG
      7.5, 10 DDIM steps, VAE decode); s/request, ms/step, peak memory and
@@ -103,6 +104,16 @@ raises and the script exits non-zero. Phases:
      invert (a served clip's first 16 frames inverted, then sampled back),
      and one 16-frame request each with interpolation_factor=2, the two-call
      CFG program and model.use_gn_ref=True.
+     export: the served model's denoise step (bf16, 256^2, 16 frames,
+     batch 1) exported with torch.export, every kernel a registered op
+     (emox_torch.ops.registry): export, save and load seconds, the
+     artifact's bytes, the loaded call's eps within 1e-3 of the eager
+     step's and its launches by kernel equal to the eager call's, the ms of
+     each; the ops' host cost a call against the direct route at a small
+     shape, and the 256^2 request with every kernel call through its op
+     against the direct route; the float32 small preset exported under
+     EMOX_LN_QKV=1 EMOX_GROUPNORM_IMPL=pallas, within 3e-4 of the CPU's
+     eager step, K7 and K8a launched.
   5. profile: one more request under torch.profiler, with the device time
      per kernel group, the top kernels and the device's idle share.
   6. train_step: the loss and the trainable gradients of one float32
@@ -122,6 +133,12 @@ raises and the script exits non-zero. Phases:
      ResNet time embedding added, text cross-attention fed by the CLIP-L
      text encoder), every request and step with a text prompt; its level-0
      sites take the strided kernels (K5) where the flagship takes K1/K4.
+     After serve_sd15, import_weights: `python -m emox_torch import-weights`
+     on diffusers-named SD-1.5 weights drawn from seeds (tests/torch_ref.py's
+     TMiniVAE as a float16 .safetensors, TMiniUNet as a .pt), read, map and
+     write seconds and bytes, no unused key; the imported VAE's decode and
+     UNet's spatial path in float32 within 3e-4 of the torch models; the
+     import merged into serve_sd15's model and one CFG step, finite.
   9. step_norms, serve_norms, serve_norms_fast, train_step_norms,
      train_norms: the flagship under the reference's fused-norm switches.
      The float32 step, card against CPU, with EMOX_GROUPNORM_IMPL=pallas and
@@ -234,11 +251,13 @@ last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import glob
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -585,7 +604,14 @@ def step_sublayer_launches(cfg, sublayers: int, env=None) -> dict:
     return want
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets `t_s`, the seconds since
+    the script started, from which each phase's duration follows."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -1632,18 +1658,22 @@ def _request_inputs(gen, device, size: int, frames: int, dtype):
 
 def cpu_model(cfg, shared=None):
     """The float32 model on the CPU of a card-against-CPU phase: random from
-    seed 7 with the zero-initialised branches filled from seed 8, or, given
-    `shared` (such a model of the same preset, built once in main), its
-    modules under this phase's configuration, frozen and in eval mode: the
-    same weights without the CPU's ~20 s of init."""
+    seed 7 with the zero-initialised branches filled from seed 8, drawn on
+    the card and copied to the CPU (a flagship's init on the CPU takes
+    ~20-28 s, on the card well under one), or, given `shared` (such a model
+    of the same preset, built once in main), its modules under this phase's
+    configuration, frozen and in eval mode."""
     import copy
 
     import torch
     from emox_torch.models.emo import EMOModel
 
     if shared is None:
-        model = EMOModel(cfg, dtype=torch.float32, device="cpu", seed=7)
+        model = EMOModel(cfg, dtype=torch.float32, device="cuda", seed=7)
         _fill_zero_init(model, seed=8)
+        model.modules.to("cpu", memory_format=torch.contiguous_format)
+        model.device = torch.device("cpu")
+        torch.cuda.empty_cache()
         return model
     model = copy.copy(shared)
     model.config = cfg
@@ -2920,12 +2950,13 @@ def phase_cli_control(tmp: str, steps: int = 10, frames: int = 16) -> dict:
 
 # ---- phase 4 ------------------------------------------------------------------
 def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "flagship", prompt=None, env=None,
-                profile: bool = True, size: int = 256):
+                profile: bool = True, size: int = 256, keep: dict = None):
     """env: the switches of the run (none: phase serve / serve_sd15 /
     serve_512; with norm switches: serve_norms, whose launches of the switch
     kernels are asserted at the count norm_launches_per_request derives;
     EMOX_FF_IMPL=xla: serve_ff_xla). The attention kernels' launches are
-    asserted at the count attn_launches_per_request derives."""
+    asserted at the count attn_launches_per_request derives. keep: a dict
+    that receives the served model ("model") for a later phase."""
     import torch
     from emox_torch.infer.pipeline import EMOPipeline
     from emox_torch.models.emo import EMOModel
@@ -3008,6 +3039,338 @@ def phase_serve(out_dir: str, requests: int = 3, steps: int = 10, name: str = "f
                                        generator=torch.Generator(device="cuda").manual_seed(99), prompt=prompt),
                           f"one {name} {size}^2 serving request, {steps} DDIM steps" + (f", under {env}" if env else ""),
                           out_dir, f"profile{tag}_kernels.json")
+    if keep is not None:
+        keep["model"] = model
+    return res
+
+
+# ---- the exported step, the ops' dispatch cost, and weights from diffusers --------------
+def _rel_l2(got, want) -> float:
+    import torch
+
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want).clamp_min(1e-30)).item()
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Microseconds a call of fn takes at a shape small enough that the host
+    sets the pace: `calls` calls, the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
+def op_dispatch_cost() -> dict:
+    """Per kernel entry of the serving path and the switches, the host's cost
+    of one call through the registered op (emox_torch.ops.registry,
+    through_ops()) against the direct route the eager program takes, at a
+    small shape (level 0 of the flagship at 64 tokens, bf16): microseconds a
+    call, each route's least of three turns (direct, op, direct, op, ...)."""
+    import torch
+    from emox_torch.ops import fused_group_norm, fused_ln_geglu_ff, fused_ln_qkv, group_norm_stats, registry
+    from emox_torch.ops.attention import flash_attention_nlc
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    r = lambda *s: _rand(gen, *s, dtype=torch.bfloat16)
+    x, ln = r(64, 320), (1 + 0.1 * r(320), 0.1 * r(320))
+    ff = (r(2560, 320) * 0.05, r(2560) * 0.1, r(320, 1280) * 0.03, r(320) * 0.1)
+    q, kv = r(2, 64, 320), r(2, 128, 320)
+    w = r(320, 320) * 0.05
+    xg = r(2, 64, 320)
+    calls = {"ln_geglu_ff": lambda: fused_ln_geglu_ff(x, *ln, *ff),
+             "flash_attn_nlc_fwd": lambda: flash_attention_nlc(q, kv, kv, 5),
+             "ln_qkv": lambda: fused_ln_qkv(x, *ln, w, w, w),
+             "group_norm": lambda: fused_group_norm(xg, *ln, 32, silu=True),
+             "group_norm_stats": lambda: group_norm_stats(xg)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            turns = {True: [], False: []}
+            for direct in (True, False) * 3:
+                with contextlib.nullcontext() if direct else registry.through_ops():
+                    fn()
+                    turns[direct].append(_host_us(fn))
+            out[name] = {"direct_us": min(turns[True]), "op_us": min(turns[False]),
+                         "op_minus_direct_us": min(turns[False]) - min(turns[True])}
+    return out
+
+
+def phase_export(model, steps: int = 10, frames: int = 16, size: int = 256, requests: int = 2) -> dict:
+    """The flagship's denoise step exported with torch.export
+    (emox_torch.infer.export) on the card, from the model phase serve built
+    (its parameters are an input of the program, so nothing is copied), in
+    bf16 at 256^2, 16 frames, batch 1, default switches: export, save and
+    load seconds, the artifact's bytes, the graph's kernel ops against the
+    eager call's launches, the loaded call's eps against the eager step's
+    (within 1e-3 rel L2; whether the bits agree) and its launches by kernel
+    (equal to the eager call's: K1 on flash_fwd_sm90 and the FF on ff_sm90,
+    nothing else), and the ms of one call each. Then the ops' dispatch cost
+    (op_dispatch_cost) and the 256^2 request with every kernel call through
+    its op against the direct route (direct, op, op, direct; `requests`
+    each). Then the float32 small preset (128^2, 2 frames) exported under
+    EMOX_LN_QKV=1 EMOX_GROUPNORM_IMPL=pallas on the card and run as exported
+    (not saved: save and load take ~40 s of host time a graph), against the
+    CPU's eager step (within 3e-4), K7 and K8a launched."""
+    import torch
+    from emox_torch.core.presets import small_config
+    from emox_torch.infer.export import (export_denoise_step, export_switches, kernel_nodes, load_exported,
+                                         save_exported, step_inputs)
+    from emox_torch.infer.pipeline import EMOPipeline
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, registry, reset_launch_counts
+
+    res = {"phase": "export", "config": f"flagship {size}^2, {frames} frames, batch 1, bf16, default switches"}
+    t0 = time.perf_counter()
+    exported = export_denoise_step(model, num_frames=frames, image_size=size, dtype=torch.bfloat16)
+    res["export_s"] = time.perf_counter() - t0
+    res["switches"] = export_switches()
+    res["kernel_ops"] = kernel_nodes(exported)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "step.pt2")
+        t0 = time.perf_counter()
+        save_exported(exported, path)
+        res["save_s"] = time.perf_counter() - t0
+        res["bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_exported(path)
+        res["load_s"] = time.perf_counter() - t0
+    del exported
+    params = dict(model.modules.named_parameters())
+    args = step_inputs(model, frames, size, 1, torch.bfloat16, torch.Generator(device="cuda").manual_seed(21))
+    eager = lambda: model.predict_noise(args[0], args[1], args[2], audio_windows=args[3], speeds=args[4],
+                                        face_mask=args[5])
+    call = lambda: loaded(params, *args)
+    with torch.no_grad():
+        eager(), call()
+        counts, eps = {}, {}
+        for name, fn in (("eager", eager), ("loaded", call)):
+            reset_launch_counts()
+            eps[name] = fn()
+            torch.cuda.synchronize()
+            counts[name] = {k: v for k, v in launch_counts().items() if v}
+            res[f"{name}_eps_finite"] = bool(torch.isfinite(eps[name].float()).all())
+        loaded_counts = launch_counts()
+        res["eps_rel_l2"] = _rel_l2(eps["loaded"], eps["eager"])
+        res["same_bits"] = bool(torch.equal(eps["loaded"], eps["eager"]))
+        res["eager_ms"] = time_ms(eager, iters=3, warmup=1)
+        res["loaded_ms"] = time_ms(call, iters=3, warmup=1)
+    del eps
+    res["launches"] = counts
+    res["tol"] = 1e-3
+    want_kernels = {"flash_attn_nlc_fwd", "flash_fwd_sm90", "ln_geglu_ff", "ff_sm90"}
+    sites = {k: counts["eager"].get(k, 0) for k in ("flash_attn_nlc_fwd", "ln_geglu_ff")}
+    res["op_dispatch_us"] = op_dispatch_cost()
+
+    # the 256^2 request: every kernel call through its op, against the direct route
+    pipe = EMOPipeline(model)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    img, wav, speeds, mask = _request_inputs(gen, "cuda", size, frames, torch.bfloat16)
+    turns = {True: [], False: []}
+    for direct in (True, False, False, True) * (requests // 2):
+        with contextlib.nullcontext() if direct else registry.through_ops():
+            t0 = time.perf_counter()
+            video = pipe(img, wav, video_length=frames, num_inference_steps=steps, guidance_scale=7.5, speeds=speeds,
+                         face_mask=mask, generator=torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.synchronize()
+            turns[direct].append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(video.float()).all()):
+            raise AssertionError("export: a request through the ops gave non-finite frames")
+    res["serve_s_direct"], res["serve_s_op"] = turns[True], turns[False]
+    del pipe, video
+
+    # the float32 small preset under the fused-norm switches, card against CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = small_config(image_size=128, num_frames=2)
+    cpu = EMOModel(small, dtype=torch.float32, device="cpu", seed=5)
+    _fill_zero_init(cpu, seed=6)
+    gpu = EMOModel(small, dtype=torch.float32, device="cuda", seed=0)
+    gpu.modules.load_state_dict(cpu.modules.state_dict())
+    sargs = step_inputs(cpu, 2, 128, 1, torch.float32, torch.Generator().manual_seed(22))
+    with switches(NORMS), torch.no_grad():
+        t0 = time.perf_counter()
+        exported = export_denoise_step(gpu, num_frames=2, image_size=128, dtype=torch.float32)
+        f32 = {"export_s": time.perf_counter() - t0, "switches": export_switches(),
+               "kernel_ops": kernel_nodes(exported)}
+        fn = exported.module()  # the flagship's export above went through save and load
+        want = cpu.predict_noise(sargs[0], sargs[1], sargs[2], audio_windows=sargs[3], speeds=sargs[4],
+                                 face_mask=sargs[5])
+        reset_launch_counts()
+        got = fn(dict(gpu.modules.named_parameters()), *(a.to("cuda") for a in sargs))
+        torch.cuda.synchronize()
+        f32["launches"] = {k: v for k, v in launch_counts().items() if v}
+    torch.backends.cudnn.allow_tf32 = True
+    f32["eps_rel_l2"], f32["tol"] = _rel_l2(got, want), 3e-4
+    res["small_f32_norms"] = f32
+    emit(res)
+    if not (res["eager_eps_finite"] and res["loaded_eps_finite"] and res["eps_rel_l2"] <= res["tol"]):
+        raise AssertionError(f"export: the loaded step's eps is {res['eps_rel_l2']} from the eager step's")
+    if counts["loaded"] != counts["eager"] or set(counts["eager"]) != want_kernels:
+        raise AssertionError(f"export: launches {counts}, expected the eager call's on {sorted(want_kernels)}")
+    if {k: res["kernel_ops"].get(k, 0) for k in sites} != sites or set(res["kernel_ops"]) != set(sites):
+        raise AssertionError(f"export: graph ops {res['kernel_ops']} against the eager call's sites {sites}")
+    l = f32["launches"]
+    if not (f32["eps_rel_l2"] <= f32["tol"] and l.get("ln_qkv", 0) > 0 and l.get("ln_qkv_f32_sm90", 0) > 0
+            and l.get("group_norm", 0) > 0 and {"ln_qkv", "group_norm"} <= set(f32["kernel_ops"])):
+        raise AssertionError(f"export: the float32 small step under {NORMS}: {f32}")
+    del cpu, gpu, fn, loaded
+    torch.cuda.empty_cache()
+    return dict(res, launches_loaded=loaded_counts)
+
+
+def _write_safetensors(path: str, tensors: dict) -> None:
+    """A float16 .safetensors file: header length (u64 LE), JSON header,
+    the tensors' bytes (a writer here: the port reads the format with no
+    package, and writes none)."""
+    import torch
+
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for name, t in tensors.items():
+        raw = t.detach().to("cpu", torch.float16).contiguous().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": "F16", "shape": list(t.shape), "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for b in blobs:
+            f.write(b)
+
+
+def _torch_ref():
+    """tests/torch_ref.py of this checkout (diffusers' naming and compute in
+    plain torch), loaded by path: a machine may have another `tests`
+    package installed."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_ref.py")
+    spec = importlib.util.spec_from_file_location("emox_torch_ref", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_import_weights(tmp: str, model, size: int = 256) -> dict:
+    """`python -m emox_torch import-weights` for flagship-sd15 on
+    diffusers-named state dicts at SD-1.5 widths, drawn on the card from
+    seeds by tests/torch_ref.py's TMiniVAE (the SD VAE's layout, written as
+    a float16 .safetensors) and TMiniUNet (320/640/1280/1280, 2 layers, 32
+    groups, 8 heads, cross 768, attention at levels 0-2; a .pt of float16
+    tensors); both hold their float16-rounded weights. Then, in float32 on
+    the card (TF32 off): the imported port VAE's decode against
+    TMiniVAE.decode and the imported port UNet's spatial path (the 2-D
+    configuration, as the reference's ReferenceNet) against TMiniUNet, each
+    within 3e-4 rel L2; then the import merged into `model` (serve_sd15's
+    bf16 model: writer, reader and VAE) and one CFG-batched denoise step,
+    finite. Unused source keys 0; every parameter left at init
+    video-only."""
+    import dataclasses
+
+    import torch
+    from emox_torch.core.config import save_config
+    from emox_torch.data.tokenizer import CLIPTokenizer
+    from emox_torch.interop.torch_import import merge_imported
+    from emox_torch.models.unet import UNet
+    from emox_torch.models.vae import AutoencoderKL
+
+    torch_ref = _torch_ref()
+    TMiniUNet, TMiniVAE = torch_ref.TMiniUNet, torch_ref.TMiniVAE
+    cfg = model_config("flagship-sd15", size, 16)
+    m, v = cfg.model, cfg.vae
+    res = {"phase": "import_weights", "config": "flagship-sd15: SD-1.5's UNet and VAE layouts, float16 sources"}
+    t0 = time.perf_counter()
+    torch.manual_seed(51)
+    with torch.device("cuda"):
+        tvae = TMiniVAE(chans=tuple(v.base_channels * c for c in v.channel_multipliers), num_res=v.num_res_blocks,
+                        groups=v.norm_groups, latent=4).eval()
+        tunet = TMiniUNet(chans=tuple(m.block_channels), layers=m.layers_per_block, groups=m.norm_groups,
+                          heads=m.attention_heads, cross_dim=m.cross_attention_dim,
+                          attn_levels=m.attention_levels).eval()
+    with torch.no_grad():
+        for p in (*tvae.parameters(), *tunet.parameters()):
+            p.copy_(p.half().float())
+    vae_path, unet_path = os.path.join(tmp, "vae.safetensors"), os.path.join(tmp, "unet.pt")
+    _write_safetensors(vae_path, tvae.state_dict())
+    torch.save({k: t.to("cpu", torch.float16) for k, t in tunet.state_dict().items()}, unet_path)
+    cfg_path = os.path.join(tmp, "sd15.yaml")
+    save_config(cfg, cfg_path)
+    res["sources_s"] = time.perf_counter() - t0
+    res["source_keys"] = {"vae": len(tvae.state_dict()), "unet": len(tunet.state_dict())}
+    secs, lines = _cli(["import-weights", "--config", cfg_path, "--vae", vae_path, "--unet", unet_path,
+                        "--out", os.path.join(tmp, "imported")])
+    res["cli_s"] = secs
+    res["components"] = {}
+    for line in lines:
+        if line.startswith("{"):
+            info = json.loads(line)
+            res["components"][info.pop("component")] = info
+    imported = {k: torch.load(os.path.join(tmp, "imported", f"{k}.pt"), weights_only=True) for k in ("vae", "unet")}
+
+    # float32 on the card against the torch reference models, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    lat = size // v.downscale
+    z = torch.randn((1, lat, lat, 4), generator=gen, device="cuda")
+    x = torch.randn((1, lat, lat, 4), generator=gen, device="cuda")
+    ctx = torch.randn((1, 77, m.cross_attention_dim), generator=gen, device="cuda")
+    t = torch.tensor([500], device="cuda")
+    with torch.device("cuda"):
+        pvae = AutoencoderKL(v)
+        punet = UNet(dataclasses.replace(m, use_temporal=False, use_audio=False, use_speed=False, use_face_mask=False,
+                                         use_reference=False))
+    merge_imported(pvae, imported["vae"]).eval()
+    merge_imported(punet, imported["unet"]).eval()
+    # torch_ref's timestep embedding makes its frequencies on the default device
+    with torch.no_grad(), torch.device("cuda"):
+        res["vae_decode_rel_l2"] = _rel_l2(pvae.decode(z), tvae.decode(z.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+        res["unet_rel_l2"] = _rel_l2(punet(x, t, context=ctx).sample,
+                                     tunet(x.permute(0, 3, 1, 2), t, ctx).permute(0, 2, 3, 1))
+    torch.backends.cudnn.allow_tf32 = True
+    res["tol"] = 3e-4
+    del pvae, punet, tvae, tunet
+    torch.cuda.empty_cache()
+
+    # into serve_sd15's model: the writer and the reader take the UNet, the VAE its own
+    t0 = time.perf_counter()
+    for part, key in (("vae", "vae"), ("reference_net", "unet"), ("denoiser", "unet")):
+        merge_imported(getattr(model.modules, part), imported[key])
+    video_only = ("_temporal", "_audio", "speed_embed", "face_mask_encoder", "null_context")
+    kept = sorted(set(model.modules.denoiser.state_dict()) - set(imported["unet"]))
+    res["kept_at_init"] = len(kept)
+    res["kept_not_video_only"] = [k for k in kept if not any(s in k for s in video_only)]
+    res["merge_s"] = time.perf_counter() - t0
+    ids = torch.from_numpy(CLIPTokenizer().encode([PROMPT, ""], max_length=cfg.clip.max_positions)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    img, wav, speeds, mask = _request_inputs(gen, "cuda", size, 2, torch.bfloat16)
+    with torch.no_grad():
+        ref = model.encode_images(img)
+        audio = model.encode_audio(wav, 2)
+        face = model.encode_face_mask(mask, lat)
+        context = model.encode_text(ids).flip(0)
+        noisy = torch.randn((1, 2, lat, lat, 4), generator=gen, device="cuda").to(torch.bfloat16)
+        cat = lambda a: torch.cat([a, a])
+        eps = model.predict_noise(cat(noisy), torch.tensor([500, 500], device="cuda"), cat(ref),
+                                  audio_windows=torch.cat([torch.zeros_like(audio), audio]), speeds=cat(speeds),
+                                  face_feat=cat(face), context=context,
+                                  ref_dropout=torch.tensor([True, False], device="cuda"))
+    res["step_finite"] = bool(torch.isfinite(eps.float()).all())
+    res["step_eps_abs_mean"] = eps.float().abs().mean().item()
+    emit(res)
+    unused = {k: c["unused_source_keys"] for k, c in res["components"].items() if c["unused_source_keys"]}
+    missing = {k: c["missing_in_source"] for k, c in res["components"].items() if c["missing_in_source"]}
+    if set(res["components"]) != {"vae", "unet"} or unused or missing or res["kept_not_video_only"]:
+        raise AssertionError(f"import_weights: unused {unused}, missing {missing}, "
+                             f"kept at init and not video-only {res['kept_not_video_only'][:8]}")
+    if not (res["vae_decode_rel_l2"] <= res["tol"] and res["unet_rel_l2"] <= res["tol"] and res["step_finite"]):
+        raise AssertionError(f"import_weights: VAE {res['vae_decode_rel_l2']}, UNet {res['unet_rel_l2']}, "
+                             f"step finite {res['step_finite']}")
     return res
 
 
@@ -3375,62 +3738,84 @@ def _norm_ranges():
             setattr(owner, attr, fn)
 
 
-def phase_profile(run, label: str, out_dir: str, filename: str) -> dict:
-    """One more run (a request, a train step) under torch.profiler: device
-    time per kernel group, the device's busy share of the run's span, the
-    device time of the norm calls (the ranges of _NORM_RANGES), and the top
-    kernels (all of them in out_dir/filename)."""
-    import torch
+def _profile_summary(events, labels) -> dict:
+    """Device time by kernel group and name, the device's busy share of the
+    span, and the device time under each CPU range named in `labels`, from
+    the profiler's raw (kineto) events: start_ns, end_ns, name, device_type,
+    is_user_annotation and correlation_id (a device kernel shares it with the
+    runtime call that launched it). Reading these takes
+    a second for the ~300 k events of a request; building torch.profiler's
+    FunctionEvent tree from them takes ~25 s."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with _norm_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = prof.events()
-    labels = [r[-1] for r in _NORM_RANGES]
-    ranges_us = dict.fromkeys(labels, 0.0)
-    for e in events:
-        if e.name in ranges_us and e.device_type == DeviceType.CPU:
-            ranges_us[e.name] += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    events = [e for e in events if not e.is_hidden_event()]
     # device events, without the ranges that user annotations (such as the
     # optimizer's step) open on the device timeline over real kernels
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
     if not kernels:
-        res = {"phase": "profile", "device_time": "not measured (the profiler recorded no device events)"}
-        emit(res)
-        return res
-    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    busy, last_end = 0.0, None
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        start, end = e.time_range.start, e.time_range.end
+        return {}
+    span = max(e.end_ns() for e in events) - min(e.start_ns() for e in events)
+    busy, last_end = 0, None
+    for e in sorted(kernels, key=lambda e: e.start_ns()):
+        start, end = e.start_ns(), e.end_ns()
         if last_end is None or start >= last_end:
             busy += end - start
             last_end = end
         elif end > last_end:
             busy += end - last_end
             last_end = end
-    groups, by_name = {}, {}
+    groups, by_name, by_corr = {}, {}, {}
     for e in kernels:
-        us = e.time_range.end - e.time_range.start
-        low = e.name.lower()
+        ns, name = e.end_ns() - e.start_ns(), e.name()
+        low = name.lower()
         group = next((g for g, keys in _GROUPS if any(k in low for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + us
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + us)
-    kernel_us = sum(groups.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    res = {"phase": "profile", "config": f"{label}, under torch.profiler",
-           "span_ms": span / 1e3, "kernel_ms": kernel_us / 1e3, "busy_ms": busy / 1e3,
-           "idle_share": 1.0 - busy / span, "kernel_launches": len(kernels),
-           "groups_ms": {g: t / 1e3 for g, t in sorted(groups.items(), key=lambda kv: -kv[1])},
-           "norm_ranges_ms": {k.split(".")[-1]: v / 1e3 for k, v in ranges_us.items()},
-           "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3} for n, (c, t) in top[:12]]}
+        groups[group] = groups.get(group, 0) + ns
+        n, t = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, t + ns)
+        by_corr[e.correlation_id()] = by_corr.get(e.correlation_id(), 0) + ns
+    # a range's device time: the kernels launched by the runtime calls that
+    # start inside it (one thread launches every kernel of the run)
+    cpu = [e for e in events if e.device_type() == DeviceType.CPU]
+    launches = [e for e in cpu if e.correlation_id() in by_corr]
+    ranges_ns = dict.fromkeys(labels, 0)
+    for label in labels:
+        spans = sorted((e.start_ns(), e.end_ns()) for e in cpu if e.name() == label)
+        starts = [a for a, _ in spans]
+        for e in launches:
+            i = bisect.bisect_right(starts, e.start_ns()) - 1
+            if i >= 0 and e.start_ns() < spans[i][1]:
+                ranges_ns[label] += by_corr[e.correlation_id()]
+    return {"span_ms": span / 1e6, "kernel_ms": sum(groups.values()) / 1e6, "busy_ms": busy / 1e6,
+            "idle_share": 1.0 - busy / span, "kernel_launches": len(kernels),
+            "groups_ms": {g: t / 1e6 for g, t in sorted(groups.items(), key=lambda kv: -kv[1])},
+            "norm_ranges_ms": {k.split(".")[-1]: v / 1e6 for k, v in ranges_ns.items()},
+            "by_name": sorted(((n, c, t / 1e6) for n, (c, t) in by_name.items()), key=lambda r: -r[2])}
+
+
+def phase_profile(run, label: str, out_dir: str, filename: str) -> dict:
+    """One more run (a request, a train step) under torch.profiler: device
+    time per kernel group, the device's busy share of the run's span, the
+    device time of the norm calls (the ranges of _NORM_RANGES), and the top
+    kernels (all of them in out_dir/filename)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with _norm_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    summary = _profile_summary(prof.profiler.kineto_results.events(), [r[-1] for r in _NORM_RANGES])
+    if not summary:
+        res = {"phase": "profile", "device_time": "not measured (the profiler recorded no device events)"}
+        emit(res)
+        return res
+    top = summary.pop("by_name")
+    res = {"phase": "profile", "config": f"{label}, under torch.profiler", **summary,
+           "top_kernels": [{"name": n[:120], "count": c, "ms": t} for n, c, t in top[:12]]}
     emit(res)
     if out_dir:
         with open(os.path.join(out_dir, filename), "w") as f:
-            json.dump({n: {"count": c, "ms": t / 1e3} for n, (c, t) in top}, f, indent=1)
+            json.dump({n: {"count": c, "ms": t} for n, c, t in top}, f, indent=1)
     return res
 
 
@@ -3600,7 +3985,12 @@ def main(argv=None) -> int:
         steps = phase_step(runs=(("", None), ("_norms", NORMS), ("_norms", NORMS_FAST),
                                  ("_sparse_causal", None, "sparse_causal")), shared=flagship_cpu)
         step, step_norms, step_sc = (steps[i]["launches"] for i in (0, 1, 3))
-        launches = phase_serve(args.out)["launches"]
+        served = {}
+        launches = phase_serve(args.out, keep=served)["launches"]
+        # the served model's denoise step through torch.export, the ops'
+        # dispatch cost and the request through the ops; the float32 small
+        # preset's export under the fused-norm switches
+        export = phase_export(served.pop("model"))
         # the attention switch: a kernel at every site (and against the plain
         # step), then the serving request with plain attention at every site
         step_pallas = phase_step_attn_pallas()["launches"]
@@ -3616,7 +4006,11 @@ def main(argv=None) -> int:
             train3 = phase_train(tmp, stage=3, batch=2, frames=8, warmup=1, steps=2, out_dir=args.out)
         # the SD-1.5 head layout: its level-0 sites run the strided kernels (K5)
         phase_step("flagship-sd15")
-        serve_sd15 = phase_serve(args.out, name="flagship-sd15", prompt=PROMPT)["launches"]
+        served = {}
+        serve_sd15 = phase_serve(args.out, name="flagship-sd15", prompt=PROMPT, keep=served)["launches"]
+        # diffusers-named SD-1.5 weights through import-weights, into that model
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_import_weights(tmp, served.pop("model"))
         with tempfile.TemporaryDirectory() as tmp:
             train_sd15 = phase_train(tmp, stage=2, batch=2, frames=8, warmup=2, steps=5, out_dir=args.out,
                                      name="flagship-sd15")
@@ -3687,7 +4081,8 @@ def main(argv=None) -> int:
             control = phase_control()
             train_control = phase_train(tmp, stage=4, batch=1, frames=8, warmup=1, steps=2, out_dir=args.out,
                                         name="flagship-control", size=512, phase="train_control_512")
-    by_path = {"step": step, "serve": launches, "step_long": step_long, **long["launches_by_path"], "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
+    by_path = {"step": step, "serve": launches, "export": export["launches_loaded"], "step_long": step_long,
+               **long["launches_by_path"], "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
                "train_step": train_step,
                "train_stage2_per_step": train2["launches_per_step"],
                "train_stage1_per_step": train1["launches_per_step"],

@@ -9,19 +9,26 @@
       --ref-image face.npy --audio speech.wav --out out.mp4
   python -m emox_torch train-face --out face_nets.npz
   python -m emox_torch eval --gen out.npz --gt data/cache/clip0.npz --params checkpoints/stage2
+  python -m emox_torch import-weights --vae vae.safetensors --unet unet.bin --wav2vec2 w2v.bin --out imported
+  python -m emox_torch export --params checkpoints/stage2 --frames 16 --size 256 --out emox_step.pt2
 
 Every command that builds a model or computes (precompute, train, infer,
-train-face, eval) runs on the CUDA card and stops when there is none; `--device cpu` asks
+train-face, eval, export) runs on the CUDA card and stops when there is none; `--device cpu` asks
 for the CPU (the plain PyTorch versions of the kernels) instead.
 Checkpoints are the port's own (`torch.save` files `step_<n>.pt`, written
 by `train`); a flax param tree from the reference reaches the port through
 emox_torch.interop.from_flax. YAML is read and written by
 emox_torch.core.yamlio, so PyYAML is not needed.
 
-Registered but not yet ported, each exiting non-zero with its item of
-ROADMAP.md's Queue 1: `train --coordinator/--num-processes` (item 9),
-`import-weights` and `export` (item 10); `bench` comes with the port's
-benchmark.
+`import-weights` writes one torch.save state dict per component in the
+port's names (emox_torch.interop.torch_import; .safetensors read without
+the package); `export` writes a torch.export artifact of the denoise step
+whose kernels are the port's registered ops (emox_torch.infer.export).
+Every command first calls emox_torch.core.compile_cache.enable_persistent_cache.
+
+Registered but not yet ported, each exiting non-zero: `train
+--coordinator/--num-processes` (ROADMAP.md's Queue 1 item 9); `bench` comes
+with the port's benchmark.
 """
 
 from __future__ import annotations
@@ -37,8 +44,6 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional
 _NOT_PORTED = {
     "distributed": "--coordinator/--num-processes (multi-process training) wait for a later slice of the port "
                    "(ROADMAP.md, Queue 1 item 9)",
-    "import-weights": "import-weights waits for a later slice of the port (ROADMAP.md, Queue 1 item 10)",
-    "export": "export waits for a later slice of the port (ROADMAP.md, Queue 1 item 10)",
     "bench": "bench comes with the port's benchmark, which a benchmark PR writes with BENCHMARK.json",
 }
 
@@ -339,6 +344,71 @@ def cmd_infer(args) -> int:
     else:
         out = save_video(frames[0], args.out, fps=fps, wav=wav, sample_rate=sr)
         print(f"wrote {out} ({total} frames @ {fps} fps, {secs:.3f} s)")
+    return 0
+
+
+def cmd_import_weights(args) -> int:
+    """diffusers / transformers checkpoints -> one file per component in the
+    port's format (a torch.save of its state dict, the port's names), with
+    the import's report."""
+    import torch
+
+    from emox_torch.interop.torch_import import (import_clip_text, import_clip_vision, import_unet2d, import_vae,
+                                                 import_wav2vec2, load_torch_state_dict)
+
+    cfg = _load_config(args)
+    os.makedirs(args.out, exist_ok=True)
+    for name, path, fn, sub_cfg in (
+        ("vae", args.vae, import_vae, cfg.vae),
+        ("unet", args.unet, import_unet2d, cfg.model),
+        ("wav2vec2", args.wav2vec2, import_wav2vec2, cfg.audio),
+        ("clip_text", args.clip_text, import_clip_text, cfg.clip),
+        ("clip_vision", args.clip_vision, import_clip_vision, cfg.clip),
+    ):
+        if not path:
+            continue
+        t0 = time.perf_counter()
+        sd = load_torch_state_dict(path)
+        t1 = time.perf_counter()
+        imported = fn(sd, sub_cfg)
+        report = imported.pop("__report__")
+        t2 = time.perf_counter()
+        out = os.path.join(args.out, f"{name}.pt")
+        torch.save(imported, out)
+        t3 = time.perf_counter()
+        print(f"{name}: {report.summary()}")
+        print(json.dumps({"component": name, "source": path, "out": out, "read_s": t1 - t0, "map_s": t2 - t1,
+                          "write_s": t3 - t2, "source_bytes": os.path.getsize(path), "bytes": os.path.getsize(out),
+                          "loaded": len(report.loaded), "missing_in_source": report.missing_in_source,
+                          "unused_source_keys": report.unused_source_keys}))
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Export the denoise step with torch.export (emox_torch.infer.export):
+    the artifact holds the program, with the port's kernels as registered
+    ops, and no weight."""
+    from emox_torch.core.dtypes import dtype_by_name
+    from emox_torch.infer.export import export_denoise_step, export_switches, kernel_nodes, save_exported
+    from emox_torch.models.emo import EMOModel
+
+    cfg = _load_config(args)
+    dev = _device(args)
+    dtype = dtype_by_name(cfg.train.compute_dtype)
+    model = EMOModel(cfg, dtype=dtype, device=dev)
+    if args.params:
+        _load_weights(model, _restore_params(args.params, use_ema=args.ema))
+    else:
+        print("NOTE: no --params given; exporting with random init (the weights are an input of the program)")
+    t0 = time.perf_counter()
+    exported = export_denoise_step(model, num_frames=args.frames, image_size=args.size, dtype=dtype)
+    t1 = time.perf_counter()
+    save_exported(exported, args.out)
+    print(json.dumps({"out": args.out, "frames": args.frames, "size": args.size, "dtype": str(dtype).split(".")[-1],
+                      "device": str(dev), "export_s": t1 - t0, "save_s": time.perf_counter() - t1,
+                      "bytes": os.path.getsize(args.out), "switches": export_switches(),
+                      "kernel_ops": kernel_nodes(exported)}))
+    print(f"exported denoise step ({args.frames}f {args.size}^2) -> {args.out}")
     return 0
 
 
@@ -666,19 +736,44 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(pe)
     pe.set_defaults(fn=cmd_eval, stage=None)
 
-    for name, help_text in (("import-weights", "PyTorch SD/wav2vec2 checkpoints -> params (not ported yet)"),
-                            ("export", "export the denoise step for serving (not ported yet)"),
-                            ("bench", "denoise-step throughput benchmark (not ported yet)")):
-        sub.add_parser(name, help=help_text).set_defaults(fn=_not_ported(name), not_ported=True)
+    pw = sub.add_parser("import-weights", help="diffusers / transformers checkpoints -> the port's state dicts")
+    pw.add_argument("--config", default=None)
+    pw.add_argument("--vae", default=None, help="AutoencoderKL checkpoint (.safetensors, .pt, .pth, .bin)")
+    pw.add_argument("--unet", default=None, help="UNet2DConditionModel checkpoint")
+    pw.add_argument("--wav2vec2", default=None, help="Wav2Vec2Model checkpoint")
+    pw.add_argument("--clip-text", default=None, help="CLIPTextModel checkpoint (SD-1.5 text_encoder)")
+    pw.add_argument("--clip-vision", default=None, help="CLIPVisionModelWithProjection checkpoint")
+    pw.add_argument("--out", required=True, help="directory for <component>.pt")
+    pw.add_argument("--set", nargs="*", action="extend", default=[], metavar="SEC.KEY=VAL")
+    pw.set_defaults(fn=cmd_import_weights)
+
+    px = sub.add_parser("export", help="export the denoise step with torch.export for serving")
+    px.add_argument("--config", default=None)
+    px.add_argument("--params", default=None, help="checkpoint directory (the port's); default: random init")
+    px.add_argument("--out", required=True, help="the artifact (.pt2)")
+    px.add_argument("--frames", type=int, default=16)
+    px.add_argument("--size", type=int, default=256)
+    px.add_argument("--ema", action="store_true", help="export with the EMA shadow weights when present")
+    px.add_argument("--set", nargs="*", action="extend", default=[], metavar="SEC.KEY=VAL")
+    _add_device(px)
+    px.set_defaults(fn=cmd_export)
+
+    sub.add_parser("bench", help="denoise-step throughput benchmark (not ported yet)").set_defaults(
+        fn=_not_ported("bench"), not_ported=True)
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from emox_torch.core.compile_cache import enable_persistent_cache
+
     parser = build_parser()
     # an unported command takes the reference's arguments and exits naming its item
     args, extra = parser.parse_known_args(argv)
     if extra and not getattr(args, "not_ported", False):
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    # the kernel libraries' build directory for every command (None, and
+    # nothing changed, without a card)
+    enable_persistent_cache()
     return args.fn(args)
 
 

@@ -21,13 +21,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-try:
-    import cv2
-
-    _HAS_CV2 = True
-except ImportError:  # pragma: no cover
-    cv2 = None
-    _HAS_CV2 = False
+from emox_torch.utils.optional import cv2 as _cv2
 
 # canonical 3D face model points for the 6 PnP landmarks the reference uses
 # (nose tip, chin, left/right eye outer corner, left/right mouth corner —
@@ -54,7 +48,8 @@ def camera_matrix(height: int, width: int) -> np.ndarray:
 def head_pose_from_landmarks(landmarks_2d: np.ndarray, height: int, width: int) -> Optional[np.ndarray]:
     """6x2 pixel landmarks -> (pitch, yaw, roll) degrees via solvePnP +
     Rodrigues (reference Net.py:995-1076 get_head_pose)."""
-    if not _HAS_CV2:
+    cv2 = _cv2()
+    if cv2 is None:
         return None
     lm = np.asarray(landmarks_2d, np.float64).reshape(6, 2)
     ok, rvec, _ = cv2.solvePnP(CANONICAL_3D, lm, camera_matrix(height, width), np.zeros((4, 1)))

@@ -22,13 +22,7 @@ import torch
 
 from emox_torch.data.face import FaceHelper
 
-try:
-    import cv2
-
-    _HAS_CV2 = True
-except ImportError:  # pragma: no cover
-    cv2 = None
-    _HAS_CV2 = False
+from emox_torch.utils.optional import cv2 as _cv2
 
 
 def read_video_frames(
@@ -46,7 +40,8 @@ def read_video_frames(
     time_window {start_sec, end_sec} (reference ExtractFrames.py:22-85:
     crop clips out of source videos by metadata bbox/time).
     """
-    if not _HAS_CV2:
+    cv2 = _cv2()
+    if cv2 is None:
         raise RuntimeError("cv2 unavailable; provide .npz clips instead")
     cap = cv2.VideoCapture(path)
     fps_src = cap.get(cv2.CAP_PROP_FPS) or 25.0

@@ -1,4 +1,5 @@
-"""Inference: the serving pipeline and video IO."""
+"""Inference: the serving pipeline, video IO and the exported denoise step
+(emox_torch.infer.export)."""
 
 from emox_torch.infer.pipeline import EMOPipeline
 

@@ -60,6 +60,12 @@ Kernels (each wrapper counts its launches in `.launches`):
   * ln_qkv_sm90             -> csrc/ln_qkv_sm90.cu: bfloat16
   * ln_qkv_f32_sm90         -> csrc/ln_qkv_sm90.cu's float32 entry: an LN +
                                split pass, then one GEMM on the split
+
+Each entry behind the counted wrappers (the attention forwards and
+backwards of both layouts, both FF functions, K7, K8a and K8b) is also a
+registered op, torch.ops.emox_torch.<name> (emox_torch/ops/registry.py), so
+that torch.export sees the kernels: eager calls on plain tensors reach the
+implementation directly, traced ones the op.
 """
 
 from emox_torch.ops.attention import (

@@ -80,6 +80,8 @@ import torch
 import torch.nn.functional as F
 
 from emox_torch.ops import build
+from emox_torch.ops.registry import kernel_op, route
+from emox_torch.ops.registry import on_card_or_cpu as _on_card_or_cpu
 
 # K/V length from which "auto" takes a kernel. The reference's cutoff
 # (_PALLAS_MIN_KV), measured on a TPU v5e; kept here so the port runs its
@@ -214,15 +216,6 @@ def padded_attention(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
 def _row_multiple(t: torch.Tensor) -> int:
     """Head-dim multiple that keeps rows of t's type 16-byte aligned."""
     return 16 // t.element_size()
-
-
-def _on_card_or_cpu(name: str, t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU tensor; raises otherwise."""
-    if t.is_cuda:
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{name} runs on CUDA or CPU tensors, got {t.device}")
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
@@ -861,20 +854,62 @@ def _flash_kernel(q, k, v, heads: int, scale: float):
     return out.transpose(1, 2).reshape(n, lq, heads * d), lse
 
 
+def _flash_fake(q, k, v, heads: int, scale: float):
+    n, lq, lk, d = _check_kernel_inputs("flash_attn_nlc_fwd", q, k, v, heads)
+    return q.new_empty((n, lq, heads * d)), q.new_empty((n, lq, heads), dtype=torch.float32)
+
+
+_flash_nlc_fwd_op = kernel_op("flash_attn_nlc_fwd",
+                              "(Tensor q, Tensor k, Tensor v, int heads, float scale) -> (Tensor, Tensor)",
+                              cpu=attention_nlc_plain, cuda=_flash_kernel, fake=_flash_fake)
+
+
+def _check_bwd_inputs(name: str, q, o, lse, dout, lse_shape) -> None:
+    if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"{name}: o {tuple(o.shape)} {o.dtype} and dout {tuple(dout.shape)} "
+                         f"{dout.dtype} must be like q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != lse_shape or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be {list(lse_shape)} float32, got {tuple(lse.shape)} {lse.dtype}")
+    if any(t.device != q.device for t in (o, lse, dout)):
+        raise ValueError(f"{name}: every input must lie on q's device")
+
+
+def _asked(grads, need_dq: bool, need_dkv: bool):
+    """The gradients asked for, as the backward ops return them: dq with
+    need_dq, then dk and dv with need_dkv."""
+    dq, dk, dv = grads
+    return ([dq] if need_dq else []) + ([dk, dv] if need_dkv else [])
+
+
 def _flash_bwd_kernel(q, k, v, o, lse, dout, heads: int, scale: float, need_dq: bool, need_dkv: bool):
     n, lq, _, _ = _check_kernel_inputs("flash_attn_nlc_bwd", q, k, v, heads)
-    if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or dout.dtype != q.dtype:
-        raise ValueError(f"flash_attn_nlc_bwd: o {tuple(o.shape)} {o.dtype} and dout {tuple(dout.shape)} "
-                         f"{dout.dtype} must be like q {tuple(q.shape)} {q.dtype}")
-    if lse.shape != (n, lq, heads) or lse.dtype != torch.float32:
-        raise ValueError(f"flash_attn_nlc_bwd: lse must be [N, Lq, H] float32, got {tuple(lse.shape)} {lse.dtype}")
-    if any(t.device != q.device for t in (o, lse, dout)):
-        raise ValueError("flash_attn_nlc_bwd: every input must lie on q's device")
+    _check_bwd_inputs("flash_attn_nlc_bwd", q, o, lse, dout, (n, lq, heads))
     split = lambda t: _split_heads(t.contiguous(), heads)  # head-split views: no copy
     grads = _bwd_views(split(q), split(k), split(v), split(o), split(dout), lse.transpose(1, 2), scale,
                        need_dq, need_dkv)
     flash_attention_nlc_bwd.launches += 1
-    return tuple(None if g is None else g.transpose(1, 2).reshape(t.shape) for g, t in zip(grads, (q, k, v)))
+    return [g.transpose(1, 2).reshape(t.shape) for g, t in zip(grads, (q, k, v)) if g is not None]
+
+
+def _flash_bwd_plain(q, k, v, o, lse, dout, heads: int, scale: float, need_dq: bool, need_dkv: bool):
+    return _asked(attention_nlc_bwd_plain(q, k, v, o, lse, dout, heads, scale), need_dq, need_dkv)
+
+
+def _flash_bwd_fake(q, k, v, o, lse, dout, heads: int, scale: float, need_dq: bool, need_dkv: bool):
+    n, lq, _, _ = _check_kernel_inputs("flash_attn_nlc_bwd", q, k, v, heads)
+    _check_bwd_inputs("flash_attn_nlc_bwd", q, o, lse, dout, (n, lq, heads))
+    return _asked([t.new_empty(t.shape) for t in (q, k, v)], need_dq, need_dkv)
+
+
+_flash_nlc_bwd_op = kernel_op(
+    "flash_attn_nlc_bwd", "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor dout, int heads, float scale, "
+    "bool need_dq, bool need_dkv) -> Tensor[]", cpu=_flash_bwd_plain, cuda=_flash_bwd_kernel, fake=_flash_bwd_fake)
+
+
+def _unpack(grads, need_dq: bool, need_dkv: bool):
+    """(dq, dk, dv) from a backward op's results, None where not asked for."""
+    grads = iter(grads)
+    return (next(grads) if need_dq else None,) + ((next(grads), next(grads)) if need_dkv else (None, None))
 
 
 def flash_attention_nlc_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -884,15 +919,15 @@ def flash_attention_nlc_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
     out and lse and the output gradient; a gradient not asked for is None.
     Launches the CUDA kernels for CUDA tensors (the dq kernel only with
     need_dq, the dk/dv kernel only with need_dkv) and runs the plain version
-    for CPU tensors."""
+    for CPU tensors, through the op emox_torch::flash_attn_nlc_bwd."""
     d = q.shape[-1] // heads
     scale = float(d ** -0.5) if scale is None else float(scale)
-    if _on_card_or_cpu("flash_attention_nlc_bwd", q):
-        if not (need_dq or need_dkv):
-            return None, None, None
-        return _flash_bwd_kernel(q, k, v, o, lse, dout, heads, scale, need_dq, need_dkv)
-    dq, dk, dv = attention_nlc_bwd_plain(q, k, v, o, lse, dout, heads, scale)
-    return (dq if need_dq else None,) + ((dk, dv) if need_dkv else (None, None))
+    on_card = _on_card_or_cpu("flash_attention_nlc_bwd", q)
+    if not (need_dq or need_dkv):
+        return None, None, None
+    grads = route(_flash_nlc_bwd_op, on_card, _flash_bwd_kernel, _flash_bwd_plain, q, k, v, o, lse, dout, heads, scale,
+                  need_dq, need_dkv)
+    return _unpack(grads, need_dq, need_dkv)
 
 
 flash_attention_nlc_bwd.launches = 0  # kernel launches since the last reset
@@ -900,14 +935,14 @@ flash_attention_nlc_bwd.launches = 0  # kernel launches since the last reset
 
 class _FlashNLC(torch.autograd.Function):
     """Flash attention with the reference's custom VJP (`_flash_nlc`):
-    forward saves (q, k, v, out, lse); backward recomputes from them."""
+    forward saves (q, k, v, out, lse); backward recomputes from them. Both
+    directions run the registered ops (emox_torch::flash_attn_nlc_fwd and
+    _bwd)."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads: int, scale: float):
-        if _on_card_or_cpu("flash_attention_nlc", q):
-            out, lse = _flash_kernel(q, k, v, heads, scale)
-        else:
-            out, lse = attention_nlc_plain(q, k, v, heads, scale)
+        out, lse = route(_flash_nlc_fwd_op, _on_card_or_cpu("flash_attention_nlc", q), _flash_kernel,
+                         attention_nlc_plain, q, k, v, heads, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.heads, ctx.scale = heads, scale
         ctx.mark_non_differentiable(lse)
@@ -953,6 +988,17 @@ def _check_strided_inputs(name: str, q, k, v) -> Tuple[int, int, int, int, int]:
     return b, h, lq, lk, d
 
 
+def _like_kernel_out(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor with the strides of the output the strided kernels
+    give for input t on the card (_fwd_views, _bwd_views: t's own layout, or
+    the head dim cut back from a padded copy); a CPU tensor's plain version
+    gives a contiguous one."""
+    if t.device.type != "cuda":
+        return t.new_empty(t.shape)
+    mult = _head_dim_multiple(t)
+    return torch.empty_like(pad_head_dim(t, mult))[..., :t.shape[-1]]
+
+
 def _flash_strided_kernel(q, k, v, scale: float):
     _check_strided_inputs("flash_attn_fwd", q, k, v)
     out, lse = _fwd_views(q, k, v, scale, packed_lse=False)
@@ -960,18 +1006,37 @@ def _flash_strided_kernel(q, k, v, scale: float):
     return out, lse
 
 
+def _flash_strided_fake(q, k, v, scale: float):
+    b, h, lq, _, _ = _check_strided_inputs("flash_attn_fwd", q, k, v)
+    return _like_kernel_out(q), q.new_empty((b, h, lq), dtype=torch.float32)
+
+
+_flash_fwd_op = kernel_op("flash_attn_fwd", "(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor, Tensor)",
+                       cpu=attention_plain, cuda=_flash_strided_kernel, fake=_flash_strided_fake)
+
+
 def _flash_strided_bwd_kernel(q, k, v, o, lse, dout, scale: float, need_dq: bool, need_dkv: bool):
     b, h, lq, lk, d = _check_strided_inputs("flash_attn_bwd", q, k, v)
-    if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or dout.dtype != q.dtype:
-        raise ValueError(f"flash_attn_bwd: o {tuple(o.shape)} {o.dtype} and dout {tuple(dout.shape)} "
-                         f"{dout.dtype} must be like q {tuple(q.shape)} {q.dtype}")
-    if lse.shape != (b, h, lq) or lse.dtype != torch.float32:
-        raise ValueError(f"flash_attn_bwd: lse must be [B, H, Lq] float32, got {tuple(lse.shape)} {lse.dtype}")
-    if any(t.device != q.device for t in (o, lse, dout)):
-        raise ValueError("flash_attn_bwd: every input must lie on q's device")
+    _check_bwd_inputs("flash_attn_bwd", q, o, lse, dout, (b, h, lq))
     grads = _bwd_views(q, k, v, o, dout, lse, scale, need_dq, need_dkv)
     flash_attention_bwd.launches += 1
-    return grads
+    return [g for g in grads if g is not None]
+
+
+def _flash_strided_bwd_plain(q, k, v, o, lse, dout, scale: float, need_dq: bool, need_dkv: bool):
+    return _asked(attention_bwd_plain(q, k, v, o, lse, dout, scale), need_dq, need_dkv)
+
+
+def _flash_strided_bwd_fake(q, k, v, o, lse, dout, scale: float, need_dq: bool, need_dkv: bool):
+    b, h, lq, _, _ = _check_strided_inputs("flash_attn_bwd", q, k, v)
+    _check_bwd_inputs("flash_attn_bwd", q, o, lse, dout, (b, h, lq))
+    return _asked([_like_kernel_out(t) for t in (q, k, v)], need_dq, need_dkv)
+
+
+_flash_bwd_op = kernel_op(
+    "flash_attn_bwd", "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor dout, float scale, bool need_dq, "
+    "bool need_dkv) -> Tensor[]", cpu=_flash_strided_bwd_plain, cuda=_flash_strided_bwd_kernel,
+    fake=_flash_strided_bwd_fake)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -981,14 +1046,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     and lse [B, H, Lq] and the output gradient; a gradient not asked for is
     None. Launches the CUDA kernels for CUDA tensors (the dq kernel only with
     need_dq, the dk/dv kernel only with need_dkv) and runs the plain version
-    for CPU tensors."""
+    for CPU tensors, through the op emox_torch::flash_attn_bwd."""
     scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
-    if _on_card_or_cpu("flash_attention_bwd", q):
-        if not (need_dq or need_dkv):
-            return None, None, None
-        return _flash_strided_bwd_kernel(q, k, v, o, lse, dout, scale, need_dq, need_dkv)
-    dq, dk, dv = attention_bwd_plain(q, k, v, o, lse, dout, scale)
-    return (dq if need_dq else None,) + ((dk, dv) if need_dkv else (None, None))
+    on_card = _on_card_or_cpu("flash_attention_bwd", q)
+    if not (need_dq or need_dkv):
+        return None, None, None
+    grads = route(_flash_bwd_op, on_card, _flash_strided_bwd_kernel, _flash_strided_bwd_plain, q, k, v, o, lse, dout,
+                  scale, need_dq, need_dkv)
+    return _unpack(grads, need_dq, need_dkv)
 
 
 flash_attention_bwd.launches = 0  # kernel launches since the last reset
@@ -996,14 +1061,13 @@ flash_attention_bwd.launches = 0  # kernel launches since the last reset
 
 class _Flash(torch.autograd.Function):
     """Flash attention on [B, H, L, D] with the reference's custom VJP
-    (`_flash`): forward saves (q, k, v, out, lse); backward recomputes."""
+    (`_flash`): forward saves (q, k, v, out, lse); backward recomputes. Both
+    directions run the registered ops (emox_torch::flash_attn_fwd and _bwd)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
-        if _on_card_or_cpu("flash_attention", q):
-            out, lse = _flash_strided_kernel(q, k, v, scale)
-        else:
-            out, lse = attention_plain(q, k, v, scale)
+        out, lse = route(_flash_fwd_op, _on_card_or_cpu("flash_attention", q), _flash_strided_kernel, attention_plain,
+                         q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         ctx.mark_non_differentiable(lse)
@@ -1013,7 +1077,7 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         need_q, need_k, need_v = ctx.needs_input_grad[:3]
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.is_cuda and not _rows_aligned(dout):
+        if type(dout) is torch.Tensor and dout.is_cuda and not _rows_aligned(dout):
             dout = dout.contiguous()  # autograd picks the gradient's layout, not the caller
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.scale,
                                          need_dq=need_q, need_dkv=need_k or need_v)

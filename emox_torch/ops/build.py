@@ -3,8 +3,9 @@
 Each source in emox_torch/csrc/ is compiled by `nvcc` into a shared
 library with a plain C interface and loaded with ctypes (no PyTorch
 headers, so a build takes seconds rather than minutes). Builds happen at
-first use, into build/emox_torch/ at the root of the checkout, one `nvcc`
-per source, all started together. A library's file name carries a hash of
+first use, into build/emox_torch/ at the root of the checkout (or the
+directory emox_torch.core.compile_cache.enable_persistent_cache names, read
+when a build starts), one `nvcc` per source, all started together. A library's file name carries a hash of
 the sources and flags, so an edited kernel is never served from a stale
 build. Nothing here runs when the module is imported: the CPU tests import
 every module of the port on machines with no CUDA toolkit.
@@ -22,7 +23,8 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "emox_torch"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "emox_torch"
+BUILD_DIR = DEFAULT_BUILD_DIR  # where builds go; emox_torch.core.compile_cache moves it
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

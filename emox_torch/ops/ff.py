@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from emox_torch.ops import build
 from emox_torch.ops.attention import _on_card_or_cpu, _sm_count, _stream
+from emox_torch.ops.registry import kernel_op, route
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _SM90_ROWS, _SM90_FEATURES, _SM90_COLS = 128, 128, 160  # ff_sm90.cu's tiles: kBM, kBF, kBC
@@ -188,27 +189,33 @@ def ff_f32_sm90(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
 ff_f32_sm90.launches = 0  # kernel launches since the last reset
 
 
-def _launch_ff(name: str, x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
-    """Check the inputs, then launch the kernel of x's type: bf16 ->
-    ff_sm90, float32 -> ff_f32_sm90. ln_w, ln_b None: the function without
-    LN and residual."""
+def _check_ff(name: str, x, ln_w, ln_b, w1, b1, w2, b2) -> None:
+    """The shapes and types the FF kernels take (no data read)."""
     c = x.shape[-1]
     two_f = w1.shape[0]
     f = two_f // 2
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
-    ln = () if ln_w is None else (ln_w, ln_b)
-    params = (*ln, w1, b1, w2, b2)
+    params = (w1, b1, w2, b2) if ln_w is None else (ln_w, ln_b, w1, b1, w2, b2)
     if any(p.dtype != x.dtype or p.device != x.device for p in params):
         raise TypeError(f"{name} needs every weight on x's device and in x's type")
     shapes = [tuple(p.shape) for p in params]
-    want = [(c,)] * len(ln) + [(two_f, c), (two_f,), (c, f), (c,)]
+    want = [(c,)] * (len(params) - 4) + [(two_f, c), (two_f,), (c, f), (c,)]
     mult = 8 if x.dtype == torch.bfloat16 else 4  # 16-byte rows
     if shapes != want or c % mult or f % mult or two_f != 2 * f:
         raise ValueError(f"{name} shapes: x [.., {c}], weights {shapes} (bfloat16: C % 8, F % 8 on ff_sm90; "
                          f"float32: C % 4, F % 4 on ff_f32_sm90)")
+
+
+def _launch_ff(name: str, x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    """Check the inputs, then launch the kernel of x's type: bf16 ->
+    ff_sm90, float32 -> ff_f32_sm90. ln_w, ln_b None: the function without
+    LN and residual."""
+    _check_ff(name, x, ln_w, ln_b, w1, b1, w2, b2)
+    c = x.shape[-1]
+    ln = () if ln_w is None else (ln_w, ln_b)
     xm = x.reshape(-1, c).contiguous()
-    params = tuple(p.contiguous() for p in params)
+    params = tuple(p.contiguous() for p in (*ln, w1, b1, w2, b2))
     if any(t.data_ptr() % 16 for t in (xm, *params)):
         raise ValueError(f"{name} needs 16-byte aligned inputs")
     if ln:
@@ -223,17 +230,28 @@ def _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     return y
 
 
+def _ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    return ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps).contiguous()
+
+
+def _ff_fake(x, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    _check_ff("ln_geglu_ff", x, ln_w, ln_b, w1, b1, w2, b2)
+    return x.new_empty(x.shape)
+
+
+_ln_ff_op = kernel_op("ln_geglu_ff", "(Tensor x, Tensor ln_w, Tensor ln_b, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+                   "float eps) -> Tensor", cpu=_ff_plain, cuda=_ff_kernel, fake=_ff_fake)
+
+
 class _LnGegluFF(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or its plain version (CPU). Backward:
-    recompute through ln_geglu_ff_xla and differentiate it, as the
-    reference's `_ln_ff_bwd` does."""
+    """Forward: the op emox_torch::ln_geglu_ff (the kernel on CUDA, its plain
+    version on CPU). Backward: recompute through ln_geglu_ff_xla and
+    differentiate it, as the reference's `_ln_ff_bwd` does."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps: float):
-        if _on_card_or_cpu("fused_ln_geglu_ff", x):
-            y = _ff_kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-        else:
-            y = ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        y = route(_ln_ff_op, _on_card_or_cpu("fused_ln_geglu_ff", x), _ff_kernel, _ff_plain, x, ln_w, ln_b, w1, b1, w2,
+                  b2, eps)
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
         ctx.eps = eps
         return y
@@ -280,17 +298,28 @@ def _geglu_kernel(x, w1, b1, w2, b2) -> torch.Tensor:
     return y
 
 
+def _geglu_plain(x, w1, b1, w2, b2) -> torch.Tensor:
+    return geglu_ff_plain(x, w1, b1, w2, b2).contiguous()
+
+
+def _geglu_fake(x, w1, b1, w2, b2) -> torch.Tensor:
+    _check_ff("geglu_ff", x, None, None, w1, b1, w2, b2)
+    return x.new_empty(x.shape)
+
+
+_geglu_op = kernel_op("geglu_ff", "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+                   cpu=_geglu_plain, cuda=_geglu_kernel, fake=_geglu_fake)
+
+
 class _GegluFF(torch.autograd.Function):
-    """Forward: K6 (CUDA) or its plain version (CPU). Backward: recompute
-    through geglu_ff_xla and differentiate it, as the reference's `_ff_bwd`
-    does (the [M, 2F] projection is never saved from the forward)."""
+    """Forward: the op emox_torch::geglu_ff (K6 on CUDA, its plain version on
+    CPU). Backward: recompute through geglu_ff_xla and differentiate it, as
+    the reference's `_ff_bwd` does (the [M, 2F] projection is never saved
+    from the forward)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
-        if _on_card_or_cpu("fused_geglu_ff", x):
-            y = _geglu_kernel(x, w1, b1, w2, b2)
-        else:
-            y = geglu_ff_plain(x, w1, b1, w2, b2)
+        y = route(_geglu_op, _on_card_or_cpu("fused_geglu_ff", x), _geglu_kernel, _geglu_plain, x, w1, b1, w2, b2)
         ctx.save_for_backward(x, w1, b1, w2, b2)
         return y
 

@@ -56,6 +56,7 @@ import torch
 from emox_torch.ops import build
 from emox_torch.ops.attention import _on_card_or_cpu
 from emox_torch.ops.ff import _sm_count
+from emox_torch.ops.registry import kernel_op, route
 
 IMPLS = ("xla", "pallas", "fast", "pallas_interpret", "fast_interpret")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -205,12 +206,17 @@ def _check_x(name: str, x: torch.Tensor) -> Tuple[int, int, int]:
     return n, l, c
 
 
-def _gn_kernel(x, gamma, beta, groups: int, eps: float, silu: bool) -> torch.Tensor:
+def _check_gn(x, gamma, beta, groups: int) -> Tuple[int, int, int]:
     n, l, c = _check_x("group_norm", x)
     if c % groups:
         raise ValueError(f"group_norm: channels {c} not divisible by groups {groups}")
     if any(p.dtype != x.dtype or p.device != x.device or tuple(p.shape) != (c,) for p in (gamma, beta)):
         raise TypeError(f"group_norm needs gamma and beta [{c}] on x's device and in x's type")
+    return n, l, c
+
+
+def _gn_kernel(x, gamma, beta, groups: int, eps: float, silu: bool) -> torch.Tensor:
+    n, l, c = _check_gn(x, gamma, beta, groups)
     xc = x.contiguous()
     gamma, beta = gamma.contiguous(), beta.contiguous()
     if xc.data_ptr() % 16:
@@ -229,12 +235,20 @@ def _gn_kernel(x, gamma, beta, groups: int, eps: float, silu: bool) -> torch.Ten
     return y
 
 
-def group_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel fp32 sum and sum of squares of x [N, L, C] over L, [N, C]
-    each. Launches the CUDA kernel for CUDA tensors and runs the plain
-    version for CPU tensors."""
-    if not _on_card_or_cpu("group_norm_stats", x):
-        return group_norm_stats_plain(x)
+def _gn_plain(x, gamma, beta, groups: int, eps: float, silu: bool) -> torch.Tensor:
+    return group_norm_plain(x, gamma, beta, groups, eps, silu).contiguous()
+
+
+def _gn_fake(x, gamma, beta, groups: int, eps: float, silu: bool) -> torch.Tensor:
+    _check_gn(x, gamma, beta, groups)
+    return x.new_empty(x.shape)
+
+
+_gn_op = kernel_op("group_norm", "(Tensor x, Tensor gamma, Tensor beta, int groups, float eps, bool silu) -> Tensor",
+                cpu=_gn_plain, cuda=_gn_kernel, fake=_gn_fake)
+
+
+def _stats_kernel(x: torch.Tensor) -> torch.Tensor:
     n, l, c = _check_x("group_norm_stats", x)
     xc = x.contiguous()
     if xc.data_ptr() % 16:
@@ -250,6 +264,28 @@ def group_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         )
     build.check(err, "group_norm_stats")
     group_norm_stats.launches += 1
+    return sums
+
+
+def _stats_plain(x: torch.Tensor) -> torch.Tensor:
+    return torch.stack(group_norm_stats_plain(x))
+
+
+def _stats_fake(x: torch.Tensor) -> torch.Tensor:
+    n, _, c = _check_x("group_norm_stats", x)
+    return x.new_empty((2, n, c), dtype=torch.float32)
+
+
+_stats_op = kernel_op("group_norm_stats", "(Tensor x) -> Tensor", cpu=_stats_plain, cuda=_stats_kernel,
+                      fake=_stats_fake)
+
+
+def group_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel fp32 sum and sum of squares of x [N, L, C] over L, [N, C]
+    each. Launches the CUDA kernel for CUDA tensors and runs the plain
+    version for CPU tensors, through the op emox_torch::group_norm_stats
+    (both as one [2, N, C] tensor)."""
+    sums = route(_stats_op, _on_card_or_cpu("group_norm_stats", x), _stats_kernel, _stats_plain, x)
     return sums[0], sums[1]
 
 
@@ -302,14 +338,12 @@ class _GroupNormRecompute(torch.autograd.Function):
 
 
 class _GroupNormFused(_GroupNormRecompute):
-    """Forward: the K8a kernel (CUDA) or group_norm_plain (CPU)."""
+    """Forward: the op emox_torch::group_norm (the K8a kernel on CUDA,
+    group_norm_plain on CPU)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, groups: int, eps: float, silu: bool):
-        if _on_card_or_cpu("group_norm", x):
-            y = _gn_kernel(x, gamma, beta, groups, eps, silu)
-        else:
-            y = group_norm_plain(x, gamma, beta, groups, eps, silu)
+        y = route(_gn_op, _on_card_or_cpu("group_norm", x), _gn_kernel, _gn_plain, x, gamma, beta, groups, eps, silu)
         _GroupNormRecompute._save(ctx, x, gamma, beta, groups, eps, silu)
         return y
 

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from emox_torch.ops import build
 from emox_torch.ops.attention import _on_card_or_cpu, _stream
 from emox_torch.ops.ff import _sm_count, parts_scratch, parts_width, ring_bytes
+from emox_torch.ops.registry import kernel_op, route
 
 _DTYPES = (torch.float32, torch.bfloat16)
 QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -158,9 +159,8 @@ def ln_qkv_f32_sm90(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
 ln_qkv_f32_sm90.launches = 0  # kernel launches since the last reset
 
 
-def _qkv_kernel(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
-    """Check the inputs, then launch the kernel of x's type: bf16 ->
-    ln_qkv_sm90, float32 -> ln_qkv_f32_sm90."""
+def _check_qkv(x, ln_w, ln_b, wq, wk, wv) -> None:
+    """The shapes and types the K7 kernels take (no data read)."""
     c = x.shape[-1]
     inner = wq.shape[0]
     if x.dtype not in _DTYPES:
@@ -174,26 +174,47 @@ def _qkv_kernel(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
     if shapes != [(c,), (c,)] + [(inner, c)] * 3 or c % mult or inner % mult or (bf16 and c > SM90_MAX_C):
         raise ValueError(f"ln_qkv shapes: x [.., {c}], weights {shapes} (bfloat16: C % 8, C <= {SM90_MAX_C}, "
                          "inner % 8 on ln_qkv_sm90; float32: C % 4, inner % 4 on ln_qkv_f32_sm90)")
+
+
+def _qkv_kernel(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
+    """Check the inputs, then launch the kernel of x's type: bf16 ->
+    ln_qkv_sm90, float32 -> ln_qkv_f32_sm90."""
+    _check_qkv(x, ln_w, ln_b, wq, wk, wv)
+    c = x.shape[-1]
+    inner = wq.shape[0]
     xm = x.reshape(-1, c).contiguous()
-    params = tuple(p.contiguous() for p in params)
+    params = tuple(p.contiguous() for p in (ln_w, ln_b, wq, wk, wv))
     if any(t.data_ptr() % 16 for t in (xm, *params)):
         raise ValueError("ln_qkv needs 16-byte aligned inputs")
-    outs = (ln_qkv_sm90 if bf16 else ln_qkv_f32_sm90)(xm, *params, eps)
+    outs = (ln_qkv_sm90 if x.dtype == torch.bfloat16 else ln_qkv_f32_sm90)(xm, *params, eps)
     fused_ln_qkv.launches += 1
     shape = x.shape[:-1] + (inner,)
     return tuple(o.reshape(shape) for o in outs)
 
 
+def _qkv_plain(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
+    return tuple(o.contiguous() for o in ln_qkv_plain(x, ln_w, ln_b, wq, wk, wv, eps))
+
+
+def _qkv_fake(x, ln_w, ln_b, wq, wk, wv, eps: float) -> QKV:
+    _check_qkv(x, ln_w, ln_b, wq, wk, wv)
+    shape = x.shape[:-1] + (wq.shape[0],)
+    return tuple(x.new_empty(shape) for _ in range(3))
+
+
+_qkv_op = kernel_op("ln_qkv", "(Tensor x, Tensor ln_w, Tensor ln_b, Tensor wq, Tensor wk, Tensor wv, float eps) -> "
+                 "(Tensor, Tensor, Tensor)", cpu=_qkv_plain, cuda=_qkv_kernel, fake=_qkv_fake)
+
+
 class _LnQKV(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or its plain version (CPU). Backward:
-    recompute through ln_qkv_xla and differentiate it."""
+    """Forward: the op emox_torch::ln_qkv (the kernel on CUDA, its plain
+    version on CPU). Backward: recompute through ln_qkv_xla and
+    differentiate it."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, wq, wk, wv, eps: float):
-        if _on_card_or_cpu("fused_ln_qkv", x):
-            out = _qkv_kernel(x, ln_w, ln_b, wq, wk, wv, eps)
-        else:
-            out = ln_qkv_plain(x, ln_w, ln_b, wq, wk, wv, eps)
+        out = route(_qkv_op, _on_card_or_cpu("fused_ln_qkv", x), _qkv_kernel, _qkv_plain, x, ln_w, ln_b, wq, wk, wv,
+                    eps)
         ctx.save_for_backward(x, ln_w, ln_b, wq, wk, wv)
         ctx.eps = eps
         return out

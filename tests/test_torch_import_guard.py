@@ -55,9 +55,15 @@ def test_importing_every_module_pulls_in_no_jax_and_no_emox():
             "emox_torch.train.face_nets",
             "emox_torch.core.dtypes", "emox_torch.data.tokenizer", "emox_torch.models.clip",
             "emox_torch.cli", "emox_torch.data.dataset", "emox_torch.data.records", "emox_torch.data.precompute",
-            "emox_torch.core.yamlio", "emox_torch.utils.profiling", "emox_torch.eval.metrics"} <= set(res["modules"])
+            "emox_torch.core.yamlio", "emox_torch.utils.profiling", "emox_torch.eval.metrics",
+            "emox_torch.infer.export", "emox_torch.interop.torch_import", "emox_torch.core.compile_cache",
+            "emox_torch.data.camera", "emox_torch.ops.registry"} <= set(res["modules"])
     leaked = sorted(set(res["roots"]) & set(FORBIDDEN + ("yaml",)))
     assert not leaked, f"importing emox_torch pulled in {leaked}"
+    # checkpoints are read without safetensors, diffusers or transformers, and
+    # cv2 comes in only when a call needs it: none of them at import
+    optional = sorted(set(res["roots"]) & {"safetensors", "diffusers", "transformers", "cv2"})
+    assert not optional, f"importing emox_torch pulled in {optional}"
 
 
 def test_importing_train_pulls_in_no_jax_optax_orbax_or_yaml():
@@ -171,9 +177,13 @@ def test_unsupported_options_raise_with_their_roadmap_item():
     from emox_torch.core.presets import tiny_config
     from emox_torch.models.emo import EMOModel
 
-    # what the port still leaves out is a command: it exits naming its item
-    with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1 item 10"):
-        cli.main(["import-weights", "--vae", "v.safetensors", "--out", "o"])
+    # what the port still leaves out is a command: multi-process training
+    # exits naming its item, bench its benchmark PR
+    with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1 item 9"):
+        cli.main(["train", "--stage", "2", "--coordinator", "h:1", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="benchmark"):
+        cli.main(["bench"])
+    assert set(cli._NOT_PORTED) == {"distributed", "bench"}
     cfg = tiny_config()
     # every model option builds: sparse-causal attention, separable convs
     for field in ("use_sparse_causal", "separable_convs"):
