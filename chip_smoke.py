@@ -242,7 +242,21 @@ raises and the script exits non-zero. Phases:
      step_sparse_causal runs after step and step_norms: on the card a model
      built from "flagship-sc" with the step phase's weights, on the CPU the
      step phase's model with the flag set on the same modules.
- 16. the `kernels` line: every ported kernel with the TPU kernel it
+ 16. distributed: the distributed runtime on the one card. The kernels
+     phase holds K1 and K4 at the ring's block (Lq = Lk = 4: 8 frames over
+     context 2) at the temporal sites of levels 0 and 1 in both types, and
+     K6 at a tensor-parallel shard (F / 2). Then, after one-process runs of
+     the same work, two ranks (this script with --rank, a gloo world,
+     pinned-host transport: gloo moves no CUDA tensor) run the float32
+     stage-2 step (flagship, batch 1 x 8 frames) at context 2 (the ring:
+     K1 / K4 launches per rank from its rotations and sites) and at model 2
+     (K6 on each rank's FF shard), each within |dloss| 1e-4 and grad-norm
+     relative 1e-3 of one process, and the 48-frame request with its windows
+     over context 2: bf16 against the same windows grouped as the ranks group
+     them in one process, float32 against the default request, within 2e-3
+     x the latent scale; s/request and peak memory per rank. A failed rank
+     or a world past DIST_DEADLINE_S fails the phase.
+ 17. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
 last line is {"ok": true, "device": {...}}. Weights are random, from seeds.
@@ -1179,15 +1193,16 @@ def check_ff(gen, m, c, dtype=None, timing=True, repeat=False):
     return res
 
 
-def check_geglu_ff(gen, m, c, dtype=None, timing=True, repeat=False):
+def check_geglu_ff(gen, m, c, dtype=None, timing=True, repeat=False, f=None):
     """fused_geglu_ff (K6: ff_sm90 in bf16, ff_f32_sm90 in float32) against
     geglu_ff_plain (h rounded to x's type, fp32 products, the output rounded
-    once) on x [m, c] with F = 4C; repeat and timing as check_ff."""
+    once) on x [m, c] with F = 4C (or f: a tensor-parallel shard's F / 2);
+    repeat and timing as check_ff."""
     import torch
     from emox_torch.ops.ff import fused_geglu_ff, geglu_ff_plain, geglu_ff_xla
 
     dtype = dtype or torch.bfloat16
-    f = 4 * c
+    f = f or 4 * c
     args = (_rand(gen, m, c, dtype=dtype),
             _rand(gen, 2 * f, c, scale=c ** -0.5, dtype=dtype), _rand(gen, 2 * f, scale=0.1, dtype=dtype),
             _rand(gen, c, f, scale=f ** -0.5, dtype=dtype), _rand(gen, c, scale=0.1, dtype=dtype))
@@ -1615,6 +1630,21 @@ def phase_kernels():
             check_flash_bwd(gen, 1, 1000, 1030, c=d, heads=1, dtype=dtype, timing=False, repeat=True)
         check_flash_bwd(gen, 1, 300, 333, c=640, heads=1, dtype=dtype, timing=False, repeat=True)
         check_flash_bwd(gen, 1, 70, 45, c=640, heads=1, dtype=dtype, timing=False, repeat=True)
+    # the ring's blocks (emox_torch.ops.ring, the distributed phase): K1 and K4
+    # at the flagship's temporal sites with 8 frames over context 2 (Lq = Lk =
+    # 4, one key tile of which 4 rows are real; lse and delta padded to the
+    # backward's rows): level 0 at 256^2 (N 2 x 1024 positions, 5 heads of 64)
+    # and level 1 (N 2 x 256, 10 heads of 64), both types, twice for the same
+    # bits; K6 on a tensor-parallel shard (F / 2 over model 2) at the
+    # TransformerBlock FF of levels 0 and 1 of the float32 train step (batch 1
+    # x 8 frames, 4 a context rank)
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        for level, (n, c, heads) in enumerate(((2048, 320, 5), (512, 640, 10))):
+            results[f"ring_l{level}{tag}"] = check_flash(gen, n, 4, 4, c=c, heads=heads, dtype=dtype, repeat=True)
+            results[f"ring_bwd_l{level}{tag}"] = check_flash_bwd(gen, n, 4, 4, c=c, heads=heads, dtype=dtype,
+                                                                 repeat=True)
+        results[f"geglu_ff_tp{tag}"] = check_geglu_ff(gen, 8192, 320, f=640, dtype=dtype, repeat=True)
+        check_geglu_ff(gen, 2048, 640, f=1280, dtype=dtype, timing=False, repeat=True)
     return results
 
 
@@ -3953,13 +3983,364 @@ def phase_geglu_ff():
     return res
 
 
+# ---- the distributed runtime: two ranks on the one card ------------------------------------
+DIST_RANKS = 2
+DIST_DEADLINE_S = 600  # the two ranks' whole run; past it they are killed and the phase fails
+DIST_TIMEOUT_S = 300  # a collective that waits longer fails its rank
+DIST_FRAMES, DIST_LONG_FRAMES, DIST_STEPS = 8, 48, 10
+
+
+@contextlib.contextmanager
+def _float32_math():
+    """TF32 off for matmuls and convolutions (a float32 comparison at
+    float32 precision), the previous settings restored after."""
+    import torch
+
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def _card(device: str):
+    """(synchronize, reset the peak, read the peak in GB) on `device`: the
+    card's, or no-ops where the phase is rehearsed on the CPU."""
+    import torch
+
+    if device != "cuda":
+        return (lambda: None), (lambda: None), (lambda: 0.0)
+    return (torch.cuda.synchronize, torch.cuda.reset_peak_memory_stats,
+            lambda: torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _leaf_stats(tr, grads):
+    """Per trainable leaf, the norm and the sum of its whole gradient (the
+    sharded leaves' parts summed over `model`): what two steps' gradients
+    are compared by without moving them between processes."""
+    import torch
+    from emox_torch.comm.runtime import all_reduce_
+
+    norms = tr.state.optimizer.norms(grads).double().cpu()
+    sums = torch.stack([g.double().sum() for g in grads])
+    if tr.tp is not None:
+        mask = torch.tensor([tr.tp.is_sharded(n) for n in tr.trainable_names()], device=sums.device)
+        sums = torch.where(mask, all_reduce_(torch.where(mask, sums, torch.zeros_like(sums)), tr.tp.shard.group),
+                           sums)
+    return norms, sums.cpu()
+
+
+def _dist_train_step(spec, mesh=None):
+    """The float32 stage-2 step of the distributed phase (spec's batch and
+    draws, flagship widths, the zero-initialised branches filled) on `mesh`
+    (None: one process): its loss, gradient norm, per-leaf statistics, the
+    kernels' launches during the step, its seconds and peak memory."""
+    import torch
+    from emox_torch.models.emo import EMOModel
+    from emox_torch.ops import launch_counts, reset_launch_counts
+    from emox_torch.train import Trainer
+
+    cfg, dev = spec["train_cfg"], spec["device"]
+    sync, reset_peak, peak_gb = _card(dev)
+    model = EMOModel(cfg, dtype=torch.float32, device=dev, seed=0)
+    _fill_zero_init(model, seed=8)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, model=model, mesh=mesh)  # on a mesh: rank 0's weights broadcast, TP leaves sliced
+    sync()
+    place_s = time.perf_counter() - t0
+    on_card = lambda d: {k: v.to(dev) for k, v in d.items()}
+    batch, draws = on_card(spec["batch"]), on_card(spec["draws"])
+    sync()
+    reset_peak()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with _float32_math():
+        metrics, grads = tr.loss_and_grads(batch, draws)
+        sync()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    norms, sums = _leaf_stats(tr, grads)
+    out = {"loss": metrics["loss"].double().item(), "grad_norm": metrics["grad_norm"].double().item(),
+           "norms": norms, "sums": sums, "launches": counts, "step_s": secs, "place_s": place_s,
+           "peak_gb": peak_gb(), "leaves": len(grads)}
+    tr.close()
+    del tr, model, grads, metrics
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _split_in_one_process(n: int):
+    """windowed_model_out as n context ranks compute it, in one process: each
+    rank's windows (rank::n, folded as that rank folds them) summed by
+    windowed_sum, the n sums added in rank order, as the all-reduce adds
+    them, then divided by the plan's counts."""
+    from emox_torch.diffusion.sampler import windowed_sum
+
+    def model_out(fn, latents, t, indices, weights, shard=(0, 1, None)):
+        parts = [windowed_sum(fn, latents, t, indices, weights, r, n) for r in range(n)]
+        total = parts[0][0]
+        for noise_sum, _ in parts[1:]:
+            total = total + noise_sum
+        return total / parts[0][1].reshape(1, -1, *(1,) * (latents.dim() - 2))
+
+    return model_out
+
+
+def _dist_request(spec, dtype, mesh=None, split: int = 1):
+    """The 48-frame 256^2 request of the distributed phase through the
+    windowed sampler in `dtype`: its windows split over the mesh's context
+    ranks, or (no mesh) in one process, with split > 1 grouped as that many
+    ranks group them (_split_in_one_process). The latents, seconds and peak
+    memory."""
+    import torch
+    from emox_torch.core.mesh import shard_params_replicated
+    from emox_torch.infer import pipeline
+    from emox_torch.models.emo import EMOModel
+
+    cfg, dev = spec["serve_cfg"], spec["device"]
+    sync, reset_peak, peak_gb = _card(dev)
+    model = EMOModel(cfg, dtype=dtype, device=dev, seed=0)
+    _fill_zero_init(model, seed=8)
+    shard_params_replicated(list(model.modules.parameters()), mesh)
+    pipe = pipeline.EMOPipeline(model, mesh=mesh)
+    img, wav, speeds, mask = (t.to(dev, dtype) for t in spec["request"])
+    combine = pipeline.windowed_model_out
+    if split > 1:
+        pipeline.windowed_model_out = _split_in_one_process(split)
+    try:
+        math_ = _float32_math() if dtype == torch.float32 else contextlib.nullcontext()
+        sync()
+        reset_peak()
+        t0 = time.perf_counter()
+        with math_:
+            lat = pipe.generate_latents(img, wav, video_length=cfg.inference.video_length,
+                                        num_inference_steps=DIST_STEPS, guidance_scale=7.5, speeds=speeds,
+                                        face_mask=mask, generator=torch.Generator(device=dev).manual_seed(31))
+            sync()
+    finally:
+        pipeline.windowed_model_out = combine
+    out = {"latents": lat.float().cpu(), "s": time.perf_counter() - t0, "peak_gb": peak_gb()}
+    del pipe, model, lat
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_rank(rank: int, directory: str) -> int:
+    """One rank of the distributed phase (chip_smoke.py --rank R --dist-dir
+    DIR): a gloo world of DIST_RANKS ranks on the one card, the three legs in
+    turn; each leg's results go to DIR/rank<R>.pt."""
+    import torch
+    import torch.distributed as dist
+    from emox_torch.comm.runtime import initialize_distributed, transport
+    from emox_torch.core.config import MeshConfig
+    from emox_torch.core.mesh import create_mesh
+
+    spec = torch.load(os.path.join(directory, "spec.pt"), weights_only=False)
+    if spec["device"] == "cuda":
+        torch.cuda.set_device(0)  # every rank on the one card
+    initialize_distributed(f"file://{os.path.join(directory, 'store')}", DIST_RANKS, rank, backend="gloo",
+                           timeout_s=DIST_TIMEOUT_S)
+    out = {"backend": dist.get_backend(), "transport": transport(torch.zeros(1, device=spec["device"]))}
+    with switches():
+        out["cp"] = _dist_train_step(spec, create_mesh(MeshConfig(data=1, context=DIST_RANKS, model=1)))
+        out["tp"] = _dist_train_step(spec, create_mesh(MeshConfig(data=1, context=1, model=DIST_RANKS)))
+        cp = create_mesh(MeshConfig(data=1, context=DIST_RANKS, model=1))
+        for tag, dtype in spec["serve_dtypes"].items():
+            out[f"windowed{tag}"] = _dist_request(spec, dtype, cp)
+    torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _temporal_sites(cfg) -> int:
+    """The denoiser's temporal attentions (each a ring site on a context mesh)."""
+    levels = len(cfg.model.attention_levels)
+    return levels * cfg.model.layers_per_block + 1 + levels * (cfg.model.layers_per_block + 1)
+
+
+def _dist_spec(tmp: str) -> dict:
+    """The distributed phase's inputs: the float32 stage-2 step's config,
+    batch and draws (flagship 256^2, batch 1 x 8 frames), the bf16 48-frame
+    request's config and inputs; drawn on the CPU from fixed seeds."""
+    import torch
+    from emox_torch.diffusion.schedule import make_schedule
+    from emox_torch.train import sample_draws
+
+    gen = torch.Generator(device="cpu").manual_seed(41)
+    train_cfg = _train_config(2, batch=1, frames=DIST_FRAMES, dtype="float32", checkpoint_dir=tmp)
+    batch = _train_batch(gen, 2, 1, DIST_FRAMES, train_cfg, "cpu")
+    draws = sample_draws(train_cfg, make_schedule(train_cfg.diffusion), 2, batch, gen)
+    request = _request_inputs(torch.Generator(device="cpu").manual_seed(42), "cpu", 256, DIST_LONG_FRAMES,
+                              torch.bfloat16)
+    return {"train_cfg": train_cfg, "batch": batch, "draws": draws, "request": request,
+            "serve_cfg": model_config("flagship", 256, DIST_LONG_FRAMES),
+            "serve_dtypes": {"": torch.bfloat16, "_f32": torch.float32},
+            "device": "cuda"}
+
+
+def phase_distributed(out_dir: str, make_spec=_dist_spec):
+    """The distributed runtime on the one card: first the single-process legs
+    here (the float32 stage-2 step at flagship widths, batch 1 x 8 frames;
+    the bf16 48-frame request through the windowed sampler), their memory
+    freed, then one spawn of two ranks in a gloo world (pinned-host
+    transport: gloo moves no CUDA tensor) that run
+      (a) the same step at data 1 x context 2 x model 1 (the ring: K1 and K4
+          at each rotation of each temporal site, counted per rank),
+      (b) the same step at data 1 x context 1 x model 2 (tensor parallelism:
+          K6 on each rank's FF shard),
+      (c) the same request with its windows over context 2,
+    each held to the reference's bars (|dloss| < 1e-4, grad-norm relative
+    error < 1e-3; |dlat|max < 2e-3 x the latent scale; in bf16 against the
+    windows grouped as the ranks group them, and within twice bf16's own
+    error of the default request). A rank that fails or a world that
+    outlives DIST_DEADLINE_S fails the phase."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = make_spec(tmp)
+        train_cfg = spec["train_cfg"]
+        with switches():
+            t0 = time.perf_counter()
+            single = {"step": _dist_train_step(spec)}
+            for tag, dtype in spec["serve_dtypes"].items():
+                single[f"windowed{tag}"] = _dist_request(spec, dtype)
+            # bf16 rounds each window's output by what shares its call: the
+            # ranks' grouping in one process is what they must reproduce
+            single["windowed_split"] = _dist_request(spec, spec["serve_dtypes"][""], split=DIST_RANKS)
+            single_s = time.perf_counter() - t0
+        torch.save(spec, os.path.join(tmp, "spec.pt"))
+        t0 = time.perf_counter()
+        procs = []
+        for rank in range(DIST_RANKS):
+            log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(rank),
+                                            "--dist-dir", tmp], stdout=log, stderr=subprocess.STDOUT), log))
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, DIST_DEADLINE_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                break
+        hung = [p for p, _ in procs if p.poll() is None]
+        for p in hung:
+            p.kill()
+            p.wait()
+        for _, log in procs:
+            log.close()
+        world_s = time.perf_counter() - t0
+        logs = {r: open(os.path.join(tmp, f"rank{r}.log")).read() for r in range(DIST_RANKS)}
+        if out_dir:
+            for r, text in logs.items():
+                with open(os.path.join(out_dir, f"distributed_rank{r}.log"), "w") as f:
+                    f.write(text)
+        if hung or any(p.returncode != 0 for p, _ in procs):
+            tails = "\n".join(f"--- rank {r} ---\n{text[-4000:]}" for r, text in logs.items())
+            raise AssertionError(f"the distributed phase's world failed ({len(hung)} rank(s) killed after "
+                                 f"{DIST_DEADLINE_S} s):\n{tails}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DIST_RANKS)]
+    sites = _temporal_sites(train_cfg)
+    base = single["step"]["launches"]
+    results = {}
+    for leg, what in (("cp", "data 1 x context 2 x model 1"), ("tp", "data 1 x context 1 x model 2")):
+        want = single["step"]
+        per_rank = []
+        for r, res in enumerate(ranks):
+            got = res[leg]
+            k1 = got["launches"]["flash_attn_nlc_fwd"] - base["flash_attn_nlc_fwd"]
+            k4 = got["launches"]["flash_attn_nlc_bwd"] - base["flash_attn_nlc_bwd"]
+            per_rank.append({
+                "rank": r, "dloss": abs(got["loss"] - want["loss"]),
+                "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
+                "worst_leaf_norm_rel": float(((got["norms"] - want["norms"]).abs()
+                                              / want["norms"].clamp_min(1e-30)).max()),
+                "leaf_sums_rel_l2": float((got["sums"] - want["sums"]).norm() / want["sums"].norm()),
+                "ring_k1_launches": k1, "ring_k4_launches": k4, "k6_launches": got["launches"]["geglu_ff"],
+                "launches": got["launches"], "step_s": got["step_s"], "place_s": got["place_s"],
+                "peak_gb": got["peak_gb"]})
+        # the ring's launches: a forward at each rotation of each temporal site,
+        # again when remat recomputes it, a backward at each rotation
+        rotations = DIST_RANKS if leg == "cp" else 0
+        expect = {"ring_k1_launches": sites * rotations * (2 if train_cfg.model.remat else 1),
+                  "ring_k4_launches": sites * rotations}
+        limits = {"dloss": 1e-4, "grad_norm_rel": 1e-3}
+        res = {"phase": f"distributed_{leg}_step", "config": f"flagship 256^2 stage 2, float32, batch 1 x "
+               f"{train_cfg.data.num_frames} frames, {what}", "backend": ranks[0]["backend"], "transport": ranks[0]["transport"],
+               "ranks_on_one_card": DIST_RANKS, "limits": limits, "ring_sites": sites, "expected": expect,
+               "loss_single": want["loss"], "grad_norm_single": want["grad_norm"], "single_step_s": want["step_s"],
+               "single_peak_gb": want["peak_gb"], "trainable_leaves": want["leaves"], "per_rank": per_rank,
+               "nvidia_smi": smi_line()}
+        emit(res)
+        for pr in per_rank:
+            if not (pr["dloss"] < limits["dloss"] and pr["grad_norm_rel"] < limits["grad_norm_rel"]):
+                raise AssertionError(f"{res['phase']}: rank {pr['rank']} off the single-process step: {pr}")
+            if {k: pr[k] for k in expect} != expect:
+                raise AssertionError(f"{res['phase']}: rank {pr['rank']} ring launches {pr}, expected {expect}")
+            if leg == "tp" and pr["k6_launches"] <= 0:
+                raise AssertionError(f"{res['phase']}: rank {pr['rank']} launched no K6: {pr['launches']}")
+        results[leg] = res
+    # (c) the request: in bf16 against the ranks' grouping in one process (the
+    # reference's bar), and against the default request within twice bf16's
+    # own error (the bf16 default's gap to the float32 one, this run): a
+    # larger gap would put one of the two bf16 results further from float32
+    # than bf16 itself is. bf16 rounds a window's cuDNN convolutions and K2/K3
+    # by what shares its call (chip_probe_windows.py). Float32 against the
+    # default request at the reference's bar.
+    f32 = single["windowed_f32"]["latents"]
+    bf16_floor = float((single["windowed"]["latents"] - f32).abs().max())
+    for tag, dtype in spec["serve_dtypes"].items():
+        want = single["windowed_split" if tag == "" else f"windowed{tag}"]["latents"]
+        default = single[f"windowed{tag}"]["latents"]
+        scale = float(want.abs().max())
+        per_rank = [{"rank": r, "dlat_max": float((res[f"windowed{tag}"]["latents"] - want).abs().max()),
+                     "dlat_max_to_default": float((res[f"windowed{tag}"]["latents"] - default).abs().max()),
+                     "dlat_max_to_f32": float((res[f"windowed{tag}"]["latents"] - f32).abs().max()),
+                     "s_per_request": res[f"windowed{tag}"]["s"], "peak_gb": res[f"windowed{tag}"]["peak_gb"],
+                     "finite": bool(torch.isfinite(res[f"windowed{tag}"]["latents"]).all())}
+                    for r, res in enumerate(ranks)]
+        res = {"phase": f"distributed_windowed{tag}",
+               "config": f"flagship 256^2 {str(dtype).split('.')[-1]}, {spec['serve_cfg'].inference.video_length} "
+                         f"frames, {DIST_STEPS} DDIM steps, CFG 7.5, windows over context {DIST_RANKS}",
+               "held_against": ("one process, the windows grouped as the ranks group them" if tag == ""
+                                else "one process, the default request"),
+               "backend": ranks[0]["backend"], "transport": ranks[0]["transport"], "latent_scale": scale,
+               "limit": 2e-3 * scale, "single_s_per_request": single[f"windowed{tag}"]["s"],
+               "single_peak_gb": single[f"windowed{tag}"]["peak_gb"], "per_rank": per_rank,
+               "single_legs_s": single_s, "world_s": world_s, "nvidia_smi": smi_line()}
+        if tag == "":
+            res["split_in_one_process_to_default"] = float((want - default).abs().max())
+            res["split_in_one_process_s"] = single["windowed_split"]["s"]
+            res["bf16_to_f32"] = bf16_floor
+            res["limit_to_default"] = 2 * bf16_floor
+        emit(res)
+        for pr in per_rank:
+            if not (pr["finite"] and pr["dlat_max"] < 2e-3 * scale):
+                raise AssertionError(f"{res['phase']}: rank {pr['rank']} off the single-process request: {pr}")
+            if tag == "" and not pr["dlat_max_to_default"] <= 2 * bf16_floor:
+                raise AssertionError(f"{res['phase']}: rank {pr['rank']} further from the default bf16 request than "
+                                     f"twice bf16's own error {bf16_floor}: {pr}")
+        results[f"windowed{tag}"] = res
+    results["launches"] = {f"distributed_{leg}_rank{pr['rank']}": pr["launches"] for leg in ("cp", "tp")
+                           for pr in results[leg]["per_rank"]}
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for long reports (ptxas output)")
+    # one rank of the distributed phase's world, which phase_distributed spawns
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
 
+    if args.rank is not None:  # on the device its parent's spec names
+        return dist_rank(args.rank, args.dist_dir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the card only", file=sys.stderr)
         return 2
@@ -4081,6 +4462,10 @@ def main(argv=None) -> int:
             control = phase_control()
             train_control = phase_train(tmp, stage=4, batch=1, frames=8, warmup=1, steps=2, out_dir=args.out,
                                         name="flagship-control", size=512, phase="train_control_512")
+        # the distributed runtime: two ranks on the card (gloo), the ring (K1 and
+        # K4 at the ring's block shape), tensor parallelism (K6 on F / 2) and the
+        # windowed sampler over context, each against one process
+        distributed = phase_distributed(args.out)
     by_path = {"step": step, "serve": launches, "export": export["launches_loaded"], "step_long": step_long,
                **long["launches_by_path"], "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
                "train_step": train_step,
@@ -4107,7 +4492,7 @@ def main(argv=None) -> int:
                "step_sparse_causal": step_sc, "serve_sparse_causal": serve_sc,
                "train_sparse_causal_stage2_per_step": train_sc["launches_per_step"], "serve_separable": serve_sep,
                "step_separable": step_sep["launches_step"], "step_separable_train": step_sep["launches_train"],
-               "train_adafactor_512_per_step": train_adafactor["launches_per_step"]}
+               "train_adafactor_512_per_step": train_adafactor["launches_per_step"], **distributed["launches"]}
     # launches on each kernel's main path: serving for the forward kernels
     # (flash_fwd_sm90 and ff_sm90 on the flagship's 256^2 request,
     # flash_fwd_d512_f32 in the float32 512^2 VAE, flash_fwd_f32_sm90 and
@@ -4163,13 +4548,14 @@ def main(argv=None) -> int:
               kern["flash_n32"], [kern["flash_n16"], kern["flash_n128"], kern["flash_512_l0"], kern["flash_512_l1"],
                                   kern["flash_512_control"], kern["flash_sc"],
                                   kern["flash_strided_n32"], kern["flash_strided_n16"], kern["flash_d512"],
-                                  kern["flash_strided_n32_d64"]]),
+                                  kern["flash_strided_n32_d64"], kern["ring_l0"], kern["ring_l1"]]),
         entry("emox_torch/csrc/flash_fwd_d512_f32.cu", ["emox/ops/attention.py:409"], kern["flash_d512_f32"],
               [kern["flash_d512_f32_n16"]]),
         # float32 on the same source's kernels, on a two-part bf16 split; its
         # main row at the float32 step's packed site, whose launches it counts
         entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
-              kern["flash_f32_packed"], [kern["flash_f32_n32"], kern["flash_f32_n32_d64"]]),
+              kern["flash_f32_packed"], [kern["flash_f32_n32"], kern["flash_f32_n32_d64"], kern["ring_l0_f32"],
+                                         kern["ring_l1_f32"]]),
         # head dims above 512, both types, forward and backward; the main rows
         # in float32 at the width-640 VAE's stage-5 step, whose launches they
         # count, the bf16 timing at 4096 tokens in by_shape
@@ -4186,23 +4572,23 @@ def main(argv=None) -> int:
         entry("emox_torch/csrc/ff_sm90.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120", "emox/ops/ff.py:455"],
               kern["ff_l0"], [kern["ff_l1"], kern["ff_l2"], kern["ff_mid"], kern["ff_512_l0"], kern["ff_512_l1"],
                               kern["ff_512_l2"], kern["ff_512_mid"], kern["geglu_ff_l0"], kern["geglu_ff_l1"],
-                              kern["geglu_ff_l2"]]),
+                              kern["geglu_ff_l2"], kern["geglu_ff_tp"]]),
         # float32 on the same source's kernels, on a two-part bf16 split: with
         # LN (K2/K3) at the float32 step's level 0, whose launches it counts,
         # and without (K6) in by_shape
         entry("emox_torch/csrc/ff_sm90.cu", ["emox/ops/ff.py:102", "emox/ops/ff.py:120", "emox/ops/ff.py:455"],
-              kern["ff_f32"], [kern["geglu_ff_f32"]]),
+              kern["ff_f32"], [kern["geglu_ff_f32"], kern["geglu_ff_tp_f32"]]),
         # one kernel pair for both layouts' bf16 backward (head dim <= 128):
         # the packed sites are K4's, the strided (head-split) one K5's
         entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
                                                     "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
               kern["flash_bwd_n16"], [kern["flash_bwd_n4"], kern["flash_bwd_512_l0"], kern["flash_bwd_512_l1"],
                                       kern["flash_bwd_512_control"], kern["flash_bwd_sc"],
-                                      kern["flash_strided_bwd_n16"]]),
+                                      kern["flash_strided_bwd_n16"], kern["ring_bwd_l0"], kern["ring_bwd_l1"]]),
         # float32 at head dim <= 128 on the same source's pair, on a two-part split
         entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
                                                     "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
-              kern["flash_bwd_f32"], []),
+              kern["flash_bwd_f32"], [kern["ring_bwd_l0_f32"], kern["ring_bwd_l1_f32"]]),
         # head dims 129-256, both types: flash_bwd_d512_sm90.cu's pair at half
         # width; the main row in float32 at the small VAE's stage-5 step, whose
         # launches it counts, the bf16 timings in by_shape

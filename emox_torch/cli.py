@@ -26,9 +26,16 @@ the package); `export` writes a torch.export artifact of the denoise step
 whose kernels are the port's registered ops (emox_torch.infer.export).
 Every command first calls emox_torch.core.compile_cache.enable_persistent_cache.
 
-Registered but not yet ported, each exiting non-zero: `train
---coordinator/--num-processes` (ROADMAP.md's Queue 1 item 9); `bench` comes
-with the port's benchmark.
+`train --coordinator host:port --num-processes N --process-id r` runs rank
+r of an N-process torch.distributed world (nccl on the ranks' cards,
+cuda:<local rank> each; gloo with `--device cpu`) on the mesh of the
+config's `mesh` section: every rank reads the same global batches from an
+identically seeded loader and trains on its rows and frames of them
+(emox_torch.train.Trainer); the master alone writes the checkpoints and
+metrics.
+
+Registered but not yet ported, exiting non-zero: `bench`, which comes with
+the port's benchmark.
 """
 
 from __future__ import annotations
@@ -40,10 +47,8 @@ import sys
 import time
 from typing import Any, Dict, Iterable, Iterator, List, Optional
 
-# ROADMAP.md Queue 1 items of what the port has not ported yet
+# what the port has not ported yet
 _NOT_PORTED = {
-    "distributed": "--coordinator/--num-processes (multi-process training) wait for a later slice of the port "
-                   "(ROADMAP.md, Queue 1 item 9)",
     "bench": "bench comes with the port's benchmark, which a benchmark PR writes with BENCHMARK.json",
 }
 
@@ -231,15 +236,24 @@ def device_batches(batches: Iterable[Dict[str, Any]], device) -> Iterator[Dict[s
 
 
 def cmd_train(args) -> int:
+    from emox_torch.comm.runtime import initialize_distributed, is_master, local_device
     from emox_torch.core.config import save_config
     from emox_torch.train.stages import STAGE_DESCRIPTIONS
     from emox_torch.train.trainer import Trainer
 
-    if args.coordinator or args.num_processes:
-        raise SystemExit(_NOT_PORTED["distributed"])
+    distributed = bool(args.coordinator or args.num_processes)
+    if distributed:
+        try:
+            info = initialize_distributed(args.coordinator, args.num_processes, args.process_id, device=args.device)
+            dev = local_device(args.device)
+        except (ValueError, RuntimeError) as e:
+            raise SystemExit(str(e)) from None
+        print(f"process {info.process_index}/{info.process_count}, "
+              f"{info.local_devices} local / {info.global_devices} global devices")
     cfg = _load_config(args)
     stage = cfg.train.stage
-    dev = _device(args)
+    if not distributed:
+        dev = _device(args)
     stage_name = {0: "stage0-facelocator", 1: "stage1", 2: "stage2", 3: "stage3",
                   4: "stage4-control", 5: "stage1"}[stage]  # stage 5 (VAE) trains on stage-1 single frames
     print(f"stage {stage}: {STAGE_DESCRIPTIONS[stage]}")
@@ -252,13 +266,19 @@ def cmd_train(args) -> int:
     resumed = trainer.resume()
     if resumed:
         print(f"resumed at step {resumed}")
-    os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
-    save_config(cfg, os.path.join(cfg.train.checkpoint_dir, f"stage{stage}_config.yaml"))
+    if is_master():
+        os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+        save_config(cfg, os.path.join(cfg.train.checkpoint_dir, f"stage{stage}_config.yaml"))
 
     _, dl = build_train_data(cfg, stage, stage_name)
     metrics = trainer.fit(device_batches(dl, trainer.device))
     trainer.close()
     print(json.dumps({"final_step": int(trainer.state.step), **metrics}))
+    if distributed:
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
     return 0
 
 
@@ -673,9 +693,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "loads SD's pretrained one); 4 is not ported yet")
     pt.add_argument("--config", default=None, help="YAML config path")
     pt.add_argument("--from-stage", type=int, default=None, help="init from this stage's checkpoint")
-    pt.add_argument("--coordinator", default=None, help="multi-host coordinator (not ported yet)")
-    pt.add_argument("--num-processes", type=int, default=None, help="not ported yet")
-    pt.add_argument("--process-id", type=int, default=None, help="not ported yet")
+    pt.add_argument("--coordinator", default=None,
+                    help="host:port (or an init URL) where the processes of a distributed run meet")
+    pt.add_argument("--num-processes", type=int, default=None, help="ranks of the distributed run")
+    pt.add_argument("--process-id", type=int, default=None, help="this process's rank")
     pt.add_argument("--set", nargs="*", action="extend", default=[], metavar="SEC.KEY=VAL", help="config overrides (repeatable)")
     _add_device(pt)
     pt.set_defaults(fn=cmd_train)

@@ -42,31 +42,47 @@ def ddim_sample(denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 WindowFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def windowed_model_out(denoise_window_fn: WindowFn, latents: torch.Tensor, t: torch.Tensor,
-                       indices: np.ndarray, weights: np.ndarray) -> torch.Tensor:
-    """One step's model output over overlapping windows.
-
-    indices [W, c] and weights [W] are one step of a WindowPlan. Only the
-    real windows (weight > 0) are gathered: a padding row adds weight 0 to
-    its frames and 0 to their counts, so leaving it out changes nothing.
-    denoise_window_fn(window_latents [W', B, c, h, w, C], t [B],
+def windowed_sum(denoise_window_fn: WindowFn, latents: torch.Tensor, t: torch.Tensor, indices: np.ndarray,
+                 weights: np.ndarray, rank: int = 0, n_ranks: int = 1):
+    """(noise_sum, counts) of one step's windows: the outputs of the real
+    windows rank::n_ranks (weight > 0) scatter-added per frame, and every
+    real window's hits per frame, at least 1e-6 ([T]). A padding row adds
+    weight 0 to its frames and 0 to their counts, so leaving it out changes
+    nothing. denoise_window_fn(window_latents [W', B, c, h, w, C], t [B],
     frame_idx [W', c] int64) -> model outputs of the same shape; frame_idx
-    lets the caller gather per-frame conditioning (audio, speeds). The
-    outputs are scatter-added per frame and divided by max(hit count, 1e-6)."""
+    lets the caller gather per-frame conditioning (audio, speeds)."""
     real = weights > 0
     indices, weights = indices[real], weights[real]
     dev = latents.device
-    idx = torch.from_numpy(indices.astype(np.int64)).to(dev)
-    windows = latents[:, idx].transpose(0, 1)  # [W', B, c, h, w, C]
-    preds = denoise_window_fn(windows, t, idx).to(latents.dtype)
-    preds = preds * torch.from_numpy(weights).to(dev, latents.dtype).reshape(-1, *(1,) * (preds.dim() - 1))
     b, n = latents.shape[:2]
-    flat = preds.transpose(0, 1).reshape(b, idx.numel(), *latents.shape[2:])
-    noise_sum = torch.zeros_like(latents).index_add_(1, idx.reshape(-1), flat)
+    noise_sum = torch.zeros_like(latents)
+    mine = slice(rank, None, n_ranks)
+    if len(indices[mine]):
+        idx = torch.from_numpy(indices[mine].astype(np.int64)).to(dev)
+        windows = latents[:, idx].transpose(0, 1)  # [W', B, c, h, w, C]
+        preds = denoise_window_fn(windows, t, idx).to(latents.dtype)
+        preds = preds * torch.from_numpy(weights[mine]).to(dev, latents.dtype).reshape(-1, *(1,) * (preds.dim() - 1))
+        flat = preds.transpose(0, 1).reshape(b, idx.numel(), *latents.shape[2:])
+        noise_sum.index_add_(1, idx.reshape(-1), flat)
     counts = np.zeros(n, np.float32)
     np.add.at(counts, indices.reshape(-1), np.repeat(weights, indices.shape[1]))
-    counts = torch.from_numpy(np.maximum(counts, np.float32(1e-6))).to(dev)
-    return noise_sum / counts.reshape(1, n, *(1,) * (latents.dim() - 2))
+    return noise_sum, torch.from_numpy(np.maximum(counts, np.float32(1e-6))).to(dev)
+
+
+def windowed_model_out(denoise_window_fn: WindowFn, latents: torch.Tensor, t: torch.Tensor,
+                       indices: np.ndarray, weights: np.ndarray, shard=(0, 1, None)) -> torch.Tensor:
+    """One step's model output over overlapping windows: indices [W, c] and
+    weights [W] are one step of a WindowPlan, the outputs scatter-added per
+    frame and divided by the frame's hit count (windowed_sum). shard (rank,
+    n, group): this rank denoises the real windows rank::n, and one
+    all-reduce (SUM) over the group completes the sums."""
+    rank, n_ranks, group = shard
+    noise_sum, counts = windowed_sum(denoise_window_fn, latents, t, indices, weights, rank, n_ranks)
+    if n_ranks > 1:
+        from emox_torch.comm.runtime import all_reduce_
+
+        all_reduce_(noise_sum, group)
+    return noise_sum / counts.reshape(1, -1, *(1,) * (latents.dim() - 2))
 
 
 def windowed_ddim_sample(denoise_window_fn: WindowFn, latents: torch.Tensor, sched: Schedule, plan: WindowPlan,

@@ -23,6 +23,15 @@
   * optional latent slerp interpolation, then VAE decode.
 
 `invert` runs DDIM inversion of real frames.
+
+With a mesh whose `context` axis has n > 1 ranks (EMOPipeline(mesh=...),
+the reference's window axis sharded over `context`), each rank of that
+axis denoises the windows rank::n of every windowed step, still folded
+WINDOWS_PER_CALL at a time; its outputs are scatter-added into a full-size
+buffer, which one all_reduce(SUM) over the axis completes, and every rank
+divides by the plan's per-frame counts and takes the same DDIM step. Every
+rank is given the same request and generator, so every rank ends with the
+same latents. The model is one without the ring: the windows are whole.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from emox_torch.core.config import Config
+from emox_torch.core.mesh import MeshAxes, axis_group, axis_rank, axis_size
 from emox_torch.data.tokenizer import CLIPTokenizer
 from emox_torch.diffusion.context import window_plan
 from emox_torch.diffusion.interp import interpolate_latents
@@ -47,11 +57,19 @@ WINDOWS_PER_CALL = 4
 
 
 class EMOPipeline:
-    def __init__(self, model: EMOModel, config: Optional[Config] = None):
+    def __init__(self, model: EMOModel, config: Optional[Config] = None, mesh=None):
+        """mesh: a DeviceMesh whose context axis splits the windows of the
+        windowed sampler (module docstring)."""
+        if getattr(model, "ring", False):
+            raise ValueError("the windowed sampler takes whole windows: build its model without the ring "
+                             "(EMOModel without a context mesh)")
         self.model = model
         self.config = config or model.config
         self.device = model.device
         self.sched = make_schedule(self.config.diffusion, device=self.device)
+        self.mesh = mesh
+        self._context = (axis_rank(mesh, MeshAxes.CONTEXT), axis_size(mesh, MeshAxes.CONTEXT),
+                         axis_group(mesh, MeshAxes.CONTEXT))
 
     # ---- conditioning ----------------------------------------------------
     def _prepare(self, ref_image: torch.Tensor, wav: torch.Tensor, num_frames: int):
@@ -227,7 +245,7 @@ class EMOPipeline:
                 out = windowed_model_out(
                     lambda wl, tw, wi: self._denoise_windows(wl, tw, wi, *cond, context, uncond_context, rf, rg,
                                                              control_cond, identity_embed),
-                    latents, tb, plan.indices[i], plan.weights[i])
+                    latents, tb, plan.indices[i], plan.weights[i], shard=self._context)
             latents = ddim_step(self.sched, out, latents, tb,
                                 torch.full((b,), t_prev, dtype=torch.int64, device=self.device),
                                 eta=eta, generator=generator if eta > 0 else None)

@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from emox_torch.comm.sharding import attend_heads
 from emox_torch.core.config import CLIPConfig
 from emox_torch.nn.layers import Conv, Dense, LayerNorm
 
@@ -56,26 +57,34 @@ class CLIPAttention(nn.Module):
     """Multi-head self-attention with an optional causal mask (biased q, k,
     v and out projections, transformers CLIPAttention)."""
 
+    # under tensor parallelism where the heads do not divide: the model axis
+    # (emox_torch.comm.sharding.ModelShard) that q, k and v are gathered over
+    tp_gather = None
+
     def __init__(self, dim: int, heads: int, causal: bool = False):
         super().__init__()
         self.heads = heads
+        self.head_dim = dim // heads
         self.causal = causal
         self.to_q, self.to_k, self.to_v, self.to_out = (Dense(dim, dim) for _ in range(4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, C]
-        b, l, c = x.shape
-        hd = c // self.heads
-        split = lambda y: y.reshape(b, l, self.heads, hd).transpose(1, 2)
-        q = split(self.to_q(x)) * (hd ** -0.5)
-        k = split(self.to_k(x))
-        v = split(self.to_v(x))
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        if self.causal:
-            mask = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
-            s = s.masked_fill(~mask, _NEG_INF)
-        p = torch.softmax(s, dim=-1).to(v.dtype)
-        o = torch.matmul(p, v).transpose(1, 2).reshape(b, l, c)
-        return self.to_out(o)
+        b, l, _ = x.shape
+        hd = self.head_dim
+
+        def attend(q, k, v):
+            split = lambda y: y.reshape(b, l, -1, hd).transpose(1, 2)
+            q = split(q) * (hd ** -0.5)
+            k = split(k)
+            v = split(v)
+            s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            if self.causal:
+                mask = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+                s = s.masked_fill(~mask, _NEG_INF)
+            p = torch.softmax(s, dim=-1).to(v.dtype)
+            return torch.matmul(p, v).transpose(1, 2).reshape(b, l, q.shape[1] * hd)
+
+        return self.to_out(attend_heads(self.tp_gather, attend, self.to_q(x), self.to_k(x), self.to_v(x)))
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -25,6 +25,14 @@ The side models are built where the config enables them:
   * model.use_controlnet: the ControlNet (`controlnet`), run inside
     `predict_noise(control_cond=...)` on the same noisy latents and
     timesteps as the denoiser, whose skips take its residuals.
+
+On a mesh (`mesh=`, or `distribute`), every rank holds rank 0's weights,
+the tensor-parallel leaves sliced to its shard of the `model` axis
+(emox_torch.comm.sharding), and with a `context` axis of more than one rank
+the denoiser's temporal attention runs as ring attention over it: its
+calls then take this rank's block of each clip's frames. A model driven
+through the windowed sampler is built without the ring (the sampler
+splits whole windows over `context` instead, EMOPipeline(mesh=...)).
 """
 
 from __future__ import annotations
@@ -83,12 +91,15 @@ class EMOModules(nn.Module):
 
 class EMOModel:
     def __init__(self, config: Config, dtype: torch.dtype = torch.float32,
-                 device: Optional[Union[str, torch.device]] = None, seed: int = 0):
+                 device: Optional[Union[str, torch.device]] = None, seed: int = 0, mesh=None):
         """Builds the submodels on `device` (the CUDA card unless told
         otherwise; raises when there is none) with random weights drawn from
-        `seed` (the port's own init), held in `dtype`."""
+        `seed` (the port's own init), held in `dtype`; with `mesh`, placed on
+        it (`distribute`)."""
         _check_config(config)
         self.config = config
+        self.mesh = None
+        self.tp = None  # the tensor-parallel plan applied (emox_torch.comm.sharding.TensorParallel)
         self.device = resolve_device(device)
         self.dtype = dtype
         with torch.device(self.device):
@@ -99,6 +110,39 @@ class EMOModel:
         if self.device.type == "cuda":
             self.modules.to(memory_format=torch.channels_last)  # conv kernels as cuDNN reads them
         self.modules.eval().requires_grad_(False)
+        if mesh is not None:
+            self.distribute(mesh)
+
+    def distribute(self, mesh) -> "EMOModel":
+        """Place the model on `mesh`: rank 0's parameters broadcast to every
+        rank, the tensor-parallel leaves sliced (`self.tp`), and with a
+        context axis of more than one rank the ring on the denoiser's
+        temporal attention. Sparse-causal self-attention reads other frames'
+        tokens, which a context shard does not hold: refused there."""
+        from emox_torch.comm.sharding import apply_tensor_parallel
+        from emox_torch.core.mesh import MeshAxes, axis_size, shard_params_replicated
+
+        if self.mesh is not None:
+            raise ValueError("the model is already placed on a mesh")
+        if mesh is None:
+            return self
+        ring = axis_size(mesh, MeshAxes.CONTEXT) > 1
+        if ring and self.config.model.use_sparse_causal:
+            raise NotImplementedError("sparse-causal attention reads the first and previous frames' tokens, "
+                                      "which a context shard does not hold: use mesh.context=1")
+        shard_params_replicated(list(self.modules.parameters()), mesh)
+        self.tp = apply_tensor_parallel(self.modules, mesh)
+        if ring:
+            self.modules.denoiser.set_ring(mesh)
+        self.mesh = mesh
+        return self
+
+    @property
+    def ring(self) -> bool:
+        """Whether the denoiser's calls take this rank's block of the frames."""
+        from emox_torch.core.mesh import MeshAxes, axis_size
+
+        return self.mesh is not None and axis_size(self.mesh, MeshAxes.CONTEXT) > 1
 
     def load_flax(self, params: Dict[str, Any]) -> "EMOModel":
         """Load a reference param tree (nested dicts of numpy arrays) into the

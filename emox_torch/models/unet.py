@@ -145,6 +145,13 @@ class UNet(nn.Module):
         self.norm_out = FusedGroupNorm(chans[0], g, silu=True)
         self.conv_out = Conv(chans[0], cfg.out_channels, (3, 3))
 
+    def set_ring(self, mesh, axis: str = "context") -> None:
+        """Ring attention over `axis` of `mesh` at every temporal site (None:
+        off); the forward's frames are then this rank's block of the clip's."""
+        for mod in self.modules():
+            if isinstance(mod, TemporalTransformer):
+                mod.set_ring(mesh, axis)
+
     def _add_attn_stack(self, name: str, ch: int, depth: int) -> None:
         cfg = self.cfg
         heads, head_dim = attention_heads(cfg, ch)

@@ -29,7 +29,14 @@ self-attention takes its keys and values from the normed tokens of the
 clip's first frame and of the frame before it (`sc_gather`), the reference
 tokens appended; a batch with per-row reference dropout then runs the
 attention with and without the reference tokens and selects per row, as
-the reference does. Ring attention waits for a later slice (ROADMAP.md).
+the reference does.
+
+Under a mesh (emox_torch.core.mesh) the temporal attention of a model whose
+frames are sharded over `context` runs as ring attention
+(emox_torch.ops.ring), with the positional rows of this rank's frames; under
+tensor parallelism (emox_torch.comm.sharding) each attention works on its
+rank's heads and each FF sub-layer of a TransformerBlock on its rank's
+features.
 """
 
 from __future__ import annotations
@@ -41,12 +48,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from emox_torch.comm.sharding import attend_heads
+from emox_torch.core.mesh import axis_rank, axis_size
 from emox_torch.nn.blocks import FusedGroupNorm
 from emox_torch.nn.embeddings import sinusoidal_positions
 from emox_torch.nn.layers import Dense, LayerNorm
 from emox_torch.ops.attention import dot_product_attention_nlc
 from emox_torch.ops.ff import ff_default_impl, fused_ln_geglu_ff, geglu_ff, ln_geglu_ff_plain
 from emox_torch.ops.ln_qkv import _ln_qkv_enabled, fused_ln_qkv
+from emox_torch.ops.ring import ring_frame_attention
 
 QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -59,10 +69,15 @@ def _fused_qkv_enabled() -> bool:
 def _fused_qkv_apply(denses, x: torch.Tensor) -> QKV:
     """q, k, v from one matmul over the row-concatenated [Wq; Wk; Wv] (and
     biases): each output column is the same contraction as in the separate
-    projections."""
+    projections. Under tensor parallelism, this rank's rows of each."""
     w = torch.cat([d.weight for d in denses])
-    bias = None if denses[0].bias is None else torch.cat([d.bias for d in denses])
-    return F.linear(x.to(w.dtype), w, bias).chunk(3, dim=-1)
+    tp = denses[0].tp
+    bias = None if denses[0].bias is None else torch.cat(
+        [d.bias if tp is None else tp.local_bias(d.bias) for d in denses])
+    x = x.to(w.dtype)
+    if tp is not None:
+        x = tp.shard.copy_to(x)
+    return F.linear(x, w, bias).chunk(3, dim=-1)
 
 
 class Attention(nn.Module):
@@ -71,6 +86,10 @@ class Attention(nn.Module):
     context=None -> self-attention. `extra_kv` tokens (reference-image
     features) are appended to K/V only. impl: the reference's attention impl
     names, None = the dispatcher's default."""
+
+    # under tensor parallelism where the heads do not divide: the model axis
+    # (emox_torch.comm.sharding.ModelShard) that q, k and v are gathered over
+    tp_gather = None
 
     def __init__(self, query_dim: int, heads: int, head_dim: int, out_dim: Optional[int] = None,
                  context_dim: Optional[int] = None, zero_init_out: bool = False,
@@ -128,7 +147,8 @@ class Attention(nn.Module):
                 ve = torch.where(drop, v, ve)
             k = torch.cat([k, ke], dim=1)
             v = torch.cat([v, ve], dim=1)
-        return self.to_out(dot_product_attention_nlc(q, k, v, self.heads, impl=impl or self.impl))
+        attend = lambda q, k, v: dot_product_attention_nlc(q, k, v, self.heads, impl=impl or self.impl)
+        return self.to_out(attend_heads(self.tp_gather, attend, q, k, v))
 
 
 class GEGLUFeedForward(nn.Module):
@@ -146,8 +166,18 @@ class GEGLUFeedForward(nn.Module):
         self.proj_out = Dense(dim * mult, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return geglu_ff(x.to(self.proj_in.weight.dtype), self.proj_in.weight, self.proj_in.bias,
-                        self.proj_out.weight, self.proj_out.bias, impl=self.impl or ff_default_impl())
+        """Under tensor parallelism: the FF alone on this rank's features,
+        b2 added on the model axis's rank 0 only, then the all-reduce."""
+        impl = self.impl or ff_default_impl()
+        x = x.to(self.proj_in.weight.dtype)
+        tp = self.proj_in.tp
+        if tp is None:
+            return geglu_ff(x, self.proj_in.weight, self.proj_in.bias, self.proj_out.weight, self.proj_out.bias,
+                            impl=impl)
+        b2 = self.proj_out.bias if tp.shard.rank == 0 else torch.zeros_like(self.proj_out.bias)
+        y = geglu_ff(tp.shard.copy_to(x), self.proj_in.weight, tp.local_bias(self.proj_in.bias),
+                     self.proj_out.weight, b2, impl=impl)
+        return tp.shard.reduce_from(y)
 
 
 def _maybe_ln_qkv(ln_mod: LayerNorm, attn_mod: nn.Module, x: torch.Tensor) -> Optional[QKV]:
@@ -159,7 +189,10 @@ def _maybe_ln_qkv(ln_mod: LayerNorm, attn_mod: nn.Module, x: torch.Tensor) -> Op
     if not _ln_qkv_enabled() or attn_mod.to_q.bias is not None:
         return None
     w = attn_mod.to_q.weight
-    return fused_ln_qkv(x.to(w.dtype), ln_mod.weight, ln_mod.bias, w, attn_mod.to_k.weight,
+    x = x.to(w.dtype)
+    if attn_mod.to_q.tp is not None:
+        x = attn_mod.to_q.tp.shard.copy_to(x)
+    return fused_ln_qkv(x, ln_mod.weight, ln_mod.bias, w, attn_mod.to_k.weight,
                         attn_mod.to_v.weight, eps=ln_mod.eps)
 
 
@@ -170,9 +203,11 @@ def _ff_sublayer(ln_mod: LayerNorm, ff_mod: GEGLUFeedForward, x: torch.Tensor) -
     every site, its plain version on CPU tensors); "fused_interpret" that
     plain version on any device. With neither set the sub-layer takes the
     fused op on every device, as it always has: the reference's CPU default
-    ("xla") exists there because its kernels only interpret off the TPU."""
+    ("xla") exists there because its kernels only interpret off the TPU.
+    Under tensor parallelism: LN(x) in full, then the FF module's sharded
+    path (K6 on this rank's features), then the residual."""
     impl = ff_mod.impl or os.environ.get("EMOX_FF_IMPL") or "auto"
-    if impl == "xla":
+    if impl == "xla" or ff_mod.proj_in.tp is not None:
         return x + ff_mod(ln_mod(x))
     fused = {"auto": fused_ln_geglu_ff, "fused": fused_ln_geglu_ff, "fused_interpret": ln_geglu_ff_plain}.get(impl)
     if fused is None:
@@ -288,7 +323,15 @@ class SpatialTransformer(nn.Module):
 class FrameAxisAttention(nn.Module):
     """Multi-head attention over the frame axis of [B, T, L, C] tokens,
     with the spatial axis L as a batch dimension of the einsums (fp32
-    scores, as the reference)."""
+    scores, as the reference).
+
+    With `ring_mesh` set and its `ring_axis` of more than one rank, the T
+    frames of a call are this rank's block of the clip's and the attention
+    runs as ring attention over that axis (ring_frame_attention: K1 at each
+    rotation, K4 in its backward)."""
+
+    tp_gather = None  # as Attention's
+    ring_mesh, ring_axis = None, "context"  # set by TemporalTransformer.set_ring
 
     def __init__(self, dim: int, heads: int, head_dim: int):
         super().__init__()
@@ -306,13 +349,14 @@ class FrameAxisAttention(nn.Module):
         if qkv is None:
             qkv = (_fused_qkv_apply((self.to_q, self.to_k, self.to_v), x) if _fused_qkv_enabled()
                    else (self.to_q(x), self.to_k(x), self.to_v(x)))
-        b, t, l, _ = qkv[0].shape
-        split = lambda y: y.reshape(b, t, l, self.heads, self.head_dim)
-        q, k, v = (split(y) for y in qkv)
-        s = torch.einsum("bqlhd,bklhd->blhqk", q.float(), k.float()) * (self.head_dim ** -0.5)
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("blhqk,bklhd->bqlhd", p.to(v.dtype), v)
-        return self.to_out(o.reshape(b, t, l, self.heads * self.head_dim))
+        def attend(q, k, v):
+            b, t, l, _ = q.shape
+            split = lambda y: y.reshape(b, t, l, self.heads, self.head_dim)
+            o = ring_frame_attention(split(q), split(k), split(v), self.ring_mesh, self.ring_axis,
+                                     scale=self.head_dim ** -0.5)
+            return o.reshape(b, t, l, self.heads * self.head_dim)
+
+        return self.to_out(attend_heads(self.tp_gather, attend, *qkv))
 
 
 class TemporalTransformer(nn.Module):
@@ -331,9 +375,22 @@ class TemporalTransformer(nn.Module):
             setattr(self, f"ff_{i}", GEGLUFeedForward(channels))
         self.proj_out = Dense(channels, channels, zero_init=True)
 
+    def set_ring(self, mesh, axis: str = "context") -> None:
+        """Ring attention over `axis` of `mesh` at every depth (None: off)."""
+        for i in range(self.depth):
+            attn = getattr(self, f"attn_{i}")
+            attn.ring_mesh, attn.ring_axis = mesh, axis
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: the clip's frames, or under the ring this rank's block of
+        them, which takes the positional rows of its own frames."""
         b, t, h, w, c = x.shape
-        pe = sinusoidal_positions(self.max_len, c, device=x.device)[:t].to(x.dtype)
+        attn0 = getattr(self, "attn_0")
+        n = axis_size(attn0.ring_mesh, attn0.ring_axis)
+        start = 0 if n == 1 else axis_rank(attn0.ring_mesh, attn0.ring_axis) * t
+        if start + t > self.max_len:
+            raise ValueError(f"frames {start}..{start + t} past the positional table's {self.max_len}")
+        pe = sinusoidal_positions(self.max_len, c, device=x.device)[start:start + t].to(x.dtype)
         tokens = self.norm_in(x.reshape(b, t, h * w, c)) + pe[None, :, None, :]
         for i in range(self.depth):
             norm, attn = getattr(self, f"norm_{i}"), getattr(self, f"attn_{i}")

@@ -32,6 +32,9 @@ Padding = Union[str, Sequence[Tuple[int, int]]]
 
 
 class Dense(nn.Module):
+    # under tensor parallelism, the layer's role (emox_torch.comm.sharding.DenseShard)
+    tp = None
+
     def __init__(self, in_features: int, out_features: int, bias: bool = True, zero_init: bool = False):
         super().__init__()
         self.zero_init = zero_init
@@ -39,6 +42,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.linear(self, x)
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
     def fan_in(self) -> int:

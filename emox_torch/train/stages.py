@@ -27,15 +27,24 @@ The reference's loss draws its random numbers inside, from a JAX key. Here
 they are drawn apart, by `sample_draws` from a torch.Generator, and the
 loss is a deterministic function of the batch and those draws: a test can
 feed it the reference's own draws.
+
+On a mesh, a denoise stage's loss is given the global batch and the global
+draws with this rank's `BatchShard` (emox_torch.core.mesh): it encodes
+and denoises this rank's rows and frames only, and returns this rank's share
+of each metric (its sum over the shard divided by the global count), so
+that the sums over the data x context ranks are the metrics of the whole
+batch and the gradients of those shares sum to the whole loss's.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import math
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from emox_torch.core.mesh import BatchShard
 from emox_torch.core.config import Config
 from emox_torch.diffusion.schedule import Schedule, add_noise, get_velocity, min_snr_loss_weight
 from emox_torch.models.audio import align_audio_to_frames, audio_feature_rate
@@ -164,12 +173,18 @@ def downsample_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return resize_bilinear(mask.float(), h, w)[:, None]
 
 
-def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule,
-                  stage: int) -> Callable[[Batch, Draws], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule, stage: int,
+                  shard: Optional[BatchShard] = None) -> Callable[[Batch, Draws], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """Returns loss(batch, draws) -> (loss, metrics), deterministic given the
-    draws of `sample_draws`. `sched` lives on the model's device."""
+    draws of `sample_draws`. `sched` lives on the model's device. shard:
+    this rank's block of the batch (module docstring); stages 0 and 5 run
+    on one block only."""
     check_stage(stage)
     dcfg, acfg, tcfg = config.diffusion, config.audio, config.train
+    shard = shard or BatchShard()
+    if stage in (0, 5) and not shard.whole:
+        raise NotImplementedError(f"stage {stage} trains on one data x context block: its metrics are not sums "
+                                  "over the batch (use mesh.data=1, mesh.context=1)")
 
     def facelocator_loss(batch: Batch, draws: Draws):
         logits = model.locate_face(batch["images"])
@@ -211,58 +226,78 @@ def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule,
 
     def denoise_loss(batch: Batch, draws: Draws):
         frames, num_motion = _clip_frames(batch, stage)
+        b_all, t_all = frames.shape[:2]
+        rows = shard.rows
+        block = lambda x: shard.frames(rows(x))  # this rank's rows and frames
+        t0 = shard.frame_range(t_all).start if shard.ctx_size > 1 else 0
+        frames = block(frames)
         t = frames.shape[1]
-        eps = draws["posterior_eps"] if tcfg.vae_encode == "sample" else None
+        eps = None
+        if tcfg.vae_encode == "sample":
+            eps = draws["posterior_eps"]
+            if not shard.whole:
+                eps = block(eps.reshape(b_all, t_all, *eps.shape[1:])).reshape(-1, *eps.shape[1:])
         latents = model.encode_images(frames, eps=eps)
-        ref_latent = model.encode_images(batch["ref_image"])
-        noise = draws["noise"]
+        ref_latent = model.encode_images(rows(batch["ref_image"]))
+        noise = block(draws["noise"])
         if dcfg.noise_offset > 0:
-            noise = noise + dcfg.noise_offset * draws["noise_offset"]
-        ts = draws["timesteps"]
+            noise = noise + dcfg.noise_offset * rows(draws["noise_offset"])
+        ts = rows(draws["timesteps"])
         noisy = add_noise(sched, latents, noise, ts)
 
         # CFG dropout of the reference (identity): the dropped rows attend to
         # themselves in place of the reference tokens
-        ref_dropout = draws["ref_drop"] if tcfg.uncond_ratio > 0 else None
+        ref_dropout = rows(draws["ref_drop"]) if tcfg.uncond_ratio > 0 else None
 
         identity_embed = None
         if config.model.use_identity_embed:
             # the frozen CLIP vision encoding of the reference image, dropped
             # with the reference: a zero embedding adds nothing through the
             # bias-free projection
-            identity_embed = model.identity_embedding(batch["ref_image"])
+            identity_embed = model.identity_embedding(rows(batch["ref_image"]))
             if ref_dropout is not None:
                 identity_embed = identity_embed * (1.0 - ref_dropout.to(identity_embed.dtype))[:, None]
 
         audio_windows = None
         if stage >= 2 and "wav" in batch:
-            feats = model.modules.audio_encoder(model._in(batch["wav"]))
+            feats = model.modules.audio_encoder(model._in(rows(batch["wav"])))
             # the wav starts `context_frames` before the un-primed clip; motion
-            # frames sit num_motion frames earlier (their windows zero-pad)
+            # frames sit num_motion frames earlier (their windows zero-pad);
+            # a context shard's frames start t0 frames into the clip
             audio_windows = align_audio_to_frames(
                 feats, t, audio_feature_rate(acfg), acfg.video_fps, acfg.context_frames,
-                frame_offset=acfg.context_frames - num_motion,
+                frame_offset=acfg.context_frames - num_motion + t0,
             )
             if tcfg.uncond_ratio > 0:
-                audio_windows = audio_windows * draws["audio_keep"].to(audio_windows.dtype)
+                audio_windows = audio_windows * rows(draws["audio_keep"]).to(audio_windows.dtype)
 
-        speeds = batch.get("speeds") if stage == 3 else None
-        face_mask = batch.get("masks") if stage == 3 else None
+        speeds = block(batch.get("speeds")) if stage == 3 else None
+        face_mask = rows(batch.get("masks")) if stage == 3 else None
         control_cond = batch.get("control") if stage == 4 else None
+        if control_cond is not None:
+            control_cond = block(control_cond) if control_cond.dim() == 5 else rows(control_cond)
         pred = model.predict_noise(noisy, ts, ref_latent, audio_windows=audio_windows, speeds=speeds,
                                    face_mask=face_mask, control_cond=control_cond, ref_dropout=ref_dropout,
                                    identity_embed=identity_embed)
         target = noise if sched.prediction_type == "epsilon" else get_velocity(sched, latents, noise, ts)
         err = (pred.float() - target.float()) ** 2
-        if num_motion > 0:
-            err = err[:, num_motion:]
-        per_sample = err.mean(dim=tuple(range(1, err.dim())))
+        if num_motion > t0:
+            err = err[:, num_motion - t0:]
+        dims = tuple(range(1, err.dim()))
         w = min_snr_loss_weight(sched, ts, dcfg.snr_gamma)
-        loss = (w * per_sample).mean()
-        metrics = {"loss": loss, "mse": per_sample.mean()}
+        if shard.whole:
+            per_sample = err.mean(dim=dims)
+            loss = (w * per_sample).mean()
+            mse = per_sample.mean()
+        else:  # this block's share of the means over the whole batch
+            per_sample = err.sum(dim=dims) / float((t_all - num_motion) * math.prod(err.shape[2:]))
+            loss = (w * per_sample).sum() / b_all
+            mse = per_sample.sum() / b_all
+        metrics = {"loss": loss, "mse": mse}
         if stage == 3 and face_mask is not None:
             lm = downsample_mask(face_mask.to(err.device), latents.shape[2], latents.shape[3])
-            face_err = (err * lm).sum() / (lm.sum() * err.shape[1] * err.shape[-1] + 1e-6)
+            lm_all = lm if shard.whole else downsample_mask(batch["masks"].to(err.device), *latents.shape[2:4])
+            face_err = (err * lm).sum() / (lm_all.sum() * (t_all - num_motion) * err.shape[-1] + 1e-6)
             loss = loss + tcfg.face_loss_weight * face_err
             metrics = {"loss": loss, "mse": metrics["mse"], "face_mse": face_err}
         return loss, metrics

@@ -193,7 +193,9 @@ def test_unreadable_image_names_both_readers(tmp_path):
 # ---- refusals ------------------------------------------------------------------------
 @pytest.mark.parametrize("argv, item", [
     (["bench", "--preset", "tiny"], "benchmark"),
-    (["train", "--stage", "2", "--coordinator", "h:1", "--device", "cpu"], "item 9"),
+    # multi-process training is ported: a coordinator without the other
+    # two flags exits naming them
+    (["train", "--stage", "2", "--coordinator", "h:1", "--device", "cpu"], "--num-processes and --process-id"),
 ], ids=["bench", "distributed"])
 def test_unported_commands_exit_naming_their_item(argv, item):
     with pytest.raises(SystemExit) as e:

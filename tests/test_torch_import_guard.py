@@ -57,7 +57,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_emox():
             "emox_torch.cli", "emox_torch.data.dataset", "emox_torch.data.records", "emox_torch.data.precompute",
             "emox_torch.core.yamlio", "emox_torch.utils.profiling", "emox_torch.eval.metrics",
             "emox_torch.infer.export", "emox_torch.interop.torch_import", "emox_torch.core.compile_cache",
-            "emox_torch.data.camera", "emox_torch.ops.registry"} <= set(res["modules"])
+            "emox_torch.data.camera", "emox_torch.ops.registry", "emox_torch.comm", "emox_torch.comm.runtime",
+            "emox_torch.comm.sharding", "emox_torch.core.mesh", "emox_torch.ops.ring"} <= set(res["modules"])
     leaked = sorted(set(res["roots"]) & set(FORBIDDEN + ("yaml",)))
     assert not leaked, f"importing emox_torch pulled in {leaked}"
     # checkpoints are read without safetensors, diffusers or transformers, and
@@ -177,13 +178,14 @@ def test_unsupported_options_raise_with_their_roadmap_item():
     from emox_torch.core.presets import tiny_config
     from emox_torch.models.emo import EMOModel
 
-    # what the port still leaves out is a command: multi-process training
-    # exits naming its item, bench its benchmark PR
-    with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1 item 9"):
+    # what the port still leaves out is a command: bench, which its benchmark
+    # PR brings; multi-process training is ported, and exits naming the flags
+    # a coordinator needs beside it
+    with pytest.raises(SystemExit, match="--num-processes and --process-id"):
         cli.main(["train", "--stage", "2", "--coordinator", "h:1", "--device", "cpu"])
     with pytest.raises(SystemExit, match="benchmark"):
         cli.main(["bench"])
-    assert set(cli._NOT_PORTED) == {"distributed", "bench"}
+    assert set(cli._NOT_PORTED) == {"bench"}
     cfg = tiny_config()
     # every model option builds: sparse-causal attention, separable convs
     for field in ("use_sparse_causal", "separable_convs"):
