@@ -104,8 +104,9 @@ raises and the script exits non-zero. Phases:
      invert (a served clip's first 16 frames inverted, then sampled back),
      and one 16-frame request each with interpolation_factor=2, the two-call
      CFG program and model.use_gn_ref=True.
-     export: the served model's denoise step (bf16, 256^2, 16 frames,
-     batch 1) exported with torch.export, every kernel a registered op
+     export: the flagship's denoise step at one layer per block (bf16,
+     256^2, 16 frames, batch 1; EXPORT_LAYERS_PER_BLOCK) exported with
+     torch.export, every kernel a registered op
      (emox_torch.ops.registry): export, save and load seconds, the
      artifact's bytes, the loaded call's eps within 1e-3 of the eager
      step's and its launches by kernel equal to the eager call's, the ms of
@@ -244,18 +245,26 @@ raises and the script exits non-zero. Phases:
      step phase's model with the flag set on the same modules.
  16. distributed: the distributed runtime on the one card. The kernels
      phase holds K1 and K4 at the ring's block (Lq = Lk = 4: 8 frames over
-     context 2) at the temporal sites of levels 0 and 1 in both types, and
-     K6 at a tensor-parallel shard (F / 2). Then, after one-process runs of
-     the same work, two ranks (this script with --rank, a gloo world,
-     pinned-host transport: gloo moves no CUDA tensor) run the float32
-     stage-2 step (flagship, batch 1 x 8 frames) at context 2 (the ring:
-     K1 / K4 launches per rank from its rotations and sites) and at model 2
-     (K6 on each rank's FF shard), each within |dloss| 1e-4 and grad-norm
-     relative 1e-3 of one process, and the 48-frame request with its windows
-     over context 2: bf16 against the same windows grouped as the ranks group
-     them in one process, float32 against the default request, within 2e-3
-     x the latent scale; s/request and peak memory per rank. A failed rank
-     or a world past DIST_DEADLINE_S fails the phase.
+     context 2) at the temporal sites of levels 0 and 1 in both types, K6
+     at a tensor-parallel shard (F / 2), float32 K1 and K4 at a
+     sparse-causal rank's level-0 sites (N 4, Lk 3072 and 2048) and the
+     float32 d-512 forward at a stage-5 rank's N 1 x 1024. Then, after
+     one-process runs of the same work, two ranks (this script with --rank,
+     a gloo world, pinned-host transport: gloo moves no CUDA tensor) run the
+     float32 stage-2 step (flagship, batch 1 x 8 frames) at context 2 (the
+     ring: K1 / K4 launches per rank from its rotations and sites), on the
+     same placed model with sparse-causal attention (the first and previous
+     frames exchanged between the ranks) and stage 1 (batch 2 x 1: its frame
+     whole on both ranks, no ring launch), at model 2 (K6 on each rank's FF
+     shard) with one adafactor update held to one process's at 1e-4, at data
+     2 stage 5 (the flagship's VAE, batch 2, d 512 on the float32 kernels)
+     and stage 0 (the face nets, batch 8), each metric within 1e-4 of one
+     process; each step within |dloss| 1e-4 and grad-norm relative 1e-3 of
+     one process; and the 48-frame request with its windows over context 2:
+     bf16 against the same windows grouped as the ranks group them in one
+     process, float32 against the default request, within 2e-3 x the latent
+     scale; s/request and peak memory per rank. A failed rank or a world
+     past DIST_DEADLINE_S fails the phase.
  17. the `kernels` line: every ported kernel with the TPU kernel it
      replaces and its numbers.
 The line before the last repeats the card's name and power limit; the
@@ -335,6 +344,10 @@ BWD_SOURCES = ("flash_bwd_sm90", "flash_bwd_f32_sm90", "flash_bwd_d256_sm90", "f
 # reference's tokens and without, as the loss's reference dropout asks)
 BWD_PER_STEP = {("flagship", 256): 4, ("flagship", 512): 9, ("flagship-sd15", 256): 4, ("flagship-sc", 256): 8,
                 ("flagship-sep", 256): 4}
+# the export phase's UNets: the flagship's widths at one layer per block (two
+# in the flagship); the graph's trace, save and load are host time that scales
+# with its depth (84-90 s at full depth on the card machine's hosts)
+EXPORT_LAYERS_PER_BLOCK = 1
 ATTN_XLA = {"EMOX_ATTENTION_IMPL": "xla"}
 ATTN_PALLAS = {"EMOX_ATTENTION_IMPL": "pallas"}
 NORMS = {"EMOX_GROUPNORM_IMPL": "pallas", "EMOX_LN_QKV": "1"}
@@ -1645,6 +1658,16 @@ def phase_kernels():
                                                                  repeat=True)
         results[f"geglu_ff_tp{tag}"] = check_geglu_ff(gen, 8192, 320, f=640, dtype=dtype, repeat=True)
         check_geglu_ff(gen, 2048, 640, f=1280, dtype=dtype, timing=False, repeat=True)
+    # the distributed phase's other rank shapes: the sparse-causal step over
+    # context 2 (float32, batch 1 x 8 frames), each rank's 4 frames at the
+    # level-0 sites with the reference's tokens (Lk 3072) and without (2048);
+    # stage 5 at data 2, each rank's one image at the VAE's mid-attention
+    # (N 1 x 1024 tokens, head dim 512)
+    for lk in (3072, 2048):
+        results[f"flash_sc_cp_f32_{lk}"] = check_flash(gen, 4, 1024, lk, dtype=torch.float32, repeat=True)
+        results[f"flash_bwd_sc_cp_f32_{lk}"] = check_flash_bwd(gen, 4, 1024, lk, dtype=torch.float32, repeat=True)
+    results["flash_d512_f32_1024"] = check_flash(gen, 1, 1024, 1024, c=512, heads=1, dtype=torch.float32,
+                                                 repeat=True)
     return results
 
 
@@ -3130,11 +3153,13 @@ def op_dispatch_cost() -> dict:
     return out
 
 
-def phase_export(model, steps: int = 10, frames: int = 16, size: int = 256, requests: int = 2) -> dict:
-    """The flagship's denoise step exported with torch.export
-    (emox_torch.infer.export) on the card, from the model phase serve built
-    (its parameters are an input of the program, so nothing is copied), in
-    bf16 at 256^2, 16 frames, batch 1, default switches: export, save and
+def phase_export(steps: int = 10, frames: int = 16, size: int = 256, requests: int = 2) -> dict:
+    """The flagship's denoise step at a cut depth (EXPORT_LAYERS_PER_BLOCK
+    layers a block in the UNets; the flagship's widths, heads and attention
+    levels) exported with
+    torch.export (emox_torch.infer.export) on the card (its parameters are an
+    input of the program, so nothing is copied), in bf16 at 256^2, 16
+    frames, batch 1, default switches: export, save and
     load seconds, the artifact's bytes, the graph's kernel ops against the
     eager call's launches, the loaded call's eps against the eager step's
     (within 1e-3 rel L2; whether the bits agree) and its launches by kernel
@@ -3154,7 +3179,13 @@ def phase_export(model, steps: int = 10, frames: int = 16, size: int = 256, requ
     from emox_torch.models.emo import EMOModel
     from emox_torch.ops import launch_counts, registry, reset_launch_counts
 
-    res = {"phase": "export", "config": f"flagship {size}^2, {frames} frames, batch 1, bf16, default switches"}
+    import dataclasses
+
+    cfg = model_config("flagship", size, frames)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, layers_per_block=EXPORT_LAYERS_PER_BLOCK))
+    model = EMOModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    res = {"phase": "export", "config": f"flagship {size}^2 at {EXPORT_LAYERS_PER_BLOCK} layer(s) per block, {frames} frames, "
+                                        "batch 1, bf16, default switches"}
     t0 = time.perf_counter()
     exported = export_denoise_step(model, num_frames=frames, image_size=size, dtype=torch.bfloat16)
     res["export_s"] = time.perf_counter() - t0
@@ -3248,7 +3279,7 @@ def phase_export(model, steps: int = 10, frames: int = 16, size: int = 256, requ
     if not (f32["eps_rel_l2"] <= f32["tol"] and l.get("ln_qkv", 0) > 0 and l.get("ln_qkv_f32_sm90", 0) > 0
             and l.get("group_norm", 0) > 0 and {"ln_qkv", "group_norm"} <= set(f32["kernel_ops"])):
         raise AssertionError(f"export: the float32 small step under {NORMS}: {f32}")
-    del cpu, gpu, fn, loaded
+    del cpu, gpu, fn, loaded, model
     torch.cuda.empty_cache()
     return dict(res, launches_loaded=loaded_counts)
 
@@ -4031,41 +4062,82 @@ def _leaf_stats(tr, grads):
     return norms, sums.cpu()
 
 
-def _dist_train_step(spec, mesh=None):
-    """The float32 stage-2 step of the distributed phase (spec's batch and
-    draws, flagship widths, the zero-initialised branches filled) on `mesh`
-    (None: one process): its loss, gradient norm, per-leaf statistics, the
-    kernels' launches during the step, its seconds and peak memory."""
+def _dist_model(spec, cfg, mesh=None):
+    """The phase's float32 model of `cfg` (seed 0, the zero-initialised
+    branches filled) on the card, placed on `mesh` where one is given (rank
+    0's weights broadcast, the tensor-parallel leaves sliced, the ring and
+    the sparse-causal exchange over context), and the seconds the placement
+    took. Every leg of a mesh trains on its one placed model."""
     import torch
     from emox_torch.models.emo import EMOModel
+
+    sync, _, _ = _card(spec["device"])
+    model = EMOModel(cfg, dtype=torch.float32, device=spec["device"], seed=0)
+    _fill_zero_init(model, seed=8)
+    t0 = time.perf_counter()
+    model.distribute(mesh)
+    sync()
+    return model, time.perf_counter() - t0
+
+
+def _update_gap(tr, deltas, path: str) -> float:
+    """The relative L2 gap of this rank's optimizer update to the
+    one-process update saved at `path`, over every trainable leaf, each
+    compared on this rank's slice (its squares summed over `model` where
+    the leaf is sharded, a replicated leaf counted once)."""
+    import torch
+
+    single = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+    want = [tr._local(n, s).to(d.device) for n, s, d in zip(tr.trainable_names(), single, deltas)]
+    norms = tr.state.optimizer.norms
+    gap = torch.linalg.vector_norm(norms([d - w for d, w in zip(deltas, want)]))
+    return float(gap / torch.linalg.vector_norm(norms(want)))
+
+
+def _dist_step(spec, model, cfg, batch, draws, mesh=None, env=None, update=None):
+    """One float32 step of cfg's stage on `model` (placed on `mesh`; None:
+    one process) through a Trainer, under the switches `env`: its loss,
+    metrics, gradient norm, per-leaf statistics, the kernels' launches
+    during the step, its seconds and peak memory. update: a path; the
+    optimizer's update is then applied after the step, and one process
+    saves it there, a rank holds its own to it (update_gap)."""
+    import torch
     from emox_torch.ops import launch_counts, reset_launch_counts
     from emox_torch.train import Trainer
 
-    cfg, dev = spec["train_cfg"], spec["device"]
+    dev = spec["device"]
     sync, reset_peak, peak_gb = _card(dev)
-    model = EMOModel(cfg, dtype=torch.float32, device=dev, seed=0)
-    _fill_zero_init(model, seed=8)
-    t0 = time.perf_counter()
-    tr = Trainer(cfg, model=model, mesh=mesh)  # on a mesh: rank 0's weights broadcast, TP leaves sliced
-    sync()
-    place_s = time.perf_counter() - t0
+    tr = Trainer(cfg, model=model, mesh=mesh)
     on_card = lambda d: {k: v.to(dev) for k, v in d.items()}
-    batch, draws = on_card(spec["batch"]), on_card(spec["draws"])
-    sync()
-    reset_peak()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    with _float32_math():
-        metrics, grads = tr.loss_and_grads(batch, draws)
+    batch, draws = on_card(batch), on_card(draws)
+    with switches(env):
         sync()
-    secs = time.perf_counter() - t0
-    counts = launch_counts()
+        reset_peak()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with _float32_math():
+            metrics, grads = tr.loss_and_grads(batch, draws)
+            sync()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
     norms, sums = _leaf_stats(tr, grads)
     out = {"loss": metrics["loss"].double().item(), "grad_norm": metrics["grad_norm"].double().item(),
-           "norms": norms, "sums": sums, "launches": counts, "step_s": secs, "place_s": place_s,
-           "peak_gb": peak_gb(), "leaves": len(grads)}
+           "metrics": {k: v.double().item() for k, v in metrics.items()}, "norms": norms, "sums": sums,
+           "launches": counts, "step_s": secs, "peak_gb": peak_gb(), "leaves": len(grads)}
+    if update is not None:
+        masters = list(tr.state.masters.values())
+        before = [m.clone() for m in masters]
+        out["applied"] = tr.state.optimizer.step(grads)
+        deltas = [m - b for m, b in zip(masters, before)]
+        del before
+        out["update_norm"] = float(torch.linalg.vector_norm(tr.state.optimizer.norms(deltas)))
+        if mesh is None:
+            torch.save([d.cpu() for d in deltas], update)
+        else:
+            out["update_gap"] = _update_gap(tr, deltas, update)
+        del deltas
     tr.close()
-    del tr, model, grads, metrics
+    del tr, grads, metrics
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -4088,22 +4160,41 @@ def _split_in_one_process(n: int):
     return model_out
 
 
-def _dist_request(spec, dtype, mesh=None, split: int = 1):
-    """The 48-frame 256^2 request of the distributed phase through the
-    windowed sampler in `dtype`: its windows split over the mesh's context
-    ranks, or (no mesh) in one process, with split > 1 grouped as that many
-    ranks group them (_split_in_one_process). The latents, seconds and peak
-    memory."""
+def _dist_serve_model(spec, mesh=None):
+    """The request's model in float32 (seed 0, the zero-initialised branches
+    filled), its weights broadcast over `mesh`. The requests run widest type
+    first and cast it down between them (_dist_serve_dtypes): its bf16 values
+    are EMOModel(dtype=bfloat16)'s, whose init also draws float32 values and
+    casts them."""
     import torch
     from emox_torch.core.mesh import shard_params_replicated
-    from emox_torch.infer import pipeline
     from emox_torch.models.emo import EMOModel
+
+    model = EMOModel(spec["serve_cfg"], dtype=torch.float32, device=spec["device"], seed=0)
+    _fill_zero_init(model, seed=8)
+    shard_params_replicated(list(model.modules.parameters()), mesh)
+    return model
+
+
+def _dist_serve_dtypes(spec):
+    """The requests' (tag, type), widest type first."""
+    return sorted(spec["serve_dtypes"].items(), key=lambda kv: kv[1].itemsize, reverse=True)
+
+
+def _dist_request(spec, model, dtype, mesh=None, split: int = 1):
+    """The 48-frame 256^2 request of the distributed phase through the
+    windowed sampler on `model` (_dist_serve_model; cast to `dtype` where it
+    is wider): its windows split over the mesh's context ranks, or (no mesh)
+    in one process, with split > 1 grouped as that many ranks group them
+    (_split_in_one_process). The latents, seconds and peak memory."""
+    import torch
+    from emox_torch.infer import pipeline
 
     cfg, dev = spec["serve_cfg"], spec["device"]
     sync, reset_peak, peak_gb = _card(dev)
-    model = EMOModel(cfg, dtype=dtype, device=dev, seed=0)
-    _fill_zero_init(model, seed=8)
-    shard_params_replicated(list(model.modules.parameters()), mesh)
+    if model.dtype != dtype:
+        model.modules.to(dtype=dtype)
+        model.dtype = dtype
     pipe = pipeline.EMOPipeline(model, mesh=mesh)
     img, wav, speeds, mask = (t.to(dev, dtype) for t in spec["request"])
     combine = pipeline.windowed_model_out
@@ -4122,7 +4213,7 @@ def _dist_request(spec, dtype, mesh=None, split: int = 1):
     finally:
         pipeline.windowed_model_out = combine
     out = {"latents": lat.float().cpu(), "s": time.perf_counter() - t0, "peak_gb": peak_gb()}
-    del pipe, model, lat
+    del pipe, lat
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -4130,8 +4221,8 @@ def _dist_request(spec, dtype, mesh=None, split: int = 1):
 
 def dist_rank(rank: int, directory: str) -> int:
     """One rank of the distributed phase (chip_smoke.py --rank R --dist-dir
-    DIR): a gloo world of DIST_RANKS ranks on the one card, the three legs in
-    turn; each leg's results go to DIR/rank<R>.pt."""
+    DIR): a gloo world of DIST_RANKS ranks on the one card, the legs in turn,
+    each mesh's on one placed model; the results go to DIR/rank<R>.pt."""
     import torch
     import torch.distributed as dist
     from emox_torch.comm.runtime import initialize_distributed, transport
@@ -4144,12 +4235,38 @@ def dist_rank(rank: int, directory: str) -> int:
     initialize_distributed(f"file://{os.path.join(directory, 'store')}", DIST_RANKS, rank, backend="gloo",
                            timeout_s=DIST_TIMEOUT_S)
     out = {"backend": dist.get_backend(), "transport": transport(torch.zeros(1, device=spec["device"]))}
+    mesh = lambda d, c, m: create_mesh(MeshConfig(data=d, context=c, model=m))
     with switches():
-        out["cp"] = _dist_train_step(spec, create_mesh(MeshConfig(data=1, context=DIST_RANKS, model=1)))
-        out["tp"] = _dist_train_step(spec, create_mesh(MeshConfig(data=1, context=1, model=DIST_RANKS)))
-        cp = create_mesh(MeshConfig(data=1, context=DIST_RANKS, model=1))
-        for tag, dtype in spec["serve_dtypes"].items():
-            out[f"windowed{tag}"] = _dist_request(spec, dtype, cp)
+        # (a) the stage-2 step, (d) the same with sparse-causal attention and
+        # (e) stage 1, whose one frame stays whole on both ranks, all at context 2
+        cp = mesh(1, DIST_RANKS, 1)
+        model, place_s = _dist_model(spec, spec["train_cfg"], cp)
+        out["cp"] = dict(_dist_step(spec, model, spec["train_cfg"], spec["batch"], spec["draws"], cp), place_s=place_s)
+        set_sparse_causal(model, True)
+        out["sc"] = _dist_step(spec, model, spec["sc_cfg"], spec["batch"], spec["draws"], cp)
+        set_sparse_causal(model, False)
+        out["stage1"] = _dist_step(spec, model, spec["stage1_cfg"], spec["stage1_batch"], spec["stage1_draws"], cp)
+        del model
+        # (b, g) the stage-2 step at model 2, then its adafactor update
+        tp = mesh(1, 1, DIST_RANKS)
+        model, place_s = _dist_model(spec, spec["ada_cfg"], tp)
+        out["tp"] = dict(_dist_step(spec, model, spec["ada_cfg"], spec["batch"], spec["draws"], tp,
+                                    update=spec["update_path"]), place_s=place_s)
+        del model
+        # (f) stages 5 and 0 at data 2: the flagship's VAE, and the face nets
+        dp = mesh(DIST_RANKS, 1, 1)
+        model, place_s = _dist_model(spec, spec["stage5_cfg"], dp)
+        out["stage5"] = dict(_dist_step(spec, model, spec["stage5_cfg"], spec["stage5_batch"], spec["stage5_draws"],
+                                        dp, env=ATTN_PALLAS), place_s=place_s)
+        out["stage0"] = _dist_step(spec, model, spec["stage0_cfg"], spec["stage0_batch"], {}, dp)
+        del model
+        if spec["device"] == "cuda":
+            torch.cuda.empty_cache()
+        # (c) the request with its windows over context
+        model = _dist_serve_model(spec, cp)
+        for tag, dtype in _dist_serve_dtypes(spec):
+            out[f"windowed{tag}"] = _dist_request(spec, model, dtype, cp)
+        del model
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -4163,10 +4280,19 @@ def _temporal_sites(cfg) -> int:
 
 
 def _dist_spec(tmp: str) -> dict:
-    """The distributed phase's inputs: the float32 stage-2 step's config,
-    batch and draws (flagship 256^2, batch 1 x 8 frames), the bf16 48-frame
-    request's config and inputs; drawn on the CPU from fixed seeds."""
+    """The distributed phase's inputs, drawn on the CPU from fixed seeds: the
+    float32 stage-2 step's config, batch and draws (flagship 256^2, batch 1
+    x 8 frames; with sparse-causal attention, and with adafactor), stage 1's
+    (batch 2 x 1), stage 5's (the flagship's VAE, batch 2) and stage 0's
+    (the face nets, batch 8, a landmarks_valid mask that differs between
+    the data ranks' rows), and the bf16 48-frame request's config and
+    inputs. Stages 5 and 0 neither run nor train the UNets and the audio
+    encoder: their model has them at the tiny preset's widths, so that
+    placing it moves the VAE and the face nets only."""
+    import dataclasses
+
     import torch
+    from emox_torch.core.presets import tiny_config
     from emox_torch.diffusion.schedule import make_schedule
     from emox_torch.train import sample_draws
 
@@ -4176,7 +4302,25 @@ def _dist_spec(tmp: str) -> dict:
     draws = sample_draws(train_cfg, make_schedule(train_cfg.diffusion), 2, batch, gen)
     request = _request_inputs(torch.Generator(device="cpu").manual_seed(42), "cpu", 256, DIST_LONG_FRAMES,
                               torch.bfloat16)
+    stage1_cfg = _train_config(1, batch=2, frames=1, dtype="float32", checkpoint_dir=tmp)
+    stage1_batch = _train_batch(gen, 1, 2, 1, stage1_cfg, "cpu")
+    tiny = tiny_config(256, 1)
+    vae_cfg = lambda stage, b: _train_config(stage, batch=b, frames=1, dtype="float32", checkpoint_dir=tmp).replace(
+        model=tiny.model, audio=tiny.audio)
+    stage5_cfg, stage0_cfg = vae_cfg(5, 2), vae_cfg(0, 8)
+    stage5_batch = _train_batch(gen, 5, 2, 1, stage5_cfg, "cpu")
+    stage0_batch = dict(_train_batch(gen, 0, 8, 1, stage0_cfg, "cpu"),
+                        landmarks_valid=torch.tensor([1.0, 1.0, 1.0, 0.0, 1.0, 0.0, 0.0, 1.0]))
     return {"train_cfg": train_cfg, "batch": batch, "draws": draws, "request": request,
+            "sc_cfg": _train_config(2, batch=1, frames=DIST_FRAMES, dtype="float32", checkpoint_dir=tmp,
+                                    name="flagship-sc"),
+            "ada_cfg": train_cfg.replace(train=dataclasses.replace(train_cfg.train, optimizer="adafactor")),
+            "update_path": os.path.join(tmp, "update_single.pt"),
+            "stage1_cfg": stage1_cfg, "stage1_batch": stage1_batch,
+            "stage1_draws": sample_draws(stage1_cfg, make_schedule(stage1_cfg.diffusion), 1, stage1_batch, gen),
+            "stage5_cfg": stage5_cfg, "stage5_batch": stage5_batch,
+            "stage5_draws": sample_draws(stage5_cfg, make_schedule(stage5_cfg.diffusion), 5, stage5_batch, gen),
+            "stage0_cfg": stage0_cfg, "stage0_batch": stage0_batch,
             "serve_cfg": model_config("flagship", 256, DIST_LONG_FRAMES),
             "serve_dtypes": {"": torch.bfloat16, "_f32": torch.float32},
             "device": "cuda"}
@@ -4184,17 +4328,29 @@ def _dist_spec(tmp: str) -> dict:
 
 def phase_distributed(out_dir: str, make_spec=_dist_spec):
     """The distributed runtime on the one card: first the single-process legs
-    here (the float32 stage-2 step at flagship widths, batch 1 x 8 frames;
-    the bf16 48-frame request through the windowed sampler), their memory
-    freed, then one spawn of two ranks in a gloo world (pinned-host
-    transport: gloo moves no CUDA tensor) that run
-      (a) the same step at data 1 x context 2 x model 1 (the ring: K1 and K4
-          at each rotation of each temporal site, counted per rank),
-      (b) the same step at data 1 x context 1 x model 2 (tensor parallelism:
-          K6 on each rank's FF shard),
+    here (float32 steps at flagship widths: stage 2, batch 1 x 8 frames,
+    with and without sparse-causal attention, and its adafactor update;
+    stage 1, batch 2 x 1; the flagship's VAE in stage 5, batch 2, and the
+    face nets in stage 0, batch 8; the bf16 48-frame request through the
+    windowed sampler), their memory freed, then one spawn of two ranks in a
+    gloo world (pinned-host transport: gloo moves no CUDA tensor) that run
+      (a) the stage-2 step at data 1 x context 2 x model 1 (the ring: K1 and
+          K4 at each rotation of each temporal site, counted per rank),
+      (d) on the same placed model, the step with sparse-causal attention
+          (each rank's first and previous frames from the other; K1 at each
+          level-0 site with the reference's tokens and without, and the
+          ring's),
+      (e) on it, stage 1: its one frame whole on both ranks, no ring launch,
+      (b) the stage-2 step at data 1 x context 1 x model 2 (tensor
+          parallelism: K6 on each rank's FF shard), and (g) its adafactor
+          update, each rank's slices held to the one-process update,
+      (f) at data 2, stage 5 (flash_fwd_d512_f32 and flash_bwd_d512_f32 at
+          the VAE's mid-attention, under EMOX_ATTENTION_IMPL=pallas) and
+          stage 0, each metric held to one process,
       (c) the same request with its windows over context 2,
     each held to the reference's bars (|dloss| < 1e-4, grad-norm relative
-    error < 1e-3; |dlat|max < 2e-3 x the latent scale; in bf16 against the
+    error < 1e-3; each metric of (f) and the update of (g) within 1e-4
+    relative; |dlat|max < 2e-3 x the latent scale; in bf16 against the
     windows grouped as the ranks group them, and within twice bf16's own
     error of the default request). A rank that fails or a world that
     outlives DIST_DEADLINE_S fails the phase."""
@@ -4207,12 +4363,31 @@ def phase_distributed(out_dir: str, make_spec=_dist_spec):
         train_cfg = spec["train_cfg"]
         with switches():
             t0 = time.perf_counter()
-            single = {"step": _dist_train_step(spec)}
-            for tag, dtype in spec["serve_dtypes"].items():
-                single[f"windowed{tag}"] = _dist_request(spec, dtype)
+            # one model for the flagship's legs; the adafactor update, which
+            # moves its weights, comes last
+            model, _ = _dist_model(spec, train_cfg)
+            set_sparse_causal(model, True)
+            single = {"sc": _dist_step(spec, model, spec["sc_cfg"], spec["batch"], spec["draws"])}
+            set_sparse_causal(model, False)
+            single["stage1"] = _dist_step(spec, model, spec["stage1_cfg"], spec["stage1_batch"], spec["stage1_draws"])
+            single["step"] = _dist_step(spec, model, spec["ada_cfg"], spec["batch"], spec["draws"],
+                                        update=spec["update_path"])
+            del model
+            model, _ = _dist_model(spec, spec["stage5_cfg"])
+            single["stage5"] = _dist_step(spec, model, spec["stage5_cfg"], spec["stage5_batch"], spec["stage5_draws"],
+                                          env=ATTN_PALLAS)
+            single["stage0"] = _dist_step(spec, model, spec["stage0_cfg"], spec["stage0_batch"], {})
+            del model
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            model = _dist_serve_model(spec)
+            for tag, dtype in _dist_serve_dtypes(spec):
+                single[f"windowed{tag}"] = _dist_request(spec, model, dtype)
             # bf16 rounds each window's output by what shares its call: the
             # ranks' grouping in one process is what they must reproduce
-            single["windowed_split"] = _dist_request(spec, spec["serve_dtypes"][""], split=DIST_RANKS)
+            single["windowed_split"] = _dist_request(spec, model, spec["serve_dtypes"][""],
+                                                     split=DIST_RANKS)
+            del model
             single_s = time.perf_counter() - t0
         torch.save(spec, os.path.join(tmp, "spec.pt"))
         t0 = time.perf_counter()
@@ -4244,36 +4419,53 @@ def phase_distributed(out_dir: str, make_spec=_dist_spec):
                                  f"{DIST_DEADLINE_S} s):\n{tails}")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DIST_RANKS)]
     sites = _temporal_sites(train_cfg)
-    base = single["step"]["launches"]
     results = {}
-    for leg, what in (("cp", "data 1 x context 2 x model 1"), ("tp", "data 1 x context 1 x model 2")):
-        want = single["step"]
+    legs = (("cp", "step", "flagship 256^2 stage 2, batch 1 x {f} frames, data 1 x context 2 x model 1", True),
+            ("sc", "sc", "flagship-sc 256^2 stage 2 (sparse-causal self-attention), batch 1 x {f} frames, "
+             "data 1 x context 2 x model 1 (the first and previous frames exchanged)", True),
+            ("stage1", "stage1", "flagship 256^2 stage 1, batch 2 x 1 frame, data 1 x context 2 x model 1 (the "
+             "frame whole on both ranks)", False),
+            ("tp", "step", "flagship 256^2 stage 2, batch 1 x {f} frames, data 1 x context 1 x model 2, adafactor",
+             False))
+    for leg, one, what, ring in legs:
+        want = single[one]
+        base = want["launches"]
         per_rank = []
         for r, res in enumerate(ranks):
             got = res[leg]
             k1 = got["launches"]["flash_attn_nlc_fwd"] - base["flash_attn_nlc_fwd"]
             k4 = got["launches"]["flash_attn_nlc_bwd"] - base["flash_attn_nlc_bwd"]
-            per_rank.append({
-                "rank": r, "dloss": abs(got["loss"] - want["loss"]),
-                "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
-                "worst_leaf_norm_rel": float(((got["norms"] - want["norms"]).abs()
-                                              / want["norms"].clamp_min(1e-30)).max()),
-                "leaf_sums_rel_l2": float((got["sums"] - want["sums"]).norm() / want["sums"].norm()),
-                "ring_k1_launches": k1, "ring_k4_launches": k4, "k6_launches": got["launches"]["geglu_ff"],
-                "launches": got["launches"], "step_s": got["step_s"], "place_s": got["place_s"],
-                "peak_gb": got["peak_gb"]})
+            pr = {"rank": r, "dloss": abs(got["loss"] - want["loss"]),
+                  "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
+                  "worst_leaf_norm_rel": float(((got["norms"] - want["norms"]).abs()
+                                                / want["norms"].clamp_min(1e-30)).max()),
+                  "leaf_sums_rel_l2": float((got["sums"] - want["sums"]).norm() / want["sums"].norm()),
+                  "ring_k1_launches": k1, "ring_k4_launches": k4, "k6_launches": got["launches"]["geglu_ff"],
+                  "launches": got["launches"], "step_s": got["step_s"], "peak_gb": got["peak_gb"]}
+            if "place_s" in got:
+                pr["place_s"] = got["place_s"]
+            if "update_gap" in got:
+                pr.update(update_applied=got["applied"], update_rel_l2=got["update_gap"],
+                          update_norm=got["update_norm"])
+            per_rank.append(pr)
         # the ring's launches: a forward at each rotation of each temporal site,
         # again when remat recomputes it, a backward at each rotation
-        rotations = DIST_RANKS if leg == "cp" else 0
+        rotations = DIST_RANKS if ring else 0
         expect = {"ring_k1_launches": sites * rotations * (2 if train_cfg.model.remat else 1),
                   "ring_k4_launches": sites * rotations}
         limits = {"dloss": 1e-4, "grad_norm_rel": 1e-3}
-        res = {"phase": f"distributed_{leg}_step", "config": f"flagship 256^2 stage 2, float32, batch 1 x "
-               f"{train_cfg.data.num_frames} frames, {what}", "backend": ranks[0]["backend"], "transport": ranks[0]["transport"],
-               "ranks_on_one_card": DIST_RANKS, "limits": limits, "ring_sites": sites, "expected": expect,
-               "loss_single": want["loss"], "grad_norm_single": want["grad_norm"], "single_step_s": want["step_s"],
-               "single_peak_gb": want["peak_gb"], "trainable_leaves": want["leaves"], "per_rank": per_rank,
-               "nvidia_smi": smi_line()}
+        if leg == "tp":
+            limits["update_rel_l2"] = 1e-4
+        res = {"phase": f"distributed_{leg}_step", "config": what.format(f=train_cfg.data.num_frames) + ", float32",
+               "backend": ranks[0]["backend"], "transport": ranks[0]["transport"], "ranks_on_one_card": DIST_RANKS,
+               "limits": limits, "ring_sites": sites, "expected": expect, "loss_single": want["loss"],
+               "grad_norm_single": want["grad_norm"], "single_step_s": want["step_s"],
+               "single_peak_gb": want["peak_gb"], "single_launches": base, "trainable_leaves": want["leaves"],
+               "per_rank": per_rank, "nvidia_smi": smi_line()}
+        if leg == "sc":
+            res["bwd_per_step_expected"] = BWD_PER_STEP[("flagship-sc", 256)]
+        if leg == "tp":
+            res["update_single"] = {"applied": want["applied"], "norm": want["update_norm"]}
         emit(res)
         for pr in per_rank:
             if not (pr["dloss"] < limits["dloss"] and pr["grad_norm_rel"] < limits["grad_norm_rel"]):
@@ -4282,6 +4474,44 @@ def phase_distributed(out_dir: str, make_spec=_dist_spec):
                 raise AssertionError(f"{res['phase']}: rank {pr['rank']} ring launches {pr}, expected {expect}")
             if leg == "tp" and pr["k6_launches"] <= 0:
                 raise AssertionError(f"{res['phase']}: rank {pr['rank']} launched no K6: {pr['launches']}")
+            if leg == "tp" and not (pr["update_applied"] and want["applied"]
+                                    and pr["update_rel_l2"] < limits["update_rel_l2"]):
+                raise AssertionError(f"{res['phase']}: rank {pr['rank']}'s adafactor update off one process's: {pr}")
+        # the sparse-causal step's own sites: two forwards (with the reference's
+        # tokens and without) at each level-0 site, their backwards
+        if leg == "sc" and base["flash_attn_nlc_bwd"] != BWD_PER_STEP[("flagship-sc", 256)]:
+            raise AssertionError(f"{res['phase']}: one process launched {base['flash_attn_nlc_bwd']} K4, expected "
+                                 f"{BWD_PER_STEP[('flagship-sc', 256)]}")
+        results[leg] = res
+    # (f) stages 5 and 0 at data 2: each metric against one process
+    for leg, what in (("stage5", "the flagship's VAE 256^2 stage 5, batch 2, EMOX_ATTENTION_IMPL=pallas"),
+                      ("stage0", "the face nets 256^2 stage 0, batch 8, landmarks_valid differing between ranks")):
+        want = single[leg]
+        per_rank = []
+        for r, res in enumerate(ranks):
+            got = res[leg]
+            rel = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in want["metrics"].items()}
+            per_rank.append({"rank": r, "metrics_rel": rel, "worst_metric_rel": max(rel.values()),
+                             "grad_norm_rel": rel["grad_norm"], "metrics": got["metrics"],
+                             "leaf_sums_rel_l2": float((got["sums"] - want["sums"]).norm() / want["sums"].norm()),
+                             "launches": got["launches"], "step_s": got["step_s"], "peak_gb": got["peak_gb"],
+                             **({"place_s": got["place_s"]} if "place_s" in got else {})})
+        limits = {"metric_rel": 1e-4, "grad_norm_rel": 1e-3}
+        res = {"phase": f"distributed_{leg}_step", "config": f"{what}, float32, data 2 x context 1 x model 1 (the "
+               "UNets and audio encoder, which the stage never runs, at tiny widths)",
+               "backend": ranks[0]["backend"], "transport": ranks[0]["transport"], "limits": limits,
+               "metrics_single": want["metrics"], "single_step_s": want["step_s"], "single_peak_gb": want["peak_gb"],
+               "single_launches": want["launches"], "trainable_leaves": want["leaves"], "per_rank": per_rank,
+               "nvidia_smi": smi_line()}
+        emit(res)
+        stage = 5 if leg == "stage5" else 0
+        check_stage05_launches(stage, want["launches"], 1, res["phase"] + " (one process)", dtype="float32")
+        for pr in per_rank:
+            check_stage05_launches(stage, pr["launches"], 1, f"{res['phase']} rank {pr['rank']}", dtype="float32")
+            off = {k: v for k, v in pr["metrics_rel"].items() if v >= (limits["grad_norm_rel"] if k == "grad_norm"
+                                                                       else limits["metric_rel"])}
+            if off:
+                raise AssertionError(f"{res['phase']}: rank {pr['rank']} off the single-process step: {off}")
         results[leg] = res
     # (c) the request: in bf16 against the ranks' grouping in one process (the
     # reference's bar), and against the default request within twice bf16's
@@ -4324,7 +4554,8 @@ def phase_distributed(out_dir: str, make_spec=_dist_spec):
                 raise AssertionError(f"{res['phase']}: rank {pr['rank']} further from the default bf16 request than "
                                      f"twice bf16's own error {bf16_floor}: {pr}")
         results[f"windowed{tag}"] = res
-    results["launches"] = {f"distributed_{leg}_rank{pr['rank']}": pr["launches"] for leg in ("cp", "tp")
+    results["launches"] = {f"distributed_{leg}_rank{pr['rank']}": pr["launches"]
+                           for leg in ("cp", "sc", "stage1", "tp", "stage5", "stage0")
                            for pr in results[leg]["per_rank"]}
     return results
 
@@ -4366,12 +4597,11 @@ def main(argv=None) -> int:
         steps = phase_step(runs=(("", None), ("_norms", NORMS), ("_norms", NORMS_FAST),
                                  ("_sparse_causal", None, "sparse_causal")), shared=flagship_cpu)
         step, step_norms, step_sc = (steps[i]["launches"] for i in (0, 1, 3))
-        served = {}
-        launches = phase_serve(args.out, keep=served)["launches"]
-        # the served model's denoise step through torch.export, the ops'
-        # dispatch cost and the request through the ops; the float32 small
-        # preset's export under the fused-norm switches
-        export = phase_export(served.pop("model"))
+        launches = phase_serve(args.out)["launches"]
+        # the flagship's denoise step at a cut depth through torch.export, the
+        # ops' dispatch cost and the request through the ops; the float32
+        # small preset's export under the fused-norm switches
+        export = phase_export()
         # the attention switch: a kernel at every site (and against the plain
         # step), then the serving request with plain attention at every site
         step_pallas = phase_step_attn_pallas()["launches"]
@@ -4463,8 +4693,10 @@ def main(argv=None) -> int:
             train_control = phase_train(tmp, stage=4, batch=1, frames=8, warmup=1, steps=2, out_dir=args.out,
                                         name="flagship-control", size=512, phase="train_control_512")
         # the distributed runtime: two ranks on the card (gloo), the ring (K1 and
-        # K4 at the ring's block shape), tensor parallelism (K6 on F / 2) and the
-        # windowed sampler over context, each against one process
+        # K4 at the ring's block shape), sparse-causal attention and stage 1
+        # over context, tensor parallelism (K6 on F / 2) with an adafactor
+        # update, stages 5 and 0 over data, and the windowed sampler over
+        # context, each against one process
         distributed = phase_distributed(args.out)
     by_path = {"step": step, "serve": launches, "export": export["launches_loaded"], "step_long": step_long,
                **long["launches_by_path"], "step_attn_pallas": step_pallas, "serve_attn_xla": serve_attn_xla,
@@ -4550,12 +4782,13 @@ def main(argv=None) -> int:
                                   kern["flash_strided_n32"], kern["flash_strided_n16"], kern["flash_d512"],
                                   kern["flash_strided_n32_d64"], kern["ring_l0"], kern["ring_l1"]]),
         entry("emox_torch/csrc/flash_fwd_d512_f32.cu", ["emox/ops/attention.py:409"], kern["flash_d512_f32"],
-              [kern["flash_d512_f32_n16"]]),
+              [kern["flash_d512_f32_n16"], kern["flash_d512_f32_1024"]]),
         # float32 on the same source's kernels, on a two-part bf16 split; its
         # main row at the float32 step's packed site, whose launches it counts
         entry("emox_torch/csrc/flash_fwd_sm90.cu", ["emox/ops/attention.py:409", "emox/ops/attention.py:69"],
               kern["flash_f32_packed"], [kern["flash_f32_n32"], kern["flash_f32_n32_d64"], kern["ring_l0_f32"],
-                                         kern["ring_l1_f32"]]),
+                                         kern["ring_l1_f32"], kern["flash_sc_cp_f32_3072"],
+                                         kern["flash_sc_cp_f32_2048"]]),
         # head dims above 512, both types, forward and backward; the main rows
         # in float32 at the width-640 VAE's stage-5 step, whose launches they
         # count, the bf16 timing at 4096 tokens in by_shape
@@ -4588,7 +4821,8 @@ def main(argv=None) -> int:
         # float32 at head dim <= 128 on the same source's pair, on a two-part split
         entry("emox_torch/csrc/flash_bwd_sm90.cu", ["emox/ops/attention.py:465", "emox/ops/attention.py:508",
                                                     "emox/ops/attention.py:118", "emox/ops/attention.py:160"],
-              kern["flash_bwd_f32"], [kern["ring_bwd_l0_f32"], kern["ring_bwd_l1_f32"]]),
+              kern["flash_bwd_f32"], [kern["ring_bwd_l0_f32"], kern["ring_bwd_l1_f32"], kern["flash_bwd_sc_cp_f32_3072"],
+                                      kern["flash_bwd_sc_cp_f32_2048"]]),
         # head dims 129-256, both types: flash_bwd_d512_sm90.cu's pair at half
         # width; the main row in float32 at the small VAE's stage-5 step, whose
         # launches it counts, the bf16 timings in by_shape

@@ -150,6 +150,18 @@ def broadcast_(t: torch.Tensor, src: int, group: Group) -> torch.Tensor:
     return t
 
 
+def reduce_(t: torch.Tensor, dst: int, group: Group) -> torch.Tensor:
+    """t summed over the group's ranks, in place on the group's rank `dst`
+    (a rank of the group); the other ranks' t is left undefined."""
+    if _single(group):
+        return t
+    w = _wire(t)
+    dist.reduce(w, dst=dist.get_global_rank(group, dst), op=dist.ReduceOp.SUM, group=group)
+    if w.data_ptr() != t.data_ptr():
+        t.copy_(w)
+    return t
+
+
 def all_gather(t: torch.Tensor, group: Group, dim: int = -1) -> torch.Tensor:
     """The group's tensors concatenated along dim in rank order. Gloo has no
     all_gather of CUDA tensors: the pinned-host transport gathers host copies."""
@@ -186,14 +198,15 @@ def coalesced(tensors: Sequence[torch.Tensor], fn) -> None:
 
 
 class _RingExchange:
-    """Transfers posted to the next rank of a group's ring and from the
-    previous one (group rank (i + 1) mod n and (i - 1) mod n); `wait()`
-    returns what came in, on the tensors' device."""
+    """Transfers posted to the rank `shift` places on in a group's ring and
+    from the rank as far back (group rank (i + shift) mod n and
+    (i - shift) mod n); `wait()` returns what came in, on the tensors'
+    device."""
 
-    def __init__(self, tensors: Sequence[torch.Tensor], group: Group):
+    def __init__(self, tensors: Sequence[torch.Tensor], group: Group, shift: int = 1):
         n = dist.get_world_size(group)
         r = dist.get_rank(group)
-        nxt, prv = dist.get_global_rank(group, (r + 1) % n), dist.get_global_rank(group, (r - 1) % n)
+        nxt, prv = dist.get_global_rank(group, (r + shift) % n), dist.get_global_rank(group, (r - shift) % n)
         self.like = list(tensors)
         self.out = [_wire(t) for t in tensors]
         self.into = [torch.empty_like(w) for w in self.out]
@@ -207,7 +220,8 @@ class _RingExchange:
         return [w if w.device == t.device else w.to(t.device, non_blocking=True) for w, t in zip(self.into, self.like)]
 
 
-def ring_exchange(tensors: Sequence[torch.Tensor], group: Group) -> _RingExchange:
-    """Post the transfer of `tensors` one step around the group's ring; the
-    result's wait() returns what came in."""
-    return _RingExchange(tensors, group)
+def ring_exchange(tensors: Sequence[torch.Tensor], group: Group, shift: int = 1) -> _RingExchange:
+    """Post the transfer of `tensors` `shift` steps around the group's ring
+    (-1: back to the previous rank); the result's wait() returns what came
+    in."""
+    return _RingExchange(tensors, group, shift)

@@ -87,7 +87,7 @@ def shard_batch(batch: Dict[str, Any], mesh) -> Dict[str, torch.Tensor]:
 
     def put(key, arr):
         x = torch.as_tensor(np.asarray(arr))
-        frame_axis = 1 if key in _FRAME_KEYS and x.dim() >= 2 and x.shape[1] % shard.ctx_size == 0 else None
+        frame_axis = 1 if key in _FRAME_KEYS and x.dim() >= 2 and shard.frames_split(x.shape[1]) else None
         return shard.take(x, frame_axis)
 
     return {k: put(k, v) for k, v in batch.items()}
@@ -222,20 +222,23 @@ class TensorParallel:
     def is_sharded(self, name: str) -> bool:
         return name in self.plan
 
-    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of a whole parameter (itself if replicated)."""
+    def local(self, name: str, full: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+        """This rank's shard of a whole parameter (itself if replicated), or
+        of a tensor laid out along the parameter's split at its own `dim` (an
+        optimizer moment)."""
         if name not in self.plan:
             return full
-        dim = self.plan[name].index(MeshAxes.MODEL)
+        dim = self.plan[name].index(MeshAxes.MODEL) if dim is None else dim
         idx = self.shard.rows(full.shape[dim], name in self.interleaved).to(full.device)
         return full.index_select(dim, idx)
 
-    def full(self, name: str, local: torch.Tensor) -> torch.Tensor:
+    def full(self, name: str, local: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
         """The whole parameter from every rank's shard (a collective over
-        `model`: every rank calls it for the same names)."""
+        `model`: every rank calls it for the same names), or the whole of a
+        tensor split as `local` does at its own `dim`."""
         if name not in self.plan:
             return local
-        dim = self.plan[name].index(MeshAxes.MODEL)
+        dim = self.plan[name].index(MeshAxes.MODEL) if dim is None else dim
         moved = local.movedim(dim, -1).contiguous()
         if name in self.interleaved:
             a, g = moved.chunk(2, dim=-1)
@@ -313,16 +316,3 @@ def model_reduce_grads(tp: Optional[TensorParallel], names: Sequence[str], grads
     part = [g for n, g in zip(names, grads) if n in tp.partial]
     if part:
         coalesced(part, lambda flat: all_reduce_(flat, tp.shard.group))
-
-
-def tp_sq_norms(tp: Optional[TensorParallel], names: Sequence[str], norms: torch.Tensor) -> torch.Tensor:
-    """Per-leaf norms of whole parameters from per-shard norms: the sharded
-    leaves' squares summed over `model`."""
-    if tp is None:
-        return norms
-    mask = torch.tensor([tp.is_sharded(n) for n in names], device=norms.device)
-    if not bool(mask.any()):
-        return norms
-    sq = norms.float().square()
-    shard_sq = all_reduce_(torch.where(mask, sq, torch.zeros_like(sq)), tp.shard.group)
-    return torch.where(mask, shard_sq, sq).sqrt()

@@ -23,7 +23,8 @@ reads as a mesh of 1 x 1 x 1.
 Where the reference device-puts a host array with a sharding, a rank here
 keeps its own block of the host array (`BatchShard`, through `put_batch`
 and emox_torch.comm.sharding's `shard_batch`); where it replicates a param
-tree, rank 0's values are broadcast (`shard_params_replicated`).
+tree, the mesh's first rank's values are broadcast
+(`shard_params_replicated`).
 """
 
 from __future__ import annotations
@@ -78,7 +79,12 @@ def create_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
     if not dist.is_initialized():
         return None
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.arange(used).reshape(sizes), mesh_dim_names=tuple(cfg.axis_names))
+    mesh = DeviceMesh(device_type, torch.arange(used).reshape(sizes), mesh_dim_names=tuple(cfg.axis_names))
+    # the gradient reductions' group over two dims, made here, where every
+    # rank of the world takes part, even those outside a mesh smaller than it
+    if axis_size(mesh, MeshAxes.DATA) > 1 and axis_size(mesh, MeshAxes.CONTEXT) > 1:
+        axes_group(mesh, (MeshAxes.DATA, MeshAxes.CONTEXT))
+    return mesh
 
 
 def local_mesh(context: int = 1, model: int = 1) -> Mesh:
@@ -123,10 +129,11 @@ def axis_group(mesh: Mesh, axis: str):
 
 def axes_group(mesh: Mesh, axes: Sequence[str]):
     """The process group of this rank's ranks along several roles' dims
-    (data x context for gradient reductions), made once per mesh by every
-    rank of the world; None where it has one rank."""
-    axes = tuple(axes)
-    if math.prod(axis_size(mesh, a) for a in axes) == 1:
+    (data x context for gradient reductions); None where it has one rank.
+    A group over more than one dim of more than one rank is made once per
+    mesh, by every rank of the world (create_mesh makes data x context's)."""
+    axes = tuple(a for a in axes if axis_size(mesh, a) > 1)
+    if not axes:
         return None
     if len(axes) == 1:
         return axis_group(mesh, axes[0])
@@ -158,7 +165,12 @@ class BatchShard:
     """This rank's block of a global batch: rows `data_rank` of
     `data_size` equal blocks, frames `ctx_rank` of `ctx_size`. Every
     batch-slicing name of the port (put_batch, shard_batch,
-    with_context_sharding, the trainer's loss) takes its block through it."""
+    with_context_sharding, the trainer's loss) takes its block through it.
+
+    A clip whose frame count does not divide by `ctx_size` is not split:
+    each context rank keeps every frame of its rows, as the reference's
+    shard_batch leaves such an axis whole (`frames_split`). Rows that do not
+    divide by `data_size` raise."""
 
     def __init__(self, data_rank: int = 0, data_size: int = 1, ctx_rank: int = 0, ctx_size: int = 1):
         self.data_rank, self.data_size, self.ctx_rank, self.ctx_size = data_rank, data_size, ctx_rank, ctx_size
@@ -175,6 +187,12 @@ class BatchShard:
 
     def row_range(self, n: int) -> slice:
         return local_range(n, self.data_size, self.data_rank, "batch")
+
+    def frames_split(self, t: int) -> bool:
+        """Whether a clip of t frames (motion frames included) is split over
+        the context ranks: where there is more than one and t divides by
+        their count."""
+        return self.ctx_size > 1 and t % self.ctx_size == 0
 
     def frame_range(self, t: int) -> slice:
         return local_range(t, self.ctx_size, self.ctx_rank, "frame axis")
@@ -224,11 +242,14 @@ def put_batch(batch, mesh: Mesh, frame_axis: Optional[int] = None):
 
 
 def shard_params_replicated(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
-    """Every rank of the world takes rank 0's values of `tensors`, in place
-    (the reference's replicated placement)."""
-    if mesh is None or dist.get_world_size() == 1:
-        return
+    """Every rank of the mesh takes its first rank's values of `tensors`, in
+    place (the reference's replicated placement): a broadcast along each
+    dim of more than one rank in turn, so that a mesh smaller than the world
+    needs none of the ranks outside it."""
     from emox_torch.comm.runtime import broadcast_, coalesced
 
-    with torch.no_grad():
-        coalesced(list(tensors), lambda flat: broadcast_(flat, 0, dist.group.WORLD))
+    for axis in MeshAxes.ALL:
+        group = axis_group(mesh, axis)
+        if group is not None:
+            with torch.no_grad():
+                coalesced(list(tensors), lambda flat: broadcast_(flat, 0, group))

@@ -29,8 +29,11 @@ The side models are built where the config enables them:
 On a mesh (`mesh=`, or `distribute`), every rank holds rank 0's weights,
 the tensor-parallel leaves sliced to its shard of the `model` axis
 (emox_torch.comm.sharding), and with a `context` axis of more than one rank
-the denoiser's temporal attention runs as ring attention over it: its
-calls then take this rank's block of each clip's frames. A model driven
+the denoiser's temporal attention runs as ring attention over it, and its
+sparse-causal self-attention (model.use_sparse_causal) takes the first and
+previous frames from the other context ranks: its calls then take this
+rank's block of each clip's frames, or with `whole_clip` every frame of
+them (clips whose frames do not divide by the context size). A model driven
 through the windowed sampler is built without the ring (the sampler
 splits whole windows over `context` instead, EMOPipeline(mesh=...)).
 """
@@ -117,8 +120,8 @@ class EMOModel:
         """Place the model on `mesh`: rank 0's parameters broadcast to every
         rank, the tensor-parallel leaves sliced (`self.tp`), and with a
         context axis of more than one rank the ring on the denoiser's
-        temporal attention. Sparse-causal self-attention reads other frames'
-        tokens, which a context shard does not hold: refused there."""
+        temporal attention and the frame exchange on its sparse-causal
+        self-attention."""
         from emox_torch.comm.sharding import apply_tensor_parallel
         from emox_torch.core.mesh import MeshAxes, axis_size, shard_params_replicated
 
@@ -127,9 +130,6 @@ class EMOModel:
         if mesh is None:
             return self
         ring = axis_size(mesh, MeshAxes.CONTEXT) > 1
-        if ring and self.config.model.use_sparse_causal:
-            raise NotImplementedError("sparse-causal attention reads the first and previous frames' tokens, "
-                                      "which a context shard does not hold: use mesh.context=1")
         shard_params_replicated(list(self.modules.parameters()), mesh)
         self.tp = apply_tensor_parallel(self.modules, mesh)
         if ring:
@@ -287,13 +287,17 @@ class EMOModel:
         ref_features: Optional[Banks] = None,  # precomputed writer banks
         ref_gn: Optional[List[torch.Tensor]] = None,  # precomputed AdaIN banks (model.use_gn_ref)
         face_feat: Optional[torch.Tensor] = None,  # pre-encoded mask residual
+        whole_clip: bool = False,
     ) -> torch.Tensor:
         """ref_latent=None runs no reference branch at all (the two-call CFG's
         uncond program); ref_dropout drops the reference per sample inside
         one batch. Without ref_features the writer runs here, and its banks
         (and AdaIN statistics) replace ref_gn. With a ControlNet and
         control_cond, the ControlNet runs on the same noisy latents and
-        timesteps, its residuals scaled by control_scale."""
+        timesteps, its residuals scaled by control_scale. whole_clip: on a
+        context mesh, the latents hold every frame of their clips (the
+        one-rank temporal and sparse-causal attention), not this rank's
+        block."""
         timesteps = timesteps.to(self.device)
         ref_feats = ref_features
         if ref_latent is not None and ref_feats is None:
@@ -317,5 +321,6 @@ class EMOModel:
             control=control,
             identity_embed=opt(identity_embed),
             ref_dropout=None if ref_dropout is None else ref_dropout.to(self.device),
+            whole_clip=whole_clip,
         )
         return out.sample

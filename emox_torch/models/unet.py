@@ -35,6 +35,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from emox_torch.core.config import ModelConfig
+from emox_torch.core.mesh import axis_size
 from emox_torch.nn.attention_blocks import AudioCrossAttention, SpatialTransformer, TemporalTransformer
 from emox_torch.nn.blocks import Downsample, FusedGroupNorm, ResBlock, Upsample, fold_time, unfold_time
 from emox_torch.nn.conditioners import FaceMaskEncoder, SpeedEncoder
@@ -87,6 +88,8 @@ def _adain(h: torch.Tensor, stats: torch.Tensor, t: int, style_fidelity: float,
 
 
 class UNet(nn.Module):
+    ring_size = 1  # the context ranks a call's clips are split over (set_ring)
+
     def __init__(self, cfg: ModelConfig, face_mask_downs: int = 3, spatial_depth: int = 1,
                  identity_dim: Optional[int] = None):
         """face_mask_downs: stride-2 convs of the face-mask encoder, log2 of
@@ -146,10 +149,12 @@ class UNet(nn.Module):
         self.conv_out = Conv(chans[0], cfg.out_channels, (3, 3))
 
     def set_ring(self, mesh, axis: str = "context") -> None:
-        """Ring attention over `axis` of `mesh` at every temporal site (None:
-        off); the forward's frames are then this rank's block of the clip's."""
+        """Ring attention over `axis` of `mesh` at every temporal site, and
+        the sparse-causal frame exchange at every spatial one (None: off);
+        the forward's frames are then this rank's block of the clip's."""
+        self.ring_size = axis_size(mesh, axis)
         for mod in self.modules():
-            if isinstance(mod, TemporalTransformer):
+            if isinstance(mod, (TemporalTransformer, SpatialTransformer)):
                 mod.set_ring(mesh, axis)
 
     def _add_attn_stack(self, name: str, ch: int, depth: int) -> None:
@@ -180,6 +185,7 @@ class UNet(nn.Module):
         identity_embed: Optional[torch.Tensor] = None,  # [B, proj] CLIP image embedding
         emit_ref: bool = False,
         ref_dropout: Optional[torch.Tensor] = None,  # [B] bool, True = this sample sees no ref
+        whole_clip: bool = False,  # on a ring: x holds every frame of its clips (set_ring)
     ) -> UNetOutputs:
         cfg = self.cfg
         dtype = self.conv_in.weight.dtype
@@ -190,6 +196,8 @@ class UNet(nn.Module):
         if squeeze:
             x = x[:, None]
         b, t = x.shape[:2]
+        # the clips' frame count: on a ring, t is this rank's block of it
+        clip_t = t if whole_clip else t * self.ring_size
 
         # ---- embeddings -------------------------------------------------
         temb = self.time_embed(timesteps)
@@ -237,7 +245,7 @@ class UNet(nn.Module):
             h, bank = run(
                 getattr(self, f"{name}_attn"), h, context=context, ref_kv=rkv,
                 ref_drop=None if rkv is None else drop_frames, num_frames=1 if emit_ref else t,
-                emit_bank=emit_ref, impl=impl,
+                emit_bank=emit_ref, impl=impl, whole_clip=whole_clip,
             )
             if emit_ref:
                 banks.append(bank)
@@ -250,8 +258,8 @@ class UNet(nn.Module):
             hv = unfold_time(h, t)
             if cfg.use_audio and audio is not None:
                 hv = run(getattr(self, f"{name}_audio"), hv, audio, impl=impl)
-            if cfg.use_temporal and t > 1:
-                hv = run(getattr(self, f"{name}_temporal"), hv)
+            if cfg.use_temporal and clip_t > 1:
+                hv = run(getattr(self, f"{name}_temporal"), hv, whole_clip=whole_clip)
             return fold_time(hv)[0]
 
         def resblock(name, h):

@@ -33,10 +33,13 @@ the reference does.
 
 Under a mesh (emox_torch.core.mesh) the temporal attention of a model whose
 frames are sharded over `context` runs as ring attention
-(emox_torch.ops.ring), with the positional rows of this rank's frames; under
-tensor parallelism (emox_torch.comm.sharding) each attention works on its
-rank's heads and each FF sub-layer of a TransformerBlock on its rank's
-features.
+(emox_torch.ops.ring), with the positional rows of this rank's frames, and
+sparse-causal attention takes the first and previous frames it lacks from
+the other context ranks (emox_torch.comm.halo). A call whose clips are
+whole on every context rank (`whole_clip`: frames that do not divide by the
+context size) runs the one-rank formulas. Under tensor parallelism
+(emox_torch.comm.sharding) each attention works on its rank's heads and
+each FF sub-layer of a TransformerBlock on its rank's features.
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from emox_torch.comm.halo import first_frame, previous_frame
 from emox_torch.comm.sharding import attend_heads
-from emox_torch.core.mesh import axis_rank, axis_size
+from emox_torch.core.mesh import axis_group, axis_rank, axis_size
 from emox_torch.nn.blocks import FusedGroupNorm
 from emox_torch.nn.embeddings import sinusoidal_positions
 from emox_torch.nn.layers import Dense, LayerNorm
@@ -238,19 +242,20 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 ref_kv: Optional[torch.Tensor] = None, ref_drop: Optional[torch.Tensor] = None,
                 ref_tile: int = 1, ctx_tile: int = 1, emit_bank: bool = True,
-                impl: Optional[str] = None, sc_frames: int = 0):
+                impl: Optional[str] = None, sc_frames: int = 0, sc_group=None):
         """ref_kv [B, Lr, C] UNREPEATED writer tokens; ref_drop [N] bool
         (True = this row sees no reference); impl: both attentions' impl;
-        sc_frames > 1: sparse-causal self-attention over clips of that many
-        frames (sc_gather). Returns (x, normed1): normed1 is
+        sc_frames > 0: sparse-causal self-attention over clips of that many
+        frames (sc_gather; with sc_group, this rank's frames of clips split
+        over that context group). Returns (x, normed1): normed1 is
         what a ReferenceNet writer banks for the reader. Under EMOX_LN_QKV
         the self-attention reads the fused LN + q/k/v kernel, and normed1 is
         computed only with emit_bank (None otherwise): the reference leaves
         an unused bank to dead-code elimination. Sparse-causal K/V skip the
         fused projections: they read other frames' tokens."""
-        if sc_frames > 1:
+        if sc_frames > 0:
             normed1 = self.norm1(x)
-            sc_kv = sc_gather(normed1, sc_frames)
+            sc_kv = sc_gather(normed1, sc_frames, sc_group)
             if ref_kv is not None and ref_drop is not None:
                 # the K/V base [first, prev] is longer than the reference bank, so
                 # the duplication trick cannot say "no reference": both branches
@@ -270,22 +275,33 @@ class TransformerBlock(nn.Module):
         return _ff_sublayer(self.norm3, self.ff, x), normed1
 
 
-def sc_gather(tokens: torch.Tensor, t: int) -> torch.Tensor:
+def sc_gather(tokens: torch.Tensor, t: int, group=None) -> torch.Tensor:
     """Sparse-causal K/V tokens: [(B T), L, C] -> [(B T), 2L, C], each
     frame's row the clip's first frame's tokens, then the previous frame's
-    (frame 0 sees itself twice)."""
+    (frame 0 sees itself twice). With `group` (a context axis's), the T
+    frames are this rank's block of clips split over the group: the first
+    frame comes from its rank 0 and the one before the block from the rank
+    before (emox_torch.comm.halo)."""
     bt, l, c = tokens.shape
     v = tokens.reshape(bt // t, t, l, c)
-    first = v[:, :1].expand_as(v)
-    prev = torch.cat([v[:, :1], v[:, :-1]], dim=1)
-    return torch.cat([first, prev], dim=2).reshape(bt, 2 * l, c)
+    if group is None:
+        first, before = v[:, :1], v[:, :1]
+    else:
+        first = first_frame(v[:, 0], group)[:, None]
+        before = previous_frame(v[:, -1], v[:, 0], group)[:, None]
+    prev = torch.cat([before, v[:, :-1]], dim=1)
+    return torch.cat([first.expand_as(v), prev], dim=2).reshape(bt, 2 * l, c)
 
 
 class SpatialTransformer(nn.Module):
     """GN -> linear proj -> TransformerBlocks over H*W tokens -> proj + residual.
 
     sparse_causal: self-attention over the first and previous frames'
-    tokens (sc_gather) when a call has more than one frame."""
+    tokens (sc_gather) when a call's clips have more than one frame; with
+    `ring_mesh` set (set_ring) and its `ring_axis` of more than one rank, a
+    call's frames are this rank's block of its clips'."""
+
+    ring_mesh, ring_axis = None, "context"
 
     def __init__(self, channels: int, heads: int, head_dim: int, depth: int = 1, groups: int = 32,
                  use_cross: bool = True, cross_dim: Optional[int] = None,
@@ -299,22 +315,32 @@ class SpatialTransformer(nn.Module):
             setattr(self, f"block_{i}", TransformerBlock(channels, heads, head_dim, use_cross, cross_dim))
         self.proj_out = Dense(channels, channels)
 
+    def set_ring(self, mesh, axis: str = "context") -> None:
+        """Sparse-causal frames exchanged over `axis` of `mesh` (None: off)."""
+        self.ring_mesh, self.ring_axis = mesh, axis
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 ref_kv: Optional[List[torch.Tensor]] = None, ref_drop: Optional[torch.Tensor] = None,
-                num_frames: int = 1, emit_bank: bool = True, impl: Optional[str] = None):
+                num_frames: int = 1, emit_bank: bool = True, impl: Optional[str] = None,
+                whole_clip: bool = False):
         """x [(B T), H, W, C]; context [B, Lc, Cc] and ref_kv (per depth block
         [B, Lr, C]) UNREPEATED per clip, repeated num_frames x inside;
         ref_drop [(B T)] bool. emit_bank=False: the caller reads no bank
-        (see TransformerBlock). impl: every attention's impl."""
+        (see TransformerBlock). impl: every attention's impl. whole_clip: the
+        T frames are whole clips although the module is on a ring."""
         n, h, w, c = x.shape
         t = num_frames
         hdn = self.proj_in(self.norm(x).reshape(n, h * w, c))
-        sc_frames = t if self.sparse_causal and t > 1 else 0
+        group = None
+        if self.sparse_causal and not whole_clip:
+            group = axis_group(self.ring_mesh, self.ring_axis)
+        sc_frames = t if self.sparse_causal and (t > 1 or group is not None) else 0
         banks = []
         for i in range(self.depth):
             hdn, normed1 = getattr(self, f"block_{i}")(
                 hdn, context=context, ref_kv=None if ref_kv is None else ref_kv[i],
                 ref_drop=ref_drop, ref_tile=t, ctx_tile=t, emit_bank=emit_bank, impl=impl, sc_frames=sc_frames,
+                sc_group=group,
             )
             banks.append(normed1)
         return x + self.proj_out(hdn).reshape(n, h, w, c), banks
@@ -328,7 +354,9 @@ class FrameAxisAttention(nn.Module):
     With `ring_mesh` set and its `ring_axis` of more than one rank, the T
     frames of a call are this rank's block of the clip's and the attention
     runs as ring attention over that axis (ring_frame_attention: K1 at each
-    rotation, K4 in its backward)."""
+    rotation, K4 in its backward); a call with whole_clip runs the dense
+    formula on the whole clip, as the reference does where the frames do not
+    divide by the ring."""
 
     tp_gather = None  # as Attention's
     ring_mesh, ring_axis = None, "context"  # set by TemporalTransformer.set_ring
@@ -343,16 +371,17 @@ class FrameAxisAttention(nn.Module):
         self.to_v = Dense(dim, inner, bias=False)
         self.to_out = Dense(inner, dim)
 
-    def forward(self, x: Optional[torch.Tensor], qkv: Optional[QKV] = None) -> torch.Tensor:
+    def forward(self, x: Optional[torch.Tensor], qkv: Optional[QKV] = None, whole_clip: bool = False) -> torch.Tensor:
         """qkv: projections from the fused LN + q/k/v kernel; x is then not
         read and may be None."""
+        mesh = None if whole_clip else self.ring_mesh
         if qkv is None:
             qkv = (_fused_qkv_apply((self.to_q, self.to_k, self.to_v), x) if _fused_qkv_enabled()
                    else (self.to_q(x), self.to_k(x), self.to_v(x)))
         def attend(q, k, v):
             b, t, l, _ = q.shape
             split = lambda y: y.reshape(b, t, l, self.heads, self.head_dim)
-            o = ring_frame_attention(split(q), split(k), split(v), self.ring_mesh, self.ring_axis,
+            o = ring_frame_attention(split(q), split(k), split(v), mesh, self.ring_axis,
                                      scale=self.head_dim ** -0.5)
             return o.reshape(b, t, l, self.heads * self.head_dim)
 
@@ -381,12 +410,13 @@ class TemporalTransformer(nn.Module):
             attn = getattr(self, f"attn_{i}")
             attn.ring_mesh, attn.ring_axis = mesh, axis
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, whole_clip: bool = False) -> torch.Tensor:
         """x: the clip's frames, or under the ring this rank's block of
-        them, which takes the positional rows of its own frames."""
+        them, which takes the positional rows of its own frames; with
+        whole_clip the whole clip on every rank of the ring."""
         b, t, h, w, c = x.shape
         attn0 = getattr(self, "attn_0")
-        n = axis_size(attn0.ring_mesh, attn0.ring_axis)
+        n = 1 if whole_clip else axis_size(attn0.ring_mesh, attn0.ring_axis)
         start = 0 if n == 1 else axis_rank(attn0.ring_mesh, attn0.ring_axis) * t
         if start + t > self.max_len:
             raise ValueError(f"frames {start}..{start + t} past the positional table's {self.max_len}")
@@ -395,7 +425,7 @@ class TemporalTransformer(nn.Module):
         for i in range(self.depth):
             norm, attn = getattr(self, f"norm_{i}"), getattr(self, f"attn_{i}")
             qkv = _maybe_ln_qkv(norm, attn, tokens)
-            tokens = tokens + attn(None if qkv is not None else norm(tokens), qkv=qkv)
+            tokens = tokens + attn(None if qkv is not None else norm(tokens), qkv=qkv, whole_clip=whole_clip)
             tokens = _ff_sublayer(getattr(self, f"norm_ff_{i}"), getattr(self, f"ff_{i}"), tokens)
         return x + self.proj_out(tokens).reshape(b, t, h, w, c)
 

@@ -28,12 +28,21 @@ they are drawn apart, by `sample_draws` from a torch.Generator, and the
 loss is a deterministic function of the batch and those draws: a test can
 feed it the reference's own draws.
 
-On a mesh, a denoise stage's loss is given the global batch and the global
-draws with this rank's `BatchShard` (emox_torch.core.mesh): it encodes
-and denoises this rank's rows and frames only, and returns this rank's share
-of each metric (its sum over the shard divided by the global count), so
-that the sums over the data x context ranks are the metrics of the whole
-batch and the gradients of those shares sum to the whole loss's.
+On a mesh, a stage's loss is given the global batch and the global draws
+with this rank's `BatchShard` (emox_torch.core.mesh): it runs on this rank's
+rows and, where a clip's frames divide by the context size, its frames only,
+and returns this rank's share of each metric (its sum over the shard divided
+by the global count), so that the sums over the data x context ranks are the
+metrics of the whole batch and the gradients of those shares sum to the
+whole loss's. Where the frames stay whole (stage 1's single frame; stage 0's
+and stage 5's images), every context rank of a row computes the same sums,
+and each share is divided by the context size. A metric that is a ratio of
+sums over the whole batch (stage 0's `iou`, stage 5's `latent_std`) is
+returned as its parts ("iou/inter", "iou/union"; "latent_std/sum",
+"latent_std/sum_sq", "latent_std/count"), which `finish_metrics` turns into
+the ratio once they are summed. Stage 0's landmark error divides by the
+valid count of the whole batch, which every rank reads from the global
+`landmarks_valid`, so its gradient needs no collective before the backward.
 """
 
 from __future__ import annotations
@@ -167,69 +176,112 @@ def sample_draws(config: Config, sched: Schedule, stage: int, batch: Batch,
     return draws
 
 
+def _block(shard: BatchShard, t: int):
+    """x -> this rank's rows of x and, where a clip of t frames splits over
+    the context ranks, its frames (axis 1)."""
+    if shard.frames_split(t):
+        return lambda x: shard.frames(shard.rows(x))
+    return shard.rows
+
+
 def downsample_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Pixel-space face mask [B, H, W, 1] -> latent resolution [B, 1, h, w, 1]
     (jax.image.resize, bilinear with antialiasing, as the reference)."""
     return resize_bilinear(mask.float(), h, w)[:, None]
 
 
+def finish_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The metrics of the whole batch from their sums over the data x context
+    ranks: the parts of a ratio (module docstring) become the ratio, as the
+    reference forms it over the whole batch; every other metric is the sum
+    itself. A whole batch's metrics have no parts and pass unchanged."""
+    out = {k: v for k, v in metrics.items() if "/" not in k}
+    if "iou/inter" in metrics:
+        out["iou"] = (metrics["iou/inter"] / metrics["iou/union"].clamp_min(1.0)).float()
+    if "latent_std/count" in metrics:
+        n = metrics["latent_std/count"]
+        mean = metrics["latent_std/sum"] / n
+        out["latent_std"] = (metrics["latent_std/sum_sq"] / n - mean * mean).clamp_min(0.0).sqrt().float()
+    return out
+
+
 def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule, stage: int,
                   shard: Optional[BatchShard] = None) -> Callable[[Batch, Draws], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """Returns loss(batch, draws) -> (loss, metrics), deterministic given the
     draws of `sample_draws`. `sched` lives on the model's device. shard:
-    this rank's block of the batch (module docstring); stages 0 and 5 run
-    on one block only."""
+    this rank's block of the batch (module docstring): the metrics are then
+    shares and parts, to be summed over the data x context ranks and
+    finished by `finish_metrics`; a whole batch's come finished."""
     check_stage(stage)
     dcfg, acfg, tcfg = config.diffusion, config.audio, config.train
     shard = shard or BatchShard()
-    if stage in (0, 5) and not shard.whole:
-        raise NotImplementedError(f"stage {stage} trains on one data x context block: its metrics are not sums "
-                                  "over the batch (use mesh.data=1, mesh.context=1)")
+    rows = shard.rows
 
     def facelocator_loss(batch: Batch, draws: Draws):
-        logits = model.locate_face(batch["images"])
-        labels = batch["masks"].to(logits.device)
-        bce = (logits.clamp_min(0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))).mean()
+        images = rows(batch["images"])
+        logits = model.locate_face(images)
+        labels = rows(batch["masks"]).to(logits.device)
+        bce = logits.clamp_min(0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
         iou_pred = (torch.sigmoid(logits) > 0.5).float()
         inter = (iou_pred * labels).sum()
         union = torch.maximum(iou_pred, labels).sum()
-        loss = bce
-        metrics = {"loss": loss, "iou": inter / union.clamp_min(1.0)}
+        copies = shard.ctx_size  # the context ranks that compute these rows
+        loss = bce.sum() / (bce.numel() * shard.data_size * copies)
+        metrics = {"loss": loss, "iou/inter": inter / copies, "iou/union": union / copies}
         if "landmarks" in batch:
             # joint 6-point landmark regression; items without landmarks
-            # weigh 0 (landmarks_valid)
-            lm_pred = model.locate_landmarks(batch["images"])
-            per = ((lm_pred.float() - batch["landmarks"].to(lm_pred.device)) ** 2).mean(dim=(1, 2))  # [B]
-            valid = batch.get("landmarks_valid")
-            valid = torch.ones_like(per) if valid is None else valid.to(per.device).float()
-            lm_err = (per * valid).sum() / valid.sum().clamp_min(1.0)
+            # weigh 0 (landmarks_valid), over the whole batch's valid count
+            lm_pred = model.locate_landmarks(images)
+            per = ((lm_pred.float() - rows(batch["landmarks"]).to(lm_pred.device)) ** 2).mean(dim=(1, 2))  # [B]
+            valid_all = batch.get("landmarks_valid")
+            valid_all = (torch.ones(batch["images"].shape[0], device=per.device) if valid_all is None
+                         else valid_all.to(per.device).float())
+            valid = rows(valid_all)
+            lm_err = (per * valid).sum() / valid_all.sum().clamp_min(1.0) / copies
+            frac = valid.sum() / (valid_all.numel() * copies)
             loss = loss + 10.0 * lm_err
-            metrics = dict(metrics, loss=loss, landmark_mse=lm_err, landmark_frac=valid.mean())
-        return loss, metrics
+            metrics = dict(metrics, loss=loss, landmark_mse=lm_err, landmark_frac=frac)
+        return loss, (finish_metrics(metrics) if shard.whole else metrics)
 
     def vae_loss(batch: Batch, draws: Draws):
         """L2 + L1 reconstruction of the posterior sample plus
         train.vae_kl_weight times the mean KL (summed over latent dims);
         latent_std, the population std of the posterior means, is reported
         to calibrate vae.scaling_factor."""
-        imgs = _vae_images(batch)
-        recon, dist = model.modules.vae(model._in(imgs), eps=draws["posterior_eps"])
+        imgs, eps = _vae_images(batch), draws["posterior_eps"]
+        n_all, copies = imgs.shape[0], shard.ctx_size
+        if "images" in batch:
+            imgs, eps = rows(imgs), rows(eps)
+        else:  # every frame of `frames`: this rank's rows, and its frames where they split
+            b_all, t_all = batch["frames"].shape[:2]
+            block = _block(shard, t_all)
+            copies = 1 if shard.frames_split(t_all) else shard.ctx_size
+            imgs = block(batch["frames"]).reshape(-1, *imgs.shape[1:])
+            eps = block(eps.reshape(b_all, t_all, *eps.shape[1:])).reshape(-1, *eps.shape[1:])
+        recon, dist = model.modules.vae(model._in(imgs), eps=eps)
         x = imgs.to(recon.device).float()
         recon = recon.float()
-        rec_mse = ((recon - x) ** 2).mean()
-        rec_l1 = (recon - x).abs().mean()
-        kl = dist.kl().float().mean()
+        # shares of the whole batch's means, and the std's parts
+        share = imgs.shape[0] / (n_all * copies)
+        rec_mse = ((recon - x) ** 2).mean() * share
+        rec_l1 = (recon - x).abs().mean() * share
+        kl = dist.kl().float().mean() * share
+        m = dist.mean.detach().double()
         loss = rec_mse + rec_l1 + tcfg.vae_kl_weight * kl
         metrics = {"loss": loss, "recon_mse": rec_mse, "recon_l1": rec_l1, "kl": kl,
-                   "latent_std": dist.mean.float().std(correction=0)}
-        return loss, metrics
+                   "latent_std/sum": m.sum() / copies, "latent_std/sum_sq": m.square().sum() / copies,
+                   "latent_std/count": torch.tensor(m.numel() / copies, dtype=torch.float64, device=m.device)}
+        return loss, (finish_metrics(metrics) if shard.whole else metrics)
 
     def denoise_loss(batch: Batch, draws: Draws):
         frames, num_motion = _clip_frames(batch, stage)
         b_all, t_all = frames.shape[:2]
-        rows = shard.rows
-        block = lambda x: shard.frames(rows(x))  # this rank's rows and frames
-        t0 = shard.frame_range(t_all).start if shard.ctx_size > 1 else 0
+        split = shard.frames_split(t_all)
+        block = _block(shard, t_all)  # this rank's rows, and its frames where the clip splits
+        t0 = shard.frame_range(t_all).start if split else 0
+        # the context ranks that compute each of these rows: all of them where
+        # the clip's frames stay whole
+        copies = 1 if split else shard.ctx_size
         frames = block(frames)
         t = frames.shape[1]
         eps = None
@@ -278,7 +330,7 @@ def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule, stage: int,
             control_cond = block(control_cond) if control_cond.dim() == 5 else rows(control_cond)
         pred = model.predict_noise(noisy, ts, ref_latent, audio_windows=audio_windows, speeds=speeds,
                                    face_mask=face_mask, control_cond=control_cond, ref_dropout=ref_dropout,
-                                   identity_embed=identity_embed)
+                                   identity_embed=identity_embed, whole_clip=not split)
         target = noise if sched.prediction_type == "epsilon" else get_velocity(sched, latents, noise, ts)
         err = (pred.float() - target.float()) ** 2
         if num_motion > t0:
@@ -291,13 +343,13 @@ def stage_loss_fn(model: EMOModel, config: Config, sched: Schedule, stage: int,
             mse = per_sample.mean()
         else:  # this block's share of the means over the whole batch
             per_sample = err.sum(dim=dims) / float((t_all - num_motion) * math.prod(err.shape[2:]))
-            loss = (w * per_sample).sum() / b_all
-            mse = per_sample.sum() / b_all
+            loss = (w * per_sample).sum() / (b_all * copies)
+            mse = per_sample.sum() / (b_all * copies)
         metrics = {"loss": loss, "mse": mse}
         if stage == 3 and face_mask is not None:
             lm = downsample_mask(face_mask.to(err.device), latents.shape[2], latents.shape[3])
             lm_all = lm if shard.whole else downsample_mask(batch["masks"].to(err.device), *latents.shape[2:4])
-            face_err = (err * lm).sum() / (lm_all.sum() * (t_all - num_motion) * err.shape[-1] + 1e-6)
+            face_err = (err * lm).sum() / (lm_all.sum() * (t_all - num_motion) * err.shape[-1] + 1e-6) / copies
             loss = loss + tcfg.face_loss_weight * face_err
             metrics = {"loss": loss, "mse": metrics["mse"], "face_mse": face_err}
         return loss, metrics

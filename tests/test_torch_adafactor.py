@@ -86,7 +86,11 @@ def _grads(rng, scale=1.0, bad=None):
 
 
 def _step(update, jparams, jstate, topt, grads):
-    jparams, jstate = update([jnp.asarray(x) for x in grads], jstate, jparams)
+    # jnp.asarray reads a numpy array in place, and the jitted update runs
+    # asynchronously; the port's step scales its gradients (the clip) and
+    # writes its masters in place, on the same buffers where _port gives a
+    # view. So the reference's update is waited for before the port's step.
+    jparams, jstate = jax.block_until_ready(update([jnp.asarray(x) for x in grads], jstate, jparams))
     applied = topt.step([torch.from_numpy(_port(x, ax)) for x, (_, ax) in zip(grads, LEAVES)])
     return jparams, jstate, applied
 

@@ -29,12 +29,29 @@ computed; the tests compare:
   * the windowed sampler with its windows over context 2, at two fold
     sizes, against the port's single-process latents and the reference's
     EMOPipeline at the dry run's bar (2e-3 x the latent scale);
+  * the meshes the reference trains on that the runtime once refused, each
+    against the port's single-process step (loss <= 1e-5, gradients <= 1e-4
+    relative) and, where named, the reference's single-device loss and
+    gradients: sparse-causal stage 2 (motion frames, reference dropout) at
+    context 2, data 2 x context 2 and context 4 (one frame a rank), with
+    the first and previous frames exchanged; stage 1 at data 2 x context 2
+    and stage 2's two-frame clip at context 4, whose frames stay whole on
+    every context rank (the dense temporal attention: no ring call); stage
+    5 (`frames` split over context, and `images`) and stage 0 (a
+    `landmarks_valid` mask that differs between ranks) across data x
+    context, `iou` and `latent_std` formed from sums over the ranks;
+    adafactor at model 2 and data 2 x model 2 against optax's update on the
+    whole leaves and the port's one-process optimizer, on leaves whose
+    shards would factor otherwise, and its state gathered and resumed in
+    one process; a trainer's adafactor checkpoint written at data 2 x
+    model 2 and resumed in one process;
   * `python -m emox_torch train --coordinator ... --num-processes 2` on the
     CPU: both ranks exit 0 and print the same loss; only rank 0 writes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -65,8 +82,10 @@ from emox_torch.infer.pipeline import EMOPipeline
 from emox_torch.interop.from_flax import SUBMODELS, _convert
 from emox_torch.models.emo import EMOModel
 from emox_torch.nn.attention_blocks import TemporalTransformer
-from emox_torch.train import Trainer
-from tests.test_torch_bridge import model_params, no_kernel_launches, rel_err  # noqa: F401 (autouse fixture)
+from emox_torch.train import Trainer, make_optimizer
+from tests import test_torch_stage0 as stage0
+from tests import test_torch_stage5 as stage5
+from tests.test_torch_bridge import IMAGE, model_params, no_kernel_launches, rel_err  # noqa: F401 (autouse fixture)
 from tests.test_torch_train import _batch, _loss_configs, _port_leaves, _reference_draws, _reference_loss_and_grads
 from tests.test_torch_windowed import GUIDANCE, STEPS, _t, inputs, reference_latents, windowed
 
@@ -132,6 +151,78 @@ def _step_inputs(tmp):
             "draws": _reference_draws(jcfg, 2, _batch(2), jax.random.PRNGKey(REFERENCE_KEY))}
 
 
+def _sparse(cfg):
+    return cfg.replace(model=dataclasses.replace(cfg.model, use_sparse_causal=True))
+
+
+def _train(cfg, **train):
+    return cfg.replace(train=dataclasses.replace(cfg.train, **train))
+
+
+def _cases(step):
+    """The stages' inputs of the meshes the runtime once refused: {case:
+    {cfg, batch, draws}}, each loss's draws the reference's own (replayed
+    from its key, or its VAE's posterior draw)."""
+    torch_batch = lambda b: {k: torch.from_numpy(v) for k, v in b.items()}
+    j1, t1 = _loss_configs(1)
+    j2, t2 = _loss_configs(2)
+    no_motion = {k: v for k, v in _batch(2).items() if k != "motion_frames"}
+    _, t5 = stage5._configs()
+    lat = IMAGE // t5.vae.downscale
+    vae_eps = lambda n: torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(5),
+                                                                     (n, lat, lat, t5.vae.latent_channels))))
+    frames = stage5._batch("frames")
+    return {
+        "sc": dict(step, cfg=_sparse(step["cfg"])),
+        "stage1": {"cfg": t1, "batch": torch_batch(_batch(1)),
+                   "draws": _reference_draws(j1, 1, _batch(1), jax.random.PRNGKey(101))},
+        "whole2": {"cfg": t2, "batch": torch_batch(no_motion),
+                   "draws": _reference_draws(j2, 2, no_motion, jax.random.PRNGKey(7))},
+        "stage5": {"cfg": t5, "batch": torch_batch(frames),
+                   "draws": {"posterior_eps": vae_eps(frames["frames"].shape[0] * frames["frames"].shape[1])}},
+        "stage5_images": {"cfg": t5, "batch": torch_batch(stage5._batch("images")), "draws": {"posterior_eps": vae_eps(2)}},
+        "stage0": {"cfg": stage0._config()[1], "batch": torch_batch(stage0._batch("half")), "draws": {}},
+        "adafactor": dict(step, cfg=_train(step["cfg"], optimizer="adafactor", learning_rate=0.05)),
+    }
+
+
+# the world's legs on those cases: {leg: (case, (data, context, model))}
+LEGS = {
+    "sc_cp": ("sc", (1, 2, 1)), "sc_dp_cp": ("sc", (2, 2, 1)), "sc_cp4": ("sc", (1, 4, 1)),
+    "stage1_dp_cp": ("stage1", (2, 2, 1)), "whole_cp4": ("whole2", (1, 4, 1)),
+    "stage5_dp_cp": ("stage5", (2, 2, 1)), "stage5_images_dp_cp": ("stage5_images", (2, 2, 1)),
+    "stage0_dp": ("stage0", (4, 1, 1)), "stage0_dp_cp": ("stage0", (2, 2, 1)),
+}
+# adafactor's leaves under tensor parallelism: (flax shape, the port's flax
+# axis of each of its axes, the port dim split over model 2)
+TP_LEAVES = [
+    ((160, 256), (1, 0), 0),  # column-parallel Dense [I, O]: whole, factored over (I, O); a shard's O is the smaller
+    ((256, 200), (1, 0), 1),  # row-parallel: a shard's I falls below O, flipping the order too
+    ((200, 250), (1, 0), 0),  # column-parallel: a shard's O (125) falls under 128; the whole leaf factors
+    ((544, 136), (1, 0), 1),  # row-parallel along the largest dim either way: the row moment summed over model
+    ((64, 48), (1, 0), 0),  # unfactored, its moment split
+    ((200,), (0,), None),  # a replicated bias
+]
+ADA_UPDATES = 3
+
+
+def _adafactor_inputs():
+    """Whole masters (flax and port layouts), ADA_UPDATES gradients, and the
+    configs of the reference's chain and the port's (adafactor, global-norm
+    clipping 1.0, weight decay)."""
+    rng = np.random.default_rng(21)
+    jm, _, tcfg = model_params("tiny")
+    train = dict(optimizer="adafactor", grad_clip_norm=1.0, learning_rate=0.05, weight_decay=0.01)
+    jcfg, tcfg = _train(jm.config, **train), _train(tcfg, **train)
+    port = lambda a, axes: torch.from_numpy(np.ascontiguousarray(np.transpose(a, axes)))
+    flax = [rng.standard_normal(s).astype(np.float32) * 0.05 for s, _, _ in TP_LEAVES]
+    grads = [[(rng.standard_normal(s) * 0.2).astype(np.float32) for s, _, _ in TP_LEAVES] for _ in range(ADA_UPDATES)]
+    return jcfg, {"cfg": tcfg, "layouts": [ax for _, ax, _ in TP_LEAVES], "split_dims": [d for _, _, d in TP_LEAVES],
+                  "flax": flax, "flax_grads": grads,
+                  "masters": [port(a, ax) for a, (_, ax, _) in zip(flax, TP_LEAVES)],
+                  "grads": [[port(g, ax) for g, (_, ax, _) in zip(gs, TP_LEAVES)] for gs in grads]}
+
+
 def _windowed_inputs():
     _, params, tcfg = model_params("tiny")
     cfg = windowed(tcfg)
@@ -178,27 +269,45 @@ def world(tmp_path_factory):
     _, params, _ = model_params("tiny")
     win, req = _windowed_inputs()
     step = _step_inputs(d)
-    torch.save({"mesh_configs": MESH_CASES, "batch_names": _batch_names_inputs(), "ring": _ring_inputs(), "temporal": _temporal_inputs(), "step": step,
-                "params": params, "windowed": win}, d / "inputs.pt")
+    cases = _cases(step)
+    j_ada, ada = _adafactor_inputs()
+    torch.save({"mesh_configs": MESH_CASES, "batch_names": _batch_names_inputs(), "ring": _ring_inputs(),
+                "temporal": _temporal_inputs(), "step": step, "params": params, "windowed": win, "cases": cases,
+                "legs": LEGS, "adafactor": ada}, d / "inputs.pt")
     started = time.monotonic()
     procs = _spawn(d)
-    threads = torch.get_num_threads()
     try:
         # two of the reference's programs compile in processes of their own,
         # beside the third and the port's single-process runs here; while the
         # world runs, the file keeps to a few cores (the suite's other
         # workers share the machine)
-        torch.set_num_threads(PARENT_THREADS)
-        with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"), initializer=_few_cores) as pool:
-            jobs = {"reference_windowed": pool.submit(_reference_windowed), "reference_ring": pool.submit(_reference_rings)}
+        with _parent_threads(), ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"), initializer=_few_cores) as pool:
+            jobs = {"reference_windowed": pool.submit(_reference_windowed), "reference_ring": pool.submit(_reference_rings),
+                    "reference_sc": pool.submit(_reference_sparse_causal),
+                    "reference_stage1": pool.submit(_reference_stage1)}
             refs = {"reference_step": _reference_loss_and_grads(2), "single_step": _single_step(step, params),
-                    "single_windowed": _single_windowed(win, params)}
+                    "single_windowed": _single_windowed(win, params),
+                    "single": {name: _single(case, params, d / f"single_{name}") for name, case in cases.items()
+                               if name != "adafactor"},
+                    "reference_stage5": stage5._reference("frames"), "reference_stage0": stage0._reference("random", "half"),
+                    "adafactor": _adafactor_references(j_ada, ada), "cases": cases}
             refs.update({k: job.result() for k, job in jobs.items()})
     finally:
-        torch.set_num_threads(threads)
         _join(procs, d, started)
     assert np.array_equal(np.asarray(refs["reference_step"][0]), np.asarray(jax.random.PRNGKey(REFERENCE_KEY)))
-    return {"results": torch.load(d / "results.pt", weights_only=False), "params": params, **refs}
+    return {"results": torch.load(d / "results.pt", weights_only=False), "params": params, "dir": d, **refs}
+
+
+@contextlib.contextmanager
+def _parent_threads():
+    """torch on PARENT_THREADS threads here, the previous count restored
+    after: the suite's other workers share the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(PARENT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _few_cores():
@@ -218,6 +327,69 @@ def _single_step(step, params):
     tr.close()
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "names": tr.trainable_names(), "grads": grads,
             "params": payload["params"]}
+
+
+def _single(case, params, directory):
+    """The port's one-process step of a case: metrics, trainable names and
+    gradients."""
+    cfg = _train(case["cfg"], checkpoint_dir=str(directory))
+    tr = Trainer(cfg, model=EMOModel(cfg, device="cpu").load_flax(params))
+    metrics, grads = tr.loss_and_grads(case["batch"], case["draws"])
+    tr.close()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "names": tr.trainable_names(), "grads": grads}
+
+
+def _reference_sparse_causal():
+    """The reference's single-device sparse-causal stage-2 loss, metrics and
+    gradients (in the port's leaves) on the stage-2 step's batch and key (run
+    in a process of its own, which sets JAX up as the suite does)."""
+    import tests.conftest  # noqa: F401 (the suite's JAX settings)
+    from emox.diffusion import schedule as jschedule
+    from emox.models.emo import EMOModel as JEMOModel
+    from emox.train import stages as jstages
+
+    _, params, _ = model_params("tiny")
+    jcfg = _sparse(_loss_configs(2)[0])
+    # remat changes no value, and compiles slower on the CPU
+    jm = JEMOModel(jcfg.replace(model=dataclasses.replace(jcfg.model, remat=False)))
+    loss_fn = jstages.stage_loss_fn(jm, jcfg, jschedule.make_schedule(jcfg.diffusion), 2)
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        jax.tree.map(jnp.asarray, params), {k: jnp.asarray(v) for k, v in _batch(2).items()},
+        jax.random.PRNGKey(REFERENCE_KEY))
+    return float(loss), {k: float(v) for k, v in metrics.items()}, _port_leaves(grads)
+
+
+def _reference_stage1():
+    """The stage-1 parity test's reference loss, metrics and gradients (the
+    port's leaves), key 101 (run in a process of its own)."""
+    import tests.conftest  # noqa: F401 (the suite's JAX settings)
+
+    key, loss, metrics, grads = _reference_loss_and_grads(1)
+    assert np.array_equal(np.asarray(key), np.asarray(jax.random.PRNGKey(101)))
+    return loss, metrics, _port_leaves(grads)
+
+
+def _adafactor_references(jcfg, ada):
+    """The masters after each update: the reference's optax chain on the
+    flax leaves (in the port's layout) and the port's one-process
+    optimizer on the whole leaves."""
+    import optax
+    from emox.train.trainer import make_optimizer as j_make_optimizer
+
+    jopt = j_make_optimizer(jcfg)
+    update = jax.jit(lambda g, st, p: (lambda u, s: (optax.apply_updates(p, u), s))(*jopt.update(g, st, p)))
+    jparams = [jnp.asarray(a) for a in ada["flax"]]
+    jstate = jopt.init(jparams)
+    masters = [m.clone() for m in ada["masters"]]
+    topt = make_optimizer(ada["cfg"], masters, ada["layouts"])
+    port = lambda a, axes: np.ascontiguousarray(np.transpose(np.asarray(a), axes))
+    optax_steps, single_steps = [], []
+    for grads, flax_grads in zip(ada["grads"], ada["flax_grads"]):
+        jparams, jstate = update([jnp.asarray(g) for g in flax_grads], jstate, jparams)
+        topt.step([g.clone() for g in grads])
+        optax_steps.append([port(p, ax) for p, ax in zip(jparams, ada["layouts"])])
+        single_steps.append([m.clone() for m in masters])
+    return {"optax": optax_steps, "single": single_steps, "factored": [d is not None for d in topt.adafactor.dims]}
 
 
 def _reference_windowed():
@@ -393,30 +565,133 @@ def test_windowed_sampler_over_context_matches_one_process_and_the_reference(wor
         assert float(np.abs(lat - ref).max()) < 2e-3 * scale, per_call
 
 
-# ---- what a mesh cannot shard ------------------------------------------------------------------
-def test_what_the_mesh_cannot_shard_raises(world):
-    """Where the reference's GSPMD would replicate or reshard, the port's
-    explicit collectives refuse: frames that do not divide by the context
-    size (stage 1's single frame among them), stages 0 and 5 on more than
-    one block, sparse-causal attention over a context axis, adafactor under
-    tensor parallelism."""
-    from emox_torch.core.mesh import BatchShard
-    from emox_torch.diffusion.schedule import make_schedule
-    from emox_torch.train import stage_loss_fn
+# ---- the meshes the reference trains on ---------------------------------------------------------
+def _holds(got, single, want=None):
+    """A leg's metrics and whole gradients against the port's one-process
+    step and, with want = (loss, metrics, the port's leaves of its
+    gradients), the reference's single device."""
+    assert got["names"] == single["names"]
+    assert set(got["metrics"]) == set(single["metrics"])
+    for k, v in single["metrics"].items():
+        assert abs(got["metrics"][k] - v) <= LOSS_TOL * max(abs(v), 1e-6), (k, got["metrics"][k], v)
+    flat = torch.cat([g.reshape(-1) for g in got["grads"]]).double()
+    assert float(flat.norm()) > 0
+    assert rel_err(flat, torch.cat([g.reshape(-1) for g in single["grads"]]).double().numpy()) <= GRAD_TOL
+    if want is not None:
+        want_loss, want_metrics, want_grads = want
+        assert abs(got["metrics"]["loss"] - want_loss) <= LOSS_TOL * abs(want_loss)
+        for k, v in want_metrics.items():
+            assert abs(got["metrics"][k] - v) <= LOSS_TOL * max(abs(v), 1e-6), (k, got["metrics"][k], v)
+        assert rel_err(flat, np.concatenate([np.asarray(want_grads[n]).reshape(-1) for n in got["names"]])) <= GRAD_TOL
 
-    refused = world["results"]["refusals"]
-    assert "context shard" in refused["sparse_causal_on_context"]
-    assert "whole leaves" in refused["adafactor_under_tp"]
-    _, params, tcfg = model_params("tiny")
-    model = EMOModel(tcfg, device="cpu").load_flax(params)
-    sched = make_schedule(tcfg.diffusion)
-    for stage in (0, 5):
-        with pytest.raises(NotImplementedError, match="one data x context block"):
-            stage_loss_fn(model, tcfg, sched, stage, shard=BatchShard(0, 2))
-    loss = stage_loss_fn(model, tcfg, sched, 1, shard=BatchShard(ctx_rank=1, ctx_size=2))
-    batch = {k: torch.from_numpy(v) for k, v in _batch(1).items()}
-    with pytest.raises(ValueError, match="frame axis of 1 not divisible by 2"):
-        loss(batch, {})
+
+@pytest.mark.parametrize("leg", ["sc_cp", "sc_dp_cp", "sc_cp4"])
+def test_sparse_causal_step_over_context_matches_one_process_and_the_reference(world, leg):
+    """Each rank's first and previous frames come from the other context
+    ranks (at context 4 a rank holds one frame, and rank 0 holds only motion
+    frames at context 2); the reference is dropped on one row, so every
+    site runs both branches."""
+    got = world["results"][leg]
+    assert world["cases"]["sc"]["draws"]["ref_drop"].tolist() == [True, False]
+    assert got["ring_calls"] > 0
+    _holds(got, world["single"]["sc"], world["reference_sc"])
+
+
+@pytest.mark.parametrize("leg", ["stage1_dp_cp", "whole_cp4"])
+def test_whole_clips_on_every_context_rank_match_one_process(world, leg):
+    """Frames that do not divide by the context size stay whole on every
+    context rank (stage 1's one frame; stage 2's clip of two frames at
+    context 4, through the dense temporal attention): no ring call, and
+    each rank's share counted once over the context ranks. Stage 1 is also
+    held to the reference's stage-1 loss and gradients."""
+    got = world["results"][leg]
+    assert got["ring_calls"] == 0
+    if leg == "stage1_dp_cp":
+        _holds(got, world["single"]["stage1"], world["reference_stage1"])
+    else:
+        _holds(got, world["single"]["whole2"])
+
+
+@pytest.mark.parametrize("leg", ["stage5_dp_cp", "stage5_images_dp_cp"])
+def test_stage5_across_data_and_context_matches_one_process_and_the_reference(world, leg):
+    """`frames` split over context 2 and rows over data 2; `images` whole on
+    both context ranks. latent_std is formed from the posterior means' sums
+    over the ranks."""
+    got = world["results"][leg]
+    if leg == "stage5_images_dp_cp":
+        _holds(got, world["single"]["stage5_images"])
+        return
+    eps, loss, metrics, grads = world["reference_stage5"]
+    assert np.array_equal(eps, world["cases"]["stage5"]["draws"]["posterior_eps"].numpy())
+    assert "latent_std" in got["metrics"] and not any("/" in k for k in got["metrics"])
+    _holds(got, world["single"]["stage5"], (loss, metrics, _port_leaves(grads)))
+
+
+@pytest.mark.parametrize("leg", ["stage0_dp", "stage0_dp_cp"])
+def test_stage0_across_data_and_context_matches_the_reference(world, leg):
+    """Four rows over data 4 (and two over data 2 x context 2), the second
+    half of the batch without landmarks: each rank's landmark error divides
+    by the whole batch's valid count, and iou is formed from the summed
+    intersection and union."""
+    got = world["results"][leg]
+    loss, metrics, grads = world["reference_stage0"]
+    assert {"iou", "landmark_mse", "landmark_frac"} <= set(got["metrics"])
+    assert got["metrics"]["landmark_frac"] == 0.5
+    _holds(got, world["single"]["stage0"], (loss, metrics, _port_leaves(grads)))
+
+
+@pytest.mark.parametrize("leg", ["adafactor_tp", "adafactor_dp_tp"])
+def test_adafactor_under_tensor_parallelism_matches_optax_and_one_process(world, leg):
+    """Three updates of each rank's slices at model 2: the gathered masters
+    against optax's chain on the whole flax leaves and the port's optimizer
+    in one process. Every leaf is factored by its whole shape: the first
+    four, whose shards would be factored over other dims or not at all."""
+    got, ref = world["results"][leg], world["adafactor"]
+    assert got["factored"] == ref["factored"] == [True, True, True, True, False, False]
+    for k in range(ADA_UPDATES):
+        for i, (m, single, want) in enumerate(zip(got["masters"][k], ref["single"][k], ref["optax"][k])):
+            assert rel_err(m, single.numpy()) <= GRAD_TOL, (k, i)
+            assert rel_err(m, want) <= GRAD_TOL, (k, i)
+
+
+def test_adafactor_state_gathered_at_model_2_resumes_in_one_process(world):
+    """The optimizer's state before its last update at model 2, every
+    moment gathered to the whole leaf's (the factored moments that span the
+    split dim whole on every rank), loaded into a one-process optimizer
+    with the masters of that point: its update is the world's last."""
+    got, ada = world["results"]["adafactor_tp"], _adafactor_inputs()[1]
+    masters = [m.clone() for m in got["masters"][-2]]
+    opt = make_optimizer(ada["cfg"], masters, ada["layouts"])
+    opt.load_state_dict(got["state"])
+    assert opt.count == ADA_UPDATES - 1
+    with _parent_threads():
+        opt.step([g.clone() for g in ada["grads"][-1]])
+    for i, (m, want) in enumerate(zip(masters, got["masters"][-1])):
+        assert rel_err(m, want.numpy()) <= LOSS_TOL, i
+
+
+def test_adafactor_checkpoint_written_at_model_2_resumes_in_one_process(world):
+    """Stage 2 with adafactor at data 2 x model 2: the gathered masters
+    after each of two steps against one process's, and the checkpoint the
+    world wrote after the first, resumed in one process, takes the world's
+    second step."""
+    got, case = world["results"]["adafactor_checkpoint"], world["cases"]["adafactor"]
+    model = lambda cfg: EMOModel(cfg, device="cpu").load_flax(world["params"])
+    with _parent_threads():
+        cfg = _train(case["cfg"], checkpoint_dir=str(world["dir"] / "single_adafactor"))
+        tr = Trainer(cfg, model=model(cfg))
+        for k in range(2):
+            tr.train_step_with_draws(case["batch"], case["draws"])
+            for n, m in tr.state.masters.items():
+                assert rel_err(got["masters"][k][n], m.numpy()) <= GRAD_TOL, (k, n)
+        tr.close()
+        cfg = _train(case["cfg"], checkpoint_dir=got["checkpoint_dir"], resume=True)
+        tr = Trainer(cfg, model=model(cfg))
+        assert tr.resume() == 1 and tr.state.optimizer.count == 1
+        tr.train_step_with_draws(case["batch"], case["draws"])
+        for n, m in tr.state.masters.items():
+            assert rel_err(got["masters"][1][n], m.numpy()) <= LOSS_TOL, n
+        tr.close()
 
 
 # ---- the command line on two processes --------------------------------------------------------

@@ -58,7 +58,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_emox():
             "emox_torch.core.yamlio", "emox_torch.utils.profiling", "emox_torch.eval.metrics",
             "emox_torch.infer.export", "emox_torch.interop.torch_import", "emox_torch.core.compile_cache",
             "emox_torch.data.camera", "emox_torch.ops.registry", "emox_torch.comm", "emox_torch.comm.runtime",
-            "emox_torch.comm.sharding", "emox_torch.core.mesh", "emox_torch.ops.ring"} <= set(res["modules"])
+            "emox_torch.comm.halo", "emox_torch.comm.sharding", "emox_torch.core.mesh",
+            "emox_torch.ops.ring"} <= set(res["modules"])
     leaked = sorted(set(res["roots"]) & set(FORBIDDEN + ("yaml",)))
     assert not leaked, f"importing emox_torch pulled in {leaked}"
     # checkpoints are read without safetensors, diffusers or transformers, and

@@ -4,11 +4,13 @@
 
 The rank joins a gloo world through `file://DIR/store`, reads the inputs
 the test wrote to DIR/inputs.pt, runs every distributed check of the port
-on them (meshes, the batch-slicing names, the TP plan, ring attention, the temporal transformer on
-the ring, stage-2 steps on two meshes, the windowed sampler across context
-ranks, what a mesh cannot shard) and, on rank 0, writes what it found to
-DIR/results.pt. It imports
-torch and the port only: no JAX.
+on them (meshes, the batch-slicing names, the TP plan, ring attention, the
+temporal transformer on the ring, stage-2 steps on two meshes, the windowed
+sampler across context ranks, sparse-causal steps over context, clips whose
+frames stay whole on every context rank, stages 0 and 5 across data x
+context ranks, adafactor under tensor parallelism and its checkpoint) and,
+on rank 0, writes what it found to DIR/results.pt. It imports torch and the
+port only: no JAX.
 """
 
 from __future__ import annotations
@@ -109,30 +111,102 @@ def check_temporal(inputs, mesh):
     return {"got": _gather(got, axis_group(mesh, "context"), 1), "want": want}
 
 
-def check_step(inputs, mesh, name: str):
-    """One stage-2 step through the Trainer on `mesh`: the metrics, the
-    whole gradients, and the whole parameters after the update."""
+class RingCalls:
+    """Counts the ring attention's launches of this rank (ops.ring._Ring)
+    while it is entered."""
+
+    def __enter__(self):
+        from emox_torch.ops import ring
+
+        self.count, self._apply = 0, ring._Ring.apply
+
+        def counted(*args):
+            self.count += 1
+            return self._apply(*args)
+
+        ring._Ring.apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        from emox_torch.ops import ring
+
+        ring._Ring.apply = self._apply
+
+
+def _trainer(case, mesh, name: str):
     import dataclasses
 
-    from emox_torch.comm.sharding import param_shardings
     from emox_torch.models.emo import EMOModel
     from emox_torch.train import Trainer
 
-    cfg = inputs["step"]["cfg"]
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, checkpoint_dir=os.path.join(inputs["dir"], f"ckpt_{name}")))
-    model = EMOModel(cfg, device="cpu").load_flax(inputs["params"])
-    plan = param_shardings(model.modules, mesh)
-    tr = Trainer(cfg, model=model, mesh=mesh)
-    batch, draws = inputs["step"]["batch"], inputs["step"]["draws"]
-    metrics, grads = tr.loss_and_grads(batch, draws)
+    cfg = case["cfg"]
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, checkpoint_dir=os.path.join(case["dir"], f"ckpt_{name}")))
+    return Trainer(cfg, model=EMOModel(cfg, device="cpu").load_flax(case["params"]), mesh=mesh)
+
+
+def check_step(case, mesh, name: str, keep_params: bool = True):
+    """One step of case's stage through the Trainer on `mesh`: the metrics,
+    the whole gradients, the ring's launches during the step, and the whole
+    parameters after the update."""
+    from emox_torch.comm.sharding import param_shardings
+
+    tr = _trainer(case, mesh, name)
+    plan = param_shardings(tr.model.modules, mesh)
+    with RingCalls() as ring:
+        metrics, grads = tr.loss_and_grads(case["batch"], case["draws"])
     names = tr.trainable_names()
-    whole = [tr._whole(n, g) for n, g in zip(names, grads)]
+    whole = [tr._whole(n, g).clone() for n, g in zip(names, grads)]  # the update clips grads in place
     if tr.state.optimizer.step(grads):
         tr._sync_modules()
     payload = tr._payload()
     tr.close()
-    return {"metrics": {k: float(v) for k, v in metrics.items()}, "names": names, "grads": whole,
-            "params": payload["params"], "plan": plan}
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "names": names, "grads": whole,
+           "ring_calls": ring.count}
+    if keep_params:
+        out.update(params=payload["params"], plan=plan)
+    return out
+
+
+def check_adafactor(inputs, mesh):
+    """The port's Optimizer (adafactor) on this rank's slices of whole
+    leaves split over `model` (inputs["adafactor"]: layouts, split dims,
+    masters and each update's gradients): the whole masters after each
+    update, and the whole optimizer state before the last (its moments
+    gathered as a checkpoint gathers them)."""
+    from emox_torch.comm.runtime import all_gather
+    from emox_torch.core.mesh import MeshAxes, axis_group, axis_rank, axis_size
+    from emox_torch.train import make_optimizer
+    from emox_torch.train.trainer import ModelSplit
+
+    ada = inputs["adafactor"]
+    group, rank, size = axis_group(mesh, MeshAxes.MODEL), axis_rank(mesh, MeshAxes.MODEL), axis_size(mesh, MeshAxes.MODEL)
+    split = ModelSplit(ada["split_dims"], group, size)
+    local = lambda i, t: (t if split.dims[i] is None else t.chunk(size, dim=split.dims[i])[rank]).clone()
+    whole = lambda i, t, dim=None: t.clone() if split.dims[i] is None else all_gather(
+        t.contiguous(), group, dim=split.dims[i] if dim is None else dim)
+    masters = [local(i, m) for i, m in enumerate(ada["masters"])]
+    opt = make_optimizer(ada["cfg"], masters, ada["layouts"], split)
+    steps, state = [], None
+    for k, grads in enumerate(ada["grads"]):
+        if k == len(ada["grads"]) - 1:
+            state = opt.map_state(opt.state_dict(), whole)
+        opt.step([local(i, g) for i, g in enumerate(grads)])
+        steps.append([whole(i, m) for i, m in enumerate(masters)])
+    return {"masters": steps, "state": state, "factored": [d is not None for d in opt.adafactor.dims]}
+
+
+def check_adafactor_checkpoint(case, mesh):
+    """Two adafactor steps of case's stage through the Trainer on `mesh`, a
+    checkpoint written after the first: the whole masters after each."""
+    tr = _trainer(case, mesh, "adafactor_tp")
+    masters = []
+    for step in range(2):
+        tr.train_step_with_draws(case["batch"], case["draws"])
+        masters.append({n: tr._whole(n, m).clone() for n, m in tr.state.masters.items()})
+        if step == 0:
+            tr._save(tr.ckpt, 1)
+    tr.close()
+    return {"masters": masters, "checkpoint_dir": tr.config.train.checkpoint_dir}
 
 
 def check_windowed(inputs, mesh):
@@ -154,30 +228,6 @@ def check_windowed(inputs, mesh):
     return out
 
 
-def check_refusals(inputs, ring_mesh, tp_mesh):
-    """What a mesh cannot shard raises: sparse-causal attention over a
-    context axis, adafactor under tensor parallelism. {case: the error}."""
-    import dataclasses
-
-    from emox_torch.models.emo import EMOModel
-    from emox_torch.train import Trainer
-
-    cfg = inputs["step"]["cfg"]
-    out = {}
-    sc = cfg.replace(model=dataclasses.replace(cfg.model, use_sparse_causal=True))
-    try:
-        EMOModel(sc, device="cpu").distribute(ring_mesh)
-    except NotImplementedError as e:
-        out["sparse_causal_on_context"] = str(e)
-    ada = cfg.replace(train=dataclasses.replace(cfg.train, optimizer="adafactor",
-                                                checkpoint_dir=os.path.join(inputs["dir"], "ckpt_ada")))
-    try:
-        Trainer(ada, model=EMOModel(ada, device="cpu"), mesh=tp_mesh)
-    except NotImplementedError as e:
-        out["adafactor_under_tp"] = str(e)
-    return out
-
-
 def main(rank: int, world: int, directory: str) -> int:
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(directory, 'store')}", rank=rank,
@@ -188,14 +238,28 @@ def main(rank: int, world: int, directory: str) -> int:
     inputs = torch.load(os.path.join(directory, "inputs.pt"), weights_only=False)
     inputs["dir"] = directory
     results = {"meshes": check_meshes(inputs), "batch_names": check_batch_names(inputs)}
+    mesh = lambda d, c, m: create_mesh(MeshConfig(data=d, context=c, model=m))
     ring_mesh = create_mesh(MeshConfig(data=1, context=4, model=1))
     results["ring"] = check_ring(inputs, ring_mesh)
     results["temporal"] = check_temporal(inputs, ring_mesh)
     results["temporal_tp"] = check_temporal(inputs, create_mesh(MeshConfig(data=1, context=2, model=2)))
-    for name, (d, c, m) in {"dp_cp": (2, 2, 1), "cp_tp": (1, 2, 2)}.items():
-        results[f"step_{name}"] = check_step(inputs, create_mesh(MeshConfig(data=d, context=c, model=m)), name)
-    results["windowed"] = check_windowed(inputs, create_mesh(MeshConfig(data=2, context=2, model=1)))
-    results["refusals"] = check_refusals(inputs, ring_mesh, create_mesh(MeshConfig(data=1, context=2, model=2)))
+    step = dict(inputs["step"], params=inputs["params"], dir=directory)
+    for name, sizes in {"dp_cp": (2, 2, 1), "cp_tp": (1, 2, 2)}.items():
+        results[f"step_{name}"] = check_step(step, mesh(*sizes), name)
+    results["windowed"] = check_windowed(inputs, mesh(2, 2, 1))
+    # the meshes the reference trains on that the runtime once refused; a
+    # mesh of two ranks leaves ranks 2 and 3 outside it
+    for name, (case, sizes) in inputs["legs"].items():
+        m = mesh(*sizes)
+        if m.get_coordinate() is not None:
+            case = dict(inputs["cases"][case], params=inputs["params"], dir=directory)
+            results[name] = check_step(case, m, name, keep_params=False)
+    for name, sizes in {"adafactor_tp": (1, 1, 2), "adafactor_dp_tp": (2, 1, 2)}.items():
+        m = mesh(*sizes)
+        if m.get_coordinate() is not None:
+            results[name] = check_adafactor(inputs, m)
+    ckpt = dict(inputs["cases"]["adafactor"], params=inputs["params"], dir=directory)
+    results["adafactor_checkpoint"] = check_adafactor_checkpoint(ckpt, mesh(2, 1, 2))
     if rank == 0:
         torch.save(results, os.path.join(directory, "results.tmp"))
         os.replace(os.path.join(directory, "results.tmp"), os.path.join(directory, "results.pt"))
