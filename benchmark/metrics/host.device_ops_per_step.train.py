@@ -1,0 +1,13 @@
+"""Device operations (kernels, copies, sets) the profiler records in the traced window,
+per train step."""
+
+from benchmark.harness.readers import ops_per
+
+UNIT = "ops/step"
+LAYER = "nn blocks and dispatchers (nn/, ops/)"
+MOVES = "train_frames_per_s"
+SOURCE = "device_trace"
+
+
+def read(obs):
+    return ops_per(obs, "steps")
